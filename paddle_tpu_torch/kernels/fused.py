@@ -1,0 +1,222 @@
+"""RMSNorm (with and without a residual) and rotary embedding: Triton
+kernels and their plain PyTorch versions.
+
+Replaces ``paddle_tpu/kernels/fused_pallas.py``:
+  * ``fused_rms_norm_pallas`` (``_rmsnorm_kernel`` -> ``rms_norm``, and
+    with a residual, ``_rmsnorm_res_kernel`` -> ``add_rms_norm``), one
+    Triton kernel for both;
+  * ``fused_rope_pallas`` (``_rope_kernel``) -> ``fused_rope``.
+
+Bound on the H100: bytes, for both. RMSNorm does about 4 flops per element
+it reads and writes, RoPE about 6; the card needs ~295 per byte before
+compute is the limit. The design therefore makes one pass over device
+memory: one program per row (RMSNorm) or per (token, block of 8 heads)
+(RoPE) loads its tile once, reduces or rotates in fp32 registers, and
+writes the result once.
+``add_rms_norm`` also writes the residual sum, so the decoder's
+``h = h + o; x = rms(h)`` reads h and o once instead of writing h and
+reading it back.
+
+Triton is imported, and the kernels compiled, at the first launch: the
+functions below are plain Python until ``_jit`` wraps them, so importing
+this module needs no Triton.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import LAUNCHES
+
+tl = None    # triton.language, bound by _jit() at the first launch
+
+
+def _rms_norm_kernel(x_ptr, r_ptr, w_ptr, y_ptr, s_ptr, n_cols, eps,
+                     HAS_RES: tl.constexpr, BLOCK: tl.constexpr):
+    row = tl.program_id(0).to(tl.int64)
+    offs = tl.arange(0, BLOCK)
+    mask = offs < n_cols
+    x = tl.load(x_ptr + row * n_cols + offs, mask=mask, other=0.0)
+    x = x.to(tl.float32)
+    if HAS_RES:
+        r = tl.load(r_ptr + row * n_cols + offs, mask=mask, other=0.0)
+        sx = (x + r.to(tl.float32)).to(s_ptr.dtype.element_ty)
+        tl.store(s_ptr + row * n_cols + offs, sx, mask=mask)
+        x = sx.to(tl.float32)       # the norm reads the sum as stored
+    ms = tl.sum(x * x, axis=0) / n_cols
+    w = tl.load(w_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    y = x * tl.rsqrt(ms + eps) * w
+    tl.store(y_ptr + row * n_cols + offs, y.to(y_ptr.dtype.element_ty),
+             mask=mask)
+
+
+def _rope_kernel(q_ptr, k_ptr, cos_ptr, sin_ptr, oq_ptr, ok_ptr, seq, H, KVH,
+                 n_qb, HALF: tl.constexpr, BLOCK_H: tl.constexpr,
+                 BLOCK_P: tl.constexpr):
+    """Program (token, head block): BLOCK_H heads of q (head blocks
+    0 .. n_qb-1) or of k (the rest), read and written as contiguous
+    [heads, pairs, 2] tiles and split into the pair halves in registers."""
+    row = tl.program_id(0).to(tl.int64)         # one token of b * s
+    hb = tl.program_id(1)
+    if hb < n_qb:
+        src, dst, nh, h0 = q_ptr, oq_ptr, H, hb * BLOCK_H
+    else:
+        src, dst, nh, h0 = k_ptr, ok_ptr, KVH, (hb - n_qb) * BLOCK_H
+    pi = tl.arange(0, BLOCK_P)
+    pm = pi < HALF
+    trow = (row % seq) * HALF
+    c = tl.load(cos_ptr + trow + pi, mask=pm, other=0.0)[None, :]
+    s = tl.load(sin_ptr + trow + pi, mask=pm, other=0.0)[None, :]
+    hh = h0 + tl.arange(0, BLOCK_H)
+    off = (row * nh * 2 * HALF + hh[:, None, None] * (2 * HALF)
+           + 2 * pi[None, :, None] + tl.arange(0, 2)[None, None, :])
+    m = (hh < nh)[:, None, None] & pm[None, :, None]
+    x = tl.load(src + off, mask=m, other=0.0).to(tl.float32)
+    x1, x2 = tl.split(x)
+    y = tl.join(x1 * c - x2 * s, x2 * c + x1 * s)
+    tl.store(dst + off, y.to(dst.dtype.element_ty), mask=m)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit():
+    """Import Triton and wrap the kernels (once)."""
+    global tl
+    import triton
+    import triton.language
+    tl = triton.language
+    return triton, {"rms": triton.jit(_rms_norm_kernel),
+                    # H and KVH pick the head count in one branch or the
+                    # other: an argument equal to 1 must not turn constexpr
+                    "rope": triton.jit(_rope_kernel,
+                                       do_not_specialize=["H", "KVH"])}
+
+
+# -- plain versions -------------------------------------------------------------
+
+def rms_norm_plain(x, weight, eps=1e-6):
+    """RMSNorm over the last axis in fp32, cast back to x's dtype."""
+    x32 = x.float()
+    ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * weight.float()).to(x.dtype)
+
+
+def add_rms_norm_plain(x, residual, weight, eps=1e-6):
+    """(x + residual, rms_norm(x + residual)): the sum rounded to x's
+    dtype, then the norm of that rounded sum."""
+    h = (x.float() + residual.float()).to(x.dtype)
+    return h, rms_norm_plain(h, weight, eps)
+
+
+def fused_rope_plain(q, k, cos, sin):
+    """Interleaved-pair rotary embedding. q [b, s, h, d], k [b, s, kvh, d],
+    cos/sin [s, d/2]; computed in fp32, cast back."""
+    c = cos.float()[None, :, None, :]
+    s = sin.float()[None, :, None, :]
+
+    def rotate(x):
+        x1 = x[..., 0::2].float()
+        x2 = x[..., 1::2].float()
+        return torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1) \
+            .reshape(x.shape).to(x.dtype)
+
+    return rotate(q), rotate(k)
+
+
+# -- wrappers -------------------------------------------------------------------
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _on_cuda(name, *tensors):
+    """True for CUDA tensors the kernel takes, False for CPU tensors;
+    raises on anything else."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"{name}: tensors on {x.device} and {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return True
+
+
+def _norm_launch(x, weight, eps, residual):
+    hidden = x.shape[-1]
+    if x.dtype not in _DTYPES or weight.shape != (hidden,):
+        raise ValueError(f"rms_norm takes float32/bfloat16 x [..., {hidden}] "
+                         f"and weight [{hidden}], got {x.dtype}, "
+                         f"{tuple(weight.shape)}")
+    if residual is not None and (residual.shape != x.shape
+                                 or residual.dtype != x.dtype):
+        raise ValueError("residual must have x's shape and dtype")
+    triton, k = _jit()
+    rows = x.numel() // hidden
+    y = torch.empty_like(x)
+    s = torch.empty_like(x) if residual is not None else y
+    block = triton.next_power_of_2(hidden)
+    k["rms"][(rows,)](x, residual if residual is not None else x, weight, y,
+                      s, hidden, eps, HAS_RES=residual is not None,
+                      BLOCK=block, num_warps=min(max(block // 256, 1), 16))
+    return y, s
+
+
+def rms_norm(x, weight, eps=1e-6):
+    """RMSNorm of x over the last axis, in x's dtype. Launches the Triton
+    kernel on a CUDA tensor, runs the plain version on a CPU tensor."""
+    if not _on_cuda("rms_norm", x, weight):
+        return rms_norm_plain(x, weight, eps)
+    y, _ = _norm_launch(x, weight, eps, None)
+    LAUNCHES["rms_norm"] += 1
+    return y
+
+
+def add_rms_norm(x, residual, weight, eps=1e-6):
+    """(x + residual, RMSNorm(x + residual)) in one pass: the residual
+    variant of ``fused_rms_norm_pallas``, which also writes the sum. The
+    sum is rounded to x's dtype and the norm is taken of that rounded sum,
+    as the decoder's ``h = h + o; _rms(h)`` does (the Pallas kernel
+    normalises the unrounded fp32 sum: the same in float32, up to one
+    rounding of the sum in bf16)."""
+    if not _on_cuda("add_rms_norm", x, residual, weight):
+        return add_rms_norm_plain(x, residual, weight, eps)
+    y, s = _norm_launch(x, weight, eps, residual)
+    LAUNCHES["rms_norm_residual"] += 1
+    return s, y
+
+
+def fused_rope(q, k, cos, sin):
+    """Interleaved-pair rotary embedding of q [b, s, h, d] and k
+    [b, s, kvh, d] with cos/sin [s, d/2] (fp32), in one pass over both.
+    Launches the Triton kernel on CUDA tensors, runs the plain version on
+    CPU tensors."""
+    if not _on_cuda("fused_rope", q, k, cos, sin):
+        return fused_rope_plain(q, k, cos, sin)
+    b, s, h, d = q.shape
+    if k.dim() != 4 or k.shape[:2] != (b, s) or k.shape[3] != d or d % 2:
+        raise ValueError(f"fused_rope: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not match")
+    if cos.shape != (s, d // 2) or sin.shape != (s, d // 2) \
+            or cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise ValueError(f"fused_rope: cos/sin must be float32 [{s}, {d // 2}]")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype:
+        raise ValueError("fused_rope: q and k must share a float32/bfloat16 "
+                         "dtype")
+    triton, kern = _jit()
+    oq = torch.empty_like(q)
+    ok = torch.empty_like(k)
+    kvh = k.shape[2]
+    bh = min(8, triton.next_power_of_2(max(h, kvh)))
+    n_qb = triton.cdiv(h, bh)
+    kern["rope"][(b * s, n_qb + triton.cdiv(kvh, bh))](
+        q, k, cos, sin, oq, ok, s, h, kvh, n_qb, HALF=d // 2, BLOCK_H=bh,
+        BLOCK_P=triton.next_power_of_2(d // 2), num_warps=4)
+    LAUNCHES["rope"] += 1
+    return oq, ok
+
+
+__all__ = ["rms_norm", "add_rms_norm", "fused_rope", "rms_norm_plain",
+           "add_rms_norm_plain", "fused_rope_plain"]

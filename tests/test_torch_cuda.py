@@ -1,0 +1,161 @@
+"""paddle_tpu_torch kernels against their plain versions on the GPU.
+
+Marked ``cuda``: every test skips where no CUDA device is present. The
+file imports neither JAX nor paddle_tpu, so it runs on a machine that has
+only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+Tolerances: float32 2e-5 (the kernels and the plain versions both sum
+in fp32, in another order); bfloat16 one ulp of the largest reference
+value (2^-7 of it): both compute in fp32 from the same bf16 inputs and
+round once at the end, so they differ by at most one rounding step.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch.kernels import fused
+from paddle_tpu_torch.kernels.ragged_attention import (ragged_attention,
+                                                       ragged_attention_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(ref, dtype):
+    if dtype == torch.float32:
+        return 2e-5 * max(1.0, float(ref.abs().max()))
+    return 2.0 ** -7 * float(ref.float().abs().max())
+
+
+def _ragged_inputs(dev, dtype, d, rep, bs, seed=0):
+    g = np.random.default_rng(seed)
+    kvh = 2
+    ctx = [1, bs, 3 * bs + 5, 40, 7]                # per-slot context lengths
+    mp = max(-(-c // bs) for c in ctx) + 1
+    tables = np.full((len(ctx), mp), -1, np.int32)
+    nxt = 0
+    for s, c in enumerate(ctx):
+        n = -(-c // bs)
+        tables[s, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    tables[3, 1] = -1                               # a hole in slot 3
+    p = nxt + 2
+    slot, pos = [], []
+    for s, c in enumerate(ctx):
+        slot.append(s)
+        pos.append(c - 1)
+    slot += [2] * 6                                 # a prefill chunk of slot 2
+    pos += list(range(3 * bs - 1, 3 * bs + 5))
+    slot += [0, 0]                                  # padding rows
+    pos += [0, 0]
+    valid = np.asarray([True] * (len(slot) - 2) + [False, False])
+    t = len(slot)
+    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    q = to(g.standard_normal((t, kvh * rep, d)), dtype)
+    kp = to(g.standard_normal((p, kvh, bs, d)), dtype)
+    vp = to(g.standard_normal((p, kvh, bs, d)), dtype)
+    return (q, kp, vp, to(tables, torch.int32), to(slot, torch.int32),
+            to(pos, torch.int32), to(valid, torch.bool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("bs", [4, 16])
+def test_ragged_kernel_matches_plain(dev, dtype, d, rep, bs):
+    args = _ragged_inputs(dev, dtype, d, rep, bs)
+    before = K.LAUNCHES["ragged_attention"]
+    got = ragged_attention(*args, rep=rep)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ragged_attention"] == before + 1
+    want = ragged_attention_plain(*args, rep=rep)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(want, dtype), err
+    assert not got[~args[-1]].any()
+
+
+def test_ragged_kernel_refuses_what_it_does_not_take(dev):
+    q, kp, vp, tables, slot, pos, valid = _ragged_inputs(dev, torch.float32,
+                                                         64, 1, 16)
+    with pytest.raises(ValueError):
+        ragged_attention(q[:, :, :32].contiguous(), kp[..., :32].contiguous(),
+                         vp[..., :32].contiguous(), tables, slot, pos, valid)
+    with pytest.raises(TypeError):
+        ragged_attention(q, kp, vp, tables.long(), slot, pos, valid)
+    with pytest.raises(ValueError):
+        ragged_attention(q, kp.transpose(1, 2), vp, tables, slot, pos, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 4096])
+def test_rms_norm_kernels_match_plain(dev, dtype, hidden):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(5, 3, hidden, device=dev, generator=g).to(dtype)
+    r = torch.randn(5, 3, hidden, device=dev, generator=g).to(dtype)
+    w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=g)).to(dtype)
+    before = dict(K.LAUNCHES)
+    got = fused.rms_norm(x, w, 1e-5)
+    want = fused.rms_norm_plain(x, w, 1e-5)
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _tol(want, dtype)
+    s, y = fused.add_rms_norm(x, r, w, 1e-5)
+    assert K.LAUNCHES["rms_norm"] == before["rms_norm"] + 1
+    assert K.LAUNCHES["rms_norm_residual"] == before["rms_norm_residual"] + 1
+    ws, wy = fused.add_rms_norm_plain(x, r, w, 1e-5)
+    assert torch.equal(s, ws)
+    assert float((y.float() - wy.float()).abs().max()) <= _tol(wy, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d", [(32, 32, 128), (32, 8, 128), (4, 2, 64)])
+def test_rope_kernel_matches_plain(dev, dtype, h, kvh, d):
+    g = torch.Generator(device=dev).manual_seed(1)
+    s = 37
+    q = torch.randn(1, s, h, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(1, s, kvh, d, device=dev, generator=g).to(dtype)
+    ang = torch.rand(s, d // 2, device=dev, generator=g) * 6.3
+    before = K.LAUNCHES["rope"]
+    gq, gk = fused.fused_rope(q, k, torch.cos(ang), torch.sin(ang))
+    assert K.LAUNCHES["rope"] == before + 1
+    wq, wk = fused.fused_rope_plain(q, k, torch.cos(ang), torch.sin(ang))
+    for got, want in ((gq, wq), (gk, wk)):
+        assert float((got.float() - want.float()).abs().max()) \
+            <= _tol(want, dtype)
+
+
+def test_engine_on_gpu_matches_cpu(dev):
+    """A tiny float32 Llama served on the GPU through the kernels returns
+    the CPU engine's greedy tokens (plain versions)."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         load_numpy_state)
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    cfg = LlamaConfig.tiny(vocab_size=97, hidden_size=128, layers=2,
+                           heads=2, kv_heads=1, seq=128)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 97, (n,)).tolist() for n in (5, 17, 33, 9)]
+    ecfg = dict(max_seqs=3, token_budget=24, block_size=16)
+    want = ServingEngine(cpu, EngineConfig(**ecfg), device="cpu") \
+        .generate_batch(prompts, max_new_tokens=8)
+    K.reset_launches()
+    got = ServingEngine(gpu, EngineConfig(**ecfg), device=dev) \
+        .generate_batch(prompts, max_new_tokens=8)
+    assert got == want
+    assert all(K.LAUNCHES[n] > 0
+               for n in ("ragged_attention", "rms_norm", "rms_norm_residual",
+                         "rope"))

@@ -1,0 +1,62 @@
+"""paddle_tpu_torch stands alone: no module of it, nor chip_smoke.py,
+imports JAX or paddle_tpu, importing it loads no JAX, and its entry
+points refuse to fall back to the CPU when no GPU is there."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_module_imports_no_jax(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.models, paddle_tpu_torch.framework; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = LlamaConfig.tiny(vocab_size=17, hidden_size=16, layers=1, heads=2,
+                           kv_heads=1, seq=16)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model)
