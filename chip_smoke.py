@@ -1,23 +1,30 @@
-"""Drive paddle_tpu_torch's serving path on one NVIDIA GPU, end to end.
+"""Drive paddle_tpu_torch's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Phases, each printing its own lines:
+Phases, each printing its own lines and its seconds:
   1. the card (nvidia-smi name and power limit) and the versions;
-  2. the build: every CUDA source compiled by nvcc for sm_90a, the Triton
-     kernels compiled by their first launch;
+  2. the build: every CUDA source compiled by nvcc for sm_90a (one nvcc
+     per source, all started together), the Triton kernels compiled by
+     their first launch;
   3. every kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, with its time, its bound and a
-     single PyTorch call for the same function where there is one; then
-     a tiny float32 Llama served on the card must return the CPU engine's
-     greedy tokens;
+     shapes the serving and training paths give it, with its time, its
+     bound and a single PyTorch call for the same function where there is
+     one; then a tiny float32 Llama served on the card must return the
+     CPU engine's greedy tokens, and a tiny float32 Llama trained 3 steps
+     on the card must match the port's CPU trainer;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine: the launch
      counts are zeroed just before and read just after, every request
      must return all its tokens, and one ragged step through the kernels
      must agree with the same step through the plain versions (in bf16
      and in float32);
-  5. a JSON line of every kernel, the card line again, and the final
+  5. the llama-1.1b-b8 training recipe at full width (bf16 weights, fp32
+     moments, full remat, chunked loss): 2 warm-up and 5 timed steps with
+     exact launch counts, finite and falling losses, a profile of one step
+     by kernel group, and one step through the kernels against the plain
+     versions at the same widths with 2 layers;
+  6. a JSON line of every kernel, the card line again, and the final
      {"ok": true, ...} line.
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
@@ -100,7 +107,7 @@ def _bound(nbytes, flops, peak_flops):
 
 
 def _check(name, got, want, tol):
-    err = float((got.float() - want.float()).abs().max())
+    err = float((got.detach().float() - want.detach().float()).abs().max())
     ok = math.isfinite(err) and err <= tol
     print(f"  {name}: max_abs_err={err:.6g} tol={tol:.6g} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -108,6 +115,47 @@ def _check(name, got, want, tol):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version ({err} > {tol})")
     return err
+
+
+def _check_rows(name, got, want, ulps):
+    """Kernel against plain in bf16, row by row (a row is the last axis):
+    each row within ``ulps`` bf16 ulps (2^-7 each, relative) of that row's
+    largest plain value. A row whose values are all below 2^-8 of the
+    tensor's largest (dq of a query that sees one key: exactly 0 but for
+    rounding noise) is held to 2^-8 of the tensor's largest instead.
+    Returns the largest absolute error."""
+    import torch
+    g, w = got.detach().float(), want.detach().float()
+    mag = w.abs().amax(-1)
+    tol = ulps * ULP_BF16 * mag.clamp(min=2.0 ** -8 * float(mag.max()))
+    err = (g - w).abs().amax(-1)
+    worst = float((err / tol).max())
+    ok = bool(torch.isfinite(g).all()) and worst <= 1.0
+    print(f"  {name}: max_abs_err={float(err.max()):.6g}, worst row at "
+          f"{worst:.3g} of its tolerance ({ulps} bf16 ulps of the row's "
+          f"largest value) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (a row at {worst} of its tolerance)")
+    return float(err.max())
+
+
+def _check_vs_f32(name, got, plain, ref32, factor=1.1):
+    """The kernel's relative L2 distance from a float32 reference (the
+    plain version on the upcast inputs) may be at most ``factor`` times
+    the plain bf16 version's: both round at the same places."""
+    norm = float(ref32.norm())
+    d_k = float((got.float() - ref32).norm()) / norm
+    d_p = float((plain.float() - ref32).norm()) / norm
+    ok = math.isfinite(d_k) and d_k <= factor * d_p
+    print(f"  {name}: relative L2 distance from float32: kernel {d_k:.5g}, "
+          f"plain {d_p:.5g} (tol: kernel <= {factor} x plain) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: the kernel is further from float32 "
+                             f"than the plain version ({d_k} > {factor} x "
+                             f"{d_p})")
+    return d_k, d_p
 
 
 # -- phase 3: kernels against their plain versions ------------------------------
@@ -396,7 +444,9 @@ def phase_serving(torch, args, launches_out):
     steps = eng.steps - steps0
     n_l = cfg.num_hidden_layers
     expect = {"ragged_attention": n_l * steps, "rms_norm": (n_l + 1) * steps,
-              "rms_norm_residual": n_l * steps, "rope": n_l * steps}
+              "rms_norm_residual": n_l * steps, "rope": n_l * steps,
+              "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "adamw": 0}
     print(f"  launches over {steps} steps: {launches} (expected {expect})",
           flush=True)
     if launches != expect:
@@ -435,6 +485,14 @@ def phase_serving(torch, args, launches_out):
 def _kernel_group(name):
     if "ragged_attention" in name:
         return "ragged_attention"
+    if "flash_fwd_kernel" in name:
+        return "flash_fwd"
+    if "flash_bwd" in name:
+        return "flash_bwd"
+    if "adamw_kernel" in name:
+        return "adamw"
+    if "sgemm" in name or "f32f32" in name:
+        return "matmul_fp32"
     if "rms_norm" in name:
         return "rms_norm"
     if "rope" in name:
@@ -457,18 +515,23 @@ def _profile(torch, step, n):
             step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    groups, launches = {}, 0
+    groups, names, launches = {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             g = _kernel_group(e.name)
-            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            groups[g] = groups.get(g, 0.0) + ms
+            key = e.name[:80]
+            names[key] = names.get(key, 0.0) + ms
             launches += 1
     busy = sum(groups.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
     return prof, dict(wall_ms=1e3 * wall / n, device_ms=busy / n,
                       idle_share=1 - busy / (1e3 * wall) if wall else None,
                       device_launches=launches / n,
                       by_group_ms={k: v / n for k, v in sorted(
-                          groups.items(), key=lambda kv: -kv[1])})
+                          groups.items(), key=lambda kv: -kv[1])},
+                      top_kernels_ms={k: v / n for k, v in top})
 
 
 def _profile_steps(torch, eng, cfg, seed, out_dir):
@@ -572,6 +635,501 @@ def _step_agreement(torch, model, cfg, ecfg, seed):
                 step_argmax_agreement_bf16=agree16)
 
 
+# -- phase 3 (training kernels) ------------------------------------------------------
+
+def _flash_bytes_flops(b, h, sq, sk, d, causal, esize, backward):
+    """Bytes the function must move (each input read once, each output
+    written once) and the matmul flops of the visible (query, key) pairs."""
+    pairs = sum(min(sk, i + 1 + sk - sq) for i in range(sq)) if causal \
+        else sq * sk
+    qo = b * h * sq * d * esize
+    kv = b * h * sk * d * esize
+    rows = b * h * sq * 4
+    if not backward:
+        return 2 * qo + 2 * kv + rows, 4 * b * h * pairs * d
+    # q, k, v, out, dO and lse in; dq, dk, dv out
+    return 3 * qo + 2 * kv + rows + qo + 2 * kv, 10 * b * h * pairs * d
+
+
+def _flash_case(torch, dev, b, h, sq, sk, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, dout = (torch.randn(b, h, sq, d, device=dev, generator=g).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v, dout
+
+
+def phase_train_kernels(torch, results):
+    """Flash attention forward and backward at the training shapes
+    [8, 16, 2048, 128] bf16 causal and at a float32 case; AdamW over one
+    decoder layer's tensors and the embedding of the 1.1B model."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels.optimizer import (adamw_plain,
+                                                    multi_tensor_adamw)
+    dev = torch.device("cuda")
+    print("phase 3: training kernels against their plain versions (flash "
+          "bf16: each row of out, dq, dk and dv within 2 bf16 ulps of the "
+          "row's largest plain value, since the output's own rounding may "
+          "differ by one ulp and P, rounded to bf16 at another running max, "
+          "adds less; and no further from the float32 reference than the "
+          "plain bf16 version, within 1.1x; float32: 2e-5 and 1e-4 of "
+          "max(1, |ref|); lse 1e-3)", flush=True)
+    for case, (b, h, sq, sk, d, causal, dtype) in {
+            "bf16_causal": (8, 16, 2048, 2048, 128, True, torch.bfloat16),
+            "f32_causal_sq_lt_sk": (2, 4, 500, 700, 64, True, torch.float32),
+            "f32_ragged": (1, 4, 333, 333, 128, False, torch.float32)}.items():
+        q, k, v, dout = _flash_case(torch, dev, b, h, sq, sk, d, dtype, 30)
+        bf16 = dtype == torch.bfloat16
+        out, lse = FA.flash_forward(q, k, v, causal)
+        torch.cuda.synchronize()
+        wout, wlse = FA.flash_forward_plain(q, k, v, causal)
+        err_l = _check(f"flash_fwd[{case}] lse", lse, wlse, 1e-3)
+        if bf16:
+            f32 = [x.float() for x in (q, k, v, dout)]
+            out32, lse32 = FA.flash_forward_plain(*f32[:3], causal)
+            err_f = max(err_l, _check_rows(f"flash_fwd[{case}]", out, wout,
+                                           2))
+            dist = {"out": _check_vs_f32(f"flash_fwd[{case}]", out, wout,
+                                         out32)}
+        else:
+            err_f = max(err_l, _check(
+                f"flash_fwd[{case}]", out, wout,
+                2e-5 * max(1.0, float(wout.abs().max()))))
+        del wout, wlse
+        grads = FA.flash_backward(q, k, v, out, lse, dout, causal)
+        torch.cuda.synchronize()
+        want = FA.flash_backward_plain(q, k, v, out, lse, dout, causal)
+        if bf16:
+            ref32 = FA.flash_backward_plain(*f32[:3], out32, lse32, f32[3],
+                                            causal)
+            del f32, out32, lse32
+        err_b = 0.0
+        for i, (name, got, ref) in enumerate(zip(("dq", "dk", "dv"), grads,
+                                                 want)):
+            if bf16:
+                err_b = max(err_b, _check_rows(f"flash_bwd[{case}] {name}",
+                                               got, ref, 2))
+                dist[name] = _check_vs_f32(f"flash_bwd[{case}] {name}", got,
+                                           ref, ref32[i])
+            else:
+                err_b = max(err_b, _check(
+                    f"flash_bwd[{case}] {name}", got, ref,
+                    1e-4 * max(1.0, float(ref.abs().max()))))
+        del grads, want
+        if bf16:
+            del ref32
+        torch.cuda.empty_cache()
+        if not bf16:
+            results[f"flash_fwd[{case}]"] = dict(max_abs_err=err_f)
+            results[f"flash_bwd[{case}]"] = dict(max_abs_err=err_b)
+            continue
+        nb, nf = _flash_bytes_flops(b, h, sq, sk, d, causal, 2, False)
+        fwd_bound = _bound(nb, nf, BF16_FLOPS)
+        nb, nf = _flash_bytes_flops(b, h, sq, sk, d, causal, 2, True)
+        bwd_bound = _bound(nb, nf, BF16_FLOPS)
+        fwd_ms = _graph_ms(lambda: FA.flash_forward(q, k, v, causal), iters=5,
+                           reps=3)
+        bwd_ms = _graph_ms(lambda: FA.flash_backward(q, k, v, out, lse, dout,
+                                                     causal), iters=3, reps=3)
+        fwd_plain = _time_ms(lambda: FA.flash_forward_plain(q, k, v, causal),
+                             2, warmup=1)
+        bwd_plain = _time_ms(lambda: FA.flash_backward_plain(
+            q, k, v, out, lse, dout, causal), 2, warmup=1)
+        torch.cuda.empty_cache()
+        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def lib_train():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True) \
+                .backward(dout)
+        lib_both = _time_ms(lib_train, 10)
+        results["flash_fwd"] = dict(
+            max_abs_err=err_f, ms=fwd_ms, plain_ms=fwd_plain,
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
+            l2_from_f32=dist["out"])
+        # no single library call is the backward alone: its time is the
+        # library's forward+backward less its forward
+        results["flash_bwd"] = dict(
+            max_abs_err=err_b, ms=bwd_ms, plain_ms=bwd_plain,
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            library_ms=lib_both - lib_fwd, library_fwd_bwd_ms=lib_both,
+            l2_from_f32={n: dist[n] for n in ("dq", "dk", "dv")})
+        print(f"  flash [{b}, {h}, {sq}, {d}] bf16 causal: forward ms="
+              f"{fwd_ms:.4f} plain_ms={fwd_plain:.4f} bound_ms="
+              f"{fwd_bound[0]:.4f} ({fwd_bound[1]}) sdpa_ms={lib_fwd:.4f}; "
+              f"backward (dq + dk/dv kernels and delta) ms={bwd_ms:.4f} "
+              f"plain_ms={bwd_plain:.4f} bound_ms={bwd_bound[0]:.4f} "
+              f"({bwd_bound[1]}) sdpa fwd+bwd ms={lib_both:.4f}", flush=True)
+        del q, k, v, dout, out, lse, qg, kg, vg
+        torch.cuda.empty_cache()
+
+    # AdamW over one decoder layer of the 1.1B model and its embedding
+    g = torch.Generator(device=dev).manual_seed(31)
+    hid, inter, vocab = 2048, 5632, 32000
+    shapes = [(hid, hid)] * 4 + [(hid, inter)] * 2 + [(inter, hid)] \
+        + [(hid,)] * 2 + [(vocab, hid)]
+    ps = [(0.02 * torch.randn(s, device=dev, generator=g)).bfloat16()
+          for s in shapes]
+    gs = [(1e-3 * torch.randn(s, device=dev, generator=g)).bfloat16()
+          for s in shapes]
+    ms = [1e-4 * torch.randn(s, device=dev, generator=g) for s in shapes]
+    vs = [1e-8 * torch.rand(s, device=dev, generator=g) for s in shapes]
+    wds = [0.01] * len(shapes)
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8)
+    want = [adamw_plain(p, gg, m, v, hp["lr"], hp["beta1"], hp["beta2"],
+                        hp["eps"], wd, 3.0)
+            for p, gg, m, v, wd in zip(ps, gs, ms, vs, wds)]
+    # elements whose bf16 value the update changes: a kernel that did not
+    # write p would differ from the plain version there
+    changed = sum(int((wp != p).sum()) for (wp, _, _), p in zip(want, ps))
+    multi_tensor_adamw(ps, gs, ms, vs, wds=wds, step=3.0, **hp)
+    torch.cuda.synchronize()
+    print(f"  adamw: the update changes {changed} bf16 parameter values",
+          flush=True)
+    if not changed:
+        raise AssertionError("the AdamW check changes no parameter value")
+    err = 0.0
+    for i, ((wp, wm, wv), p, m, v) in enumerate(zip(want, ps, ms, vs)):
+        # the same correctly rounded fp32 operations in the same order
+        # (every one an explicitly rounded intrinsic in the kernel): equal
+        err = max(err, _check(f"adamw[{i}] p", p, wp, 0.0),
+                  _check(f"adamw[{i}] m", m, wm, 0.0),
+                  _check(f"adamw[{i}] v", v, wv, 0.0))
+    del want
+    n = sum(p.numel() for p in ps)
+    # one launch of ~1 ms a call: CUDA events around eager calls time the
+    # card, not the host
+    ms_k = _time_ms(lambda: multi_tensor_adamw(ps, gs, ms, vs, wds=wds,
+                                               step=3.0, **hp), 10)
+    ms_plain = _time_ms(lambda: [adamw_plain(p, gg, m, v, hp["lr"],
+                                             hp["beta1"], hp["beta2"],
+                                             hp["eps"], wd, 3.0)
+                                 for p, gg, m, v, wd in zip(ps, gs, ms, vs,
+                                                            wds)], 3)
+    del ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    fp = [torch.nn.Parameter(torch.zeros(s, device=dev)) for s in shapes]
+    for p in fp:
+        p.grad = torch.randn_like(p) * 1e-3
+    lib = torch.optim.AdamW(fp, lr=1e-4, weight_decay=0.01, fused=True)
+    lib_ms = _time_ms(lib.step, 10)
+    del fp, lib
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(22 * n, 15 * n, FP32_FLOPS)
+    results["adamw"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_plain,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=lib_ms, elements=n,
+                            library_bytes=28 * n)
+    print(f"  adamw over {n} elements (bf16 p, g; fp32 m, v; 22 bytes an "
+          f"element): ms={ms_k:.4f} plain_ms={ms_plain:.4f} bound_ms="
+          f"{bound_ms:.4f} ({bound_by}); torch.optim.AdamW(fused=True) over "
+          f"fp32 tensors of the same count (28 bytes an element) "
+          f"{lib_ms:.4f} ms", flush=True)
+    _norm_rope_at_training_shapes(torch, dev)
+
+
+def _norm_rope_at_training_shapes(torch, dev):
+    """RMSNorm and RoPE through their autograd functions, forward and
+    backward, at the shapes the training step gives them (bf16): x [8,
+    2048, 2048]; q, k [8, 2048, 16, 128] with the model's bf16-rounded
+    rope tables. Forward and the RoPE backward (the kernel with -sin): each
+    row within one bf16 ulp of its largest plain value (both round one
+    fp32 result). The RMSNorm backward is the autograd of the plain
+    formula, so it must equal the plain version's exactly."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import fused
+    from paddle_tpu_torch.models import build_rope_cache
+    g = torch.Generator(device=dev).manual_seed(32)
+    bf = torch.bfloat16
+    x = torch.randn(8, 2048, 2048, device=dev, generator=g).to(bf)
+    w = (1 + 0.1 * torch.randn(2048, device=dev, generator=g)).to(bf)
+    dy = torch.randn(8, 2048, 2048, device=dev, generator=g).to(bf)
+    before = dict(K.LAUNCHES)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yk = fused.rms_norm(xk, wk, 1e-6)
+    yk.backward(dy)
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yp = fused.rms_norm_plain(xp, wp, 1e-6)
+    yp.backward(dy)
+    torch.cuda.synchronize()
+    _check_rows("rms_norm [8, 2048, 2048] forward", yk, yp, 1)
+    _check("rms_norm [8, 2048, 2048] dx", xk.grad, xp.grad, 0.0)
+    _check("rms_norm [8, 2048, 2048] dw", wk.grad, wp.grad, 0.0)
+    del x, w, dy, xk, wk, yk, xp, wp, yp
+    cos, sin = (t.to(bf).float() for t in build_rope_cache(2048, 128,
+                                                            device=dev))
+    q, k, gq, gk = (torch.randn(8, 2048, 16, 128, device=dev,
+                                generator=g).to(bf) for _ in range(4))
+    qk, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+    rq, rk = fused.fused_rope(qk, kk, cos, sin)
+    torch.autograd.backward((rq, rk), (gq, gk))
+    qp, kp = q.clone().requires_grad_(), k.clone().requires_grad_()
+    pq, pk = fused.fused_rope_plain(qp, kp, cos, sin)
+    torch.autograd.backward((pq, pk), (gq, gk))
+    torch.cuda.synchronize()
+    for name, got, want in (("q", rq, pq), ("k", rk, pk),
+                            ("dq", qk.grad, qp.grad), ("dk", kk.grad, kp.grad)):
+        _check_rows(f"rope [8, 2048, 16, 128] {name}", got, want, 1)
+    used = {n: K.LAUNCHES[n] - before[n] for n in ("rms_norm", "rope")}
+    print(f"  launches of these checks: {used}", flush=True)
+    if used != {"rms_norm": 1, "rope": 2}:
+        raise AssertionError(f"the checks did not go through the kernels: "
+                             f"{used}")
+    del q, k, gq, gk, qk, kk, rq, rk, qp, kp, pq, pk
+    torch.cuda.empty_cache()
+
+
+def phase_tiny_training(torch):
+    """A tiny float32 Llama (head_dim 64) trained 3 steps on the card
+    through every training kernel against the port's CPU trainer (plain
+    versions). Tolerances: losses 1e-5 relative; weights within 1e-5 for
+    99.9% of the elements and 3 lr for all (Adam turns the sign of a
+    near-zero gradient element's rounding difference into up to lr)."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         load_numpy_state)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256, layers=2,
+                           heads=4, kv_heads=2, seq=200)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(8))
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, 200)))
+    lr = 1e-3
+
+    def run(model, x):
+        tr = SpmdTrainer(model, AdamW(learning_rate=lr,
+                                      parameters=model.parameters()),
+                         lambda m, i, l: m.forward_loss(i, l,
+                                                        loss_chunk_size=64),
+                         remat_layers=list(model.model.layers))
+        return [float(tr.train_step(x, x)) for _ in range(3)]
+
+    want = run(cpu, ids)
+    before = dict(K.LAUNCHES)
+    got = run(gpu, ids.cuda())
+    used = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+    close = total = 0
+    worst = 0.0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        worst = max(worst, float(d.max()))
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    loss_err = max(abs(a / b - 1) for a, b in zip(got, want))
+    print(f"  tiny f32 Llama trained 3 steps on the card vs the CPU "
+          f"trainer: losses {got} vs {want} (max rel err {loss_err:.3g}, "
+          f"tol 1e-5); weights within 1e-5: {close}/{total}, worst "
+          f"{worst:.3g} (tol {3 * lr}); launches {used}", flush=True)
+    if not (loss_err <= 1e-5 and close >= 0.999 * total and worst <= 3 * lr
+            and all(used[n] > 0 for n in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv", "adamw",
+                                          "rms_norm", "rope"))):
+        raise AssertionError("training on the card disagrees with the CPU")
+
+
+# -- phase 5: full-width training -------------------------------------------------
+
+def _llama_1b(layers=22):
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_hidden_layers=layers,
+                       num_attention_heads=16, num_key_value_heads=16,
+                       max_position_embeddings=2048)
+
+
+def _trainer_for(torch, model, lr=1e-4):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    return SpmdTrainer(
+        model, AdamW(learning_rate=lr, parameters=model.parameters(),
+                     weight_decay=0.01),
+        lambda m, ids, labels: m.forward_loss(ids, labels,
+                                              loss_chunk_size=256),
+        remat_layers=list(model.model.layers), remat_policy="full")
+
+
+def phase_training(torch, args, launches_out):
+    """The llama-1.1b-b8 recipe of bench.py at full width: bf16 weights
+    (model.bfloat16()), fp32 moments, AdamW lr 1e-4 wd 0.01, full remat of
+    every layer, chunked cross entropy of 256, batch 8 x 2048 random ids as
+    input and label; 2 warm-up and 5 timed steps."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    card = _card_line()
+    cfg = _llama_1b()
+    batch, seq = 8, 2048
+    print(f"phase 5: llama-1.1b-b8 training (hidden {cfg.hidden_size}, "
+          f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} heads, "
+          f"vocab {cfg.vocab_size}, batch {batch} x {seq}) bf16 weights, "
+          f"fp32 moments, seed {args.seed} [{card}]", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(args.seed))
+    model.bfloat16()
+    n_params = model.num_params()
+    trainer = _trainer_for(torch, model)
+    ids = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    losses = []
+    for _ in range(2):
+        losses.append(float(trainer.train_step(ids, ids)))
+    trainer.block()
+    K.reset_launches()
+    t0 = time.monotonic()
+    timed = [trainer.train_step(ids, ids) for _ in range(5)]
+    trainer.block()
+    secs = time.monotonic() - t0
+    launches = dict(K.LAUNCHES)
+    losses += [float(x) for x in timed]
+    n_l = cfg.num_hidden_layers
+    per_step = {"ragged_attention": 0, "rms_norm": 2 * n_l + 1 + 2 * n_l,
+                "rms_norm_residual": 0, "rope": 3 * n_l,
+                "flash_fwd": 2 * n_l, "flash_bwd_dq": n_l,
+                "flash_bwd_dkv": n_l, "adamw": 1}
+    expect = {k: 5 * v for k, v in per_step.items()}
+    print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
+          f"{per_step})", flush=True)
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    launches_out.update(launches)
+    step_ms = 1e3 * secs / 5
+    tok_s = batch * seq / (secs / 5)
+    mfu = model.flops_per_token(seq) * tok_s / BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {losses}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    training = dict(params=n_params, batch=batch, seq=seq, step_ms=step_ms,
+                    tokens_per_s=tok_s,
+                    mfu_vs_989_tflops=mfu, peak_memory_gb=peak_gb,
+                    losses=losses, card=card)
+    print("  training: " + json.dumps(training), flush=True)
+    prof, training["breakdown"] = _profile(
+        torch, lambda: trainer.train_step(ids, ids), 1)
+    prof.export_chrome_trace(os.path.join(args.out, "train_step_trace.json"))
+    m = training["breakdown"]
+    print(f"  train step breakdown: wall {m['wall_ms']:.3f} ms, device "
+          f"{m['device_ms']:.3f} ms (idle share {m['idle_share']:.3f}), "
+          f"{m['device_launches']:.0f} kernels; by group (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in m["by_group_ms"].items()),
+          flush=True)
+    for name, ms in m["top_kernels_ms"].items():
+        print(f"    {ms:9.3f} ms  {name}", flush=True)
+    del trainer, model, ids, timed, prof
+    torch.cuda.empty_cache()
+    training.update(_train_step_agreement(torch, args.seed))
+    return training
+
+
+def _plain_train_patches(stack):
+    """Route the training step through the plain versions (the wrappers
+    would launch the kernels on CUDA tensors)."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import fused
+    stack.enter_context(mock.patch.object(fused, "rms_norm",
+                                          fused.rms_norm_plain))
+    stack.enter_context(mock.patch.object(fused, "fused_rope",
+                                          fused.fused_rope_plain))
+    stack.enter_context(mock.patch.object(FA, "flash_forward",
+                                          FA.flash_forward_plain))
+    stack.enter_context(mock.patch.object(FA, "flash_backward",
+                                          FA.flash_backward_plain))
+
+
+def _train_step_agreement(torch, seed):
+    """One forward + backward of the 1.1B widths at 2 layers (batch 1 x
+    2048) through the kernels and through the plain versions, in bf16 and
+    in float32 (the same bf16-valued weights, upcast). float32: the paths
+    differ only in summation order, so the loss agrees to 1e-5 relative
+    and the gradients to 1e-3 relative (L2 over all of them). bf16: both
+    paths round at the same places, so the kernel path's gradients must be
+    no further from the float32 step than the plain bf16 path's: within
+    1.1x over all of them, and within 1.25x for each parameter."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import LlamaForCausalLM, load_numpy_state
+    cfg = _llama_1b(layers=2)
+    ids = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab_size, (1, 2048))).cuda()
+    base = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed + 2))
+    base.bfloat16()
+    state = {n: p.detach() for n, p in base.named_parameters()}
+
+    def run(dtype, plain):
+        model = LlamaForCausalLM(cfg, device="cuda")
+        if dtype == torch.bfloat16:
+            model.bfloat16()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n].to(dtype))
+        before = dict(K.LAUNCHES)
+        with ExitStack() as stack:
+            if plain:
+                _plain_train_patches(stack)
+            loss = model.forward_loss(ids, ids, loss_chunk_size=256).float()
+            loss.backward()
+            torch.cuda.synchronize()
+        if plain and K.LAUNCHES != before:
+            raise AssertionError("the plain step launched a kernel")
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        return float(loss.detach()), grads
+
+    def dist(a, b):
+        """(relative L2 distance over all, {name: relative L2 distance})"""
+        sq = {n: float((a[n] - b[n]).norm()) ** 2 for n in b}
+        ref = {n: float(b[n].norm()) ** 2 for n in b}
+        return (math.sqrt(sum(sq.values()) / sum(ref.values())),
+                {n: math.sqrt(sq[n] / ref[n]) for n in b})
+
+    lk32, gk32 = run(torch.float32, False)
+    lp32, gp32 = run(torch.float32, True)
+    err32, _ = dist(gk32, gp32)
+    del gk32
+    lk16, gk16 = run(torch.bfloat16, False)
+    err_k, leaf_k = dist(gk16, gp32)
+    del gk16
+    lp16, gp16 = run(torch.bfloat16, True)
+    err_p, leaf_p = dist(gp16, gp32)
+    del gp16, gp32
+    torch.cuda.empty_cache()
+    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
+    worst = max(ratio, key=ratio.get)
+    loss32 = abs(lk32 / lp32 - 1)
+    print(f"  train step kernels vs plain (1.1B widths, 2 layers, 1 x 2048): "
+          f"float32 loss {lk32:.6f} vs {lp32:.6f} (rel err {loss32:.3g}, tol "
+          f"1e-5), grads rel L2 err {err32:.3g} (tol 1e-3); bf16 loss "
+          f"kernels {lk16:.6f} plain {lp16:.6f}, grads' rel L2 distance from "
+          f"the float32 step: kernels {err_k:.5g}, plain {err_p:.5g} (tol: "
+          f"kernels <= 1.1 x plain); per parameter, the largest ratio "
+          f"kernels / plain {ratio[worst]:.4g} at {worst} (tol 1.25)",
+          flush=True)
+    for n in leaf_p:
+        print(f"    {n}: kernels {leaf_k[n]:.5g} plain {leaf_p[n]:.5g}",
+              flush=True)
+    if not (loss32 <= 1e-5 and err32 <= 1e-3 and err_k <= 1.1 * err_p
+            and max(ratio.values()) <= 1.25
+            and all(math.isfinite(x) for x in (lk16, lp16, err_k, err_p))):
+        raise AssertionError("the kernel train step disagrees with the plain "
+                             "step")
+    return dict(train_step_loss_rel_err_f32=loss32,
+                train_step_grad_rel_err_f32=err32,
+                train_step_bf16_grad_err_kernels=err_k,
+                train_step_bf16_grad_err_plain=err_p,
+                train_step_bf16_grad_err_ratio_worst_param=ratio[worst])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -618,15 +1176,31 @@ def main(argv=None):
     c = torch.ones(4, 64, device="cuda")
     fused.fused_rope(q, q, c, c)
     torch.cuda.synchronize()
+    _build.library("flash_attention")
+    _build.library("adamw")
     print(f"phase 2: nvcc {nvcc_s:.2f}s, triton compile "
           f"{time.monotonic() - t1:.2f}s", flush=True)
 
     os.makedirs(args.out, exist_ok=True)
     results = {}
-    phase_kernels(torch, results)
-    phase_tiny_reference(torch)
-    launches = {}
-    serving = phase_serving(torch, args, launches)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.monotonic()
+        out = fn(*a)
+        seconds[name] = time.monotonic() - t
+        print(f"  [{name}: {seconds[name]:.1f}s]", flush=True)
+        return out
+
+    timed("phase 3 serving kernels", phase_kernels, torch, results)
+    timed("phase 3 training kernels", phase_train_kernels, torch, results)
+    timed("phase 3 tiny serving", phase_tiny_reference, torch)
+    timed("phase 3 tiny training", phase_tiny_training, torch)
+    serve_launches, train_launches = {}, {}
+    serving = timed("phase 4 serving", phase_serving, torch, args,
+                    serve_launches)
+    training = timed("phase 5 training", phase_training, torch, args,
+                     train_launches)
 
     replaces = {
         "ragged_attention": ("cuda", "paddle_tpu_torch/csrc/ragged_attention.cu",
@@ -637,17 +1211,32 @@ def main(argv=None):
                               "paddle_tpu/kernels/fused_pallas.py:143"),
         "rope": ("triton", "paddle_tpu_torch/kernels/fused.py",
                  "paddle_tpu/kernels/fused_pallas.py:89"),
+        "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                      "paddle_tpu/kernels/flash_pallas.py:236"),
+        "flash_bwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                      "paddle_tpu/kernels/flash_pallas.py:439"),
+        "adamw": ("cuda", "paddle_tpu_torch/csrc/adamw.cu",
+                  "paddle_tpu/kernels/optimizer_pallas.py:81"),
     }
+    # launches: the main paths' runs (serving and training), summed; the
+    # backward's entry counts its dq launches, each paired with one dk/dv
+    # launch (the training run checks both counts exactly)
+    main_runs = {k: serve_launches.get(k, 0) + train_launches.get(k, 0)
+                 for k in set(serve_launches) | set(train_launches)}
+    main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
         m = results["ragged_attention[mixed_mha]" if name == "ragged_attention"
                     else name]
         kernels.append(dict(name=name, route=route, source=source,
-                            replaces=tpu, launches=launches[name],
+                            replaces=tpu, launches=main_runs[name],
                             **{k: m[k] for k in JSON_KEYS}))
+    print("phase seconds: " + json.dumps(seconds), flush=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": results, "serving": serving,
-                   "launches": launches}, f, indent=1)
+                   "training": training, "seconds": seconds,
+                   "launches": {"serving": serve_launches,
+                                "training": train_launches}}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -62,10 +62,13 @@ class _LlamaDecoder:
 
     @staticmethod
     def weights(model):
-        """{name: tensor}: parameters plus the rope tables."""
+        """{name: tensor}: parameters plus the rope tables, upcast to fp32
+        (the RoPE kernel takes fp32 tables; after ``model.bfloat16()`` the
+        buffers hold the JAX model's bf16-rounded values, which the upcast
+        keeps exactly)."""
         w = {n: p.detach() for n, p in model.named_parameters()}
-        w["__rope_cos"] = model.model.rope_cos
-        w["__rope_sin"] = model.model.rope_sin
+        w["__rope_cos"] = model.model.rope_cos.float()
+        w["__rope_sin"] = model.model.rope_sin.float()
         return w
 
     @staticmethod

@@ -6,6 +6,9 @@ Replaces ``paddle_tpu/kernels/fused_pallas.py``:
     with a residual, ``_rmsnorm_res_kernel`` -> ``add_rms_norm``), one
     Triton kernel for both;
   * ``fused_rope_pallas`` (``_rope_kernel``) -> ``fused_rope``.
+For training, ``RMSNormFunction`` and ``RopeFunction`` put the kernels under
+autograd: RMSNorm's backward is the autograd of its fp32 formula, RoPE's
+is the same kernel with -sin.
 
 Bound on the H100: bytes, for both. RMSNorm does about 4 flops per element
 it reads and writes, RoPE about 6; the card needs ~295 per byte before
@@ -164,14 +167,39 @@ def _norm_launch(x, weight, eps, residual):
     return y, s
 
 
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm whose forward launches the Triton kernel and whose backward
+    is the autograd of the fp32 formula (``rms_norm_plain``), as the JAX
+    code differentiates its oracle; the JAX package has no backward kernel
+    for it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        y, _ = _norm_launch(x, weight, eps, None)
+        LAUNCHES["rms_norm"] += 1
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_()
+            ww = weight.detach().requires_grad_()
+            y = rms_norm_plain(xx, ww, ctx.eps)
+            dx, dw = torch.autograd.grad(y, (xx, ww), dy)
+        return dx, dw, None
+
+
 def rms_norm(x, weight, eps=1e-6):
     """RMSNorm of x over the last axis, in x's dtype. Launches the Triton
-    kernel on a CUDA tensor, runs the plain version on a CPU tensor."""
+    kernel on a CUDA tensor (through ``RMSNormFunction``, which records no
+    graph under ``no_grad``/``inference_mode``), runs the plain version on a
+    CPU tensor."""
     if not _on_cuda("rms_norm", x, weight):
         return rms_norm_plain(x, weight, eps)
-    y, _ = _norm_launch(x, weight, eps, None)
-    LAUNCHES["rms_norm"] += 1
-    return y
+    return RMSNormFunction.apply(x, weight, eps)
 
 
 def add_rms_norm(x, residual, weight, eps=1e-6):
@@ -188,13 +216,7 @@ def add_rms_norm(x, residual, weight, eps=1e-6):
     return s, y
 
 
-def fused_rope(q, k, cos, sin):
-    """Interleaved-pair rotary embedding of q [b, s, h, d] and k
-    [b, s, kvh, d] with cos/sin [s, d/2] (fp32), in one pass over both.
-    Launches the Triton kernel on CUDA tensors, runs the plain version on
-    CPU tensors."""
-    if not _on_cuda("fused_rope", q, k, cos, sin):
-        return fused_rope_plain(q, k, cos, sin)
+def _rope_launch(q, k, cos, sin):
     b, s, h, d = q.shape
     if k.dim() != 4 or k.shape[:2] != (b, s) or k.shape[3] != d or d % 2:
         raise ValueError(f"fused_rope: q {tuple(q.shape)} and k "
@@ -218,5 +240,34 @@ def fused_rope(q, k, cos, sin):
     return oq, ok
 
 
+class RopeFunction(torch.autograd.Function):
+    """Rotary embedding whose forward and backward both launch the Triton
+    kernel: the backward rotates the output gradients by -theta (the same
+    kernel with -sin), which is the exact transpose of the rotation. The
+    JAX code takes the vjp of its oracle, which computes the same."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope_launch(q, k, cos, sin)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        cos, sin = ctx.saved_tensors
+        dq, dk = _rope_launch(gq.contiguous(), gk.contiguous(), cos, -sin)
+        return dq, dk, None, None
+
+
+def fused_rope(q, k, cos, sin):
+    """Interleaved-pair rotary embedding of q [b, s, h, d] and k
+    [b, s, kvh, d] with cos/sin [s, d/2] (fp32), in one pass over both.
+    Launches the Triton kernel on CUDA tensors (through ``RopeFunction``),
+    runs the plain version on CPU tensors."""
+    if not _on_cuda("fused_rope", q, k, cos, sin):
+        return fused_rope_plain(q, k, cos, sin)
+    return RopeFunction.apply(q, k, cos, sin)
+
+
 __all__ = ["rms_norm", "add_rms_norm", "fused_rope", "rms_norm_plain",
-           "add_rms_norm_plain", "fused_rope_plain"]
+           "add_rms_norm_plain", "fused_rope_plain", "RMSNormFunction",
+           "RopeFunction"]

@@ -1,0 +1,175 @@
+"""Multi-tensor AdamW: the CUDA kernel and its plain PyTorch version.
+
+Replaces ``paddle_tpu/kernels/optimizer_pallas.py``:
+``multi_tensor_adamw_pallas`` and ``_fused_adamw_flat`` (``_adamw_kernel``)
+-> ``multi_tensor_adamw``. The math is ``_adam_update`` of
+``paddle_tpu/optimizer/__init__.py`` in fp32: ``(m/bc1) / (sqrt(v/bc2) +
+eps)``, decoupled decay ``p * (1 - lr*wd)`` or coupled ``g + wd*p``, with
+``bc1 = 1 - beta1**step`` and ``bc2 = 1 - beta2**step`` in float32; p is
+written back in its own dtype, m and v stay float32.
+
+**The update is in place.** The JAX arrays are immutable, so the TPU path
+returns new parameters and moments (and concatenates each group into flat
+buffers around its kernel); here ``multi_tensor_adamw`` overwrites the
+parameters, m and v it is given, which saves a second copy of all three
+(about 15 GB at 1.1B parameters) and the copies into and out of flat
+buffers. The kernel (``csrc/adamw.cu``) is bound by bytes on the H100; its
+source note says how one launch per dtype group walks a cached table of
+(tensor, chunk) entries with 16-byte accesses.
+"""
+from __future__ import annotations
+
+import ctypes
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from . import LAUNCHES
+from ._build import library
+
+CHUNK = 65536                 # elements of one table entry (one block)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_MAX_TABLES = 8
+
+
+def bias_corrections(beta1, beta2, step):
+    """(1 - beta1**step, 1 - beta2**step), computed in float32 as the JAX
+    update computes them."""
+    f = lambda x: torch.tensor(x, dtype=torch.float32)
+    one = f(1.0)
+    return (float(one - f(beta1) ** f(step)),
+            float(one - f(beta2) ** f(step)))
+
+
+def adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd, step, decoupled=True):
+    """(p_new, m_new, v_new) of one tensor, in fp32 with ``_adam_update``'s
+    order of operations; p_new in p's dtype. Nothing is written."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=p.device)
+    lr_, b1, b2, eps_, wd_ = map(f32, (lr, beta1, beta2, eps, wd))
+    bc1, bc2 = map(f32, bias_corrections(beta1, beta2, step))
+    gf = g.float()
+    pf = p.float()
+    if not decoupled:
+        gf = gf + wd_ * pf
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps_)
+    if decoupled:
+        pf = pf * (1 - lr_ * wd_)
+    return (pf - lr_ * upd).to(p.dtype), m_new, v_new
+
+
+def _lib():
+    lib = library("adamw")
+    fn = lib.ptt_adamw
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _table(group, device):
+    """The device table of (tensor, chunk) entries of ``group`` (a list of
+    (p, g, m, v, wd)), six int64 per entry: the four pointers at the
+    chunk's start, its length, and the tensor's wd (float32 bits) with a
+    16-byte-alignment flag in the upper word. Cached by pointers, lengths
+    and wd: an in-place update keeps them, so a training loop builds it
+    once."""
+    key = tuple((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                 p.numel(), p.element_size(), float(wd))
+                for p, g, m, v, wd in group)
+    table = _TABLES.get(key)
+    if table is not None:
+        _TABLES.move_to_end(key)
+        return table
+    blocks = []
+    for p, g, m, v, wd in group:
+        n = p.numel()
+        if n == 0:
+            continue
+        starts = np.arange(0, n, CHUNK, dtype=np.int64)
+        ptrs = (p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
+        vec = int(all(x % 16 == 0 for x in ptrs))
+        wd_bits = int(np.float32(wd).view(np.uint32))
+        rows = np.empty((starts.size, 6), np.int64)
+        for col, (ptr, size) in enumerate(zip(ptrs, (p.element_size(),
+                                                     g.element_size(), 4, 4))):
+            rows[:, col] = ptr + starts * size
+        rows[:, 4] = np.minimum(CHUNK, n - starts)
+        rows[:, 5] = wd_bits | (vec << 32)
+        blocks.append(rows)
+    host = np.concatenate(blocks) if blocks else np.zeros((0, 6), np.int64)
+    table = torch.from_numpy(host).to(device)
+    _TABLES[key] = table
+    while len(_TABLES) > _MAX_TABLES:
+        _TABLES.popitem(last=False)
+    return table
+
+
+def _check(params, grads, ms, vs):
+    dev = params[0].device
+    for p, g, m, v in zip(params, grads, ms, vs):
+        for name, x in (("param", p), ("grad", g), ("m", m), ("v", v)):
+            if x.device != dev:
+                raise ValueError(f"multi_tensor_adamw: a {name} is on "
+                                 f"{x.device}, the first param on {dev}")
+            if not x.is_contiguous():
+                raise ValueError(f"multi_tensor_adamw: a {name} is not "
+                                 f"contiguous")
+            if x.shape != p.shape:
+                raise ValueError("multi_tensor_adamw: shapes differ within "
+                                 "a (param, grad, m, v) entry")
+        if p.dtype not in _DTYPE_CODE or g.dtype != p.dtype:
+            raise TypeError(f"multi_tensor_adamw takes float32/bfloat16 "
+                            f"params with grads of the same dtype, got "
+                            f"{p.dtype} and {g.dtype}")
+        if m.dtype != torch.float32 or v.dtype != torch.float32:
+            raise TypeError("multi_tensor_adamw keeps m and v in float32")
+
+
+@torch.no_grad()
+def multi_tensor_adamw(params, grads, ms, vs, *, lr, beta1, beta2, eps, wds,
+                       step, decoupled=True):
+    """AdamW over lists of tensors, IN PLACE: params, ms and vs are
+    overwritten. On CUDA tensors one kernel launch updates every tensor of
+    a dtype group (wd per tensor); on CPU tensors each tensor goes through
+    ``adamw_plain``."""
+    if not (len(params) == len(grads) == len(ms) == len(vs) == len(wds)):
+        raise ValueError("multi_tensor_adamw: list length mismatch")
+    if not params:
+        return
+    dev = params[0].device
+    if dev.type == "cpu":
+        for p, g, m, v, wd in zip(params, grads, ms, vs, wds):
+            pn, mn, vn = adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd,
+                                     step, decoupled)
+            p.copy_(pn)
+            m.copy_(mn)
+            v.copy_(vn)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"multi_tensor_adamw runs on cuda or cpu, not {dev}")
+    _check(params, grads, ms, vs)
+    bc1, bc2 = bias_corrections(beta1, beta2, step)
+    groups = {}
+    for entry in zip(params, grads, ms, vs, wds):
+        groups.setdefault(entry[0].dtype, []).append(entry)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for dtype, group in groups.items():
+        table = _table(group, dev)
+        err = lib.ptt_adamw(table.data_ptr(), table.shape[0],
+                            _DTYPE_CODE[dtype], lr, beta1, beta2, eps, bc1,
+                            bc2, int(bool(decoupled)), stream)
+        if err != 0:
+            raise RuntimeError("adamw kernel launch failed: "
+                               + lib.ptt_error_string(err).decode())
+        LAUNCHES["adamw"] += 1
+
+
+__all__ = ["multi_tensor_adamw", "adamw_plain", "bias_corrections", "CHUNK"]

@@ -1,12 +1,14 @@
-"""Llama-2 model family: configuration and parameter holder.
+"""Llama-2 model family: configuration, parameters and the dense forward.
 
 Mirrors ``paddle_tpu/models/llama.py``: the same configuration fields and
 presets, the same parameter names (``model.layers.{i}.self_attn.q_proj.
 weight``, ...) and Paddle's linear layout ``[in, out]`` (computed as
 ``x @ w``), so a state carried across from the JAX model fills this one
 name for name. Serving reads the parameters through
-``generation._LlamaDecoder``; the dense ``forward`` needs the flash
-attention kernel and comes with the training slice.
+``generation._LlamaDecoder``; training runs the dense ``forward`` /
+``forward_loss`` below, whose RMSNorms, rotary embedding and attention
+are the port's kernels on CUDA tensors (the plain versions on CPU
+tensors) and whose matrix products go to ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -15,9 +17,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..kernels import fused
+from ..nn import functional as F
 
 
 @dataclass
@@ -60,6 +66,15 @@ def build_rope_cache(seq_len: int, head_dim: int, theta: float = 10000.0,
     return torch.cos(freqs), torch.sin(freqs)
 
 
+def fused_rope(query, key, cos, sin):
+    """Rotary embedding of q [b, s, h, d] and k [b, s, kvh, d] with the
+    tables cos/sin [s, d/2] upcast to fp32 (the kernel's type; bf16 tables,
+    as ``model.bfloat16()`` leaves them, keep their values exactly).
+    Differentiable: on CUDA tensors forward and backward launch the RoPE
+    kernel."""
+    return fused.fused_rope(query, key, cos.float(), sin.float())
+
+
 def _param(*shape, device, dtype):
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
 
@@ -73,9 +88,13 @@ class _Linear(nn.Module):
 
 
 class _Norm(nn.Module):
-    def __init__(self, hidden, device, dtype):
+    def __init__(self, hidden, device, dtype, eps=1e-6):
         super().__init__()
         self.weight = _param(hidden, device=device, dtype=dtype)
+        self.eps = eps
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.eps)
 
 
 class _Embedding(nn.Module):
@@ -95,6 +114,31 @@ class LlamaAttention(nn.Module):
         self.k_proj = _Linear(h, kvh * hd, device, dtype)
         self.v_proj = _Linear(h, kvh * hd, device, dtype)
         self.o_proj = _Linear(heads * hd, h, device, dtype)
+        self.num_heads, self.num_kv_heads, self.head_dim = heads, kvh, hd
+
+    def forward(self, hidden_states, rope_cache, attention_mask=None,
+                startend_row_indices=None):
+        if attention_mask is not None or startend_row_indices is not None:
+            raise NotImplementedError(
+                "attention masks and flashmask bounds are not ported yet "
+                "(causal attention only)")
+        b, s, _ = hidden_states.shape
+        q = (hidden_states @ self.q_proj.weight).reshape(
+            b, s, self.num_heads, self.head_dim)
+        k = (hidden_states @ self.k_proj.weight).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
+        v = (hidden_states @ self.v_proj.weight).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
+        cos, sin = rope_cache
+        q, k = fused_rope(q, k, cos, sin)
+        if self.num_kv_heads != self.num_heads:
+            # outside the kernel, so autograd sums dk/dv over the repeats
+            rep = self.num_heads // self.num_kv_heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return out.reshape(b, s, self.num_heads * self.head_dim) \
+            @ self.o_proj.weight
 
 
 class LlamaMLP(nn.Module):
@@ -105,14 +149,27 @@ class LlamaMLP(nn.Module):
         self.up_proj = _Linear(h, i, device, dtype)
         self.down_proj = _Linear(i, h, device, dtype)
 
+    def forward(self, x):
+        return (TF.silu(x @ self.gate_proj.weight) * (x @ self.up_proj.weight)) \
+            @ self.down_proj.weight
+
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device, dtype):
         super().__init__()
         self.self_attn = LlamaAttention(cfg, device, dtype)
         self.mlp = LlamaMLP(cfg, device, dtype)
-        self.input_layernorm = _Norm(cfg.hidden_size, device, dtype)
-        self.post_attention_layernorm = _Norm(cfg.hidden_size, device, dtype)
+        self.input_layernorm = _Norm(cfg.hidden_size, device, dtype,
+                                     cfg.rms_norm_eps)
+        self.post_attention_layernorm = _Norm(cfg.hidden_size, device, dtype,
+                                              cfg.rms_norm_eps)
+
+    def forward(self, hidden_states, rope_cache, attention_mask=None,
+                startend_row_indices=None):
+        h = hidden_states + self.self_attn(
+            self.input_layernorm(hidden_states), rope_cache, attention_mask,
+            startend_row_indices)
+        return h + self.mlp(self.post_attention_layernorm(h))
 
 
 class LlamaModel(nn.Module):
@@ -123,14 +180,28 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(cfg, device, dtype)
             for _ in range(cfg.num_hidden_layers))
-        self.norm = _Norm(cfg.hidden_size, device, dtype)
+        self.norm = _Norm(cfg.hidden_size, device, dtype, cfg.rms_norm_eps)
         cos, sin = build_rope_cache(
             cfg.max_position_embeddings,
             cfg.hidden_size // cfg.num_attention_heads, cfg.rope_theta,
             device=device)
-        # fp32 whatever the model's dtype, as in the JAX model
+        # fp32 whatever the model's dtype, as in the JAX model; like the
+        # JAX Layer.to, model.bfloat16() casts them (the forward upcasts)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids, attention_mask=None,
+                attn_startend_row_indices=None):
+        if attention_mask is not None or attn_startend_row_indices is not None:
+            raise NotImplementedError(
+                "attention_mask / attn_startend_row_indices are not ported "
+                "yet (causal attention only; flashmask comes later)")
+        h = TF.embedding(input_ids.long(), self.embed_tokens.weight)
+        s = input_ids.shape[1]
+        rope = (self.rope_cos[:s], self.rope_sin[:s])
+        for layer in self.layers:
+            h = layer(h, rope)
+        return self.norm(h)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -161,11 +232,73 @@ class LlamaForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.model.norm.weight.device
 
-    def forward(self, input_ids, attention_mask=None):
-        raise NotImplementedError(
-            "the dense forward needs the flash-attention kernel, which is "
-            "ported with the training slice; serve through "
-            "paddle_tpu_torch.serving.ServingEngine")
+    def forward(self, input_ids, attention_mask=None,
+                attn_startend_row_indices=None):
+        """Logits [b, s, vocab] in the model's dtype."""
+        h = self.model(input_ids, attention_mask, attn_startend_row_indices)
+        return self._head(h)
+
+    def _head(self, h):
+        if self.lm_head is None:
+            return h @ self.model.embed_tokens.weight.T
+        return h @ self.lm_head.weight
+
+    def compute_loss(self, logits, labels):
+        """Shifted next-token cross entropy."""
+        b, s, v = logits.shape
+        return F.cross_entropy(logits[:, :-1, :].reshape(b * (s - 1), v),
+                               labels[:, 1:].reshape(b * (s - 1)))
+
+    def forward_loss(self, input_ids, labels, loss_chunk_size=None,
+                     attention_mask=None, attn_startend_row_indices=None):
+        """Trunk forward + shifted cross entropy. With ``loss_chunk_size=c``
+        the head matmul and log-softmax (fp32) run per chunk of c positions
+        under ``torch.utils.checkpoint``, as the JAX code runs them under
+        ``jax.checkpoint`` inside ``lax.scan``: only [b, c, vocab] logits
+        are live at a time, in the forward and in the backward. Labels of
+        -100 count for nothing."""
+        if loss_chunk_size is None:
+            return self.compute_loss(
+                self(input_ids, attention_mask, attn_startend_row_indices),
+                labels)
+        h = self.model(input_ids, attention_mask, attn_startend_row_indices)
+        tied = self.lm_head is None
+        w = self.model.embed_tokens.weight if tied else self.lm_head.weight
+        hs = h[:, :-1, :]
+        ys = labels[:, 1:].long()
+        c = int(loss_chunk_size)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+        for i in range(0, hs.shape[1], c):
+            s_, n_ = checkpoint(_chunk_nll, hs[:, i:i + c], w, ys[:, i:i + c],
+                                tied, use_reentrant=False)
+            tot = tot + s_
+            cnt = cnt + n_
+        return tot / cnt.clamp(min=1).float()
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs/token (6N + attention term): the
+        attention matmuls (QK^T, AV) are 4*s*h per layer forward, x3 for
+        forward and backward, halved by causal masking -> 6*L*h*s."""
+        c = self.config
+        attn = 6.0 * c.num_hidden_layers * c.hidden_size * seq_len
+        return 6.0 * self.num_params() + attn
+
+
+def _chunk_nll(hc, w, yc, tied):
+    """(sum of the nll, count) of one chunk: the head matmul and the
+    log-softmax in fp32 (w is [vocab, hidden] when tied, else
+    [hidden, vocab])."""
+    valid = yc != -100
+    yc = torch.where(yc < 0, torch.zeros_like(yc), yc)
+    wf = w.float()
+    logits = hc.float() @ (wf.T if tied else wf)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, yc.unsqueeze(-1)).squeeze(-1)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(), valid.sum()
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:

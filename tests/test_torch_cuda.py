@@ -10,6 +10,10 @@ Tolerances: float32 2e-5 (the kernels and the plain versions both sum
 in fp32, in another order); bfloat16 one ulp of the largest reference
 value (2^-7 of it): both compute in fp32 from the same bf16 inputs and
 round once at the end, so they differ by at most one rounding step.
+Flash attention in bfloat16: each row within two ulps of the row's own
+largest value (P is also rounded to bf16, at another running max). AdamW:
+equal, since the kernel rounds every operation explicitly in the plain
+version's order.
 """
 import numpy as np
 import pytest
@@ -36,6 +40,16 @@ def _tol(ref, dtype):
     if dtype == torch.float32:
         return 2e-5 * max(1.0, float(ref.abs().max()))
     return 2.0 ** -7 * float(ref.float().abs().max())
+
+
+def _assert_rows_close(got, ref, ulps):
+    """bf16: each row (the last axis) within ``ulps`` ulps (2^-7 each,
+    relative) of its largest reference value; a row below 2^-8 of the
+    tensor's largest holds only rounding noise and gets 2^-8 of it."""
+    mag = ref.float().abs().amax(-1)
+    tol = ulps * 2.0 ** -7 * mag.clamp(min=2.0 ** -8 * float(mag.max()))
+    err = (got.float() - ref.float()).abs().amax(-1)
+    assert bool((err <= tol).all()), float((err / tol).max())
 
 
 def _ragged_inputs(dev, dtype, d, rep, bs, seed=0):
@@ -159,3 +173,137 @@ def test_engine_on_gpu_matches_cpu(dev):
     assert all(K.LAUNCHES[n] > 0
                for n in ("ragged_attention", "rms_norm", "rms_norm_residual",
                          "rope"))
+
+
+# -- the training slice ----------------------------------------------------------
+
+FLASH_CASES = [  # (b, h, sq, sk, d, causal)
+    (2, 3, 256, 256, 64, True),
+    (1, 2, 200, 200, 128, True),       # ragged last tile
+    (1, 2, 100, 300, 64, True),        # sq < sk, bottom-right causal
+    (2, 2, 130, 70, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, dtype, case):
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_backward, flash_backward_plain, flash_forward,
+        flash_forward_plain)
+    b, h, sq, sk, d, causal = case
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, dout = (torch.randn(b, h, sq, d, device=dev, generator=g).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    before = dict(K.LAUNCHES)
+    out, lse = flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    wout, wlse = flash_forward_plain(q, k, v, causal)
+    if dtype == torch.float32:
+        assert float((out - wout).abs().max()) <= _tol(wout, dtype)
+    else:
+        _assert_rows_close(out, wout, 2)
+    assert float((lse - wlse).abs().max()) <= 1e-4
+    grads = flash_backward(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    want = flash_backward_plain(q, k, v, out, lse, dout, causal)
+    for got, ref in zip(grads, want):
+        if dtype == torch.float32:
+            # a gradient sums up to sq products: 1e-4 of its scale
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            assert float((got - ref).abs().max()) <= tol
+        else:
+            _assert_rows_close(got, ref, 2)
+    assert K.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert K.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert K.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels.flash_attention import flash_forward
+    q = torch.zeros(1, 1, 16, 96, device=dev)
+    with pytest.raises(ValueError):
+        flash_forward(q, q, q)
+    q = torch.zeros(1, 1, 16, 64, device=dev)
+    with pytest.raises(ValueError):
+        flash_forward(q, q[:, :, :8], q[:, :, :8], causal=True)
+    with pytest.raises(TypeError):
+        flash_forward(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoupled", [True, False])
+def test_adamw_kernel_matches_plain(dev, dtype, decoupled):
+    from paddle_tpu_torch.kernels.optimizer import (CHUNK, adamw_plain,
+                                                    multi_tensor_adamw)
+    g = torch.Generator(device=dev).manual_seed(3)
+    sizes = [CHUNK * 2 + 13, 1000, 7, 3 * CHUNK]
+    flat = torch.randn(sum(sizes) + 1, device=dev, generator=g).to(dtype)
+    # the last tensor starts off the 16-byte grid: element accesses
+    ps = [torch.randn(n, device=dev, generator=g).to(dtype)
+          for n in sizes[:-1]] + [flat[1:1 + sizes[-1]]]
+    gs = [torch.randn(n, device=dev, generator=g).to(dtype) for n in sizes]
+    ms = [0.1 * torch.randn(n, device=dev, generator=g) for n in sizes]
+    vs = [torch.rand(n, device=dev, generator=g) * 1e-3 for n in sizes]
+    wds = [0.01, 0.0, 0.1, 0.01]
+    hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8)
+    want = [adamw_plain(p, gg, m, v, hp["lr"], hp["beta1"], hp["beta2"],
+                        hp["eps"], wd, 4.0, decoupled)
+            for p, gg, m, v, wd in zip(ps, gs, ms, vs, wds)]
+    # the update changes p: a kernel that did not write it would fail
+    assert all(bool((wp != p).any()) for (wp, _, _), p in zip(want, ps))
+    before = K.LAUNCHES["adamw"]
+    multi_tensor_adamw(ps, gs, ms, vs, wds=wds, step=4.0, decoupled=decoupled,
+                       **hp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["adamw"] == before + 1
+    for (wp, wm, wv), p, m, v in zip(want, ps, ms, vs):
+        # the same correctly rounded fp32 operations in the same order
+        assert torch.equal(p, wp) and torch.equal(m, wm) \
+            and torch.equal(v, wv)
+
+
+def test_training_on_gpu_matches_cpu(dev):
+    """A tiny float32 Llama (head_dim 64) trained 3 steps on the GPU
+    through every training kernel matches the CPU trainer (plain
+    versions): losses 1e-5 relative; weights within 1e-5 for 99.9% of the
+    elements and within 3 lr for all (Adam turns the sign of a near-zero
+    gradient element's fp32 rounding difference into up to lr a step)."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         load_numpy_state)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cfg = LlamaConfig.tiny(vocab_size=97, hidden_size=128, layers=2,
+                           heads=2, kv_heads=1, seq=96)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 97, (2, 96)))
+
+    def run(model, x):
+        tr = SpmdTrainer(model, AdamW(learning_rate=1e-3,
+                                      parameters=model.parameters()),
+                         lambda m, i, l: m.forward_loss(i, l,
+                                                        loss_chunk_size=32),
+                         remat_layers=list(model.model.layers))
+        return [float(tr.train_step(x, x)) for _ in range(3)]
+
+    want = run(cpu, ids)
+    K.reset_launches()
+    got = run(gpu, ids.to(dev))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    close = total = 0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        assert float(d.max()) <= 3e-3, n
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    assert close >= 0.999 * total, (close, total)
+    assert K.LAUNCHES["adamw"] == 3
+    assert all(K.LAUNCHES[n] > 0 for n in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv", "rms_norm",
+                                            "rope"))

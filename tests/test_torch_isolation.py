@@ -40,7 +40,11 @@ def test_port_module_imports_no_jax(path):
 
 def test_import_loads_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models, paddle_tpu_torch.framework; "
+            "paddle_tpu_torch.models, paddle_tpu_torch.framework, "
+            "paddle_tpu_torch.nn, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.parallel, "
+            "paddle_tpu_torch.kernels.flash_attention, "
+            "paddle_tpu_torch.kernels.optimizer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -60,3 +64,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
+
+
+def test_training_follows_the_model_device():
+    """The optimizer's state and the trainer's buffers live where the
+    parameters do: a CPU model trains on the CPU and launches nothing."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cfg = LlamaConfig.tiny(vocab_size=17, hidden_size=16, layers=1, heads=2,
+                           kv_heads=1, seq=16)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    tr = SpmdTrainer(model, AdamW(parameters=model.parameters()),
+                     lambda m, i, l: m.forward_loss(i, l))
+    before = dict(K.LAUNCHES)
+    ids = torch.randint(0, 17, (2, 8))
+    tr.train_step(ids, ids)
+    assert K.LAUNCHES == before
+    assert all(s["moment1"].device.type == "cpu"
+               for s in tr.opt._state.values())

@@ -252,11 +252,6 @@ def test_engine_config_refuses_unported_options(option):
         EngineConfig(**{option: "int8"})
 
 
-def test_dense_forward_waits_for_training_slice():
-    with pytest.raises(NotImplementedError):
-        _port_model(2)(torch.zeros(1, 4, dtype=torch.long))
-
-
 # -- host-side scheduler and pool ---------------------------------------------
 
 def _drive(sched_cls, req_cls, pool, prompts, policy, max_new=6):
