@@ -12,7 +12,11 @@ Phases, each printing its own lines and its seconds:
      bound and a single PyTorch call for the same function where there is
      one; then a tiny float32 Llama served on the card must return the
      CPU engine's greedy tokens, and a tiny float32 Llama trained 3 steps
-     on the card must match the port's CPU trainer;
+     on the card must match the port's CPU trainer; the MoE kernels (gmm,
+     its dx form and tgmm) at the GPT-MoE slice's shapes, bench.py's
+     gmm_probe shapes and a skewed routing, one MoE layer's forward and
+     backward with no host sync, and a tiny float32 GPT-MoE trained 3
+     steps on the card against the CPU trainer;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine: the launch
      counts are zeroed just before and read just after, every request
@@ -24,8 +28,14 @@ Phases, each printing its own lines and its seconds:
      exact launch counts, finite and falling losses, a profile of one step
      by kernel group, and one step through the kernels against the plain
      versions at the same widths with 2 layers;
-  6. a JSON line of every kernel, the card line again, and the final
-     {"ok": true, ...} line.
+  6. GPT-MoE (GPTConfig.gpt_moe(8): GPT-2-small widths, 8 experts top-2 in
+     every second block, dropless) trained at full width (bf16 weights,
+     fp32 moments, no remat, batch 8 x 1024): 2 warm-up and 5 timed steps
+     with exact launch counts, finite and falling losses, a profile of one
+     step, and one step through the kernels against the plain versions at
+     the same widths with 2 layers;
+  then a JSON line of every kernel, the card line again, and the final
+  {"ok": true, ...} line.
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -446,7 +456,7 @@ def phase_serving(torch, args, launches_out):
     expect = {"ragged_attention": n_l * steps, "rms_norm": (n_l + 1) * steps,
               "rms_norm_residual": n_l * steps, "rope": n_l * steps,
               "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-              "adamw": 0}
+              "adamw": 0, "gmm": 0, "tgmm": 0}
     print(f"  launches over {steps} steps: {launches} (expected {expect})",
           flush=True)
     if launches != expect:
@@ -483,6 +493,10 @@ def phase_serving(torch, args, launches_out):
 
 
 def _kernel_group(name):
+    if "tgmm_kernel" in name:
+        return "tgmm"
+    if "gmm_kernel" in name:
+        return "gmm"
     if "ragged_attention" in name:
         return "ragged_attention"
     if "flash_fwd_kernel" in name:
@@ -515,7 +529,7 @@ def _profile(torch, step, n):
             step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    groups, names, launches = {}, {}, 0
+    groups, names, counts, launches = {}, {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             g = _kernel_group(e.name)
@@ -523,15 +537,17 @@ def _profile(torch, step, n):
             groups[g] = groups.get(g, 0.0) + ms
             key = e.name[:80]
             names[key] = names.get(key, 0.0) + ms
+            counts[key] = counts.get(key, 0) + 1
             launches += 1
     busy = sum(groups.values())
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:20]
     return prof, dict(wall_ms=1e3 * wall / n, device_ms=busy / n,
                       idle_share=1 - busy / (1e3 * wall) if wall else None,
                       device_launches=launches / n,
                       by_group_ms={k: v / n for k, v in sorted(
                           groups.items(), key=lambda kv: -kv[1])},
-                      top_kernels_ms={k: v / n for k, v in top})
+                      top_kernels_ms={k: v / n for k, v in top},
+                      top_kernels_launches={k: counts[k] / n for k, _ in top})
 
 
 def _profile_steps(torch, eng, cfg, seed, out_dir):
@@ -935,6 +951,304 @@ def phase_tiny_training(torch):
         raise AssertionError("training on the card disagrees with the CPU")
 
 
+# -- phase 3 (MoE kernels) --------------------------------------------------------
+
+def _gmm_bytes_flops(t, k, n, sizes, esize, transposed):
+    """Bytes the function must move and the flops its data needs: the rows
+    of the groups (each read once), the weights of the groups that have
+    rows, every output row written once (rows past the groups as zeros),
+    the sizes and offsets; 2 flops a multiply-add of a grouped row. For
+    tgmm (``transposed``): the groups' rows of both inputs and the fp32
+    [e, k, n] output."""
+    total = sum(sizes)
+    flops = 2 * total * k * n
+    meta = 4 * (2 * len(sizes) + 1)
+    if transposed:
+        return total * (k + n) * esize + len(sizes) * k * n * 4 + meta, flops
+    busy = sum(1 for s in sizes if s)
+    return (total * k * esize + busy * k * n * esize + t * n * esize + meta,
+            flops)
+
+
+def _library_gmm(torch, a, b, sizes, kind):
+    """(ms, what) of a library call for the same grouped product, timed as
+    a yardstick only: ``torch._grouped_mm`` for bf16 where this PyTorch has
+    it and takes the layout (for float32 it copies between host and device,
+    which a CUDA graph cannot capture), else a loop of one ``torch.matmul`` per group (not one call). ``kind``: "gmm" (a [t, k], b [e, k, n]), "gmm_t" (b [e, n,
+    k], read transposed) or "tgmm" (a [t, k], b [t, n] -> [e, k, n])."""
+    ends = torch.tensor(sizes, dtype=torch.int32, device=a.device).cumsum(
+        0, dtype=torch.int32)
+    grouped = getattr(torch, "_grouped_mm", None)
+    if grouped is not None and a.dtype == torch.bfloat16:
+        if kind == "gmm":
+            tries = [(a, b), (a, b.transpose(1, 2).contiguous()
+                                 .transpose(1, 2))]
+        elif kind == "gmm_t":
+            tries = [(a, b.transpose(1, 2))]
+        else:
+            tries = [(a.T, b), (a.T.contiguous(), b)]
+        for ma, mb in tries:
+            try:
+                grouped(ma, mb, offs=ends)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError):
+                continue
+            return (_graph_ms(lambda: grouped(ma, mb, offs=ends), iters=5,
+                              reps=3), "torch._grouped_mm")
+    bounds = [0] + torch.tensor(sizes).cumsum(0).tolist()
+    spans = [(s, e_) for s, e_ in zip(bounds, bounds[1:])]
+    if kind == "tgmm":
+        def loop():
+            return [a[s:e_].T @ b[s:e_] for s, e_ in spans]
+    else:
+        bw = b.transpose(1, 2) if kind == "gmm_t" else b
+
+        def loop():
+            return [a[s:e_] @ bw[g] for g, (s, e_) in enumerate(spans)]
+    return _time_ms(loop, 5), "loop of torch.matmul per group"
+
+
+def _gmm_slice_inputs(torch, dev, seed, tokens=8192, d=768, h=3072, e=8):
+    """The MoE slice's grouped products with the routing the model gives:
+    8 x 1024 tokens routed top-2 by a gate of the model's initial
+    distribution (Xavier-uniform [768, 8]) over unit-variance hidden
+    states, the slots sorted by expert as the layer sorts them; expert
+    banks of the model's distribution; random upstream gradients."""
+    from paddle_tpu_torch.kernels.gmm import route_sorted, topk_route
+    from paddle_tpu_torch.nn.initializer import xavier_uniform_
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    x = torch.randn(tokens, d, device=dev, generator=g).to(bf)
+    gate = xavier_uniform_(torch.empty(d, e, device=dev), g).to(bf)
+    _, _, topi = topk_route(x @ gate, 2)
+    order, _, gs = route_sorted(topi, e)
+    xs = x[torch.div(order, 2, rounding_mode="floor")]
+    w1 = xavier_uniform_(torch.empty(e, d, h, device=dev), g, d, h).to(bf)
+    w2 = xavier_uniform_(torch.empty(e, h, d, device=dev), g, h, d).to(bf)
+    hs = torch.randn(2 * tokens, h, device=dev, generator=g).to(bf)
+    dy1 = (0.01 * torch.randn(2 * tokens, h, device=dev, generator=g)).to(bf)
+    dy2 = (0.01 * torch.randn(2 * tokens, d, device=dev, generator=g)).to(bf)
+    return xs, w1, w2, hs, dy1, dy2, gs
+
+
+def _hold_gmm(torch, name, got, plain, ref32, dtype):
+    """bf16: rows within 2 ulps of their largest plain value, and the
+    relative L2 distance from the float32 reference within 1.1x the plain
+    bf16 version's. float32: 1e-5 of the largest plain value."""
+    if dtype == torch.float32:
+        return _check(name, got, plain, 1e-5 * float(plain.abs().max()))
+    err = _check_rows(name, got, plain, 2)
+    _check_vs_f32(name, got, plain, ref32)
+    return err
+
+
+def _gmm_case_run(torch, results, name, kind, a, b, gs, dtype):
+    """Check one grouped product against its plain version and time it,
+    its plain version and a library call; records ``results[name]``."""
+    from paddle_tpu_torch.kernels import gmm as PG
+    sizes = gs.tolist()
+    if kind == "tgmm":
+        run = lambda: PG.tgmm(a, b, gs)
+        plain = lambda: PG.tgmm_plain(a, b, gs)
+        t, k = a.shape
+        n = b.shape[1]
+        # dw reaches the parameters rounded to the weights' dtype
+        got = run().to(dtype)
+        torch.cuda.synchronize()
+        ref32 = plain()
+        want = ref32.to(dtype)
+    else:
+        trans = kind == "gmm_t"
+        run = lambda: PG.gmm(a, b, gs, trans_w=trans)
+        plain = lambda: PG.gmm_plain(a, b, gs, trans_w=trans)
+        t, k = a.shape
+        n = b.shape[1] if trans else b.shape[2]
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        ref32 = PG.gmm_plain(a.float(), b.float(), gs, trans_w=trans) \
+            if dtype == torch.bfloat16 else want
+        total = sum(sizes)
+        if got[total:].any():
+            raise AssertionError(f"{name}: rows past the groups are not 0")
+    if kind == "tgmm" and any(bool(got[i].any())
+                              for i, s in enumerate(sizes) if s == 0):
+        raise AssertionError(f"{name}: an empty group's dw is not 0")
+    err = _hold_gmm(torch, name, got, want, ref32, dtype)
+    del got, want, ref32
+    esize = 2 if dtype == torch.bfloat16 else 4
+    nb, nf = _gmm_bytes_flops(t, k, n, sizes, esize, kind == "tgmm")
+    bound_ms, bound_by = _bound(nb, nf, BF16_FLOPS if esize == 2
+                                else FP32_FLOPS)
+    ms = _graph_ms(run, iters=5, reps=3)
+    plain_ms = _time_ms(plain, 2, warmup=1)
+    lib_ms, lib_what = _library_gmm(torch, a, b, sizes, kind)
+    torch.cuda.empty_cache()
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms, library_call=lib_what,
+                         shape=[t, k, n], groups=len(sizes),
+                         rows_grouped=sum(sizes))
+    print(f"  {name} [{t}, {k}] -> {n}, {len(sizes)} groups, "
+          f"{str(dtype)[6:]}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"{bound_ms:.4f} ({bound_by}) library_ms={lib_ms:.4f} "
+          f"({lib_what})", flush=True)
+
+
+def phase_gmm_kernels(torch, results):
+    """gmm (forward, and dx with trans_w) and tgmm against their plain
+    versions: at the MoE slice's shapes with the model's routing, at
+    bench.py's gmm_probe shapes (4096 tokens, 1024 -> 4096, 8 and 64 equal
+    groups), and at a skewed routing (an empty expert, one expert with
+    half the rows, one-row groups inside one tile, rows past the groups)
+    in bf16 and float32."""
+    dev = torch.device("cuda")
+    print("phase 3: MoE kernels against their plain versions (bf16: each "
+          "row within 2 bf16 ulps of the row's largest plain value and the "
+          "relative L2 distance from float32 within 1.1x the plain bf16 "
+          "version's; tgmm's fp32 dw held after its cast to the weights' "
+          "dtype; float32: 1e-5 of the largest plain value)", flush=True)
+    xs, w1, w2, hs, dy1, dy2, gs = _gmm_slice_inputs(torch, dev, 40)
+    print(f"  slice routing: group sizes {gs.tolist()} of {xs.shape[0]} "
+          f"rows", flush=True)
+    bf = torch.bfloat16
+    for name, kind, a, b in (("gmm[fwd_w1]", "gmm", xs, w1),
+                             ("gmm[fwd_w2]", "gmm", hs, w2),
+                             ("gmm[dx_w1]", "gmm_t", dy1, w1),
+                             ("gmm[dx_w2]", "gmm_t", dy2, w2),
+                             ("tgmm[dw_w1]", "tgmm", xs, dy1),
+                             ("tgmm[dw_w2]", "tgmm", hs, dy2)):
+        _gmm_case_run(torch, results, name, kind, a, b, gs, bf)
+    del xs, w1, w2, hs, dy1, dy2
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(41)
+    for ne in (8, 64):       # bench.py gmm_probe
+        x = torch.randn(4096, 1024, device=dev, generator=g).to(bf)
+        w = torch.randn(ne, 1024, 4096, device=dev, generator=g).to(bf)
+        sizes = torch.full((ne,), 4096 // ne, dtype=torch.int32, device=dev)
+        _gmm_case_run(torch, results, f"gmm[probe_e{ne}]", "gmm", x, w,
+                      sizes, bf)
+        del x, w
+    skew = [1, 1, 1, 1, 0, 2048, 3, 1945]     # 4000 of 4096 rows
+    gs = torch.tensor(skew, dtype=torch.int32, device=dev)
+    for dtype in (bf, torch.float32):
+        tag = "bf16" if dtype == bf else "f32"
+        x = torch.randn(4096, 768, device=dev, generator=g).to(dtype)
+        w = (0.03 * torch.randn(8, 768, 3072, device=dev,
+                                generator=g)).to(dtype)
+        dy = torch.randn(4096, 3072, device=dev, generator=g).to(dtype)
+        _gmm_case_run(torch, results, f"gmm[skew_fwd_{tag}]", "gmm", x, w,
+                      gs, dtype)
+        _gmm_case_run(torch, results, f"gmm[skew_dx_{tag}]", "gmm_t", dy, w,
+                      gs, dtype)
+        _gmm_case_run(torch, results, f"tgmm[skew_dw_{tag}]", "tgmm", x, dy,
+                      gs, dtype)
+        del x, w, dy
+    torch.cuda.empty_cache()
+    results["gmm"] = dict(results["gmm[fwd_w1]"])
+    results["tgmm"] = dict(results["tgmm[dw_w1]"])
+    _moe_layer_without_sync(torch, dev)
+
+
+def _moe_layer_without_sync(torch, dev):
+    """One dropless MoE layer at the slice's widths (bf16, 8 x 1024 tokens,
+    768 -> 3072, 8 experts, top-2), forward and backward, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation that waits
+    for the device (a read of the group sizes on the host, a nonzero, a
+    bincount) raises."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    layer = MoELayer(768, 3072, num_expert=8, top_k=2, dropless=True,
+                     device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator(device=dev).manual_seed(42))
+    x = torch.randn(8, 1024, 768, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(43)) \
+        .to(torch.bfloat16).requires_grad_()
+
+    def step():
+        out = layer(x)
+        (out.float().square().mean() + layer.l_aux).backward()
+
+    step()                        # loads the library, warms the allocator
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    used = {n: K.LAUNCHES[n] - before[n] for n in ("gmm", "tgmm")}
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in layer.parameters())
+    print(f"  MoE layer [8 x 1024, 768 -> 3072, 8 experts] forward and "
+          f"backward under set_sync_debug_mode('error'): no sync; launches "
+          f"{used}; gradients finite: {finite}", flush=True)
+    if used != {"gmm": 4, "tgmm": 2} or not finite:
+        raise AssertionError("the MoE layer did not run through its kernels")
+    del layer, x
+    torch.cuda.empty_cache()
+
+
+def _dropless(model):
+    for block in model.transformer.h:
+        if block.is_moe:
+            block.mlp.dropless = True
+    return model
+
+
+def phase_tiny_gpt_training(torch):
+    """A tiny float32 GPT-MoE (head_dim 64, 4 experts in every block,
+    dropless) trained 3 steps on the card through the flash, gmm, tgmm and
+    AdamW kernels against the port's CPU trainer (plain versions), held as
+    the tiny Llama is: losses 1e-5 relative; weights within 1e-5 for 99.9%
+    of the elements and 3 lr for all."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         load_numpy_state)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cfg = GPTConfig.tiny(vocab_size=256, hidden_size=256, layers=2, heads=4,
+                         seq=200, num_experts=4, moe_every=1)
+    cpu = _dropless(GPTForCausalLM(cfg, device="cpu",
+                                   generator=torch.Generator().manual_seed(9)))
+    gpu = _dropless(GPTForCausalLM(cfg, device="cuda"))
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 200)))
+    lr = 1e-3
+
+    def run(model, x):
+        tr = SpmdTrainer(model, AdamW(learning_rate=lr,
+                                      parameters=model.parameters()),
+                         lambda m, i, l: m.compute_loss(m(i), l))
+        return [float(tr.train_step(x, x)) for _ in range(3)]
+
+    want = run(cpu, ids)
+    before = dict(K.LAUNCHES)
+    got = run(gpu, ids.cuda())
+    used = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+    close = total = 0
+    worst = 0.0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        worst = max(worst, float(d.max()))
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    loss_err = max(abs(a / b - 1) for a, b in zip(got, want))
+    print(f"  tiny f32 GPT-MoE trained 3 steps on the card vs the CPU "
+          f"trainer: losses {got} vs {want} (max rel err {loss_err:.3g}, "
+          f"tol 1e-5); weights within 1e-5: {close}/{total}, worst "
+          f"{worst:.3g} (tol {3 * lr}); launches {used}", flush=True)
+    if not (loss_err <= 1e-5 and close >= 0.999 * total and worst <= 3 * lr
+            and all(used[n] > 0 for n in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv", "adamw", "gmm",
+                                          "tgmm"))):
+        raise AssertionError("GPT-MoE training on the card disagrees with "
+                             "the CPU")
+
+
 # -- phase 5: full-width training -------------------------------------------------
 
 def _llama_1b(layers=22):
@@ -995,7 +1309,7 @@ def phase_training(torch, args, launches_out):
     per_step = {"ragged_attention": 0, "rms_norm": 2 * n_l + 1 + 2 * n_l,
                 "rms_norm_residual": 0, "rope": 3 * n_l,
                 "flash_fwd": 2 * n_l, "flash_bwd_dq": n_l,
-                "flash_bwd_dkv": n_l, "adamw": 1}
+                "flash_bwd_dkv": n_l, "adamw": 1, "gmm": 0, "tgmm": 0}
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
@@ -1024,7 +1338,8 @@ def phase_training(torch, args, launches_out):
           + ", ".join(f"{k} {v:.3f}" for k, v in m["by_group_ms"].items()),
           flush=True)
     for name, ms in m["top_kernels_ms"].items():
-        print(f"    {ms:9.3f} ms  {name}", flush=True)
+        print(f"    {ms:9.3f} ms {m['top_kernels_launches'][name]:5.0f}x  "
+              f"{name}", flush=True)
     del trainer, model, ids, timed, prof
     torch.cuda.empty_cache()
     training.update(_train_step_agreement(torch, args.seed))
@@ -1044,6 +1359,15 @@ def _plain_train_patches(stack):
                                           FA.flash_forward_plain))
     stack.enter_context(mock.patch.object(FA, "flash_backward",
                                           FA.flash_backward_plain))
+
+
+def _rel_dist(a, b):
+    """(relative L2 distance over all, {name: relative L2 distance}) of
+    two {name: gradient} maps, b the reference."""
+    sq = {n: float((a[n] - b[n]).norm()) ** 2 for n in b}
+    ref = {n: float(b[n].norm()) ** 2 for n in b}
+    return (math.sqrt(sum(sq.values()) / sum(ref.values())),
+            {n: math.sqrt(sq[n] / ref[n]) for n in b})
 
 
 def _train_step_agreement(torch, seed):
@@ -1086,22 +1410,15 @@ def _train_step_agreement(torch, seed):
         grads = {n: p.grad.float() for n, p in model.named_parameters()}
         return float(loss.detach()), grads
 
-    def dist(a, b):
-        """(relative L2 distance over all, {name: relative L2 distance})"""
-        sq = {n: float((a[n] - b[n]).norm()) ** 2 for n in b}
-        ref = {n: float(b[n].norm()) ** 2 for n in b}
-        return (math.sqrt(sum(sq.values()) / sum(ref.values())),
-                {n: math.sqrt(sq[n] / ref[n]) for n in b})
-
     lk32, gk32 = run(torch.float32, False)
     lp32, gp32 = run(torch.float32, True)
-    err32, _ = dist(gk32, gp32)
+    err32, _ = _rel_dist(gk32, gp32)
     del gk32
     lk16, gk16 = run(torch.bfloat16, False)
-    err_k, leaf_k = dist(gk16, gp32)
+    err_k, leaf_k = _rel_dist(gk16, gp32)
     del gk16
     lp16, gp16 = run(torch.bfloat16, True)
-    err_p, leaf_p = dist(gp16, gp32)
+    err_p, leaf_p = _rel_dist(gp16, gp32)
     del gp16, gp32
     torch.cuda.empty_cache()
     ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
@@ -1123,6 +1440,194 @@ def _train_step_agreement(torch, seed):
             and all(math.isfinite(x) for x in (lk16, lp16, err_k, err_p))):
         raise AssertionError("the kernel train step disagrees with the plain "
                              "step")
+    return dict(train_step_loss_rel_err_f32=loss32,
+                train_step_grad_rel_err_f32=err32,
+                train_step_bf16_grad_err_kernels=err_k,
+                train_step_bf16_grad_err_plain=err_p,
+                train_step_bf16_grad_err_ratio_worst_param=ratio[worst])
+
+
+# -- phase 6: GPT-MoE training at full width ------------------------------------
+
+def _gpt_trainer_for(model, lr=1e-4):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    return SpmdTrainer(
+        model, AdamW(learning_rate=lr, parameters=model.parameters(),
+                     weight_decay=0.01),
+        lambda m, ids, labels: m.compute_loss(m(ids), labels))
+
+
+def phase_gpt_moe_training(torch, args, launches_out):
+    """GPTConfig.gpt_moe(8) at full width (GPT-2-small widths, 8 experts
+    top-2 in every second block, dropless): bf16 weights
+    (model.bfloat16()), fp32 moments, AdamW lr 1e-4 wd 0.01, no remat,
+    batch 8 x 1024 random ids as input and label, random weights from the
+    seed; 2 warm-up and 5 timed steps."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    card = _card_line()
+    cfg = GPTConfig.gpt_moe(8)
+    batch, seq = 8, cfg.max_position_embeddings
+    print(f"phase 6: GPT-MoE training (hidden {cfg.hidden_size}, "
+          f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} heads, "
+          f"vocab {cfg.vocab_size}, {cfg.num_experts} experts top-"
+          f"{cfg.moe_top_k} every {cfg.moe_every} blocks, dropless; batch "
+          f"{batch} x {seq}) bf16 weights, fp32 moments, seed {args.seed} "
+          f"[{card}]", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # left by earlier phases
+    model = _dropless(GPTForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(args.seed)))
+    model.bfloat16()
+    n_params = model.num_params()
+    trainer = _gpt_trainer_for(model)
+    ids = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    losses = []
+    for _ in range(2):
+        losses.append(float(trainer.train_step(ids, ids)))
+    trainer.block()
+    K.reset_launches()
+    t0 = time.monotonic()
+    timed = [trainer.train_step(ids, ids) for _ in range(5)]
+    trainer.block()
+    secs = time.monotonic() - t0
+    launches = dict(K.LAUNCHES)
+    losses += [float(x) for x in timed]
+    n_l = cfg.num_hidden_layers
+    n_moe = sum(b.is_moe for b in model.transformer.h)
+    per_step = {n: 0 for n in K.LAUNCHES}
+    per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l,
+                    adamw=1, gmm=4 * n_moe, tgmm=2 * n_moe)
+    expect = {k: 5 * v for k, v in per_step.items()}
+    print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
+          f"{per_step})", flush=True)
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    launches_out.update(launches)
+    step_ms = 1e3 * secs / 5
+    tok_s = batch * seq / (secs / 5)
+    mfu = model.flops_per_token(seq) * tok_s / BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {losses}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    training = dict(params=n_params, batch=batch, seq=seq, step_ms=step_ms,
+                    tokens_per_s=tok_s,
+                    flops_per_token=model.flops_per_token(seq),
+                    mfu_vs_989_tflops=mfu, peak_memory_gb=peak_gb,
+                    peak_memory_of_phase_gb=peak_gb - held / 1e9,
+                    losses=losses, card=card)
+    print("  gpt_moe training: " + json.dumps(training), flush=True)
+    prof, training["breakdown"] = _profile(
+        torch, lambda: trainer.train_step(ids, ids), 1)
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          "gpt_moe_train_step_trace.json"))
+    m = training["breakdown"]
+    # the profiler's own host cost per launch stretches the traced step's
+    # wall time; the untraced step's wall time against the traced device
+    # time gives the idle share without it
+    training["idle_share_untraced"] = 1 - m["device_ms"] / step_ms
+    print(f"  GPT-MoE train step breakdown: wall {m['wall_ms']:.3f} ms, "
+          f"device {m['device_ms']:.3f} ms (idle share "
+          f"{m['idle_share']:.3f} traced, "
+          f"{training['idle_share_untraced']:.3f} against the untraced "
+          f"step), {m['device_launches']:.0f} kernels; by group (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in m["by_group_ms"].items()),
+          flush=True)
+    for name, ms in m["top_kernels_ms"].items():
+        print(f"    {ms:9.3f} ms {m['top_kernels_launches'][name]:5.0f}x  "
+              f"{name}", flush=True)
+    del trainer, model, ids, timed, prof
+    torch.cuda.empty_cache()
+    training.update(_gpt_train_step_agreement(torch, args.seed))
+    return training
+
+
+def _plain_gmm_patches(stack):
+    from paddle_tpu_torch.kernels import gmm as PG
+    stack.enter_context(mock.patch.object(PG, "gmm", PG.gmm_plain))
+    stack.enter_context(mock.patch.object(PG, "tgmm", PG.tgmm_plain))
+
+
+def _gpt_train_step_agreement(torch, seed):
+    """One forward + backward of the GPT-MoE widths at 2 layers (one dense,
+    one MoE) at batch 1 x 1024 through the kernels and through the plain
+    versions, in float32 and in bf16 (the same bf16-valued weights,
+    upcast). float32: the paths differ only in summation order, so the
+    loss agrees to 1e-5 relative and the gradients to 1e-5 relative L2
+    over all of them. bf16: both paths round at the same places, so the
+    kernel path's gradients must be no further from the float32 step than
+    the plain bf16 path's: within 1.1x over all, 1.25x for each
+    parameter."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.gpt_moe(8, num_hidden_layers=2)
+    ids = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (1, 1024))).cuda()
+    base = GPTForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed + 3))
+    base.bfloat16()
+    state = {n: p.detach() for n, p in base.named_parameters()}
+
+    def run(dtype, plain):
+        model = _dropless(GPTForCausalLM(cfg, device="cuda"))
+        if dtype == torch.bfloat16:
+            model.bfloat16()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n].to(dtype))
+        before = dict(K.LAUNCHES)
+        with ExitStack() as stack:
+            if plain:
+                _plain_train_patches(stack)
+                _plain_gmm_patches(stack)
+            loss = model.compute_loss(model(ids), ids).float()
+            loss.backward()
+            torch.cuda.synchronize()
+        used = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+        if plain and any(used.values()):
+            raise AssertionError("the plain step launched a kernel")
+        if not plain and (used["gmm"], used["tgmm"]) != (4, 2):
+            raise AssertionError(f"the kernel step's launches: {used}")
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        return float(loss.detach()), grads
+
+    lk32, gk32 = run(torch.float32, False)
+    lp32, gp32 = run(torch.float32, True)
+    err32, _ = _rel_dist(gk32, gp32)
+    del gk32
+    lk16, gk16 = run(torch.bfloat16, False)
+    err_k, leaf_k = _rel_dist(gk16, gp32)
+    del gk16
+    lp16, gp16 = run(torch.bfloat16, True)
+    err_p, leaf_p = _rel_dist(gp16, gp32)
+    del gp16, gp32
+    torch.cuda.empty_cache()
+    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
+    worst = max(ratio, key=ratio.get)
+    loss32 = abs(lk32 / lp32 - 1)
+    print(f"  GPT-MoE train step kernels vs plain (full widths, 2 layers, 1 "
+          f"x 1024): float32 loss {lk32:.6f} vs {lp32:.6f} (rel err "
+          f"{loss32:.3g}, tol 1e-5), grads rel L2 err {err32:.3g} (tol "
+          f"1e-5); bf16 loss kernels {lk16:.6f} plain {lp16:.6f}, grads' rel "
+          f"L2 distance from the float32 step: kernels {err_k:.5g}, plain "
+          f"{err_p:.5g} (tol: kernels <= 1.1 x plain); per parameter, the "
+          f"largest ratio kernels / plain {ratio[worst]:.4g} at {worst} (tol "
+          f"1.25)", flush=True)
+    for n in leaf_p:
+        print(f"    {n}: kernels {leaf_k[n]:.5g} plain {leaf_p[n]:.5g}",
+              flush=True)
+    if not (loss32 <= 1e-5 and err32 <= 1e-5 and err_k <= 1.1 * err_p
+            and max(ratio.values()) <= 1.25
+            and all(math.isfinite(x) for x in (lk16, lp16, err_k, err_p))):
+        raise AssertionError("the GPT-MoE kernel train step disagrees with "
+                             "the plain step")
     return dict(train_step_loss_rel_err_f32=loss32,
                 train_step_grad_rel_err_f32=err32,
                 train_step_bf16_grad_err_kernels=err_k,
@@ -1178,6 +1683,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     _build.library("flash_attention")
     _build.library("adamw")
+    _build.library("gmm")
     print(f"phase 2: nvcc {nvcc_s:.2f}s, triton compile "
           f"{time.monotonic() - t1:.2f}s", flush=True)
 
@@ -1196,11 +1702,15 @@ def main(argv=None):
     timed("phase 3 training kernels", phase_train_kernels, torch, results)
     timed("phase 3 tiny serving", phase_tiny_reference, torch)
     timed("phase 3 tiny training", phase_tiny_training, torch)
-    serve_launches, train_launches = {}, {}
+    timed("phase 3 MoE kernels", phase_gmm_kernels, torch, results)
+    timed("phase 3 tiny GPT-MoE training", phase_tiny_gpt_training, torch)
+    serve_launches, train_launches, gpt_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
                     serve_launches)
     training = timed("phase 5 training", phase_training, torch, args,
                      train_launches)
+    gpt_moe = timed("phase 6 GPT-MoE training", phase_gpt_moe_training,
+                    torch, args, gpt_launches)
 
     replaces = {
         "ragged_attention": ("cuda", "paddle_tpu_torch/csrc/ragged_attention.cu",
@@ -1217,12 +1727,17 @@ def main(argv=None):
                       "paddle_tpu/kernels/flash_pallas.py:439"),
         "adamw": ("cuda", "paddle_tpu_torch/csrc/adamw.cu",
                   "paddle_tpu/kernels/optimizer_pallas.py:81"),
+        "gmm": ("cuda", "paddle_tpu_torch/csrc/gmm.cu",
+                "paddle_tpu/kernels/gmm_pallas.py:108"),
+        "tgmm": ("cuda", "paddle_tpu_torch/csrc/gmm.cu",
+                 "paddle_tpu/kernels/gmm_pallas.py:156"),
     }
-    # launches: the main paths' runs (serving and training), summed; the
-    # backward's entry counts its dq launches, each paired with one dk/dv
-    # launch (the training run checks both counts exactly)
-    main_runs = {k: serve_launches.get(k, 0) + train_launches.get(k, 0)
-                 for k in set(serve_launches) | set(train_launches)}
+    # launches: the main paths' runs (serving, Llama and GPT-MoE training),
+    # summed; the backward's entry counts its dq launches, each paired with
+    # one dk/dv launch (the training runs check both counts exactly)
+    runs = (serve_launches, train_launches, gpt_launches)
+    main_runs = {k: sum(r.get(k, 0) for r in runs)
+                 for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
@@ -1234,9 +1749,12 @@ def main(argv=None):
     print("phase seconds: " + json.dumps(seconds), flush=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": results, "serving": serving,
-                   "training": training, "seconds": seconds,
+                   "training": training, "gpt_moe_training": gpt_moe,
+                   "seconds": seconds,
                    "launches": {"serving": serve_launches,
-                                "training": train_launches}}, f, indent=1)
+                                "training": train_launches,
+                                "gpt_moe_training": gpt_launches}}, f,
+                  indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

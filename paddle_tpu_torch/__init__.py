@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of paddle_tpu's serving path.
+"""PyTorch/CUDA port of paddle_tpu: Llama serving and training, and GPT
+(dense and dropless MoE) training.
 
 A package of its own beside ``paddle_tpu`` (the JAX reference): it imports
 ``torch`` and nothing of JAX or of ``paddle_tpu``. Module names mirror the

@@ -1,13 +1,18 @@
-"""The functionals the Llama model calls, in the JAX package's layouts.
+"""The functionals the Llama and GPT models call, in the JAX package's
+layouts.
 
 Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention``
-(``attention.py``), ``rms_norm`` (``norm.py``) and ``cross_entropy``
-(``loss.py``), each for the cases the training path uses; anything else
-raises ``NotImplementedError``.
+(``attention.py``), ``rms_norm`` and ``layer_norm`` (``norm.py``),
+``cross_entropy`` (``loss.py``), ``gelu`` (``activation.py``), ``linear``
+and ``embedding`` (``common.py``), each for the cases the training paths
+use; anything else raises ``NotImplementedError``. ``layer_norm``,
+``gelu``, ``linear`` and ``embedding`` are plain PyTorch: the JAX package
+has no Pallas kernel for them either.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 from ..kernels import fused
 from ..kernels.flash_attention import flash_attention_bshd
@@ -36,6 +41,51 @@ def rms_norm(x, weight, epsilon=1e-6):
     return fused.rms_norm(x, weight, epsilon)
 
 
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
+               name=None):
+    """LayerNorm over the trailing ``normalized_shape`` axes with the JAX
+    formula: mean and (biased) variance of x in fp32, ``(x - mean) /
+    sqrt(var + eps)``, times the weight and plus the bias in fp32, cast
+    back to x's dtype."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    axes = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    centered = xf - mean
+    var = (centered * centered).mean(dim=axes, keepdim=True)
+    out = centered / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def gelu(x, approximate=False, name=None):
+    """GELU in x's dtype: the erf form, or the tanh approximation with
+    ``approximate=True``."""
+    return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ W + b`` with W in Paddle's ``[in, out]`` layout."""
+    y = torch.matmul(x, weight)
+    return y if bias is None else y + bias
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x``; the rows of ``padding_idx``
+    ids come out as zeros."""
+    if sparse:
+        raise NotImplementedError("embedding: sparse gradients are not "
+                                  "ported")
+    out = TF.embedding(x.long(), weight)
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
+    return out
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
@@ -57,4 +107,5 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     return loss.sum() / valid.sum().float().clamp(min=1.0)
 
 
-__all__ = ["scaled_dot_product_attention", "rms_norm", "cross_entropy"]
+__all__ = ["scaled_dot_product_attention", "rms_norm", "layer_norm",
+           "cross_entropy", "gelu", "linear", "embedding"]

@@ -13,7 +13,9 @@ round once at the end, so they differ by at most one rounding step.
 Flash attention in bfloat16: each row within two ulps of the row's own
 largest value (P is also rounded to bf16, at another running max). AdamW:
 equal, since the kernel rounds every operation explicitly in the plain
-version's order.
+version's order. Grouped matmuls: float32 1e-5 of the largest value (fp32
+sums in another order); bfloat16 each row within two ulps of its largest
+value (both round one fp32 sum).
 """
 import numpy as np
 import pytest
@@ -307,3 +309,139 @@ def test_training_on_gpu_matches_cpu(dev):
     assert all(K.LAUNCHES[n] > 0 for n in ("flash_fwd", "flash_bwd_dq",
                                             "flash_bwd_dkv", "rms_norm",
                                             "rope"))
+
+
+# -- the MoE slice ---------------------------------------------------------------
+
+GMM_SIZES = {  # group sizes over t = 384 rows (rows past the sum stay 0)
+    "skewed": [1, 1, 1, 0, 192, 2, 1, 130],        # one-row groups, an empty one
+    "one_group": [0, 0, 384, 0],
+    "ragged_tail": [100, 0, 37, 200],             # 47 rows past the groups
+}
+
+
+def _gmm_case(dev, dtype, sizes, k=64, n=96, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t, e = 384, len(sizes)
+    x = torch.randn(t, k, device=dev, generator=g).to(dtype)
+    w = torch.randn(e, k, n, device=dev, generator=g).to(dtype)
+    dy = torch.randn(t, n, device=dev, generator=g).to(dtype)
+    return x, w, dy, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def _assert_gmm_close(got, want, dtype):
+    if dtype == torch.float32:
+        # fp32 sums of up to 384 products in another order
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    else:
+        _assert_rows_close(got, want, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GMM_SIZES))
+def test_gmm_kernels_match_plain(dev, dtype, case):
+    from paddle_tpu_torch.kernels.gmm import gmm, gmm_plain, tgmm, tgmm_plain
+    x, w, dy, gs = _gmm_case(dev, dtype, GMM_SIZES[case])
+    before = dict(K.LAUNCHES)
+    out = gmm(x, w, gs)
+    dx = gmm(dy, w, gs, trans_w=True)
+    dw = tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gmm"] == before["gmm"] + 2
+    assert K.LAUNCHES["tgmm"] == before["tgmm"] + 1
+    total = sum(GMM_SIZES[case])
+    assert not out[total:].any() and not dx[total:].any()
+    _assert_gmm_close(out, gmm_plain(x, w, gs), dtype)
+    _assert_gmm_close(dx, gmm_plain(dy, w, gs, trans_w=True), dtype)
+    want = tgmm_plain(x, dy, gs)
+    assert dw.dtype == torch.float32
+    for g_, size in enumerate(GMM_SIZES[case]):
+        if size == 0:
+            assert not dw[g_].any()
+    _assert_gmm_close(dw.to(dtype), want.to(dtype), dtype)
+
+
+def test_gmm_function_backward_launches_the_kernels(dev):
+    from paddle_tpu_torch.kernels.gmm import GMMFunction
+    x, w, dy, gs = _gmm_case(dev, torch.bfloat16, GMM_SIZES["skewed"])
+    x.requires_grad_()
+    w.requires_grad_()
+    K.reset_launches()
+    GMMFunction.apply(x, w, gs).backward(dy)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["gmm"], K.LAUNCHES["tgmm"]) == (2, 1)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+
+
+def test_gmm_kernel_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels.gmm import gmm, tgmm
+    x, w, dy, gs = _gmm_case(dev, torch.float32, GMM_SIZES["skewed"])
+    with pytest.raises(ValueError):                  # k not a multiple of 16
+        gmm(x[:, :40], w[:, :40], gs)
+    with pytest.raises(TypeError):
+        gmm(x, w.bfloat16(), gs)
+    with pytest.raises(TypeError):
+        tgmm(x, dy, gs.long())
+
+
+def test_moe_layer_on_gpu_matches_cpu(dev):
+    """One dropless MoE layer (float32) forward and backward on the GPU
+    against the same layer on the CPU: output and every gradient within
+    1e-5 of their scale."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    cpu = MoELayer(d_model=64, d_hidden=128, num_expert=4, dropless=True,
+                   device="cpu", generator=torch.Generator().manual_seed(1))
+    gpu = MoELayer(d_model=64, d_hidden=128, num_expert=4, dropless=True,
+                   device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 50, 64, generator=torch.Generator().manual_seed(2))
+    outs = []
+    for layer, xx in ((cpu, x), (gpu, x.to(dev))):
+        out = layer(xx)
+        (out.square().sum() + layer.l_aux).backward()
+        outs.append(out.detach().cpu())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5 * max(
+        1.0, float(outs[0].abs().max()))
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        tol = 1e-5 * max(1.0, float(p.grad.abs().max()))
+        assert float((q.grad.cpu() - p.grad).abs().max()) <= tol, n
+
+
+def test_gpt_moe_training_on_gpu_matches_cpu(dev):
+    """A tiny float32 GPT-MoE (head_dim 64, dropless MoE in every block)
+    trained 3 steps on the GPU through the flash, gmm, tgmm and AdamW
+    kernels matches the CPU trainer: losses 1e-5 relative; weights within
+    3 lr, and within 1e-5 for 99.9% of the elements."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cfg = GPTConfig.tiny(vocab_size=97, hidden_size=128, layers=2, heads=2,
+                         seq=96, num_experts=4, moe_every=1)
+    cpu = GPTForCausalLM(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(4))
+    gpu = GPTForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 97, (2, 96)))
+
+    def run(model, x):
+        for block in model.transformer.h:
+            block.mlp.dropless = True
+        tr = SpmdTrainer(model, AdamW(learning_rate=1e-3,
+                                      parameters=model.parameters()),
+                         lambda m, i, l: m.compute_loss(m(i), l))
+        return [float(tr.train_step(x, x)) for _ in range(3)]
+
+    want = run(cpu, ids)
+    K.reset_launches()
+    got = run(gpu, ids.to(dev))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    close = total = 0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        assert float(d.max()) <= 3e-3, n
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    assert close >= 0.999 * total, (close, total)
+    assert K.LAUNCHES["gmm"] == 3 * 2 * 4 and K.LAUNCHES["tgmm"] == 3 * 2 * 2
+    assert K.LAUNCHES["adamw"] == 3 and K.LAUNCHES["flash_fwd"] == 3 * 2

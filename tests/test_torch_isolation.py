@@ -44,7 +44,10 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.nn, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.parallel, "
             "paddle_tpu_torch.kernels.flash_attention, "
-            "paddle_tpu_torch.kernels.optimizer; "
+            "paddle_tpu_torch.kernels.optimizer, "
+            "paddle_tpu_torch.kernels.gmm, paddle_tpu_torch.models.gpt, "
+            "paddle_tpu_torch.incubate.distributed.models.moe, "
+            "paddle_tpu_torch.nn.initializer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -64,6 +67,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
+
+
+def test_gpt_and_moe_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.tiny(vocab_size=17, hidden_size=16, layers=2, heads=2,
+                         seq=16, num_experts=2)
+    GPTForCausalLM(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoELayer(d_model=16, d_hidden=32, num_expert=2, dropless=True)
 
 
 def test_training_follows_the_model_device():
