@@ -16,7 +16,12 @@ Phases, each printing its own lines and its seconds:
      its dx form and tgmm) at the GPT-MoE slice's shapes, bench.py's
      gmm_probe shapes and a skewed routing, one MoE layer's forward and
      backward with no host sync, and a tiny float32 GPT-MoE trained 3
-     steps on the card against the CPU trainer;
+     steps on the card against the CPU trainer; the FlashMask kernels
+     (tile-summary pre-pass, forward, dq, dk/dv) at bench.py's
+     flashmask_probe shape, the packed slice's shape and float32 cases
+     (non-causal bands, a window, bounds per head, rows that see no key),
+     and a tiny float32 Llama on packed documents trained 3 steps on the
+     card against the CPU trainer;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine: the launch
      counts are zeroed just before and read just after, every request
@@ -34,6 +39,11 @@ Phases, each printing its own lines and its seconds:
      with exact launch counts, finite and falling losses, a profile of one
      step, and one step through the kernels against the plain versions at
      the same widths with 2 layers;
+  7. the llama-1.1b-b8 recipe of phase 5 on packed documents (lengths
+     uniform in [64, 1024] packed into each 2048-token row; FlashMask
+     column bounds keep attention inside each document; labels cut at the
+     boundaries): the same steps, checks, profile and 2-layer agreement,
+     with exact FlashMask launch counts and no dense flash launch;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line.
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -453,10 +463,9 @@ def phase_serving(torch, args, launches_out):
     launches_out.update(launches)
     steps = eng.steps - steps0
     n_l = cfg.num_hidden_layers
-    expect = {"ragged_attention": n_l * steps, "rms_norm": (n_l + 1) * steps,
-              "rms_norm_residual": n_l * steps, "rope": n_l * steps,
-              "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-              "adamw": 0, "gmm": 0, "tgmm": 0}
+    expect = {n: 0 for n in K.LAUNCHES}
+    expect.update(ragged_attention=n_l * steps, rms_norm=(n_l + 1) * steps,
+                  rms_norm_residual=n_l * steps, rope=n_l * steps)
     print(f"  launches over {steps} steps: {launches} (expected {expect})",
           flush=True)
     if launches != expect:
@@ -493,6 +502,12 @@ def phase_serving(torch, args, launches_out):
 
 
 def _kernel_group(name):
+    if "flashmask_summary" in name:
+        return "flashmask_summary"
+    if "flash_fwd_kernel" in name and "true>" in name:   # MASKED = true
+        return "flashmask_fwd"
+    if "flash_bwd" in name and "true>" in name:
+        return "flashmask_bwd"
     if "tgmm_kernel" in name:
         return "tgmm"
     if "gmm_kernel" in name:
@@ -653,18 +668,23 @@ def _step_agreement(torch, model, cfg, ecfg, seed):
 
 # -- phase 3 (training kernels) ------------------------------------------------------
 
-def _flash_bytes_flops(b, h, sq, sk, d, causal, esize, backward):
+def _flash_bytes_flops(b, h, sq, sk, d, causal, esize, backward, pairs=None,
+                       bounds_bytes=0):
     """Bytes the function must move (each input read once, each output
-    written once) and the matmul flops of the visible (query, key) pairs."""
-    pairs = sum(min(sk, i + 1 + sk - sq) for i in range(sq)) if causal \
-        else sq * sk
+    written once) and the matmul flops of the visible (query, key) pairs:
+    ``pairs`` over all b * h heads where a mask sets them (FlashMask, whose
+    bounds add ``bounds_bytes``), else those of causal or no masking."""
+    if pairs is None:
+        pairs = b * h * (sum(min(sk, i + 1 + sk - sq) for i in range(sq))
+                         if causal else sq * sk)
     qo = b * h * sq * d * esize
     kv = b * h * sk * d * esize
     rows = b * h * sq * 4
     if not backward:
-        return 2 * qo + 2 * kv + rows, 4 * b * h * pairs * d
+        return 2 * qo + 2 * kv + rows + bounds_bytes, 4 * pairs * d
     # q, k, v, out, dO and lse in; dq, dk, dv out
-    return 3 * qo + 2 * kv + rows + qo + 2 * kv, 10 * b * h * pairs * d
+    return (3 * qo + 2 * kv + rows + qo + 2 * kv + bounds_bytes,
+            10 * pairs * d)
 
 
 def _flash_case(torch, dev, b, h, sq, sk, d, dtype, seed):
@@ -898,12 +918,13 @@ def _norm_rope_at_training_shapes(torch, dev):
     torch.cuda.empty_cache()
 
 
-def phase_tiny_training(torch):
+def phase_tiny_training(torch, packed=False):
     """A tiny float32 Llama (head_dim 64) trained 3 steps on the card
     through every training kernel against the port's CPU trainer (plain
-    versions). Tolerances: losses 1e-5 relative; weights within 1e-5 for
-    99.9% of the elements and 3 lr for all (Adam turns the sign of a
-    near-zero gradient element's rounding difference into up to lr)."""
+    versions); ``packed``: on packed documents of 20-90 tokens, through the
+    FlashMask kernels. Tolerances: losses 1e-5 relative; weights within
+    1e-5 for 99.9% of the elements and 3 lr for all (Adam turns the sign of
+    a near-zero gradient element's rounding difference into up to lr)."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
@@ -918,19 +939,24 @@ def phase_tiny_training(torch):
     load_numpy_state(gpu, {n: p.detach().numpy()
                            for n, p in cpu.named_parameters()})
     ids = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, 200)))
+    batch = (ids, ids)
+    if packed:
+        labels, se, _ = _packed_batch(torch, ids, 8, lo=20, hi=90)
+        batch = (ids, labels, se)
     lr = 1e-3
 
-    def run(model, x):
+    def run(model, xs):
         tr = SpmdTrainer(model, AdamW(learning_rate=lr,
                                       parameters=model.parameters()),
-                         lambda m, i, l: m.forward_loss(i, l,
-                                                        loss_chunk_size=64),
+                         lambda m, i, l, e=None: m.forward_loss(
+                             i, l, loss_chunk_size=64,
+                             attn_startend_row_indices=e),
                          remat_layers=list(model.model.layers))
-        return [float(tr.train_step(x, x)) for _ in range(3)]
+        return [float(tr.train_step(*xs)) for _ in range(3)]
 
-    want = run(cpu, ids)
+    want = run(cpu, batch)
     before = dict(K.LAUNCHES)
-    got = run(gpu, ids.cuda())
+    got = run(gpu, [x.cuda() for x in batch])
     used = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
     close = total = 0
     worst = 0.0
@@ -940,14 +966,18 @@ def phase_tiny_training(torch):
         close += int((d <= 1e-5).sum())
         total += d.numel()
     loss_err = max(abs(a / b - 1) for a, b in zip(got, want))
-    print(f"  tiny f32 Llama trained 3 steps on the card vs the CPU "
+    attn = ("flashmask_fwd", "flashmask_bwd_dq", "flashmask_bwd_dkv",
+            "flashmask_summary") if packed else ("flash_fwd", "flash_bwd_dq",
+                                                 "flash_bwd_dkv")
+    print(f"  tiny f32 Llama{' on packed documents' if packed else ''} "
+          f"trained 3 steps on the card vs the CPU "
           f"trainer: losses {got} vs {want} (max rel err {loss_err:.3g}, "
           f"tol 1e-5); weights within 1e-5: {close}/{total}, worst "
           f"{worst:.3g} (tol {3 * lr}); launches {used}", flush=True)
     if not (loss_err <= 1e-5 and close >= 0.999 * total and worst <= 3 * lr
-            and all(used[n] > 0 for n in ("flash_fwd", "flash_bwd_dq",
-                                          "flash_bwd_dkv", "adamw",
-                                          "rms_norm", "rope"))):
+            and all(used[n] > 0 for n in attn + ("adamw", "rms_norm",
+                                                 "rope"))
+            and (not packed or used["flash_fwd"] == 0)):
         raise AssertionError("training on the card disagrees with the CPU")
 
 
@@ -1249,6 +1279,316 @@ def phase_tiny_gpt_training(torch):
                              "the CPU")
 
 
+# -- phase 3 (FlashMask kernels) and packed documents ------------------------------
+
+def _doc_ends(rng, seq, lo, hi):
+    """End of each position's document: lengths uniform in [lo, hi] from
+    ``rng``, packed to ``seq``, the last one cut."""
+    ends, start = [], 0
+    while start < seq:
+        end = min(seq, start + int(rng.integers(lo, hi + 1)))
+        ends += [end] * (end - start)
+        start = end
+    return ends
+
+
+def _packed_batch(torch, ids, seed, lo=64, hi=1024):
+    """(labels, startend [b, 1, s, 1] int32, ends [b, s] numpy) for ids
+    [b, s]: each row packs documents of lengths uniform in [lo, hi] from
+    ``numpy.random.default_rng(seed)``; LTS[j] = the end of column j's
+    document; the labels are the ids with each document's first position
+    (but 0) at -100, so no token is trained across a boundary."""
+    import numpy as np
+    b, s = ids.shape
+    rng = np.random.default_rng(seed)
+    ends = np.asarray([_doc_ends(rng, s, lo, hi) for _ in range(b)],
+                      np.int32)
+    first = np.zeros((b, s), bool)
+    first[:, 1:] = ends[:, 1:] != ends[:, :-1]
+    labels = ids.clone()
+    labels[torch.from_numpy(first).to(ids.device)] = -100
+    se = torch.from_numpy(ends[:, None, :, None].copy()).to(ids.device)
+    return labels, se, ends
+
+
+def _causal_doc_pairs(ends):
+    """Visible (query, key) pairs of causal attention inside the documents
+    whose per-position ends are ``ends`` [b, s]."""
+    import numpy as np
+    b, s = ends.shape
+    i = np.arange(s)
+    first = np.ones((b, s), bool)
+    first[:, 1:] = ends[:, 1:] != ends[:, :-1]
+    start = np.maximum.accumulate(np.where(first, i, 0), axis=1)
+    return int((i - start + 1).sum())
+
+
+def _tile_stats(torch, kinds, vis, h):
+    """The masked forward's own tile kinds (``kinds [b * h, nt, nt]`` int8
+    as it wrote them: 0 skipped, 1 partial, 2 full, -1 outside its loops)
+    held against the dense visibility ``vis [b, hb, s, s]``: every skipped
+    tile holds no visible entry, every full tile only visible ones, and
+    the heads that share bounds were classified alike. Returns the counts
+    over every (b, bounds head): tiles visited, skipped, full, partial, and
+    the visited tiles with no visible entry (what an exact test would
+    skip)."""
+    b, hb, s, _ = vis.shape
+    nt = kinds.shape[-1]
+    vis = torch.nn.functional.pad(vis, (0, nt * 64 - s, 0, nt * 64 - s))
+    vis = vis.reshape(b, hb, nt, 64, nt, 64)
+    seen, whole = vis.any(5).any(3), vis.all(5).all(3)
+    kinds = kinds.view(b, hb, h // hb, nt, nt)
+    if not bool((kinds == kinds[:, :, :1]).all()):
+        raise AssertionError("heads that share bounds got other tile kinds")
+    kinds = kinds[:, :, 0]
+    if seen[kinds == 0].any() or not bool(whole[kinds == 2].all()):
+        raise AssertionError("the kernel skipped a tile with a visible "
+                             "entry or ran a tile with a masked entry as "
+                             "full")
+    visited = kinds >= 0
+    return dict(visited=int(visited.sum()), skip=int((kinds == 0).sum()),
+                full=int((kinds == 2).sum()),
+                partial=int((kinds == 1).sum()),
+                no_visible_entry=int((~seen & visited).sum()))
+
+
+def _flashmask_case(torch, results, name, b, h, s, d, dtype, bounds, causal,
+                    window, seed):
+    """One FlashMask case: forward (out, lse) and backward (dq, dk, dv)
+    against the plain versions (bf16: rows within 2 ulps and no further
+    from float32 than plain bf16, 1.1x; float32 2e-5 forward, 1e-4 of
+    max(1, |ref|) backward; lse 1e-3), rows that see no key exactly 0 with
+    lse -1e30 and dq 0, the tile summary equal to its plain version, the
+    forward's own tile kinds held against the mask (``_tile_stats``); then
+    the times of the kernels, the plain versions and
+    F.scaled_dot_product_attention with the dense boolean mask, and the
+    bound from the visible pairs. Records ``results``."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    dev = bounds.device
+    bf16 = dtype == torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, h, s, d, device=dev, generator=g)
+                     .to(dtype) for _ in range(4))
+    vis = FA.flashmask_visible(bounds, s, s, causal, window)
+    seen = vis.any(-1).expand(b, h, s)
+    pairs = int(vis.sum()) * (h // bounds.shape[1])
+    summary = FA.flashmask_summary(bounds)
+    if not torch.equal(summary, FA.flashmask_summary_plain(bounds)):
+        raise AssertionError(f"flashmask_summary[{name}] differs from its "
+                             f"plain version")
+    mask = dict(bounds=bounds, window=window, summary=summary)
+    nt = -(-s // 64)
+    kinds = torch.full((b * h, nt, nt), -1, dtype=torch.int8, device=dev)
+    out, lse = FA.flash_forward(q, k, v, causal, tile_kinds=kinds, **mask)
+    torch.cuda.synchronize()
+    tiles = _tile_stats(torch, kinds, vis, h)
+    del kinds
+    wout, wlse = FA.flash_forward_plain(q, k, v, causal, bounds=bounds,
+                                        window=window)
+    err_f = _check(f"flashmask_fwd[{name}] lse", lse, wlse, 1e-3)
+    dist = {}
+    if bf16:
+        f32 = [x.float() for x in (q, k, v, dout)]
+        out32, lse32 = FA.flash_forward_plain(*f32[:3], causal, bounds=bounds,
+                                              window=window)
+        err_f = max(err_f, _check_rows(f"flashmask_fwd[{name}]", out, wout,
+                                       2))
+        dist["out"] = _check_vs_f32(f"flashmask_fwd[{name}]", out, wout,
+                                    out32)
+    else:
+        err_f = max(err_f, _check(f"flashmask_fwd[{name}]", out, wout,
+                                  2e-5 * max(1.0, float(wout.abs().max()))))
+    empty = int((~seen).sum())
+    if out[~seen].any() or not bool((lse[~seen] == FA.NEG_INF).all()):
+        raise AssertionError(f"flashmask_fwd[{name}]: a row that sees no "
+                             f"key is not 0 with lse -1e30")
+    del wout, wlse
+    grads = FA.flash_backward(q, k, v, out, lse, dout, causal, **mask)
+    torch.cuda.synchronize()
+    want = FA.flash_backward_plain(q, k, v, out, lse, dout, causal,
+                                   bounds=bounds, window=window)
+    if grads[0][~seen].any():
+        raise AssertionError(f"flashmask_bwd[{name}]: dq of a row that sees "
+                             f"no key is not 0")
+    ref32 = FA.flash_backward_plain(*f32[:3], out32, lse32, f32[3], causal,
+                                    bounds=bounds, window=window) \
+        if bf16 else None
+    err_b = 0.0
+    for i, (gname, got, ref) in enumerate(zip(("dq", "dk", "dv"), grads,
+                                              want)):
+        if bf16:
+            err_b = max(err_b, _check_rows(f"flashmask_bwd[{name}] {gname}",
+                                           got, ref, 2))
+            dist[gname] = _check_vs_f32(f"flashmask_bwd[{name}] {gname}",
+                                        got, ref, ref32[i])
+        else:
+            err_b = max(err_b, _check(
+                f"flashmask_bwd[{name}] {gname}", got, ref,
+                1e-4 * max(1.0, float(ref.abs().max()))))
+    del grads, want, ref32
+    if bf16:
+        del f32, out32, lse32
+    torch.cuda.empty_cache()
+    esize = 2 if bf16 else 4
+    peak = BF16_FLOPS if bf16 else FP32_FLOPS
+    nb, nf = _flash_bytes_flops(b, h, s, s, d, causal, esize, False, pairs,
+                                bounds.numel() * 4)
+    fwd_bound = _bound(nb, nf, peak)
+    nb, nf = _flash_bytes_flops(b, h, s, s, d, causal, esize, True, pairs,
+                                bounds.numel() * 4)
+    bwd_bound = _bound(nb, nf, peak)
+    # the kernels' times leave out the pre-pass (timed on its own): the
+    # model summarises the bounds once for all the calls of a step
+    fwd_ms = _graph_ms(lambda: FA.flash_forward(q, k, v, causal, **mask),
+                       iters=5, reps=3)
+    bwd_ms = _graph_ms(lambda: FA.flash_backward(q, k, v, out, lse, dout,
+                                                 causal, **mask),
+                       iters=3, reps=3)
+    fwd_plain = _time_ms(lambda: FA.flash_forward_plain(
+        q, k, v, causal, bounds=bounds, window=window), 2, warmup=1)
+    bwd_plain = _time_ms(lambda: FA.flash_backward_plain(
+        q, k, v, out, lse, dout, causal, bounds=bounds, window=window), 2,
+        warmup=1)
+    torch.cuda.empty_cache()
+    lib_fwd = _time_ms(lambda: TF.scaled_dot_product_attention(
+        q, k, v, attn_mask=vis), 10)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def lib_train():
+        TF.scaled_dot_product_attention(qg, kg, vg, attn_mask=vis) \
+            .backward(dout)
+    lib_both = _time_ms(lib_train, 10)
+    frac = pairs / (b * h * s * s)
+    causal_frac = pairs / (b * h * s * (s + 1) / 2)
+    common = dict(shape=[b, h, s, d], dtype=str(dtype)[6:], causal=causal,
+                  window=window, bound_heads=bounds.shape[1],
+                  visible_pairs=pairs, visible_of_all=frac,
+                  visible_of_causal=causal_frac, tiles=tiles,
+                  rows_without_key=empty)
+    results[f"flashmask_fwd[{name}]"] = dict(
+        max_abs_err=err_f, ms=fwd_ms, plain_ms=fwd_plain,
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
+        l2_from_f32=dist.get("out"), **common)
+    # no single library call is the backward alone: its time is the
+    # library's forward+backward less its forward
+    results[f"flashmask_bwd[{name}]"] = dict(
+        max_abs_err=err_b, ms=bwd_ms, plain_ms=bwd_plain,
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        library_ms=lib_both - lib_fwd, library_fwd_bwd_ms=lib_both,
+        l2_from_f32={n: dist.get(n) for n in ("dq", "dk", "dv")}, **common)
+    print(f"  flashmask[{name}] {[b, h, s, d]} {str(dtype)[6:]} "
+          f"{'causal' if causal else 'non-causal'} window {window}, bounds "
+          f"heads {bounds.shape[1]}: visible pairs {frac:.4f} of all, "
+          f"{causal_frac:.4f} of the causal; rows without a key {empty}; "
+          f"tiles visited {tiles['visited']}: skipped {tiles['skip']} "
+          f"({tiles['skip'] / max(tiles['visited'], 1):.4f}), full "
+          f"{tiles['full']}, partial {tiles['partial']} (with no visible "
+          f"entry: {tiles['no_visible_entry']}); forward ms={fwd_ms:.4f} "
+          f"plain_ms={fwd_plain:.4f} bound_ms={fwd_bound[0]:.4f} "
+          f"({fwd_bound[1]}) sdpa_mask_ms={lib_fwd:.4f}; backward ms="
+          f"{bwd_ms:.4f} plain_ms={bwd_plain:.4f} bound_ms="
+          f"{bwd_bound[0]:.4f} ({bwd_bound[1]}) sdpa_mask fwd+bwd ms="
+          f"{lib_both:.4f}", flush=True)
+    del q, k, v, dout, out, lse, qg, kg, vg, vis, summary, mask
+    torch.cuda.empty_cache()
+
+
+def phase_flashmask_kernels(torch, results, seed):
+    """The FlashMask kernels (tile-summary pre-pass, forward, dq and dk/dv)
+    against their plain versions: bench.py's flashmask_probe shape
+    ([4, 16, 2048, 64] bf16, causal documents of 256), the packed slice's
+    ([8, 16, 2048, 128] bf16 with phase 7's bounds, and with bounds that
+    mask nothing beyond causal, against the dense kernel's time) and
+    float32 cases:
+    non-causal 4-column random bands at a ragged length, causal 2-column
+    bands with a window of 100, bounds per head, and rows that see no
+    key."""
+    import numpy as np
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.nn.functional import _canonical_startend
+    dev = torch.device("cuda")
+    card = _card_line()
+    print(f"phase 3: FlashMask kernels against their plain versions (as "
+          f"flash: bf16 each row within 2 bf16 ulps of the row's largest "
+          f"plain value and no further from float32 than the plain bf16 "
+          f"version, within 1.1x; float32 2e-5, backward 1e-4 of max(1, "
+          f"|ref|); lse 1e-3; a row that sees no key exactly 0 with lse "
+          f"-1e30) [{card}]", flush=True)
+    rng = np.random.default_rng(seed + 5)
+    j = np.arange(2048)
+    probe = np.broadcast_to(((j // 256 + 1) * 256).astype(np.int32)
+                            [None, None, :, None], (4, 1, 2048, 1))
+    _, slice_se, _ = _packed_batch(torch, torch.zeros(8, 2048,
+                                                      dtype=torch.long), seed)
+    # bounds that mask nothing: the masked kernels' own cost against the
+    # dense kernels' at the slice's shape (phase 3 times both)
+    no_mask = np.full((8, 1, 2048, 1), 2048, np.int32)
+    s = 333
+    lts, uts = rng.integers(1, s, (1, 2, s, 1)), rng.integers(0, s,
+                                                              (1, 2, s, 1))
+    bands4 = np.concatenate([lts, np.minimum(lts + rng.integers(
+        0, 64, (1, 2, s, 1)), s), uts, np.minimum(uts + rng.integers(
+            0, 64, (1, 2, s, 1)), s)], -1)
+    lts = rng.integers(1, 512, (1, 2, 512, 1))
+    bands2 = np.concatenate([lts, np.minimum(lts + rng.integers(
+        0, 512, (1, 2, 512, 1)), 512)], -1)
+    per_head = np.asarray([[_doc_ends(rng, 384, 30, 150) for _ in range(4)]
+                           for _ in range(2)])[..., None]
+    empty = np.broadcast_to(np.asarray([90, 150, 90, 150]), (1, 1, 256, 4))
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [  # name, b, h, s, d, dtype, startend, causal, window
+        ("probe", 4, 16, 2048, 64, bf, probe, True, None),
+        ("slice", 8, 16, 2048, 128, bf, slice_se.numpy(), True, None),
+        ("slice_no_mask", 8, 16, 2048, 128, bf, no_mask, True, None),
+        ("f32_noncausal_4", 1, 2, 333, 64, f32, bands4, False, None),
+        ("f32_causal_2_window", 1, 2, 512, 128, f32, bands2, True,
+         (100, None)),
+        ("f32_per_head", 2, 4, 384, 64, f32, per_head, True, None),
+        ("f32_empty_rows", 1, 2, 256, 64, f32, empty, False, (-1, None)),
+    ]
+    for i, (name, b, h, s, d, dtype, se, causal, window) in enumerate(cases):
+        bounds = _canonical_startend(
+            torch.from_numpy(np.ascontiguousarray(se, np.int32)), s,
+            causal).to(dev)
+        _flashmask_case(torch, results, name, b, h, s, d, dtype, bounds,
+                        causal, window, seed + 50 + i)
+        if name == "slice":
+            summ_plain = _time_ms(lambda: FA.flashmask_summary_plain(bounds),
+                                  5)
+            nk = -(-s // 64)
+            # one PyTorch call for the same function (s divides into 64-
+            # column tiles here): the min and max of each bound over each
+            # tile, in another order of the 8 values
+            tiles_of = bounds.view(b, bounds.shape[1], nk, 64, 4)
+            lo, hi = torch.aminmax(tiles_of, dim=3)
+            want = FA.flashmask_summary_plain(bounds).view(*lo.shape, 2)
+            if not (torch.equal(lo, want[..., 0])
+                    and torch.equal(hi, want[..., 1])):
+                raise AssertionError("torch.aminmax is not the pre-pass's "
+                                     "function")
+            results["flashmask_summary"] = dict(
+                max_abs_err=0.0,
+                ms=_graph_ms(lambda: FA.flashmask_summary(bounds)),
+                plain_ms=summ_plain,
+                # the bounds read once, the summary written once; a min and
+                # a max an element (int32, counted at the fp32 rate)
+                **dict(zip(("bound_ms", "bound_by"), _bound(
+                    bounds.numel() * 4 + b * nk * 32, 2 * bounds.numel(),
+                    FP32_FLOPS))),
+                library_ms=_graph_ms(lambda: torch.aminmax(tiles_of, dim=3)),
+                library_call="torch.aminmax over [b, hb, nk, 64, 4], dim 3")
+    if not results["flashmask_fwd[f32_empty_rows]"]["rows_without_key"]:
+        raise AssertionError("the empty-rows case has no row without a key")
+    for name in ("fwd", "bwd"):
+        results[f"flashmask_{name}"] = dict(results[f"flashmask_{name}[slice]"])
+    m = results["flashmask_summary"]
+    print(f"  flashmask_summary [8, 1, 2048, 4]: ms={m['ms']:.4f} plain_ms="
+          f"{m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f} "
+          f"({m['bound_by']}) library_ms={m['library_ms']:.4f} "
+          f"({m['library_call']})", flush=True)
+
+
 # -- phase 5: full-width training -------------------------------------------------
 
 def _llama_1b(layers=22):
@@ -1265,26 +1605,31 @@ def _trainer_for(torch, model, lr=1e-4):
     return SpmdTrainer(
         model, AdamW(learning_rate=lr, parameters=model.parameters(),
                      weight_decay=0.01),
-        lambda m, ids, labels: m.forward_loss(ids, labels,
-                                              loss_chunk_size=256),
+        lambda m, ids, labels, se=None: m.forward_loss(
+            ids, labels, loss_chunk_size=256, attn_startend_row_indices=se),
         remat_layers=list(model.model.layers), remat_policy="full")
 
 
-def phase_training(torch, args, launches_out):
+def phase_training(torch, args, launches_out, packed=False):
     """The llama-1.1b-b8 recipe of bench.py at full width: bf16 weights
     (model.bfloat16()), fp32 moments, AdamW lr 1e-4 wd 0.01, full remat of
     every layer, chunked cross entropy of 256, batch 8 x 2048 random ids as
-    input and label; 2 warm-up and 5 timed steps."""
+    input and label; 2 warm-up and 5 timed steps. ``packed`` (phase 7):
+    each row packs documents of lengths uniform in [64, 1024]
+    (``_packed_batch``), attention stays inside each document through the
+    FlashMask kernels, and labels are cut at the boundaries."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import LlamaForCausalLM
     card = _card_line()
     cfg = _llama_1b()
     batch, seq = 8, 2048
-    print(f"phase 5: llama-1.1b-b8 training (hidden {cfg.hidden_size}, "
-          f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} heads, "
-          f"vocab {cfg.vocab_size}, batch {batch} x {seq}) bf16 weights, "
-          f"fp32 moments, seed {args.seed} [{card}]", flush=True)
+    print(f"phase {7 if packed else 5}: llama-1.1b-b8 training"
+          f"{' on packed documents' if packed else ''} (hidden "
+          f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, vocab {cfg.vocab_size}, batch "
+          f"{batch} x {seq}) bf16 weights, fp32 moments, seed {args.seed} "
+          f"[{card}]", flush=True)
     torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(
         cfg, device="cuda",
@@ -1294,22 +1639,39 @@ def phase_training(torch, args, launches_out):
     trainer = _trainer_for(torch, model)
     ids = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (batch, seq))).cuda()
+    batch_ = (ids, ids)
+    visible = None
+    if packed:
+        labels, se, ends = _packed_batch(torch, ids, args.seed)
+        batch_ = (ids, labels, se)
+        pairs = _causal_doc_pairs(ends)
+        visible = dict(pairs=pairs, of_causal=pairs / (batch * seq * (seq + 1)
+                                                       / 2),
+                       documents=int(sum(len(np.unique(e)) for e in ends)),
+                       labels_cut=int((labels == -100).sum()))
+        print(f"  packed documents: {visible['documents']} over {batch} "
+              f"rows; visible (query, key) pairs {pairs} = "
+              f"{visible['of_causal']:.4f} of the causal pairs", flush=True)
     losses = []
     for _ in range(2):
-        losses.append(float(trainer.train_step(ids, ids)))
+        losses.append(float(trainer.train_step(*batch_)))
     trainer.block()
     K.reset_launches()
     t0 = time.monotonic()
-    timed = [trainer.train_step(ids, ids) for _ in range(5)]
+    timed = [trainer.train_step(*batch_) for _ in range(5)]
     trainer.block()
     secs = time.monotonic() - t0
     launches = dict(K.LAUNCHES)
     losses += [float(x) for x in timed]
     n_l = cfg.num_hidden_layers
-    per_step = {"ragged_attention": 0, "rms_norm": 2 * n_l + 1 + 2 * n_l,
-                "rms_norm_residual": 0, "rope": 3 * n_l,
-                "flash_fwd": 2 * n_l, "flash_bwd_dq": n_l,
-                "flash_bwd_dkv": n_l, "adamw": 1, "gmm": 0, "tgmm": 0}
+    per_step = {n: 0 for n in K.LAUNCHES}
+    per_step.update(rms_norm=2 * n_l + 1 + 2 * n_l, rope=3 * n_l, adamw=1)
+    if packed:       # the pre-pass runs once, in the model's forward
+        per_step.update(flashmask_fwd=2 * n_l, flashmask_bwd_dq=n_l,
+                        flashmask_bwd_dkv=n_l, flashmask_summary=1)
+    else:
+        per_step.update(flash_fwd=2 * n_l, flash_bwd_dq=n_l,
+                        flash_bwd_dkv=n_l)
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
@@ -1319,19 +1681,35 @@ def phase_training(torch, args, launches_out):
     step_ms = 1e3 * secs / 5
     tok_s = batch * seq / (secs / 5)
     mfu = model.flops_per_token(seq) * tok_s / BF16_FLOPS
+    if packed:
+        # the same count with the attention products over the visible
+        # pairs only (4 * hidden flops a pair a layer forward, x3 with the
+        # backward), in place of the dense-causal s / 2 a row
+        attn = 6.0 * n_l * cfg.hidden_size * seq * batch * seq
+        done = model.flops_per_token(seq) * batch * seq - attn \
+            + 12.0 * n_l * cfg.hidden_size * visible["pairs"]
+        visible["mfu_vs_989_tflops"] = done / (secs / 5) / BF16_FLOPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  losses {losses}", flush=True)
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
+    # MFU with the model's dense-causal flops_per_token in both phases, so
+    # the two compare; packed documents do fewer attention flops
     training = dict(params=n_params, batch=batch, seq=seq, step_ms=step_ms,
                     tokens_per_s=tok_s,
                     mfu_vs_989_tflops=mfu, peak_memory_gb=peak_gb,
-                    losses=losses, card=card)
+                    losses=losses, card=card, visible=visible)
     print("  training: " + json.dumps(training), flush=True)
+    if packed:
+        print(f"  MFU {mfu:.4f} with the dense-causal attention count (as "
+              f"phase 5), {visible['mfu_vs_989_tflops']:.4f} with the "
+              f"attention over the visible pairs", flush=True)
     prof, training["breakdown"] = _profile(
-        torch, lambda: trainer.train_step(ids, ids), 1)
-    prof.export_chrome_trace(os.path.join(args.out, "train_step_trace.json"))
+        torch, lambda: trainer.train_step(*batch_), 1)
+    prof.export_chrome_trace(os.path.join(
+        args.out, f"{'packed_' if packed else ''}train_step_trace.json"))
     m = training["breakdown"]
+    training["idle_share_untraced"] = 1 - m["device_ms"] / step_ms
     print(f"  train step breakdown: wall {m['wall_ms']:.3f} ms, device "
           f"{m['device_ms']:.3f} ms (idle share {m['idle_share']:.3f}), "
           f"{m['device_launches']:.0f} kernels; by group (ms): "
@@ -1340,9 +1718,9 @@ def phase_training(torch, args, launches_out):
     for name, ms in m["top_kernels_ms"].items():
         print(f"    {ms:9.3f} ms {m['top_kernels_launches'][name]:5.0f}x  "
               f"{name}", flush=True)
-    del trainer, model, ids, timed, prof
+    del trainer, model, ids, timed, prof, batch_
     torch.cuda.empty_cache()
-    training.update(_train_step_agreement(torch, args.seed))
+    training.update(_train_step_agreement(torch, args.seed, packed))
     return training
 
 
@@ -1355,10 +1733,14 @@ def _plain_train_patches(stack):
                                           fused.rms_norm_plain))
     stack.enter_context(mock.patch.object(fused, "fused_rope",
                                           fused.fused_rope_plain))
+    def plain(fn):      # the summary is the kernels' alone
+        return lambda *a, summary=None, **kw: fn(*a, **kw)
     stack.enter_context(mock.patch.object(FA, "flash_forward",
-                                          FA.flash_forward_plain))
+                                          plain(FA.flash_forward_plain)))
     stack.enter_context(mock.patch.object(FA, "flash_backward",
-                                          FA.flash_backward_plain))
+                                          plain(FA.flash_backward_plain)))
+    stack.enter_context(mock.patch.object(FA, "flashmask_summary",
+                                          FA.flashmask_summary_plain))
 
 
 def _rel_dist(a, b):
@@ -1370,21 +1752,27 @@ def _rel_dist(a, b):
             {n: math.sqrt(sq[n] / ref[n]) for n in b})
 
 
-def _train_step_agreement(torch, seed):
+def _train_step_agreement(torch, seed, packed=False):
     """One forward + backward of the 1.1B widths at 2 layers (batch 1 x
     2048) through the kernels and through the plain versions, in bf16 and
-    in float32 (the same bf16-valued weights, upcast). float32: the paths
-    differ only in summation order, so the loss agrees to 1e-5 relative
-    and the gradients to 1e-3 relative (L2 over all of them). bf16: both
-    paths round at the same places, so the kernel path's gradients must be
-    no further from the float32 step than the plain bf16 path's: within
-    1.1x over all of them, and within 1.25x for each parameter."""
+    in float32 (the same bf16-valued weights, upcast); ``packed``: on
+    packed documents (FlashMask bounds, labels cut at the boundaries).
+    float32: the paths differ only in summation order, so the loss agrees
+    to 1e-5 relative and the gradients to 1e-3 relative (L2 over all of
+    them). bf16: both paths round at the same places, so the kernel path's
+    gradients must be no further from the float32 step than the plain bf16
+    path's: within 1.1x over all of them, and within 1.25x for each
+    parameter."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import LlamaForCausalLM, load_numpy_state
     cfg = _llama_1b(layers=2)
     ids = torch.from_numpy(np.random.default_rng(seed + 2).integers(
         0, cfg.vocab_size, (1, 2048))).cuda()
+    labels, se = ids, None
+    if packed:
+        labels, se, _ = _packed_batch(torch, ids, seed + 2)
+    attn = "flashmask_fwd" if packed else "flash_fwd"
     base = LlamaForCausalLM(
         cfg, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(seed + 2))
@@ -1402,11 +1790,14 @@ def _train_step_agreement(torch, seed):
         with ExitStack() as stack:
             if plain:
                 _plain_train_patches(stack)
-            loss = model.forward_loss(ids, ids, loss_chunk_size=256).float()
+            loss = model.forward_loss(ids, labels, loss_chunk_size=256,
+                                      attn_startend_row_indices=se).float()
             loss.backward()
             torch.cuda.synchronize()
         if plain and K.LAUNCHES != before:
             raise AssertionError("the plain step launched a kernel")
+        if not plain and K.LAUNCHES[attn] == before[attn]:
+            raise AssertionError(f"the kernel step launched no {attn}")
         grads = {n: p.grad.float() for n, p in model.named_parameters()}
         return float(loss.detach()), grads
 
@@ -1424,7 +1815,8 @@ def _train_step_agreement(torch, seed):
     ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
     worst = max(ratio, key=ratio.get)
     loss32 = abs(lk32 / lp32 - 1)
-    print(f"  train step kernels vs plain (1.1B widths, 2 layers, 1 x 2048): "
+    print(f"  {'packed ' if packed else ''}train step kernels vs plain "
+          f"(1.1B widths, 2 layers, 1 x 2048): "
           f"float32 loss {lk32:.6f} vs {lp32:.6f} (rel err {loss32:.3g}, tol "
           f"1e-5), grads rel L2 err {err32:.3g} (tol 1e-3); bf16 loss "
           f"kernels {lk16:.6f} plain {lp16:.6f}, grads' rel L2 distance from "
@@ -1438,8 +1830,8 @@ def _train_step_agreement(torch, seed):
     if not (loss32 <= 1e-5 and err32 <= 1e-3 and err_k <= 1.1 * err_p
             and max(ratio.values()) <= 1.25
             and all(math.isfinite(x) for x in (lk16, lp16, err_k, err_p))):
-        raise AssertionError("the kernel train step disagrees with the plain "
-                             "step")
+        raise AssertionError(f"the kernel {'packed ' if packed else ''}"
+                             f"train step disagrees with the plain step")
     return dict(train_step_loss_rel_err_f32=loss32,
                 train_step_grad_rel_err_f32=err32,
                 train_step_bf16_grad_err_kernels=err_k,
@@ -1704,13 +2096,19 @@ def main(argv=None):
     timed("phase 3 tiny training", phase_tiny_training, torch)
     timed("phase 3 MoE kernels", phase_gmm_kernels, torch, results)
     timed("phase 3 tiny GPT-MoE training", phase_tiny_gpt_training, torch)
+    timed("phase 3 FlashMask kernels", phase_flashmask_kernels, torch,
+          results, args.seed)
+    timed("phase 3 tiny packed training", phase_tiny_training, torch, True)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
+    packed_launches = {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
                     serve_launches)
     training = timed("phase 5 training", phase_training, torch, args,
                      train_launches)
     gpt_moe = timed("phase 6 GPT-MoE training", phase_gpt_moe_training,
                     torch, args, gpt_launches)
+    packed = timed("phase 7 packed-document training", phase_training,
+                   torch, args, packed_launches, True)
 
     replaces = {
         "ragged_attention": ("cuda", "paddle_tpu_torch/csrc/ragged_attention.cu",
@@ -1731,14 +2129,23 @@ def main(argv=None):
                 "paddle_tpu/kernels/gmm_pallas.py:108"),
         "tgmm": ("cuda", "paddle_tpu_torch/csrc/gmm.cu",
                  "paddle_tpu/kernels/gmm_pallas.py:156"),
+        "flashmask_summary": ("cuda",
+                              "paddle_tpu_torch/csrc/flash_attention.cu",
+                              "paddle_tpu/kernels/flash_pallas.py:141"),
+        "flashmask_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                          "paddle_tpu/kernels/flash_pallas.py:572"),
+        "flashmask_bwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                          "paddle_tpu/kernels/flash_pallas.py:594"),
     }
-    # launches: the main paths' runs (serving, Llama and GPT-MoE training),
-    # summed; the backward's entry counts its dq launches, each paired with
-    # one dk/dv launch (the training runs check both counts exactly)
-    runs = (serve_launches, train_launches, gpt_launches)
+    # launches: the main paths' runs (serving, Llama, GPT-MoE and
+    # packed-document training), summed; a backward's entry counts its dq
+    # launches, each paired with one dk/dv launch (the training runs check
+    # both counts exactly)
+    runs = (serve_launches, train_launches, gpt_launches, packed_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
+    main_runs["flashmask_bwd"] = main_runs["flashmask_bwd_dq"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
         m = results["ragged_attention[mixed_mha]" if name == "ragged_attention"
@@ -1750,10 +2157,11 @@ def main(argv=None):
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": results, "serving": serving,
                    "training": training, "gpt_moe_training": gpt_moe,
-                   "seconds": seconds,
+                   "packed_training": packed, "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "training": train_launches,
-                                "gpt_moe_training": gpt_launches}}, f,
+                                "gpt_moe_training": gpt_launches,
+                                "packed_training": packed_launches}}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rope": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "adamw": 0, "gmm": 0, "tgmm": 0}
+            "adamw": 0, "gmm": 0, "tgmm": 0, "flashmask_summary": 0,
+            "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0}
 
 
 def reset_launches() -> None:

@@ -5,10 +5,12 @@ presets, the same parameter names (``model.layers.{i}.self_attn.q_proj.
 weight``, ...) and Paddle's linear layout ``[in, out]`` (computed as
 ``x @ w``), so a state carried across from the JAX model fills this one
 name for name. Serving reads the parameters through
-``generation._LlamaDecoder``; training runs the dense ``forward`` /
+``generation._LlamaDecoder``; training runs ``forward`` /
 ``forward_loss`` below, whose RMSNorms, rotary embedding and attention
-are the port's kernels on CUDA tensors (the plain versions on CPU
-tensors) and whose matrix products go to ``torch.matmul``.
+(dense causal, or FlashMask with packed-document bounds) are the port's
+kernels on CUDA tensors (the plain versions on CPU tensors) and whose
+matrix products go to ``torch.matmul``; a dense ``attention_mask`` runs
+plain PyTorch attention, as the JAX model runs it in XLA.
 """
 from __future__ import annotations
 
@@ -118,10 +120,6 @@ class LlamaAttention(nn.Module):
 
     def forward(self, hidden_states, rope_cache, attention_mask=None,
                 startend_row_indices=None):
-        if attention_mask is not None or startend_row_indices is not None:
-            raise NotImplementedError(
-                "attention masks and flashmask bounds are not ported yet "
-                "(causal attention only)")
         b, s, _ = hidden_states.shape
         q = (hidden_states @ self.q_proj.weight).reshape(
             b, s, self.num_heads, self.head_dim)
@@ -131,12 +129,26 @@ class LlamaAttention(nn.Module):
             b, s, self.num_kv_heads, self.head_dim)
         cos, sin = rope_cache
         q, k = fused_rope(q, k, cos, sin)
+        if startend_row_indices is not None:
+            if attention_mask is not None:
+                raise NotImplementedError(
+                    "attention_mask cannot be combined with "
+                    "attn_startend_row_indices; fold padding into the "
+                    "column bounds (a padded key column is a fully-masked "
+                    "band)")
+            # packed documents: O(S) column bounds (raw, or prepared by
+            # LlamaModel.forward), GQA handled inside
+            out = F.flashmask_attention(q, k, v, startend_row_indices,
+                                        causal=True)
+            return out.reshape(b, s, self.num_heads * self.head_dim) \
+                @ self.o_proj.weight
         if self.num_kv_heads != self.num_heads:
             # outside the kernel, so autograd sums dk/dv over the repeats
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
+                                             is_causal=True)
         return out.reshape(b, s, self.num_heads * self.head_dim) \
             @ self.o_proj.weight
 
@@ -192,15 +204,19 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None,
                 attn_startend_row_indices=None):
-        if attention_mask is not None or attn_startend_row_indices is not None:
-            raise NotImplementedError(
-                "attention_mask / attn_startend_row_indices are not ported "
-                "yet (causal attention only; flashmask comes later)")
         h = TF.embedding(input_ids.long(), self.embed_tokens.weight)
         s = input_ids.shape[1]
         rope = (self.rope_cos[:s], self.rope_sin[:s])
+        bounds = attn_startend_row_indices
+        if bounds is not None:
+            # canonicalised and summarised once for every layer (and for
+            # the remat recompute and the backward)
+            attn = self.layers[0].self_attn
+            bounds = F.prepare_flashmask(bounds.to(h.device), s,
+                                         attn.num_heads, attn.num_kv_heads,
+                                         causal=True)
         for layer in self.layers:
-            h = layer(h, rope)
+            h = layer(h, rope, attention_mask, bounds)
         return self.norm(h)
 
 
@@ -234,7 +250,12 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, attention_mask=None,
                 attn_startend_row_indices=None):
-        """Logits [b, s, vocab] in the model's dtype."""
+        """Logits [b, s, vocab] in the model's dtype. attention_mask: a
+        dense mask broadcast to [b, heads, s, s] (bool, True = visible, or
+        additive) on top of causal masking. attn_startend_row_indices:
+        FlashMask column bounds [b, KH', s, {1, 2}] (causal forms: LTS, or
+        LTS and LTE) for packed documents; not with attention_mask. RoPE
+        runs on positions 0..s-1 in both, as in the JAX model."""
         h = self.model(input_ids, attention_mask, attn_startend_row_indices)
         return self._head(h)
 

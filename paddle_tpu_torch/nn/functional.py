@@ -1,38 +1,204 @@
 """The functionals the Llama and GPT models call, in the JAX package's
 layouts.
 
-Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention``
-(``attention.py``), ``rms_norm`` and ``layer_norm`` (``norm.py``),
-``cross_entropy`` (``loss.py``), ``gelu`` (``activation.py``), ``linear``
-and ``embedding`` (``common.py``), each for the cases the training paths
-use; anything else raises ``NotImplementedError``. ``layer_norm``,
-``gelu``, ``linear`` and ``embedding`` are plain PyTorch: the JAX package
-has no Pallas kernel for them either.
+Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention`` and
+``flashmask_attention`` (``attention.py``), ``rms_norm`` and ``layer_norm``
+(``norm.py``), ``cross_entropy`` (``loss.py``), ``gelu``
+(``activation.py``), ``linear`` and ``embedding`` (``common.py``), each for
+the cases the training paths use; anything else raises
+``NotImplementedError``. ``layer_norm``, ``gelu``, ``linear``,
+``embedding`` and attention with a dense ``attn_mask`` are plain PyTorch:
+the JAX package has no Pallas kernel for them either.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as TF
 
+from ..kernels import flash_attention as FA
 from ..kernels import fused
-from ..kernels.flash_attention import flash_attention_bshd
+
+
+def _sdpa_reference(q, k, v, mask=None, causal=False):
+    """Attention over ``[batch, seq, heads, head_dim]`` inputs with a dense
+    mask, as the JAX package's ``_sdpa_reference``: fp32 scores, causal
+    (bottom-right) and a bool mask as -1e30, an additive mask added, fp32
+    softmax (a row that sees no key averages every value), out cast to
+    q's dtype. The mask broadcasts to ``[b, h, sq, sk]``."""
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        vis = torch.ones(sq, sk, dtype=torch.bool,
+                         device=q.device).tril(sk - sq)
+        scores = scores.masked_fill(~vis, -1e30)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            scores = scores.masked_fill(~mask, -1e30)
+        else:
+            scores = scores + mask.float()
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", probs, v.float()).to(q.dtype)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
     """Attention over ``[batch, seq, heads, head_dim]`` inputs (the JAX
-    package's layout), differentiable. The flash kernels run on CUDA
-    tensors and their plain versions on CPU tensors; there is no other
-    path."""
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attn_mask is not ported (the "
-            "flash kernels take causal or no masking)")
+    package's layout), differentiable. Without a mask the flash kernels
+    run on CUDA tensors and their plain versions on CPU tensors; with
+    ``attn_mask`` (bool, True = visible, or additive) it is the plain
+    ``_sdpa_reference`` on any device, as the JAX package computes it in
+    XLA outside any Pallas kernel."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "scaled_dot_product_attention: dropout is not ported")
-    return flash_attention_bshd(query, key, value, causal=is_causal)
+    if attn_mask is not None:
+        return _sdpa_reference(query, key, value, attn_mask, is_causal)
+    return FA.flash_attention_bshd(query, key, value, causal=is_causal)
+
+
+def _canonical_startend(se, sq, causal):
+    """startend_row_indices [B, KH, Sk, C] to the canonical (LTS, LTE, UTS,
+    UTE) [B, KH, Sk, 4] int32: C in {1, 2} causal (LTS; LTS, LTE), in {2,
+    4} not causal (LTS, UTE; all four). Strict-lower rows [LTS, LTE) and
+    strict-upper rows [UTS, UTE) are masked per key column."""
+    se = se.to(torch.int32)
+    c = se.shape[-1]
+    zeros = torch.zeros_like(se[..., 0])
+    full = torch.full_like(se[..., 0], sq)
+    if causal:
+        if c == 1:
+            parts = (se[..., 0], full, zeros, zeros)
+        elif c == 2:
+            parts = (se[..., 0], se[..., 1], zeros, zeros)
+        else:
+            raise ValueError(
+                f"causal flashmask expects startend_row_indices with last "
+                f"dim 1 or 2, got {c}")
+    else:
+        if c == 2:
+            parts = (se[..., 0], full, zeros, se[..., 1])
+        elif c == 4:
+            parts = (se[..., 0], se[..., 1], se[..., 2], se[..., 3])
+        else:
+            raise ValueError(
+                f"non-causal flashmask expects startend_row_indices with "
+                f"last dim 2 or 4, got {c}")
+    return torch.stack(parts, dim=-1)
+
+
+def _norm_window(window_size, causal):
+    if window_size is None:
+        return None
+    if isinstance(window_size, int):
+        wl = wr = int(window_size)
+    else:
+        wl, wr = (int(w) if w is not None else None for w in window_size)
+    return (wl, None) if causal else (wl, wr)
+
+
+class FlashMaskBounds(NamedTuple):
+    """``startend_row_indices`` made ready for the kernels once, for every
+    attention call that shares them (one a layer): canonical (LTS, LTE,
+    UTS, UTE) ``bounds [b, hb, sk, 4]`` int32 with hb in {1, heads}, their
+    tile ``summary`` on CUDA (``kernels.flash_attention.flashmask_summary``;
+    None on the CPU), and the ``causal`` form they were read in."""
+    bounds: torch.Tensor
+    summary: Optional[torch.Tensor]
+    causal: bool
+
+
+def prepare_flashmask(startend_row_indices, q_len, num_heads, num_kv_heads,
+                      causal=False):
+    """``FlashMaskBounds`` of ``startend_row_indices [B, KH', Sk, C]`` for
+    attention of ``q_len`` query rows and ``num_heads`` query heads over
+    ``num_kv_heads`` kv heads: canonicalised, a KH' of kv_heads expanded to
+    the query heads (1 stays broadcast, the kernels read it so) and, on
+    CUDA, summarised by the pre-pass kernel."""
+    se = startend_row_indices
+    if se.dim() != 4:
+        raise ValueError(f"startend_row_indices must be [batch, kv_heads, "
+                         f"kv_len, C], got {tuple(se.shape)}")
+    bounds = _canonical_startend(se, q_len, causal)
+    kh, h = num_kv_heads, num_heads
+    if bounds.shape[1] == kh and kh != h:          # GQA: one per query head
+        bounds = bounds.repeat_interleave(h // kh, dim=1)
+    elif bounds.shape[1] not in (1, h):
+        raise ValueError(
+            f"startend_row_indices kv_heads dim {bounds.shape[1]} must be "
+            f"1, {kh}, or {h}")
+    bounds = bounds.contiguous()
+    summary = FA.flashmask_summary(bounds) if bounds.is_cuda else None
+    return FlashMaskBounds(bounds, summary, bool(causal))
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None, *,
+                        dropout=0.0, causal=False, window_size=None,
+                        return_softmax_lse=False, return_seed_offset=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """FlashMask attention over ``[batch, seq, heads, head_dim]`` inputs
+    (paddle.nn.functional.flashmask_attention, arXiv 2410.01359), as the
+    JAX package's: ``startend_row_indices [B, KH', Sk, {1, 2, 4}]`` column
+    bounds with KH' in {1, kv_heads, heads} (or a ``FlashMaskBounds`` from
+    ``prepare_flashmask``, made once for several calls), an optional
+    sliding window, GQA k/v expanded to the query heads outside the kernel
+    (autograd sums dk/dv over each group). On CUDA tensors the FlashMask
+    kernels run (they read a KH' of 1 broadcast; kv_heads is expanded to
+    the heads), on CPU tensors their plain versions.
+    ``return_softmax_lse`` also returns the kernel's lse ``[b, heads,
+    sq]``. A row that sees no key gives 0 (see
+    ``kernels/flash_attention.py``). Not ported: dropout (raises) and
+    ``return_seed_offset`` (the JAX package raises too); q_len != kv_len
+    runs only on CPU tensors, with the JAX dense path's top-left causal."""
+    if return_seed_offset:
+        raise NotImplementedError(
+            "return_seed_offset tracks the reference's CUDA dropout RNG "
+            "state; the port has no dropout")
+    if dropout > 0.0 and training:
+        raise NotImplementedError("flashmask_attention: dropout is not "
+                                  "ported")
+    b, sq, h, _ = query.shape
+    sk, kh = key.shape[1], key.shape[2]
+    window = _norm_window(window_size, causal)
+    mask = startend_row_indices
+    if mask is None and window is None:
+        if return_softmax_lse:
+            raise NotImplementedError(
+                "return_softmax_lse requires startend_row_indices")
+        return scaled_dot_product_attention(query, key, value,
+                                            is_causal=causal)
+    if isinstance(mask, FlashMaskBounds):
+        if mask.causal != bool(causal):
+            raise ValueError(f"bounds prepared with causal={mask.causal}, "
+                             f"used with causal={causal}")
+    elif mask is not None:
+        if mask.dim() != 4 or mask.shape[2] != sk:
+            raise ValueError(
+                f"startend_row_indices must be [batch, kv_heads, {sk}, C], "
+                f"got {tuple(mask.shape)}")
+        mask = prepare_flashmask(mask.to(query.device), sq, h, kh, causal)
+    else:
+        # window-only: empty bands (nothing extra masked)
+        mask = FlashMaskBounds(torch.tensor(
+            [sq, sq, 0, 0], dtype=torch.int32,
+            device=query.device).expand(b, 1, sk, 4), None, bool(causal))
+    q = query.transpose(1, 2)
+    k = key.transpose(1, 2)
+    v = value.transpose(1, 2)
+    if kh != h:                                    # GQA: expand kv
+        k = k.repeat_interleave(h // kh, dim=1)
+        v = v.repeat_interleave(h // kh, dim=1)
+    out, lse = FA.flashmask_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), mask.bounds,
+                                      causal=causal, window=window,
+                                      summary=mask.summary)
+    out = out.transpose(1, 2)
+    return (out, lse) if return_softmax_lse else out
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -107,5 +273,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     return loss.sum() / valid.sum().float().clamp(min=1.0)
 
 
-__all__ = ["scaled_dot_product_attention", "rms_norm", "layer_norm",
+__all__ = ["scaled_dot_product_attention", "flashmask_attention",
+           "FlashMaskBounds", "prepare_flashmask",
+           "rms_norm", "layer_norm",
            "cross_entropy", "gelu", "linear", "embedding"]

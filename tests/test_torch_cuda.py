@@ -15,7 +15,8 @@ largest value (P is also rounded to bf16, at another running max). AdamW:
 equal, since the kernel rounds every operation explicitly in the plain
 version's order. Grouped matmuls: float32 1e-5 of the largest value (fp32
 sums in another order); bfloat16 each row within two ulps of its largest
-value (both round one fp32 sum).
+value (both round one fp32 sum). FlashMask: as flash attention; a row
+that sees no key must give output 0, lse -1e30 and dq 0 exactly.
 """
 import numpy as np
 import pytest
@@ -445,3 +446,188 @@ def test_gpt_moe_training_on_gpu_matches_cpu(dev):
     assert close >= 0.999 * total, (close, total)
     assert K.LAUNCHES["gmm"] == 3 * 2 * 4 and K.LAUNCHES["tgmm"] == 3 * 2 * 2
     assert K.LAUNCHES["adamw"] == 3 and K.LAUNCHES["flash_fwd"] == 3 * 2
+
+
+# -- the FlashMask slice -----------------------------------------------------------
+
+def _doc_ends(rng, s, lo, hi):
+    """End of each column's document, documents of lengths in [lo, hi]."""
+    ends = np.empty(s, np.int32)
+    start = 0
+    while start < s:
+        end = min(s, start + int(rng.integers(lo, hi + 1)))
+        ends[start:end] = end
+        start = end
+    return ends
+
+
+def _flashmask_bounds(form, b, hb, s, seed=6):
+    """(canonical bounds [b, hb, s, 4] int32 on the CPU, causal)."""
+    from paddle_tpu_torch.nn.functional import _canonical_startend
+    rng = np.random.default_rng(seed)
+    col = lambda lo, hi: rng.integers(lo, hi, (b, hb, s, 1))   # noqa: E731
+    if form in ("docs", "long_docs"):
+        lo, hi = (20, 90) if form == "docs" else (150, 400)
+        se = np.stack([np.stack([_doc_ends(rng, s, lo, hi)
+                                 for _ in range(hb)]) for _ in range(b)])
+        se, causal = se[..., None], True
+    elif form == "causal_2":
+        lts = col(1, s)
+        se, causal = np.concatenate([lts, np.minimum(lts + col(0, s), s)],
+                                    -1), True
+    elif form == "noncausal_2":
+        se, causal = np.concatenate([col(1, s), col(0, s)], -1), False
+    elif form == "noncausal_4":
+        lts, uts = col(1, s), col(0, s)
+        se = np.concatenate([lts, np.minimum(lts + col(0, 64), s), uts,
+                             np.minimum(uts + col(0, 64), s)], -1)
+        causal = False
+    else:                                   # "empty": rows 90..149 see nothing
+        se = np.broadcast_to(np.asarray([90, 150, 90, 150]),
+                             (b, hb, s, 4)).copy()
+        causal = False
+    return _canonical_startend(torch.from_numpy(se.astype(np.int32)), s,
+                               causal), causal
+
+
+FLASHMASK_CASES = {  # (b, h, hb, s, d, form, window)
+    "causal_docs": (2, 3, 1, 256, 64, "docs", None),
+    "causal_docs_ragged": (1, 2, 1, 200, 128, "docs", None),
+    "causal_long_docs": (1, 2, 1, 512, 64, "long_docs", None),
+    "causal_2_per_head": (1, 2, 2, 192, 64, "causal_2", None),
+    "causal_window": (1, 2, 1, 256, 128, "docs", (100, None)),
+    "noncausal_2": (2, 2, 1, 256, 128, "noncausal_2", None),
+    "noncausal_4_window": (1, 2, 2, 333, 64, "noncausal_4", (40, 70)),
+    "empty_rows": (1, 2, 1, 256, 64, "empty", (-1, None)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASHMASK_CASES))
+def test_flashmask_kernels_match_plain(dev, dtype, case):
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    b, h, hb, s, d, form, window = FLASHMASK_CASES[case]
+    bounds, causal = _flashmask_bounds(form, b, hb, s)
+    bounds = bounds.to(dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, dout = (torch.randn(b, h, s, d, device=dev, generator=g)
+                     .to(dtype) for _ in range(4))
+    seen = FA.flashmask_visible(bounds, s, s, causal, window).any(-1) \
+        .expand(b, h, s)
+    before = dict(K.LAUNCHES)
+    summary = FA.flashmask_summary(bounds)
+    assert torch.equal(summary, FA.flashmask_summary_plain(bounds))
+    nt = -(-s // 64)
+    kinds = torch.full((b * h, nt, nt), -1, dtype=torch.int8, device=dev)
+    out, lse = FA.flash_forward(q, k, v, causal, bounds=bounds, window=window,
+                                summary=summary, tile_kinds=kinds)
+    torch.cuda.synchronize()
+    wout, wlse = FA.flash_forward_plain(q, k, v, causal, bounds=bounds,
+                                        window=window)
+    if dtype == torch.float32:
+        assert float((out - wout).abs().max()) <= _tol(wout, dtype)
+    else:
+        _assert_rows_close(out, wout, 2)
+    assert float((lse - wlse).abs().max()) <= 1e-4
+    assert not out[~seen].any()
+    assert bool((lse[~seen] == FA.NEG_INF).all())
+    if case == "empty_rows":
+        assert int((~seen).sum()) == b * h * 61
+    # the kernel's own tile kinds: a skipped tile holds no visible entry, a
+    # full one only visible entries
+    vis = FA.flashmask_visible(bounds, s, s, causal, window)
+    vis = torch.nn.functional.pad(vis, (0, nt * 64 - s, 0, nt * 64 - s))
+    vis = vis.reshape(b, hb, nt, 64, nt, 64)
+    kinds = kinds.view(b, hb, h // hb, nt, nt)
+    assert bool((kinds == kinds[:, :, :1]).all())
+    kinds = kinds[:, :, 0]
+    assert not vis.any(5).any(3)[kinds == 0].any()
+    assert bool(vis.all(5).all(3)[kinds == 2].all())
+    assert bool((kinds >= 0).any())
+    grads = FA.flash_backward(q, k, v, out, lse, dout, causal, bounds=bounds,
+                              window=window, summary=summary)
+    torch.cuda.synchronize()
+    want = FA.flash_backward_plain(q, k, v, out, lse, dout, causal,
+                                   bounds=bounds, window=window)
+    for got, ref in zip(grads, want):
+        if dtype == torch.float32:
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            assert float((got - ref).abs().max()) <= tol
+        else:
+            _assert_rows_close(got, ref, 2)
+    assert not grads[0][~seen].any()
+    used = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+    assert used == {**{n: 0 for n in K.LAUNCHES}, "flashmask_summary": 1,
+                    "flashmask_fwd": 1, "flashmask_bwd_dq": 1,
+                    "flashmask_bwd_dkv": 1}
+
+
+def test_flashmask_kernel_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels.flash_attention import flash_forward
+    bounds = torch.zeros(1, 1, 64, 4, dtype=torch.int32, device=dev)
+    q = torch.zeros(1, 2, 64, 64, device=dev)
+    with pytest.raises(NotImplementedError):             # sq != sk
+        flash_forward(q[:, :, :32], q, q, True, bounds=bounds)
+    q32 = torch.zeros(1, 2, 64, 32, device=dev)
+    with pytest.raises(ValueError):                      # head_dim 32
+        flash_forward(q32, q32, q32, True, bounds=bounds)
+    with pytest.raises(TypeError):
+        flash_forward(q, q, q, True, bounds=bounds.long())
+    with pytest.raises(ValueError):                      # 3 bound heads of 2
+        flash_forward(q, q, q, True, bounds=bounds.expand(1, 3, 64, 4))
+    with pytest.raises(ValueError):
+        flash_forward(q, q, q, True, bounds=bounds.cpu())
+    with pytest.raises(ValueError):                      # a window alone
+        flash_forward(q, q, q, True, window=(8, None))
+    with pytest.raises(ValueError):                      # a summary of 2 tiles
+        flash_forward(q, q, q, True, bounds=bounds,
+                      summary=torch.zeros(1, 1, 2, 8, dtype=torch.int32,
+                                          device=dev))
+
+
+def test_packed_training_on_gpu_matches_cpu(dev):
+    """A tiny float32 Llama trained 3 steps on packed documents on the GPU
+    through the FlashMask kernels matches the CPU trainer, held as the
+    dense tiny Llama is."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         load_numpy_state)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cfg = LlamaConfig.tiny(vocab_size=97, hidden_size=128, layers=2,
+                           heads=2, kv_heads=1, seq=160)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, 97, (2, 160)))
+    se = torch.from_numpy(np.stack([_doc_ends(rng, 160, 20, 70)
+                                    for _ in range(2)])[:, None, :, None])
+
+    def run(model, x, bounds):
+        tr = SpmdTrainer(model, AdamW(learning_rate=1e-3,
+                                      parameters=model.parameters()),
+                         lambda m, i, l, e: m.forward_loss(
+                             i, l, loss_chunk_size=32,
+                             attn_startend_row_indices=e),
+                         remat_layers=list(model.model.layers))
+        return [float(tr.train_step(x, x, bounds)) for _ in range(3)]
+
+    want = run(cpu, ids, se)
+    K.reset_launches()
+    got = run(gpu, ids.to(dev), se.to(dev))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    close = total = 0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        assert float(d.max()) <= 3e-3, n
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    assert close >= 0.999 * total, (close, total)
+    # remat: two forwards a layer a step, one backward
+    # and the bounds summarised once a step, in the model's forward
+    assert (K.LAUNCHES["flashmask_fwd"], K.LAUNCHES["flashmask_bwd_dq"],
+            K.LAUNCHES["flashmask_bwd_dkv"],
+            K.LAUNCHES["flashmask_summary"]) == (12, 6, 6, 3)
+    assert K.LAUNCHES["flash_fwd"] == 0 and K.LAUNCHES["adamw"] == 3

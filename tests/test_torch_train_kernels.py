@@ -155,7 +155,8 @@ def test_flash_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="q_len <= kv_len"):
         flash_attention(q, q[:, :, :4], q[:, :, :4], causal=True)
     with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8))
+        F.scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8),
+                                       dropout_p=0.1)
     with pytest.raises(NotImplementedError):
         F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
 

@@ -166,15 +166,19 @@ def test_serving_decoder_takes_bf16_rope_tables():
 
 
 def test_dense_forward_raises_on_masks_and_launches_nothing_on_cpu():
+    """A dense mask and FlashMask bounds together raise; on the CPU the
+    forward and backward, with bounds or without, launch no kernel."""
     jm = _jax_model(2)
     pm = _port_model(jm, 2)
     ids = torch.from_numpy(_ids())
-    with pytest.raises(NotImplementedError):
-        pm(ids, attention_mask=torch.ones(2, SEQ))
-    with pytest.raises(NotImplementedError):
-        pm(ids, attn_startend_row_indices=torch.zeros(2, 2, SEQ, 1))
+    bounds = torch.full((2, 2, SEQ, 1), SEQ, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="cannot be combined"):
+        pm(ids, attention_mask=torch.ones(2, 1, SEQ, SEQ, dtype=torch.bool),
+           attn_startend_row_indices=bounds)
     before = dict(K.LAUNCHES)
     pm.forward_loss(ids, ids, loss_chunk_size=5).backward()
+    pm.forward_loss(ids, ids, loss_chunk_size=5,
+                    attn_startend_row_indices=bounds).backward()
     assert K.LAUNCHES == before
 
 
