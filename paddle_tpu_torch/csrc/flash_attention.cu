@@ -1,90 +1,55 @@
-// Flash attention for training, forward and backward (Hopper, sm_90a), dense
-// and with FlashMask column bounds.
+// Flash attention for training in float32, forward and backward, dense
+// and with FlashMask column bounds; and the bounds' tile-summary pre-pass.
 //
 // Replaces paddle_tpu/kernels/flash_pallas.py: _flash_forward (_fa_kernel)
 // and _flash_backward (_fa_dq_kernel, _fa_dkv_kernel), each with and
-// without `bounds`/`window` (flashmask_attention). Same function:
-// q [bh, sq, D], k/v [bh, sk, D]; s = (q k^T) * scale in fp32; causal is
-// bottom-right aligned (query i sees keys <= i + sk - sq, masked scores
-// are -1e30); the forward writes out (q's dtype) and lse [bh, sq] (fp32).
-// The dense kernels never meet a row that sees no key (causal needs
-// sq <= sk). The masked kernels can: such a row gets output 0 and lse
-// -1e30, since a masked entry's p is forced to 0 whatever the running max
-// (the JAX kernel instead returns the mean of v over the tiles it did not
-// skip). The backward is the FA2 split of the JAX code: the dq kernel
-// sweeps the kv tiles of one q tile, the dk/dv kernel sweeps the q tiles
-// of one kv tile; each tile recomputes p = exp(s - lse) and uses
-// delta = rowsum(dO * O) (computed in fp32 by the caller). No atomics:
-// every run gives the same result.
-// Rounding as in the JAX kernels: P is cast to v's dtype before P.V; ds to
-// k's dtype for dq; p to dO's dtype for dv and ds to q's dtype for dk.
+// without `bounds`/`window` (flashmask_attention), for float32 inputs; the
+// bf16 kernels, which the training paths run, are flash_attention_bf16.cu,
+// and its note gives the function, the rounding and the FlashMask test
+// that both files share (flash_common.cuh). The float32 kernels serve the
+// tiny float32 checks against the CPU.
 //
-// FlashMask (the masked kernels, sq == sk): canonical bounds [b, hb, sk, 4]
-// int32 (LTS, LTE, UTS, UTE) per key column j, hb in {1, h} (read
-// broadcast over the heads when 1). Query i is masked from key j where
-// i > j and LTS <= i < LTE; where i < j under causal, or i < j and
-// UTS <= i < UTE otherwise; where i > j + wl; and, not causal, where
-// i < j - wr (wl, wr = 2^30 for no window). A pre-pass kernel writes the
-// min and max of each bound over every 64-column key tile, [b, hb, nk, 8];
-// from them and the tile's rows each (q tile, kv tile) is one of three
-// kinds: skip (every entry provably masked: no load, no math), full (every
-// entry provably visible: no per-entry test) or partial (the test above
-// per entry). The test is conservative, so a skipped tile holds only
-// masked entries, and the loops prefetch the next tile that is not
-// skipped.
+// Design: one block of 4 warps per (64-row tile, batch*head), each warp
+// owning 16 rows; K/V (or Q/dO) tiles of 64 rows in shared memory,
+// double-buffered with cp.async; products by fp32 FMA in the mma.sync
+// accumulator layout; online softmax in registers, a row's running max and
+// sum in the 4 threads that hold it. Causal: the kv loop stops at the
+// diagonal tile (the dk/dv loop starts there) and only tiles that cross
+// the diagonal or the ragged end are masked. FlashMask: each (q tile, kv
+// tile) is skip, full or partial from the summary of the 128-key tile
+// that holds it (Bands::kind), and the loops prefetch the next tile that
+// is not skipped. P (and ds) go through a small per-warp shared buffer.
+// The FA2 backward split, no atomics: every run gives the same result;
+// the dq kernel also computes delta = rowsum(dO * O) for the dk/dv one.
 //
-// Bound on the H100: operations. At training shapes (s = 2048, D = 128) a
-// tile of 64 query rows does 4 * 64 * 64 * D flops per 64-key tile it
-// reads (32 KB of bf16 K and V), ~128 flop/byte from device memory and far
-// more from L2, so the tensor cores are the limit, not the bytes; with
-// bounds, the visible (query, key) pairs set the work.
-//
-// Design against that bound, simple first:
-//   * one block of 4 warps per (64-row tile, batch*head), each warp owning
-//     16 rows; K/V (or Q/dO) tiles of 64 rows in shared memory, double-
-//     buffered with cp.async so the next tile loads while this one is used;
-//   * bf16 products on the tensor cores with mma.sync m16n8k16 (fp32
-//     accumulation); float32 inputs take fp32 FMA in the same fragment
-//     layout, so the softmax code is shared by both types;
-//   * online softmax in registers: the running max and sum of a row live in
-//     the 4 threads that hold it, reduced with two shuffles;
-//   * causal: the kv loop stops at the diagonal tile (the dk/dv loop starts
-//     there) and only tiles that cross the diagonal or the ragged end are
-//     masked; the blocks with the most work are scheduled first;
-//   * P (and ds) go through a small per-warp shared buffer in the input type,
-//     which is the cast the JAX kernels make before their second product.
-// Fragments are read from shared memory with plain loads (no ldmatrix), and
-// neither wgmma nor TMA is used yet: those are the next steps for speed.
+// The pre-pass (flashmask_summary_kernel, for both files' kernels): one
+// thread per (row of bounds, 128-key tile) writes the min and max of each
+// bound over the tile's columns below sk.
 //
 // Plain C interface, loaded with ctypes. Launches go on the caller's
 // stream; each function returns cudaGetLastError() so a refused launch is
 // reported to the caller.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
+using T = float;
 
 constexpr int BM = 64;  // query rows of a tile
 constexpr int BN = 64;  // key rows of a tile
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr float NEG_INF = -1e30f;
-enum TileKind { SKIP, PARTIAL, FULL };
-
-using bf16 = __nv_bfloat16;
 
 // Row padding in elements (16 bytes): keeps rows 16-byte aligned for
 // cp.async and spreads a warp's fragment loads over the banks.
-template <typename T>
-__host__ __device__ constexpr int pad() {
-  return 16 / (int)sizeof(T);
-}
+constexpr int PAD = 4;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -97,10 +62,10 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 
 // Rows [r0, r0 + ROWS) of a [n_rows, D] matrix into shared memory (row
 // stride D + pad); rows at or past n_rows are zero-filled.
-template <typename T, int D, int ROWS>
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int n_rows) {
-  constexpr int LD = D + pad<T>();
-  constexpr int VE = 16 / (int)sizeof(T);
+  constexpr int LD = D + PAD;
+  constexpr int VE = 4;  // floats in 16 bytes
   constexpr int PER_ROW = D / VE;
   for (int c = threadIdx.x; c < ROWS * PER_ROW; c += THREADS) {
     const int r = c / PER_ROW;
@@ -111,87 +76,42 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int n_ro
   }
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One warp: C[16 x 8*NT] += A[16 x K] * B[K x 8*NT], all in shared memory.
 // A is row-major (stride lda). B(k, n) = B[n * ldb + k] when NMAJOR (K of a
 // q.k^T product), else B[k * ldb + n] (V of a p.V product). C is held in the
 // mma.sync accumulator layout: lane = 4 * g + t holds c[j][0..1] at row g,
 // columns 8j + 2t + {0, 1}, and c[j][2..3] at row g + 8, the same columns.
-template <typename T, bool NMAJOR, int NT, int K>
+template <bool NMAJOR, int NT, int K>
 __device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const T* A, int lda, const T* B,
                                           int ldb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 2
-    for (int k = 0; k < K; ++k) {
-      const float a0 = A[g * lda + k];
-      const float a1 = A[(g + 8) * lda + k];
+  for (int k = 0; k < K; ++k) {
+    const float a0 = A[g * lda + k];
+    const float a1 = A[(g + 8) * lda + k];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = 8 * j + 2 * t;
-        const float b0 = NMAJOR ? B[n * ldb + k] : B[k * ldb + n];
-        const float b1 = NMAJOR ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1];
-        c[j][0] = fmaf(a0, b0, c[j][0]);
-        c[j][1] = fmaf(a0, b1, c[j][1]);
-        c[j][2] = fmaf(a1, b0, c[j][2]);
-        c[j][3] = fmaf(a1, b1, c[j][3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const T* a_lo = A + g * lda + k0 + 2 * t;
-      const T* a_hi = a_lo + 8 * lda;
-      const uint32_t a[4] = {ld_pair(a_lo), ld_pair(a_hi), ld_pair(a_lo + 8), ld_pair(a_hi + 8)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = 8 * j + g;
-        uint32_t b0, b1;
-        if constexpr (NMAJOR) {
-          const T* bp = B + n * ldb + k0 + 2 * t;
-          b0 = ld_pair(bp);
-          b1 = ld_pair(bp + 8);
-        } else {
-          const T* bp = B + (k0 + 2 * t) * ldb + n;
-          b0 = pack(bp[0], bp[ldb]);
-          b1 = pack(bp[8 * ldb], bp[9 * ldb]);
-        }
-        mma_bf16(c[j], a, b0, b1);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const int n = 8 * j + 2 * t;
+      const float b0 = NMAJOR ? B[n * ldb + k] : B[k * ldb + n];
+      const float b1 = NMAJOR ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1];
+      c[j][0] = fmaf(a0, b0, c[j][0]);
+      c[j][1] = fmaf(a0, b1, c[j][1]);
+      c[j][2] = fmaf(a1, b0, c[j][2]);
+      c[j][3] = fmaf(a1, b1, c[j][3]);
     }
   }
 }
 
 // Two neighbouring values of a row, rounded to T, to shared or device memory.
-template <typename T>
 __device__ __forceinline__ void store_pair(T* p, float x, float y) {
-  if constexpr (std::is_same<T, float>::value) {
-    p[0] = x;
-    p[1] = y;
-  } else {
-    *reinterpret_cast<uint32_t*>(p) = pack(__float2bfloat16(x), __float2bfloat16(y));
-  }
+  p[0] = x;
+  p[1] = y;
 }
 
 // A warp's [16 x 8*NT] accumulator, rounded to T, into a buffer of stride ld.
-template <typename T, int NT>
+template <int NT>
 __device__ __forceinline__ void store_frag(T* dst, int ld, const float (&c)[NT][4]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -205,7 +125,7 @@ __device__ __forceinline__ void store_frag(T* dst, int ld, const float (&c)[NT][
 
 // The rows of a warp's accumulator that lie below n_rows, to device memory
 // (row stride D); row0 is the device row of the warp's first row.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void store_rows(T* dst, int row0, int n_rows, const float (&c)[D / 8][4],
                                            const float (&div)[2]) {
   const int lane = threadIdx.x & 31;
@@ -246,56 +166,6 @@ __device__ __forceinline__ int kv_tiles(int q0, int sq, int sk, int causal) {
   return n;
 }
 
-// -- FlashMask bounds -------------------------------------------------------------
-
-// What the masked kernels take beyond the dense ones (bounds == nullptr:
-// the dense kernels).
-struct Mask {
-  const int* bounds;   // [b, hb, sk, 4] canonical (LTS, LTE, UTS, UTE)
-  const int* summary;  // [b, hb, nk, 8] per key tile: min, max of each bound
-  signed char* kinds;  // or nullptr; [bh, nq, nk]: the forward writes each tile's kind
-  int h, hb, wl, wr;
-};
-
-// One (batch, head)'s bounds: its columns, its tile summaries and the test.
-struct Bands {
-  const int4* cols;   // [sk]
-  const int4* tiles;  // [nk][2]: (min LTS, max LTS, min LTE, max LTE), same for UTS, UTE
-  int causal, wl, wr;
-
-  __device__ Bands(const Mask& mk, size_t bh, int sk, int causal_)
-      : cols(nullptr), tiles(nullptr), causal(causal_), wl(mk.wl), wr(mk.wr) {
-    if (mk.bounds == nullptr) return;  // a dense kernel
-    const size_t row = (bh / mk.h) * mk.hb + (mk.hb == 1 ? 0 : bh % mk.h);
-    cols = reinterpret_cast<const int4*>(mk.bounds) + row * sk;
-    tiles = reinterpret_cast<const int4*>(mk.summary) + row * ((sk + BN - 1) / BN) * 2;
-  }
-
-  // _flashmask_visible of query i and key j, whose bounds are b.
-  __device__ __forceinline__ bool visible(int i, int j, int4 b) const {
-    const bool low = i > j && i >= b.x && i < b.y;
-    const bool up = i < j && (causal || (i >= b.z && i < b.w));
-    const bool win = i - j > wl || (!causal && j - i > wr);
-    return !(low || up || win);
-  }
-
-  // Kind of the tile of rows [r0, r1] and keys [c0, c1] (key tile kt);
-  // whole: the tile lies inside sq x sk. Every SKIP holds only masked
-  // entries and every FULL only visible ones.
-  __device__ __forceinline__ int kind(int kt, int r0, int r1, int c0, int c1, bool whole) const {
-    if (causal && r1 < c0) return SKIP;
-    if (r0 - c1 > wl || (!causal && c0 - r1 > wr)) return SKIP;
-    const int4 lo = __ldg(tiles + 2 * kt);
-    const int4 up = __ldg(tiles + 2 * kt + 1);
-    if (r0 > c1 && lo.y <= r0 && lo.z > r1) return SKIP;  // every lower band holds every row
-    if (!causal && r1 < c0 && up.y <= r0 && up.z > r1) return SKIP;
-    if (!whole || r1 - c0 > wl || (causal ? r0 < c1 : c1 - r0 > wr)) return PARTIAL;
-    if (r1 > c0 && lo.w > r0 && lo.x <= r1) return PARTIAL;  // a lower band may meet the rows
-    if (!causal && r0 < c1 && up.w > r0 && up.x <= r1) return PARTIAL;
-    return FULL;
-  }
-};
-
 // The bounds of keys [c0, c0 + BN) into shared memory (zeros past sk).
 __device__ __forceinline__ void load_cols(int4* dst, const int4* src, int c0, int sk) {
   for (int c = threadIdx.x; c < BN; c += THREADS) {
@@ -305,17 +175,17 @@ __device__ __forceinline__ void load_cols(int4* dst, const int4* src, int c0, in
   }
 }
 
-// One thread per (row of bounds, key tile): the min and max of each bound
-// over the tile's columns below sk.
+// One thread per (row of bounds, summary tile of TILE keys): the min and
+// max of each bound over the tile's columns below sk.
 __global__ void flashmask_summary_kernel(const int4* __restrict__ bounds, int4* __restrict__ summary,
                                          int n_tiles, int nk, int sk) {
   const int tile = blockIdx.x * blockDim.x + threadIdx.x;
   if (tile >= n_tiles) return;
   const int4* col = bounds + (size_t)(tile / nk) * sk;
-  const int c0 = (tile % nk) * BN;
+  const int c0 = (tile % nk) * TILE;
   int4 lo = make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
   int4 hi = make_int4(INT_MIN, INT_MIN, INT_MIN, INT_MIN);
-  for (int j = c0; j < min(c0 + BN, sk); ++j) {
+  for (int j = c0; j < min(c0 + TILE, sk); ++j) {
     const int4 b = col[j];
     lo = make_int4(min(lo.x, b.x), min(lo.y, b.y), min(lo.z, b.z), min(lo.w, b.w));
     hi = make_int4(max(hi.x, b.x), max(hi.y, b.y), max(hi.z, b.z), max(hi.w, b.w));
@@ -329,13 +199,13 @@ __global__ void flashmask_summary_kernel(const int4* __restrict__ bounds, int4* 
 // Grid (query tiles, bh). Shared memory: Q [BM][LD], two buffers of K and V
 // [BN][LD] each, per warp a [16][BN + pad] buffer for P and, masked, two
 // buffers of the key tile's bounds [BN] int4.
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int causal,
                  float scale, Mask mk) {
-  constexpr int LD = D + pad<T>();
-  constexpr int LDP = BN + pad<T>();
+  constexpr int LD = D + PAD;
+  constexpr int LDP = BN + PAD;
   const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * BM;  // longest rows first
   const size_t bh = blockIdx.y;
   const int offset = sk - sq;
@@ -357,7 +227,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   auto kind = [&](int it) -> int {
     const int c0 = it * BN;
     if constexpr (MASKED)
-      return bands.kind(it, q0, min(q0 + BM, sq) - 1, c0, min(c0 + BN, sk) - 1,
+      return bands.kind(q0, min(q0 + BM, sq) - 1, c0, min(c0 + BN, sk) - 1,
                         q0 + BM <= sq && c0 + BN <= sk);
     return c0 + BN > sk || (causal && c0 + BN - 1 > q0 + offset) ? PARTIAL : FULL;
   };
@@ -368,8 +238,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   };
   auto stage = [&](int it, int buf) {
     T* nb = kv_s + buf * 2 * BN * LD;
-    load_tile<T, D, BN>(nb, kg, it * BN, sk);
-    load_tile<T, D, BN>(nb + BN * LD, vg, it * BN, sk);
+    load_tile<D, BN>(nb, kg, it * BN, sk);
+    load_tile<D, BN>(nb + BN * LD, vg, it * BN, sk);
     if constexpr (MASKED) load_cols(cols_s + buf * BN, bands.cols, it * BN, sk);
   };
 
@@ -381,7 +251,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
   int it = next(0);
-  load_tile<T, D, BM>(q_s, q + bh * sq * D, q0, sq);
+  load_tile<D, BM>(q_s, q + bh * sq * D, q0, sq);
   if (it < n_kv) stage(it, 0);
   cp_async_commit();
 
@@ -402,7 +272,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     float s[BN / 8][4];
     zero(s);
-    warp_gemm<T, true, BN / 8, D>(s, q_s + warp * 16 * LD, LD, kb, LD);
+    warp_gemm<true, BN / 8, D>(s, q_s + warp * 16 * LD, LD, kb, LD);
     const int kv0 = it * BN;
     const bool mask = kind(it) != FULL;
     uint32_t vis_bits = ~0u;  // masked: bit 4j + e of a visible entry
@@ -451,9 +321,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    store_frag<T, BN / 8>(p_s, LDP, s);  // P rounded to v's dtype
+    store_frag<BN / 8>(p_s, LDP, s);  // P rounded to v's dtype
     __syncwarp();
-    warp_gemm<T, false, D / 8, BN>(o, p_s, LDP, vb, LD);
+    warp_gemm<false, D / 8, BN>(o, p_s, LDP, vb, LD);
     __syncthreads();  // the tile buffer and P are written again next round
     it = nx;
   }
@@ -462,7 +332,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float div[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) div[r] = l_r[r] == 0.f ? 1.f : l_r[r];
-  store_rows<T, D>(out + bh * sq * D, q0 + warp * 16, sq, o, div);
+  store_rows<D>(out + bh * sq * D, q0 + warp * 16, sq, o, div);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -478,14 +348,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // Grid (query tiles, bh). Shared memory: Q and dO [BM][LD], two buffers of
 // K and V [BN][LD], per warp a [16][BN + pad] buffer for ds and, masked,
 // two buffers of the key tile's bounds [BN] int4.
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-                    int causal, float scale, Mask mk) {
-  constexpr int LD = D + pad<T>();
-  constexpr int LDP = BN + pad<T>();
+                    const T* __restrict__ dout, const T* __restrict__ out,
+                    const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
+                    int sq, int sk, int causal, float scale, Mask mk) {
+  constexpr int LD = D + PAD;
+  constexpr int LDP = BN + PAD;
   const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * BM;
   const size_t bh = blockIdx.y;
   const int offset = sk - sq;
@@ -508,7 +378,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   auto kind = [&](int it) -> int {
     const int c0 = it * BN;
     if constexpr (MASKED)
-      return bands.kind(it, q0, min(q0 + BM, sq) - 1, c0, min(c0 + BN, sk) - 1,
+      return bands.kind(q0, min(q0 + BM, sq) - 1, c0, min(c0 + BN, sk) - 1,
                         q0 + BM <= sq && c0 + BN <= sk);
     return c0 + BN > sk || (causal && c0 + BN - 1 > q0 + offset) ? PARTIAL : FULL;
   };
@@ -519,14 +389,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   };
   auto stage = [&](int it, int buf) {
     T* nb = kv_s + buf * 2 * BN * LD;
-    load_tile<T, D, BN>(nb, kg, it * BN, sk);
-    load_tile<T, D, BN>(nb + BN * LD, vg, it * BN, sk);
+    load_tile<D, BN>(nb, kg, it * BN, sk);
+    load_tile<D, BN>(nb + BN * LD, vg, it * BN, sk);
     if constexpr (MASKED) load_cols(cols_s + buf * BN, bands.cols, it * BN, sk);
   };
 
   int it = next(0);
-  load_tile<T, D, BM>(q_s, q + bh * sq * D, q0, sq);
-  load_tile<T, D, BM>(do_s, dout + bh * sq * D, q0, sq);
+  load_tile<D, BM>(q_s, q + bh * sq * D, q0, sq);
+  load_tile<D, BM>(do_s, dout + bh * sq * D, q0, sq);
   if (it < n_kv) stage(it, 0);
   cp_async_commit();
 
@@ -536,7 +406,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     lse_r[r] = row < sq ? lse[bh * sq + row] : 0.f;
-    delta_r[r] = row < sq ? delta[bh * sq + row] : 0.f;
+    delta_r[r] = row_delta<T, D>(out + bh * sq * D, dout + bh * sq * D, row, sq, t);
+    if (t == 0 && row < sq) delta[bh * sq + row] = delta_r[r];  // for the dk/dv kernel
   }
   float acc[D / 8][4];
   zero(acc);
@@ -553,8 +424,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     float s[BN / 8][4], dp[BN / 8][4];
     zero(s);
     zero(dp);
-    warp_gemm<T, true, BN / 8, D>(s, q_s + warp * 16 * LD, LD, kb, LD);
-    warp_gemm<T, true, BN / 8, D>(dp, do_s + warp * 16 * LD, LD, vb, LD);
+    warp_gemm<true, BN / 8, D>(s, q_s + warp * 16 * LD, LD, kb, LD);
+    warp_gemm<true, BN / 8, D>(dp, do_s + warp * 16 * LD, LD, vb, LD);
     const int kv0 = it * BN;
     const bool mask = kind(it) != FULL;
 #pragma unroll
@@ -573,15 +444,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float p = vis ? expf(s[j][e] * scale - lse_r[e >> 1]) : 0.f;
         s[j][e] = p * (dp[j][e] - delta_r[e >> 1]) * scale;
       }
-    store_frag<T, BN / 8>(ds_s, LDP, s);  // ds rounded to k's dtype
+    store_frag<BN / 8>(ds_s, LDP, s);  // ds rounded to k's dtype
     __syncwarp();
-    warp_gemm<T, false, D / 8, BN>(acc, ds_s, LDP, kb, LD);
+    warp_gemm<false, D / 8, BN>(acc, ds_s, LDP, kb, LD);
     __syncthreads();
     it = nx;
   }
   cp_async_wait_all();
   const float one[2] = {1.f, 1.f};
-  store_rows<T, D>(dq + bh * sq * D, q0 + warp * 16, sq, acc, one);
+  store_rows<D>(dq + bh * sq * D, q0 + warp * 16, sq, acc, one);
 }
 
 // -- backward: dk and dv ----------------------------------------------------------
@@ -591,14 +462,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // buffers of Q and dO [BM][LD], per warp a [16][BM + pad] buffer for p^T,
 // then ds^T, and two buffers of the q tile's lse and delta (fp32). Masked,
 // each thread keeps the bounds of its two keys in registers.
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int sq, int sk, int causal, float scale, Mask mk) {
-  constexpr int LD = D + pad<T>();
-  constexpr int LDP = BM + pad<T>();
+  constexpr int LD = D + PAD;
+  constexpr int LDP = BM + PAD;
   const int k0 = blockIdx.x * BN;  // the first keys see the most rows: first
   const size_t bh = blockIdx.y;
   const int offset = sk - sq;
@@ -630,7 +501,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   auto kind = [&](int it) -> int {
     const int q0 = it * BM;
     if constexpr (MASKED)
-      return bands.kind(blockIdx.x, q0, min(q0 + BM, sq) - 1, k0, min(k0 + BN, sk) - 1,
+      return bands.kind(q0, min(q0 + BM, sq) - 1, k0, min(k0 + BN, sk) - 1,
                         q0 + BM <= sq && k0 + BN <= sk);
     return q0 + BM > sq || (causal && q0 + offset < k0 + BN - 1) ? PARTIAL : FULL;
   };
@@ -642,8 +513,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   auto stage = [&](int it, int buf) {
     const int q0 = it * BM;
     T* qb = qd_s + buf * 2 * BM * LD;
-    load_tile<T, D, BM>(qb, qg, q0, sq);
-    load_tile<T, D, BM>(qb + BM * LD, dog, q0, sq);
+    load_tile<D, BM>(qb, qg, q0, sq);
+    load_tile<D, BM>(qb + BM * LD, dog, q0, sq);
     float* sb = st_s + buf * 2 * BM;
     for (int i = threadIdx.x; i < BM; i += THREADS) {
       const int row = q0 + i;
@@ -652,8 +523,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   };
   int it = next(causal ? max(0, k0 - offset) / BM : 0);
-  load_tile<T, D, BN>(k_s, k + bh * sk * D, k0, sk);
-  load_tile<T, D, BN>(v_s, v + bh * sk * D, k0, sk);
+  load_tile<D, BN>(k_s, k + bh * sk * D, k0, sk);
+  load_tile<D, BN>(v_s, v + bh * sk * D, k0, sk);
   if (it < n_qt) stage(it, 0);
   cp_async_commit();
 
@@ -676,8 +547,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     float st[BM / 8][4], dpt[BM / 8][4];
     zero(st);
     zero(dpt);
-    warp_gemm<T, true, BM / 8, D>(st, k_s + warp * 16 * LD, LD, qb, LD);
-    warp_gemm<T, true, BM / 8, D>(dpt, v_s + warp * 16 * LD, LD, dob, LD);
+    warp_gemm<true, BM / 8, D>(st, k_s + warp * 16 * LD, LD, qb, LD);
+    warp_gemm<true, BM / 8, D>(dpt, v_s + warp * 16 * LD, LD, dob, LD);
     const bool mask = kind(it) != FULL;
 #pragma unroll
     for (int j = 0; j < BM / 8; ++j)
@@ -697,44 +568,35 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         st[j][e] = p;
         dpt[j][e] = p * (dpt[j][e] - db[col]) * scale;
       }
-    store_frag<T, BM / 8>(sc_s, LDP, st);  // p^T rounded to dO's dtype
+    store_frag<BM / 8>(sc_s, LDP, st);  // p^T rounded to dO's dtype
     __syncwarp();
-    warp_gemm<T, false, D / 8, BM>(dv_acc, sc_s, LDP, dob, LD);
+    warp_gemm<false, D / 8, BM>(dv_acc, sc_s, LDP, dob, LD);
     __syncwarp();
-    store_frag<T, BM / 8>(sc_s, LDP, dpt);  // ds^T rounded to q's dtype
+    store_frag<BM / 8>(sc_s, LDP, dpt);  // ds^T rounded to q's dtype
     __syncwarp();
-    warp_gemm<T, false, D / 8, BM>(dk_acc, sc_s, LDP, qb, LD);
+    warp_gemm<false, D / 8, BM>(dk_acc, sc_s, LDP, qb, LD);
     __syncthreads();
     it = nx;
   }
   cp_async_wait_all();
   const float one[2] = {1.f, 1.f};
-  store_rows<T, D>(dk + bh * sk * D, k0 + warp * 16, sk, dk_acc, one);
-  store_rows<T, D>(dv + bh * sk * D, k0 + warp * 16, sk, dv_acc, one);
+  store_rows<D>(dk + bh * sk * D, k0 + warp * 16, sk, dk_acc, one);
+  store_rows<D>(dv + bh * sk * D, k0 + warp * 16, sk, dv_acc, one);
 }
 
 // -- launches -------------------------------------------------------------------
-
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *out, *out2;
-  int bh, sq, sk, causal;
-  float scale;
-  cudaStream_t stream;
-  Mask mk;
-};
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 cudaError_t launch_fwd(const Args& a) {
-  constexpr int LD = D + pad<T>();
-  const size_t smem = (size_t)(BM * LD + 4 * BN * LD + WARPS * 16 * (BN + pad<T>())) * sizeof(T) +
+  constexpr int LD = D + PAD;
+  const size_t smem = (size_t)(BM * LD + 4 * BN * LD + WARPS * 16 * (BN + PAD)) * sizeof(T) +
                       (MASKED ? 2 * BN * sizeof(int4) : 0);
-  auto kernel = flash_fwd_kernel<T, D, MASKED>;
+  auto kernel = flash_fwd_kernel<D, MASKED>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.sq + BM - 1) / BM, a.bh), THREADS, smem, a.stream>>>(
@@ -743,30 +605,30 @@ cudaError_t launch_fwd(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 cudaError_t launch_dq(const Args& a) {
-  constexpr int LD = D + pad<T>();
+  constexpr int LD = D + PAD;
   const size_t smem =
-      (size_t)(2 * BM * LD + 4 * BN * LD + WARPS * 16 * (BN + pad<T>())) * sizeof(T) +
+      (size_t)(2 * BM * LD + 4 * BN * LD + WARPS * 16 * (BN + PAD)) * sizeof(T) +
       (MASKED ? 2 * BN * sizeof(int4) : 0);
-  auto kernel = flash_bwd_dq_kernel<T, D, MASKED>;
+  auto kernel = flash_bwd_dq_kernel<D, MASKED>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.sq + BM - 1) / BM, a.bh), THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.out), a.sq, a.sk, a.causal,
-      a.scale, a.mk);
+      static_cast<const T*>(a.dout), static_cast<const T*>(a.fwd_out),
+      static_cast<const float*>(a.lse), static_cast<float*>(const_cast<void*>(a.delta)),
+      static_cast<T*>(a.out), a.sq, a.sk, a.causal, a.scale, a.mk);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr int LD = D + pad<T>();
+  constexpr int LD = D + PAD;
   const size_t smem =
-      (size_t)(2 * BN * LD + 4 * BM * LD + WARPS * 16 * (BM + pad<T>())) * sizeof(T) +
+      (size_t)(2 * BN * LD + 4 * BM * LD + WARPS * 16 * (BM + PAD)) * sizeof(T) +
       (size_t)4 * BM * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, D, MASKED>;
+  auto kernel = flash_bwd_dkv_kernel<D, MASKED>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.sk + BN - 1) / BN, a.bh), THREADS, smem, a.stream>>>(
@@ -778,51 +640,43 @@ cudaError_t launch_dkv(const Args& a) {
 }
 
 // which: 0 forward, 1 dq, 2 dk/dv.
-template <typename T, int D, bool MASKED>
+template <int D, bool MASKED>
 cudaError_t by_kind(int which, const Args& a) {
-  if (which == 0) return launch_fwd<T, D, MASKED>(a);
-  if (which == 1) return launch_dq<T, D, MASKED>(a);
-  return launch_dkv<T, D, MASKED>(a);
+  if (which == 0) return launch_fwd<D, MASKED>(a);
+  if (which == 1) return launch_dq<D, MASKED>(a);
+  return launch_dkv<D, MASKED>(a);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t by_mask(int which, const Args& a) {
-  return a.mk.bounds != nullptr ? by_kind<T, D, true>(which, a) : by_kind<T, D, false>(which, a);
+  return a.mk.bounds != nullptr ? by_kind<D, true>(which, a) : by_kind<D, false>(which, a);
 }
 
 int dispatch(int which, int d, int dtype, const Args& a) {
-  if (a.bh == 0 || a.sq == 0) return 0;
-  if (a.bh < 0 || a.bh > 65535 || a.sq < 0 || a.sk <= 0) return (int)cudaErrorInvalidValue;
-  if (a.causal && a.sq > a.sk) return (int)cudaErrorInvalidValue;
-  if (a.mk.bounds != nullptr &&
-      (a.mk.summary == nullptr || a.sq != a.sk || a.mk.h <= 0 || a.bh % a.mk.h ||
-       (a.mk.hb != 1 && a.mk.hb != a.mk.h)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64) err = by_mask<float, 64>(which, a);
-  if (dtype == 0 && d == 128) err = by_mask<float, 128>(which, a);
-  if (dtype == 1 && d == 64) err = by_mask<bf16, 64>(which, a);
-  if (dtype == 1 && d == 128) err = by_mask<bf16, 128>(which, a);
+  cudaError_t err = check_args(a);
+  if (err != cudaSuccess || a.bh == 0 || a.sq == 0) return (int)err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: flash_attention_bf16.cu
+  err = cudaErrorInvalidValue;
+  if (d == 64) err = by_mask<64>(which, a);
+  if (d == 128) err = by_mask<128>(which, a);
   return (int)err;
-}
-
-Mask mask_of(const void* bounds, const void* summary, void* kinds, int h, int hb, int wl, int wr) {
-  return {static_cast<const int*>(bounds), static_cast<const int*>(summary),
-          static_cast<signed char*>(kinds), h, hb, wl, wr};
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64 or 128. Each returns a
-// cudaError_t value. FlashMask: bounds [b, hb, sk, 4] int32 and summary
-// [b, hb, nk, 8] int32 (nk = ceil(sk / 64), from ptt_flashmask_summary); h:
-// query heads (bh = b * h); hb: 1 or h; wl, wr: the window (2^30 for none).
-// bounds == nullptr runs the dense kernel (summary, h, hb, wl, wr unused).
-// kinds (forward, may be nullptr): int8 [bh, nq, nk], where the masked
-// forward writes the kind (0 skip, 1 partial, 2 full) of every tile its
-// loops range over.
+// dtype: 0 = float32 (1, bfloat16, is flash_attention_bf16.cu's, with the
+// same entry points); d: 64 or 128. Each returns a cudaError_t value.
+// The dq kernel writes delta = rowsum(dout * out) [bh, sq] fp32, which the
+// dk/dv kernel then reads, so dq runs first on the stream.
+// FlashMask: bounds [b, hb, sk, 4] int32 and summary [b, hb, nk, 8] int32
+// (nk = ceil(sk / 128), from ptt_flashmask_summary); h: query heads (bh =
+// b * h); hb: 1 or h; wl, wr: the window (2^30 for none). bounds ==
+// nullptr runs the dense kernel (summary, h, hb, wl, wr unused). kinds
+// (forward, may be nullptr): int8 [bh, nq, nk] in 64 x 64 tiles, where
+// the masked forward writes the kind (0 skip, 1 partial, 2 full) of every
+// tile its loops range over.
 int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                   const void* bounds, const void* summary, void* kinds, int bh, int sq, int sk,
                   int d, int dtype, int causal, float scale, int h, int hb, int wl, int wr,
@@ -833,11 +687,12 @@ int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* 
 }
 
 int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dq, const void* bounds,
+                     const void* out, const void* lse, void* delta, void* dq, const void* bounds,
                      const void* summary, int bh, int sq, int sk, int d, int dtype, int causal,
                      float scale, int h, int hb, int wl, int wr, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, sq, sk, causal, scale,
-               static_cast<cudaStream_t>(stream), mask_of(bounds, summary, nullptr, h, hb, wl, wr)};
+               static_cast<cudaStream_t>(stream), mask_of(bounds, summary, nullptr, h, hb, wl, wr),
+               out};
   return dispatch(1, d, dtype, a);
 }
 
@@ -853,7 +708,7 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 // bounds [rows, sk, 4] int32 (rows = b * hb) -> summary [rows, nk, 8] int32.
 int ptt_flashmask_summary(const void* bounds, void* summary, int rows, int sk, void* stream) {
   if (rows <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
-  const int nk = (sk + BN - 1) / BN;
+  const int nk = (sk + TILE - 1) / TILE;
   const int n_tiles = rows * nk;
   flashmask_summary_kernel<<<(n_tiles + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(bounds), static_cast<int4*>(summary), n_tiles, nk, sk);

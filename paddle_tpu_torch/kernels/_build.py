@@ -3,9 +3,9 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, loaded
 with ``ctypes``. Libraries land in ``build/kernels/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of the source text
-and the flags, so an edited source builds anew and an unchanged one
-loads the library already there. Builds run at first use, one ``nvcc``
+checkout (listed in ``.gitignore``), named by a hash of the source text,
+the shared ``*.cuh`` headers and the flags, so an edited source builds
+anew and an unchanged one loads the library already there. Builds run at first use, one ``nvcc``
 per source, all started together. Importing this module needs no
 ``nvcc``: only ``build_all`` and ``library`` call it.
 """
@@ -49,6 +49,8 @@ def sources() -> Dict[str, Path]:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the headers a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 

@@ -10,8 +10,10 @@ autograd function is ``FlashAttention`` for both);
 ``_flashmask_visible`` -> ``flashmask_visible``.
 ``flash_attention_bshd`` is the counterpart of
 ``paddle_tpu/kernels/flash_attention.py``'s wrapper of the same name. The
-kernels (``csrc/flash_attention.cu``) are bound by operations on the H100
-at training shapes; the source note says how.
+bf16 kernels (``csrc/flash_attention_bf16.cu``: TMA, a producer warp and
+wgmma) are bound by operations on the H100 at training shapes, and their
+source note says how they meet it; float32 inputs take the kernels of
+``csrc/flash_attention.cu``, which also holds the bounds' pre-pass.
 
 The function: ``q [b, h, sq, d]``, ``k, v [b, h, sk, d]`` in float32 or
 bfloat16; ``causal`` is bottom-right aligned (query i sees keys
@@ -19,9 +21,10 @@ bfloat16; ``causal`` is bottom-right aligned (query i sees keys
 returns ``out`` (q's dtype) and ``lse [b, h, sq]`` in fp32. Rounding
 follows the JAX kernels: scores and sums in fp32, P cast to v's dtype
 before P.V; in the backward ds cast to k's dtype for dq, p to dO's dtype
-for dv and ds to q's dtype for dk; ``delta = rowsum(dO * O)`` in fp32
-outside the kernels. The JAX kernel keeps lse broadcast over 8 lanes, a
-TPU tiling layout; here it is ``[b, h, sq]``.
+for dv and ds to q's dtype for dk; ``delta = rowsum(dO * O)`` in fp32,
+by the dq kernel (which the dk/dv kernel follows). The JAX kernel keeps
+lse broadcast over 8 lanes, a TPU tiling layout; here it is ``[b, h,
+sq]``.
 
 FlashMask: ``bounds [b, hb, sk, 4]`` int32 canonical ``(LTS, LTE, UTS,
 UTE)`` column bounds with ``hb`` in ``{1, h}``, ``window = (wl, wr)``
@@ -50,7 +53,8 @@ from ._build import library
 
 NEG_INF = -1e30
 NO_WINDOW = 1 << 30     # the kernels' window when there is none: |i - j| < 2^30
-TILE = 64               # the kernels' key tile, the unit of the bounds summary
+TILE = 128              # the bf16 kernels' key tile: the bounds summary's
+KIND_TILE = {torch.float32: 64, torch.bfloat16: 128}   # tiles of ``tile_kinds``
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -150,7 +154,7 @@ def flash_backward_plain(q, k, v, out, lse, dout, causal=False, scale=None,
 
 
 def flashmask_summary_plain(bounds):
-    """[b, hb, nk, 8] int32: per key tile of 64 columns, (min LTS, max LTS,
+    """[b, hb, nk, 8] int32: per key tile of TILE columns, (min LTS, max LTS,
     min LTE, max LTE, min UTS, max UTS, min UTE, max UTE)."""
     b, hb, sk, _ = bounds.shape
     nk = -(-sk // TILE)
@@ -167,19 +171,24 @@ def flashmask_summary_plain(bounds):
 
 # -- kernels --------------------------------------------------------------------
 
-def _lib():
-    lib = library("flash_attention")
+def _lib(dtype=torch.float32):
+    """The float32 kernels' library (and the pre-pass's) or, for bf16, the
+    Hopper kernels'; both export the same entry points."""
+    lib = library("flash_attention_bf16" if dtype == torch.bfloat16
+                  else "flash_attention")
     if lib.ptt_flash_fwd.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # bh, sq, sk, d, dtype, causal, scale, h, hb, wl, wr, stream
         tail = [i] * 6 + [f] + [i] * 4 + [ptr]
         lib.ptt_flash_fwd.argtypes = [ptr] * 8 + tail
-        lib.ptt_flash_bwd_dq.argtypes = [ptr] * 9 + tail
+        lib.ptt_flash_bwd_dq.argtypes = [ptr] * 10 + tail
         lib.ptt_flash_bwd_dkv.argtypes = [ptr] * 10 + tail
-        lib.ptt_flashmask_summary.argtypes = [ptr, ptr, i, i, ptr]
         for fn in (lib.ptt_flash_fwd, lib.ptt_flash_bwd_dq,
-                   lib.ptt_flash_bwd_dkv, lib.ptt_flashmask_summary):
+                   lib.ptt_flash_bwd_dkv):
             fn.restype = ctypes.c_int
+        if hasattr(lib, "ptt_flashmask_summary"):
+            lib.ptt_flashmask_summary.argtypes = [ptr, ptr, i, i, ptr]
+            lib.ptt_flashmask_summary.restype = ctypes.c_int
         lib.ptt_error_string.argtypes = [i]
         lib.ptt_error_string.restype = ctypes.c_char_p
     return lib
@@ -336,14 +345,16 @@ def flash_forward(q, k, v, causal=False, scale=None, bounds=None, window=None,
     or, with ``bounds`` (and ``window``), masked (and the tile-summary
     pre-pass unless ``summary`` gives its result), and raises on what they
     do not take; on CPU tensors it runs the plain version. ``tile_kinds``,
-    for checking the masked kernel: an int8 CUDA tensor [b * h, nq, nk]
-    (64-row tiles) where it writes each tile's kind, 0 skipped, 1 partial
-    or 2 full, for every tile its loop ranges over."""
+    for checking the masked kernel: an int8 CUDA tensor [b * h, nq, nk] of
+    the kernel's tiles (``KIND_TILE[q.dtype]`` rows and keys) where it
+    writes each tile's kind, 0 skipped, 1 partial or 2 full, for every
+    tile its loop ranges over."""
     if not _on_cuda(q, k, v, causal, bounds, window):
         return flash_forward_plain(q, k, v, causal, scale, bounds, window)
     if tile_kinds is not None:
-        want = (q.shape[0] * q.shape[1], -(-q.shape[2] // TILE),
-                -(-k.shape[2] // TILE))
+        t = KIND_TILE[q.dtype]
+        want = (q.shape[0] * q.shape[1], -(-q.shape[2] // t),
+                -(-k.shape[2] // t))
         if bounds is None or tuple(tile_kinds.shape) != want \
                 or tile_kinds.dtype != torch.int8 \
                 or tile_kinds.device != q.device \
@@ -354,7 +365,7 @@ def flash_forward(q, k, v, causal=False, scale=None, bounds=None, window=None,
     bounds, summary = _mask_of(bounds, summary)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _lib(q.dtype)
     name = "flash_fwd" if bounds is None else "flashmask_fwd"
     err = lib.ptt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), lse.data_ptr(), _ptr(bounds),
@@ -368,29 +379,35 @@ def flash_forward(q, k, v, causal=False, scale=None, bounds=None, window=None,
 def flash_backward(q, k, v, out, lse, dout, causal=False, scale=None,
                    bounds=None, window=None, summary=None):
     """(dq, dk, dv). On CUDA tensors this launches the dq kernel (sweeps
-    the kv tiles of a q tile) and the dk/dv kernel (sweeps the q tiles of
-    a kv tile), dense or masked as ``flash_forward``: no atomics, the same
-    result on every run. On CPU tensors it runs the plain version."""
+    the kv tiles of a q tile, and writes delta = rowsum(dO * O) for the
+    next) and the dk/dv kernel (sweeps the q tiles of a kv tile), dense or
+    masked as ``flash_forward``: no atomics, the same result on every run.
+    On CPU tensors it runs the plain version."""
     if not _on_cuda(q, k, v, causal, bounds, window):
         return flash_backward_plain(q, k, v, out, lse, dout, causal, scale,
                                     bounds, window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
+    out = out.to(q.dtype).contiguous()
     lse = lse.contiguous()
     if lse.dtype != torch.float32 or lse.shape != q.shape[:3]:
         raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}")
+    if out.shape != q.shape:
+        raise ValueError(f"out must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)}")
     bounds, summary = _mask_of(bounds, summary)
-    delta = (dout.float() * out.float()).sum(dim=-1)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _lib()
+    lib = _lib(q.dtype)
     geo = _geometry(q, k, causal, scale, bounds, window)
     mask = (_ptr(bounds), _ptr(summary))
     pre = "flash" if bounds is None else "flashmask"
     err = lib.ptt_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               dout.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dq.data_ptr(), *mask, *geo)
+                               dout.data_ptr(), out.data_ptr(),
+                               lse.data_ptr(), delta.data_ptr(),
+                               dq.data_ptr(), *mask, *geo)
     _raise_on(lib, err, f"{pre} backward (dq)")
     LAUNCHES[f"{pre}_bwd_dq"] += 1
     err = lib.ptt_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -185,6 +185,11 @@ FLASH_CASES = [  # (b, h, sq, sk, d, causal)
     (1, 2, 200, 200, 128, True),       # ragged last tile
     (1, 2, 100, 300, 64, True),        # sq < sk, bottom-right causal
     (2, 2, 130, 70, 128, False),
+    # at the bf16 kernels' 128-row, 128-key tiles and one past them
+    (1, 2, 128, 128, 64, True),
+    (1, 2, 129, 129, 128, True),
+    (1, 2, 255, 383, 128, True),
+    (2, 2, 127, 257, 64, False),
 ]
 
 
@@ -499,6 +504,10 @@ FLASHMASK_CASES = {  # (b, h, hb, s, d, form, window)
     "noncausal_2": (2, 2, 1, 256, 128, "noncausal_2", None),
     "noncausal_4_window": (1, 2, 2, 333, 64, "noncausal_4", (40, 70)),
     "empty_rows": (1, 2, 1, 256, 64, "empty", (-1, None)),
+    # at the bf16 kernels' 128 x 128 tiles and one past or short of them
+    "causal_docs_257": (1, 2, 1, 257, 128, "docs", None),
+    "noncausal_2_384": (1, 2, 2, 384, 64, "noncausal_2", None),
+    "causal_2_127": (1, 2, 1, 127, 128, "causal_2", None),
 }
 
 
@@ -517,7 +526,8 @@ def test_flashmask_kernels_match_plain(dev, dtype, case):
     before = dict(K.LAUNCHES)
     summary = FA.flashmask_summary(bounds)
     assert torch.equal(summary, FA.flashmask_summary_plain(bounds))
-    nt = -(-s // 64)
+    tile = FA.KIND_TILE[dtype]
+    nt = -(-s // tile)
     kinds = torch.full((b * h, nt, nt), -1, dtype=torch.int8, device=dev)
     out, lse = FA.flash_forward(q, k, v, causal, bounds=bounds, window=window,
                                 summary=summary, tile_kinds=kinds)
@@ -536,8 +546,8 @@ def test_flashmask_kernels_match_plain(dev, dtype, case):
     # the kernel's own tile kinds: a skipped tile holds no visible entry, a
     # full one only visible entries
     vis = FA.flashmask_visible(bounds, s, s, causal, window)
-    vis = torch.nn.functional.pad(vis, (0, nt * 64 - s, 0, nt * 64 - s))
-    vis = vis.reshape(b, hb, nt, 64, nt, 64)
+    vis = torch.nn.functional.pad(vis, (0, nt * tile - s, 0, nt * tile - s))
+    vis = vis.reshape(b, hb, nt, tile, nt, tile)
     kinds = kinds.view(b, hb, h // hb, nt, nt)
     assert bool((kinds == kinds[:, :, :1]).all())
     kinds = kinds[:, :, 0]

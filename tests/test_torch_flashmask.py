@@ -294,14 +294,16 @@ def test_functional_takes_bounds_prepared_once():
 
 
 def test_flashmask_summary_plain_is_min_and_max_per_tile():
-    """The pre-pass's plain version: per 64-column key tile (a ragged last
-    one too), the min and max of each canonical bound."""
+    """The pre-pass's plain version: per 128-column key tile (the bf16
+    kernels' key tile; a ragged last one too), the min and max of each
+    canonical bound."""
     rng = np.random.default_rng(13)
-    bounds = torch.from_numpy(rng.integers(0, 200, (2, 3, 150, 4))
+    bounds = torch.from_numpy(rng.integers(0, 400, (2, 3, 300, 4))
                               .astype(np.int32))
     got = FA.flashmask_summary_plain(bounds)
+    assert FA.TILE == 128
     assert tuple(got.shape) == (2, 3, 3, 8) and got.dtype == torch.int32
-    for t, (c0, c1) in enumerate(((0, 64), (64, 128), (128, 150))):
+    for t, (c0, c1) in enumerate(((0, 128), (128, 256), (256, 300))):
         tile = bounds[:, :, c0:c1]
         np.testing.assert_array_equal(got[:, :, t, 0::2].numpy(),
                                       tile.amin(2).numpy())
