@@ -7,8 +7,9 @@ Phases, each printing its own lines and its seconds:
   2. the build: every CUDA source compiled by nvcc for sm_90a (one nvcc
      per source, all started together), the Triton kernels compiled by
      their first launch; the HGMMA (wgmma), UTMALDG (TMA load) and HMMA
-     (mma.sync) instructions of each bf16 flash kernel, counted in
-     cuobjdump's SASS: each must have the first two and none of the last;
+     (mma.sync) instructions of each bf16 flash, gmm and tgmm kernel,
+     counted in cuobjdump's SASS: each must have the first two and none of
+     the last;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it, with its time, its
      bound and a single PyTorch call for the same function where there is
@@ -51,7 +52,9 @@ Phases, each printing its own lines and its seconds:
      boundaries): the same steps, checks, profile and 2-layer agreement,
      with exact FlashMask launch counts and no dense flash launch;
   then a JSON line of every kernel, the card line again, and the final
-  {"ok": true, ...} line.
+  {"ok": true, ...} line. Phases 4-7 also hold the attention routing to
+  the plain path (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``: shapes
+  the kernels do not take, as the JAX package routes them) at 0.
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -84,37 +87,54 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def _flash_sass(lib_path):
-    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} for every bf16 flash
-    kernel of the built library, counted in ``cuobjdump --dump-sass``.
-    Raises unless each kernel issues wgmma (HGMMA) and TMA loads
-    (UTMALDG) and no mma.sync (HMMA)."""
+# library: (pattern of a kernel's mangled name, its name from the match,
+# the number of kernels); the bf16 kernels written for Hopper
+WGMMA_KERNELS = {
+    "flash_attention_bf16": (
+        r"(fwd|bwd_dq|bwd_dkv)_wgmma_kernelILi(\d+)ELb(\d)",
+        lambda m: (f"{'flashmask' if m.group(3) == '1' else 'flash'}_"
+                   f"{m.group(1)} d{m.group(2)}"), 12),
+    "gmm": (r"\d(t?gmm)_wgmma_kernel(?:ILb(\d)E)?",
+            lambda m: m.group(1) + (" trans_w" if m.group(2) == "1" else ""),
+            3),
+}
+
+
+def _wgmma_sass(built):
+    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} for every bf16
+    kernel of ``WGMMA_KERNELS`` in the built libraries, counted in
+    ``cuobjdump --dump-sass``. Raises unless each kernel issues wgmma
+    (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*(fwd|bwd_dq|bwd_dkv)_wgmma_kernelILi(\d+)"
-                      r"ELb(\d)", line)
-        if "Function :" in line:
-            name = None
-        if m:
-            name = (f"{'flashmask' if m.group(3) == '1' else 'flash'}_"
-                    f"{m.group(1)} d{m.group(2)}")
-            counts[name] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
-        elif name:
-            for op in counts[name]:
-                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    counts = {}
+    for lib, (pattern, name_of, expected) in WGMMA_KERNELS.items():
+        sass = subprocess.run([tool, "--dump-sass", built[lib]["path"]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        found, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(pattern, line)
+                name = name_of(m) if m else None
+                if name:
+                    found[name] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+            elif name:
+                for op in found[name]:
+                    found[name][op] += bool(re.search(rf"\b{op}\b", line))
+        if len(found) != expected:
+            raise AssertionError(f"{lib}: {len(found)} bf16 kernels in the "
+                                 f"SASS, expected {expected}: {found}")
+        counts.update(found)
     for k, c in sorted(counts.items()):
         print(f"phase 2: sass {k}: HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']} "
               f"HMMA {c['HMMA']}", flush=True)
-    if len(counts) != 12 or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
-                                or c["HMMA"] for c in counts.values()):
-        raise AssertionError(f"the bf16 flash kernels are not all wgmma with "
-                             f"TMA loads: {counts}")
+    if any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]
+           for c in counts.values()):
+        raise AssertionError(f"the bf16 flash and gmm kernels are not all "
+                             f"wgmma with TMA loads: {counts}")
     return counts
 
 
@@ -455,6 +475,18 @@ def _plain_patches(stack):
                                           ragged_attention_plain))
 
 
+def _nothing_routed(launches, phase):
+    """A main path takes the kernels: no attention call of it went to the
+    plain path (the counts of ``kernels.ROUTED``, asserted 0)."""
+    from paddle_tpu_torch import kernels as K
+    routed = {n: launches[n] for n in K.ROUTED}
+    print(f"  {phase}: attention calls routed to the plain path {routed} "
+          f"(must be 0)", flush=True)
+    if any(routed.values()):
+        raise AssertionError(f"{phase}: the main path routed attention to "
+                             f"the plain path: {routed}")
+
+
 def phase_serving(torch, args, launches_out):
     import numpy as np
     from paddle_tpu_torch import kernels as K
@@ -508,6 +540,7 @@ def phase_serving(torch, args, launches_out):
                   rms_norm_residual=n_l * steps, rope=n_l * steps)
     print(f"  launches over {steps} steps: {launches} (expected {expect})",
           flush=True)
+    _nothing_routed(launches, "phase 4")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     outs = [r.result(timeout=0) for r in reqs]
@@ -548,9 +581,9 @@ def _kernel_group(name):
         return "flashmask_fwd"
     if "flash_bwd" in name and "true>" in name:
         return "flashmask_bwd"
-    if "tgmm_kernel" in name:
+    if "tgmm_wgmma_kernel" in name or "tgmm_fma_kernel" in name:
         return "tgmm"
-    if "gmm_kernel" in name:
+    if "gmm_wgmma_kernel" in name or "gmm_fma_kernel" in name:
         return "gmm"
     if "ragged_attention" in name:
         return "ragged_attention"
@@ -1180,12 +1213,12 @@ def _gmm_case_run(torch, results, name, kind, a, b, gs, dtype):
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=lib_ms, library_call=lib_what,
-                         shape=[t, k, n], groups=len(sizes),
-                         rows_grouped=sum(sizes))
+                         tflops=_tflops(nf, ms), shape=[t, k, n],
+                         groups=len(sizes), rows_grouped=sum(sizes))
     print(f"  {name} [{t}, {k}] -> {n}, {len(sizes)} groups, "
           f"{str(dtype)[6:]}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-          f"{bound_ms:.4f} ({bound_by}) library_ms={lib_ms:.4f} "
-          f"({lib_what})", flush=True)
+          f"{bound_ms:.4f} ({bound_by}) {_tflops(nf, ms):.1f} TFLOP/s "
+          f"library_ms={lib_ms:.4f} ({lib_what})", flush=True)
 
 
 def phase_gmm_kernels(torch, results):
@@ -1754,6 +1787,7 @@ def phase_training(torch, args, launches_out, packed=False):
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
+    _nothing_routed(launches, f"phase {7 if packed else 5}")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     launches_out.update(launches)
@@ -1982,6 +2016,7 @@ def phase_gpt_moe_training(torch, args, launches_out):
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
+    _nothing_routed(launches, "phase 6")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     launches_out.update(launches)
@@ -2008,6 +2043,13 @@ def phase_gpt_moe_training(torch, args, launches_out):
     # wall time; the untraced step's wall time against the traced device
     # time gives the idle share without it
     training["idle_share_untraced"] = 1 - m["device_ms"] / step_ms
+    groups = m["by_group_ms"]
+    training["gmm_device_ms"] = groups.get("gmm", 0.0)
+    training["tgmm_device_ms"] = groups.get("tgmm", 0.0)
+    print(f"  GPT-MoE step {step_ms:.3f} ms untraced: device "
+          f"{m['device_ms']:.3f} ms, of it gmm {training['gmm_device_ms']:.3f}"
+          f" and tgmm {training['tgmm_device_ms']:.3f} ms [{card}]",
+          flush=True)
     print(f"  GPT-MoE train step breakdown: wall {m['wall_ms']:.3f} ms, "
           f"device {m['device_ms']:.3f} ms (idle share "
           f"{m['idle_share']:.3f} traced, "
@@ -2166,7 +2208,7 @@ def main(argv=None):
         print(f"phase 2: built {name} in {info['seconds']:.2f}s -> "
               f"{os.path.relpath(info['path'])}", flush=True)
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning")):
                 print(f"    {line.strip()}")
     t1 = time.monotonic()
     x = torch.randn(4, 4096, device="cuda", dtype=torch.bfloat16)
@@ -2183,7 +2225,7 @@ def main(argv=None):
     _build.library("gmm")
     print(f"phase 2: nvcc {nvcc_s:.2f}s, triton compile "
           f"{time.monotonic() - t1:.2f}s", flush=True)
-    sass = _flash_sass(built["flash_attention_bf16"]["path"])
+    sass = _wgmma_sass(built)
 
     os.makedirs(args.out, exist_ok=True)
     results = {}

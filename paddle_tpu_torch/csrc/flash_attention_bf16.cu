@@ -83,9 +83,8 @@
 // 133,176 / 67,640 (K and V, two stages of Q, dO, lse and delta): one
 // block an SM.
 //
-// Tensor maps are made on the host per call with cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint (no -lcuda), and passed as
-// __grid_constant__ parameters. Plain C interface, loaded with ctypes;
+// The TMA, mbarrier, wgmma and setmaxnreg helpers and the tensor maps are
+// hopper_common.cuh's, shared with gmm.cu. Plain C interface, loaded with ctypes;
 // launches go on the caller's stream and each function returns
 // cudaGetLastError(), so a refused launch is reported to the caller.
 
@@ -96,10 +95,12 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;                         // query rows of a forward or dq block
@@ -114,109 +115,13 @@ constexpr int PANEL = 64;           // bf16 columns of a 128-byte swizzled panel
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// -- PTX: barriers, TMA, wgmma ------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-// Waits for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  while (!mbar_try_wait(addr, parity)) {
-  }
-}
-// The producer's wait: one of more than 2^34 cycles (about 10 s) traps, so
-// that a fault in the protocol ends the launch with an error instead of
-// holding the card (the producer waits on every stage the consumers hold,
-// so it is the first to see them stuck). The consumers' waits have no
-// such clock: it costs them registers (spills at D = 128; variant
-// consumer_watchdog of paddle_tpu_torch/tools/flash_variants.py).
-__device__ __forceinline__ void mbar_wait_guarded(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// A [1, rows, cols] box of a 3-d tensor map at (c0, c1, c2), innermost
-// first, into shared memory; completion counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
+// -- PTX ----------------------------------------------------------------------------
 
 // 2^x, flushing results below 2^-126 to 0.
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until every wgmma batch this warpgroup committed is done.
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from touching an accumulator across a wgmma wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Matrix descriptors of a 128B-swizzled operand in shared memory (start
-// address >> 4, leading and stride byte offsets >> 4, layout 1 = 128B
-// swizzle). K-major: 8-row groups 1024 bytes apart (the leading offset is
-// unused). MN-major: 8-row groups of K 1024 bytes apart, 64-column panels
-// of N `panel_bytes` apart.
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t panel_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(panel_bytes >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // A shared-memory address the compiler must take as new on every loop
@@ -230,108 +135,7 @@ __device__ __forceinline__ uint32_t opaque(uint32_t addr) {
   return addr;
 }
 
-// A [rows, D] tile is D / 64 panels of [rows, 64]. The K-major operand of
-// its rows [r0, r0 + 64 or N) at k-step kk (columns 16 kk .. 16 kk + 15):
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
-  return desc_k(tile + (kk / 4) * rows * 128 + r0 * 128 + (kk % 4) * 32);
-}
-// The MN-major operand of its rows [r0, r0 + 16) as K, all D columns as N:
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int r0) {
-  return desc_mn(tile + r0 * 128, rows * 128);
-}
-
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory, both
-// K-major; accumulate = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (the accumulator
-// layout of a 64 x 16 slice, as bf16 pairs), B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory, both
-// K-major; accumulate = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (the accumulator
-// layout of a 64 x 16 slice, as bf16 pairs), B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
-  if constexpr (N == 64)
-    wgmma_ss_n64(d, a, b, accumulate);
-  else
-    wgmma_ss_n128(d, a, b, accumulate);
-}
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64)
-    wgmma_rs_n64(d, a, b);
-  else
-    wgmma_rs_n128(d, a, b);
-}
-
-// -- registers ----------------------------------------------------------------------
-//
-// The accumulator of a 64 x N wgmma: thread (warp w, lane 4 g + t) holds
-// d[4 j + e] at row 16 w + g + 8 (e >> 1), column 8 j + 2 t + (e & 1).
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// -- registers (the accumulator layout: hopper_common.cuh) -------------------------
 
 // The accumulator d [64 x N], rounded to bf16, as the A operand of a
 // register-sourced wgmma: one fragment per 16 columns.
@@ -341,12 +145,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-}
-
-template <int R>
-__device__ __forceinline__ void zero(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -373,10 +171,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, int row_lo, int n_rows, co
       *reinterpret_cast<uint32_t*>(dst + (size_t)row * D + 8 * j + 2 * t) =
           pack_bf16(c[4 * j + 2 * r] / div[r], c[4 * j + 2 * r + 1] / div[r]);
   }
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // Key tiles a block of query rows starting at q0 sees.
@@ -442,7 +236,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       mbar_init(&k_empty[s], 4 * CONSUMERS);
       mbar_init(&v_empty[s], 4 * CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   const Bands bands(mk, bh, sk, causal);
@@ -627,7 +421,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
       mbar_init(&kv_full[s], 1);
       mbar_init(&empty[s], 4 * CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   const Bands bands(mk, bh, sk, causal);
@@ -785,7 +579,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
       mbar_init(&full[s], 32);  // the producer warp's lanes, lane 0 with the TMA bytes
       mbar_init(&empty[s], 4 * CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   const Bands bands(mk, bh, sk, causal);
@@ -915,48 +709,6 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
 
 // -- launches -----------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a contiguous [outer, rows, inner] tensor read in boxes of
-// [1, box_rows, box_inner]: bf16 swizzled 128B (the wgmma layout), or
-// int32 as it is (the bounds). Boxes past the end are zero-filled.
-bool tensor_map(CUtensorMap* map, const void* ptr, bool is_bf16, int inner, int rows, int outer,
-                int box_inner, int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t esize = is_bf16 ? 2 : 4;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {inner * esize, (cuuint64_t)rows * inner * esize};
-  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_INT32, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                is_bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A [bh, s, D] bf16 tensor's map in boxes of `rows` rows and one panel.
 bool panel_map(CUtensorMap* map, const void* ptr, int d, int s, int bh, int rows) {
   return tensor_map(map, ptr, true, d, s, bh, PANEL, rows);
@@ -965,11 +717,6 @@ bool panel_map(CUtensorMap* map, const void* ptr, int d, int s, int bh, int rows
 // The bounds [b * hb, sk, 4] in boxes of one key tile.
 bool bounds_map(CUtensorMap* map, const Args& a) {
   return tensor_map(map, a.mk.bounds, false, 4, a.sk, a.bh / a.mk.h * a.mk.hb, 4, BN);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int D, bool MASKED>

@@ -5,13 +5,26 @@ adds one where it launches the kernel and nowhere else, so a run that
 zeroes the counts, drives the engine or a trainer and reads them shows which kernels
 the path really went through. A call on a CPU tensor takes the plain
 version and counts nothing.
+
+Two keys count calls instead, on any device: ``sdpa_plain`` the attention
+calls that ``nn.functional.scaled_dot_product_attention`` routes to its
+plain ``_sdpa_reference`` because the flash kernels do not take their
+shapes (``flash_attention.flash_takes``), and ``ragged_plain`` the serving
+attention calls that ``serving.ragged.make_attend`` routes to
+``ragged_attention_plain`` for the same reason (``ragged_attention.
+kernel_takes``). Both routings are the JAX package's own; a main path
+that takes them reads above 0 there.
 """
 from __future__ import annotations
 
 LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rope": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "adamw": 0, "gmm": 0, "tgmm": 0, "flashmask_summary": 0,
-            "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0}
+            "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0,
+            "sdpa_plain": 0, "ragged_plain": 0}
+
+
+ROUTED = ("sdpa_plain", "ragged_plain")     # the keys that count calls
 
 
 def reset_launches() -> None:
@@ -19,4 +32,9 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-__all__ = ["LAUNCHES", "reset_launches"]
+def kernel_launches() -> dict:
+    """The counts of the kernels alone (``LAUNCHES`` less ``ROUTED``)."""
+    return {n: c for n, c in LAUNCHES.items() if n not in ROUTED}
+
+
+__all__ = ["LAUNCHES", "ROUTED", "reset_launches", "kernel_launches"]

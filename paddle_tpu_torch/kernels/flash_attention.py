@@ -39,7 +39,10 @@ dense path the mean over all keys).
 The kernels take head_dim 64 and 128 and any sequence length (a ragged
 last tile is masked); the wrapper raises on anything else, on ``sq > sk``
 under ``causal`` (leading rows would see no key) and, with bounds, on
-``sq != sk``.
+``sq != sk``. ``flash_takes`` says which mask-free calls they take, as
+the JAX package's ``is_available`` gates its kernel:
+``nn.functional.scaled_dot_product_attention`` sends the others to its
+plain path, on either device.
 """
 from __future__ import annotations
 
@@ -192,6 +195,25 @@ def _lib(dtype=torch.float32):
         lib.ptt_error_string.argtypes = [i]
         lib.ptt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def flash_takes(q, k, causal=False, v=None):
+    """Whether the flash kernels take a mask-free call on ``[batch, seq,
+    heads, head_dim]`` inputs (the functional's layout): head_dim in
+    ``HEAD_DIMS``, float32 or bfloat16 throughout, shapes that fit, and not
+    causal with q_len > kv_len. The counterpart of the JAX package's
+    ``kernels/flash_attention.py:is_available`` less its TPU tiling
+    conditions (sequence lengths multiples of 128): these kernels take
+    any length. The device plays no part."""
+    if q.dim() != 4 or k.dim() != 4 or (v is not None and v.shape != k.shape):
+        return False
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or (v is not None and v.dtype != q.dtype):
+        return False
+    b, sq, h, d = q.shape
+    if d not in HEAD_DIMS or k.shape[0] != b or k.shape[2:] != (h, d):
+        return False
+    return not (causal and sq > k.shape[1])
 
 
 def _check(q, k, v, causal):
@@ -470,7 +492,8 @@ def flashmask_attention(q, k, v, bounds, causal=False, scale=None,
                                 summary)
 
 
-__all__ = ["flash_attention", "flash_attention_bshd", "flash_forward",
-           "flash_backward", "flash_forward_plain", "flash_backward_plain",
+__all__ = ["flash_attention", "flash_attention_bshd", "flash_takes",
+           "flash_forward", "flash_backward", "flash_forward_plain",
+           "flash_backward_plain",
            "FlashAttention", "flashmask_visible", "flashmask_summary",
            "flashmask_summary_plain", "flashmask_attention"]

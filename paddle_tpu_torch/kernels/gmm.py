@@ -5,8 +5,9 @@ Replaces ``paddle_tpu/kernels/gmm_pallas.py``: ``_gmm_call``
 (``_gmm_kernel``) -> ``gmm``, ``_tgmm_call`` (``_tgmm_kernel``) -> ``tgmm``,
 the ``custom_vjp`` of ``_gmm_with_blocks`` -> ``GMMFunction``, and
 ``topk_route``, ``load_balance_aux`` and ``moe_dropless_ffn`` one for one.
-The kernels (``csrc/gmm.cu``) are bound by operations on the H100 at the
-MoE slice's shapes; the source note says how they are built. The JAX
+The kernels (``csrc/gmm.cu``: TMA and wgmma in bf16, FMA in float32) are
+bound by operations on the H100 at the MoE slice's shapes; the source
+note says how they are built. The JAX
 function's work-item tables (``make_group_metadata``) have no counterpart:
 each CUDA block reads the group offsets itself.
 
@@ -118,8 +119,8 @@ def _offsets(group_sizes):
 
 
 def _aligned(x):
-    """x contiguous with a 16-byte-aligned start (cp.async copies 16
-    bytes at a time)."""
+    """x contiguous with a 16-byte-aligned start (the bf16 kernels read
+    through TMA, the float32 ones with 16-byte cp.async copies)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

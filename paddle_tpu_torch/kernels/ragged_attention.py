@@ -74,6 +74,14 @@ def _fn():
     return lib, fn
 
 
+def kernel_takes(head_dim, rep):
+    """Whether the kernel takes this head_dim and GQA group (query heads
+    per kv head); ``serving.ragged.make_attend`` sends the others to
+    ``ragged_attention_plain``, as the JAX package takes its jnp path
+    wherever its kernel is off."""
+    return head_dim in HEAD_DIMS and rep in GROUP_SIZES
+
+
 def _check(q, k_pool, v_pool, page_tables, slot_ids, positions, valid, rep):
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "page_tables": page_tables, "slot_ids": slot_ids,
@@ -96,7 +104,7 @@ def _check(q, k_pool, v_pool, page_tables, slot_ids, positions, valid, rep):
     if dk != d or h != kvh * rep:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pool.shape)} with rep={rep}")
-    if d not in HEAD_DIMS or rep not in GROUP_SIZES:
+    if not kernel_takes(d, rep):
         raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS} and "
                          f"rep in {GROUP_SIZES}, got {d} and {rep}")
     for name, x in (("page_tables", page_tables), ("slot_ids", slot_ids),
@@ -141,4 +149,4 @@ def ragged_attention(q, k_pool, v_pool, page_tables, slot_ids, positions,
     return out
 
 
-__all__ = ["ragged_attention", "ragged_attention_plain"]
+__all__ = ["ragged_attention", "ragged_attention_plain", "kernel_takes"]

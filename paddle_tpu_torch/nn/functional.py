@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as TF
 
+from ..kernels import LAUNCHES
 from ..kernels import flash_attention as FA
 from ..kernels import fused
 
@@ -48,16 +49,23 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
     """Attention over ``[batch, seq, heads, head_dim]`` inputs (the JAX
-    package's layout), differentiable. Without a mask the flash kernels
-    run on CUDA tensors and their plain versions on CPU tensors; with
-    ``attn_mask`` (bool, True = visible, or additive) it is the plain
-    ``_sdpa_reference`` on any device, as the JAX package computes it in
-    XLA outside any Pallas kernel."""
+    package's layout), differentiable. Without a mask, a call the flash
+    kernels take (``FA.flash_takes``) runs them on CUDA tensors and their
+    plain versions on CPU tensors; any other (a head_dim outside
+    ``FA.HEAD_DIMS``, causal with q_len > kv_len, where the leading rows
+    average v) is the plain ``_sdpa_reference`` on either device, counted
+    in ``LAUNCHES["sdpa_plain"]``, as the JAX package gates its kernel
+    with ``is_available``. With ``attn_mask`` (bool, True = visible, or
+    additive) it is ``_sdpa_reference`` on any device, as the JAX package
+    computes it in XLA outside any Pallas kernel."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "scaled_dot_product_attention: dropout is not ported")
     if attn_mask is not None:
         return _sdpa_reference(query, key, value, attn_mask, is_causal)
+    if not FA.flash_takes(query, key, is_causal, value):
+        LAUNCHES["sdpa_plain"] += 1
+        return _sdpa_reference(query, key, value, causal=is_causal)
     return FA.flash_attention_bshd(query, key, value, causal=is_causal)
 
 

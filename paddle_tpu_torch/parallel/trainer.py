@@ -77,8 +77,8 @@ class SpmdTrainer:
         _refuse("mesh", mesh, "ROADMAP Queue 1, distributed")
         _refuse("seq_axis", seq_axis, "ROADMAP Queue 1, distributed")
         _refuse("zero_stage", zero_stage, "ROADMAP Queue 1, distributed")
-        _refuse("aot_cache", aot_cache, "ROADMAP Queue 1, item 2")
-        _refuse("memwatch", memwatch, "ROADMAP Queue 1, item 4")
+        _refuse("aot_cache", aot_cache, "ROADMAP Queue 1, AOT program cache")
+        _refuse("memwatch", memwatch, "ROADMAP Queue 1, profiler/memwatch")
         self.model = model
         self.opt = optimizer
         self.loss_fn = loss_fn

@@ -17,7 +17,9 @@ attention shape a continuous batcher emits. Layout contract:
 """
 from __future__ import annotations
 
-from ..kernels.ragged_attention import ragged_attention, ragged_attention_plain
+from ..kernels import LAUNCHES
+from ..kernels.ragged_attention import (kernel_takes, ragged_attention,
+                                        ragged_attention_plain)
 
 # the plain version under the JAX package's name
 ragged_paged_attention = ragged_attention_plain
@@ -25,10 +27,18 @@ ragged_paged_attention = ragged_attention_plain
 
 def make_attend(page_tables, slot_ids, positions, valid, rep):
     """Bind the ragged metadata into the ``attend(q, kp, vp)`` callable
-    ``generation.step_ragged`` expects. CUDA tensors go to the kernel,
-    CPU tensors to the plain version (the wrapper routes by device)."""
+    ``generation.step_ragged`` expects. A (head_dim, rep) the kernel takes
+    goes to ``ragged_attention``, which launches the kernel on CUDA
+    tensors and runs the plain version on CPU tensors; any other goes to
+    ``ragged_attention_plain`` on either device, counted in
+    ``LAUNCHES["ragged_plain"]``, as the JAX package's ``make_attend``
+    takes its jnp path wherever its kernel is off."""
 
     def attend(q, kp, vp):
+        if not kernel_takes(q.shape[-1], rep):
+            LAUNCHES["ragged_plain"] += 1
+            return ragged_attention_plain(q, kp, vp, page_tables, slot_ids,
+                                          positions, valid, rep)
         return ragged_attention(q, kp, vp, page_tables, slot_ids, positions,
                                 valid, rep)
 

@@ -15,8 +15,11 @@ largest value (P is also rounded to bf16, at another running max). AdamW:
 equal, since the kernel rounds every operation explicitly in the plain
 version's order. Grouped matmuls: float32 1e-5 of the largest value (fp32
 sums in another order); bfloat16 each row within two ulps of its largest
-value (both round one fp32 sum). FlashMask: as flash attention; a row
-that sees no key must give output 0, lse -1e30 and dq 0 exactly.
+value (both round one fp32 sum); rows past the groups and an empty
+group's dw exactly 0. FlashMask: as flash attention; a row that sees no
+key must give output 0, lse -1e30 and dq 0 exactly. Attention shapes the
+kernels do not take: the plain path on the card against the same function
+on the CPU, at the tolerances above.
 """
 import numpy as np
 import pytest
@@ -389,6 +392,93 @@ def test_gmm_kernel_refuses_what_it_does_not_take(dev):
         gmm(x, w.bfloat16(), gs)
     with pytest.raises(TypeError):
         tgmm(x, dy, gs.long())
+
+
+# shapes the new kernels' tiles do not divide: t, k and n off the 128-row,
+# 64-deep and 256- / 128-column tiles; group sizes off the 64-row slices;
+# empty first and last groups; rows past the groups; more tiles than SMs
+GMM_EDGES = {  # (t, k, n, group sizes)
+    "tails": (300, 80, 208, [37, 100, 0, 130, 29]),       # 4 rows past
+    "empty_ends": (384, 64, 96, [0, 200, 150, 0]),        # 34 rows past
+    "deep": (700, 320, 272, [0, 130, 1, 64, 255, 0, 190, 0]),
+    "many_tiles": (4100, 192, 1040, [700, 1, 1299, 0, 2048, 3]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GMM_EDGES))
+def test_gmm_kernels_at_tile_edges(dev, dtype, case):
+    from paddle_tpu_torch.kernels.gmm import gmm, gmm_plain, tgmm, tgmm_plain
+    t, k, n, sizes = GMM_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(t, k, device=dev, generator=g).to(dtype)
+    w = torch.randn(len(sizes), k, n, device=dev, generator=g).to(dtype)
+    dy = torch.randn(t, n, device=dev, generator=g).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    out, dx, dw = gmm(x, w, gs), gmm(dy, w, gs, trans_w=True), tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    total = sum(sizes)
+    assert not out[total:].any() and not dx[total:].any()     # exactly 0
+    for g_, size in enumerate(sizes):
+        if size == 0:
+            assert not dw[g_].any()                            # exactly 0
+    _assert_gmm_close(out, gmm_plain(x, w, gs), dtype)
+    _assert_gmm_close(dx, gmm_plain(dy, w, gs, trans_w=True), dtype)
+    _assert_gmm_close(dw.to(dtype), tgmm_plain(x, dy, gs).to(dtype), dtype)
+
+
+# -- attention shapes the kernels do not take -----------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq, sk, d, causal", [(7, 5, 64, True),
+                                               (12, 12, 32, True),
+                                               (9, 13, 80, False),
+                                               (8, 8, 256, True)])
+def test_sdpa_routes_what_the_kernels_lack(dev, dtype, sq, sk, d, causal):
+    """On the card too, a call the flash kernels do not take runs the plain
+    path (the same function on the CPU), counted once, no kernel launched;
+    gradients flow."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(2, s, 3, d, generator=g).to(dtype)
+               for s in (sq, sk, sk))
+    want = F._sdpa_reference(q, k, v, causal=causal)
+    qd, kd, vd = (a.to(dev).requires_grad_() for a in (q, k, v))
+    before = dict(K.LAUNCHES)
+    got = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal)
+    got.float().sum().backward()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sdpa_plain"] == before["sdpa_plain"] + 1
+    assert K.kernel_launches() == {n: c for n, c in before.items()
+                                   if n not in K.ROUTED}
+    assert qd.grad is not None and bool(torch.isfinite(qd.grad).all())
+    err = float((got.detach().cpu().float() - want.float()).abs().max())
+    assert err <= _tol(want, dtype), err
+
+
+def test_sdpa_keeps_the_kernels_for_what_they_take(dev):
+    from paddle_tpu_torch.nn import functional as F
+    q = torch.randn(1, 40, 2, 64, device=dev, dtype=torch.bfloat16)
+    before = dict(K.LAUNCHES)
+    F.scaled_dot_product_attention(q, q, q, is_causal=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert K.LAUNCHES["sdpa_plain"] == before["sdpa_plain"]
+
+
+@pytest.mark.parametrize("d, rep", [(32, 3), (256, 1), (64, 3)])
+def test_make_attend_routes_what_the_kernel_lacks(dev, d, rep):
+    from paddle_tpu_torch.serving.ragged import make_attend
+    q, kp, vp, tables, slot, pos, valid = _ragged_inputs(dev, torch.float32,
+                                                         d, rep, 16)
+    before = dict(K.LAUNCHES)
+    got = make_attend(tables, slot, pos, valid, rep)(q, kp, vp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ragged_plain"] == before["ragged_plain"] + 1
+    assert K.LAUNCHES["ragged_attention"] == before["ragged_attention"]
+    want = ragged_attention_plain(*(a.cpu() for a in (q, kp, vp, tables, slot,
+                                                       pos, valid)), rep=rep)
+    assert float((got.cpu() - want).abs().max()) <= _tol(want, torch.float32)
 
 
 def test_moe_layer_on_gpu_matches_cpu(dev):

@@ -277,7 +277,7 @@ def test_functional_takes_bounds_prepared_once():
         [_doc_ends(rng, s, 5, 30) for _ in range(kh)]) for _ in range(b)])
         [..., None].astype(np.int32))
     q, k, v = (torch.from_numpy(x) for x in _bshd(b, s, h, kh, d, 12))
-    before = dict(K.LAUNCHES)
+    before = K.kernel_launches()
     mask = F.prepare_flashmask(se, s, h, kh, causal=True)
     assert tuple(mask.bounds.shape) == (b, h, s, 4) and mask.summary is None
     np.testing.assert_array_equal(
@@ -285,7 +285,7 @@ def test_functional_takes_bounds_prepared_once():
         F._canonical_startend(se, s, True).repeat_interleave(2, 1).numpy())
     want = F.flashmask_attention(q, k, v, se, causal=True)
     got = F.flashmask_attention(q, k, v, mask, causal=True)
-    assert K.LAUNCHES == before
+    assert K.kernel_launches() == before
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="causal"):
         F.flashmask_attention(q, k, v, mask, causal=False)
@@ -387,14 +387,14 @@ def test_packed_llama_logits_match_jax(kv_heads):
     ids, _, se, vis = _packed()
     want = jm(paddle.to_tensor(ids),
               attn_startend_row_indices=paddle.to_tensor(se)).numpy()
-    before = dict(K.LAUNCHES)
+    before = K.kernel_launches()
     with torch.no_grad():
         got = pm(torch.from_numpy(ids),
                  attn_startend_row_indices=torch.from_numpy(se))
         dense = pm(torch.from_numpy(ids),
                    attention_mask=torch.from_numpy(vis))
         causal = pm(torch.from_numpy(ids))
-    assert K.LAUNCHES == before
+    assert K.kernel_launches() == before
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     np.testing.assert_allclose(dense.numpy(), got.numpy(), atol=1e-5)
     assert not np.allclose(causal.numpy(), got.numpy(), atol=1e-3)

@@ -125,10 +125,10 @@ def test_flash_autograd_matches_jax_grad(causal):
                        * w)
     want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    before = dict(K.LAUNCHES)
+    before = K.kernel_launches()
     (flash_attention(tq, tk, tv, causal) * torch.from_numpy(w)).sum() \
         .backward()
-    assert K.LAUNCHES == before        # CPU tensors launch nothing
+    assert K.kernel_launches() == before  # CPU tensors launch nothing
     for name, a, b in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-4,
                                    err_msg=f"d{name}")
@@ -232,10 +232,10 @@ def test_multi_tensor_adamw_updates_in_place_on_cpu():
     want = [adamw_plain(p, g, m, v, 1e-2, 0.9, 0.99, 1e-8, wd, 1.0)
             for p, g, m, v, wd in zip(ps, gs, ms, vs, wds)]
     ids = [p.data_ptr() for p in ps]
-    before = dict(K.LAUNCHES)
+    before = K.kernel_launches()
     multi_tensor_adamw(ps, gs, ms, vs, lr=1e-2, beta1=0.9, beta2=0.99,
                        eps=1e-8, wds=wds, step=1.0)
-    assert K.LAUNCHES == before
+    assert K.kernel_launches() == before
     assert [p.data_ptr() for p in ps] == ids
     for (wp, wm, wv), p, m, v in zip(want, ps, ms, vs):
         assert torch.equal(p, wp) and torch.equal(m, wm) \

@@ -140,11 +140,11 @@ def test_trainer_launches_nothing_on_cpu_and_keeps_grad_buffers():
     ids, labels = _batch()
     tr = SpmdTrainer(pm, opt.AdamW(learning_rate=LR,
                                    parameters=pm.parameters()), _loss_fn)
-    before = dict(K.LAUNCHES)
+    before = K.kernel_launches()
     tr.train_step(torch.from_numpy(ids), torch.from_numpy(labels))
     ptrs = {n: g.data_ptr() for n, g in tr._grads.items()}
     tr.train_step(torch.from_numpy(ids), torch.from_numpy(labels))
-    assert K.LAUNCHES == before
+    assert K.kernel_launches() == before
     assert {n: g.data_ptr() for n, g in tr._grads.items()} == ptrs
     assert tr.opt._global_step == 2
 

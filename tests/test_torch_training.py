@@ -175,11 +175,11 @@ def test_dense_forward_raises_on_masks_and_launches_nothing_on_cpu():
     with pytest.raises(NotImplementedError, match="cannot be combined"):
         pm(ids, attention_mask=torch.ones(2, 1, SEQ, SEQ, dtype=torch.bool),
            attn_startend_row_indices=bounds)
-    before = dict(K.LAUNCHES)
+    before = K.kernel_launches()
     pm.forward_loss(ids, ids, loss_chunk_size=5).backward()
     pm.forward_loss(ids, ids, loss_chunk_size=5,
                     attn_startend_row_indices=bounds).backward()
-    assert K.LAUNCHES == before
+    assert K.kernel_launches() == before
 
 
 def test_num_params_and_flops_match_jax():
