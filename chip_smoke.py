@@ -5,15 +5,22 @@
 Phases, each printing its own lines and its seconds:
   1. the card (nvidia-smi name and power limit) and the versions;
   2. the build: every CUDA source compiled by nvcc for sm_90a (one nvcc
-     per source, all started together), the Triton kernels compiled by
-     their first launch; the HGMMA (wgmma), UTMALDG (TMA load) and HMMA
-     (mma.sync) instructions of each bf16 flash, gmm and tgmm kernel,
-     counted in cuobjdump's SASS: each must have the first two and none of
-     the last;
+     per source, all started together; ptxas's registers and spills
+     printed), the Triton kernels compiled by their first launch; the
+     HGMMA (wgmma), UTMALDG (TMA load), UBLKCP (bulk copy) and HMMA
+     (mma.sync) instructions of each bf16 flash, gmm, tgmm and ragged
+     attention kernel, counted in cuobjdump's SASS: each must have HGMMA
+     and UTMALDG and no HMMA, and the ragged kernels bulk copies and
+     tensor-core products;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it, with its time, its
      bound and a single PyTorch call for the same function where there is
-     one; then a tiny float32 Llama served on the card must return the
+     one (ragged attention: decode and mixed steps, MHA and GQA, each with
+     its CUDA-graph and eager ms, the fraction of its bound, the SDPA
+     yardstick, the plan's items and the CUDA kernels a call launches;
+     then one call captured in a CUDA graph and replayed after its
+     metadata is rewritten in place must equal the eager call, and two
+     calls each other, bit for bit); then a tiny float32 Llama served on the
      CPU engine's greedy tokens, and a tiny float32 Llama trained 3 steps
      on the card must match the port's CPU trainer (flash also at the
      GPT-MoE shape, and in bf16 at ragged lengths, sq < sk and
@@ -33,7 +40,8 @@ Phases, each printing its own lines and its seconds:
      counts are zeroed just before and read just after, every request
      must return all its tokens, and one ragged step through the kernels
      must agree with the same step through the plain versions (in bf16
-     and in float32);
+     and in float32); a profile of prefill and decode steps gives each
+     step's device ms and its ragged_attention group's;
   5. the llama-1.1b-b8 training recipe at full width (bf16 weights, fp32
      moments, full remat, chunked loss): 2 warm-up and 5 timed steps with
      exact launch counts, finite and falling losses, a profile of one step
@@ -97,14 +105,18 @@ WGMMA_KERNELS = {
     "gmm": (r"\d(t?gmm)_wgmma_kernel(?:ILb(\d)E)?",
             lambda m: m.group(1) + (" trans_w" if m.group(2) == "1" else ""),
             3),
+    "ragged_attention_bf16": (r"ragged_attention_wgmma_kernelILi(\d+)E",
+                              lambda m: f"ragged_attention d{m.group(1)}", 2),
 }
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
 def _wgmma_sass(built):
-    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} for every bf16
-    kernel of ``WGMMA_KERNELS`` in the built libraries, counted in
-    ``cuobjdump --dump-sass``. Raises unless each kernel issues wgmma
-    (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)."""
+    """{kernel: {op: n for op in SASS_OPS}} for every bf16 kernel of
+    ``WGMMA_KERNELS`` in the built libraries, counted in ``cuobjdump
+    --dump-sass``. Raises unless each kernel issues wgmma (HGMMA) and TMA
+    loads (UTMALDG) and no mma.sync (HMMA), and unless the ragged attention
+    kernels issue bulk async copies and tensor-core products."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -120,7 +132,7 @@ def _wgmma_sass(built):
                 m = re.search(pattern, line)
                 name = name_of(m) if m else None
                 if name:
-                    found[name] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+                    found[name] = {op: 0 for op in SASS_OPS}
             elif name:
                 for op in found[name]:
                     found[name][op] += bool(re.search(rf"\b{op}\b", line))
@@ -129,12 +141,23 @@ def _wgmma_sass(built):
                                  f"SASS, expected {expected}: {found}")
         counts.update(found)
     for k, c in sorted(counts.items()):
-        print(f"phase 2: sass {k}: HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']} "
-              f"HMMA {c['HMMA']}", flush=True)
+        print(f"phase 2: sass {k}: " + " ".join(f"{op} {c[op]}"
+                                               for op in SASS_OPS),
+              flush=True)
     if any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]
            for c in counts.values()):
-        raise AssertionError(f"the bf16 flash and gmm kernels are not all "
-                             f"wgmma with TMA loads: {counts}")
+        raise AssertionError(f"the bf16 flash, gmm and ragged kernels are "
+                             f"not all wgmma with TMA loads: {counts}")
+    for k, c in sorted(counts.items()):
+        if k.startswith("ragged_attention"):
+            copies = c["UBLKCP"] + c["UTMALDG"]
+            products = c["HGMMA"] + c["HMMA"]
+            print(f"phase 2: {k}: bulk async copies (UBLKCP + UTMALDG) "
+                  f"{copies}, tensor-core products (HGMMA + HMMA) {products}",
+                  flush=True)
+            if not (copies > 0 and products > 0):
+                raise AssertionError(f"{k} issues no bulk copy or no "
+                                     f"tensor-core product: {c}")
     return counts
 
 
@@ -321,22 +344,119 @@ def _sdpa_yardstick(torch, args, rep):
     return ms
 
 
+RAGGED_BUDGET = 256
+RAGGED_CONTEXTS = [97, 300, 511, 803, 1024, 1500, 1801, 2040]
+# phase 3's ragged cases, at the engine's shapes (Llama-2-7B's 32 heads of
+# 128; kvh 8 for GQA): decode tokens alone, or beside a 249-row prefill
+# chunk whose sequence ends at 960 keys
+RAGGED_CASES = {
+    "decode_mha": dict(kvh=32, contexts=RAGGED_CONTEXTS, chunk=0),
+    "decode_gqa": dict(kvh=8, contexts=RAGGED_CONTEXTS, chunk=0),
+    "mixed_mha": dict(kvh=32, contexts=RAGGED_CONTEXTS[:7] + [960],
+                      chunk=249),
+    "mixed_gqa": dict(kvh=8, contexts=RAGGED_CONTEXTS[:7] + [960],
+                      chunk=249),
+}
+
+
+def _ragged_plan_items(torch, args, rep):
+    """The number of work items of the bf16 kernels' plan for ``args``
+    (the plan kernel's count, read back here only)."""
+    from paddle_tpu_torch.kernels import ragged_attention as RA
+    q, kp, _, tables, slot, pos, valid = args
+    _, count, _ = RA.ragged_plan(slot, pos, valid, kp.shape[1], kp.shape[2],
+                                 tables.shape[1], rep)
+    return int(count.item())
+
+
+def _kernels_a_call(torch, fn, calls=10):
+    """{CUDA kernel name: [launches a call, device ms a call]} of ``fn``,
+    from a profile of ``calls`` calls."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"\w*ragged_attention\w*", e.name)
+            key = m.group(0) if m else e.name[:60]
+            c = names.setdefault(key, [0, 0.0])
+            c[0] += 1 / calls
+            c[1] += e.time_range.elapsed_us() / 1e3 / calls
+    return {k: [round(n, 3), round(ms, 5)] for k, (n, ms) in names.items()}
+
+
+def _ragged_graph_replay(torch, dev):
+    """One bf16 ragged call at the serving shapes captured in a CUDA graph;
+    slot_ids, positions and valid rewritten in place to another batch (a
+    longer chunk of another sequence, more valid rows); the replay must
+    equal an eager call on the new batch, and two eager calls each other."""
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_attention, ragged_attention_plain)
+    args, rep, _, _ = _ragged_case(torch, dev, budget=RAGGED_BUDGET, seed=30,
+                                   **RAGGED_CASES["mixed_mha"])
+    q, kp, vp, tables, slot, pos, valid = args
+    n_slots = tables.shape[0]
+    # the second batch: every slot's decode token, then 200 rows of slot 3
+    # at positions 500..699 (its table covers 803 keys)
+    slot2 = list(range(n_slots)) + [3] * 200
+    pos2 = [c - 1 for c in RAGGED_CONTEXTS[:7]] + [959] \
+        + list(range(500, 700))
+    n2 = len(slot2)
+    slot2 += [0] * (RAGGED_BUDGET - n2)
+    pos2 += [0] * (RAGGED_BUDGET - n2)
+    valid2 = [True] * n2 + [False] * (RAGGED_BUDGET - n2)
+    call = lambda: ragged_attention(*args, rep=rep)  # noqa: E731
+    first = call()
+    same = torch.equal(first, call())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_first = torch.equal(out, first)
+    slot.copy_(torch.tensor(slot2, dtype=torch.int32, device=dev))
+    pos.copy_(torch.tensor(pos2, dtype=torch.int32, device=dev))
+    valid.copy_(torch.tensor(valid2, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = call()
+    replay_second = torch.equal(out, want)
+    plain = ragged_attention_plain(*args, rep=rep)
+    err = float((out.float() - plain.float()).abs().max())
+    tol = ULP_BF16 * float(plain.float().abs().max())
+    ok = same and replay_first and replay_second and err <= tol
+    print(f"  ragged_attention graph replay (mixed_mha, then {n2} valid rows "
+          f"written in place): two eager calls bit-equal {same}, replay = "
+          f"eager {replay_first} / after rewrite {replay_second}, vs plain "
+          f"{err:.4g} (tol {tol:.4g}) {'ok' if ok else 'FAIL'}", flush=True)
+    del graph
+    if not ok:
+        raise AssertionError("ragged_attention: graph replay or repeat "
+                             "calls disagree")
+
+
 def phase_kernels(torch, results):
     from paddle_tpu_torch.kernels import fused
     from paddle_tpu_torch.kernels.ragged_attention import (
         ragged_attention, ragged_attention_plain)
     dev = torch.device("cuda")
-    budget = 256
-    contexts = [97, 300, 511, 803, 1024, 1500, 1801, 2040]
-    cases = {
-        "decode_mha": dict(kvh=32, contexts=contexts, chunk=0),
-        "decode_gqa": dict(kvh=8, contexts=contexts, chunk=0),
-        "mixed_mha": dict(kvh=32, contexts=contexts[:7] + [960], chunk=249),
-    }
-    print("phase 3: kernels against their plain versions (bf16; tolerance "
-          "one bf16 ulp of the largest reference value, 2^-7 of it)",
-          flush=True)
-    for i, (case, spec) in enumerate(cases.items()):
+    budget = RAGGED_BUDGET
+    card = _card_line()
+    print(f"phase 3: kernels against their plain versions (bf16; tolerance "
+          f"one bf16 ulp of the largest reference value, 2^-7 of it) "
+          f"[{card}]", flush=True)
+    for i, (case, spec) in enumerate(RAGGED_CASES.items()):
         args, rep, nbytes, flops = _ragged_case(torch, dev, budget=budget,
                                                 seed=10 + i, **spec)
         got = ragged_attention(*args, rep=rep)
@@ -344,22 +464,32 @@ def phase_kernels(torch, results):
         want = ragged_attention_plain(*args, rep=rep)
         err = _check(f"ragged_attention[{case}]", got, want,
                      ULP_BF16 * float(want.float().abs().max()))
+        if got[~args[-1]].any():
+            raise AssertionError(f"ragged_attention[{case}]: an invalid "
+                                 f"row is not 0")
         ms = _graph_ms(lambda: ragged_attention(*args, rep=rep))
         eager_ms = _time_ms(lambda: ragged_attention(*args, rep=rep), 50)
         plain_ms = _time_ms(lambda: ragged_attention_plain(*args, rep=rep), 3,
                             warmup=1)
         lib_ms = _sdpa_yardstick(torch, args, rep)
         bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+        items = _ragged_plan_items(torch, args, rep)
+        kernels = _kernels_a_call(torch,
+                                  lambda: ragged_attention(*args, rep=rep))
         results[f"ragged_attention[{case}]"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms, eager_ms=eager_ms)
-        print(f"  ragged_attention[{case}]: ms={ms:.4f} eager_ms="
-              f"{eager_ms:.4f} plain_ms="
-              f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"sdpa_ms={lib_ms:.4f} valid_rows="
-              f"{int(args[-1].sum())}/{budget}", flush=True)
+            bound_by=bound_by, library_ms=lib_ms, eager_ms=eager_ms,
+            plan_items=items, cuda_kernels_a_call=kernels)
+        print(f"  ragged_attention[{case}]: ms={ms:.4f} (graph replay) "
+              f"eager_ms={eager_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}; {bound_ms / ms:.3f} of "
+              f"it reached) sdpa_ms={lib_ms:.4f} plan_items={items} "
+              f"valid_rows={int(args[-1].sum())}/{budget} CUDA kernels a "
+              f"call {sum(n for n, _ in kernels.values()):g} (launches, ms "
+              f"each, profiled): {kernels} [{card}]", flush=True)
         del args, got, want
         torch.cuda.empty_cache()
+    _ragged_graph_replay(torch, dev)
 
     g = torch.Generator(device=dev).manual_seed(20)
     hidden, eps = 4096, 1e-5
@@ -568,6 +698,10 @@ def phase_serving(torch, args, launches_out):
 
     serving["breakdown"] = _profile_steps(torch, eng, cfg, args.seed,
                                           args.out)
+    for kind, m in serving["breakdown"].items():
+        print(f"  {kind} step: device {m['device_ms']:.3f} ms, ragged_attention "
+              f"group {m['by_group_ms'].get('ragged_attention', 0.0):.3f} ms "
+              f"({n_l} calls) [{card}]", flush=True)
     del eng, reqs, outs
     torch.cuda.empty_cache()
     serving.update(_step_agreement(torch, model, cfg, ecfg, args.seed))
@@ -2259,7 +2393,8 @@ def main(argv=None):
                    torch, args, packed_launches, True)
 
     replaces = {
-        "ragged_attention": ("cuda", "paddle_tpu_torch/csrc/ragged_attention.cu",
+        "ragged_attention": ("cuda",
+                             "paddle_tpu_torch/csrc/ragged_attention_bf16.cu",
                              "paddle_tpu/kernels/ragged_pallas.py:134"),
         "rms_norm": ("triton", "paddle_tpu_torch/kernels/fused.py",
                      "paddle_tpu/kernels/fused_pallas.py:156"),

@@ -117,13 +117,6 @@ constexpr float LN2 = 0.6931471805599453f;
 
 // -- PTX ----------------------------------------------------------------------------
 
-// 2^x, flushing results below 2^-126 to 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // A shared-memory address the compiler must take as new on every loop
 // trip: descriptors derived from it are rebuilt where the wgmma needs them
 // (an add each) instead of being kept in registers across the loop: the
@@ -135,26 +128,7 @@ __device__ __forceinline__ uint32_t opaque(uint32_t addr) {
   return addr;
 }
 
-// -- registers (the accumulator layout: hopper_common.cuh) -------------------------
-
-// The accumulator d [64 x N], rounded to bf16, as the A operand of a
-// register-sourced wgmma: one fragment per 16 columns.
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+// -- registers (the accumulator layout, to_a, quad_max, quad_sum: hopper_common.cuh) --
 
 // A warpgroup's [64 x D] accumulator divided by div[row half], the rows
 // below n_rows, to dst [n_rows, D]; row_lo is this thread's first row.

@@ -1,7 +1,8 @@
 // What the port's Hopper (sm_90a) kernels share: mbarriers, TMA loads
 // and stores through tensor maps, wgmma and its shared-memory descriptors, and
-// setmaxnreg. flash_attention_bf16.cu (the bf16 flash kernels) and gmm.cu
-// (the bf16 grouped matmuls) each include it.
+// setmaxnreg. flash_attention_bf16.cu (the bf16 flash kernels), gmm.cu
+// (the bf16 grouped matmuls) and ragged_attention_bf16.cu (bf16 ragged
+// paged attention) each include it.
 //
 // Conventions. An operand tile lives in shared memory as 64-column panels
 // of 128 bytes a row (64 bf16 values), swizzled 128B, which is both the
@@ -360,6 +361,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The accumulator d [64 x N], rounded to bf16, as the A operand of a
+// register-sourced wgmma: one fragment per 16 columns.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// The max and the sum over the quad of threads that share an accumulator
+// row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x, flushing results below 2^-126 to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int R>
 __device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
@@ -397,16 +426,18 @@ inline EncodeTiled encoder() {
 }
 
 // The map of a contiguous [outer, rows, inner] tensor read in boxes of
-// [1, box_rows, box_inner]: bf16 swizzled 128B (the wgmma layout; then
-// box_inner is 64), or int32 as it is. Boxes past the end are zero-filled.
+// [box_outer, box_rows, box_inner]: bf16 swizzled 128B (the wgmma layout;
+// then box_inner is 64), or int32 as it is. Boxes past the end are
+// zero-filled. A box lands in shared memory outer index by outer index,
+// row by row: box_outer * box_rows rows of box_inner values.
 inline bool tensor_map(CUtensorMap* map, const void* ptr, bool is_bf16, int inner, int rows,
-                       int outer, int box_inner, int box_rows) {
+                       int outer, int box_inner, int box_rows, int box_outer = 1) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t esize = is_bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)outer};
   const cuuint64_t strides[2] = {inner * esize, (cuuint64_t)rows * inner * esize};
-  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, (cuuint32_t)box_outer};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_INT32, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -1,4 +1,5 @@
-// Ragged paged attention for the continuous-batching engine (Hopper, sm_90a).
+// Ragged paged attention in float32 for the continuous-batching engine
+// (sm_90a); bf16 takes ragged_attention_bf16.cu.
 //
 // Replaces paddle_tpu/kernels/ragged_pallas.py:ragged_decode_attention
 // (_rpa_kernel). Same function: every packed query token t runs an online
@@ -8,8 +9,7 @@
 // h / rep; invalid rows are written as zeros.
 //
 // Bound on the H100: bytes. Each K/V slot is used for 4*D flops per query
-// head against 4*D bytes (bf16 K and V), far below the ~295 flop/byte the
-// card needs before its tensor cores are the limit.
+// head against 8*D bytes (fp32 K and V).
 //
 // Design against that bound:
 //   * the TPU grid walks every page column (T x MP) and masks the columns
@@ -20,25 +20,20 @@
 //   * one block per (token, kv head): the block reads each K/V page of its
 //     head once into shared memory and serves all `rep` query heads of the
 //     group from it (no repeat of K/V per query head);
-//   * the walk goes in chunks of ~32 keys (two 16-slot pages), double-
-//     buffered: while the block computes on one chunk, cp.async copies the
-//     next chunk's pages into the other shared buffer, so the loop waits on
-//     device memory once, not once a page, and pays its barriers and its
-//     softmax reduction once a chunk; the page-table row sits in shared
-//     memory, so finding the next page costs no device-memory round trip;
+//   * the walk goes in chunks of ~32 keys, double-buffered: while the block
+//     computes on one chunk, cp.async copies the next chunk's pages into
+//     the other shared buffer; the page-table row sits in shared memory;
 //   * scores, the running max and sum, and the output accumulator stay in
 //     fp32 in shared memory and registers; nothing but the output is
 //     written to device memory.
-// A prefill chunk's tokens still read their shared pages once each (from
-// L2 when they are warm), and one block walks a whole long context alone;
-// tiling several query tokens per block, TMA, and splitting long page lists
-// across blocks are the next steps for speed.
+// The bf16 kernels of ragged_attention_bf16.cu are the redesign for this
+// card (a plan of query tiles and key splits, TMA, wgmma); float32 is not
+// on the serving main path and keeps this kernel.
 //
 // Plain C interface, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError() so a refused launch is
 // reported to the caller.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -49,19 +44,11 @@ template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>
 __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -312,7 +299,8 @@ cudaError_t by_head_dim(int D, int rep, const void* q, const void* k_pool,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value.
+// dtype: 0 = float32 (the only one this file takes). Returns a cudaError_t
+// value.
 int ptt_ragged_attention(const void* q, const void* k_pool, const void* v_pool,
                          const void* tables, const void* slot_ids,
                          const void* positions, const void* valid, void* out,
@@ -330,9 +318,6 @@ int ptt_ragged_attention(const void* q, const void* k_pool, const void* v_pool,
   if (dtype == 0)
     err = by_head_dim<float>(D, rep, q, k_pool, v_pool, tab, sid, pos, val, out,
                              T_, H, KVH, P, BS, MP, scale, s);
-  else if (dtype == 1)
-    err = by_head_dim<__nv_bfloat16>(D, rep, q, k_pool, v_pool, tab, sid, pos,
-                                     val, out, T_, H, KVH, P, BS, MP, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

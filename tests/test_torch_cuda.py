@@ -17,7 +17,10 @@ version's order. Grouped matmuls: float32 1e-5 of the largest value (fp32
 sums in another order); bfloat16 each row within two ulps of its largest
 value (both round one fp32 sum); rows past the groups and an empty
 group's dw exactly 0. FlashMask: as flash attention; a row that sees no
-key must give output 0, lse -1e30 and dq 0 exactly. Attention shapes the
+key must give output 0, lse -1e30 and dq 0 exactly; its tile-summary
+pre-pass and the bf16 ragged kernels' work plan equal their plain versions
+exactly, and two bf16 ragged calls (also a CUDA-graph replay on rewritten
+metadata) give the same bits. Attention shapes the
 kernels do not take: the plain path on the card against the same function
 on the CPU, at the tolerances above.
 """
@@ -103,6 +106,165 @@ def test_ragged_kernel_matches_plain(dev, dtype, d, rep, bs):
     err = float((got.float() - want.float()).abs().max())
     assert err <= _tol(want, dtype), err
     assert not got[~args[-1]].any()
+
+
+def _ragged_batch(dev, dtype, d, rep, bs, contexts, rows, seed=0, kvh=2,
+                  holes=()):
+    """Pools and tables for per-slot ``contexts`` (pages of a slot spread
+    over the pool), and a packed batch ``rows``: (slot, position, valid)
+    triples in any order."""
+    g = np.random.default_rng(seed)
+    mp = max(-(-c // bs) for c in contexts) + 1
+    tables = np.full((len(contexts), mp), -1, np.int32)
+    n_pages = sum(-(-c // bs) for c in contexts)
+    perm = g.permutation(n_pages)
+    nxt = 0
+    for s, c in enumerate(contexts):
+        n = -(-c // bs)
+        tables[s, :n] = perm[nxt:nxt + n]
+        nxt += n
+    for s, col in holes:
+        tables[s, col] = -1
+    slot, pos, valid = (np.asarray(x) for x in zip(*rows))
+    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    t = len(rows)
+    q = to(g.standard_normal((t, kvh * rep, d)), dtype)
+    kp = to(g.standard_normal((n_pages, kvh, bs, d)), dtype)
+    vp = to(g.standard_normal((n_pages, kvh, bs, d)), dtype)
+    return (q, kp, vp, to(tables, torch.int32), to(slot, torch.int32),
+            to(pos, torch.int32), to(valid.astype(bool), torch.bool))
+
+
+def _ragged_case_rows(case):
+    """(contexts, rows) of the edge cases: "long" two decode tokens over
+    2048 and 2047 keys (16 splits of 128), a hole inside a split; "chunk"
+    a 100-row prefill chunk (longer than a 64-row tile) whose tiles cross
+    the 512-key split boundary, beside decode tokens; "scattered" rows of
+    one slot neither adjacent nor in order; "all_invalid"; "one_key"
+    contexts of one key."""
+    if case == "long":
+        return [2048, 2047, 5], [(0, 2047, 1), (1, 2046, 1), (2, 4, 1),
+                                 (0, 0, 0)]
+    if case == "chunk":
+        return ([600, 33, 700], [(1, 32, 1)] + [(2, p, 1)
+                                               for p in range(480, 580)]
+                + [(0, 599, 1), (0, 0, 0)])
+    if case == "scattered":
+        return [300, 40], [(0, 200, 1), (1, 39, 1), (0, 17, 1), (0, 201, 1),
+                           (1, 12, 1), (0, 199, 1), (0, 0, 0)]
+    if case == "all_invalid":
+        return [64, 30], [(0, 63, 0), (1, 29, 0), (0, 10, 0)]
+    return [1, 1, 20], [(0, 0, 1), (1, 0, 1), (2, 0, 1), (0, 0, 0)]
+
+
+RAGGED_EDGE_CASES = ["long", "chunk", "scattered", "all_invalid", "one_key"]
+
+
+@pytest.mark.parametrize("case", RAGGED_EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("bs", [4, 16])
+def test_ragged_kernel_edge_cases(dev, case, dtype, d, rep, bs):
+    contexts, rows = _ragged_case_rows(case)
+    holes = [(0, 300 // bs)] if case == "long" else ()
+    args = _ragged_batch(dev, dtype, d, rep, bs, contexts, rows, holes=holes)
+    before = K.LAUNCHES["ragged_attention"]
+    got = ragged_attention(*args, rep=rep)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ragged_attention"] == before + 1
+    want = ragged_attention_plain(*args, rep=rep)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(want, dtype), err
+    assert not got[~args[-1]].any()
+
+
+@pytest.mark.parametrize("case", ["long", "chunk", "scattered",
+                                  "all_invalid", "one_key", "serving"])
+@pytest.mark.parametrize("rep", [1, 2, 8])
+def test_ragged_plan_kernel_matches_plain(dev, case, rep):
+    from paddle_tpu_torch.kernels import ragged_attention as RA
+    if case == "serving":       # the engine's shape: 256 rows, most padding
+        contexts = [97, 300, 511, 803, 1024, 1500, 1801, 960]
+        rows = [(s, c - 1, 1) for s, c in enumerate(contexts[:7])] \
+            + [(7, p, 1) for p in range(711, 960)]
+        rows += [(0, 0, 0)] * (256 - len(rows))
+    else:
+        contexts, rows = _ragged_case_rows(case)
+    _, _, _, tables, slot, pos, valid = _ragged_batch(dev, torch.bfloat16,
+                                                      64, rep, 16, contexts,
+                                                      rows)
+    kvh, bs, mp = 2, 16, tables.shape[1]
+    items, count, row_splits = RA.ragged_plan(slot, pos, valid, kvh, bs, mp,
+                                              rep)
+    torch.cuda.synchronize()
+    bq, ks_d, ks_p, _ = RA.plan_geometry(bs, mp, rep)
+    want, want_rows = RA.ragged_plan_plain(slot.cpu(), pos.cpu(),
+                                           valid.cpu(), kvh, bs, mp, bq,
+                                           ks_d, ks_p)
+    n = int(count.item())
+    assert torch.equal(items[:n].cpu(), want)
+    assert torch.equal(row_splits.cpu(), want_rows)
+
+
+def test_ragged_bf16_calls_are_bit_equal(dev):
+    contexts, rows = _ragged_case_rows("chunk")
+    args = _ragged_batch(dev, torch.bfloat16, 128, 1, 16, contexts, rows)
+    a = ragged_attention(*args)
+    b = ragged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_ragged_graph_replay_with_rewritten_metadata(dev, rep):
+    """One call captured in a CUDA graph; slot_ids, positions and valid
+    rewritten in place to another batch (other chunk lengths, more valid
+    rows); the replay must equal an eager call on the new batch."""
+    contexts = [700, 300, 1200, 90]
+    first = [(0, 699, 1), (1, 299, 1)] + [(2, p, 1) for p in range(1100, 1130)]
+    first += [(0, 0, 0)] * (64 - len(first))
+    second = [(3, 89, 1), (0, 699, 1)] + [(1, p, 1) for p in range(200, 260)] \
+        + [(2, 1199, 1)]
+    second += [(0, 0, 0)] * (64 - len(second))
+    q, kp, vp, tables, slot, pos, valid = _ragged_batch(
+        dev, torch.bfloat16, 128, rep, 16, contexts, first)
+    _, _, _, _, slot2, pos2, valid2 = _ragged_batch(
+        dev, torch.bfloat16, 128, rep, 16, contexts, second)
+    call = lambda: ragged_attention(q, kp, vp, tables, slot, pos, valid,  # noqa: E731
+                                    rep=rep)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    slot.copy_(slot2)
+    pos.copy_(pos2)
+    valid.copy_(valid2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = call()
+    assert torch.equal(out, want)
+    ref = ragged_attention_plain(q, kp, vp, tables, slot, pos, valid, rep=rep)
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= _tol(ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("sk", [333, 2048, 2049])
+def test_flashmask_summary_kernel_matches_plain(dev, sk):
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(sk)
+    bounds = torch.randint(-5, sk + 5, (2, 3, sk, 4), generator=g,
+                           device=dev, dtype=torch.int32)
+    got = FA.flashmask_summary(bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, FA.flashmask_summary_plain(bounds))
 
 
 def test_ragged_kernel_refuses_what_it_does_not_take(dev):
