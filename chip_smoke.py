@@ -36,12 +36,27 @@ Phases, each printing its own lines and its seconds:
      and a tiny float32 Llama on packed documents trained 3 steps on the
      card against the CPU trainer;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
-     generator) served by the continuous-batching engine: the launch
-     counts are zeroed just before and read just after, every request
-     must return all its tokens, and one ragged step through the kernels
-     must agree with the same step through the plain versions (in bf16
-     and in float32); a profile of prefill and decode steps gives each
-     step's device ms and its ragged_attention group's;
+     generator) served by the continuous-batching engine, twice over the
+     same 12 requests: with its step run op by op (the yardstick), then
+     replayed from the CUDA graph the engine captured at construction
+     (the main path). For each, the launch counts are zeroed just before
+     and read just after and must be exact, every request must return all
+     its tokens, and decode and prefill step ms, tokens/s, the host's
+     share (schedule, pack, device step, emit), time to first token and
+     request latency (p50, p99) are printed, with a profile of prefill and
+     decode steps (device ms by group, idle share, one ragged plan a
+     step). The two runs' tokens must be equal, every step's logits
+     bit-equal and the pools' real pages equal; so must a float32 pair
+     (2 layers at full width). Then the front door
+     (``create_llm_predictor`` with ``set_max_batch_size(8)``) must return
+     ``generate_batch``'s tokens; ``generate()`` (batch 8, left-padded
+     prompts of 16-512 tokens, 32 new tokens) must give the same greedy
+     tokens from its captured decode graph as from the loop run op by op,
+     with exact launch counts, step ms, tokens/s, a profile and the dense
+     attention's ms; sampled (temperature 0.8, top-k 50, top-p 0.9, a
+     seed) two runs must be equal, in the vocabulary, with new noise each
+     step; and one ragged step through the kernels must agree with the
+     same step through the plain versions (in bf16 and in float32);
   5. the llama-1.1b-b8 training recipe at full width (bf16 weights, fp32
      moments, full remat, chunked loss): 2 warm-up and 5 timed steps with
      exact launch counts, finite and falling losses, a profile of one step
@@ -601,8 +616,9 @@ def _plain_patches(stack):
                                           fused.add_rms_norm_plain))
     stack.enter_context(mock.patch.object(fused, "fused_rope",
                                           fused.fused_rope_plain))
-    stack.enter_context(mock.patch.object(ragged, "ragged_attention",
-                                          ragged_attention_plain))
+    stack.enter_context(mock.patch.object(
+        ragged, "ragged_attention",
+        lambda *a, plan=None, **k: ragged_attention_plain(*a, **k)))
 
 
 def _nothing_routed(launches, phase):
@@ -617,7 +633,70 @@ def _nothing_routed(launches, phase):
                              f"the plain path: {routed}")
 
 
+def _pct(xs):
+    """(p50, p99) of ``xs`` (numpy's linear interpolation)."""
+    import numpy as np
+    return float(np.percentile(xs, 50)), float(np.percentile(xs, 99))
+
+
+def _serve_requests(torch, eng, prompts, max_new, keep_logits=False):
+    """Submit ``prompts`` at once and step ``eng`` until idle, a
+    synchronize after each step. The launch counts are zeroed just before
+    and read just after. Returns (stats, outputs, launches, the logits of
+    every step when ``keep_logits``)."""
+    from paddle_tpu_torch import kernels as K
+    K.reset_launches()
+    steps0 = eng.steps
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    per_step, logits = [], []
+    t_run = time.monotonic()
+    while True:
+        f0, g0 = eng.tokens_fed, eng.tokens_generated
+        h0 = dict(eng.host_seconds)
+        ts = time.monotonic()
+        more = eng.step()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - ts
+        per_step.append((eng.tokens_fed - f0, eng.tokens_generated - g0, dt,
+                         {k: eng.host_seconds[k] - h0[k] for k in h0}))
+        if keep_logits:
+            logits.append(eng._logits.clone())
+        if not more:
+            break
+    t_run = time.monotonic() - t_run
+    launches = dict(K.LAUNCHES)
+    outs = [r.result(timeout=0) for r in reqs]
+    stats = dict(steps=eng.steps - steps0, seconds=t_run,
+                 tokens_fed=sum(f for f, *_ in per_step),
+                 tokens_generated=sum(g for _, g, *_ in per_step),
+                 preemptions=sum(r.preemptions for r in reqs))
+    # decode steps feed only decode tokens; the others carry prefill
+    for kind, rows in (("decode", [s for s in per_step if s[0] == s[1]]),
+                       ("prefill", [s for s in per_step if s[0] != s[1]])):
+        secs = sum(s[2] for s in rows)
+        toks = sum(s[1] if kind == "decode" else s[0] - s[1] for s in rows)
+        stats[f"{kind}_steps"] = len(rows)
+        stats[f"{kind}_step_ms"] = 1e3 * secs / max(len(rows), 1)
+        stats[f"{kind}_tokens_per_s"] = toks / max(secs, 1e-9)
+        stats[f"{kind}_host_ms"] = {
+            k: 1e3 * sum(s[3][k] for s in rows) / max(len(rows), 1)
+            for k in eng.host_seconds}
+    ttft = [r.first_token_at - r.arrival for r in reqs]
+    lat = [r.finished_at - r.arrival for r in reqs]
+    stats["ttft_ms_p50"], stats["ttft_ms_p99"] = (1e3 * x for x in _pct(ttft))
+    stats["latency_ms_p50"], stats["latency_ms_p99"] = (1e3 * x
+                                                        for x in _pct(lat))
+    return stats, outs, launches, logits
+
+
 def phase_serving(torch, args, launches_out):
+    """Llama-2-7B served by two engines in turn over the same 12 requests:
+    the step run op by op (the yardstick) and the step replayed from the
+    CUDA graph captured at construction (the main path). Tokens equal,
+    every step's logits bit-equal, the pools' real pages equal; exact
+    launch counts; step ms, tokens/s, the host's share, TTFT and latency
+    for each; a profile of each; then the front door, generate() and the
+    kernel step against the plain step."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -639,73 +718,313 @@ def phase_serving(torch, args, launches_out):
           flush=True)
     ecfg = EngineConfig(max_seqs=8, token_budget=256, block_size=16,
                         max_model_len=2048)
-    eng = ServingEngine(model, ecfg)
     rng = np.random.default_rng(args.seed)
     lens = np.linspace(16, 1000, 12).astype(int)
     rng.shuffle(lens)
     prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist() for n in lens]
     max_new = 32
-    eng.generate_batch([list(range(1, 17))], max_new_tokens=2)  # warm-up
-
-    K.reset_launches()
-    steps0, fed0, gen0 = eng.steps, eng.tokens_fed, eng.tokens_generated
-    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
-    per_step = []
-    t_run = time.monotonic()
-    while True:
-        f0, g0, ts = eng.tokens_fed, eng.tokens_generated, time.monotonic()
-        more = eng.step()
-        torch.cuda.synchronize()
-        per_step.append((eng.tokens_fed - f0, eng.tokens_generated - g0,
-                         time.monotonic() - ts))
-        if not more:
-            break
-    t_run = time.monotonic() - t_run
-    launches = dict(K.LAUNCHES)
-    launches_out.update(launches)
-    steps = eng.steps - steps0
     n_l = cfg.num_hidden_layers
-    expect = {n: 0 for n in K.LAUNCHES}
-    expect.update(ragged_attention=n_l * steps, rms_norm=(n_l + 1) * steps,
-                  rms_norm_residual=n_l * steps, rope=n_l * steps)
-    print(f"  launches over {steps} steps: {launches} (expected {expect})",
+    serving, engines, outs, logits = {}, {}, {}, {}
+    for kind in ("eager", "captured"):
+        eng = ServingEngine(model, ecfg)
+        if kind == "eager":
+            eng._step = eng._step_eager
+        else:
+            print(f"  captured the step at construction in "
+                  f"{eng.capture_seconds:.3f}s, graph pool "
+                  f"{eng.graph_pool_bytes} bytes; launches a replay "
+                  f"{eng._tally}", flush=True)
+        eng.generate_batch([list(range(1, 17))], max_new_tokens=2)  # warm-up
+        stats, outs[kind], launches, logits[kind] = _serve_requests(
+            torch, eng, prompts, max_new, keep_logits=True)
+        steps = stats["steps"]
+        expect = {n: 0 for n in K.LAUNCHES}
+        expect.update(ragged_attention=n_l * steps,
+                      rms_norm=(n_l + 1) * steps,
+                      rms_norm_residual=n_l * steps, rope=n_l * steps)
+        print(f"  {kind}: launches over {steps} steps: {launches} (expected "
+              f"{expect})", flush=True)
+        _nothing_routed(launches, f"phase 4 ({kind})")
+        if launches != expect:
+            raise AssertionError(f"{kind}: launch counts {launches} != "
+                                 f"{expect}")
+        if any(len(o) != max_new or not all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in outs[kind]):
+            raise AssertionError(f"{kind}: a request did not return all of "
+                                 f"its tokens")
+        if kind == "captured":
+            launches_out.update(launches)
+            stats.update(capture_seconds=eng.capture_seconds,
+                         graph_pool_bytes=eng.graph_pool_bytes)
+        stats["prompt_tokens"] = int(sum(lens))
+        stats["card"] = card
+        print(f"  {kind} serving: " + json.dumps(stats), flush=True)
+        stats["breakdown"] = _profile_steps(torch, eng, cfg, args.seed,
+                                            args.out, kind)
+        for step_kind, m in stats["breakdown"].items():
+            # the profiler's own cost lengthens a traced step: the idle
+            # share against the untraced step's wall time as well
+            m["idle_share_untraced"] = 1 - m["device_ms"] / stats[
+                f"{step_kind}_step_ms"]
+        serving[kind] = stats
+        engines[kind] = eng
+    same_tokens = outs["eager"] == outs["captured"]
+    same_logits = len(logits["eager"]) == len(logits["captured"]) and all(
+        torch.equal(a, b) for a, b in zip(logits["eager"],
+                                          logits["captured"]))
+    p_real = engines["eager"].pool.num_blocks
+    same_pages = all(torch.equal(getattr(engines["eager"], n)[:, :p_real],
+                                 getattr(engines["captured"], n)[:, :p_real])
+                     for n in ("_kp", "_vp"))
+    print(f"  captured vs eager: tokens equal for "
+          f"{sum(a == b for a, b in zip(outs['eager'], outs['captured']))}/"
+          f"{len(prompts)} requests, logits bit-equal at every one of "
+          f"{len(logits['captured'])} steps {same_logits}, real pages equal "
+          f"{same_pages} {'ok' if same_tokens and same_logits and same_pages else 'FAIL'}",
           flush=True)
-    _nothing_routed(launches, "phase 4")
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
-    outs = [r.result(timeout=0) for r in reqs]
-    if any(len(o) != max_new or not all(0 <= t < cfg.vocab_size for t in o)
-           for o in outs):
-        raise AssertionError("a request did not return all of its tokens")
-    fed, gen = eng.tokens_fed - fed0, eng.tokens_generated - gen0
-    dec = [(f, g, dt) for f, g, dt in per_step if f and f == g]
-    mix = [(f, g, dt) for f, g, dt in per_step if f and f != g]
-    dec_tps = sum(g for _, g, _ in dec) / max(sum(d for _, _, d in dec), 1e-9)
-    pre_tps = sum(f - g for f, g, _ in mix) / max(sum(d for *_, d in mix),
-                                                  1e-9)
-    dec_ms = 1e3 * sum(d for *_, d in dec) / max(len(dec), 1)
-    mix_ms = 1e3 * sum(d for *_, d in mix) / max(len(mix), 1)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    serving = dict(
-        requests=len(reqs), prompt_tokens=int(sum(lens)),
-        max_new_tokens=max_new, steps=steps, tokens_fed=fed,
-        tokens_generated=gen, seconds=t_run, decode_steps=len(dec),
-        decode_step_ms=dec_ms, decode_tokens_per_s=dec_tps,
-        prefill_steps=len(mix), prefill_step_ms=mix_ms,
-        prefill_tokens_per_s=pre_tps, peak_memory_gb=peak_gb,
-        preemptions=sum(r.preemptions for r in reqs), card=card)
-    print("  serving: " + json.dumps(serving), flush=True)
-
-    serving["breakdown"] = _profile_steps(torch, eng, cfg, args.seed,
-                                          args.out)
-    for kind, m in serving["breakdown"].items():
-        print(f"  {kind} step: device {m['device_ms']:.3f} ms, ragged_attention "
-              f"group {m['by_group_ms'].get('ragged_attention', 0.0):.3f} ms "
-              f"({n_l} calls) [{card}]", flush=True)
-    del eng, reqs, outs
+    if not (same_tokens and same_logits and same_pages):
+        raise AssertionError("the captured step disagrees with the eager "
+                             "step")
+    e, c = serving["eager"], serving["captured"]
+    for kind in ("decode", "prefill"):
+        print(f"  {kind} steps, eager -> captured: "
+              f"{e[kind + '_step_ms']:.3f} -> {c[kind + '_step_ms']:.3f} ms, "
+              f"{e[kind + '_tokens_per_s']:.1f} -> "
+              f"{c[kind + '_tokens_per_s']:.1f} tokens/s, idle share "
+              f"{e['breakdown'][kind]['idle_share']:.3f} -> "
+              f"{c['breakdown'][kind]['idle_share']:.3f} traced, "
+              f"{e['breakdown'][kind]['idle_share_untraced']:.3f} -> "
+              f"{c['breakdown'][kind]['idle_share_untraced']:.3f} against "
+              f"the untraced step; host ms a step "
+              f"{_fmt_host(e[kind + '_host_ms'])} -> "
+              f"{_fmt_host(c[kind + '_host_ms'])} [{card}]", flush=True)
+    print(f"  TTFT p50/p99 ms eager {e['ttft_ms_p50']:.1f}/"
+          f"{e['ttft_ms_p99']:.1f}, captured {c['ttft_ms_p50']:.1f}/"
+          f"{c['ttft_ms_p99']:.1f}; latency p50/p99 ms eager "
+          f"{e['latency_ms_p50']:.1f}/{e['latency_ms_p99']:.1f}, captured "
+          f"{c['latency_ms_p50']:.1f}/{c['latency_ms_p99']:.1f} (12 "
+          f"requests submitted at once) [{card}]", flush=True)
+    serving["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engines, logits, eng
     torch.cuda.empty_cache()
+    serving["front_door"] = _front_door(torch, model, prompts[:4], max_new)
+    serving["generate"] = _generate_checks(torch, model, cfg, args,
+                                           launches_out)
     serving.update(_step_agreement(torch, model, cfg, ecfg, args.seed))
+    del model
+    torch.cuda.empty_cache()
+    serving["captured_step_f32"] = _captured_step_f32(torch, cfg, args.seed)
     return serving
+
+
+def _fmt_host(h):
+    return "/".join(f"{h[k]:.2f}" for k in ("schedule", "pack", "device",
+                                            "emit"))
+
+
+def _front_door(torch, model, prompts, max_new):
+    """``create_llm_predictor`` with ``set_max_batch_size(8)`` must return
+    the tokens of ``generate_batch`` on an engine built by hand with the
+    routed configuration (max_seqs 8, token_budget max(8 * 8, 64))."""
+    from paddle_tpu_torch.inference import Config, create_llm_predictor
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    conf = Config()
+    conf.set_max_batch_size(8)
+    pred = create_llm_predictor(model, conf, max_new_tokens=max_new)
+    routed = (pred.engine.config.max_seqs, pred.engine.config.token_budget)
+    (got,) = pred.run([prompts])
+    del pred
+    torch.cuda.empty_cache()
+    want = ServingEngine(model, EngineConfig(max_seqs=8, token_budget=64)) \
+        .generate_batch(prompts, max_new_tokens=max_new)
+    torch.cuda.empty_cache()
+    ok = got.tolist() == want and routed == (8, 64)
+    print(f"  front door: create_llm_predictor(max_batch_size 8 -> "
+          f"max_seqs, token_budget {routed}) over {len(prompts)} prompts: "
+          f"tokens equal to generate_batch {got.tolist() == want} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the front door disagrees with generate_batch")
+    return dict(requests=len(prompts), routed=routed, tokens_equal=True)
+
+
+def _timed_loop(torch, loop, ids, mask, max_new):
+    """(tokens, prefill ms, decode ms a step) of one greedy run of a
+    decode loop."""
+    t0 = time.monotonic()
+    loop.start(ids, mask, 1.0, 0, 1.0, None)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for _ in range(max_new):
+        loop.step()
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    toks, _ = loop.result()
+    return toks, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / max_new
+
+
+def _generate_checks(torch, model, cfg, args, launches_out):
+    """generate() at Llama-2-7B width: batch 8, left-padded prompts of
+    16-512 tokens, 32 new tokens. Greedy: the captured decode graph
+    against the same loop run op by op (tokens equal), step ms and
+    tokens/s of each, exact launch counts, a profile of decode replays and
+    the dense attention's device ms. Sampled (temperature 0.8, top-k 50,
+    top-p 0.9, a seed): two runs equal, every token in the vocabulary, and
+    each step's noise new."""
+    import numpy as np
+    from paddle_tpu_torch import generation as G
+    from paddle_tpu_torch import kernels as K
+    card = _card_line()
+    dev = torch.device("cuda")
+    b, width, max_new = 8, 512, 32
+    rng = np.random.default_rng(args.seed + 2)
+    lens = np.linspace(16, width, b).astype(int)
+    rng.shuffle(lens)
+    ids = np.zeros((b, width), np.int64)
+    mask = np.zeros((b, width), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, width - n:] = rng.integers(1, cfg.vocab_size, (n,))
+        mask[i, width - n:] = 1
+    ids_d, mask_d = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    dec = G._decoder_for(model)
+    w = dec.weights(model)
+    t0 = time.monotonic()
+    got, fin = G.generate(model, ids, attention_mask=mask,
+                          max_new_tokens=max_new)
+    first_s = time.monotonic() - t0
+    sig = (b, width, max_new, False, False, 0, 1.0, False)
+    loop = G._loop_for(dec, w, *sig)
+    n_l = cfg.num_hidden_layers
+    K.reset_launches()
+    toks_g, pre_g, step_g = _timed_loop(torch, loop, ids_d, mask_d, max_new)
+    launches = dict(K.LAUNCHES)
+    calls = 1 + max_new
+    expect = {n: 0 for n in K.LAUNCHES}
+    expect.update(rms_norm=(n_l + 1) * calls,
+                  rms_norm_residual=n_l * calls, rope=n_l * calls)
+    _nothing_routed(launches, "phase 4 generate()")
+    if launches != expect:
+        raise AssertionError(f"generate(): launch counts {launches} != "
+                             f"{expect}")
+    for n, c in launches.items():
+        launches_out[n] = launches_out.get(n, 0) + c
+    eager = G._DecodeLoop(dec, w, *sig)
+    toks_e, pre_e, step_e = _timed_loop(torch, eager, ids_d, mask_d, max_new)
+    del eager
+    torch.cuda.empty_cache()
+    ok = torch.equal(got, toks_g) and torch.equal(toks_g, toks_e) \
+        and 0 <= int(got.min()) and int(got.max()) < cfg.vocab_size
+    print(f"  generate(): batch {b}, prompts {sorted(lens.tolist())} "
+          f"left-padded to {width}, {max_new} new tokens; first call "
+          f"{first_s:.2f}s (capture included); greedy tokens: graph = "
+          f"eager {torch.equal(toks_g, toks_e)}, generate() = graph "
+          f"{torch.equal(got, toks_g)}; launches {launches} (expected "
+          f"{expect}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("generate(): the decode graph disagrees with "
+                             "the eager loop")
+    # where a decode step's device time goes: a profile of 8 replays
+    loop.start(ids_d, mask_d, 1.0, 0, 1.0, None)
+    prof, prof_m = _profile(torch, loop.step, 8)
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          "generate_decode_trace.json"))
+    # the dense attention of one decode step: 32 layers of _attend over
+    # the [8, 544] cache, timed alone (CUDA-graph replay)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    hd, h = cfg.hidden_size // cfg.num_attention_heads, \
+        cfg.num_attention_heads
+    q = torch.randn(b, 1, h, hd, device=dev, generator=g).bfloat16()
+    kc = torch.randn(b, width + max_new, h, hd, device=dev,
+                     generator=g).bfloat16()
+    vc = torch.randn_like(kc)
+    smask = loop.key_mask[:, None, None, :]
+    attn_ms = n_l * _graph_ms(lambda: G._attend(q, kc, vc, smask))
+    del q, kc, vc
+    out = dict(batch=b, prompt_lens=sorted(lens.tolist()), width=width,
+               max_new_tokens=max_new, first_call_s=first_s,
+               graph_prefill_ms=pre_g, graph_step_ms=step_g,
+               graph_tokens_per_s=b / (step_g / 1e3),
+               eager_prefill_ms=pre_e, eager_step_ms=step_e,
+               eager_tokens_per_s=b / (step_e / 1e3),
+               decode_profile=prof_m, dense_attention_ms_a_step=attn_ms,
+               finished=int(fin.sum()), card=card)
+    print(f"  generate() decode steps, eager -> graph: {step_e:.3f} -> "
+          f"{step_g:.3f} ms, {b / (step_e / 1e3):.1f} -> "
+          f"{b / (step_g / 1e3):.1f} tokens/s; prefill {pre_e:.1f} / "
+          f"{pre_g:.1f} ms; replay profile: wall {prof_m['wall_ms']:.3f} ms, "
+          f"device {prof_m['device_ms']:.3f} ms (idle "
+          f"{prof_m['idle_share']:.3f}), by group (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      prof_m["by_group_ms"].items())
+          + f"; dense attention (32 x _attend, alone) {attn_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    # sampling
+    kw = dict(attention_mask=mask, max_new_tokens=max_new, do_sample=True,
+              temperature=0.8, top_k=50, top_p=0.9)
+    s1, _ = G.generate(model, ids, seed=args.seed, **kw)
+    s2, _ = G.generate(model, ids, seed=args.seed, **kw)
+    sloop = G._loop_for(dec, w, b, width, max_new, True, False, 50, 0.9,
+                        False)
+    sloop.start(ids_d, mask_d, 0.8, 0, 1.0, args.seed)
+    draws = []
+    for _ in range(4):
+        sloop.step()
+        draws.append(sloop.noise.clone())
+    fresh = all(not torch.equal(draws[i], draws[i + 1]) for i in range(3))
+    in_vocab = 0 <= int(s1.min()) and int(s1.max()) < cfg.vocab_size
+    ok = torch.equal(s1, s2) and in_vocab and fresh
+    print(f"  generate() sampled (temperature 0.8, top-k 50, top-p 0.9, seed "
+          f"{args.seed}): two runs equal {torch.equal(s1, s2)}, tokens in "
+          f"the vocabulary {in_vocab}, new noise every step {fresh}, "
+          f"distinct tokens {len(set(s1.flatten().tolist()))}, tokens "
+          f"differing from greedy {int((s1 != got).sum())}/{s1.numel()} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("generate(): the sampled checks failed")
+    out.update(sampled_runs_equal=True, sampled_noise_fresh=True)
+    del draws
+    dec.loops.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _captured_step_f32(torch, cfg, seed):
+    """float32 at Llama-2-7B width with 2 layers: a captured engine and an
+    eager one stepped together over 4 requests; every step's logits
+    bit-equal and the same tokens."""
+    import dataclasses
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = LlamaForCausalLM(
+        small, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    ecfg = EngineConfig(max_seqs=4, token_budget=128, block_size=16,
+                        max_model_len=1024)
+    graph, eager = ServingEngine(model, ecfg), ServingEngine(model, ecfg)
+    eager._step = eager._step_eager
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(1, small.vocab_size, (n,)).tolist()
+               for n in (40, 200, 7, 130)]
+    reqs = [[e.submit(p, max_new_tokens=8) for p in prompts]
+            for e in (graph, eager)]
+    more, steps, same = True, 0, True
+    while more:
+        more = graph.step()
+        eager.step()
+        steps += 1
+        same = same and torch.equal(graph._logits, eager._logits)
+    tokens = [r.result(0) for r in reqs[0]] == [r.result(0) for r in reqs[1]]
+    print(f"  float32 (2 layers at full width): captured vs eager, logits "
+          f"bit-equal at every one of {steps} steps {same}, tokens equal "
+          f"{tokens} {'ok' if same and tokens else 'FAIL'}", flush=True)
+    if not (same and tokens):
+        raise AssertionError("float32: the captured step disagrees with the "
+                             "eager step")
+    del graph, eager, model
+    torch.cuda.empty_cache()
+    return dict(steps=steps, logits_bit_equal=True, tokens_equal=True)
 
 
 def _kernel_group(name):
@@ -741,7 +1060,8 @@ def _kernel_group(name):
 
 def _profile(torch, step, n):
     """Wall ms per step and device ms per step by kernel group, from a
-    torch.profiler trace of ``n`` calls of ``step``."""
+    torch.profiler trace of ``n`` calls of ``step`` (kernels replayed from
+    a CUDA graph appear in the trace as launched ones do)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -763,42 +1083,51 @@ def _profile(torch, step, n):
             launches += 1
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:20]
+    plans = sum(c for k, c in counts.items()
+                if "ragged_attention_plan_kernel" in k)
     return prof, dict(wall_ms=1e3 * wall / n, device_ms=busy / n,
                       idle_share=1 - busy / (1e3 * wall) if wall else None,
                       device_launches=launches / n,
+                      ragged_plans_a_step=plans / n,
                       by_group_ms={k: v / n for k, v in sorted(
                           groups.items(), key=lambda kv: -kv[1])},
                       top_kernels_ms={k: v / n for k, v in top},
                       top_kernels_launches={k: counts[k] / n for k, _ in top})
 
 
-def _profile_steps(torch, eng, cfg, seed, out_dir):
+def _profile_steps(torch, eng, cfg, seed, out_dir, tag):
     """Where a step's time goes: a profiler trace of two prefill steps
     (8 prompts of 512 tokens, 256 tokens a step) and of four decode steps
-    of the same 8 sequences. Chrome traces go to ``out_dir``."""
+    of the same 8 sequences. Chrome traces go to ``out_dir``, named by
+    ``tag``. The ragged attention must plan once a step."""
     import numpy as np
     rng = np.random.default_rng(seed + 1)
     reqs = [eng.submit(rng.integers(1, cfg.vocab_size, (512,)).tolist(),
                        max_new_tokens=16) for _ in range(8)]
     out = {}
     prof, out["prefill"] = _profile(torch, eng.step, 2)
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          "prefill_steps_trace.json"))
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"{tag}_prefill_steps_trace.json"))
     sched = eng.sched
     while sched.waiting or any(r.pos < len(r.seq) - 1 for r in sched.running):
         eng.step()
     prof, out["decode"] = _profile(torch, eng.step, 4)
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          "decode_steps_trace.json"))
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"{tag}_decode_steps_trace.json"))
     eng.run_until_idle()
     if not all(len(r.result(timeout=0)) == 16 for r in reqs):
         raise AssertionError("a profiled request did not finish")
     for kind, m in out.items():
-        print(f"  {kind} step breakdown: wall {m['wall_ms']:.3f} ms, device "
-              f"{m['device_ms']:.3f} ms (idle share {m['idle_share']:.3f}), "
-              f"{m['device_launches']:.0f} kernels; by group (ms): "
+        print(f"  {tag} {kind} step breakdown: wall {m['wall_ms']:.3f} ms, "
+              f"device {m['device_ms']:.3f} ms (idle share "
+              f"{m['idle_share']:.3f}), {m['device_launches']:.0f} kernels, "
+              f"{m['ragged_plans_a_step']:g} ragged plans; by group (ms): "
               + ", ".join(f"{k} {v:.3f}" for k, v in m["by_group_ms"].items()),
               flush=True)
+        if m["ragged_plans_a_step"] != 1:
+            raise AssertionError(f"{tag} {kind}: the ragged attention "
+                                 f"planned {m['ragged_plans_a_step']} times "
+                                 f"a step, not once")
     return out
 
 
@@ -820,6 +1149,10 @@ def _step_agreement(torch, model, cfg, ecfg, seed):
         budget=ecfg.token_budget, seed=seed)
     _, kp0, vp0, tables, slot, pos, valid = t_args
     layers = cfg.num_hidden_layers
+    # the engine's pools carry a spare page past the real ones, where the
+    # padding rows write
+    kp0 = torch.cat([kp0, torch.zeros_like(kp0[:1])])
+    vp0 = torch.cat([vp0, torch.zeros_like(vp0[:1])])
     kp = kp0[None].expand(layers, *kp0.shape).contiguous()
     vp = vp0[None].expand(layers, *vp0.shape).contiguous()
     del t_args, kp0, vp0

@@ -17,7 +17,9 @@
 // than its products need at the card's ~295 flop/byte.
 //
 // Three kernels a call, on the caller's stream, with no value sent back to
-// the host (so a CUDA graph can capture the call):
+// the host (so a CUDA graph can capture the call); a call given a plan made
+// for its batch by an earlier call (the serving step's other layers) skips
+// the first:
 //   1. ragged_attention_plan_kernel (one block) reads slot_ids, positions and
 //      valid and writes the work items and their count, and per row the
 //      splits of its tile (kernels/ragged_attention.py defines the plan;
@@ -661,22 +663,28 @@ int ptt_ragged_plan(const void* slot_ids, const void* positions, const void* val
 
 // q [T, H, D], pools [P, KVH, BS, D] bf16; out [T, H, D] bf16; the plan's
 // buffers as ptt_ragged_plan's; ws [T, H, nsmax, D] and ml [T, H, nsmax, 2]
-// fp32. BQ must be 64 / (H / KVH); grid blocks walk the items.
+// fp32. BQ must be 64 / (H / KVH); grid blocks walk the items. make_plan 0:
+// the buffers already hold this batch's plan (the serving step plans once
+// and its layers share the plan), so the plan kernel is not launched.
 int ptt_ragged_attention_bf16(const void* q, const void* k_pool, const void* v_pool,
                               const void* tables, const void* slot_ids, const void* positions,
                               const void* valid, void* out, void* items, void* count,
                               void* row_splits, void* ws, void* ml, int T, int H,
                               int KVH, int D, int P, int BS, int MP, int BQ, int ks_dec, int ks_pre,
-                              int cap, int nsmax, int stages, int grid, float scale, void* stream) {
+                              int cap, int nsmax, int stages, int grid, int make_plan, float scale,
+                              void* stream) {
   if (T <= 0) return 0;
   if (KVH <= 0 || H % KVH != 0 || (D != 64 && D != 128) || BS <= 0 || stages < 2 || grid <= 0)
     return (int)cudaErrorInvalidValue;
   const int rep = H / KVH;
   if (rep * BQ != ROWS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_plan(slot_ids, positions, valid, items, count, row_splits, T, KVH, BS,
-                                MP, BQ, ks_dec, ks_pre, cap, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  if (make_plan) {
+    err = launch_plan(slot_ids, positions, valid, items, count, row_splits, T, KVH, BS, MP, BQ,
+                      ks_dec, ks_pre, cap, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   // q seen as [T, H, D]: a tile's box is [min(BQ, T) tokens, rep heads, 64
   // columns], a one-row tile's [1, rep, 64]; the pools as [P * KVH, BS, D]
   const Geometry geo = geometry(BS);

@@ -6,6 +6,10 @@ zeroes the counts, drives the engine or a trainer and reads them shows which ker
 the path really went through. A call on a CPU tensor takes the plain
 version and counts nothing.
 
+A CUDA graph's replay runs no Python, so no wrapper counts it: code
+that captures a graph takes the launches the capture counted back out
+(``uncount_since``) and adds that tally at every replay.
+
 Two keys count calls instead, on any device: ``sdpa_plain`` the attention
 calls that ``nn.functional.scaled_dot_product_attention`` routes to its
 plain ``_sdpa_reference`` because the flash kernels do not take their
@@ -37,4 +41,15 @@ def kernel_launches() -> dict:
     return {n: c for n, c in LAUNCHES.items() if n not in ROUTED}
 
 
-__all__ = ["LAUNCHES", "ROUTED", "reset_launches", "kernel_launches"]
+def uncount_since(before: dict) -> dict:
+    """Take the counts added since ``before`` (a copy of ``LAUNCHES``) back
+    out, and return them: what a CUDA graph's capture counted without
+    launching, which each replay then adds."""
+    tally = {n: LAUNCHES[n] - before[n] for n in LAUNCHES
+             if LAUNCHES[n] != before[n]}
+    LAUNCHES.update(before)
+    return tally
+
+
+__all__ = ["LAUNCHES", "ROUTED", "reset_launches", "kernel_launches",
+           "uncount_since"]

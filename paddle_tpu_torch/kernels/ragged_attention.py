@@ -224,7 +224,7 @@ def _lib_bf16():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ptt_ragged_plan.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.ptt_ragged_plan.restype = i
-        lib.ptt_ragged_attention_bf16.argtypes = [p] * 13 + [i] * 14 \
+        lib.ptt_ragged_attention_bf16.argtypes = [p] * 13 + [i] * 15 \
             + [ctypes.c_float, p]
         lib.ptt_ragged_attention_bf16.restype = i
         lib.ptt_error_string.argtypes = [i]
@@ -328,7 +328,7 @@ def _sm_count(dev):
 
 
 def _ragged_bf16(q, k_pool, v_pool, page_tables, slot_ids, positions, valid,
-                 rep):
+                 rep, plan):
     t, h, d = q.shape
     p_total, kvh, bs, _ = k_pool.shape
     mp = page_tables.shape[1]
@@ -339,7 +339,14 @@ def _ragged_bf16(q, k_pool, v_pool, page_tables, slot_ids, positions, valid,
     if q.data_ptr() % 16:               # TMA reads q from a 16-byte boundary
         q = q.clone()
     dev = q.device
-    items, count, row_splits = _plan_buffers(t, kvh, nsm, dev)
+    make_plan = plan is None or "items" not in plan
+    if make_plan:
+        items, count, row_splits = _plan_buffers(t, kvh, nsm, dev)
+        if plan is not None:
+            plan.update(items=items, count=count, row_splits=row_splits)
+    else:
+        items, count, row_splits = (plan["items"], plan["count"],
+                                    plan["row_splits"])
     ws = torch.empty(t, h, nsm, d, dtype=torch.float32, device=dev)
     ml = torch.empty(t, h, nsm, 2, dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
@@ -351,17 +358,23 @@ def _ragged_bf16(q, k_pool, v_pool, page_tables, slot_ids, positions, valid,
         valid.data_ptr(), out.data_ptr(), items.data_ptr(), count.data_ptr(),
         row_splits.data_ptr(), ws.data_ptr(), ml.data_ptr(),
         t, h, kvh, d, p_total, bs, mp, bq, ks_d, ks_p, items.shape[0], nsm,
-        STAGES[d], grid, d ** -0.5,
+        STAGES[d], grid, int(make_plan), d ** -0.5,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "ragged_attention (bf16)")
     return out
 
 
 def ragged_attention(q, k_pool, v_pool, page_tables, slot_ids, positions,
-                     valid, rep=1):
+                     valid, rep=1, plan=None):
     """Ragged paged attention. On a CUDA tensor this launches the kernels
     (and raises on anything they do not take); on a CPU tensor it runs
-    the plain version."""
+    the plain version.
+
+    ``plan``: None, or a dict shared by calls over one batch (the same
+    slot_ids, positions, valid, page-table width, pool geometry and rep,
+    as the layers of one serving step are): the first bf16 call launches
+    the plan kernel into buffers it keeps there, and the later calls reuse
+    them instead of planning again."""
     if q.device.type == "cpu":
         return ragged_attention_plain(q, k_pool, v_pool, page_tables,
                                       slot_ids, positions, valid, rep)
@@ -371,7 +384,7 @@ def ragged_attention(q, k_pool, v_pool, page_tables, slot_ids, positions,
     _check(q, k_pool, v_pool, page_tables, slot_ids, positions, valid, rep)
     if q.dtype == torch.bfloat16:
         out = _ragged_bf16(q, k_pool, v_pool, page_tables, slot_ids,
-                           positions, valid, rep)
+                           positions, valid, rep, plan)
         LAUNCHES["ragged_attention"] += 1
         return out
     t, h, d = q.shape

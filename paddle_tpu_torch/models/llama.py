@@ -259,6 +259,13 @@ class LlamaForCausalLM(nn.Module):
         h = self.model(input_ids, attention_mask, attn_startend_row_indices)
         return self._head(h)
 
+    def generate(self, input_ids, attention_mask=None, **kwargs):
+        """KV-cached autoregressive decoding (greedy / temperature / top-k
+        / top-p; see generation.generate), on the model's device."""
+        from ..generation import generate
+        return generate(self, input_ids, attention_mask=attention_mask,
+                        device=kwargs.pop("device", self.device), **kwargs)
+
     def _head(self, h):
         if self.lm_head is None:
             return h @ self.model.embed_tokens.weight.T

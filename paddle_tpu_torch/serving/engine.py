@@ -11,13 +11,21 @@ Mirrors ``paddle_tpu/serving/engine.py`` for one model on one device:
   * ``serving.ragged`` is the attention: the CUDA kernel on the GPU, its
     plain version on the CPU.
 
-Sampling is greedy and runs on the host, so requests stream tokens as
-they land. The pools are updated in place where the JAX program donates
-them.
+The JAX engine serves through one compiled program, built at construction.
+Here, on the card, the step is one CUDA graph captured at construction for
+the engine's fixed shapes: a step stages its inputs in one pinned host
+buffer, copies it to the card, replays the graph (the greedy tokens are
+taken inside it), copies the tokens back and synchronizes once, as the JAX
+engine fetches its sampled tokens. The pools are updated in place where
+the JAX program donates them, at addresses fixed for the engine's life. On
+the CPU the same step runs op by op. ``EnginePredictor`` and
+``engine_from_config`` are the ``inference`` front door's engine side.
 """
 from __future__ import annotations
 
+import gc
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -25,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..generation import _decoder_for
+from ..kernels import LAUNCHES, uncount_since
 from . import ragged as _ragged
 from .kv_pool import KVBlockPool
 from .scheduler import Request, Scheduler
@@ -70,16 +79,17 @@ def _engine_step_impl(dec, w, tokens, slot_ids, positions, valid, tables,
                       k_pools, v_pools):
     """One serving step: scatter targets from the page tables, ragged
     attention over the pools (written in place), logits for every packed
-    token."""
+    token. The pools hold one spare page past the ``KVBlockPool``'s
+    (``[L, P + 1, ...]``): rows the JAX program drops write there."""
     bs = k_pools.shape[3]
-    p_total = k_pools.shape[1]
+    spare = k_pools.shape[1] - 1
     mp = tables.shape[1]
     col = positions // bs
     page = torch.take_along_dim(tables[slot_ids],
                                 col.clamp(0, mp - 1)[:, None].long(), 1)[:, 0]
-    # invalid rows get page index p_total, which step_ragged writes nowhere
+    # invalid rows write to the spare page, which no page table names
     bad = (~valid) | (col >= mp) | (page < 0)
-    pages = torch.where(bad, p_total, page)
+    pages = torch.where(bad, spare, page)
     offs = positions % bs
     attend = _ragged.make_attend(tables, slot_ids, positions, valid,
                                  dec.n_heads // dec.n_kv)
@@ -91,8 +101,10 @@ class ServingEngine:
     """Continuous-batching LLM serving over one model on one device.
 
     ``device`` None means the GPU (raises without one); the model must
-    live there. Thread-safe: ``submit`` may be called from client threads
-    while one thread drives ``step()``."""
+    live there. On the GPU the step is captured in a CUDA graph here, and
+    the engine raises if capture fails (it never falls back to the eager
+    step). Thread-safe: ``submit`` may be called from client threads while
+    one thread drives ``step()``."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  device=None):
@@ -114,7 +126,8 @@ class ServingEngine:
         if num_blocks is None:
             num_blocks = cfg.max_seqs * self.max_pages_per_seq
         dtype = self._w[self.dec.embed_key].dtype
-        shape = (self.dec.n_layers, num_blocks, self.dec.n_kv, bs,
+        # one spare page past the pool's (see _engine_step_impl)
+        shape = (self.dec.n_layers, num_blocks + 1, self.dec.n_kv, bs,
                  self.dec.hd)
         self._kp = torch.zeros(shape, dtype=dtype, device=model.device)
         self._vp = torch.zeros(shape, dtype=dtype, device=model.device)
@@ -122,12 +135,106 @@ class ServingEngine:
                                 enable_prefix_cache=cfg.enable_prefix_cache)
         self.sched = Scheduler(self.pool, cfg.max_seqs, cfg.token_budget,
                                self.max_pages_per_seq, policy=cfg.policy)
-        self._tables = np.full((cfg.max_seqs, self.max_pages_per_seq), -1,
-                               np.int32)
+        # a step's inputs, int32, staged on the host in one buffer (pinned
+        # on the GPU) that one copy moves to the device: tokens, slot ids,
+        # positions and valid [token_budget], then the page tables
+        # [max_seqs, max_pages_per_seq] (-1 = unassigned)
+        t_max = cfg.token_budget
+        n = 4 * t_max + cfg.max_seqs * self.max_pages_per_seq
+        pin = self.device.type == "cuda"
+        self._stage = torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+        self._inputs = torch.zeros(n, dtype=torch.int32, device=self.device)
+        self._sampled = torch.zeros(t_max, dtype=torch.int32, pin_memory=pin)
+        host = self._stage.numpy()
+        self._tokens, self._slots, self._positions, self._valid = (
+            host[i * t_max:(i + 1) * t_max] for i in range(4))
+        self._tables = host[4 * t_max:].reshape(cfg.max_seqs,
+                                                self.max_pages_per_seq)
+        self._tables[:] = -1
         self._lock = threading.RLock()
         self.steps = 0
         self.tokens_fed = 0            # packed tokens run through the model
         self.tokens_generated = 0
+        # host seconds of every step, summed: scheduling, staging the
+        # inputs, the device step (copies, launch or replay, the one
+        # synchronize) and handing tokens to the requests
+        self.host_seconds = dict.fromkeys(("schedule", "pack", "device",
+                                           "emit"), 0.0)
+        self._logits = None            # the latest step's [T, V] logits
+        self._graph = None
+        self.capture_seconds = None
+        self.graph_pool_bytes = None
+        self._step = self._step_eager
+        if self.device.type == "cuda":
+            self._capture()
+            self._step = self._replay
+
+    # -- the device step --------------------------------------------------------
+    def _step_body(self):
+        """The step over the device buffer of inputs: the greedy token of
+        every row [T] int32 (the logits [T, V] stay in ``_logits``)."""
+        t = self.config.token_budget
+        x = self._inputs
+        self._logits = _engine_step_impl(
+            self.dec, self._w, x[:t].long(), x[t:2 * t], x[2 * t:3 * t],
+            x[3 * t:4 * t] != 0, x[4 * t:].view(self._tables.shape),
+            self._kp, self._vp)
+        return _argmax_rows(self._logits)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _step_eager(self):
+        """The step op by op: the CPU engine's path, and on the GPU the
+        yardstick of the captured step. Returns the sampled tokens."""
+        self._inputs.copy_(self._stage, non_blocking=True)
+        with torch.inference_mode():
+            self._sampled.copy_(self._step_body(), non_blocking=True)
+        self._sync()
+        return self._sampled.numpy()
+
+    def _replay(self):
+        self._inputs.copy_(self._stage, non_blocking=True)
+        self._graph.replay()
+        for name, n in self._tally.items():
+            LAUNCHES[name] += n
+        self._sampled.copy_(self._graph_tokens, non_blocking=True)
+        self._sync()
+        return self._sampled.numpy()
+
+    def _capture(self):
+        """Capture the step in a CUDA graph for the engine's fixed shapes
+        (the port of the JAX engine's jitted step and its warm start).
+        A warm-up on a side stream first builds the kernels, compiles the
+        Triton ones and makes cuBLAS's handles, over padding rows only,
+        which write nothing but the spare page. Every replay adds the
+        launches the capture counted."""
+        t0 = time.perf_counter()
+        dev = self.device
+        self._inputs.copy_(self._stage)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), torch.inference_mode():
+            self._step_body()
+        cur.wait_stream(side)
+        # what the capture adds to the memory PyTorch holds is the graph's
+        # pool (torch.cuda.graph frees the cached blocks as it starts)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        try:
+            with torch.inference_mode(), torch.cuda.graph(graph):
+                self._graph_tokens = self._step_body()
+        finally:
+            self._tally = uncount_since(before)
+        self._graph = graph
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_seconds = time.perf_counter() - t0
 
     # -- client side ----------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -158,7 +265,9 @@ class ServingEngine:
         """Run one continuous-batching step: schedule, one device step,
         sample, evict. Returns True while work remains."""
         with self._lock:
+            t0 = time.perf_counter()
             plan = self.sched.schedule()
+            self.host_seconds["schedule"] += time.perf_counter() - t0
             if plan.entries:
                 self._run_plan(plan)
                 self.steps += 1
@@ -166,44 +275,36 @@ class ServingEngine:
             return self.sched.has_work()
 
     def _run_plan(self, plan) -> None:
-        t_max = self.config.token_budget
-        tokens = np.zeros(t_max, np.int32)
-        slots = np.zeros(t_max, np.int32)
-        positions = np.zeros(t_max, np.int32)
-        valid = np.zeros(t_max, bool)
+        t0 = time.perf_counter()
         sample_points = []             # (entry, row of its LAST seq token)
         idx = 0
         for e in plan.entries:
             n = e.n
-            tokens[idx:idx + n] = e.req.seq[e.start:e.start + n]
-            slots[idx:idx + n] = e.req.slot
-            positions[idx:idx + n] = np.arange(e.start, e.start + n)
-            valid[idx:idx + n] = True
+            self._tokens[idx:idx + n] = e.req.seq[e.start:e.start + n]
+            self._slots[idx:idx + n] = e.req.slot
+            self._positions[idx:idx + n] = np.arange(e.start, e.start + n)
+            self._valid[idx:idx + n] = 1
             row = self._tables[e.req.slot]
             row[:] = -1
             row[:len(e.req.pages)] = e.req.pages
             if e.samples:
                 sample_points.append((e, idx + n - 1))
             idx += n
-        dev = self.device
-        with torch.inference_mode():
-            logits = _engine_step_impl(
-                self.dec, self._w,
-                torch.from_numpy(tokens).to(dev).long(),
-                torch.from_numpy(slots).to(dev),
-                torch.from_numpy(positions).to(dev),
-                torch.from_numpy(valid).to(dev),
-                torch.from_numpy(self._tables).to(dev), self._kp, self._vp)
-            all_tok = _argmax_rows(logits).cpu().numpy() \
-                if sample_points else None
+        for rows in (self._tokens, self._slots, self._positions,
+                     self._valid):
+            rows[idx:] = 0             # padding rows
+        t1 = time.perf_counter()
+        all_tok = self._step()
+        t2 = time.perf_counter()
         for e in plan.entries:
             e.req.pos = e.start + e.n
-        if not sample_points:
-            return
         finished = []
+        now = time.monotonic()
         for e, i in sample_points:
             req = e.req
             tok = int(all_tok[i])
+            if req.first_token_at is None:
+                req.first_token_at = now
             req.emit(tok)
             self.tokens_generated += 1
             hit_eos = req.eos_id is not None and tok == req.eos_id
@@ -212,6 +313,10 @@ class ServingEngine:
                 finished.append(req)
         for req in finished:
             self.sched.evict_finished(req)
+        t3 = time.perf_counter()
+        for key, dt in (("pack", t1 - t0), ("device", t2 - t1),
+                        ("emit", t3 - t2)):
+            self.host_seconds[key] += dt
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> int:
         """Drive step() until no work remains; returns steps taken."""
@@ -237,4 +342,64 @@ class ServingEngine:
         return [r.result(timeout=0) for r in reqs]
 
 
-__all__ = ["EngineConfig", "ServingEngine"]
+class EnginePredictor:
+    """``inference.Predictor``-compatible front door over ONE shared
+    engine. ``clone()`` returns another handle to the same engine, so a
+    ``PredictorPool`` of these shares the scheduler and KV pool instead
+    of holding per-predictor caches."""
+
+    def __init__(self, engine: ServingEngine, max_new_tokens: int = 32,
+                 eos_id: Optional[int] = None):
+        self.engine = engine
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_id = eos_id
+
+    def clone(self) -> "EnginePredictor":
+        return EnginePredictor(self.engine, self.max_new_tokens,
+                               self.eos_id)
+
+    def get_input_names(self) -> List[str]:
+        return ["input_ids"]
+
+    def run(self, inputs) -> List[np.ndarray]:
+        """inputs: [token_ids] where token_ids is one 1-D prompt or a list
+        of 1-D prompts (ragged). Returns [outputs] padded with -1."""
+        (ids,) = inputs
+        if isinstance(ids, (list, tuple)) and len(ids) and \
+                isinstance(ids[0], (list, tuple, np.ndarray)):
+            prompts = [list(map(int, p)) for p in ids]     # ragged list
+        else:
+            arr = np.asarray(ids)
+            if arr.ndim == 1:
+                prompts = [arr.astype(np.int64).tolist()]
+            elif arr.ndim == 2:
+                prompts = [row.astype(np.int64).tolist() for row in arr]
+            else:
+                raise ValueError(
+                    f"input_ids must be 1-D, 2-D, or a list of 1-D "
+                    f"prompts; got ndim={arr.ndim}")
+        outs = self.engine.generate_batch(prompts, self.max_new_tokens,
+                                          eos_id=self.eos_id)
+        width = max(len(o) for o in outs)
+        padded = np.full((len(outs), width), -1, np.int32)
+        for i, o in enumerate(outs):
+            padded[i, :len(o)] = o
+        return [padded]
+
+
+def engine_from_config(model, config=None, device=None,
+                       **overrides) -> ServingEngine:
+    """Build a ServingEngine honoring ``inference.Config`` serving knobs
+    (max_batch_size -> max_seqs, kv-cache block size/capacity -> pool
+    geometry); keyword overrides win. ``device`` as ServingEngine's: None
+    is the GPU."""
+    kw = {} if config is None else {
+        k: v for k, v in config.serving_options().items() if v is not None}
+    kw.update(overrides)
+    if "max_seqs" in kw and "token_budget" not in kw:
+        kw["token_budget"] = max(8 * kw["max_seqs"], 64)
+    return ServingEngine(model, EngineConfig(**kw), device=device)
+
+
+__all__ = ["EngineConfig", "ServingEngine", "EnginePredictor",
+           "engine_from_config"]

@@ -32,7 +32,13 @@ def make_attend(page_tables, slot_ids, positions, valid, rep):
     tensors and runs the plain version on CPU tensors; any other goes to
     ``ragged_attention_plain`` on either device, counted in
     ``LAUNCHES["ragged_plain"]``, as the JAX package's ``make_attend``
-    takes its jnp path wherever its kernel is off."""
+    takes its jnp path wherever its kernel is off.
+
+    The bf16 kernels' work plan depends on the metadata alone, so the
+    first call makes it and every later call (the step's other layers)
+    reuses it, as the JAX ``make_attend`` builds its metadata once a
+    step."""
+    plan = {}
 
     def attend(q, kp, vp):
         if not kernel_takes(q.shape[-1], rep):
@@ -40,7 +46,7 @@ def make_attend(page_tables, slot_ids, positions, valid, rep):
             return ragged_attention_plain(q, kp, vp, page_tables, slot_ids,
                                           positions, valid, rep)
         return ragged_attention(q, kp, vp, page_tables, slot_ids, positions,
-                                valid, rep)
+                                valid, rep, plan=plan)
 
     return attend
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import itertools
 import queue
 import threading
+import time
 from typing import Callable, List, Optional, Sequence
 
 from .kv_pool import KVBlockPool, PoolExhausted
@@ -66,6 +67,11 @@ class Request:
         self.n_prefix = 0             # of which reused from the prefix cache
         self.preemptions = 0
         self.finish_reason: Optional[str] = None
+        # time.monotonic() at submit, at the first token's arrival on the
+        # host and at the finish: time to first token and request latency
+        self.arrival = time.monotonic()
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
         self._done = threading.Event()
         self._stream: Optional["queue.Queue"] = queue.Queue() if stream \
             else None
@@ -102,6 +108,7 @@ class Request:
 
     def finish(self) -> None:
         self.state = FINISHED
+        self.finished_at = time.monotonic()
         if self._stream is not None:
             self._stream.put(None)
         self._done.set()

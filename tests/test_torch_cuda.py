@@ -893,3 +893,202 @@ def test_packed_training_on_gpu_matches_cpu(dev):
             K.LAUNCHES["flashmask_bwd_dkv"],
             K.LAUNCHES["flashmask_summary"]) == (12, 6, 6, 3)
     assert K.LAUNCHES["flash_fwd"] == 0 and K.LAUNCHES["adamw"] == 3
+
+
+# -- the captured serving step and generate() --------------------------------------
+
+def _tiny_llama_pair(dev, dtype, kv_heads=1, seed=4):
+    """A tiny Llama (head_dim 64, which the ragged kernel takes) on the CPU
+    in float32 and the same weights on the card in ``dtype``."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         load_numpy_state)
+    cfg = LlamaConfig.tiny(vocab_size=97, hidden_size=128, layers=2,
+                           heads=2, kv_heads=kv_heads, seq=256)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(seed))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    return cpu, gpu.to(dtype)
+
+
+SERVE_PROMPT_LENS = (5, 17, 33, 9, 60)
+
+
+def _serve_prompts(seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 97, (n,)).tolist() for n in SERVE_PROMPT_LENS]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_engine_matches_eager_step(dev, dtype):
+    """Two engines over the same requests, one replaying its captured step
+    and one running the step op by op, stepped together: every step's
+    logits bit-equal, the pools' real pages equal after every step, and
+    the same tokens; the captured engine captured at construction."""
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    _, gpu = _tiny_llama_pair(dev, dtype)
+    ecfg = EngineConfig(max_seqs=3, token_budget=24, block_size=16)
+    graph, eager = (ServingEngine(gpu, ecfg) for _ in range(2))
+    eager._step = eager._step_eager
+    assert graph._graph is not None and graph.capture_seconds > 0
+    reqs = [[e.submit(p, max_new_tokens=8) for p in _serve_prompts()]
+            for e in (graph, eager)]
+    p_real = graph.pool.num_blocks
+    more, steps = True, 0
+    while more:
+        more = graph.step()
+        assert eager.step() == more
+        steps += 1
+        assert torch.equal(graph._logits, eager._logits), steps
+        assert torch.equal(graph._kp[:, :p_real], eager._kp[:, :p_real])
+        assert torch.equal(graph._vp[:, :p_real], eager._vp[:, :p_real])
+    assert [r.result(0) for r in reqs[0]] == [r.result(0) for r in reqs[1]]
+
+
+def test_captured_engine_matches_cpu_engine(dev):
+    """float32: the captured engine's greedy tokens equal the CPU
+    engine's (plain versions)."""
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    cpu, gpu = _tiny_llama_pair(dev, torch.float32, kv_heads=2)
+    ecfg = dict(max_seqs=3, token_budget=24, block_size=16)
+    want = ServingEngine(cpu, EngineConfig(**ecfg), device="cpu") \
+        .generate_batch(_serve_prompts(1), max_new_tokens=8)
+    got = ServingEngine(gpu, EngineConfig(**ecfg)) \
+        .generate_batch(_serve_prompts(1), max_new_tokens=8)
+    assert got == want
+
+
+def test_captured_engine_launch_counts(dev):
+    """Each replay adds the launches the capture recorded (one ragged
+    attention, RoPE and residual norm a layer, one norm a layer and the
+    final norm); the capture itself counts none."""
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    layers = gpu.config.num_hidden_layers
+    K.reset_launches()
+    eng = ServingEngine(gpu, EngineConfig(max_seqs=3, token_budget=24,
+                                          block_size=16))
+    tally = {"ragged_attention": layers, "rms_norm": layers + 1,
+             "rms_norm_residual": layers, "rope": layers}
+    assert eng._tally == tally
+    K.reset_launches()
+    eng.generate_batch(_serve_prompts(), max_new_tokens=4)
+    assert eng.steps > 0
+    want = {n: 0 for n in K.LAUNCHES}
+    want.update({n: c * eng.steps for n, c in tally.items()})
+    assert K.LAUNCHES == want
+
+
+def test_ragged_layers_share_one_plan(dev):
+    """A plan dict shared by the calls over one batch: the first call's
+    plan equals the plain plan, and a later call reusing it (another
+    layer's q and pools) equals a call that plans for itself, bit for
+    bit."""
+    from paddle_tpu_torch.kernels import ragged_attention as RA
+    contexts, rows = _ragged_case_rows("chunk")
+    rep, bs = 2, 16
+    q, kp, vp, tables, slot, pos, valid = _ragged_batch(
+        dev, torch.bfloat16, 128, rep, bs, contexts, rows)
+    q2, kp2, vp2, *_ = _ragged_batch(dev, torch.bfloat16, 128, rep, bs,
+                                     contexts, rows, seed=1)
+    plan = {}
+    first = ragged_attention(q, kp, vp, tables, slot, pos, valid, rep,
+                             plan=plan)
+    second = ragged_attention(q2, kp2, vp2, tables, slot, pos, valid, rep,
+                              plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, ragged_attention(q, kp, vp, tables, slot, pos,
+                                               valid, rep))
+    assert torch.equal(second, ragged_attention(q2, kp2, vp2, tables, slot,
+                                                pos, valid, rep))
+    mp = tables.shape[1]
+    bq, ks_d, ks_p, _ = RA.plan_geometry(bs, mp, rep)
+    want, want_rows = RA.ragged_plan_plain(slot.cpu(), pos.cpu(),
+                                           valid.cpu(), kp.shape[1], bs, mp,
+                                           bq, ks_d, ks_p)
+    n = int(plan["count"].item())
+    assert torch.equal(plan["items"][:n].cpu(), want)
+    assert torch.equal(plan["row_splits"].cpu(), want_rows)
+
+
+def _left_padded(b, width, seed=0):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, width + 1, (b,))
+    ids = np.zeros((b, width), np.int64)
+    mask = np.zeros((b, width), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, width - n:] = rng.integers(1, 97, (n,))
+        mask[i, width - n:] = 1
+    return ids, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_heads", [1, 2])
+def test_captured_generate_matches_eager(dev, dtype, kv_heads):
+    """generate()'s replayed decode graph against the same loop run op by
+    op on the card: equal tokens and finished flags, and in float32 equal
+    to the CPU's generate() too; the decode graph is kept for the next
+    call of the same signature."""
+    from paddle_tpu_torch import generation as G
+    cpu, gpu = _tiny_llama_pair(dev, dtype, kv_heads=kv_heads)
+    ids, mask = _left_padded(4, 24)
+    got = G.generate(gpu, ids, attention_mask=mask, max_new_tokens=10,
+                     repetition_penalty=1.2)
+    dec = G._decoder_for(gpu)
+    assert len(dec.loops) == 1
+    want = G._decode(dec, dec.weights(gpu), torch.from_numpy(ids).to(dev),
+                     torch.from_numpy(mask).to(dev), 10,
+                     repetition_penalty=1.2, capture=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = G.generate(gpu, ids, attention_mask=mask, max_new_tokens=10,
+                       repetition_penalty=1.2)
+    assert torch.equal(again[0], got[0]) and len(dec.loops) == 1
+    if dtype == torch.float32:
+        ref = G.generate(cpu, ids, attention_mask=mask, max_new_tokens=10,
+                         repetition_penalty=1.2, device="cpu")
+        assert torch.equal(got[0], ref[0])
+
+
+def test_generate_graph_launch_counts(dev):
+    """The prefill's launches, then each replay's: a norm a layer and the
+    final one, a residual norm and a RoPE a layer."""
+    from paddle_tpu_torch import generation as G
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    layers = gpu.config.num_hidden_layers
+    ids, mask = _left_padded(3, 16, seed=2)
+    G.generate(gpu, ids, attention_mask=mask, max_new_tokens=6)   # capture
+    K.reset_launches()
+    G.generate(gpu, ids, attention_mask=mask, max_new_tokens=6)
+    calls = 1 + 6                           # the prefill, then 6 replays
+    want = {n: 0 for n in K.LAUNCHES}
+    want.update(rms_norm=(layers + 1) * calls, rms_norm_residual=layers
+                * calls, rope=layers * calls)
+    assert K.LAUNCHES == want
+
+
+def test_sampled_graph_draws_new_noise_each_step(dev):
+    """The sampled decode graph's generator is registered with the graph:
+    each replay draws new noise (an unregistered one would replay the
+    first draw), the same seed repeats a run, and every token is in the
+    vocabulary."""
+    from paddle_tpu_torch import generation as G
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    ids, mask = _left_padded(4, 20, seed=3)
+    kw = dict(attention_mask=mask, max_new_tokens=8, do_sample=True,
+              temperature=0.8, top_k=50, top_p=0.9)
+    a, _ = G.generate(gpu, ids, seed=7, **kw)
+    b, _ = G.generate(gpu, ids, seed=7, **kw)
+    assert torch.equal(a, b)
+    assert int(a.min()) >= 0 and int(a.max()) < 97
+    dec = G._decoder_for(gpu)
+    loop = G._loop_for(dec, dec.weights(gpu), 4, 20, 8, True, False, 50,
+                       0.9, False)
+    assert loop.graph is not None
+    loop.start(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+               0.8, 0, 1.0, seed=7)
+    draws = []
+    for _ in range(4):
+        loop.step()
+        draws.append(loop.noise.clone())
+    assert all(not torch.equal(draws[i], draws[i + 1]) for i in range(3))

@@ -48,7 +48,8 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.kernels.gmm, paddle_tpu_torch.models.gpt, "
             "paddle_tpu_torch.incubate.distributed.models.moe, "
             "paddle_tpu_torch.nn.initializer, paddle_tpu_torch.nn.functional, "
-            "paddle_tpu_torch.models.llama; "
+            "paddle_tpu_torch.models.llama, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.generation; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -68,6 +69,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
+
+
+def test_generate_and_front_door_raise_without_cuda(monkeypatch):
+    """generate() and create_llm_predictor run on the GPU unless given
+    device='cpu'; with it they run on the CPU."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.inference import create_llm_predictor
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(vocab_size=17, hidden_size=16, layers=1, heads=2,
+                           kv_heads=1, seq=16)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    ids = [[1, 2, 3]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(model, ids, max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_llm_predictor(model)
+    toks, _ = generate(model, ids, max_new_tokens=2, device="cpu")
+    assert toks.shape == (1, 2)
+    (out,) = create_llm_predictor(model, max_new_tokens=2,
+                                  device="cpu").run([ids[0]])
+    assert out.shape == (1, 2)
 
 
 def test_gpt_and_moe_raise_without_cuda(monkeypatch):

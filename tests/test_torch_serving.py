@@ -147,21 +147,33 @@ def _step_inputs(kv_heads):
     return jm, pm, tokens, slots, pos, valid, tables, kp, vp
 
 
+def _with_spare_page(pools):
+    """The port's pools: the JAX pools and one spare page past them, where
+    the rows the JAX scatter drops are written (random, so a read of it
+    would show)."""
+    spare = np.random.default_rng(9).standard_normal(
+        pools[:, :1].shape).astype(pools.dtype)
+    return torch.from_numpy(np.concatenate([pools, spare], axis=1))
+
+
 @pytest.mark.parametrize("kv_heads", [4, 2])
 def test_step_ragged_logits_match_jax(kv_heads):
+    """The step's logits, and the pool's real pages after it (the port's
+    spare page aside), equal the JAX step's."""
     jm, pm, tokens, slots, pos, valid, tables, kp, vp = _step_inputs(kv_heads)
     dec = G._decoder_for(jm)
     want, wkp, wvp = jax_engine._engine_step_impl(
         dec, None, dec.weights(jm), *map(jnp.asarray, (
             tokens, slots, pos, valid, tables, kp, vp)))
-    tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tkp, tvp = _with_spare_page(kp), _with_spare_page(vp)
     t = torch.from_numpy
     got = port_engine._engine_step_impl(
         TG._decoder_for(pm), TG._LlamaDecoder.weights(pm), t(tokens).long(),
         t(slots), t(pos), t(valid), t(tables), tkp, tvp)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
-    np.testing.assert_allclose(tkp.numpy(), np.asarray(wkp), atol=1e-5)
-    np.testing.assert_allclose(tvp.numpy(), np.asarray(wvp), atol=1e-5)
+    p = kp.shape[1]
+    np.testing.assert_allclose(tkp[:, :p].numpy(), np.asarray(wkp), atol=1e-5)
+    np.testing.assert_allclose(tvp[:, :p].numpy(), np.asarray(wvp), atol=1e-5)
 
 
 @pytest.mark.parametrize("kv_heads", [4, 2])
@@ -169,24 +181,32 @@ def test_step_ragged_logits_match_jax_bf16(kv_heads):
     """The same step with bf16 weights and pools (the rope tables stay
     float32 on both sides): the port rounds where the JAX decoder rounds,
     so the logits agree to atol 1e-2, under one bf16 ulp (2^-6) of the
-    largest logits (about 2.7)."""
+    largest logits (about 2.7). The real pages after the step hold the
+    same bf16 values (each is one rounding of the same fp32 K or V) up to
+    one bf16 ulp where the two sums round apart."""
     jm, pm, tokens, slots, pos, valid, tables, kp, vp = _step_inputs(kv_heads)
     dec = G._decoder_for(jm)
     jw = {k: v if k.startswith("__") else v.astype(jnp.bfloat16)
           for k, v in dec.weights(jm).items()}
-    want, _, _ = jax_engine._engine_step_impl(
+    want, wkp, wvp = jax_engine._engine_step_impl(
         dec, None, jw, *map(jnp.asarray, (tokens, slots, pos, valid, tables)),
         jnp.asarray(kp, dtype=jnp.bfloat16), jnp.asarray(vp, dtype=jnp.bfloat16))
     tw = {k: v if k.startswith("__") else v.to(torch.bfloat16)
           for k, v in TG._LlamaDecoder.weights(pm).items()}
     t = torch.from_numpy
+    tkp = _with_spare_page(kp).to(torch.bfloat16)
+    tvp = _with_spare_page(vp).to(torch.bfloat16)
     got = port_engine._engine_step_impl(
         TG._decoder_for(pm), tw, t(tokens).long(), t(slots), t(pos),
-        t(valid), t(tables), t(kp).to(torch.bfloat16),
-        t(vp).to(torch.bfloat16))
+        t(valid), t(tables), tkp, tvp)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)), atol=1e-2)
+    p = kp.shape[1]
+    for port, ref in ((tkp, wkp), (tvp, wvp)):
+        ref = np.asarray(ref.astype(jnp.float32))
+        np.testing.assert_allclose(port[:, :p].float().numpy(), ref,
+                                   rtol=2.0 ** -8, atol=1e-6)
 
 
 # -- the engine ---------------------------------------------------------------
@@ -242,6 +262,22 @@ def test_engine_streams_tokens_and_drains():
     assert list(req.stream()) == req.result(0) == seen
     assert len(seen) == 5 and not eng.has_work()
     assert eng.pool.used_blocks() == 0
+
+
+def test_request_timestamps_are_set_and_ordered():
+    """arrival <= first token <= finish for every request; with two slots
+    the third request gets its first token only after a slot frees. The
+    engine's host seconds add up over the steps."""
+    eng = _engines(2, max_seqs=2, token_budget=8, block_size=4)[1]
+    reqs = [eng.submit(p, max_new_tokens=3) for p in _prompts(3)]
+    assert all(r.first_token_at is None and r.finished_at is None
+               for r in reqs)
+    eng.run_until_idle()
+    for r in reqs:
+        assert r.arrival <= r.first_token_at <= r.finished_at
+    assert reqs[2].first_token_at >= min(r.finished_at for r in reqs[:2])
+    assert set(eng.host_seconds) == {"schedule", "pack", "device", "emit"}
+    assert all(v > 0 for v in eng.host_seconds.values())
 
 
 @pytest.mark.parametrize("option", ["quant", "spec_method", "aot_cache",
