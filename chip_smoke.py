@@ -11,7 +11,8 @@ Phases, each printing its own lines and its seconds:
      (mma.sync) instructions of each bf16 flash, gmm, tgmm and ragged
      attention kernel, counted in cuobjdump's SASS: each must have HGMMA
      and UTMALDG and no HMMA, and the ragged kernels bulk copies and
-     tensor-core products;
+     tensor-core products; the weight-only GEMM's six instantiations must
+     have HMMA and LDGSTS (cp.async);
   3. every kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it, with its time, its
      bound and a single PyTorch call for the same function where there is
@@ -20,7 +21,11 @@ Phases, each printing its own lines and its seconds:
      yardstick, the plan's items and the CUDA kernels a call launches;
      then one call captured in a CUDA graph and replayed after its
      metadata is rewritten in place must equal the eager call, and two
-     calls each other, bit for bit); then a tiny float32 Llama served on the
+     calls each other, bit for bit; and GPT-2's 12 heads of 64); the
+     weight-only GEMM (int8, int4, fp8) at every quantized matrix shape of
+     Llama-2-7B and GPT-2 and M = 8, 256 and 4096, with its bound and
+     torch.matmul on the bf16 weight as the yardstick; then a tiny float32
+     Llama served on the
      CPU engine's greedy tokens, and a tiny float32 Llama trained 3 steps
      on the card must match the port's CPU trainer (flash also at the
      GPT-MoE shape, and in bf16 at ragged lengths, sq < sk and
@@ -74,10 +79,33 @@ Phases, each printing its own lines and its seconds:
      column bounds keep attention inside each document; labels cut at the
      boundaries): the same steps, checks, profile and 2-layer agreement,
      with exact FlashMask launch counts and no dense flash launch;
+  8. GPT-2 small and GPT-MoE (GPTConfig.gpt_moe(8)) in bf16 served at full
+     width (engine max_seqs 8, budget 256, max_model_len 1024; 12 requests
+     of 16-700 prompt tokens, 32 new tokens), eager then captured, with
+     phase 4's checks; generate() captured against eager; a 2-layer
+     float32 pair;
+  9. phase 4's model, engine and requests with weight-only int8, int4 and
+     fp8 weights, one engine at a time: captured against eager (tokens,
+     logits bit-equal, exact launch counts with one weight-only GEMM a
+     quantized matrix), step ms, tokens/s, idle share, a profile, the
+     quantized bytes, the token agreement with the bf16 engine (printed)
+     and one ragged step through the kernels against the plain versions;
+     generate(quant="weight_only_int8");
+  10. phase 4's model and requests with speculative decoding, k = 4
+     (n-gram; the 1.1B Llama as draft model; the target drafting for
+     itself): proposed, accepted, rollback pages, steps, step ms,
+     tokens/s, the host's share; bf16 tokens against the non-speculative
+     run (the two runs' logit difference at the positions before each
+     request's first difference, the verify-row vs decode-row noise,
+     within SPEC_NOISE_ULPS bf16 ulps of each row's largest logit; a first
+     difference must be a near tie: both tokens their run's argmax, the
+     non-speculative top-2 margin within twice that noise); in float32
+     (2 layers) speculative tokens identical to non-speculative ones;
   then a JSON line of every kernel, the card line again, and the final
-  {"ok": true, ...} line. Phases 4-7 also hold the attention routing to
-  the plain path (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``: shapes
-  the kernels do not take, as the JAX package routes them) at 0.
+  {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
+  to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
+  shapes the kernels do not take) at 0; the weight-only GEMM routes
+  nothing (it launches or raises on the card).
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -174,6 +202,46 @@ def _wgmma_sass(built):
                 raise AssertionError(f"{k} issues no bulk copy or no "
                                      f"tensor-core product: {c}")
     return counts
+
+
+GEMM_SASS_OPS = ("HMMA", "LDGSTS", "I2F", "F2FP", "HGMMA")
+
+
+def _gemm_sass(built):
+    """{kernel: {op: n}} of the weight-only GEMM's six instantiations
+    (int8, int4, fp8 x the two tilings), counted in ``cuobjdump
+    --dump-sass``: each must issue tensor-core products (HMMA, mma.sync)
+    and cp.async copies (LDGSTS)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           built["weight_only_gemm"]["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    fmt = {"0": "int8", "1": "int4", "2": "fp8"}
+    found, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"weight_only_gemm_kernelILi(\d)ELi(\d+)ELi(\d+)",
+                          line)
+            name = f"weight_only_gemm {fmt[m.group(1)]} {m.group(2)}x" \
+                f"{m.group(3)}" if m else None
+            if name:
+                found[name] = {op: 0 for op in GEMM_SASS_OPS}
+        elif name:
+            for op in found[name]:
+                found[name][op] += bool(re.search(rf"\b{op}\b", line))
+    for k, c in sorted(found.items()):
+        print(f"phase 2: sass {k}: " + " ".join(f"{op} {c[op]}"
+                                               for op in GEMM_SASS_OPS),
+              flush=True)
+    if len(found) != 6 or any(c["HMMA"] == 0 or c["LDGSTS"] == 0
+                              for c in found.values()):
+        raise AssertionError(f"the weight-only GEMM's SASS lacks mma.sync "
+                             f"or cp.async: {found}")
+    return found
 
 
 def _time_ms(fn, iters, warmup=2):
@@ -361,6 +429,7 @@ def _sdpa_yardstick(torch, args, rep):
 
 RAGGED_BUDGET = 256
 RAGGED_CONTEXTS = [97, 300, 511, 803, 1024, 1500, 1801, 2040]
+GPT2_CONTEXTS = [97, 300, 511, 803, 1000, 640, 1024, 900]
 # phase 3's ragged cases, at the engine's shapes (Llama-2-7B's 32 heads of
 # 128; kvh 8 for GQA): decode tokens alone, or beside a 249-row prefill
 # chunk whose sequence ends at 960 keys
@@ -371,6 +440,11 @@ RAGGED_CASES = {
                       chunk=249),
     "mixed_gqa": dict(kvh=8, contexts=RAGGED_CONTEXTS[:7] + [960],
                       chunk=249),
+    # GPT-2's 12 heads of 64 (MHA), contexts within its 1024 positions
+    "decode_gpt2": dict(kvh=12, heads=12, d=64,
+                        contexts=GPT2_CONTEXTS, chunk=0),
+    "mixed_gpt2": dict(kvh=12, heads=12, d=64,
+                       contexts=GPT2_CONTEXTS[:7] + [960], chunk=249),
 }
 
 
@@ -572,6 +646,118 @@ def phase_kernels(torch, results):
               f"library_ms={lib}", flush=True)
 
 
+# the weight-only GEMM's cases: (K, N) of every quantized matrix of the
+# served models, at M = 8 (generate()'s decode), 256 (the engine's step) and
+# 4096 (generate()'s prefill, 8 x 512)
+GEMM_SHAPES = {
+    "llama_qkvo": (4096, 4096), "llama_gate_up": (4096, 11008),
+    "llama_down": (11008, 4096), "llama_head": (4096, 32000),
+    "gpt2_qkv": (768, 2304), "gpt2_out": (768, 768),
+    "gpt2_fc_in": (768, 3072), "gpt2_fc_out": (3072, 768),
+}
+GEMM_ROWS = (8, 256, 4096)
+QUANT_ALGOS = ("weight_only_int8", "weight_only_int4", "weight_only_fp8")
+ROTATE_BYTES = 120e6      # weights a timing cycles over: beyond the L2
+
+
+def _rotated_ms(torch, fn, operands, nbytes):
+    """Device ms of one ``fn(*operands[i])`` call, the calls cycling over
+    enough copies of the operands that their ``nbytes`` each exceed
+    ``ROTATE_BYTES`` together (at most 64): a decode step finds each
+    weight cold, not in the L2 a repeated call would leave it in."""
+    n = int(min(64, max(1, math.ceil(ROTATE_BYTES / nbytes))))
+    copies = [operands] + [tuple(t.clone() for t in operands)
+                           for _ in range(n - 1)]
+    calls = max(n, 8)
+    state = {"i": 0}
+
+    def call():
+        fn(*copies[state["i"] % n])
+        state["i"] += 1
+    ms = _graph_ms(call, iters=calls, reps=3)
+    del copies
+    return ms, n
+
+
+def phase_gemm_kernels(torch, results):
+    """The weight-only GEMM against its plain version at every served
+    shape and format: each row within 2 bf16 ulps of its largest plain
+    value (the two differ in summation order only; bf16 reductions of the
+    plain matmul held to fp32). ms by CUDA-graph replay over rotated
+    weights, the bound (bytes over 3.35 TB/s or flops over the bf16 peak,
+    the larger), the plain version's ms and ``torch.matmul`` on the bf16
+    weight (the yardstick)."""
+    card = _card_line()
+    dev = torch.device("cuda")
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _gemm_cases(torch, results, dev, card)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+
+
+def _gemm_cases(torch, results, dev, card):
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    from paddle_tpu_torch.quantization import weight_quantize
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
+    print(f"phase 3: the weight-only GEMM against its plain version (bf16 "
+          f"activations; each row within 2 bf16 ulps of its largest plain "
+          f"value) [{card}]", flush=True)
+    g = torch.Generator(device=dev).manual_seed(40)
+    rows = []
+    for name, (k, n) in GEMM_SHAPES.items():
+        w = (torch.randn(k, n, device=dev, generator=g) * 0.02) \
+            .to(torch.bfloat16)
+        for algo in QUANT_ALGOS:
+            q, s = weight_quantize(w, algo)
+            wbytes = q.numel() * q.element_size() + s.numel() * 4
+            for m in GEMM_ROWS:
+                x = torch.randn(m, k, device=dev, generator=g) \
+                    .to(torch.bfloat16)
+                got = weight_only_gemm(x, q, s)
+                torch.cuda.synchronize()
+                want = quant_matmul_arrays(x, q, s)
+                case = f"weight_only_gemm[{name} {algo[12:]} M={m}]"
+                err = _check_rows(case, got, want, 2)
+                nbytes = x.numel() * 2 + wbytes + m * n * 2
+                flops = 2 * m * k * n
+                bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+                ms, copies = _rotated_ms(torch, weight_only_gemm, (x, q, s),
+                                         wbytes)
+                plain_ms = _time_ms(lambda: quant_matmul_arrays(x, q, s), 3,
+                                    warmup=1)
+                lib_ms, _ = _rotated_ms(torch, torch.matmul, (x, w),
+                                        w.numel() * 2)
+                res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms, m=m, k=k, n=n,
+                           weight_bytes=wbytes, rotated_copies=copies,
+                           tflops=flops / ms / 1e9)
+                results[case] = res
+                rows.append((case, res))
+                print(f"  {case}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                      f"({bound_by}; {bound_ms / ms:.3f} of it reached) "
+                      f"plain_ms={plain_ms:.4f} torch.matmul bf16 "
+                      f"library_ms={lib_ms:.4f} ({lib_ms / ms:.2f}x the "
+                      f"kernel's ms) weights {wbytes} bytes x {copies} "
+                      f"copies [{card}]", flush=True)
+                del x, got, want
+            del q, s
+        del w
+        torch.cuda.empty_cache()
+    for m in GEMM_ROWS:
+        for algo in QUANT_ALGOS:
+            sel = [r for c, r in rows if r["m"] == m and algo[12:] in c]
+            print(f"  weight_only_gemm {algo[12:]} M={m}: kernel "
+                  f"{sum(r['ms'] for r in sel):.4f} ms over the "
+                  f"{len(sel)} shapes, bound "
+                  f"{sum(r['bound_ms'] for r in sel):.4f}, torch.matmul "
+                  f"bf16 {sum(r['library_ms'] for r in sel):.4f}",
+                  flush=True)
+
+
 def phase_tiny_reference(torch):
     """A tiny float32 Llama: the engine on the card (kernels) must return
     the CPU engine's greedy tokens (plain versions) exactly."""
@@ -606,7 +792,9 @@ def phase_tiny_reference(torch):
 def _plain_patches(stack):
     """Route the decoder through the plain versions for one comparison
     step (the wrappers would launch the kernels on CUDA tensors)."""
+    from paddle_tpu_torch import generation as G
     from paddle_tpu_torch.kernels import fused
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
     from paddle_tpu_torch.kernels.ragged_attention import \
         ragged_attention_plain
     from paddle_tpu_torch.serving import ragged
@@ -619,6 +807,7 @@ def _plain_patches(stack):
     stack.enter_context(mock.patch.object(
         ragged, "ragged_attention",
         lambda *a, plan=None, **k: ragged_attention_plain(*a, **k)))
+    stack.enter_context(mock.patch.object(G, "_qmm", quant_matmul_arrays))
 
 
 def _nothing_routed(launches, phase):
@@ -667,6 +856,7 @@ def _serve_requests(torch, eng, prompts, max_new, keep_logits=False):
     launches = dict(K.LAUNCHES)
     outs = [r.result(timeout=0) for r in reqs]
     stats = dict(steps=eng.steps - steps0, seconds=t_run,
+                 rids=[r.rid for r in reqs],
                  tokens_fed=sum(f for f, *_ in per_step),
                  tokens_generated=sum(g for _, g, *_ in per_step),
                  preemptions=sum(r.preemptions for r in reqs))
@@ -689,105 +879,98 @@ def _serve_requests(torch, eng, prompts, max_new, keep_logits=False):
     return stats, outs, launches, logits
 
 
-def phase_serving(torch, args, launches_out):
-    """Llama-2-7B served by two engines in turn over the same 12 requests:
-    the step run op by op (the yardstick) and the step replayed from the
-    CUDA graph captured at construction (the main path). Tokens equal,
-    every step's logits bit-equal, the pools' real pages equal; exact
-    launch counts; step ms, tokens/s, the host's share, TTFT and latency
-    for each; a profile of each; then the front door, generate() and the
-    kernel step against the plain step."""
-    import numpy as np
+def _serve_pair(torch, model, ecfg, prompts, max_new, per_step, tag, args,
+                launches_out=None, keep_pages=True):
+    """The same requests through two engines of ``ecfg`` in turn: the step
+    run op by op (the yardstick), then replayed from the CUDA graph
+    captured at construction (the main path). For each, the launch counts
+    are zeroed just before and read just after and must equal
+    ``per_step`` (launches a step) times the steps, nothing may be routed
+    to a plain version, and every request must return all its tokens; step
+    ms, tokens/s, the host's share, TTFT, latency and a profile are
+    printed. The runs' tokens must be equal and every step's logits
+    bit-equal, and with ``keep_pages`` (both engines kept at once) the
+    pools' real pages equal. Returns (stats by kind, the captured run's
+    outputs)."""
     from paddle_tpu_torch import kernels as K
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    from paddle_tpu_torch.serving import ServingEngine
     card = _card_line()
-    cfg = LlamaConfig.llama2_7b()
-    print(f"phase 4: Llama-2-7B width (hidden {cfg.hidden_size}, "
-          f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} heads, "
-          f"vocab {cfg.vocab_size}) bf16, random weights seed {args.seed} "
-          f"[{card}]", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    model = LlamaForCausalLM(
-        cfg, device="cuda", dtype=torch.bfloat16,
-        generator=torch.Generator(device="cuda").manual_seed(args.seed))
-    torch.cuda.synchronize()
-    print(f"  init {time.monotonic() - t0:.2f}s, "
-          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params",
-          flush=True)
-    ecfg = EngineConfig(max_seqs=8, token_budget=256, block_size=16,
-                        max_model_len=2048)
-    rng = np.random.default_rng(args.seed)
-    lens = np.linspace(16, 1000, 12).astype(int)
-    rng.shuffle(lens)
-    prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist() for n in lens]
-    max_new = 32
-    n_l = cfg.num_hidden_layers
+    vocab = model.config.vocab_size
     serving, engines, outs, logits = {}, {}, {}, {}
     for kind in ("eager", "captured"):
         eng = ServingEngine(model, ecfg)
         if kind == "eager":
             eng._step = eng._step_eager
         else:
-            print(f"  captured the step at construction in "
+            print(f"  {tag}: captured the step at construction in "
                   f"{eng.capture_seconds:.3f}s, graph pool "
                   f"{eng.graph_pool_bytes} bytes; launches a replay "
                   f"{eng._tally}", flush=True)
+            if eng._tally != {k: v for k, v in per_step.items() if v}:
+                raise AssertionError(f"{tag}: a replay launches "
+                                     f"{eng._tally}, not {per_step}")
         eng.generate_batch([list(range(1, 17))], max_new_tokens=2)  # warm-up
         stats, outs[kind], launches, logits[kind] = _serve_requests(
             torch, eng, prompts, max_new, keep_logits=True)
         steps = stats["steps"]
-        expect = {n: 0 for n in K.LAUNCHES}
-        expect.update(ragged_attention=n_l * steps,
-                      rms_norm=(n_l + 1) * steps,
-                      rms_norm_residual=n_l * steps, rope=n_l * steps)
-        print(f"  {kind}: launches over {steps} steps: {launches} (expected "
-              f"{expect})", flush=True)
-        _nothing_routed(launches, f"phase 4 ({kind})")
+        expect = {n: per_step.get(n, 0) * steps for n in K.LAUNCHES}
+        print(f"  {tag} {kind}: launches over {steps} steps: {launches} "
+              f"(expected {expect})", flush=True)
+        _nothing_routed(launches, f"{tag} ({kind})")
         if launches != expect:
-            raise AssertionError(f"{kind}: launch counts {launches} != "
-                                 f"{expect}")
-        if any(len(o) != max_new or not all(0 <= t < cfg.vocab_size
-                                            for t in o) for o in outs[kind]):
-            raise AssertionError(f"{kind}: a request did not return all of "
-                                 f"its tokens")
+            raise AssertionError(f"{tag} {kind}: launch counts {launches} "
+                                 f"!= {expect}")
+        if any(len(o) != max_new or not all(0 <= t < vocab for t in o)
+               for o in outs[kind]):
+            raise AssertionError(f"{tag} {kind}: a request did not return "
+                                 f"all of its tokens")
         if kind == "captured":
-            launches_out.update(launches)
+            if launches_out is not None:
+                for n, c in launches.items():
+                    launches_out[n] = launches_out.get(n, 0) + c
             stats.update(capture_seconds=eng.capture_seconds,
                          graph_pool_bytes=eng.graph_pool_bytes)
-        stats["prompt_tokens"] = int(sum(lens))
+        stats.pop("rids")
+        stats["prompt_tokens"] = int(sum(len(p) for p in prompts))
         stats["card"] = card
-        print(f"  {kind} serving: " + json.dumps(stats), flush=True)
-        stats["breakdown"] = _profile_steps(torch, eng, cfg, args.seed,
-                                            args.out, kind)
+        print(f"  {tag} {kind} serving: " + json.dumps(stats), flush=True)
+        stats["breakdown"] = _profile_steps(
+            torch, eng, vocab, args.seed, args.out,
+            f"{tag.replace(' ', '_')}_{kind}")
         for step_kind, m in stats["breakdown"].items():
             # the profiler's own cost lengthens a traced step: the idle
             # share against the untraced step's wall time as well
             m["idle_share_untraced"] = 1 - m["device_ms"] / stats[
                 f"{step_kind}_step_ms"]
         serving[kind] = stats
-        engines[kind] = eng
+        if keep_pages:
+            engines[kind] = eng
+        del eng
+        torch.cuda.empty_cache()
     same_tokens = outs["eager"] == outs["captured"]
     same_logits = len(logits["eager"]) == len(logits["captured"]) and all(
         torch.equal(a, b) for a, b in zip(logits["eager"],
                                           logits["captured"]))
-    p_real = engines["eager"].pool.num_blocks
-    same_pages = all(torch.equal(getattr(engines["eager"], n)[:, :p_real],
-                                 getattr(engines["captured"], n)[:, :p_real])
-                     for n in ("_kp", "_vp"))
-    print(f"  captured vs eager: tokens equal for "
+    same_pages = True
+    if keep_pages:
+        p_real = engines["eager"].pool.num_blocks
+        same_pages = all(
+            torch.equal(getattr(engines["eager"], n)[:, :p_real],
+                        getattr(engines["captured"], n)[:, :p_real])
+            for n in ("_kp", "_vp"))
+    ok = same_tokens and same_logits and same_pages
+    print(f"  {tag} captured vs eager: tokens equal for "
           f"{sum(a == b for a, b in zip(outs['eager'], outs['captured']))}/"
           f"{len(prompts)} requests, logits bit-equal at every one of "
-          f"{len(logits['captured'])} steps {same_logits}, real pages equal "
-          f"{same_pages} {'ok' if same_tokens and same_logits and same_pages else 'FAIL'}",
-          flush=True)
-    if not (same_tokens and same_logits and same_pages):
-        raise AssertionError("the captured step disagrees with the eager "
-                             "step")
+          f"{len(logits['captured'])} steps {same_logits}"
+          + (f", real pages equal {same_pages}" if keep_pages else "")
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: the captured step disagrees with the "
+                             f"eager step")
     e, c = serving["eager"], serving["captured"]
     for kind in ("decode", "prefill"):
-        print(f"  {kind} steps, eager -> captured: "
+        print(f"  {tag} {kind} steps, eager -> captured: "
               f"{e[kind + '_step_ms']:.3f} -> {c[kind + '_step_ms']:.3f} ms, "
               f"{e[kind + '_tokens_per_s']:.1f} -> "
               f"{c[kind + '_tokens_per_s']:.1f} tokens/s, idle share "
@@ -798,22 +981,85 @@ def phase_serving(torch, args, launches_out):
               f"the untraced step; host ms a step "
               f"{_fmt_host(e[kind + '_host_ms'])} -> "
               f"{_fmt_host(c[kind + '_host_ms'])} [{card}]", flush=True)
-    print(f"  TTFT p50/p99 ms eager {e['ttft_ms_p50']:.1f}/"
+    print(f"  {tag} TTFT p50/p99 ms eager {e['ttft_ms_p50']:.1f}/"
           f"{e['ttft_ms_p99']:.1f}, captured {c['ttft_ms_p50']:.1f}/"
           f"{c['ttft_ms_p99']:.1f}; latency p50/p99 ms eager "
           f"{e['latency_ms_p50']:.1f}/{e['latency_ms_p99']:.1f}, captured "
-          f"{c['latency_ms_p50']:.1f}/{c['latency_ms_p99']:.1f} (12 "
-          f"requests submitted at once) [{card}]", flush=True)
-    serving["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del engines, logits, eng
+          f"{c['latency_ms_p50']:.1f}/{c['latency_ms_p99']:.1f} "
+          f"({len(prompts)} requests submitted at once) [{card}]",
+          flush=True)
+    del engines, logits
     torch.cuda.empty_cache()
+    return serving, outs["captured"]
+
+
+def _llama_serving_setup(torch, args):
+    """Phase 4's model (Llama-2-7B width, bf16, seeded random weights),
+    engine configuration and 12 requests (prompts of 16-1000 tokens, 32
+    new tokens each); phases 9 and 10 serve the same."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig
+    cfg = LlamaConfig.llama2_7b()
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    print(f"  init {time.monotonic() - t0:.2f}s, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params",
+          flush=True)
+    ecfg = dict(max_seqs=8, token_budget=256, block_size=16,
+                max_model_len=2048)
+    rng = np.random.default_rng(args.seed)
+    lens = np.linspace(16, 1000, 12).astype(int)
+    rng.shuffle(lens)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist() for n in lens]
+    return cfg, model, ecfg, prompts, 32
+
+
+def _llama_per_step(n_l, quant=False):
+    """Kernel launches of one Llama serving step."""
+    per = dict(ragged_attention=n_l, rms_norm=n_l + 1, rms_norm_residual=n_l,
+               rope=n_l)
+    if quant:                  # 7 matrices a layer and the (untied) head
+        per["weight_only_gemm"] = 7 * n_l + 1
+    return per
+
+
+def phase_serving(torch, args, launches_out):
+    """Llama-2-7B served by two engines in turn over the same 12 requests:
+    the step run op by op (the yardstick) and the step replayed from the
+    CUDA graph captured at construction (the main path). Tokens equal,
+    every step's logits bit-equal, the pools' real pages equal; exact
+    launch counts; step ms, tokens/s, the host's share, TTFT and latency
+    for each; a profile of each; then the front door, generate() and the
+    kernel step against the plain step."""
+    from paddle_tpu_torch.serving import EngineConfig
+    card = _card_line()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, ecfg, prompts, max_new = _llama_serving_setup(torch, args)
+    print(f"phase 4: Llama-2-7B width (hidden {cfg.hidden_size}, "
+          f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} heads, "
+          f"vocab {cfg.vocab_size}) bf16, random weights seed {args.seed} "
+          f"[{card}]", flush=True)
+    serving, outs = _serve_pair(
+        torch, model, EngineConfig(**ecfg), prompts, max_new,
+        _llama_per_step(cfg.num_hidden_layers), "phase 4", args,
+        launches_out)
+    serving["outputs"] = outs
+    serving["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     serving["front_door"] = _front_door(torch, model, prompts[:4], max_new)
-    serving["generate"] = _generate_checks(torch, model, cfg, args,
-                                           launches_out)
-    serving.update(_step_agreement(torch, model, cfg, ecfg, args.seed))
+    n_l = cfg.num_hidden_layers
+    serving["generate"] = _generate_checks(
+        torch, model, cfg, args, launches_out,
+        dict(rms_norm=n_l + 1, rms_norm_residual=n_l, rope=n_l))
+    serving.update(_step_agreement(torch, model, cfg,
+                                   EngineConfig(**ecfg), args.seed))
     del model
     torch.cuda.empty_cache()
-    serving["captured_step_f32"] = _captured_step_f32(torch, cfg, args.seed)
+    serving["captured_step_f32"] = _captured_step_f32(
+        torch, _llama_f32_pair(cfg), args.seed)
     return serving
 
 
@@ -863,14 +1109,29 @@ def _timed_loop(torch, loop, ids, mask, max_new):
     return toks, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / max_new
 
 
-def _generate_checks(torch, model, cfg, args, launches_out):
-    """generate() at Llama-2-7B width: batch 8, left-padded prompts of
-    16-512 tokens, 32 new tokens. Greedy: the captured decode graph
-    against the same loop run op by op (tokens equal), step ms and
-    tokens/s of each, exact launch counts, a profile of decode replays and
-    the dense attention's device ms. Sampled (temperature 0.8, top-k 50,
-    top-p 0.9, a seed): two runs equal, every token in the vocabulary, and
-    each step's noise new."""
+def _attend_pr8(q, k, v, score_mask):
+    """generate()'s dense attention as PR 8 wrote it (fp32 casts of the
+    whole cache, then einsums that copy them again into their layouts),
+    kept here only to time it beside the current ``generation._attend``."""
+    import torch
+    d = q.shape[-1]
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(d)
+    scores = torch.where(score_mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, v.float()).to(q.dtype)
+
+
+def _generate_checks(torch, model, cfg, args, launches_out, per_call,
+                     tag="phase 4", quant=None, full=True):
+    """generate() at full width: batch 8, left-padded prompts of 16-512
+    tokens, 32 new tokens. Greedy: the captured decode graph against the
+    same loop run op by op (tokens equal), step ms and tokens/s of each,
+    exact launch counts (``per_call``: launches of the prefill and of each
+    replay) and a profile of decode replays. With ``full``: the dense
+    attention's device ms (PR 8's form beside the current one), and
+    sampled runs (temperature 0.8, top-k 50, top-p 0.9, a seed): two runs
+    equal, every token in the vocabulary, and each step's noise new."""
     import numpy as np
     from paddle_tpu_torch import generation as G
     from paddle_tpu_torch import kernels as K
@@ -887,25 +1148,23 @@ def _generate_checks(torch, model, cfg, args, launches_out):
         mask[i, width - n:] = 1
     ids_d, mask_d = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
     dec = G._decoder_for(model)
-    w = dec.weights(model)
+    w = G._quant_weights_cached(dec, model, quant) if quant \
+        else dec.weights(model)
     t0 = time.monotonic()
     got, fin = G.generate(model, ids, attention_mask=mask,
-                          max_new_tokens=max_new)
+                          max_new_tokens=max_new, quant=quant)
     first_s = time.monotonic() - t0
     sig = (b, width, max_new, False, False, 0, 1.0, False)
     loop = G._loop_for(dec, w, *sig)
-    n_l = cfg.num_hidden_layers
     K.reset_launches()
     toks_g, pre_g, step_g = _timed_loop(torch, loop, ids_d, mask_d, max_new)
     launches = dict(K.LAUNCHES)
     calls = 1 + max_new
-    expect = {n: 0 for n in K.LAUNCHES}
-    expect.update(rms_norm=(n_l + 1) * calls,
-                  rms_norm_residual=n_l * calls, rope=n_l * calls)
-    _nothing_routed(launches, "phase 4 generate()")
+    expect = {n: per_call.get(n, 0) * calls for n in K.LAUNCHES}
+    _nothing_routed(launches, f"{tag} generate()")
     if launches != expect:
-        raise AssertionError(f"generate(): launch counts {launches} != "
-                             f"{expect}")
+        raise AssertionError(f"{tag} generate(): launch counts {launches} "
+                             f"!= {expect}")
     for n, c in launches.items():
         launches_out[n] = launches_out.get(n, 0) + c
     eager = G._DecodeLoop(dec, w, *sig)
@@ -914,50 +1173,65 @@ def _generate_checks(torch, model, cfg, args, launches_out):
     torch.cuda.empty_cache()
     ok = torch.equal(got, toks_g) and torch.equal(toks_g, toks_e) \
         and 0 <= int(got.min()) and int(got.max()) < cfg.vocab_size
-    print(f"  generate(): batch {b}, prompts {sorted(lens.tolist())} "
-          f"left-padded to {width}, {max_new} new tokens; first call "
-          f"{first_s:.2f}s (capture included); greedy tokens: graph = "
-          f"eager {torch.equal(toks_g, toks_e)}, generate() = graph "
-          f"{torch.equal(got, toks_g)}; launches {launches} (expected "
-          f"{expect}) {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"  {tag} generate(quant={quant}): batch {b}, prompts "
+          f"{sorted(lens.tolist())} left-padded to {width}, {max_new} new "
+          f"tokens; first call {first_s:.2f}s (capture included); greedy "
+          f"tokens: graph = eager {torch.equal(toks_g, toks_e)}, generate() "
+          f"= graph {torch.equal(got, toks_g)}; launches {launches} "
+          f"(expected {expect}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("generate(): the decode graph disagrees with "
-                             "the eager loop")
+        raise AssertionError(f"{tag} generate(): the decode graph disagrees "
+                             f"with the eager loop")
     # where a decode step's device time goes: a profile of 8 replays
     loop.start(ids_d, mask_d, 1.0, 0, 1.0, None)
     prof, prof_m = _profile(torch, loop.step, 8)
-    prof.export_chrome_trace(os.path.join(args.out,
-                                          "generate_decode_trace.json"))
-    # the dense attention of one decode step: 32 layers of _attend over
-    # the [8, 544] cache, timed alone (CUDA-graph replay)
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    hd, h = cfg.hidden_size // cfg.num_attention_heads, \
-        cfg.num_attention_heads
-    q = torch.randn(b, 1, h, hd, device=dev, generator=g).bfloat16()
-    kc = torch.randn(b, width + max_new, h, hd, device=dev,
-                     generator=g).bfloat16()
-    vc = torch.randn_like(kc)
-    smask = loop.key_mask[:, None, None, :]
-    attn_ms = n_l * _graph_ms(lambda: G._attend(q, kc, vc, smask))
-    del q, kc, vc
+    prof.export_chrome_trace(os.path.join(
+        args.out, f"{tag.replace(' ', '_')}_generate_decode_trace.json"))
     out = dict(batch=b, prompt_lens=sorted(lens.tolist()), width=width,
-               max_new_tokens=max_new, first_call_s=first_s,
+               max_new_tokens=max_new, quant=quant, first_call_s=first_s,
                graph_prefill_ms=pre_g, graph_step_ms=step_g,
                graph_tokens_per_s=b / (step_g / 1e3),
                eager_prefill_ms=pre_e, eager_step_ms=step_e,
                eager_tokens_per_s=b / (step_e / 1e3),
-               decode_profile=prof_m, dense_attention_ms_a_step=attn_ms,
-               finished=int(fin.sum()), card=card)
-    print(f"  generate() decode steps, eager -> graph: {step_e:.3f} -> "
+               decode_profile=prof_m, finished=int(fin.sum()), card=card,
+               tokens=got.tolist())
+    print(f"  {tag} generate() decode steps, eager -> graph: {step_e:.3f} -> "
           f"{step_g:.3f} ms, {b / (step_e / 1e3):.1f} -> "
           f"{b / (step_g / 1e3):.1f} tokens/s; prefill {pre_e:.1f} / "
           f"{pre_g:.1f} ms; replay profile: wall {prof_m['wall_ms']:.3f} ms, "
           f"device {prof_m['device_ms']:.3f} ms (idle "
           f"{prof_m['idle_share']:.3f}), by group (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in
-                      prof_m["by_group_ms"].items())
-          + f"; dense attention (32 x _attend, alone) {attn_ms:.3f} ms "
-          f"[{card}]", flush=True)
+                      prof_m["by_group_ms"].items()) + f" [{card}]",
+          flush=True)
+    if not full:
+        dec.loops.clear()
+        torch.cuda.empty_cache()
+        return out
+    # the dense attention of one decode step: every layer's _attend over
+    # the [8, 544] cache, timed alone (CUDA-graph replay), beside PR 8's
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    n_l = cfg.num_hidden_layers
+    h = cfg.num_attention_heads
+    hd = cfg.hidden_size // h
+    q = torch.randn(b, 1, h, hd, device=dev, generator=g).bfloat16()
+    kc = torch.randn(b, width + max_new, h, hd, device=dev,
+                     generator=g).bfloat16()
+    vc = torch.randn_like(kc)
+    smask = loop.key_mask[:, None, None, :]
+    attn_ms = n_l * _graph_ms(lambda: G._attend(q, kc, vc, smask))
+    attn_pr8_ms = n_l * _graph_ms(lambda: _attend_pr8(q, kc, vc, smask))
+    same = _check("generate() _attend against PR 8's form",
+                  G._attend(q, kc, vc, smask), _attend_pr8(q, kc, vc, smask),
+                  ULP_BF16 * float(_attend_pr8(q, kc, vc, smask).float()
+                                   .abs().max()))
+    del q, kc, vc
+    out.update(dense_attention_ms_a_step=attn_ms,
+               dense_attention_pr8_ms_a_step=attn_pr8_ms,
+               dense_attention_vs_pr8_err=same)
+    print(f"  {tag} dense attention ({n_l} x _attend over [{b}, "
+          f"{width + max_new}, {h}, {hd}], alone): {attn_ms:.3f} ms a step, "
+          f"PR 8's form {attn_pr8_ms:.3f} ms [{card}]", flush=True)
     # sampling
     kw = dict(attention_mask=mask, max_new_tokens=max_new, do_sample=True,
               temperature=0.8, top_k=50, top_p=0.9)
@@ -988,24 +1262,32 @@ def _generate_checks(torch, model, cfg, args, launches_out):
     return out
 
 
-def _captured_step_f32(torch, cfg, seed):
-    """float32 at Llama-2-7B width with 2 layers: a captured engine and an
-    eager one stepped together over 4 requests; every step's logits
-    bit-equal and the same tokens."""
+def _llama_f32_pair(cfg):
+    """A builder of phase 4's float32 check: cfg's widths with 2 layers."""
     import dataclasses
-    import numpy as np
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
     small = dataclasses.replace(cfg, num_hidden_layers=2)
-    model = LlamaForCausalLM(
-        small, device="cuda", dtype=torch.float32,
-        generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    def make(torch, seed):
+        return LlamaForCausalLM(
+            small, device="cuda", dtype=torch.float32,
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+    return make
+
+
+def _captured_step_f32(torch, make_model, seed, quant=None):
+    """float32 at full width with 2 layers (``make_model(torch, seed)``):
+    a captured engine and an eager one stepped together over 4 requests;
+    every step's logits bit-equal and the same tokens."""
+    import numpy as np
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    model = make_model(torch, seed)
     ecfg = EngineConfig(max_seqs=4, token_budget=128, block_size=16,
-                        max_model_len=1024)
+                        max_model_len=1024, quant=quant)
     graph, eager = ServingEngine(model, ecfg), ServingEngine(model, ecfg)
     eager._step = eager._step_eager
     rng = np.random.default_rng(seed + 3)
-    prompts = [rng.integers(1, small.vocab_size, (n,)).tolist()
+    prompts = [rng.integers(1, model.config.vocab_size, (n,)).tolist()
                for n in (40, 200, 7, 130)]
     reqs = [[e.submit(p, max_new_tokens=8) for p in prompts]
             for e in (graph, eager)]
@@ -1028,6 +1310,8 @@ def _captured_step_f32(torch, cfg, seed):
 
 
 def _kernel_group(name):
+    if "weight_only_gemm" in name:
+        return "weight_only_gemm"
     if "flashmask_summary" in name:
         return "flashmask_summary"
     if "flash_fwd" in name and "true>" in name:   # MASKED = true
@@ -1095,14 +1379,14 @@ def _profile(torch, step, n):
                       top_kernels_launches={k: counts[k] / n for k, _ in top})
 
 
-def _profile_steps(torch, eng, cfg, seed, out_dir, tag):
+def _profile_steps(torch, eng, vocab, seed, out_dir, tag):
     """Where a step's time goes: a profiler trace of two prefill steps
     (8 prompts of 512 tokens, 256 tokens a step) and of four decode steps
     of the same 8 sequences. Chrome traces go to ``out_dir``, named by
     ``tag``. The ragged attention must plan once a step."""
     import numpy as np
     rng = np.random.default_rng(seed + 1)
-    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, (512,)).tolist(),
+    reqs = [eng.submit(rng.integers(1, vocab, (512,)).tolist(),
                        max_new_tokens=16) for _ in range(8)]
     out = {}
     prof, out["prefill"] = _profile(torch, eng.step, 2)
@@ -1131,22 +1415,30 @@ def _profile_steps(torch, eng, cfg, seed, out_dir, tag):
     return out
 
 
-def _step_agreement(torch, model, cfg, ecfg, seed):
-    """One mixed ragged step (7 decode tokens, contexts up to 2000, and a
-    64-token prefill chunk) through the kernels and through the plain
-    versions, in bf16 and in float32 (the same bf16-valued weights and
-    pools, upcast). float32: the two paths differ only in summation
-    order, so they must agree to 1e-3 of the largest logit. bf16: both
-    paths round at the same places, so the kernel path must be no further
-    from the float32 step than the plain bf16 path is, within a factor 2."""
+def _step_agreement(torch, model, cfg, ecfg, seed, quant=None):
+    """One mixed ragged step (7 decode tokens, contexts up to 2000 or the
+    model's positions, and a 64-token prefill chunk) through the kernels
+    and through the plain versions, in bf16 and in float32 (the same
+    bf16-valued weights and pools, upcast; quantized leaves as they are).
+    The weight-only GEMM takes bf16 activations only, so both float32
+    runs of a quantized step read the leaves through its plain version:
+    there the float32 pair holds the other kernels, and the bf16 pair all
+    of them. float32: the two paths differ only in summation order, so
+    they must agree to 1e-3 of the largest logit. bf16: both paths round
+    at the same places, so the kernel path must be no further from the
+    float32 step than the plain bf16 path is, within a factor 2."""
+    from paddle_tpu_torch import generation as G
     from paddle_tpu_torch import kernels as K
-    from paddle_tpu_torch.generation import _decoder_for
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
     from paddle_tpu_torch.serving import engine as E
     dev = torch.device("cuda")
+    heads = cfg.num_attention_heads
+    top = min(2000, cfg.max_position_embeddings - 64)
+    contexts = [60, 300, 700, 1100, 1500, 1800, 2000, 700]
+    contexts = [min(c, top) for c in contexts]
     t_args, _, _, _ = _ragged_case(
-        torch, dev, kvh=cfg.num_attention_heads,
-        contexts=[60, 300, 700, 1100, 1500, 1800, 2000, 700], chunk=64,
-        budget=ecfg.token_budget, seed=seed)
+        torch, dev, kvh=heads, heads=heads, d=cfg.hidden_size // heads,
+        contexts=contexts, chunk=64, budget=ecfg.token_budget, seed=seed)
     _, kp0, vp0, tables, slot, pos, valid = t_args
     layers = cfg.num_hidden_layers
     # the engine's pools carry a spare page past the real ones, where the
@@ -1159,8 +1451,9 @@ def _step_agreement(torch, model, cfg, ecfg, seed):
     tokens = torch.randint(1, cfg.vocab_size, (ecfg.token_budget,),
                            generator=torch.Generator().manual_seed(seed)) \
         .to(dev)
-    dec = _decoder_for(model)
-    w16 = dec.weights(model)
+    dec = G._decoder_for(model)
+    w16 = G._quant_weights_cached(dec, model, quant) if quant \
+        else dec.weights(model)
 
     def run(w, dtype, plain):
         kpc, vpc = kp.to(dtype), vp.to(dtype)
@@ -1168,16 +1461,20 @@ def _step_agreement(torch, model, cfg, ecfg, seed):
         with ExitStack() as stack, torch.inference_mode():
             if plain:
                 _plain_patches(stack)
+            elif quant and dtype == torch.float32:
+                stack.enter_context(mock.patch.object(
+                    G, "_qmm", quant_matmul_arrays))
             logits = E._engine_step_impl(dec, w, tokens, slot, pos, valid,
                                          tables, kpc, vpc)
             torch.cuda.synchronize()
-        if plain and K.LAUNCHES != before:
+        if plain and K.kernel_launches() != {
+                n: c for n, c in before.items() if n not in K.ROUTED}:
             raise AssertionError("the plain step launched a kernel")
         return logits[valid].float()
 
     kb = run(w16, torch.bfloat16, False)
     pb = run(w16, torch.bfloat16, True)
-    w32 = {k: v.float() for k, v in w16.items()}
+    w32 = {k: v if "::" in k else v.float() for k, v in w16.items()}
     kf = run(w32, torch.float32, False)
     pf = run(w32, torch.float32, True)
     del w32
@@ -2640,6 +2937,395 @@ def _gpt_train_step_agreement(torch, seed, seeds=8):
                 train_step_agreement_seeds=seeds)
 
 
+# -- phase 8: GPT and GPT-MoE serving at full width ------------------------------
+
+GPT_CAPACITY = 8192       # >= every forward's tokens: eval routing no-drop
+
+
+def _gpt_serving_model(torch, cfg, seed, dtype):
+    """GPT weights on the card from a seeded generator. A GShard gate drops
+    tokens at its eval capacity; the capacity override at ``GPT_CAPACITY``
+    (above the engine's 256-token step and generate()'s 8 x 544) makes its
+    routing no-drop, which the decoders require (as in the JAX package)."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=dtype,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    for blk in model.transformer.h:
+        if blk.is_moe:
+            blk.mlp._capacity_override = GPT_CAPACITY
+    return model
+
+
+def _gpt_f32_pair(cfg):
+    import dataclasses
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+
+    def make(torch, seed):
+        return _gpt_serving_model(torch, small, seed, torch.float32)
+    return make
+
+
+def phase_gpt_serving(torch, args, launches_out):
+    """GPTConfig.gpt2_small() and GPTConfig.gpt_moe(8) in bf16, each served
+    by two engines in turn (eager, then captured; max_seqs 8, budget 256,
+    block 16, max_model_len 1024) over 12 requests of 16-700 prompt tokens
+    and 32 new tokens, with phase 4's checks: exact launch counts (one
+    ragged attention a layer, at head_dim 64), tokens equal, every step's
+    logits bit-equal, pages equal, a profile; generate() captured against
+    eager; one ragged step through the kernels against the plain versions;
+    a 2-layer float32 pair."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.serving import EngineConfig
+    card = _card_line()
+    out = {}
+    for name, cfg in (("gpt2_small", GPTConfig.gpt2_small()),
+                      ("gpt_moe_8", GPTConfig.gpt_moe(8))):
+        tag = f"phase 8 {name}"
+        model = _gpt_serving_model(torch, cfg, args.seed, torch.bfloat16)
+        print(f"phase 8: {name} (hidden {cfg.hidden_size}, "
+              f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} "
+              f"heads of {cfg.hidden_size // cfg.num_attention_heads}, vocab "
+              f"{cfg.vocab_size}, experts {cfg.num_experts}) bf16, "
+              f"{model.num_params()} params, random weights seed "
+              f"{args.seed} [{card}]", flush=True)
+        ecfg = dict(max_seqs=8, token_budget=256, block_size=16,
+                    max_model_len=1024)
+        rng = np.random.default_rng(args.seed + 8)
+        lens = np.linspace(16, 700, 12).astype(int)
+        rng.shuffle(lens)
+        prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist()
+                   for n in lens]
+        stats, _ = _serve_pair(
+            torch, model, EngineConfig(**ecfg), prompts, 32,
+            {"ragged_attention": cfg.num_hidden_layers}, tag, args,
+            launches_out)
+        stats["generate"] = _generate_checks(torch, model, cfg, args,
+                                             launches_out, {}, tag=tag,
+                                             full=False)
+        stats.update(_step_agreement(torch, model, cfg,
+                                     EngineConfig(**ecfg), args.seed))
+        del model
+        torch.cuda.empty_cache()
+        stats["captured_step_f32"] = _captured_step_f32(
+            torch, _gpt_f32_pair(cfg), args.seed)
+        out[name] = stats
+    return out
+
+
+# -- phase 9: quantized serving of Llama-2-7B -----------------------------------------
+
+def phase_quant_serving(torch, args, launches_out, bf16_outputs):
+    """Phase 4's model, engine and requests with weight-only int8, int4 and
+    fp8 weights, one engine at a time: captured against eager (tokens
+    equal, logits bit-equal, exact launch counts with one weight-only GEMM
+    a quantized matrix), step ms, tokens/s, idle share, a profile, the
+    quantized bytes, the greedy-token agreement with the bf16 engine
+    (printed, not gated) and one ragged step through the kernels against
+    the plain versions; then generate(quant="weight_only_int8")."""
+    from paddle_tpu_torch import generation as G
+    from paddle_tpu_torch.serving import EngineConfig
+    card = _card_line()
+    cfg, model, ecfg, prompts, max_new = _llama_serving_setup(torch, args)
+    n_l = cfg.num_hidden_layers
+    dec = G._decoder_for(model)
+    names, _ = dec.quant_plan()
+    params = dict(model.named_parameters())
+    bf16_bytes = sum(params[n].numel() * 2 for n in names)
+    out = {}
+    for algo in QUANT_ALGOS:
+        tag = f"phase 9 {algo}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        w = G._quant_weights_cached(dec, model, algo)
+        torch.cuda.synchronize()
+        q_secs = time.monotonic() - t0
+        q_bytes = sum(v.numel() * v.element_size() for k, v in w.items()
+                      if "::" in k)
+        del w
+        print(f"phase 9: Llama-2-7B width, {algo}: {len(names)} matrices "
+              f"quantized in {q_secs:.2f}s, {q_bytes} bytes with their "
+              f"scales against {bf16_bytes} in bf16 [{card}]", flush=True)
+        stats, outs = _serve_pair(
+            torch, model, EngineConfig(quant=algo, **ecfg), prompts, max_new,
+            _llama_per_step(n_l, quant=True), tag, args, launches_out,
+            keep_pages=False)
+        same_req = sum(a == b for a, b in zip(outs, bf16_outputs))
+        same_tok = sum(x == y for a, b in zip(outs, bf16_outputs)
+                       for x, y in zip(a, b))
+        total = sum(len(a) for a in outs)
+        print(f"  {tag}: greedy tokens equal to the bf16 engine's: "
+              f"{same_tok}/{total} tokens, {same_req}/{len(outs)} requests "
+              f"whole (not gated: random weights, narrower matrices)",
+              flush=True)
+        stats.update(quantize_seconds=q_secs, quant_bytes=q_bytes,
+                     bf16_bytes=bf16_bytes,
+                     tokens_equal_to_bf16=same_tok / total,
+                     requests_equal_to_bf16=same_req,
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        stats.update(_step_agreement(torch, model, cfg, EngineConfig(**ecfg),
+                                     args.seed, quant=algo))
+        if algo == "weight_only_int8":
+            stats["generate"] = _generate_checks(
+                torch, model, cfg, args, launches_out,
+                dict(rms_norm=n_l + 1, rms_norm_residual=n_l, rope=n_l,
+                     weight_only_gemm=7 * n_l + 1), tag=tag, quant=algo,
+                full=False)
+        model.__dict__["_quant_weights_cache"].pop(algo)
+        torch.cuda.empty_cache()
+        out[algo] = stats
+    del model, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 10: speculative decoding on Llama-2-7B ------------------------------------
+
+def _spec_run(torch, model, ecfg, prompts, max_new):
+    """Serve ``prompts`` on a captured engine of ``ecfg``, keeping the
+    logits row that scored each output position: {(request, index): fp32
+    row} (the last row written for a position is the one whose context was
+    accepted). Returns (outputs, rows, stats, launches)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(model, ecfg)
+    eng.generate_batch([list(range(1, 17))], max_new_tokens=2)   # warm-up
+    orig = eng.sched.schedule
+    plans = []
+
+    def schedule():
+        plan = orig()
+        idx, rows = 0, []
+        for e in plan.entries:
+            n, k = e.n, len(e.draft)
+            if e.samples:
+                base = len(e.req.output)
+                rows += [(e.req.rid, base + j, idx + n - 1 + j)
+                         for j in range(k + 1)]
+            idx += n + k
+        plans.append(rows)
+        return plan
+    eng.sched.schedule = schedule
+    s0 = dict(eng.spec_stats())
+    h0 = dict(eng.host_seconds)
+    stats, outs, launches, logits = _serve_requests(torch, eng, prompts,
+                                                    max_new,
+                                                    keep_logits=True)
+    index = {r: i for i, r in enumerate(stats.pop("rids"))}
+    rows = {}
+    for step_rows, lg in zip(plans[-len(logits):], logits):
+        for r, oi, row in step_rows:
+            if oi < max_new:
+                rows[(index[r], oi)] = lg[row].float()
+    del logits
+    spec = {k: eng.spec_stats()[k] - s0[k] for k in ("proposed", "accepted",
+                                                     "rollback_pages")}
+    host = {k: 1e3 * (eng.host_seconds[k] - h0[k]) / stats["steps"]
+            for k in h0}
+    wall = stats["seconds"]
+    stats.update(spec, host_ms_a_step=host,
+                 step_ms=1e3 * wall / stats["steps"],
+                 tokens_per_s=stats["tokens_generated"] / wall)
+    del eng
+    torch.cuda.empty_cache()
+    return outs, rows, stats, launches
+
+
+SPEC_NOISE_ULPS = 32    # the verify-row vs decode-row noise's bound
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at magnitude ``x`` (> 0)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def _spec_compare(name, base, spec, max_new):
+    """Spec outputs against non-spec ones: the fraction of requests
+    identical, and the noise: the two runs' largest logit difference at
+    every position before a request's first differing token (their
+    contexts are equal there; the spec run scored many of them from
+    verify rows, the other from decode rows, which take other
+    ragged-kernel tiles). Every such difference must lie within
+    SPEC_NOISE_ULPS bf16 ulps of its row's largest logit, and at each
+    first differing token both tokens must be their own run's argmax with
+    the non-spec top-2 margin at most twice the largest noise: a near tie
+    that tile-order noise flips. Any other difference fails. Returns the
+    summary."""
+    import torch
+    outs_b, rows_b = base
+    outs_s, rows_s = spec
+    same = sum(a == b for a, b in zip(outs_b, outs_s))
+    noise, flips, worst_ulps = [], [], 0.0
+    for r, (a, b) in enumerate(zip(outs_b, outs_s)):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        for i in range(max_new if j is None else j):
+            d = float((rows_b[(r, i)] - rows_s[(r, i)]).abs().max())
+            noise.append(d)
+            worst_ulps = max(worst_ulps, d / _bf16_ulp(
+                float(rows_b[(r, i)].abs().max())))
+        if j is not None:
+            flips.append((r, j))
+    noise.sort()
+    noise_max = noise[-1] if noise else 0.0
+    checked = []
+    for r, j in flips:
+        lb, ls = rows_b[(r, j)], rows_s[(r, j)]
+        top = torch.topk(lb, 2).values
+        margin = float(top[0] - top[1])
+        ok = int(lb.argmax()) == outs_b[r][j] \
+            and int(ls.argmax()) == outs_s[r][j] and margin <= 2 * noise_max
+        checked.append(dict(request=r, index=j, margin=margin,
+                            diff=float((lb - ls).abs().max()), ok=ok))
+    noise_ok = worst_ulps <= SPEC_NOISE_ULPS
+    summary = dict(requests_identical=same, requests=len(outs_b),
+                   noise_positions=len(noise),
+                   noise_median=noise[len(noise) // 2] if noise else 0.0,
+                   noise_max=noise_max, noise_max_ulps=worst_ulps,
+                   flips=checked)
+    print(f"  {name}: requests identical to non-spec {same}/{len(outs_b)}; "
+          f"noise (logit difference of the two runs before each first "
+          f"difference) over {len(noise)} positions: median "
+          f"{summary['noise_median']:.4g}, max {noise_max:.4g}, at most "
+          f"{worst_ulps:.3g} bf16 ulps of its row's largest logit (bound "
+          f"{SPEC_NOISE_ULPS}) {'ok' if noise_ok else 'FAIL'}; first "
+          f"differences "
+          + (", ".join(f"req {f['request']} @ {f['index']}: margin "
+                       f"{f['margin']:.4g} vs 2 x noise {2 * noise_max:.4g} "
+                       f"(difference there {f['diff']:.4g}) "
+                       f"{'ok' if f['ok'] else 'FAIL'}" for f in checked)
+             or "none"), flush=True)
+    if not noise_ok:
+        raise AssertionError(f"{name}: the speculative run's logits differ "
+                             f"from the non-speculative run's beyond "
+                             f"{SPEC_NOISE_ULPS} bf16 ulps where their "
+                             f"contexts are equal")
+    if not all(f["ok"] for f in checked):
+        raise AssertionError(f"{name}: a speculative token differs from the "
+                             f"non-speculative one beyond a near tie")
+    return summary
+
+
+def _spec_f32(torch, cfg, seed):
+    """float32 at full width with 2 layers: speculative tokens (n-gram, and
+    the model drafting for itself) identical to non-speculative ones."""
+    import numpy as np
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    model = _llama_f32_pair(cfg)(torch, seed)
+    rng = np.random.default_rng(seed + 4)
+    pattern = rng.integers(1, cfg.vocab_size, (7,)).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist()
+               for n in (40, 200, 7, 130)] + [(pattern * 30)[:150]]
+    base = dict(max_seqs=4, token_budget=128, block_size=16,
+                max_model_len=1024)
+    want = ServingEngine(model, EngineConfig(**base)).generate_batch(
+        prompts, max_new_tokens=16)
+    out = {}
+    for name, kw in (("ngram", dict(spec_method="ngram")),
+                     ("draft_self", dict(spec_method="draft_model",
+                                         draft_model=model))):
+        eng = ServingEngine(model, EngineConfig(num_draft_tokens=4, **kw,
+                                                **base))
+        got = eng.generate_batch(prompts, max_new_tokens=16)
+        ok = got == want
+        print(f"  float32 (2 layers at full width) {name}: tokens identical "
+              f"to non-speculative {sum(a == b for a, b in zip(got, want))}/"
+              f"{len(prompts)} requests, {eng.spec_stats()} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"float32 {name}: speculative tokens differ "
+                                 f"from non-speculative ones")
+        out[name] = eng.spec_stats()
+        del eng
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+SELF_DRAFT_WIDTH = 1100    # > the longest context: 1000 prompt + 32 new
+
+
+def phase_spec_serving(torch, args, launches_out):
+    """Phase 4's model, engine and requests with speculative decoding,
+    k = 4: the n-gram drafter, the 1.1B Llama of phase 5 as the draft
+    model (64-token window), and the target drafting for itself through a
+    window that holds every context. For each: proposed and
+    accepted tokens, rollback pages, steps, step ms, tokens/s and the
+    host's share; the bf16 comparison with the non-speculative run
+    (``_spec_compare``); the draft model's draft_greedy_batch ms; then
+    float32 with 2 layers, where speculative tokens must be identical."""
+    from paddle_tpu_torch import generation as G
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig
+    card = _card_line()
+    cfg, model, ecfg, prompts, max_new = _llama_serving_setup(torch, args)
+    n_l = cfg.num_hidden_layers
+    print(f"phase 10: speculative decoding on Llama-2-7B width, k = 4, "
+          f"{len(prompts)} requests [{card}]", flush=True)
+    draft = LlamaForCausalLM(
+        _llama_1b(), device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(args.seed + 10))
+    base_outs, base_rows, base_stats, _ = _spec_run(
+        torch, model, EngineConfig(**ecfg), prompts, max_new)
+    print(f"  non-speculative: {base_stats['steps']} steps, "
+          f"{base_stats['step_ms']:.3f} ms a step, "
+          f"{base_stats['tokens_per_s']:.1f} tokens/s [{card}]", flush=True)
+    out = dict(non_speculative={k: v for k, v in base_stats.items()})
+    for name, kw in (("ngram", dict(spec_method="ngram")),
+                     ("draft_1.1b", dict(spec_method="draft_model",
+                                         draft_model=draft)),
+                     # a window that holds every request's whole context:
+                     # the drafts are the target's own greedy tokens
+                     ("draft_self", dict(spec_method="draft_model",
+                                         draft_model=model,
+                                         spec_options={"context_width":
+                                                       SELF_DRAFT_WIDTH}))):
+        outs, rows, stats, launches = _spec_run(
+            torch, model, EngineConfig(num_draft_tokens=4, **kw, **ecfg),
+            prompts, max_new)
+        _nothing_routed(launches, f"phase 10 {name}")
+        if launches["ragged_attention"] != n_l * stats["steps"]:
+            raise AssertionError(f"phase 10 {name}: ragged launches "
+                                 f"{launches['ragged_attention']} != "
+                                 f"{n_l} x {stats['steps']} steps")
+        if any(len(o) != max_new for o in outs):
+            raise AssertionError(f"phase 10 {name}: a request did not return "
+                                 f"all of its tokens")
+        for n, c in launches.items():
+            launches_out[n] = launches_out.get(n, 0) + c
+        stats["vs_non_speculative"] = _spec_compare(
+            f"phase 10 {name}", (base_outs, base_rows), (outs, rows), max_new)
+        rate = stats["accepted"] / max(stats["proposed"], 1)
+        print(f"  phase 10 {name}: proposed {stats['proposed']}, accepted "
+              f"{stats['accepted']} ({rate:.3f}), rollback pages "
+              f"{stats['rollback_pages']}, {stats['steps']} steps (non-spec "
+              f"{base_stats['steps']}), {stats['step_ms']:.3f} ms a step, "
+              f"{stats['tokens_per_s']:.1f} tokens/s (non-spec "
+              f"{base_stats['tokens_per_s']:.1f}); host ms a step "
+              f"schedule (with the drafter's propose) / pack / device / emit "
+              f"{_fmt_host(stats['host_ms_a_step'])}; launches {launches} "
+              f"[{card}]", flush=True)
+        del rows
+        out[name] = stats
+    # the draft model's batched greedy draft alone: 8 contexts in a
+    # 64-token window, 4 tokens (its captured loop is warm)
+    seqs = [p[:300] for p in prompts[:8]]
+    G.draft_greedy_batch(draft, seqs, 4, width=64)
+    t0 = time.monotonic()
+    for _ in range(5):
+        G.draft_greedy_batch(draft, seqs, 4, width=64)
+    torch.cuda.synchronize()
+    out["draft_1.1b_greedy_batch_ms"] = 1e3 * (time.monotonic() - t0) / 5
+    print(f"  phase 10 draft_greedy_batch of the 1.1B draft model (8 "
+          f"contexts, window 64, k 4): "
+          f"{out['draft_1.1b_greedy_batch_ms']:.3f} ms a call [{card}]",
+          flush=True)
+    del model, draft, base_rows
+    torch.cuda.empty_cache()
+    out["float32"] = _spec_f32(torch, cfg, args.seed)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2690,9 +3376,11 @@ def main(argv=None):
     _build.library("flash_attention_bf16")
     _build.library("adamw")
     _build.library("gmm")
+    _build.library("weight_only_gemm")
     print(f"phase 2: nvcc {nvcc_s:.2f}s, triton compile "
           f"{time.monotonic() - t1:.2f}s", flush=True)
     sass = _wgmma_sass(built)
+    sass.update(_gemm_sass(built))
 
     os.makedirs(args.out, exist_ok=True)
     results = {}
@@ -2706,6 +3394,7 @@ def main(argv=None):
         return out
 
     timed("phase 3 serving kernels", phase_kernels, torch, results)
+    timed("phase 3 weight-only GEMM", phase_gemm_kernels, torch, results)
     timed("phase 3 training kernels", phase_train_kernels, torch, results)
     timed("phase 3 tiny serving", phase_tiny_reference, torch)
     timed("phase 3 tiny training", phase_tiny_training, torch)
@@ -2724,6 +3413,13 @@ def main(argv=None):
                     torch, args, gpt_launches)
     packed = timed("phase 7 packed-document training", phase_training,
                    torch, args, packed_launches, True)
+    gpt_serve_launches, quant_launches, spec_launches = {}, {}, {}
+    gpt_serving = timed("phase 8 GPT serving", phase_gpt_serving, torch,
+                        args, gpt_serve_launches)
+    quant = timed("phase 9 quantized serving", phase_quant_serving, torch,
+                  args, quant_launches, serving["outputs"])
+    spec = timed("phase 10 speculative decoding", phase_spec_serving, torch,
+                 args, spec_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -2754,20 +3450,27 @@ def main(argv=None):
         "flashmask_bwd": ("cuda",
                           "paddle_tpu_torch/csrc/flash_attention_bf16.cu",
                           "paddle_tpu/kernels/flash_pallas.py:594"),
+        # no Pallas kernel: the port of the convert XLA fuses into the dot
+        "weight_only_gemm": ("cuda",
+                             "paddle_tpu_torch/csrc/weight_only_gemm.cu",
+                             "paddle_tpu/quantization/_kernels.py:99"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training), summed; a backward's entry counts its dq
     # launches, each paired with one dk/dv launch (the training runs check
     # both counts exactly)
-    runs = (serve_launches, train_launches, gpt_launches, packed_launches)
+    runs = (serve_launches, train_launches, gpt_launches, packed_launches,
+            gpt_serve_launches, quant_launches, spec_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
     main_runs["flashmask_bwd"] = main_runs["flashmask_bwd_dq"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
-        m = results["ragged_attention[mixed_mha]" if name == "ragged_attention"
-                    else name]
+        m = results[{"ragged_attention": "ragged_attention[mixed_mha]",
+                     "weight_only_gemm":
+                         "weight_only_gemm[llama_qkvo int8 M=256]"}
+                    .get(name, name)]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=tpu, launches=main_runs[name],
                             **{k: m[k] for k in JSON_KEYS}))
@@ -2777,12 +3480,17 @@ def main(argv=None):
                    "build_seconds": {n: i["seconds"] for n, i in built.items()},
                    "serving": serving,
                    "training": training, "gpt_moe_training": gpt_moe,
-                   "packed_training": packed, "seconds": seconds,
+                   "packed_training": packed, "gpt_serving": gpt_serving,
+                   "quant_serving": quant, "spec_serving": spec,
+                   "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "training": train_launches,
                                 "gpt_moe_training": gpt_launches,
-                                "packed_training": packed_launches}}, f,
-                  indent=1)
+                                "packed_training": packed_launches,
+                                "gpt_serving": gpt_serve_launches,
+                                "quant_serving": quant_launches,
+                                "spec_serving": spec_launches}}, f,
+                  indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

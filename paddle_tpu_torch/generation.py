@@ -1,22 +1,32 @@
-"""KV-cached decoding of a Llama model over its weight tensors.
+"""KV-cached decoding of a Llama or GPT model over its weight tensors.
 
 Mirrors ``paddle_tpu/generation.py``:
 
-  * ``_LlamaDecoder.step_ragged``: one packed batch of tokens from many
-    sequences (prefill chunks and decode tokens together) goes through
-    every layer, writes its K/V into the paged pools and attends over them
-    (the serving engine's step);
-  * ``_LlamaDecoder.step``: the dense KV-cache step of ``generate()``:
-    per-row caches ``[L, B, M, kvh, hd]`` written in place at a slot held
-    in a device tensor, attention in plain PyTorch with the JAX code's
-    fp32 casts (the JAX package has no kernel for it either);
+  * ``_LlamaDecoder`` / ``_GPTDecoder`` (pre-LN GPT-2, learned positions,
+    erf GELU, and MoE blocks that run every expert densely over the rows
+    and combine them through exact one-hot weights) ``.step_ragged``: one
+    packed batch of tokens from many sequences (prefill chunks and decode
+    tokens together) goes through every layer, writes its K/V into the
+    paged pools and attends over them (the serving engine's step);
+  * ``.step``: the dense KV-cache step of ``generate()``: per-row caches
+    ``[L, B, M, kvh, hd]`` written in place at a slot held in a device
+    tensor, attention in plain PyTorch with the JAX code's fp32 scores
+    (the JAX package has no kernel for it either);
+  * weight-only quantized decoding (``quant=``): the matmul weights of
+    ``quant_plan`` become ``name::q`` / ``name::s`` leaves, quantized once
+    per weight snapshot and cached on the model, which ``_mm`` reads
+    through the weight-only GEMM (``kernels/quant_matmul.py``) on the card
+    and its plain version on the CPU;
   * ``generate()``: the prefill, the decode loop and sampling (greedy,
     temperature, top-k, top-p, eos, the CTRL repetition penalty). The JAX
     package compiles the loop into one program per signature. Here the
     prefill runs op by op and, on the card, the decode step is a CUDA
     graph captured once per signature and replayed ``max_new_tokens``
     times: its counter, write position, key mask and sampling noise live
-    on the card, and the tokens are read back once, at the end.
+    on the card, and the tokens are read back once, at the end;
+  * ``draft_greedy_batch``: greedy drafts of a speculative drafter, every
+    context left-padded into one fixed window, so each (batch, window, k)
+    signature is one captured decode graph.
 
 The RMSNorms, the rotary embedding and the ragged attention go through the
 port's kernels on CUDA tensors and through their plain versions on CPU
@@ -25,6 +35,7 @@ tensors; the large matrix products go to ``torch.matmul``.
 from __future__ import annotations
 
 import math
+import weakref
 from collections import OrderedDict
 from typing import Optional
 
@@ -34,6 +45,9 @@ import torch.nn.functional as F
 
 from . import resolve_device
 from .kernels import LAUNCHES, fused, uncount_since
+from .kernels.quant_matmul import weight_only_gemm as _qmm
+from .quantization._kernels import ALGO_BITS as _QUANT_BITS
+from .quantization._kernels import quantize_weight_arrays as _wq
 
 NEG_INF = -1e30
 
@@ -60,36 +74,121 @@ def _rope_rows(q, k, cos, sin):
     return oq.reshape(q.shape), ok.reshape(k.shape)
 
 
+def _f32_heads_major(x):
+    """``[B, T, G, D]`` -> one fp32 copy ``[B, G, T, D]`` (the cast and the
+    layout change in one pass): the layout the batched products read."""
+    b, t, g, d = x.shape
+    out = torch.empty(b, g, t, d, dtype=torch.float32, device=x.device)
+    out.copy_(x.permute(0, 2, 1, 3))
+    return out
+
+
 def _attend(q, k, v, score_mask):
     """q: [B, S, H, D]; k/v: [B, T, H, D]; score_mask: [B, 1, S, T] bool
-    (True = visible). Returns [B, S, H, D]."""
-    d = q.shape[-1]
-    scores = torch.einsum("bshd,bthd->bhst", q.float(),
-                          k.float()) / math.sqrt(d)
-    scores = torch.where(score_mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", p, v.float()).to(q.dtype)
+    (True = visible). Returns [B, S, H, D]. fp32 scores and softmax, as
+    the JAX function; K and V are copied once each, to fp32 in the layout
+    the products read."""
+    return _attend_gqa(q, k, v, score_mask, 1)
 
 
 def _attend_gqa(q, k, v, score_mask, rep):
     """Grouped-query attention without expanding the KV cache. q:
     [B, S, G*rep, D]; k/v: [B, T, G, D]; score_mask: [B, 1, S, T].
-    Returns [B, S, G*rep, D]."""
+    Returns [B, S, G*rep, D]. The ``rep`` query heads of a group and the
+    S positions share one product against the group's keys."""
     b, s, h, d = q.shape
-    qg = q.reshape(b, s, h // rep, rep, d)
-    scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
-                          k.float()) / math.sqrt(d)
-    scores = torch.where(score_mask[:, None], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrst,btgd->bsgrd", p, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    g = h // rep
+    t = k.shape[1]
+    qg = q.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4).float() \
+        .reshape(b, g, rep * s, d)
+    scores = (qg @ _f32_heads_major(k).transpose(-1, -2)) / math.sqrt(d)
+    scores = torch.where(score_mask[:, None],
+                         scores.reshape(b, g, rep, s, t), NEG_INF)
+    p = torch.softmax(scores, dim=-1).reshape(b, g, rep * s, t)
+    out = (p @ _f32_heads_major(v)).reshape(b, g, rep, s, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+# -- weight-only quantized decoding ---------------------------------------------
+#
+# The quantized matrix rides in the weights dict as two leaves, ``name::q``
+# (the narrow matrix, in the layout of quantization/_kernels.py) and
+# ``name::s`` (fp32 per-output-channel scales), and ``_mm`` reads them
+# through the weight-only GEMM, which converts the narrow bytes in
+# registers as XLA fuses the convert into the JAX package's dot.
+
+def _quant_leaves(src, names, lm_from_embed=None, bits=8):
+    """Quantize each 2-D matmul weight in ``names`` to ::q/::s leaves; with
+    ``lm_from_embed`` (a tied head) add __lm::q/__lm::s from the
+    embedding's transpose, so the logits product reads narrow bytes while
+    the embedding gather keeps the full-precision table."""
+    leaves = {}
+    for n in names:
+        leaves[n + "::q"], leaves[n + "::s"] = _wq(src[n], bits=bits)
+    if lm_from_embed is not None:
+        leaves["__lm::q"], leaves["__lm::s"] = _wq(src[lm_from_embed].T,
+                                                   bits=bits)
+    return leaves
+
+
+def _mm(x, w, name):
+    """x @ weight, reading the quantized form when the dict holds one."""
+    q = w.get(name + "::q")
+    if q is None:
+        return x @ w[name]
+    return _qmm(x, q, w[name + "::s"])
 
 
 def _head_logits(w, h, tied, embed_key):
-    """The LM-head matmul: the tied embedding's transpose, or lm_head."""
+    """The LM-head matmul, shared by both decoders: the quantized tied
+    head (__lm leaves), else the tied embedding's transpose, else the
+    (possibly quantized) lm_head."""
+    if "__lm::q" in w:
+        return _qmm(h, w["__lm::q"], w["__lm::s"])
     if tied:
         return h @ w[embed_key].T
-    return h @ w["lm_head.weight"]
+    return _mm(h, w, "lm_head.weight")
+
+
+def _quant_weights_cached(dec, model, quant):
+    """The decode weights with ``quant``'s leaves in place of the matmul
+    weights of ``dec.quant_plan()``: the other weights (norms, biases,
+    embeddings) are read from the model on every call; the leaves are
+    quantized once per weight snapshot and cached on the model, per algo.
+    The cache holds WEAKREFS to the source parameters, with each one's
+    version counter and address (an in-place update, a ``load`` or a
+    dtype change gives another snapshot; the port's AdamW bumps the
+    counters it writes through), and strong references only to the narrow
+    copies, which an engine's or a decode loop's captured graph reads."""
+    src = dec.weights(model)
+    params = dict(model.named_parameters())
+    names, lm_key = dec.quant_plan()
+    dtype = src[dec.embed_key].dtype
+    if src[dec.embed_key].is_cuda and dtype != torch.bfloat16:
+        raise TypeError(f"quant={quant!r} on the card serves a bf16 model "
+                        f"(the weight-only GEMM reads bf16 activations), "
+                        f"not {dtype}")
+    watched = names if lm_key is None else [*names, lm_key]
+    stamp = {k: (params[k]._version, params[k].data_ptr()) for k in watched}
+    cache = model.__dict__.setdefault("_quant_weights_cache", {})
+    leaves = None
+    cached = cache.get(quant)
+    if cached is not None:
+        prev_refs, prev_leaves = cached
+        if list(prev_refs) == watched and all(
+                prev_refs[k][0]() is params[k] and prev_refs[k][1] == stamp[k]
+                for k in watched):
+            leaves = prev_leaves
+    if leaves is None:
+        with torch.no_grad():
+            leaves = _quant_leaves(src, names, lm_from_embed=lm_key,
+                                   bits=_QUANT_BITS[quant])
+        cache[quant] = ({k: (weakref.ref(params[k]), stamp[k])
+                         for k in watched}, leaves)
+    drop = set(names)
+    w = {k: v for k, v in src.items() if k not in drop}
+    w.update(leaves)
+    return w
 
 
 class _LlamaDecoder:
@@ -124,24 +223,39 @@ class _LlamaDecoder:
     def _lw(w, i, name):
         return w[f"model.layers.{i}.{name}"]
 
+    _QUANT_SUFFIXES = ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+                       "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+                       "mlp.gate_proj.weight", "mlp.up_proj.weight",
+                       "mlp.down_proj.weight")
+
+    def quant_plan(self):
+        """(matmul weight names to quantize, tied-embed key or None)."""
+        names = [f"model.layers.{i}.{sfx}" for i in range(self.n_layers)
+                 for sfx in self._QUANT_SUFFIXES]
+        if not self.tied:
+            names.append("lm_head.weight")
+        return names, (self.embed_key if self.tied else None)
+
     def _qkv_proj(self, w, i, x, b, s):
         pre = f"model.layers.{i}.self_attn."
-        q = (x @ w[pre + "q_proj.weight"]).reshape(b, s, self.n_heads,
-                                                   self.hd)
-        k = (x @ w[pre + "k_proj.weight"]).reshape(b, s, self.n_kv, self.hd)
-        v = (x @ w[pre + "v_proj.weight"]).reshape(b, s, self.n_kv, self.hd)
+        q = _mm(x, w, pre + "q_proj.weight").reshape(b, s, self.n_heads,
+                                                     self.hd)
+        k = _mm(x, w, pre + "k_proj.weight").reshape(b, s, self.n_kv,
+                                                     self.hd)
+        v = _mm(x, w, pre + "v_proj.weight").reshape(b, s, self.n_kv,
+                                                     self.hd)
         return q, k, v
 
     def _post_attn(self, w, i, h, att):
         """Residual + output projection + SwiGLU MLP; att: [B, S, H*D]."""
         pre = f"model.layers.{i}."
-        h, x2 = _add_rms(h, att @ w[pre + "self_attn.o_proj.weight"],
+        h, x2 = _add_rms(h, _mm(att, w, pre + "self_attn.o_proj.weight"),
                          self._lw(w, i, "post_attention_layernorm.weight"),
                          self.eps)
-        gate = x2 @ w[pre + "mlp.gate_proj.weight"]
-        up = x2 @ w[pre + "mlp.up_proj.weight"]
+        gate = _mm(x2, w, pre + "mlp.gate_proj.weight")
+        up = _mm(x2, w, pre + "mlp.up_proj.weight")
         swi = F.silu(gate.float()).to(up.dtype) * up
-        return h + swi @ w[pre + "mlp.down_proj.weight"]
+        return h + _mm(swi, w, pre + "mlp.down_proj.weight")
 
     def _layer(self, w, i, h, cos, sin, kc, vc, write_pos, score_mask):
         """One layer with its cache append; h: [B, S, H*D]; kc/vc:
@@ -220,17 +334,230 @@ class _LlamaDecoder:
         return _head_logits(w, h, self.tied, self.embed_key)
 
 
+def _ln(x, w, b, eps):
+    """LayerNorm in fp32, rounded to x's dtype (the JAX ``_ln``)."""
+    return F.layer_norm(x.float(), x.shape[-1:], w.float(), b.float(),
+                        eps).to(x.dtype)
+
+
+class _GPTDecoder:
+    """Functions over a GPTForCausalLM's weights (pre-LN GPT-2: learned
+    positions, fused-qkv biases, erf GELU). MoE blocks decode with NO-DROP
+    routing: every expert runs densely over the rows and the top-k combine
+    weights select through exact 0/1 masks, so a step's routing of a
+    token does not depend on the other tokens of the batch. Holds the
+    static configuration and, on the card, ``generate()``'s captured
+    decode loops."""
+
+    _QUANT_SUFFIXES = ("attn.qkv_proj.weight", "attn.out_proj.weight",
+                       "mlp.fc_in.weight", "mlp.fc_out.weight")
+
+    def __init__(self, model):
+        from .incubate.distributed.models.moe.gate import BaseGate
+        cfg = model.config
+        self.moe_layers = {}
+        for i, blk in enumerate(model.transformer.h):
+            if not getattr(blk, "is_moe", False):
+                continue
+            if getattr(blk.mlp, "w1", None) is None:
+                raise NotImplementedError(
+                    "generate() supports batched-expert MoE blocks (stacked "
+                    "w1/w2 banks); per-expert Layer lists have no stacked "
+                    "weights to decode against")
+            gate = blk.mlp.gate
+            if type(gate).forward is not BaseGate.forward:
+                raise NotImplementedError(
+                    "generate() routes with the standard linear gate; "
+                    f"{type(gate).__name__} overrides forward(), which the "
+                    "decode step cannot reproduce from the weights")
+            override = getattr(blk.mlp, "_capacity_override", None)
+            if gate.capacity_factor(training=False) is not None \
+                    and override is None:
+                raise NotImplementedError(
+                    f"generate() cannot reproduce {type(gate).__name__}'s "
+                    "eval capacity dropping (routing depends on batch "
+                    "composition). Use NaiveGate (unbounded), or set "
+                    "mlp._capacity_override >= tokens-per-forward to make "
+                    "eval routing no-drop")
+            self.moe_layers[i] = {"top_k": gate.top_k, "act": blk.mlp._act,
+                                  "has_bias": gate.bias is not None}
+            # generate() and the engine check this bound against the
+            # tokens of each forward
+            if override is not None:
+                self.min_capacity_override = min(
+                    getattr(self, "min_capacity_override", override),
+                    int(override))
+        self.cfg = cfg
+        self.n_heads = cfg.num_attention_heads
+        self.n_kv = self.n_heads
+        self.hd = cfg.hidden_size // self.n_heads
+        self.eps = cfg.layer_norm_epsilon
+        self.n_layers = cfg.num_hidden_layers
+        self.tied = model.lm_head is None
+        self.embed_key = "transformer.wte.weight"
+        self.loops = OrderedDict()
+
+    @staticmethod
+    def weights(model):
+        return {n: p.detach() for n, p in model.named_parameters()}
+
+    def quant_plan(self):
+        """(matmul weight names to quantize, tied-embed key or None). MoE
+        blocks keep their expert banks in full precision; only their
+        attention projections quantize."""
+        names = [f"transformer.h.{i}.{sfx}" for i in range(self.n_layers)
+                 for sfx in self._QUANT_SUFFIXES
+                 if not (i in self.moe_layers and sfx.startswith("mlp."))]
+        if not self.tied:
+            names.append("lm_head.weight")
+        return names, (self.embed_key if self.tied else None)
+
+    def _qkv_proj(self, w, i, x, b, s):
+        """The fused qkv projection; its output is [3, heads, hd]-major."""
+        p = f"transformer.h.{i}."
+        qkv = (_mm(x, w, p + "attn.qkv_proj.weight")
+               + w[p + "attn.qkv_proj.bias"]) \
+            .reshape(b, s, 3, self.n_heads, self.hd)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def _post_attn(self, w, i, h, att):
+        """Residual + out proj + (MoE-)MLP; att: [B, S, H*D]."""
+        p = f"transformer.h.{i}."
+        h = h + _mm(att, w, p + "attn.out_proj.weight") \
+            + w[p + "attn.out_proj.bias"]
+        x2 = _ln(h, w[p + "ln_2.weight"], w[p + "ln_2.bias"], self.eps)
+        if i in self.moe_layers:
+            return h + self._moe_mlp(w, i, x2)
+        m = F.gelu((_mm(x2, w, p + "mlp.fc_in.weight")
+                    + w[p + "mlp.fc_in.bias"]).float(),
+                   approximate="none").to(h.dtype)
+        return h + _mm(m, w, p + "mlp.fc_out.weight") \
+            + w[p + "mlp.fc_out.bias"]
+
+    def _moe_mlp(self, w, i, x2):
+        """No-drop top-k expert mixing; x2: [B, S, D] -> [B, S, D]. Every
+        expert's FFN runs on every row, one expert at a time (the JAX
+        ``lax.scan`` over the bank), and the combine weights select
+        through exact 0/1 masks. No host sync: the step captures."""
+        p = f"transformer.h.{i}.mlp."
+        meta = self.moe_layers[i]
+        b, s, d = x2.shape
+        xt = x2.reshape(b * s, d)
+        logits = xt @ w[p + "gate.weight"]
+        if meta["has_bias"]:
+            logits = logits + w[p + "gate.bias"]
+        probs = torch.softmax(logits.float(), dim=-1)
+        topv, topi = torch.topk(probs, meta["top_k"], dim=-1)
+        if meta["top_k"] > 1:
+            topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+        # the top-k indices of a row are distinct: one weight per slot
+        comb = torch.zeros_like(probs).scatter_(1, topi, topv)
+        w1, b1, w2, b2 = (w[p + n] for n in ("w1", "b1", "w2", "b2"))
+        y = torch.zeros_like(xt)
+        for e in range(w1.shape[0]):
+            hh = meta["act"](xt @ w1[e] + b1[e][None])
+            y = y + comb[:, e, None].to(xt.dtype) * (hh @ w2[e] + b2[e][None])
+        return y.reshape(b, s, d)
+
+    def _layer(self, w, i, h, kc, vc, write_pos, score_mask):
+        """One block with its cache append, as _LlamaDecoder._layer (no
+        rope: positions enter through the wpe embedding)."""
+        p = f"transformer.h.{i}."
+        b, s, _ = h.shape
+        x = _ln(h, w[p + "ln_1.weight"], w[p + "ln_1.bias"], self.eps)
+        q, k, v = self._qkv_proj(w, i, x, b, s)
+        slots = write_pos if s == 1 else \
+            write_pos + torch.arange(s, device=h.device)
+        kc.index_copy_(1, slots, k.to(kc.dtype))
+        vc.index_copy_(1, slots, v.to(vc.dtype))
+        att = _attend(q, kc, vc, score_mask)
+        return self._post_attn(w, i, h, att.reshape(b, s, -1))
+
+    def _layer_ragged(self, w, i, h, kp, vp, scatter, attend):
+        """One block over a packed [T, 1, ...] batch; see
+        _LlamaDecoder._layer_ragged."""
+        p = f"transformer.h.{i}."
+        t, s, _ = h.shape
+        x = _ln(h, w[p + "ln_1.weight"], w[p + "ln_1.bias"], self.eps)
+        q, k, v = self._qkv_proj(w, i, x, t, s)
+        pages, offs = scatter
+        kp[pages, :, offs, :] = k[:, 0].to(kp.dtype)
+        vp[pages, :, offs, :] = v[:, 0].to(vp.dtype)
+        att = attend(q[:, 0].contiguous(), kp, vp).reshape(t, 1, -1)
+        return self._post_attn(w, i, h, att)
+
+    def step_ragged(self, w, tokens, positions, k_pools, v_pools, scatter,
+                    attend):
+        """See _LlamaDecoder.step_ragged. Returns logits [T, V]."""
+        h = (w["transformer.wte.weight"][tokens]
+             + w["transformer.wpe.weight"][positions])[:, None]
+        for i in range(self.n_layers):
+            h = self._layer_ragged(w, i, h, k_pools[i], v_pools[i], scatter,
+                                   attend)
+        return self._logits(w, h)[:, 0]
+
+    def step(self, w, tokens, positions, kcs, vcs, write_pos, score_mask,
+             last=False):
+        """See _LlamaDecoder.step."""
+        h = w["transformer.wte.weight"][tokens] \
+            + w["transformer.wpe.weight"][positions]
+        for i in range(self.n_layers):
+            h = self._layer(w, i, h, kcs[i], vcs[i], write_pos, score_mask)
+        return self._logits(w, h[:, -1:].contiguous() if last else h)
+
+    def _logits(self, w, h):
+        h = _ln(h, w["transformer.ln_f.weight"], w["transformer.ln_f.bias"],
+                self.eps)
+        return _head_logits(w, h, self.tied, self.embed_key)
+
+
+def _live_moe_struct(model):
+    """Fingerprint of the model's CURRENT MoE block state: everything the
+    decoder reads at construction, so a changed block (another mlp, top_k,
+    gate or capacity override) rebuilds the decoder instead of decoding
+    with stale routing."""
+    blocks = getattr(getattr(model, "transformer", None), "h", None)
+    if blocks is None:
+        return ()
+    fp = []
+    for i, blk in enumerate(blocks):
+        if getattr(blk, "is_moe", False):
+            g = blk.mlp.gate
+            fp.append((i, g.top_k, getattr(blk.mlp, "_act", None),
+                       g.bias is not None,
+                       getattr(blk.mlp, "w1", None) is None,
+                       type(g).forward, g.capacity_factor(training=False),
+                       getattr(blk.mlp, "_capacity_override", None)))
+    return tuple(fp)
+
+
 def _decoder_for(model):
-    """The model's decoder, built once per model instance (Llama only)."""
-    from .models.llama import LlamaForCausalLM
-    if not isinstance(model, LlamaForCausalLM):
-        raise NotImplementedError(
-            f"the port serves Llama models only, not {type(model).__name__}")
+    """The model's decoder (``_GPTDecoder`` for a GPTForCausalLM, else
+    ``_LlamaDecoder``), built once per model instance and built again when
+    the head's tying or the MoE blocks change (both are baked into the
+    decoder and its captured loops)."""
+    from .models.gpt import GPTForCausalLM
+    cls = _GPTDecoder if isinstance(model, GPTForCausalLM) else _LlamaDecoder
+    struct = (cls, model.lm_head is None, _live_moe_struct(model))
     dec = model.__dict__.get("_decode_cache")
-    if dec is None:
-        dec = _LlamaDecoder(model)
+    if dec is None or dec._struct != struct:
+        dec = cls(model)
+        dec._struct = struct
         model.__dict__["_decode_cache"] = dec
     return dec
+
+
+def _check_capacity(dec, tokens, what):
+    """A MoE capacity override below the tokens of one forward would make
+    the full forward drop tokens, which the no-drop decode cannot
+    reproduce: refuse, as the JAX package does."""
+    mco = getattr(dec, "min_capacity_override", None)
+    if mco is not None and mco < tokens:
+        raise ValueError(
+            f"MoE _capacity_override={mco} < tokens-per-forward {tokens} "
+            f"({what}): the full forward would drop tokens, which the "
+            "cached no-drop decode cannot reproduce; raise the override or "
+            "shorten the request")
 
 
 # -- sampling ------------------------------------------------------------------
@@ -311,7 +638,7 @@ class _DecodeLoop:
         self.top_k, self.top_p = top_k, top_p
         emb = w[dec.embed_key]
         dev, dt = emb.device, emb.dtype
-        vocab = emb.shape[0] if dec.tied else w["lm_head.weight"].shape[1]
+        vocab = dec.cfg.vocab_size
         self.kcs = torch.zeros(dec.n_layers, b, s + max_new, dec.n_kv,
                                dec.hd, dtype=dt, device=dev)
         self.vcs = torch.zeros_like(self.kcs)
@@ -429,10 +756,11 @@ class _DecodeLoop:
 
 
 def _weight_ptrs(w):
-    """Where the parameters live: a captured loop reads them there. (The
-    rope tables are constants of the configuration; the loop keeps its own
-    fp32 copies.)"""
-    return tuple(t.data_ptr() for n, t in w.items() if not n.startswith("__"))
+    """Where the weights live, the quantized leaves included: a captured
+    loop reads them there. (The rope tables are constants of the
+    configuration; the loop keeps its own fp32 copies.)"""
+    return tuple(t.data_ptr() for n, t in w.items()
+                 if not n.startswith("__rope"))
 
 
 _LOOPS_MAX = 4      # captured loops a decoder keeps; each holds its caches
@@ -491,16 +819,21 @@ def generate(model, input_ids, attention_mask=None, max_new_tokens: int = 32,
     """Greedy/sampled continuation of ``input_ids`` ([B, S] int, LEFT-padded
     for ragged batches with ``attention_mask`` [B, S] in {0, 1}).
 
+    ``quant`` ("weight_only_int8", "weight_only_int4", "weight_only_fp8")
+    decodes against per-channel narrow weight matrices, quantized once per
+    weight snapshot and cached on the model; the matmuls read them through
+    the weight-only GEMM on the card.
+
     Returns (tokens [B, max_new_tokens] int32, finished [B] bool), CPU
     tensors: rows that hit ``eos_token_id`` keep emitting it. ``device``
     None means the GPU (raises without one); the model must live there.
     On the GPU the decode step is one CUDA graph per (batch, prompt
     length, max_new_tokens, sampling switches) signature, kept on the
-    model's decoder. Beam search and ``quant`` are not ported."""
-    if quant is not None:
+    model's decoder. Beam search is not ported."""
+    if quant is not None and quant not in _QUANT_BITS:
         raise NotImplementedError(
-            f"generate(quant={quant!r}): quantized decoding is not ported "
-            "to paddle_tpu_torch yet (see ROADMAP.md)")
+            f"generate(quant={quant!r}): supported algos are "
+            f"{sorted(_QUANT_BITS)}")
     if num_beams > 1:
         raise NotImplementedError(
             "generate(num_beams > 1): beam search is not ported to "
@@ -528,10 +861,52 @@ def generate(model, input_ids, attention_mask=None, max_new_tokens: int = 32,
             f"max_position_embeddings "
             f"{model.config.max_position_embeddings}")
     dec = _decoder_for(model)
-    return _decode(dec, dec.weights(model), ids.to(model.device),
-                   mask.to(model.device), max_new_tokens, do_sample,
-                   temperature, top_k, top_p, eos_token_id, seed,
-                   repetition_penalty, capture=model.device.type == "cuda")
+    _check_capacity(dec, b * (s + max_new_tokens),
+                    f"batch {b} x (prompt {s} + max_new_tokens "
+                    f"{max_new_tokens})")
+    w = _quant_weights_cached(dec, model, quant) if quant \
+        else dec.weights(model)
+    return _decode(dec, w, ids.to(model.device), mask.to(model.device),
+                   max_new_tokens, do_sample, temperature, top_k, top_p,
+                   eos_token_id, seed, repetition_penalty,
+                   capture=model.device.type == "cuda")
 
 
-__all__ = ["generate", "_LlamaDecoder", "_decoder_for"]
+def draft_greedy_batch(model, seqs, k: int, width: int = 64,
+                       quant: Optional[str] = None):
+    """Greedy k-token continuations of every ``seqs`` entry (a list of
+    token ids each) in ONE generate() call: a speculative drafter drafts
+    the whole decode batch a step. Each context is pinned into a FIXED
+    left-padded window of ``width`` tokens, so a serving drafter uses one
+    captured decode graph per (batch, width, k) signature instead of one
+    per prompt length. A sequence longer than the window keeps its most
+    recent tokens (the drafter only proposes; verification keeps the
+    output exact). Returns a list of k-int lists, one per sequence."""
+    if k < 1 or not seqs:
+        return [[] for _ in seqs]
+    max_pos = model.config.max_position_embeddings
+    if max_pos <= k:
+        raise ValueError(f"draft model caps at {max_pos} positions, cannot "
+                         f"draft {k} tokens")
+    width = int(min(width, max_pos - k))
+    ids = np.zeros((len(seqs), width), np.int64)
+    mask = np.zeros((len(seqs), width), np.int64)
+    for b, seq in enumerate(seqs):
+        ctx = [int(t) for t in seq[-width:]]
+        ids[b, width - len(ctx):] = ctx
+        mask[b, width - len(ctx):] = 1
+    toks, _ = generate(model, ids, attention_mask=mask, max_new_tokens=k,
+                       quant=quant, device=model.device)
+    return toks.tolist()
+
+
+def draft_greedy(model, seq, k: int, width: int = 64,
+                 quant: Optional[str] = None):
+    """Single-sequence convenience over ``draft_greedy_batch``."""
+    if k < 1:
+        return []
+    return draft_greedy_batch(model, [seq], k, width=width, quant=quant)[0]
+
+
+__all__ = ["generate", "draft_greedy", "draft_greedy_batch",
+           "_LlamaDecoder", "_GPTDecoder", "_decoder_for"]

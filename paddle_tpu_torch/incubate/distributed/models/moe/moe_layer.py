@@ -99,6 +99,10 @@ class MoELayer(nn.Module):
             else:
                 raise ValueError(f"unknown gate {gate!r}")
         self.l_aux = None
+        # the capacity path's per-expert bound when set (None: the gate's
+        # factor); generate() and the serving engine read it, as in the
+        # JAX layer, to decide whether eval routing drops tokens
+        self._capacity_override = None
 
     def forward(self, x):
         if not self.dropless:

@@ -4,9 +4,10 @@ Mirrors ``paddle_tpu/inference/__init__.py``'s engine-backed half:
 ``Config`` with its routed serving knobs, ``create_llm_predictor`` (one
 continuous-batching ``ServingEngine`` over a live causal LM, behind the
 ``Predictor`` duck type) and ``PredictorPool`` over such a predictor,
-whose clones share the engine. The artifact ``Predictor`` and
-``create_predictor`` (over ``jit.save``), ``BatchingServer``, tensor
-parallelism and speculative decoding are not ported yet (ROADMAP.md).
+whose clones share the engine; ``set_speculative_config`` routes
+speculative decoding to that engine. The artifact ``Predictor`` and
+``create_predictor`` (over ``jit.save``), ``BatchingServer`` and tensor
+parallelism are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ class Config:
         # serving_options()
         self._serving = {"max_seqs": None, "block_size": None,
                          "num_blocks": None}
+        self._speculative = {"spec_method": None, "num_draft_tokens": None,
+                             "draft_model": None, "spec_options": None}
 
     # -- serving knobs (routed, not warned) -----------------------------------
     def set_max_batch_size(self, n: int):
@@ -79,8 +82,31 @@ class Config:
 
     def set_speculative_config(self, method: str, num_draft_tokens: int = 4,
                                draft_model=None, **options):
-        raise _not_ported("speculative decoding "
-                          "(Config.set_speculative_config)")
+        """Speculative decoding for the serving engine: ``method`` "ngram"
+        (model-free self-drafting; options max_match, min_match, lookback)
+        or "draft_model" (needs ``draft_model``, a small causal LM; options
+        context_width, quant), or "none"; ``num_draft_tokens`` is the
+        per-sequence draft budget k. Routed to the engine; greedy output
+        stays that of plain decoding."""
+        if method not in ("ngram", "draft_model", "none", None):
+            raise ValueError(
+                f"unknown speculative method {method!r}: expected 'ngram',"
+                f" 'draft_model', or 'none'")
+        if int(num_draft_tokens) < 1:
+            raise ValueError(
+                f"num_draft_tokens must be >= 1, got {num_draft_tokens}")
+        if method == "draft_model" and draft_model is None:
+            raise ValueError("method='draft_model' needs draft_model=")
+        self._speculative = {
+            "spec_method": None if method == "none" else method,
+            "num_draft_tokens": int(num_draft_tokens),
+            "draft_model": draft_model,
+            "spec_options": dict(options) if options else None}
+
+    def speculative_options(self) -> Dict[str, object]:
+        """The routed speculative knobs (serving.engine_from_config reads
+        this; None = engine default, speculation off)."""
+        return dict(self._speculative)
 
     def set_model(self, model_path, params_path=None):
         self.__init__(model_path, params_path)

@@ -25,7 +25,7 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rope": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "adamw": 0, "gmm": 0, "tgmm": 0, "flashmask_summary": 0,
             "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0,
-            "sdpa_plain": 0, "ragged_plain": 0}
+            "weight_only_gemm": 0, "sdpa_plain": 0, "ragged_plain": 0}
 
 
 ROUTED = ("sdpa_plain", "ragged_plain")     # the keys that count calls

@@ -7,7 +7,8 @@ checkout (listed in ``.gitignore``), named by a hash of the source text,
 the shared ``*.cuh`` headers and the flags, so an edited source builds
 anew and an unchanged one loads the library already there. Builds run at first use, one ``nvcc``
 per source, all started together. Importing this module needs no
-``nvcc``: only ``build_all`` and ``library`` call it.
+``nvcc``: only ``build_all``, ``library`` and ``build_variants`` (the
+variant builds that the scripts under ``tools/`` time) call it.
 """
 from __future__ import annotations
 
@@ -106,4 +107,42 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["build_all", "library", "sources", "BUILD_DIR", "NVCC_FLAGS"]
+def build_variants(name: str, variants: Dict[str, list]) -> Dict[str, Path]:
+    """Compile variants of ``csrc/<name>.cu``, each the source with some
+    text replaced (``{variant: [(old, new), ...]}``), in parallel, into
+    ``build/variants/``, printing each one's nvcc exit and ptxas spill,
+    error and warning lines. Returns {variant: library path} of those that
+    compiled. Raises ValueError if an ``old`` text is not in the source."""
+    src = (CSRC / f"{name}.cu").read_text()
+    out_dir = BUILD_DIR.parent / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for var, reps in variants.items():
+        text = src
+        for old, new in reps:
+            if old not in text:
+                raise ValueError(f"variant {var}: {old[:60]!r} is not in "
+                                 f"{name}.cu")
+            text = text.replace(old, new)
+        path = out_dir / f"{name}_{var}.cu"
+        path.write_text(text)
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o",
+               str(path.with_suffix(".so")), str(path)]
+        procs[var] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      path.with_suffix(".so"))
+    built = {}
+    for var, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        print(f"== {var}: nvcc exit {proc.returncode}", flush=True)
+        for line in log.splitlines():
+            if ("spill" in line and " 0 bytes spill" not in line) \
+                    or "error" in line or "arning" in line:
+                print("   ", line.strip()[:200])
+        if proc.returncode == 0:
+            built[var] = lib
+    return built
+
+
+__all__ = ["build_all", "library", "build_variants", "sources", "BUILD_DIR",
+           "NVCC_FLAGS"]

@@ -219,6 +219,18 @@ class GPTForCausalLM(nn.Module):
             _Linear(config.hidden_size, config.vocab_size, dev, dt,
                     generator, bias=False)
 
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.ln_f.weight.device
+
+    def generate(self, input_ids, attention_mask=None, **kwargs):
+        """KV-cached autoregressive decoding (greedy / temperature / top-k
+        / top-p, ``quant``; see generation.generate), on the model's
+        device."""
+        from ..generation import generate
+        return generate(self, input_ids, attention_mask=attention_mask,
+                        device=kwargs.pop("device", self.device), **kwargs)
+
     def forward(self, input_ids, attention_mask=None):
         """Logits [b, s, vocab] in the model's dtype."""
         h = self.transformer(input_ids, attention_mask)

@@ -156,6 +156,11 @@ class Adam(Optimizer):
             beta2=self._beta2, eps=self._epsilon,
             wds=[self._wd_coeff(p) for p in params], step=float(step),
             decoupled=self._decoupled_wd)
+        for p in params:
+            # the update writes through p.data (and, on the card, a raw
+            # pointer), which leaves p's version counter alone: bump it, so
+            # what keys on it (the quantized decode weights) sees the step
+            torch.autograd.graph.increment_version(p)
         for s in states:
             s["step"] = step
 

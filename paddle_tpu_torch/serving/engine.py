@@ -9,7 +9,13 @@ Mirrors ``paddle_tpu/serving/engine.py`` for one model on one device:
   * ``scheduler.Scheduler`` admits and evicts requests at every step under
     the token budget;
   * ``serving.ragged`` is the attention: the CUDA kernel on the GPU, its
-    plain version on the CPU.
+    plain version on the CPU;
+  * ``quant`` serves weight-only int8 / int4 / fp8 matrices through the
+    weight-only GEMM (``generation._quant_weights_cached``);
+  * ``spec_method`` drafts tokens (``serving.speculative``) that ride the
+    same packed step as prefill-like rows, verifies them against the
+    step's argmax rows and rolls rejected ones back
+    (``KVBlockPool.truncate``, copy-on-write of a shared boundary page).
 
 The JAX engine serves through one compiled program, built at construction.
 Here, on the card, the step is one CUDA graph captured at construction for
@@ -32,35 +38,49 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..generation import _decoder_for
+from ..generation import _decoder_for, _quant_weights_cached
 from ..kernels import LAUNCHES, uncount_since
+from ..quantization._kernels import ALGO_BITS
 from . import ragged as _ragged
 from .kv_pool import KVBlockPool
 from .scheduler import Request, Scheduler
+from .speculative import make_drafter, verify_greedy
 
 # options of the JAX engine that later slices of the port bring
-_LATER = ("quant", "spec_method", "aot_cache", "obs", "memwatch",
-          "resilience", "mesh", "role")
+_LATER = ("aot_cache", "obs", "memwatch", "resilience", "mesh", "role")
 
 
 class EngineConfig:
-    """Static shapes and policy for one engine."""
+    """Static shapes and policy for one engine.
+
+    ``quant``: None or one of ``quantization.ALGO_BITS``
+    ("weight_only_int8", "weight_only_int4", "weight_only_fp8").
+    Speculative decoding: ``spec_method`` None (off), "ngram" or
+    "draft_model" (needs ``draft_model``); ``num_draft_tokens`` is k, the
+    drafts a sequence may feed a step; ``spec_options`` are the drafter's
+    keyword arguments. Greedy output stays that of plain decoding."""
 
     def __init__(self, max_seqs: int = 8, token_budget: int = 64,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_model_len: Optional[int] = None,
                  enable_prefix_cache: bool = True,
-                 policy: str = "continuous", quant=None, spec_method=None,
+                 policy: str = "continuous", quant: Optional[str] = None,
+                 spec_method: Optional[str] = None,
+                 num_draft_tokens: int = 4, draft_model=None,
+                 spec_options: Optional[dict] = None,
                  aot_cache=None, obs=None, memwatch=None, resilience=None,
                  mesh=None, role=None):
-        given = dict(quant=quant, spec_method=spec_method,
-                     aot_cache=aot_cache, obs=obs, memwatch=memwatch,
+        given = dict(aot_cache=aot_cache, obs=obs, memwatch=memwatch,
                      resilience=resilience, mesh=mesh, role=role)
         later = [k for k in _LATER if given[k] is not None]
         if later:
             raise NotImplementedError(
                 f"EngineConfig options {later} are not ported to "
                 "paddle_tpu_torch yet (see ROADMAP.md)")
+        if quant is not None and quant not in ALGO_BITS:
+            raise NotImplementedError(
+                f"EngineConfig(quant={quant!r}): supported algos are "
+                f"{sorted(ALGO_BITS)}")
         self.max_seqs = int(max_seqs)
         self.token_budget = int(token_budget)
         self.block_size = int(block_size)
@@ -68,6 +88,19 @@ class EngineConfig:
         self.max_model_len = max_model_len
         self.enable_prefix_cache = bool(enable_prefix_cache)
         self.policy = policy
+        self.quant = quant
+        self.spec_method = spec_method
+        self.num_draft_tokens = int(num_draft_tokens)
+        self.draft_model = draft_model
+        self.spec_options = dict(spec_options) if spec_options else {}
+        if spec_method not in (None, "none", "ngram", "draft_model"):
+            raise ValueError(
+                f"unknown speculative method {spec_method!r}: expected "
+                "'ngram' or 'draft_model' (or None to disable)")
+        if spec_method is not None and self.num_draft_tokens < 1:
+            raise ValueError(
+                f"speculative decoding needs num_draft_tokens >= 1, "
+                f"got {self.num_draft_tokens}")
 
 
 def _argmax_rows(logits):
@@ -116,7 +149,17 @@ class ServingEngine:
         self.model = model
         self.config = cfg
         self.dec = _decoder_for(model)
-        self._w = self.dec.weights(model)
+        mco = getattr(self.dec, "min_capacity_override", None)
+        if mco is not None and mco < cfg.token_budget:
+            raise ValueError(
+                f"MoE _capacity_override={mco} < token_budget "
+                f"{cfg.token_budget}: a full step could drop tokens, which "
+                "the no-drop decode contract forbids; raise the override "
+                "or shrink the budget")
+        # the engine holds the quantized leaves for its life: its captured
+        # graph reads them where they lie
+        self._w = (_quant_weights_cached(self.dec, model, cfg.quant)
+                   if cfg.quant else self.dec.weights(model))
         max_len = cfg.max_model_len or model.config.max_position_embeddings
         self.max_model_len = int(min(max_len,
                                      model.config.max_position_embeddings))
@@ -133,8 +176,27 @@ class ServingEngine:
         self._vp = torch.zeros(shape, dtype=dtype, device=model.device)
         self.pool = KVBlockPool(num_blocks, bs,
                                 enable_prefix_cache=cfg.enable_prefix_cache)
+        spec_opts = dict(cfg.spec_options)
+        if cfg.spec_method == "draft_model":
+            if cfg.draft_model is None:
+                raise ValueError(
+                    "spec_method='draft_model' needs a draft_model")
+            d_cap = cfg.draft_model.config.max_position_embeddings
+            if d_cap <= cfg.num_draft_tokens:
+                raise ValueError(
+                    f"draft model caps at {d_cap} positions, cannot draft "
+                    f"{cfg.num_draft_tokens} tokens per step")
+            # every propose padded to (max_seqs, width, num_draft_tokens):
+            # one captured draft graph however the decode batch changes
+            spec_opts.setdefault("batch_pad", cfg.max_seqs)
+            spec_opts.setdefault("draft_k", cfg.num_draft_tokens)
+        self.drafter = make_drafter(cfg.spec_method,
+                                    draft_model=cfg.draft_model, **spec_opts)
         self.sched = Scheduler(self.pool, cfg.max_seqs, cfg.token_budget,
-                               self.max_pages_per_seq, policy=cfg.policy)
+                               self.max_pages_per_seq, policy=cfg.policy,
+                               drafter=self.drafter,
+                               num_draft_tokens=cfg.num_draft_tokens
+                               if self.drafter is not None else 0)
         # a step's inputs, int32, staged on the host in one buffer (pinned
         # on the GPU) that one copy moves to the device: tokens, slot ids,
         # positions and valid [token_budget], then the page tables
@@ -155,6 +217,9 @@ class ServingEngine:
         self.steps = 0
         self.tokens_fed = 0            # packed tokens run through the model
         self.tokens_generated = 0
+        self.spec_proposed = 0         # draft tokens fed to verify steps
+        self.spec_accepted = 0
+        self.spec_rollback_pages = 0   # pages released by rollbacks
         # host seconds of every step, summed: scheduling, staging the
         # inputs, the device step (copies, launch or replay, the one
         # synchronize) and handing tokens to the requests
@@ -279,17 +344,21 @@ class ServingEngine:
         sample_points = []             # (entry, row of its LAST seq token)
         idx = 0
         for e in plan.entries:
-            n = e.n
+            n, k = e.n, len(e.draft)
             self._tokens[idx:idx + n] = e.req.seq[e.start:e.start + n]
-            self._slots[idx:idx + n] = e.req.slot
-            self._positions[idx:idx + n] = np.arange(e.start, e.start + n)
-            self._valid[idx:idx + n] = 1
+            # the verify chunk: drafts ride the same packed step at the
+            # positions they would hold if accepted
+            self._tokens[idx + n:idx + n + k] = e.draft
+            self._slots[idx:idx + n + k] = e.req.slot
+            self._positions[idx:idx + n + k] = np.arange(e.start,
+                                                         e.start + n + k)
+            self._valid[idx:idx + n + k] = 1
             row = self._tables[e.req.slot]
             row[:] = -1
             row[:len(e.req.pages)] = e.req.pages
             if e.samples:
                 sample_points.append((e, idx + n - 1))
-            idx += n
+            idx += n + k
         for rows in (self._tokens, self._slots, self._positions,
                      self._valid):
             rows[idx:] = 0             # padding rows
@@ -297,26 +366,67 @@ class ServingEngine:
         all_tok = self._step()
         t2 = time.perf_counter()
         for e in plan.entries:
-            e.req.pos = e.start + e.n
+            e.req.pos = e.start + e.n  # draft positions confirmed below
         finished = []
+        accepted = rolled_back = 0
         now = time.monotonic()
         for e, i in sample_points:
             req = e.req
-            tok = int(all_tok[i])
-            if req.first_token_at is None:
-                req.first_token_at = now
-            req.emit(tok)
-            self.tokens_generated += 1
-            hit_eos = req.eos_id is not None and tok == req.eos_id
-            if len(req.output) >= req.max_new_tokens or hit_eos:
-                req.finish_reason = "eos" if hit_eos else "max_new_tokens"
-                finished.append(req)
+            k = len(e.draft)
+            targets = [int(t) for t in all_tok[i:i + k + 1]]
+            emitted = verify_greedy(e.draft, targets)[1] if k \
+                else targets[:1]
+            used = 0
+            for tok in emitted:
+                if req.first_token_at is None:
+                    req.first_token_at = now
+                req.emit(tok)
+                self.tokens_generated += 1
+                used += 1
+                hit_eos = req.eos_id is not None and tok == req.eos_id
+                if len(req.output) >= req.max_new_tokens or hit_eos:
+                    req.finish_reason = "eos" if hit_eos \
+                        else "max_new_tokens"
+                    finished.append(req)
+                    break
+            # used - 1 drafts were confirmed (eos or the output cap may cut
+            # the emission short of the accepted prefix)
+            consumed = used - 1
+            accepted += consumed
+            req.pos = e.start + e.n + consumed
+            if consumed < k:
+                # rejected drafts left K/V past the accepted frontier: roll
+                # the page list back, copying a shared boundary page first
+                # (a page another holder can read is never written)
+                kept, released, cow = self.pool.truncate(req.pages, req.pos)
+                req.pages = kept
+                rolled_back += released
+                if cow is not None:
+                    self._copy_page(*cow)
         for req in finished:
             self.sched.evict_finished(req)
+        self.spec_proposed += plan.drafted
+        self.spec_accepted += accepted
+        self.spec_rollback_pages += rolled_back
         t3 = time.perf_counter()
         for key, dt in (("pack", t1 - t0), ("device", t2 - t1),
                         ("emit", t3 - t2)):
             self.host_seconds[key] += dt
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy one page across every layer of both pools (the device half
+        of a copy-on-write rollback), on the engine's stream between two
+        steps; the pools keep their addresses."""
+        with torch.inference_mode():
+            self._kp[:, dst].copy_(self._kp[:, src])
+            self._vp[:, dst].copy_(self._vp[:, src])
+
+    def spec_stats(self) -> dict:
+        """Lifetime speculative-decoding counters (zeros when off)."""
+        p, a = self.spec_proposed, self.spec_accepted
+        return {"proposed": p, "accepted": a,
+                "accept_rate": a / p if p else 0.0,
+                "rollback_pages": self.spec_rollback_pages}
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> int:
         """Drive step() until no work remains; returns steps taken."""
@@ -391,10 +501,13 @@ def engine_from_config(model, config=None, device=None,
                        **overrides) -> ServingEngine:
     """Build a ServingEngine honoring ``inference.Config`` serving knobs
     (max_batch_size -> max_seqs, kv-cache block size/capacity -> pool
-    geometry); keyword overrides win. ``device`` as ServingEngine's: None
-    is the GPU."""
-    kw = {} if config is None else {
-        k: v for k, v in config.serving_options().items() if v is not None}
+    geometry, set_speculative_config -> drafter and k); keyword overrides
+    win. ``device`` as ServingEngine's: None is the GPU."""
+    kw = {}
+    if config is not None:
+        for opts in (config.serving_options(),
+                     config.speculative_options()):
+            kw.update((k, v) for k, v in opts.items() if v is not None)
     kw.update(overrides)
     if "max_seqs" in kw and "token_budget" not in kw:
         kw["token_budget"] = max(8 * kw["max_seqs"], 64)

@@ -93,6 +93,13 @@ class KVBlockPool:
         self.stats["allocated"] += 1
         return blk
 
+    def incref(self, blocks: Sequence[int]) -> None:
+        """One more reference to each page (another holder shares it)."""
+        for blk in blocks:
+            if self._ref[blk] <= 0:
+                raise ValueError(f"incref on free page {blk}")
+            self._ref[blk] += 1
+
     def release(self, blocks: Sequence[int]) -> None:
         """Drop one reference per page; at 0 the page returns to the free
         list, or parks in the prefix cache if its content is registered."""

@@ -1,8 +1,7 @@
 """Continuous-batching scheduler: admit and evict at every step.
 
-Mirrors ``paddle_tpu/serving/scheduler.py`` without speculative drafting
-and without the disaggregated prefill role. The batch is rebuilt EVERY
-step under one token budget:
+Mirrors ``paddle_tpu/serving/scheduler.py`` without the disaggregated
+prefill role. The batch is rebuilt EVERY step under one token budget:
 
   * running sequences in their decode phase get one token slot each,
     first (a decode step is never starved by prefill);
@@ -14,7 +13,10 @@ step under one token budget:
     released to the pool (prompt pages parked for prefix reuse);
   * when the pool cannot grow a decode sequence, the MOST RECENTLY
     admitted running request is preempted (pages released, re-queued at
-    the waiting front for recompute with its generated tokens appended).
+    the waiting front for recompute with its generated tokens appended);
+  * with a drafter (speculative decoding), the budget left after all of
+    that goes to draft tokens of the decode sequences, proposed in one
+    ``propose_batch`` call a step.
 
 ``policy="static"`` degrades this to gang admission (admit only into an
 empty batch, run it dry), the static batcher to compare against.
@@ -25,6 +27,7 @@ import itertools
 import queue
 import threading
 import time
+import warnings
 from typing import Callable, List, Optional, Sequence
 
 from .kv_pool import KVBlockPool, PoolExhausted
@@ -116,14 +119,18 @@ class Request:
 
 class StepEntry:
     """One request's part of a packed step: feed ``seq[start:start+n]`` at
-    positions ``start..start+n-1``."""
+    positions ``start..start+n-1``, then any ``draft`` tokens (speculative
+    proposals, not part of ``seq``) at ``start+n..start+n+len(draft)-1``:
+    the verify chunk."""
 
-    __slots__ = ("req", "start", "n")
+    __slots__ = ("req", "start", "n", "draft")
 
-    def __init__(self, req: Request, start: int, n: int):
+    def __init__(self, req: Request, start: int, n: int,
+                 draft: Sequence[int] = ()):
         self.req = req
         self.start = start
         self.n = n
+        self.draft = tuple(draft)
 
     @property
     def samples(self) -> bool:
@@ -133,16 +140,17 @@ class StepEntry:
 
 
 class StepPlan:
-    __slots__ = ("entries", "admitted", "preempted")
+    __slots__ = ("entries", "admitted", "preempted", "drafted")
 
-    def __init__(self, entries, admitted, preempted):
+    def __init__(self, entries, admitted, preempted, drafted=0):
         self.entries: List[StepEntry] = entries
         self.admitted: int = admitted
         self.preempted: int = preempted
+        self.drafted: int = drafted
 
     @property
     def total_tokens(self) -> int:
-        return sum(e.n for e in self.entries)
+        return sum(e.n + len(e.draft) for e in self.entries)
 
 
 class Scheduler:
@@ -150,13 +158,17 @@ class Scheduler:
     the engine serializes submit/step under its lock."""
 
     def __init__(self, pool: KVBlockPool, max_seqs: int, token_budget: int,
-                 max_pages_per_seq: int, policy: str = "continuous"):
+                 max_pages_per_seq: int, policy: str = "continuous",
+                 drafter=None, num_draft_tokens: int = 0):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown scheduling policy {policy!r}")
         if token_budget < max_seqs:
             raise ValueError(
                 f"token_budget {token_budget} < max_seqs {max_seqs}: a "
                 "full decode batch would not fit one step")
+        if num_draft_tokens < 0:
+            raise ValueError(
+                f"num_draft_tokens must be >= 0, got {num_draft_tokens}")
         self.pool = pool
         self.max_seqs = int(max_seqs)
         self.token_budget = int(token_budget)
@@ -165,6 +177,9 @@ class Scheduler:
         self.waiting: List[Request] = []
         self.running: List[Request] = []   # admission order
         self._free_slots = list(range(self.max_seqs - 1, -1, -1))
+        self.drafter = drafter
+        self.num_draft_tokens = int(num_draft_tokens)
+        self._drafter_warned = False
 
     # -- queue side -----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -229,8 +244,9 @@ class Scheduler:
     # -- the per-step planner -------------------------------------------------
     def schedule(self) -> StepPlan:
         entries: List[StepEntry] = []
+        decode_entries: List[StepEntry] = []
         budget = self.token_budget
-        admitted = preempted = 0
+        admitted = preempted = drafted = 0
 
         # 1) one decode token per running sequence in its decode phase —
         #    grown pages first; exhaustion preempts the youngest (possibly
@@ -247,7 +263,9 @@ class Scheduler:
                 continue                      # preempted itself
             if len(req.pages) * self.pool.block_size <= req.pos:
                 continue                      # still no page: sit out
-            entries.append(StepEntry(req, req.pos, 1))
+            e = StepEntry(req, req.pos, 1)
+            entries.append(e)
+            decode_entries.append(e)
             budget -= 1
 
         # 2) prefill chunks for running requests still inside their prompt
@@ -287,7 +305,61 @@ class Scheduler:
             entries.append(StepEntry(req, req.pos, chunk))
             budget -= chunk
             admitted += 1
-        return StepPlan(entries, admitted, preempted)
+
+        # 4) speculation LAST: draft tokens take only the budget left after
+        #    every decode token, prefill chunk and admission, one budget
+        #    slot each (one more row of the same packed step), so under
+        #    load speculation yields to real work.
+        if self.drafter is not None and self.num_draft_tokens > 0 \
+                and budget > 0:
+            drafted = self._draft(decode_entries, budget)
+        return StepPlan(entries, admitted, preempted, drafted)
+
+    def _draft(self, decode_entries, budget: int) -> int:
+        """Attach drafts to the decode entries within ``budget``; returns
+        the tokens drafted. Each candidate is capped to its request's
+        remaining output (a verify step emits at most len(draft) + 1
+        tokens) and to the leftover budget, so a device-backed drafter
+        computes no draft that could not be fed; all are proposed in one
+        ``propose_batch`` call. A drafter that raises degrades the step to
+        plain decode, with one warning for the scheduler's life."""
+        cands = []
+        avail = budget
+        for e in decode_entries:
+            if avail <= 0:
+                break
+            room = e.req.max_new_tokens - len(e.req.output) - 1
+            d_max = min(self.num_draft_tokens, room, avail)
+            if d_max > 0:
+                cands.append((e, d_max))
+                avail -= d_max
+        try:
+            proposals = self.drafter.propose_batch(
+                [e.req for e, _ in cands], [d for _, d in cands]) \
+                if cands else []
+        except Exception as exc:
+            if not self._drafter_warned:
+                warnings.warn(f"drafter propose_batch failed ({exc!r}); "
+                              "skipping speculation: decode continues "
+                              "unspeculated")
+                self._drafter_warned = True
+            proposals = []
+        drafted = 0
+        for (e, d_max), prop in zip(cands, proposals):
+            if budget <= 0:
+                break
+            drafts = list(prop)[:min(d_max, budget)]
+            # pages must cover the drafted positions too; under pool
+            # pressure the proposal shrinks (speculation never preempts)
+            while drafts and not self._grow_pages(
+                    e.req, e.start + e.n - 1 + len(drafts)):
+                drafts.pop()
+            if not drafts:
+                continue
+            e.draft = tuple(int(t) for t in drafts)
+            budget -= len(drafts)
+            drafted += len(drafts)
+        return drafted
 
     def _fit_chunk(self, req: Request, chunk: int) -> int:
         """Shrink a prefill chunk to the pages actually obtainable.

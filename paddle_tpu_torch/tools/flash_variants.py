@@ -16,7 +16,6 @@ two runs may land on two cards.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -30,55 +29,16 @@ from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as FA  # noqa: E402
 
 
-WATCHDOG = """  const uint32_t addr = smem_u32(bar);
-  while (!mbar_try_wait(addr, parity)) {
-  }
-}"""
 VARIANTS = {
     "as_is": [],
     # the consumers' waits with the producer's watchdog clock
-    "consumer_watchdog": [(WATCHDOG, """  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}""")],
+    "consumer_watchdog": [("mbar_wait(", "mbar_wait_guarded(")],
     # dq keeps its Q and dO descriptors in registers across the loop
     "no_opaque": [('  asm volatile("" : "+r"(addr));\n', "")],
     # 24 registers for the producer, 240 for each consumer
     "regs_24_240": [("PRODUCER_REGS = 40", "PRODUCER_REGS = 24"),
                     ("CONSUMER_REGS = 232", "CONSUMER_REGS = 240")],
 }
-
-
-def build(variants, out_dir):
-    """{name: library path} of every variant that compiled."""
-    src = (_build.CSRC / "flash_attention_bf16.cu").read_text()
-    procs = {}
-    for name, reps in variants.items():
-        text = src
-        for old, new in reps:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old[:60]!r} is not in "
-                                 f"the source")
-            text = text.replace(old, new)
-        path = out_dir / f"{name}.cu"
-        path.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-               str(out_dir / f"{name}.so"), str(path)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    built = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        print(f"== {name}: nvcc exit {proc.returncode}", flush=True)
-        for line in log.splitlines():
-            if ("spill" in line and " 0 bytes spill" not in line) \
-                    or "error" in line:
-                print("   ", line.strip()[:200])
-        if proc.returncode == 0:
-            built[name] = out_dir / f"{name}.so"
-    return built
 
 
 def kernels(lib, q, k, v, dout, out, lse, delta):
@@ -117,10 +77,9 @@ def main(argv=None):
                          f"{list(VARIANTS)}")
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: no CUDA device")
-    out_dir = ROOT / "build" / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     print(S._card_line(), flush=True)
-    built = build({n: VARIANTS[n] for n in names}, out_dir)
+    built = _build.build_variants("flash_attention_bf16",
+                                  {n: VARIANTS[n] for n in names})
     dev = torch.device("cuda")
     cases = []
     for shape in ((8, 16, 2048, 128), (8, 12, 1024, 64)):

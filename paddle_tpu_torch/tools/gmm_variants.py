@@ -16,7 +16,6 @@ runs may land on two cards.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -46,36 +45,6 @@ VARIANTS = {
     "tgmm_n128": [("TGMM_BN = 192;", "TGMM_BN = 128;"),
                   ("Ring<TGMM_BN, 5, 0, 0>", "Ring<TGMM_BN, 6, 0, 0>")],
 }
-
-
-def build(variants, out_dir):
-    """{name: library path} of every variant that compiled."""
-    src = (_build.CSRC / "gmm.cu").read_text()
-    procs = {}
-    for name, reps in variants.items():
-        text = src
-        for old, new in reps:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old[:60]!r} is not in "
-                                 f"the source")
-            text = text.replace(old, new)
-        path = out_dir / f"gmm_{name}.cu"
-        path.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-               str(out_dir / f"gmm_{name}.so"), str(path)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    built = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        print(f"== {name}: nvcc exit {proc.returncode}", flush=True)
-        for line in log.splitlines():
-            if ("spill" in line and " 0 bytes spill" not in line) \
-                    or "error" in line or "arning" in line:
-                print("   ", line.strip()[:200])
-        if proc.returncode == 0:
-            built[name] = out_dir / f"gmm_{name}.so"
-    return built
 
 
 def launcher(lib, kind, a, b, gs):
@@ -135,10 +104,8 @@ def main(argv=None):
                          f"{list(VARIANTS)}")
     if not torch.cuda.is_available():
         raise SystemExit("gmm_variants: no CUDA device")
-    out_dir = ROOT / "build" / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     print(S._card_line(), flush=True)
-    built = build({n: VARIANTS[n] for n in names}, out_dir)
+    built = _build.build_variants("gmm", {n: VARIANTS[n] for n in names})
     dev = torch.device("cuda")
     todo = cases(dev)
     wants = []

@@ -20,7 +20,6 @@ cards.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -61,38 +60,20 @@ VARIANTS = {   # name: (source replacements, settings)
 }
 
 
-def build(names, out_dir):
+def build(names):
     """{name: loaded library} of every variant; source variants compiled in
     parallel, the others sharing the port's own build."""
-    src = (_build.CSRC / f"{LIB}.cu").read_text()
-    procs = {}
-    for name in names:
-        reps = VARIANTS[name][0]
-        if not reps:
-            continue
-        text = src
-        for old, new in reps:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old[:60]!r} is not in "
-                                 f"the source")
-            text = text.replace(old, new)
-        path = out_dir / f"{LIB}_{name}.cu"
-        path.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-               str(out_dir / f"{LIB}_{name}.so"), str(path)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
+    built = _build.build_variants(
+        LIB, {n: VARIANTS[n][0] for n in names if VARIANTS[n][0]})
     libs = {}
     for name in names:
-        if name not in procs:
+        if not VARIANTS[name][0]:
             libs[name] = _build.library(LIB)
-            continue
-        log, _ = procs[name].communicate()
-        if procs[name].returncode != 0:
-            raise RuntimeError(f"variant {name} did not build:\n{log}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"{LIB}_{name}.so"))
+        elif name in built:
+            libs[name] = ctypes.CDLL(str(built[name]))
+        else:
+            raise RuntimeError(f"variant {name} did not build")
     return libs
-
 
 def main(argv=None):
     names = list(argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
@@ -107,9 +88,7 @@ def main(argv=None):
     for line in built[LIB]["log"].splitlines():
         if any(w in line for w in ("registers", "spill")):
             print(f"  ptxas: {line.strip()}")
-    out_dir = ROOT / "build" / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = build(names, out_dir)
+    libs = build(names)
     dev = torch.device("cuda")
 
     defaults = {k: getattr(RA, k) for k in

@@ -1092,3 +1092,223 @@ def test_sampled_graph_draws_new_noise_each_step(dev):
         loop.step()
         draws.append(loop.noise.clone())
     assert all(not torch.equal(draws[i], draws[i + 1]) for i in range(3))
+
+
+# -- the weight-only GEMM ---------------------------------------------------------
+#
+# Tolerance: each row within two bf16 ulps of its largest plain value. The
+# kernel and the plain version both round the fp32 sum to bf16, scale it in
+# fp32 and round again; they differ in summation order only, which moves
+# the first rounding by at most one step.
+
+QUANT_ALGOS = ("weight_only_int8", "weight_only_int4", "weight_only_fp8")
+# (M, K, N): decode, a tile edge in every dim, the serving step's rows, an
+# odd K (no 16-byte rows: the element-load path) and a K tail
+GEMM_SHAPES = [(8, 768, 2304), (37, 200, 136), (256, 1024, 512),
+               (5, 33, 24), (130, 4104, 96)]
+
+
+def _quant_case(dev, algo, m, k, n, seed=0):
+    from paddle_tpu_torch.quantization import weight_quantize
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(k, n, generator=g) * 0.05
+    q, s = weight_quantize(w, algo)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16)
+    return x.to(dev), q.to(dev), s.to(dev)
+
+
+@pytest.mark.parametrize("algo", QUANT_ALGOS)
+@pytest.mark.parametrize("m, k, n", GEMM_SHAPES)
+def test_weight_only_gemm_matches_plain(dev, algo, m, k, n):
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    x, q, s = _quant_case(dev, algo, m, k, n)
+    before = K.LAUNCHES["weight_only_gemm"]
+    got = weight_only_gemm(x, q, s)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["weight_only_gemm"] == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _assert_rows_close(got, quant_matmul_arrays(x, q, s), 2)
+
+
+def test_weight_only_gemm_replays_in_a_graph(dev):
+    """A captured call replayed on new activations written in place equals
+    an eager call on them, bit for bit; two eager calls are bit-equal."""
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    x, q, s = _quant_case(dev, "weight_only_int4", 8, 4096, 512)
+    first = weight_only_gemm(x, q, s)
+    assert torch.equal(first, weight_only_gemm(x, q, s))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        weight_only_gemm(x, q, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = weight_only_gemm(x, q, s)
+    x.copy_(torch.randn(x.shape, device=dev).to(x.dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, weight_only_gemm(x, q, s))
+    assert not torch.equal(out, first)
+
+
+def test_weight_only_gemm_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    x, q, s = _quant_case(dev, "weight_only_int8", 4, 64, 32)
+    with pytest.raises(TypeError, match="bf16"):
+        weight_only_gemm(x.float(), q, s)
+    with pytest.raises(ValueError, match="width"):
+        weight_only_gemm(x, q[:, :40].contiguous(), s)
+    with pytest.raises(TypeError, match="contiguous"):
+        weight_only_gemm(x, q.T.contiguous().T, s)
+    with pytest.raises(TypeError, match="int8"):
+        weight_only_gemm(x, q.to(torch.int16), s)
+    with pytest.raises(TypeError, match="scales"):
+        weight_only_gemm(x, q, s.double())
+    # nothing is routed to the plain version on the card: a float32 model
+    # is refused quantized weights before the engine quantizes or captures
+    _, gpu = _tiny_llama_pair(dev, torch.float32)
+    with pytest.raises(TypeError, match="bf16 model"):
+        ServingEngine(gpu, EngineConfig(max_seqs=2, token_budget=16,
+                                        block_size=16,
+                                        quant="weight_only_int8"))
+
+
+@pytest.mark.parametrize("algo", QUANT_ALGOS)
+def test_quantized_engine_captured_matches_eager(dev, algo):
+    """A bf16 engine serving quantized weights: the captured step equals
+    the eager step bit for bit at every step, the tokens are equal, and
+    each replay launches the GEMM once per quantized matrix."""
+    from paddle_tpu_torch.generation import _decoder_for
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    ecfg = EngineConfig(max_seqs=3, token_budget=24, block_size=16,
+                        quant=algo)
+    graph, eager = (ServingEngine(gpu, ecfg) for _ in range(2))
+    eager._step = eager._step_eager
+    names, lm = _decoder_for(gpu).quant_plan()
+    assert graph._tally["weight_only_gemm"] == len(names) + (lm is not None)
+    reqs = [[e.submit(p, max_new_tokens=6) for p in _serve_prompts()]
+            for e in (graph, eager)]
+    more = True
+    while more:
+        more = graph.step()
+        eager.step()
+        assert torch.equal(graph._logits, eager._logits)
+    assert [r.result(0) for r in reqs[0]] == [r.result(0) for r in reqs[1]]
+
+
+def test_quantized_generate_graph_matches_eager(dev):
+    from paddle_tpu_torch import generation as G
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16, kv_heads=2)
+    ids, mask = _left_padded(4, 24)
+    got = G.generate(gpu, ids, attention_mask=mask, max_new_tokens=8,
+                     quant="weight_only_int8")
+    dec = G._decoder_for(gpu)
+    w = G._quant_weights_cached(dec, gpu, "weight_only_int8")
+    want = G._decode(dec, w, torch.from_numpy(ids).to(dev),
+                     torch.from_numpy(mask).to(dev), 8, capture=False)
+    assert torch.equal(got[0], want[0])
+
+
+# -- GPT serving at head_dim 64 ------------------------------------------------------
+
+def _tiny_gpt_pair(dev, dtype, experts=0, seed=5):
+    """A tiny GPT (head_dim 64, which the ragged kernel takes; naive-gated
+    MoE in every block with ``experts``) on the CPU in float32 and the
+    same weights on the card in ``dtype``."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         load_numpy_state)
+    cfg = GPTConfig.tiny(vocab_size=97, hidden_size=128, layers=2, heads=2,
+                         seq=256, num_experts=experts, moe_every=1,
+                         moe_gate="naive")
+    cpu = GPTForCausalLM(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+    gpu = GPTForCausalLM(cfg, device=dev)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    return cpu, gpu.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("experts", [0, 4])
+def test_gpt_engine_on_card(dev, dtype, experts):
+    """GPT and GPT-MoE served at head_dim 64 through the ragged kernel:
+    the captured step equals the eager one bit for bit; in float32 the
+    tokens equal the CPU engine's; no attention call is routed."""
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    cpu, gpu = _tiny_gpt_pair(dev, dtype, experts)
+    ecfg = dict(max_seqs=3, token_budget=24, block_size=16)
+    K.reset_launches()
+    graph, eager = (ServingEngine(gpu, EngineConfig(**ecfg))
+                    for _ in range(2))
+    eager._step = eager._step_eager
+    assert graph._tally == {"ragged_attention": 2}
+    reqs = [[e.submit(p, max_new_tokens=6) for p in _serve_prompts(2)]
+            for e in (graph, eager)]
+    more = True
+    while more:
+        more = graph.step()
+        eager.step()
+        assert torch.equal(graph._logits, eager._logits)
+    got = [r.result(0) for r in reqs[0]]
+    assert got == [r.result(0) for r in reqs[1]]
+    assert K.LAUNCHES["ragged_plain"] == 0
+    if dtype == torch.float32:
+        want = ServingEngine(cpu, EngineConfig(**ecfg), device="cpu") \
+            .generate_batch(_serve_prompts(2), max_new_tokens=6)
+        assert got == want
+
+
+# -- speculative decoding: verify and roll back on the card --------------------------
+
+@pytest.mark.parametrize("method", ["ngram", "draft_model"])
+def test_spec_engine_on_card_matches_plain_decode(dev, method):
+    """float32: the captured engine with speculation gives the tokens of
+    the captured engine without it (and of the CPU engine); drafts were
+    fed and rejected ones rolled back."""
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    cpu, gpu = _tiny_llama_pair(dev, torch.float32, kv_heads=2)
+    rng = np.random.default_rng(6)
+    pattern = rng.integers(1, 97, (6,)).tolist()
+    prompts = [(pattern * 5)[:n] for n in (20, 27, 13)] + _serve_prompts(3)
+    ecfg = dict(max_seqs=3, token_budget=32, block_size=16)
+    want = ServingEngine(gpu, EngineConfig(**ecfg)) \
+        .generate_batch(prompts, max_new_tokens=12)
+    spec = ServingEngine(gpu, EngineConfig(
+        spec_method=method, num_draft_tokens=3, draft_model=gpu,
+        spec_options={"context_width": 16} if method == "draft_model"
+        else None, **ecfg))
+    assert spec.generate_batch(prompts, max_new_tokens=12) == want
+    assert spec.spec_proposed > 0 and spec.spec_rollback_pages >= 0
+    assert spec.pool.used_blocks() == 0
+    ref = ServingEngine(cpu, EngineConfig(**ecfg), device="cpu") \
+        .generate_batch(prompts, max_new_tokens=12)
+    assert want == ref
+
+
+def test_spec_rollback_copies_a_shared_page_on_card(dev):
+    """A rollback whose boundary page another holder shares: the engine's
+    page copy gives the sequence a private copy of it (every layer, K and
+    V) and leaves the shared page as it was."""
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    eng = ServingEngine(gpu, EngineConfig(max_seqs=2, token_budget=16,
+                                          block_size=16))
+    eng._kp.normal_()
+    eng._vp.normal_()
+    pages = eng.pool.allocate(2)
+    eng.pool.incref([pages[1]])                   # a second holder
+    k_before = eng._kp[:, pages[1]].clone()
+    v_before = eng._vp[:, pages[1]].clone()
+    kept, released, cow = eng.pool.truncate(list(pages), 20)
+    assert released == 0 and cow == (pages[1], kept[1])
+    eng._copy_page(*cow)
+    torch.cuda.synchronize()
+    assert torch.equal(eng._kp[:, cow[1]], k_before)
+    assert torch.equal(eng._vp[:, cow[1]], v_before)
+    assert torch.equal(eng._kp[:, pages[1]], k_before)
+    assert torch.equal(eng._vp[:, pages[1]], v_before)

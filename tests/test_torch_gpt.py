@@ -122,6 +122,36 @@ def test_loss_and_every_gradient_match_jax(experts, moe_every):
                                    rtol=1e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("experts,moe_every", MODELS)
+def test_attention_mask_matches_jax(experts, moe_every):
+    """A padding mask (bool [b, 1, s, s], True = visible: row 1's last 6
+    keys hidden) through GPTModel's attention_mask: the logits, the loss
+    and every gradient against the JAX GPT given the same mask, at the
+    tolerances of the unmasked tests."""
+    jm, pm = _models(experts, moe_every)
+    mask = np.ones((2, 1, SEQ, SEQ), bool)
+    mask[1, :, :, SEQ - 6:] = False
+    labels = _ids().copy()
+    labels[1, SEQ - 6:] = -100
+    jlogits = jm(paddle.to_tensor(_ids()),
+                 attention_mask=paddle.to_tensor(mask))
+    jloss = jm.compute_loss(jlogits, paddle.to_tensor(labels))
+    jloss.backward()
+    logits = pm(torch.from_numpy(_ids()),
+                attention_mask=torch.from_numpy(mask))
+    loss = pm.compute_loss(logits, torch.from_numpy(labels))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(jlogits._data), atol=1e-5)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss.numpy()),
+                               rtol=1e-5)
+    want = {n: np.asarray(p.grad.numpy()) for n, p in jm.named_parameters()}
+    got = dict(pm.named_parameters())
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].grad.numpy(), w, atol=1e-5,
+                                   rtol=1e-4, err_msg=name)
+
+
 def _loss_fn(m, ids, labels):
     return m.compute_loss(m(ids), labels)
 

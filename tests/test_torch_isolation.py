@@ -49,7 +49,9 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.incubate.distributed.models.moe, "
             "paddle_tpu_torch.nn.initializer, paddle_tpu_torch.nn.functional, "
             "paddle_tpu_torch.models.llama, paddle_tpu_torch.inference, "
-            "paddle_tpu_torch.generation; "
+            "paddle_tpu_torch.generation, paddle_tpu_torch.quantization, "
+            "paddle_tpu_torch.kernels.quant_matmul, "
+            "paddle_tpu_torch.serving.speculative; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

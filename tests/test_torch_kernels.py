@@ -176,3 +176,35 @@ def test_cpu_calls_never_count_launches():
     fused.add_rms_norm(x, r, w)
     fused.fused_rope(*map(torch.from_numpy, _rope_inputs()))
     assert set(K.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("tool, source", [
+    ("flash_variants", "flash_attention_bf16"), ("gmm_variants", "gmm"),
+    ("ragged_variants", "ragged_attention_bf16"),
+    ("quant_gemm_variants", "weight_only_gemm")])
+def test_variant_tools_still_apply_to_their_sources(tool, source, tmp_path,
+                                                    monkeypatch):
+    """Each variant of the timing scripts under ``tools/`` is its source
+    with some text replaced: every replaced text must still be in the
+    source, and the shared builder writes and compiles each variant (nvcc
+    stood in by a script that only creates the library)."""
+    import importlib.util
+    from pathlib import Path
+    from paddle_tpu_torch.kernels import _build
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && '
+                    'touch "$2"; shift; done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    path = Path(_build.CSRC).parent / "tools" / f"{tool}.py"
+    spec = importlib.util.spec_from_file_location(tool, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    variants = {n: v[0] if tool == "ragged_variants" else v
+                for n, v in mod.VARIANTS.items()}
+    built = _build.build_variants(source, variants)
+    assert sorted(built) == sorted(variants)
+    for name, reps in variants.items():
+        text = (tmp_path / "variants" / f"{source}_{name}.cu").read_text()
+        assert all(new in text for _, new in reps)
