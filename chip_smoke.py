@@ -11,8 +11,11 @@ Phases, each printing its own lines and its seconds:
      (mma.sync) instructions of each bf16 flash, gmm, tgmm and ragged
      attention kernel, counted in cuobjdump's SASS: each must have HGMMA
      and UTMALDG and no HMMA, and the ragged kernels bulk copies and
-     tensor-core products; the weight-only GEMM's six instantiations must
-     have HMMA and LDGSTS (cp.async);
+     tensor-core products; the weight-only GEMM's fifteen wgmma
+     instantiations (3 formats x tiles of 8, 64, 128, 256 tokens by 128
+     channels and 256 by 64) must have HGMMA and UTMALDG and no HMMA, its
+     six mma.sync ones (the route of shapes TMA cannot read) HMMA and
+     LDGSTS (cp.async);
   3. every kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it, with its time, its
      bound and a single PyTorch call for the same function where there is
@@ -23,8 +26,10 @@ Phases, each printing its own lines and its seconds:
      metadata is rewritten in place must equal the eager call, and two
      calls each other, bit for bit; and GPT-2's 12 heads of 64); the
      weight-only GEMM (int8, int4, fp8) at every quantized matrix shape of
-     Llama-2-7B and GPT-2 and M = 8, 256 and 4096, with its bound and
-     torch.matmul on the bf16 weight as the yardstick; then a tiny float32
+     Llama-2-7B and GPT-2 and M = 8, 256 and 4096: the wgmma kernel on its
+     plan, the mma.sync kernel beside it at the Llama shapes, the plain
+     version, the bound and torch.matmul on the bf16 weight as the
+     yardstick; then a tiny float32
      Llama served on the
      CPU engine's greedy tokens, and a tiny float32 Llama trained 3 steps
      on the card must match the port's CPU trainer (flash also at the
@@ -87,7 +92,8 @@ Phases, each printing its own lines and its seconds:
   9. phase 4's model, engine and requests with weight-only int8, int4 and
      fp8 weights, one engine at a time: captured against eager (tokens,
      logits bit-equal, exact launch counts with one weight-only GEMM a
-     quantized matrix), step ms, tokens/s, idle share, a profile, the
+     quantized matrix and none of it on the mma.sync kernel), step ms,
+     tokens/s, idle share, a profile, the
      quantized bytes, the token agreement with the bf16 engine (printed)
      and one ragged step through the kernels against the plain versions;
      generate(quant="weight_only_int8");
@@ -104,8 +110,10 @@ Phases, each printing its own lines and its seconds:
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
-  shapes the kernels do not take) at 0; the weight-only GEMM routes
-  nothing (it launches or raises on the card).
+  shapes the kernels do not take) at 0, and the weight-only GEMM's
+  mma.sync kernel (``LAUNCHES["weight_only_gemm_sm80"]``: shapes TMA
+  cannot read) at 0 (on the card the GEMM launches one of its two kernels
+  or raises).
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -204,14 +212,28 @@ def _wgmma_sass(built):
     return counts
 
 
-GEMM_SASS_OPS = ("HMMA", "LDGSTS", "I2F", "F2FP", "HGMMA")
+GEMM_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS", "I2F", "F2FP")
+# (pattern of the mangled name, its name from the match, the number of
+# instantiations, the ops each must issue, the ops none may issue)
+GEMM_KERNELS = {
+    "wgmma": (r"weight_only_gemm_wgmma_kernelILi(\d)ELi(\d+)ELi(\d)E",
+              lambda m, fmt: f"weight_only_gemm {fmt[m.group(1)]} "
+                             f"{m.group(2)}x{64 * int(m.group(3))}",
+              15, ("HGMMA", "UTMALDG"), ("HMMA",)),
+    "sm80": (r"weight_only_gemm_kernelILi(\d)ELi(\d+)ELi(\d+)",
+             lambda m, fmt: f"weight_only_gemm_sm80 {fmt[m.group(1)]} "
+                            f"{m.group(2)}x{m.group(3)}",
+             6, ("HMMA", "LDGSTS"), ()),
+}
 
 
 def _gemm_sass(built):
-    """{kernel: {op: n}} of the weight-only GEMM's six instantiations
-    (int8, int4, fp8 x the two tilings), counted in ``cuobjdump
-    --dump-sass``: each must issue tensor-core products (HMMA, mma.sync)
-    and cp.async copies (LDGSTS)."""
+    """{kernel: {op: n}} of the weight-only GEMM's instantiations, counted
+    in ``cuobjdump --dump-sass``: the wgmma kernel's fifteen (int8, int4,
+    fp8 x tiles of 8, 64, 128, 256 tokens by 128 channels and 256 by 64)
+    must issue wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
+    (HMMA); the mma.sync kernel's six (the route of shapes TMA cannot
+    read) mma.sync and cp.async (LDGSTS)."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -221,15 +243,16 @@ def _gemm_sass(built):
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     fmt = {"0": "int8", "1": "int4", "2": "fp8"}
-    found, name = {}, None
+    found, kind, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"weight_only_gemm_kernelILi(\d)ELi(\d+)ELi(\d+)",
-                          line)
-            name = f"weight_only_gemm {fmt[m.group(1)]} {m.group(2)}x" \
-                f"{m.group(3)}" if m else None
-            if name:
-                found[name] = {op: 0 for op in GEMM_SASS_OPS}
+            name = None
+            for k, (pattern, name_of, *_) in GEMM_KERNELS.items():
+                m = re.search(pattern, line)
+                if m:
+                    name = name_of(m, fmt)
+                    kind[name] = k
+                    found[name] = {op: 0 for op in GEMM_SASS_OPS}
         elif name:
             for op in found[name]:
                 found[name][op] += bool(re.search(rf"\b{op}\b", line))
@@ -237,10 +260,14 @@ def _gemm_sass(built):
         print(f"phase 2: sass {k}: " + " ".join(f"{op} {c[op]}"
                                                for op in GEMM_SASS_OPS),
               flush=True)
-    if len(found) != 6 or any(c["HMMA"] == 0 or c["LDGSTS"] == 0
-                              for c in found.values()):
-        raise AssertionError(f"the weight-only GEMM's SASS lacks mma.sync "
-                             f"or cp.async: {found}")
+    for k, (_, _, expected, need, refuse) in GEMM_KERNELS.items():
+        mine = {n: c for n, c in found.items() if kind[n] == k}
+        if len(mine) != expected or any(
+                any(c[op] == 0 for op in need) or any(c[op] for op in refuse)
+                for c in mine.values()):
+            raise AssertionError(f"the weight-only GEMM's {k} kernels: "
+                                 f"{len(mine)} of {expected}, each must "
+                                 f"issue {need} and no {refuse}: {mine}")
     return found
 
 
@@ -684,7 +711,10 @@ def phase_gemm_kernels(torch, results):
     shape and format: each row within 2 bf16 ulps of its largest plain
     value (the two differ in summation order only; bf16 reductions of the
     plain matmul held to fp32). ms by CUDA-graph replay over rotated
-    weights, the bound (bytes over 3.35 TB/s or flops over the bf16 peak,
+    weights of the wgmma kernel (the route of every served shape, on its
+    plan) and, at the Llama-2-7B shapes, of the mma.sync kernel beside it
+    (the route of unaligned shapes; held to the same
+    rows); the bound (bytes over 3.35 TB/s or flops over the bf16 peak,
     the larger), the plain version's ms and ``torch.matmul`` on the bf16
     weight (the yardstick)."""
     card = _card_line()
@@ -699,7 +729,7 @@ def phase_gemm_kernels(torch, results):
 
 
 def _gemm_cases(torch, results, dev, card):
-    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    from paddle_tpu_torch.kernels import quant_matmul as QM
     from paddle_tpu_torch.quantization import weight_quantize
     from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
     print(f"phase 3: the weight-only GEMM against its plain version (bf16 "
@@ -713,10 +743,16 @@ def _gemm_cases(torch, results, dev, card):
         for algo in QUANT_ALGOS:
             q, s = weight_quantize(w, algo)
             wbytes = q.numel() * q.element_size() + s.numel() * 4
+            plan_of = QM.card_capacity(dev, {"int4": 1, "fp8": 2}.get(
+                algo[12:], 0))
             for m in GEMM_ROWS:
                 x = torch.randn(m, k, device=dev, generator=g) \
                     .to(torch.bfloat16)
-                got = weight_only_gemm(x, q, s)
+                plan = QM.weight_only_gemm_plan(m, n, k, plan_of)
+                if not QM.weight_only_gemm_takes(x, q, s):
+                    raise AssertionError(f"{name}: a served shape the wgmma "
+                                         f"kernel does not take")
+                got = QM.weight_only_gemm(x, q, s)
                 torch.cuda.synchronize()
                 want = quant_matmul_arrays(x, q, s)
                 case = f"weight_only_gemm[{name} {algo[12:]} M={m}]"
@@ -724,25 +760,38 @@ def _gemm_cases(torch, results, dev, card):
                 nbytes = x.numel() * 2 + wbytes + m * n * 2
                 flops = 2 * m * k * n
                 bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
-                ms, copies = _rotated_ms(torch, weight_only_gemm, (x, q, s),
-                                         wbytes)
+                ms, copies = _rotated_ms(torch, QM.weight_only_gemm,
+                                         (x, q, s), wbytes)
+                sm80_ms = None
+                if name.startswith("llama"):
+                    _check_rows(case + " mma.sync kernel",
+                                QM.weight_only_gemm_sm80(x, q, s), want, 2)
+                    sm80_ms, _ = _rotated_ms(torch, QM.weight_only_gemm_sm80,
+                                             (x, q, s), wbytes)
                 plain_ms = _time_ms(lambda: quant_matmul_arrays(x, q, s), 3,
                                     warmup=1)
                 lib_ms, _ = _rotated_ms(torch, torch.matmul, (x, w),
                                         w.numel() * 2)
                 res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=lib_ms, m=m, k=k, n=n,
-                           weight_bytes=wbytes, rotated_copies=copies,
-                           tflops=flops / ms / 1e9)
+                           library_ms=lib_ms, sm80_ms=sm80_ms, m=m, k=k, n=n,
+                           plan=list(plan), weight_bytes=wbytes,
+                           rotated_copies=copies, tflops=flops / ms / 1e9)
                 results[case] = res
                 rows.append((case, res))
-                print(f"  {case}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                old = "" if sm80_ms is None else \
+                    f" mma.sync kernel {sm80_ms:.4f} ({sm80_ms / ms:.2f}x)"
+                print(f"  {case}: ms={ms:.4f} (tile {plan.token_tile}x"
+                      f"{plan.channel_tile}, {plan.splits} splits){old} "
+                      f"bound_ms={bound_ms:.4f} "
                       f"({bound_by}; {bound_ms / ms:.3f} of it reached) "
-                      f"plain_ms={plain_ms:.4f} torch.matmul bf16 "
-                      f"library_ms={lib_ms:.4f} ({lib_ms / ms:.2f}x the "
-                      f"kernel's ms) weights {wbytes} bytes x {copies} "
-                      f"copies [{card}]", flush=True)
+                      f"plain_ms={plain_ms:.4f} ({plain_ms / ms:.2f}x) "
+                      f"torch.matmul bf16 library_ms={lib_ms:.4f} "
+                      f"({lib_ms / ms:.2f}x the kernel's ms) weights {wbytes} "
+                      f"bytes x {copies} copies [{card}]", flush=True)
+                if ms >= plain_ms:
+                    print(f"  {case}: the kernel is not below its plain "
+                          f"version", flush=True)
                 del x, got, want
             del q, s
         del w
@@ -750,10 +799,14 @@ def _gemm_cases(torch, results, dev, card):
     for m in GEMM_ROWS:
         for algo in QUANT_ALGOS:
             sel = [r for c, r in rows if r["m"] == m and algo[12:] in c]
+            old = [r["sm80_ms"] for r in sel if r["sm80_ms"] is not None]
             print(f"  weight_only_gemm {algo[12:]} M={m}: kernel "
                   f"{sum(r['ms'] for r in sel):.4f} ms over the "
-                  f"{len(sel)} shapes, bound "
-                  f"{sum(r['bound_ms'] for r in sel):.4f}, torch.matmul "
+                  f"{len(sel)} shapes (mma.sync kernel over the Llama ones "
+                  f"{sum(old):.4f} against "
+                  f"{sum(r['ms'] for r in sel if r['sm80_ms'] is not None):.4f}),"
+                  f" bound {sum(r['bound_ms'] for r in sel):.4f}, plain "
+                  f"{sum(r['plain_ms'] for r in sel):.4f}, torch.matmul "
                   f"bf16 {sum(r['library_ms'] for r in sel):.4f}",
                   flush=True)
 
@@ -3361,7 +3414,8 @@ def main(argv=None):
         print(f"phase 2: built {name} in {info['seconds']:.2f}s -> "
               f"{os.path.relpath(info['path'])}", flush=True)
         for line in info["log"].splitlines():
-            if any(w in line for w in ("registers", "spill", "arning")):
+            if any(w in line for w in ("registers", "spill", "arning",
+                                       "Performance")):
                 print(f"    {line.strip()}")
     t1 = time.monotonic()
     x = torch.randn(4, 4096, device="cuda", dtype=torch.bfloat16)

@@ -10,6 +10,10 @@ A CUDA graph's replay runs no Python, so no wrapper counts it: code
 that captures a graph takes the launches the capture counted back out
 (``uncount_since``) and adds that tally at every replay.
 
+``weight_only_gemm`` counts every call of the weight-only GEMM on the
+card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
+counts those that went to the mma.sync kernel (shapes TMA cannot read).
+
 Two keys count calls instead, on any device: ``sdpa_plain`` the attention
 calls that ``nn.functional.scaled_dot_product_attention`` routes to its
 plain ``_sdpa_reference`` because the flash kernels do not take their
@@ -25,7 +29,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rope": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "adamw": 0, "gmm": 0, "tgmm": 0, "flashmask_summary": 0,
             "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0,
-            "weight_only_gemm": 0, "sdpa_plain": 0, "ragged_plain": 0}
+            "weight_only_gemm": 0, "weight_only_gemm_sm80": 0,
+            "sdpa_plain": 0, "ragged_plain": 0}
 
 
 ROUTED = ("sdpa_plain", "ragged_plain")     # the keys that count calls

@@ -137,7 +137,8 @@ def build_variants(name: str, variants: Dict[str, list]) -> Dict[str, Path]:
         print(f"== {var}: nvcc exit {proc.returncode}", flush=True)
         for line in log.splitlines():
             if ("spill" in line and " 0 bytes spill" not in line) \
-                    or "error" in line or "arning" in line:
+                    or any(w in line for w in ("error", "arning",
+                                               "Performance")):
                 print("   ", line.strip()[:200])
         if proc.returncode == 0:
             built[var] = lib

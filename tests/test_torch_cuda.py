@@ -17,7 +17,11 @@ version's order. Grouped matmuls: float32 1e-5 of the largest value (fp32
 sums in another order); bfloat16 each row within two ulps of its largest
 value (both round one fp32 sum); rows past the groups and an empty
 group's dw exactly 0. FlashMask: as flash attention; a row that sees no
-key must give output 0, lse -1e30 and dq 0 exactly; its tile-summary
+key must give output 0, lse -1e30 and dq 0 exactly. The weight-only
+GEMM: each row within two ulps of its largest plain value (both round
+one fp32 sum to bf16 before the scale), on either of its kernels and
+every plan; two calls give the same bits (the split partials are summed
+in a fixed order). FlashMask's tile-summary
 pre-pass and the bf16 ragged kernels' work plan equal their plain versions
 exactly, and two bf16 ragged calls (also a CUDA-graph replay on rewritten
 metadata) give the same bits. Attention shapes the
@@ -1123,12 +1127,106 @@ def test_weight_only_gemm_matches_plain(dev, algo, m, k, n):
     from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
     from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm_takes
     x, q, s = _quant_case(dev, algo, m, k, n)
     before = K.LAUNCHES["weight_only_gemm"]
+    sm80 = K.LAUNCHES["weight_only_gemm_sm80"]
     got = weight_only_gemm(x, q, s)
     torch.cuda.synchronize()
     assert K.LAUNCHES["weight_only_gemm"] == before + 1
+    # the odd shapes (K 200, 33, 4104; N 24, 136, 96) go to the mma.sync
+    # kernel, the rest to the wgmma kernel
+    assert K.LAUNCHES["weight_only_gemm_sm80"] == sm80 + (
+        not weight_only_gemm_takes(x, q, s))
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _assert_rows_close(got, quant_matmul_arrays(x, q, s), 2)
+
+
+# (M, token tile, channel tile): each instantiation of the wgmma kernel,
+# and 600 rows over three 256-row tiles
+WGMMA_TILES = [(5, 8, 128), (40, 64, 128), (100, 128, 128), (256, 256, 128),
+               (600, 256, 128), (256, 256, 64), (600, 256, 64)]
+
+
+@pytest.mark.parametrize("algo", QUANT_ALGOS)
+@pytest.mark.parametrize("m, tile, channels", WGMMA_TILES)
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_weight_only_gemm_wgmma_every_tile_and_split(dev, algo, m, tile,
+                                                     channels, splits):
+    """The wgmma kernel on each tile and split count (K = 512: 8 stages;
+    N = 392: a partial channel tile): within 2 ulps of the plain version
+    and of its own arithmetic in PyTorch (the split partials summed in
+    order); two calls give the same bits."""
+    from paddle_tpu_torch.kernels import quant_matmul as QM
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    x, q, s = _quant_case(dev, algo, m, 512, 392, seed=splits)
+    plan = QM.Plan(tile, channels, splits)
+    got = QM.weight_only_gemm_wgmma(x, q, s, plan)
+    again = QM.weight_only_gemm_wgmma(x, q, s, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_rows_close(got, quant_matmul_arrays(x, q, s), 2)
+    _assert_rows_close(got, QM.weight_only_gemm_split_plain(x, q, s, plan), 2)
+
+
+def test_weight_only_gemm_split_plan_replays_in_a_graph(dev):
+    """A call whose plan splits K across a cluster: two eager calls are
+    bit-equal, and a captured call replayed on new activations written in
+    place equals an eager call on them."""
+    from paddle_tpu_torch.kernels import quant_matmul as QM
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    x, q, s = _quant_case(dev, "weight_only_int8", 256, 4096, 1024)
+    assert QM.weight_only_gemm_plan(
+        256, 1024, 4096, QM.card_capacity(dev, 0)).splits > 1
+    first = weight_only_gemm(x, q, s)
+    assert torch.equal(first, weight_only_gemm(x, q, s))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        weight_only_gemm(x, q, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = weight_only_gemm(x, q, s)
+    x.copy_(torch.randn(x.shape, device=dev).to(x.dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, weight_only_gemm(x, q, s))
+    assert not torch.equal(out, first)
+
+
+@pytest.mark.parametrize("k, n", [(4096, 4096), (4096, 11008),
+                                  (11008, 4096), (768, 2304), (768, 768),
+                                  (768, 3072), (3072, 768)])
+def test_served_shapes_take_the_wgmma_kernel(dev, k, n):
+    """Every served matrix (the Llama-2-7B head aside, by size) counts in
+    ``weight_only_gemm`` and not in ``weight_only_gemm_sm80``."""
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
+    x, q, s = _quant_case(dev, "weight_only_int4", 8, k, n)
+    before = dict(K.LAUNCHES)
+    got = weight_only_gemm(x, q, s)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["weight_only_gemm"] == before["weight_only_gemm"] + 1
+    assert K.LAUNCHES["weight_only_gemm_sm80"] == \
+        before["weight_only_gemm_sm80"]
+    _assert_rows_close(got, quant_matmul_arrays(x, q, s), 2)
+
+
+def test_an_unaligned_slice_takes_the_mma_sync_kernel(dev):
+    """Activations that start 2 bytes into their storage (a slice of a
+    packed batch) go to the mma.sync kernel, with the same result."""
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_gemm
+    from paddle_tpu_torch.quantization._kernels import quant_matmul_arrays
+    x, q, s = _quant_case(dev, "weight_only_int8", 6, 256, 128)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xs = flat[1:].view(x.shape)
+    xs.copy_(x)
+    sm80 = K.LAUNCHES["weight_only_gemm_sm80"]
+    got = weight_only_gemm(xs, q, s)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["weight_only_gemm_sm80"] == sm80 + 1
     _assert_rows_close(got, quant_matmul_arrays(x, q, s), 2)
 
 
