@@ -44,7 +44,10 @@ Phases, each printing its own lines and its seconds:
      (non-causal bands, a window, bounds per head, rows that see no key)
      and bf16 ones (ragged lengths at d 64 and 128, rows without a key),
      and a tiny float32 Llama on packed documents trained 3 steps on the
-     card against the CPU trainer;
+     card against the CPU trainer; FlashMask calls the kernels do not take
+     (causal q_len > kv_len, q_len < kv_len, head_dim 32) routed to the
+     plain versions on the card (one ``sdpa_plain`` each, no kernel),
+     equal to the CPU's;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -65,7 +68,16 @@ Phases, each printing its own lines and its seconds:
      with exact launch counts, step ms, tokens/s, a profile and the dense
      attention's ms; sampled (temperature 0.8, top-k 50, top-p 0.9, a
      seed) two runs must be equal, in the vocabulary, with new noise each
-     step; and one ragged step through the kernels must agree with the
+     step; the decode step with a dense attention that copies K and V to
+     fp32 is timed beside the current one (the bf16 cache read in place);
+     a BatchingServer over an EnginePredictor, 12 requests from 4 client
+     threads, must return generate_batch's tokens;
+     ``generate(num_beams=4)`` (batch 8, prompts left-padded to 512, 32
+     new tokens, eos) must give the same tokens, finished flags, beam
+     scores and beams from its captured beam loop as from the loop run op
+     by op, with exact launch counts, prefill and step ms and the cache
+     reorder's ms alone, and a float32 2-layer pair's beams must equal the
+     CPU's; and one ragged step through the kernels must agree with the
      same step through the plain versions (in bf16 and in float32);
   5. the llama-1.1b-b8 training recipe at full width (bf16 weights, fp32
      moments, full remat, chunked loss): 2 warm-up and 5 timed steps with
@@ -107,6 +119,14 @@ Phases, each printing its own lines and its seconds:
      difference must be a near tie: both tokens their run's argmax, the
      non-speculative top-2 margin within twice that noise); in float32
      (2 layers) speculative tokens identical to non-speculative ones;
+  11. the artifact path on the 1.1B Llama of phase 5 (bf16): ``jit.save``
+     with InputSpec([None, None], "int64") into a directory under --out,
+     ``create_predictor`` on the card, a batch of 4 x 512: logits equal to
+     the live model's forward bit for bit, exact launches (a flash
+     forward, two RMSNorms and a RoPE a layer, the final RMSNorm; nothing
+     routed) through the kernels' torch.library ops; then the same model
+     saved on the CPU and loaded on the card, with the same checks; save,
+     load and run seconds; the artifacts are deleted;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -1080,14 +1100,15 @@ def _llama_per_step(n_l, quant=False):
     return per
 
 
-def phase_serving(torch, args, launches_out):
+def phase_serving(torch, args, launches_out, beam_launches_out):
     """Llama-2-7B served by two engines in turn over the same 12 requests:
     the step run op by op (the yardstick) and the step replayed from the
     CUDA graph captured at construction (the main path). Tokens equal,
     every step's logits bit-equal, the pools' real pages equal; exact
     launch counts; step ms, tokens/s, the host's share, TTFT and latency
     for each; a profile of each; then the front door, generate() and the
-    kernel step against the plain step."""
+    kernel step against the plain step; the BatchingServer over the
+    engine; beam search (``beam_launches_out`` gets its launches)."""
     from paddle_tpu_torch.serving import EngineConfig
     card = _card_line()
     torch.cuda.reset_peak_memory_stats()
@@ -1103,16 +1124,22 @@ def phase_serving(torch, args, launches_out):
     serving["outputs"] = outs
     serving["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     serving["front_door"] = _front_door(torch, model, prompts[:4], max_new)
+    serving["batching_server"] = _server_delegation(
+        torch, model, ecfg, prompts, max_new, outs)
     n_l = cfg.num_hidden_layers
+    per_call = dict(rms_norm=n_l + 1, rms_norm_residual=n_l, rope=n_l)
     serving["generate"] = _generate_checks(
-        torch, model, cfg, args, launches_out,
-        dict(rms_norm=n_l + 1, rms_norm_residual=n_l, rope=n_l))
+        torch, model, cfg, args, launches_out, per_call)
+    serving["beams"] = _beam_checks(
+        torch, model, cfg, args, beam_launches_out, per_call)
     serving.update(_step_agreement(torch, model, cfg,
                                    EngineConfig(**ecfg), args.seed))
     del model
     torch.cuda.empty_cache()
     serving["captured_step_f32"] = _captured_step_f32(
         torch, _llama_f32_pair(cfg), args.seed)
+    serving["beams_f32"] = _beams_f32_pair(torch, _llama_f32_pair(cfg),
+                                           args.seed)
     return serving
 
 
@@ -1162,8 +1189,8 @@ def _timed_loop(torch, loop, ids, mask, max_new):
     return toks, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / max_new
 
 
-def _attend_pr8(q, k, v, score_mask):
-    """generate()'s dense attention as PR 8 wrote it (fp32 casts of the
+def _attend_einsum(q, k, v, score_mask):
+    """generate()'s dense attention in its einsum form (fp32 casts of the
     whole cache, then einsums that copy them again into their layouts),
     kept here only to time it beside the current ``generation._attend``."""
     import torch
@@ -1182,7 +1209,8 @@ def _generate_checks(torch, model, cfg, args, launches_out, per_call,
     same loop run op by op (tokens equal), step ms and tokens/s of each,
     exact launch counts (``per_call``: launches of the prefill and of each
     replay) and a profile of decode replays. With ``full``: the dense
-    attention's device ms (PR 8's form beside the current one), and
+    attention's device ms (the einsum and fp32-copy forms beside the
+    current one, and a decode step with the fp32-copy form), and
     sampled runs (temperature 0.8, top-k 50, top-p 0.9, a seed): two runs
     equal, every token in the vocabulary, and each step's noise new."""
     import numpy as np
@@ -1208,7 +1236,7 @@ def _generate_checks(torch, model, cfg, args, launches_out, per_call,
                           max_new_tokens=max_new, quant=quant)
     first_s = time.monotonic() - t0
     sig = (b, width, max_new, False, False, 0, 1.0, False)
-    loop = G._loop_for(dec, w, *sig)
+    loop = G._loop_for(dec, w, *sig, 1)
     K.reset_launches()
     toks_g, pre_g, step_g = _timed_loop(torch, loop, ids_d, mask_d, max_new)
     launches = dict(K.LAUNCHES)
@@ -1262,36 +1290,60 @@ def _generate_checks(torch, model, cfg, args, launches_out, per_call,
         torch.cuda.empty_cache()
         return out
     # the dense attention of one decode step: every layer's _attend over
-    # the [8, 544] cache, timed alone (CUDA-graph replay), beside PR 8's
+    # the [8, 544] cache, timed alone (CUDA-graph replay), beside the
+    # einsum form and the fp32-copy form
     g = torch.Generator(device=dev).manual_seed(args.seed)
     n_l = cfg.num_hidden_layers
     h = cfg.num_attention_heads
     hd = cfg.hidden_size // h
     q = torch.randn(b, 1, h, hd, device=dev, generator=g).bfloat16()
-    kc = torch.randn(b, width + max_new, h, hd, device=dev,
-                     generator=g).bfloat16()
+    kc = torch.randn(b, h, width + max_new, hd, device=dev,
+                     generator=g).bfloat16()          # heads-major cache
     vc = torch.randn_like(kc)
     smask = loop.key_mask[:, None, None, :]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     attn_ms = n_l * _graph_ms(lambda: G._attend(q, kc, vc, smask))
-    attn_pr8_ms = n_l * _graph_ms(lambda: _attend_pr8(q, kc, vc, smask))
-    same = _check("generate() _attend against PR 8's form",
-                  G._attend(q, kc, vc, smask), _attend_pr8(q, kc, vc, smask),
-                  ULP_BF16 * float(_attend_pr8(q, kc, vc, smask).float()
-                                   .abs().max()))
-    del q, kc, vc
+    attn_einsum_ms = n_l * _graph_ms(
+        lambda: _attend_einsum(q, kt, vt, smask))
+    attn_f32_ms = n_l * _graph_ms(
+        lambda: _attend_f32_copies(q, kc, vc, smask, 1))
+    ref = _attend_einsum(q, kt, vt, smask)
+    same = _check("generate() _attend against the einsum form",
+                  G._attend(q, kc, vc, smask), ref,
+                  ULP_BF16 * float(ref.float().abs().max()))
+    del q, kc, vc, kt, vt, ref
+    toks_f32, step_f32, rows_f32 = _step_ms_f32_copy_attention(
+        torch, dec, w, sig + (1,), ids_d, mask_d, max_new)
+    # greedy tokens against the fp32-copy form: equal, or a first
+    # difference only at a near tie (phase 10's rule)
+    vs_f32 = _spec_compare(
+        f"{tag} generate() greedy tokens against the fp32-copy attention",
+        (toks_f32.tolist(), rows_f32),
+        (toks_g.tolist(), _greedy_rows(torch, loop, ids_d, mask_d, max_new)),
+        max_new, names=("fp32-copy", "in-place"))
     out.update(dense_attention_ms_a_step=attn_ms,
-               dense_attention_pr8_ms_a_step=attn_pr8_ms,
-               dense_attention_vs_pr8_err=same)
-    print(f"  {tag} dense attention ({n_l} x _attend over [{b}, "
-          f"{width + max_new}, {h}, {hd}], alone): {attn_ms:.3f} ms a step, "
-          f"PR 8's form {attn_pr8_ms:.3f} ms [{card}]", flush=True)
+               dense_attention_einsum_ms_a_step=attn_einsum_ms,
+               dense_attention_f32_copies_ms_a_step=attn_f32_ms,
+               dense_attention_vs_einsum_err=same,
+               graph_step_ms_f32_copy_attention=step_f32,
+               tokens_equal_f32_copies_attention=torch.equal(toks_f32,
+                                                             toks_g),
+               vs_f32_copies_attention=vs_f32)
+    print(f"  {tag} dense attention ({n_l} x _attend over [{b}, {h}, "
+          f"{width + max_new}, {hd}], alone): {attn_ms:.3f} ms a step; the "
+          f"fp32-copy form (K and V copied to fp32) {attn_f32_ms:.3f} ms, "
+          f"the einsum form {attn_einsum_ms:.3f} ms; the captured decode "
+          f"step with the fp32-copy form {step_f32:.3f} ms against "
+          f"{step_g:.3f} ms now (greedy "
+          f"tokens equal {torch.equal(toks_f32, toks_g)}) [{card}]",
+          flush=True)
     # sampling
     kw = dict(attention_mask=mask, max_new_tokens=max_new, do_sample=True,
               temperature=0.8, top_k=50, top_p=0.9)
     s1, _ = G.generate(model, ids, seed=args.seed, **kw)
     s2, _ = G.generate(model, ids, seed=args.seed, **kw)
     sloop = G._loop_for(dec, w, b, width, max_new, True, False, 50, 0.9,
-                        False)
+                        False, 1)
     sloop.start(ids_d, mask_d, 0.8, 0, 1.0, args.seed)
     draws = []
     for _ in range(4):
@@ -1395,29 +1447,63 @@ def _kernel_group(name):
     return "other"
 
 
-def _profile(torch, step, n):
+# the counted kernels a serving step's trace must hold as many times as
+# their wrappers counted launches while it ran (one kernel a launch):
+# LAUNCHES keys -> a test of a kernel's name
+_STEP_TRACE_CHECKED = {
+    ("rms_norm", "rms_norm_residual"): lambda k: "rms_norm" in k,
+    ("rope",): lambda k: "rope" in k,
+    ("ragged_attention",): lambda k: ("ragged_attention_wgmma_kernel" in k
+                                      or "ragged_attention_kernel" in k),
+}
+PROFILE_TRACES = 3     # traces taken before a lossy one fails the phase
+
+
+def _profile(torch, step, n, checked=None):
     """Wall ms per step and device ms per step by kernel group, from a
     torch.profiler trace of ``n`` calls of ``step`` (kernels replayed from
-    a CUDA graph appear in the trace as launched ones do)."""
+    a CUDA graph appear in the trace as launched ones do). The tracer can
+    drop kernel records (a few dozen of a step's ~640, now and then): with
+    ``checked`` (as ``_STEP_TRACE_CHECKED``) a trace must hold each of its
+    kernels as many times as the wrapper counted launches over the traced
+    calls, or it is taken again over the next ``n`` calls, up to
+    PROFILE_TRACES traces."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(n):
-            step()
+    from paddle_tpu_torch import kernels as K
+    for attempt in range(1, PROFILE_TRACES + 1):
+        before = dict(K.LAUNCHES)
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    groups, names, counts, launches = {}, {}, {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            g = _kernel_group(e.name)
-            ms = e.time_range.elapsed_us() / 1e3
-            groups[g] = groups.get(g, 0.0) + ms
-            key = e.name[:80]
-            names[key] = names.get(key, 0.0) + ms
-            counts[key] = counts.get(key, 0) + 1
-            launches += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        groups, names, counts, launches = {}, {}, {}, 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                g = _kernel_group(e.name)
+                ms = e.time_range.elapsed_us() / 1e3
+                groups[g] = groups.get(g, 0.0) + ms
+                key = e.name[:80]
+                names[key] = names.get(key, 0.0) + ms
+                counts[key] = counts.get(key, 0) + 1
+                launches += 1
+        checked = checked or {}
+        launched = {keys: sum(K.LAUNCHES[k] - before[k] for k in keys)
+                    for keys in checked}
+        traced = {keys: sum(c for k, c in counts.items() if hit(k))
+                  for keys, hit in checked.items()}
+        if traced == launched:
+            break
+        lost = {"+".join(keys): f"{traced[keys]} of {launched[keys]}"
+                for keys in checked if traced[keys] != launched[keys]}
+        print(f"  profiler trace {attempt}: it holds {lost} counted "
+              f"launches; the tracer dropped records", flush=True)
+    else:
+        raise AssertionError(f"the profiler dropped kernel records in "
+                             f"{PROFILE_TRACES} traces running")
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:20]
     plans = sum(c for k, c in counts.items()
@@ -1425,7 +1511,7 @@ def _profile(torch, step, n):
     return prof, dict(wall_ms=1e3 * wall / n, device_ms=busy / n,
                       idle_share=1 - busy / (1e3 * wall) if wall else None,
                       device_launches=launches / n,
-                      ragged_plans_a_step=plans / n,
+                      ragged_plans_a_step=plans / n, traces=attempt,
                       by_group_ms={k: v / n for k, v in sorted(
                           groups.items(), key=lambda kv: -kv[1])},
                       top_kernels_ms={k: v / n for k, v in top},
@@ -1436,19 +1522,22 @@ def _profile_steps(torch, eng, vocab, seed, out_dir, tag):
     """Where a step's time goes: a profiler trace of two prefill steps
     (8 prompts of 512 tokens, 256 tokens a step) and of four decode steps
     of the same 8 sequences. Chrome traces go to ``out_dir``, named by
-    ``tag``. The ragged attention must plan once a step."""
+    ``tag``. The ragged attention must plan once a step, in traces that
+    hold every counted launch (``_profile``)."""
     import numpy as np
     rng = np.random.default_rng(seed + 1)
     reqs = [eng.submit(rng.integers(1, vocab, (512,)).tolist(),
                        max_new_tokens=16) for _ in range(8)]
     out = {}
-    prof, out["prefill"] = _profile(torch, eng.step, 2)
+    prof, out["prefill"] = _profile(torch, eng.step, 2,
+                                    checked=_STEP_TRACE_CHECKED)
     prof.export_chrome_trace(os.path.join(
         out_dir, f"{tag}_prefill_steps_trace.json"))
     sched = eng.sched
     while sched.waiting or any(r.pos < len(r.seq) - 1 for r in sched.running):
         eng.step()
-    prof, out["decode"] = _profile(torch, eng.step, 4)
+    prof, out["decode"] = _profile(torch, eng.step, 4,
+                                   checked=_STEP_TRACE_CHECKED)
     prof.export_chrome_trace(os.path.join(
         out_dir, f"{tag}_decode_steps_trace.json"))
     eng.run_until_idle()
@@ -3192,18 +3281,20 @@ def _bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def _spec_compare(name, base, spec, max_new):
-    """Spec outputs against non-spec ones: the fraction of requests
-    identical, and the noise: the two runs' largest logit difference at
-    every position before a request's first differing token (their
-    contexts are equal there; the spec run scored many of them from
-    verify rows, the other from decode rows, which take other
+def _spec_compare(name, base, spec, max_new,
+                  names=("non-spec", "speculative")):
+    """Spec outputs against non-spec ones (or any two greedy runs of one
+    model, ``names`` naming the base run and the other): the fraction of
+    requests identical, and the noise: the two runs' largest logit
+    difference at every position before a request's first differing
+    token (their contexts are equal there; the spec run scored many of
+    them from verify rows, the other from decode rows, which take other
     ragged-kernel tiles). Every such difference must lie within
     SPEC_NOISE_ULPS bf16 ulps of its row's largest logit, and at each
     first differing token both tokens must be their own run's argmax with
-    the non-spec top-2 margin at most twice the largest noise: a near tie
-    that tile-order noise flips. Any other difference fails. Returns the
-    summary."""
+    the base run's top-2 margin at most twice the largest noise: a near
+    tie that rounding noise flips. Any other difference fails. Returns
+    the summary."""
     import torch
     outs_b, rows_b = base
     outs_s, rows_s = spec
@@ -3235,7 +3326,8 @@ def _spec_compare(name, base, spec, max_new):
                    noise_median=noise[len(noise) // 2] if noise else 0.0,
                    noise_max=noise_max, noise_max_ulps=worst_ulps,
                    flips=checked)
-    print(f"  {name}: requests identical to non-spec {same}/{len(outs_b)}; "
+    print(f"  {name}: requests identical to {names[0]} "
+          f"{same}/{len(outs_b)}; "
           f"noise (logit difference of the two runs before each first "
           f"difference) over {len(noise)} positions: median "
           f"{summary['noise_median']:.4g}, max {noise_max:.4g}, at most "
@@ -3248,13 +3340,13 @@ def _spec_compare(name, base, spec, max_new):
                        f"{'ok' if f['ok'] else 'FAIL'}" for f in checked)
              or "none"), flush=True)
     if not noise_ok:
-        raise AssertionError(f"{name}: the speculative run's logits differ "
-                             f"from the non-speculative run's beyond "
+        raise AssertionError(f"{name}: the {names[1]} run's logits differ "
+                             f"from the {names[0]} run's beyond "
                              f"{SPEC_NOISE_ULPS} bf16 ulps where their "
                              f"contexts are equal")
     if not all(f["ok"] for f in checked):
-        raise AssertionError(f"{name}: a speculative token differs from the "
-                             f"non-speculative one beyond a near tie")
+        raise AssertionError(f"{name}: a {names[1]} token differs from the "
+                             f"{names[0]} one beyond a near tie")
     return summary
 
 
@@ -3379,6 +3471,380 @@ def phase_spec_serving(torch, args, launches_out):
     return out
 
 
+# -- FlashMask routing, beams, the artifact, the server -----------------------
+
+def _flashmask_routed_on_card(torch):
+    """FlashMask calls the kernels do not take (causal q_len > kv_len,
+    q_len < kv_len, head_dim 32) run the plain versions on the card, each
+    counted in sdpa_plain and no kernel, and equal the CPU's plain result
+    within 2e-5 (float32 sums in another order)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.nn import functional as F
+    out = {}
+    for name, (sq, sk, d) in {"causal_q_longer": (300, 200, 64),
+                              "causal_q_shorter": (200, 300, 128),
+                              "d32": (256, 256, 32)}.items():
+        g = torch.Generator().manual_seed(sq + sk + d)
+        q = torch.randn(2, sq, 8, d, generator=g)
+        k = torch.randn(2, sk, 4, d, generator=g)
+        v = torch.randn(2, sk, 4, d, generator=g)
+        se = torch.randint(sq // 2, sq + 1, (2, 1, sk, 1), generator=g,
+                           dtype=torch.int32)
+        want = F.flashmask_attention(q, k, v, se, causal=True)
+        K.reset_launches()
+        got = F.flashmask_attention(q.cuda(), k.cuda(), v.cuda(), se.cuda(),
+                                    causal=True)
+        torch.cuda.synchronize()
+        routed, kernels = K.LAUNCHES["sdpa_plain"], sum(
+            K.kernel_launches().values())
+        err = float((got.cpu() - want).abs().max())
+        ok = routed == 1 and kernels == 0 and err <= 2e-5
+        print(f"  F5 FlashMask [{2}, {sq}, 8, {d}] over {sk} keys, causal "
+              f"(kv heads 4): routed to the plain path {routed}, kernels "
+              f"{kernels}, max_abs_err vs the CPU {err:.3g} (tol 2e-05) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"F5 {name}: routing or result is wrong")
+        out[name] = dict(sq=sq, sk=sk, d=d, sdpa_plain=routed,
+                         max_abs_err=err)
+    return out
+
+
+def _attend_f32_copies(q, k, v, score_mask, rep):
+    """generate()'s dense attention in the form that copies K and V to
+    fp32 every step, on the heads-major cache: kept here only to time a
+    decode step with it beside the current one (which reads the bf16
+    cache in place)."""
+    import torch
+    b, s, h, d = q.shape
+    g = h // rep
+    t = k.shape[2]
+    qg = q.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4).float() \
+        .reshape(b, g, rep * s, d)
+    scores = (qg @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    scores = torch.where(score_mask[:, None],
+                         scores.reshape(b, g, rep, s, t), -1e30)
+    p = torch.softmax(scores, dim=-1).reshape(b, g, rep * s, t)
+    out = (p @ v.float()).reshape(b, g, rep, s, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _step_ms_f32_copy_attention(torch, dec, w, sig, ids_d, mask_d, max_new):
+    """The greedy decode step's ms (a captured loop) with the fp32-copy
+    attention patched in, beside which the current step is timed; its
+    tokens, and the logits each token was picked from (``_greedy_rows``)."""
+    from paddle_tpu_torch import generation as G
+    with mock.patch.object(G, "_attend_gqa", _attend_f32_copies):
+        loop = G._new_loop(dec, w, *sig)
+        loop.capture()
+        toks, _, step = _timed_loop(torch, loop, ids_d, mask_d, max_new)
+        rows = _greedy_rows(torch, loop, ids_d, mask_d, max_new)
+    del loop
+    torch.cuda.empty_cache()
+    return toks, step, rows
+
+
+def _greedy_rows(torch, loop, ids_d, mask_d, max_new):
+    """A greedy run of ``loop``: {(row, step): the fp32 logits on the CPU
+    that step's token was picked from}."""
+    loop.start(ids_d, mask_d, 1.0, 0, 1.0, None)
+    rows = {}
+    for i in range(max_new):
+        lg = loop.last_logits.float().cpu()
+        rows.update(((r, i), lg[r]) for r in range(lg.shape[0]))
+        loop.step()
+    return rows
+
+
+def _left_padded_batch(torch, cfg, seed, b=8, width=512):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(16, width, b).astype(int)
+    rng.shuffle(lens)
+    ids = np.zeros((b, width), np.int64)
+    mask = np.zeros((b, width), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, width - n:] = rng.integers(1, cfg.vocab_size, (n,))
+        mask[i, width - n:] = 1
+    return ids, mask, sorted(lens.tolist())
+
+
+def _beam_checks(torch, model, cfg, args, launches_out, per_call):
+    """generate(num_beams=4) at full width: batch 8, prompts left-padded to
+    512, 32 new tokens, and as eos the second token of row 0's best beam
+    in a run without eos (so that eos can finish beams). The
+    captured beam loop (one CUDA graph a step) against the same loop run
+    op by op: tokens, finished flags, beam scores and the beams' tokens
+    equal; exact launch counts (the prefill of 32 rows, then each replay);
+    prefill ms, decode step ms and the ms of the cache reorder alone (all
+    of kcs and vcs gathered through a scratch buffer and copied back, as
+    the JAX loop gathers them)."""
+    from paddle_tpu_torch import generation as G
+    from paddle_tpu_torch import kernels as K
+    card = _card_line()
+    dev = torch.device("cuda")
+    b, k, max_new = 8, 4, 32
+    ids, mask, lens = _left_padded_batch(torch, cfg, args.seed + 5)
+    width = ids.shape[1]
+    ids_d, mask_d = (torch.from_numpy(a).to(dev) for a in (ids, mask))
+    dec = G._decoder_for(model)
+    w = dec.weights(model)
+    free = G._new_loop(dec, w, b, width, max_new, False, False, 0, 1.0,
+                       False, k)
+    free.start(ids_d, mask_d, 1.0, 0, 1.0, None)
+    for _ in range(max_new):
+        free.step()
+    eos = int(free.result()[0][0, 1])
+    del free
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    got, fin = G.generate(model, ids, attention_mask=mask,
+                          max_new_tokens=max_new, num_beams=k,
+                          eos_token_id=eos)
+    first_s = time.monotonic() - t0
+    sig = (b, width, max_new, False, True, 0, 1.0, False, k)
+    loop = G._loop_for(dec, w, *sig)
+    K.reset_launches()
+    t0 = time.monotonic()
+    loop.start(ids_d, mask_d, 1.0, eos, 1.0, None)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for _ in range(max_new):
+        loop.step()
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    launches = dict(K.LAUNCHES)
+    pre_g, step_g = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / max_new
+    toks_g, fin_g = loop.result()
+    expect = {n: per_call.get(n, 0) * (1 + max_new) for n in K.LAUNCHES}
+    _nothing_routed(launches, "phase 4 beams")
+    if launches != expect:
+        raise AssertionError(f"beams: launch counts {launches} != {expect}")
+    for n, c in launches.items():
+        launches_out[n] = launches_out.get(n, 0) + c
+    eager = G._new_loop(dec, w, *sig)
+    t0 = time.monotonic()
+    eager.start(ids_d, mask_d, 1.0, eos, 1.0, None)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for _ in range(max_new):
+        eager.step()
+    torch.cuda.synchronize()
+    step_e = 1e3 * (time.monotonic() - t1) / max_new
+    toks_e, fin_e = eager.result()
+    same = (torch.equal(toks_g, toks_e) and torch.equal(fin_g, fin_e)
+            and torch.equal(loop.scores, eager.scores)
+            and torch.equal(loop.out, eager.out)
+            and torch.equal(got, toks_g) and torch.equal(fin, fin_g))
+    in_vocab = 0 <= int(got.min()) and int(got.max()) < cfg.vocab_size
+    del eager
+    torch.cuda.empty_cache()
+    rows = torch.arange(b * k, device=dev)
+    reorder_ms = _graph_ms(lambda: loop._reorder(rows), iters=5, reps=3)
+    cache_bytes = 2 * loop.kcs.numel() * loop.kcs.element_size()
+    print(f"  phase 4 generate(num_beams={k}): batch {b}, prompts {lens} "
+          f"left-padded to {width}, {max_new} new tokens, eos {eos}; first "
+          f"call {first_s:.2f}s (capture included); graph = eager (tokens, "
+          f"finished, scores, beams) {same}; finished {int(fin.sum())}/{b}; "
+          f"launches {launches} (expected {expect}) "
+          f"{'ok' if same and in_vocab else 'FAIL'}", flush=True)
+    if not (same and in_vocab):
+        raise AssertionError("beams: the captured loop disagrees with the "
+                             "eager loop")
+    print(f"  phase 4 beams: prefill ({b * k} rows) {pre_g:.1f} ms; decode "
+          f"step eager -> graph {step_e:.3f} -> {step_g:.3f} ms "
+          f"({b * k / (step_g / 1e3):.1f} beam tokens/s); the cache "
+          f"reorder alone {reorder_ms:.3f} ms a step (kcs + vcs "
+          f"{cache_bytes / 1e9:.2f} GB, gathered and copied back: "
+          f"{4 * cache_bytes / 1e9:.2f} GB moved, bound "
+          f"{4 * cache_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms) [{card}]",
+          flush=True)
+    dec.loops.clear()
+    del loop
+    torch.cuda.empty_cache()
+    return dict(batch=b, num_beams=k, width=width, max_new_tokens=max_new,
+                eos=eos, first_call_s=first_s, graph_prefill_ms=pre_g,
+                graph_step_ms=step_g, eager_step_ms=step_e,
+                reorder_ms=reorder_ms, cache_bytes=cache_bytes,
+                finished=int(fin.sum()), tokens=got.tolist(), card=card)
+
+
+def _beams_f32_pair(torch, make_model, seed):
+    """float32 at full width with 2 layers: generate(num_beams=4) on the
+    card (captured) against the same weights on the CPU, batch 2, prompts
+    left-padded to 48, 8 new tokens, with eos: tokens and finished flags
+    equal."""
+    import numpy as np
+    from paddle_tpu_torch import generation as G
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    gpu = make_model(torch, seed)
+    cpu = LlamaForCausalLM(gpu.config, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({n: p.cpu() for n, p in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed + 7)
+    ids = np.zeros((2, 48), np.int64)
+    mask = np.zeros((2, 48), np.int64)
+    for i, n in enumerate((48, 21)):
+        ids[i, 48 - n:] = rng.integers(1, gpu.config.vocab_size, (n,))
+        mask[i, 48 - n:] = 1
+    free, _ = G.generate(cpu, ids, attention_mask=mask, max_new_tokens=8,
+                         num_beams=4, device="cpu")
+    kw = dict(attention_mask=mask, max_new_tokens=8, num_beams=4,
+              eos_token_id=int(free[0, 2]))
+    want = G.generate(cpu, ids, device="cpu", **kw)
+    got = G.generate(gpu, ids, **kw)
+    ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    print(f"  float32 (2 layers at full width) beams: card = CPU (tokens, "
+          f"finished) {ok} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("float32 beams: the card disagrees with the CPU")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(tokens_equal=True)
+
+
+def _server_delegation(torch, model, ecfg, prompts, max_new, want):
+    """BatchingServer over an EnginePredictor on phase 4's engine
+    configuration: 4 client threads submit the 12 requests (in turn, so
+    the engine admits them in generate_batch's order; the worker starts
+    stepping once all are in), the worker thread replays the engine's
+    captured step, and every request gets generate_batch's tokens."""
+    import threading
+    import numpy as np
+    from paddle_tpu_torch.inference import BatchingServer
+    from paddle_tpu_torch.serving import (EngineConfig, EnginePredictor,
+                                          ServingEngine)
+    eng = ServingEngine(model, EngineConfig(**ecfg))
+    pred = EnginePredictor(eng, max_new_tokens=max_new)
+    gate = threading.Event()
+    real_step = eng.step
+
+    def gated_step():
+        gate.wait()
+        return real_step()
+
+    eng.step = gated_step
+    server = BatchingServer(pred)
+    futs = [None] * len(prompts)
+    turn = threading.Condition()
+    nxt = [0]
+
+    def client(c):
+        for j in range(c, len(prompts), 4):
+            with turn:
+                turn.wait_for(lambda: nxt[0] == j)
+                futs[j] = server.submit([np.asarray(prompts[j])])
+                nxt[0] += 1
+                turn.notify_all()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    gate.set()
+    try:
+        got = [f.result(timeout=300)[0].tolist() for f in futs]
+    finally:
+        server.close()
+    secs = time.monotonic() - t0
+    ok = got == want
+    print(f"  BatchingServer (delegation, 4 client threads, the worker "
+          f"thread replaying the engine's graph): {len(prompts)} requests in "
+          f"{secs:.2f}s, {server.batches_run} steps, tokens equal to "
+          f"generate_batch {ok} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("BatchingServer disagrees with generate_batch")
+    del server, pred, eng
+    torch.cuda.empty_cache()
+    return dict(requests=len(prompts), seconds=secs, tokens_equal=True)
+
+
+def phase_artifact(torch, args, launches_out):
+    """The artifact path at full width on the 1.1B Llama (hidden 2048, 22
+    layers, bf16, seeded random weights): jit.save with InputSpec([None,
+    None], "int64") into a gitignored directory, create_predictor on the
+    card, a batch of 4 x 512; its logits equal the live model's forward
+    bit for bit, with exact kernel launches (flash forward, RMSNorm, RoPE)
+    and nothing routed to a plain path. Then the same model saved on the
+    CPU and loaded on the card: the kernels launch and the logits equal
+    again. Save, load and run seconds; the artifacts are deleted."""
+    import shutil
+    import numpy as np
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    card = _card_line()
+    cfg = _llama_1b()
+    n_l = cfg.num_hidden_layers
+    model = LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(args.seed))
+    ids = np.random.default_rng(args.seed + 9).integers(
+        0, cfg.vocab_size, (4, 512)).astype(np.int64)
+    with torch.no_grad():
+        live = model(torch.from_numpy(ids).cuda())
+    torch.cuda.synchronize()
+    root = os.path.join(args.out, "artifact")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    spec = [jit.InputSpec([None, None], "int64")]
+    expect = {n: 0 for n in K.LAUNCHES}
+    expect.update(flash_fwd=n_l, rms_norm=2 * n_l + 1, rope=n_l)
+    out = {}
+    try:
+        for where in ("cuda", "cpu"):
+            path = os.path.join(root, f"llama_1b_{where}")
+            t0 = time.monotonic()
+            if where == "cpu":
+                model.to("cpu")
+            jit.save(model, path, input_spec=spec)
+            save_s = time.monotonic() - t0
+            if where == "cpu":
+                model.to("cuda")
+            size = sum(os.path.getsize(path + s)
+                       for s in (".pdmodel", ".pdiparams", ".meta.json"))
+            t0 = time.monotonic()
+            pred = create_predictor(Config(path))
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            pred.run([ids])                       # the first run (Triton)
+            K.reset_launches()
+            t0 = time.monotonic()
+            (logits,) = pred.run([ids])
+            torch.cuda.synchronize()
+            run_s = time.monotonic() - t0
+            launches = dict(K.LAUNCHES)
+            for n, c in launches.items():
+                launches_out[n] = launches_out.get(n, 0) + c
+            got = pred._outputs[0]
+            same = torch.equal(got, live)
+            _nothing_routed(launches, f"phase 11 artifact saved on {where}")
+            ok = same and launches == expect and logits.shape == (4, 512,
+                                                                  32000)
+            print(f"  phase 11 artifact saved on the {where}: jit.save "
+                  f"{save_s:.2f}s ({size / 1e9:.3f} GB: .pdmodel "
+                  f"{os.path.getsize(path + '.pdmodel') / 1e6:.2f} MB), "
+                  f"create_predictor on the card {load_s:.2f}s, run of "
+                  f"[4, 512] {run_s:.3f}s; logits = the live forward's bit "
+                  f"for bit {same}; launches {launches} (expected {expect}) "
+                  f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+            if not ok:
+                raise AssertionError(f"the artifact saved on {where} "
+                                     f"disagrees with the live model")
+            out[where] = dict(save_s=save_s, load_s=load_s, run_s=run_s,
+                              bytes=size, logits_bit_equal=True,
+                              launches=launches)
+            del pred, got, logits
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, live
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3457,10 +3923,12 @@ def main(argv=None):
     timed("phase 3 FlashMask kernels", phase_flashmask_kernels, torch,
           results, args.seed)
     timed("phase 3 tiny packed training", phase_tiny_training, torch, True)
+    routed_f5 = timed("phase 3 F5 FlashMask routing",
+                      _flashmask_routed_on_card, torch)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
-    packed_launches = {}
+    packed_launches, beam_launches, artifact_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
-                    serve_launches)
+                    serve_launches, beam_launches)
     training = timed("phase 5 training", phase_training, torch, args,
                      train_launches)
     gpt_moe = timed("phase 6 GPT-MoE training", phase_gpt_moe_training,
@@ -3474,6 +3942,8 @@ def main(argv=None):
                   args, quant_launches, serving["outputs"])
     spec = timed("phase 10 speculative decoding", phase_spec_serving, torch,
                  args, spec_launches)
+    artifact = timed("phase 11 artifact", phase_artifact, torch, args,
+                     artifact_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -3514,7 +3984,8 @@ def main(argv=None):
     # launches, each paired with one dk/dv launch (the training runs check
     # both counts exactly)
     runs = (serve_launches, train_launches, gpt_launches, packed_launches,
-            gpt_serve_launches, quant_launches, spec_launches)
+            gpt_serve_launches, quant_launches, spec_launches, beam_launches,
+            artifact_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -3536,6 +4007,7 @@ def main(argv=None):
                    "training": training, "gpt_moe_training": gpt_moe,
                    "packed_training": packed, "gpt_serving": gpt_serving,
                    "quant_serving": quant, "spec_serving": spec,
+                   "artifact": artifact, "flashmask_routed": routed_f5,
                    "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "training": train_launches,
@@ -3543,7 +4015,9 @@ def main(argv=None):
                                 "packed_training": packed_launches,
                                 "gpt_serving": gpt_serve_launches,
                                 "quant_serving": quant_launches,
-                                "spec_serving": spec_launches}}, f,
+                                "spec_serving": spec_launches,
+                                "beams": beam_launches,
+                                "artifact": artifact_launches}}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,16 +9,18 @@ Mirrors ``paddle_tpu/generation.py``:
     tokens together) goes through every layer, writes its K/V into the
     paged pools and attends over them (the serving engine's step);
   * ``.step``: the dense KV-cache step of ``generate()``: per-row caches
-    ``[L, B, M, kvh, hd]`` written in place at a slot held in a device
-    tensor, attention in plain PyTorch with the JAX code's fp32 scores
-    (the JAX package has no kernel for it either);
+    ``[L, B, kvh, M, hd]`` (heads-major, the layout the attention's
+    products read in place) written at a slot held in a device tensor,
+    attention in plain PyTorch with the JAX code's fp32 scores (the JAX
+    package has no kernel for it either);
   * weight-only quantized decoding (``quant=``): the matmul weights of
     ``quant_plan`` become ``name::q`` / ``name::s`` leaves, quantized once
     per weight snapshot and cached on the model, which ``_mm`` reads
     through the weight-only GEMM (``kernels/quant_matmul.py``) on the card
     and its plain version on the CPU;
   * ``generate()``: the prefill, the decode loop and sampling (greedy,
-    temperature, top-k, top-p, eos, the CTRL repetition penalty). The JAX
+    temperature, top-k, top-p, eos, the CTRL repetition penalty), and
+    greedy beam search (``_BeamLoop``, the JAX ``_beam_impl``). The JAX
     package compiles the loop into one program per signature. Here the
     prefill runs op by op and, on the card, the decode step is a CUDA
     graph captured once per signature and replayed ``max_new_tokens``
@@ -74,38 +76,55 @@ def _rope_rows(q, k, cos, sin):
     return oq.reshape(q.shape), ok.reshape(k.shape)
 
 
-def _f32_heads_major(x):
-    """``[B, T, G, D]`` -> one fp32 copy ``[B, G, T, D]`` (the cast and the
-    layout change in one pass): the layout the batched products read."""
-    b, t, g, d = x.shape
-    out = torch.empty(b, g, t, d, dtype=torch.float32, device=x.device)
-    out.copy_(x.permute(0, 2, 1, 3))
-    return out
+def _bmm_f32(a, b):
+    """``a @ b`` (batched) with fp32 products, sums and result. bf16
+    operands are read as they lie: on the card one ``bmm`` with an fp32
+    output (cuBLAS accumulates in fp32), elsewhere the same products of
+    the operands' exact fp32 values."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def _attend(q, k, v, score_mask):
-    """q: [B, S, H, D]; k/v: [B, T, H, D]; score_mask: [B, 1, S, T] bool
-    (True = visible). Returns [B, S, H, D]. fp32 scores and softmax, as
-    the JAX function; K and V are copied once each, to fp32 in the layout
-    the products read."""
+    """q: [B, S, H, D]; k/v: [B, H, T, D] (the cache's heads-major
+    layout); score_mask: [B, 1, S, T] bool (True = visible). Returns
+    [B, S, H, D]. fp32 scores and softmax, as the JAX function."""
     return _attend_gqa(q, k, v, score_mask, 1)
 
 
 def _attend_gqa(q, k, v, score_mask, rep):
     """Grouped-query attention without expanding the KV cache. q:
-    [B, S, G*rep, D]; k/v: [B, T, G, D]; score_mask: [B, 1, S, T].
+    [B, S, G*rep, D]; k/v: [B, G, T, D]; score_mask: [B, 1, S, T].
     Returns [B, S, G*rep, D]. The ``rep`` query heads of a group and the
-    S positions share one product against the group's keys."""
+    S positions share one product against the group's keys, which is
+    read in place in the cache's dtype: the scores, the softmax and the
+    P.V sums in fp32. P keeps about fp32 precision against a bf16 cache:
+    it is split into a bf16 head and a bf16 tail (P - head, rounded),
+    whose rows go through one product with V and are summed after it
+    (each element off by at most 2^-18 of itself, against 2^-9 for P
+    rounded once)."""
     b, s, h, d = q.shape
     g = h // rep
-    t = k.shape[1]
-    qg = q.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4).float() \
-        .reshape(b, g, rep * s, d)
-    scores = (qg @ _f32_heads_major(k).transpose(-1, -2)) / math.sqrt(d)
+    t = k.shape[2]
+    qg = q.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4) \
+        .reshape(b * g, rep * s, d).to(k.dtype)
+    scores = _bmm_f32(qg, k.reshape(b * g, t, d).transpose(1, 2)) \
+        / math.sqrt(d)
     scores = torch.where(score_mask[:, None],
                          scores.reshape(b, g, rep, s, t), NEG_INF)
-    p = torch.softmax(scores, dim=-1).reshape(b, g, rep * s, t)
-    out = (p @ _f32_heads_major(v)).reshape(b, g, rep, s, d)
+    p = torch.softmax(scores, dim=-1).reshape(b * g, rep * s, t)
+    vg = v.reshape(b * g, t, d)
+    if v.dtype == torch.float32:
+        out = _bmm_f32(p, vg)
+    else:
+        head = p.to(v.dtype)
+        tail = (p - head.float()).to(v.dtype)
+        both = _bmm_f32(torch.cat([head, tail], dim=1), vg)
+        out = both[:, :rep * s] + both[:, rep * s:]
+    out = out.reshape(b, g, rep, s, d)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
@@ -259,7 +278,7 @@ class _LlamaDecoder:
 
     def _layer(self, w, i, h, cos, sin, kc, vc, write_pos, score_mask):
         """One layer with its cache append; h: [B, S, H*D]; kc/vc:
-        [B, M, kvh, hd] of this layer, written IN PLACE at cache slots
+        [B, kvh, M, hd] of this layer, written IN PLACE at cache slots
         ``write_pos .. write_pos + S - 1`` (write_pos: a long [1] tensor, so
         a captured step writes where the loop's counter says). Rows still
         inside their left padding write values that the score mask hides."""
@@ -269,8 +288,8 @@ class _LlamaDecoder:
         q, k = _rope_rows(q, k, cos, sin)
         slots = write_pos if s == 1 else \
             write_pos + torch.arange(s, device=h.device)
-        kc.index_copy_(1, slots, k.to(kc.dtype))
-        vc.index_copy_(1, slots, v.to(vc.dtype))
+        kc.index_copy_(2, slots, k.transpose(1, 2).to(kc.dtype))
+        vc.index_copy_(2, slots, v.transpose(1, 2).to(vc.dtype))
         if self.n_kv != self.n_heads:
             # grouped-query attention against the unexpanded cache
             att = _attend_gqa(q, kc, vc, score_mask,
@@ -282,7 +301,7 @@ class _LlamaDecoder:
     def step(self, w, tokens, positions, kcs, vcs, write_pos, score_mask,
              last=False):
         """tokens: [B, S] int; positions: [B, S] int (rope positions);
-        kcs/vcs: [L, B, M, kvh, hd], written in place; write_pos as in
+        kcs/vcs: [L, B, kvh, M, hd], written in place; write_pos as in
         _layer; score_mask: [B, 1, S, M]. Returns logits [B, S, V], or
         [B, 1, V] of the last position with ``last`` (the prefill needs no
         other)."""
@@ -468,8 +487,8 @@ class _GPTDecoder:
         q, k, v = self._qkv_proj(w, i, x, b, s)
         slots = write_pos if s == 1 else \
             write_pos + torch.arange(s, device=h.device)
-        kc.index_copy_(1, slots, k.to(kc.dtype))
-        vc.index_copy_(1, slots, v.to(vc.dtype))
+        kc.index_copy_(2, slots, k.transpose(1, 2).to(kc.dtype))
+        vc.index_copy_(2, slots, v.transpose(1, 2).to(vc.dtype))
         att = _attend(q, kc, vc, score_mask)
         return self._post_attn(w, i, h, att.reshape(b, s, -1))
 
@@ -630,36 +649,42 @@ class _DecodeLoop:
 
     def __init__(self, dec, w, b, s, max_new, do_sample, has_eos, top_k,
                  top_p, has_rep):
-        self.dec, self.w = dec, w          # the graph reads these tensors
-        self.ptrs = _weight_ptrs(w)
-        self.s, self.max_new = s, max_new
-        self.do_sample, self.has_eos, self.has_rep = do_sample, has_eos, \
-            has_rep
-        self.top_k, self.top_p = top_k, top_p
-        emb = w[dec.embed_key]
-        dev, dt = emb.device, emb.dtype
+        self._init_state(dec, w, b, s, max_new, has_eos)
+        dev, dt = self.kcs.device, self.kcs.dtype
         vocab = dec.cfg.vocab_size
-        self.kcs = torch.zeros(dec.n_layers, b, s + max_new, dec.n_kv,
-                               dec.hd, dtype=dt, device=dev)
-        self.vcs = torch.zeros_like(self.kcs)
+        self.do_sample, self.has_rep = do_sample, has_rep
+        self.top_k, self.top_p = top_k, top_p
         self.last_logits = torch.zeros(b, vocab, dtype=dt, device=dev)
-        self.key_mask = torch.zeros(b, s + max_new, dtype=torch.bool,
-                                    device=dev)
         self.out = torch.zeros(b, max_new, dtype=torch.int32, device=dev)
         self.finished = torch.zeros(b, dtype=torch.bool, device=dev)
         self.seen = torch.zeros(b, vocab if has_rep else 1, dtype=torch.bool,
                                 device=dev)
-        self.t = torch.zeros(1, dtype=torch.long, device=dev)
-        self.lengths = torch.zeros(b, dtype=torch.long, device=dev)
         self.temperature = torch.ones((), dtype=torch.float32, device=dev)
-        self.eos = torch.zeros((), dtype=torch.int32, device=dev)
         self.rep = torch.ones((), dtype=torch.float32, device=dev)
         # the uniform draws of the latest step; a generator of the loop's
         # own, registered with the graph, so that each replay draws anew
         self.noise = torch.zeros(b, vocab, dtype=torch.float32, device=dev) \
             if do_sample else None
         self.gen = torch.Generator(device=dev) if do_sample else None
-        self.graph = None
+
+    def _init_state(self, dec, w, rows, s, max_new, has_eos):
+        """What every loop carries, for ``rows`` cache rows: the weights
+        and their addresses, the caches, the key mask, the step counter,
+        the rows' prompt lengths and eos; no graph yet."""
+        self.dec, self.w = dec, w          # the graph reads these tensors
+        self.ptrs = _weight_ptrs(w)
+        self.s, self.max_new, self.has_eos = s, max_new, has_eos
+        emb = w[dec.embed_key]
+        dev, dt = emb.device, emb.dtype
+        self.kcs = torch.zeros(dec.n_layers, rows, dec.n_kv, s + max_new,
+                               dec.hd, dtype=dt, device=dev)
+        self.vcs = torch.zeros_like(self.kcs)
+        self.key_mask = torch.zeros(rows, s + max_new, dtype=torch.bool,
+                                    device=dev)
+        self.t = torch.zeros(1, dtype=torch.long, device=dev)
+        self.lengths = torch.zeros(rows, dtype=torch.long, device=dev)
+        self.eos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.noise = self.gen = self.graph = None
         self.tally = {}
 
     def _body(self):
@@ -755,6 +780,131 @@ class _DecodeLoop:
         return both[:, :-1], both[:, -1].bool()
 
 
+class _BeamLoop(_DecodeLoop):
+    """The beam search of one generate() signature (batch B, prompt
+    length, max_new_tokens, K beams, eos or not): the JAX ``_beam_impl``.
+    The beams are an expanded batch of B * K rows (row ``i * K + j`` is
+    beam j of prompt i); ``_body`` scores the K * V continuations of each
+    prompt, keeps the top K (ties to the lower index, as ``lax.top_k``),
+    and reorders the caches, ``out`` and ``finished`` along the beam axis.
+    Beam 0 starts live and the others at NEG_INF, so step 0 picks K
+    distinct tokens from beam 0; a finished beam offers only eos, at its
+    frozen score. ``result`` picks each prompt's best beam by
+    ``score / gen_len ** length_penalty``. Captured and replayed as
+    ``_DecodeLoop``."""
+
+    def __init__(self, dec, w, b, s, max_new, has_eos, num_beams):
+        self._init_state(dec, w, b * num_beams, s, max_new, has_eos)
+        dev = self.kcs.device
+        self.b, self.k = b, num_beams
+        self.vocab = vocab = dec.cfg.vocab_size
+        # the reorder gathers one layer's rows at a time into this buffer,
+        # which is copied back: the caches keep their addresses
+        self.scratch = torch.zeros_like(self.kcs[0])
+        self.last_lp = torch.zeros(b * num_beams, vocab, dtype=torch.float32,
+                                   device=dev)
+        self.scores = torch.zeros(b, num_beams, dtype=torch.float32,
+                                  device=dev)
+        self.out = torch.zeros(b, num_beams, max_new, dtype=torch.int32,
+                               device=dev)
+        self.finished = torch.zeros(b, num_beams, dtype=torch.bool,
+                                    device=dev)
+        self.length_penalty = torch.ones((), dtype=torch.float32,
+                                         device=dev)
+        self.row0 = torch.arange(b, device=dev)[:, None] * num_beams
+        self.only_eos = torch.zeros(vocab, dtype=torch.float32, device=dev)
+
+    def _reorder(self, rows):
+        """Every layer's cache rows gathered to ``rows`` [B * K], through
+        the scratch buffer: all of kcs and vcs read and written twice."""
+        for caches in (self.kcs, self.vcs):
+            for layer in caches:
+                torch.index_select(layer, 0, rows, out=self.scratch)
+                layer.copy_(self.scratch)
+
+    def _body(self):
+        """One iteration of the JAX ``_beam_impl`` loop body."""
+        b, k, v = self.b, self.k, self.vocab
+        lp = self.last_lp.view(b, k, v)
+        if self.has_eos:
+            lp = torch.where(self.finished[:, :, None], self.only_eos, lp)
+        cand = (self.scores[:, :, None] + lp).view(b, k * v)
+        top_sc, top_ix = torch.sort(cand, dim=-1, descending=True,
+                                    stable=True)
+        top_sc, top_ix = top_sc[:, :k], top_ix[:, :k]
+        src = top_ix // v                                 # [B, K]
+        tok = (top_ix % v).to(torch.int32)
+        self._reorder((self.row0 + src).view(-1))
+        self.out.copy_(torch.gather(
+            self.out, 1, src[:, :, None].expand(-1, -1, self.max_new)))
+        self.out.index_copy_(2, self.t, tok[:, :, None])
+        if self.has_eos:
+            self.finished.copy_(torch.gather(self.finished, 1, src)
+                                | (tok == self.eos))
+        self.scores.copy_(top_sc)
+        write_pos = self.t + self.s
+        self.key_mask.index_fill_(1, write_pos, True)
+        logits = self.dec.step(self.w, tok.view(-1, 1),
+                               (self.lengths + self.t)[:, None], self.kcs,
+                               self.vcs, write_pos,
+                               self.key_mask[:, None, None, :])
+        self.last_lp.copy_(torch.log_softmax(logits[:, 0].float(), dim=-1))
+        self.t += 1
+
+    def start(self, ids, mask, temperature, eos_id, rep_penalty, seed,
+              length_penalty=1.0):
+        """The prefill of every beam (the prompts repeated K times), and
+        the loop's state for a new call."""
+        k = self.k
+        with torch.inference_mode():
+            ids_r = ids.repeat_interleave(k, dim=0)
+            mask_r = mask.repeat_interleave(k, dim=0)
+            key_mask, last = _prefill(self.dec, self.w, ids_r, mask_r,
+                                      self.max_new, self.kcs, self.vcs)
+            self.key_mask.copy_(key_mask)
+            self.last_lp.copy_(torch.log_softmax(last.float(), dim=-1))
+            self.lengths.copy_(mask_r.sum(dim=1))
+            self.scores.fill_(NEG_INF)
+            self.scores[:, 0] = 0.0
+            self.out.zero_()
+            self.finished.zero_()
+            self.t.zero_()
+            self.eos.fill_(int(eos_id))
+            self.only_eos.fill_(NEG_INF)
+            self.only_eos[int(eos_id)] = 0.0
+            self.length_penalty.fill_(float(length_penalty))
+
+    def result(self):
+        """(tokens [B, max_new] int32, finished [B] bool) of each prompt's
+        best beam by length-penalised score (a finished beam's length is
+        its tokens up to and with its first eos), on the CPU."""
+        with torch.inference_mode():
+            if self.has_eos:
+                hit = self.out == self.eos
+                gen_len = torch.where(hit.any(dim=2),
+                                      hit.int().argmax(dim=2) + 1,
+                                      self.max_new).float()
+            else:
+                gen_len = torch.full(self.scores.shape, float(self.max_new),
+                                     device=self.scores.device)
+            norm = self.scores / gen_len ** self.length_penalty
+            best = torch.argmax(norm, dim=1)
+            toks = torch.gather(self.out, 1, best[:, None, None].expand(
+                -1, 1, self.max_new))[:, 0]
+            fin = torch.gather(self.finished, 1, best[:, None])
+            both = torch.cat([toks, fin.to(torch.int32)], dim=1).cpu()
+        return both[:, :-1], both[:, -1].bool()
+
+
+def _new_loop(dec, w, b, s, max_new, do_sample, has_eos, top_k, top_p,
+              has_rep, num_beams):
+    """The loop of a generate() signature: beams or one row a prompt."""
+    if num_beams > 1:
+        return _BeamLoop(dec, w, b, s, max_new, has_eos, num_beams)
+    return _DecodeLoop(dec, w, b, s, max_new, do_sample, has_eos, top_k,
+                       top_p, has_rep)
+
+
 def _weight_ptrs(w):
     """Where the weights live, the quantized leaves included: a captured
     loop reads them there. (The rope tables are constants of the
@@ -767,13 +917,13 @@ _LOOPS_MAX = 4      # captured loops a decoder keeps; each holds its caches
 
 
 def _loop_for(dec, w, *signature):
-    """The decoder's captured loop for ``signature`` (_DecodeLoop's
+    """The decoder's captured loop for ``signature`` (_new_loop's
     arguments after ``w``), captured at first use, as ``_jits_for`` keeps
     one compiled program per signature. A loop whose weight tensors were
     replaced is captured anew."""
     loop = dec.loops.pop(signature, None)
     if loop is None or loop.ptrs != _weight_ptrs(w):
-        loop = _DecodeLoop(dec, w, *signature)
+        loop = _new_loop(dec, w, *signature)
         loop.capture()
     dec.loops[signature] = loop
     while len(dec.loops) > _LOOPS_MAX:
@@ -783,19 +933,21 @@ def _loop_for(dec, w, *signature):
 
 def _decode(dec, w, ids, mask, max_new, do_sample=False, temperature=1.0,
             top_k=0, top_p=1.0, eos_token_id=None, seed=None,
-            repetition_penalty=1.0, capture=False):
+            repetition_penalty=1.0, num_beams=1, length_penalty=1.0,
+            capture=False):
     """generate()'s work on checked inputs (ids and mask [B, S] long on
     the weights' device): the captured loop with ``capture``, else the
     loop run op by op."""
     b, s = ids.shape
     signature = (b, s, int(max_new), bool(do_sample),
                  eos_token_id is not None, int(top_k), float(top_p),
-                 repetition_penalty != 1.0)
+                 repetition_penalty != 1.0, int(num_beams))
     loop = _loop_for(dec, w, *signature) if capture \
-        else _DecodeLoop(dec, w, *signature)
+        else _new_loop(dec, w, *signature)
+    extra = {"length_penalty": length_penalty} if num_beams > 1 else {}
     loop.start(ids, mask, temperature,
                eos_token_id if eos_token_id is not None else 0,
-               repetition_penalty, seed)
+               repetition_penalty, seed, **extra)
     for _ in range(int(max_new)):
         loop.step()
     return loop.result()
@@ -827,17 +979,24 @@ def generate(model, input_ids, attention_mask=None, max_new_tokens: int = 32,
     Returns (tokens [B, max_new_tokens] int32, finished [B] bool), CPU
     tensors: rows that hit ``eos_token_id`` keep emitting it. ``device``
     None means the GPU (raises without one); the model must live there.
-    On the GPU the decode step is one CUDA graph per (batch, prompt
-    length, max_new_tokens, sampling switches) signature, kept on the
-    model's decoder. Beam search is not ported."""
+    ``num_beams`` > 1 runs greedy beam search (``_BeamLoop``) and returns
+    each prompt's best beam by ``score / gen_len ** length_penalty``;
+    sampling and the repetition penalty are refused under beams, as in
+    the JAX package. On the GPU the decode step is one CUDA graph per
+    (batch, prompt length, max_new_tokens, sampling switches, num_beams)
+    signature, kept on the model's decoder."""
     if quant is not None and quant not in _QUANT_BITS:
         raise NotImplementedError(
             f"generate(quant={quant!r}): supported algos are "
             f"{sorted(_QUANT_BITS)}")
     if num_beams > 1:
-        raise NotImplementedError(
-            "generate(num_beams > 1): beam search is not ported to "
-            "paddle_tpu_torch yet (see ROADMAP.md)")
+        if do_sample:
+            raise NotImplementedError(
+                "beam search with sampling is not supported; use "
+                "do_sample=False (greedy beams) or num_beams=1")
+        if repetition_penalty != 1.0:
+            raise NotImplementedError(
+                "repetition_penalty under beam search is not supported")
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"the model lives on {model.device}, generate() "
@@ -868,8 +1027,8 @@ def generate(model, input_ids, attention_mask=None, max_new_tokens: int = 32,
         else dec.weights(model)
     return _decode(dec, w, ids.to(model.device), mask.to(model.device),
                    max_new_tokens, do_sample, temperature, top_k, top_p,
-                   eos_token_id, seed, repetition_penalty,
-                   capture=model.device.type == "cuda")
+                   eos_token_id, seed, repetition_penalty, max(num_beams, 1),
+                   length_penalty, capture=model.device.type == "cuda")
 
 
 def draft_greedy_batch(model, seqs, k: int, width: int = 64,

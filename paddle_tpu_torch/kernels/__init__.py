@@ -4,7 +4,9 @@
 adds one where it launches the kernel and nowhere else, so a run that
 zeroes the counts, drives the engine or a trainer and reads them shows which kernels
 the path really went through. A call on a CPU tensor takes the plain
-version and counts nothing.
+version and counts nothing. Where a kernel is a ``torch.library`` op, the
+count sits in the op's CUDA implementation, so a program exported with
+``jit.save`` counts its launches too (and a trace counts none).
 
 A CUDA graph's replay runs no Python, so no wrapper counts it: code
 that captures a graph takes the launches the capture counted back out

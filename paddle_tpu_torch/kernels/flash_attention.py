@@ -42,12 +42,19 @@ under ``causal`` (leading rows would see no key) and, with bounds, on
 ``sq != sk``. ``flash_takes`` says which mask-free calls they take, as
 the JAX package's ``is_available`` gates its kernel:
 ``nn.functional.scaled_dot_product_attention`` sends the others to its
-plain path, on either device.
+plain path, on either device, and ``nn.functional.flashmask_attention``
+sends the FlashMask calls they do not take to ``flashmask_attention_plain``.
+
+The forward and the pre-pass are ``torch.library`` ops
+(``ptt::flash_fwd``, ``ptt::flashmask_summary``): the plain version on CPU
+tensors, the kernel (launched and counted) on CUDA tensors, so a
+``jit.save`` program holds them. The backward launches directly.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -338,16 +345,24 @@ def _geometry(q, k, causal, scale, bounds, window):
             *_window_args(window, causal), stream)
 
 
-def flashmask_summary(bounds):
-    """The kernels' tile summary of CUDA int32 bounds [b, hb, sk, 4]: the
-    pre-pass kernel (``flashmask_summary_plain``'s function)."""
-    if bounds.device.type != "cuda":
-        raise ValueError(f"flashmask_summary launches a kernel: bounds are "
-                         f"on {bounds.device}")
+def _summary_check(bounds):
     if bounds.dtype != torch.int32 or bounds.dim() != 4 \
             or bounds.shape[3] != 4:
         raise ValueError(f"bounds must be int32 [b, hb, sk, 4], got "
                          f"{bounds.dtype} {tuple(bounds.shape)}")
+
+
+@torch.library.custom_op("ptt::flashmask_summary", mutates_args=(),
+                         device_types="cpu")
+def flashmask_summary_op(bounds: torch.Tensor) -> torch.Tensor:
+    """The bounds' tile summary: the pre-pass kernel on CUDA tensors."""
+    _summary_check(bounds)
+    return flashmask_summary_plain(bounds)
+
+
+@flashmask_summary_op.register_kernel("cuda")
+def _flashmask_summary_cuda(bounds):
+    _summary_check(bounds)
     bounds = _aligned(bounds)
     b, hb, sk, _ = bounds.shape
     summary = torch.empty(b, hb, -(-sk // TILE), 8, dtype=torch.int32,
@@ -361,18 +376,26 @@ def flashmask_summary(bounds):
     return summary
 
 
-def flash_forward(q, k, v, causal=False, scale=None, bounds=None, window=None,
-                  summary=None, tile_kinds=None):
-    """(out, lse). On CUDA tensors this launches the forward kernel, dense
-    or, with ``bounds`` (and ``window``), masked (and the tile-summary
-    pre-pass unless ``summary`` gives its result), and raises on what they
-    do not take; on CPU tensors it runs the plain version. ``tile_kinds``,
-    for checking the masked kernel: an int8 CUDA tensor [b * h, nq, nk] of
-    the kernel's tiles (``KIND_TILE[q.dtype]`` rows and keys) where it
-    writes each tile's kind, 0 skipped, 1 partial or 2 full, for every
-    tile its loop ranges over."""
-    if not _on_cuda(q, k, v, causal, bounds, window):
-        return flash_forward_plain(q, k, v, causal, scale, bounds, window)
+@flashmask_summary_op.register_fake
+def _flashmask_summary_fake(bounds):
+    b, hb, sk, _ = bounds.shape
+    return bounds.new_empty((b, hb, -(-sk // TILE), 8))
+
+
+def flashmask_summary(bounds):
+    """The kernels' tile summary of CUDA int32 bounds [b, hb, sk, 4]: the
+    pre-pass kernel (``flashmask_summary_plain``'s function), through
+    ``flashmask_summary_op``."""
+    if bounds.device.type != "cuda":
+        raise ValueError(f"flashmask_summary launches a kernel: bounds are "
+                         f"on {bounds.device}")
+    return flashmask_summary_op(bounds)
+
+
+def _forward_launch(q, k, v, causal, scale, bounds, window, summary,
+                    tile_kinds=None):
+    """The forward kernel on CUDA tensors it takes (raises on others)."""
+    _on_cuda(q, k, v, causal, bounds, window)
     if tile_kinds is not None:
         t = KIND_TILE[q.dtype]
         want = (q.shape[0] * q.shape[1], -(-q.shape[2] // t),
@@ -396,6 +419,66 @@ def flash_forward(q, k, v, causal=False, scale=None, bounds=None, window=None,
     _raise_on(lib, err, name)
     LAUNCHES[name] += 1
     return out, lse
+
+
+def _window_of(windowed, wl, wr):
+    return (wl, wr) if windowed else None
+
+
+@torch.library.custom_op("ptt::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: Optional[float],
+                 bounds: Optional[torch.Tensor],
+                 summary: Optional[torch.Tensor], windowed: bool,
+                 wl: Optional[int],
+                 wr: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of flash attention over ``[b, h, s, d]``, dense or with
+    FlashMask bounds and a window ``(wl, wr)`` (``windowed``): the forward
+    kernel on CUDA tensors (raising on what it does not take), the plain
+    version on CPU tensors."""
+    out, lse = flash_forward_plain(q, k, v, causal, scale, bounds,
+                                   _window_of(windowed, wl, wr))
+    return out, lse.contiguous()
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal, scale, bounds, summary, windowed, wl,
+                    wr):
+    return _forward_launch(q, k, v, causal, scale, bounds,
+                           _window_of(windowed, wl, wr), summary)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, bounds, summary, windowed, wl,
+                    wr):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def flash_forward(q, k, v, causal=False, scale=None, bounds=None, window=None,
+                  summary=None, tile_kinds=None):
+    """(out, lse), through ``flash_fwd_op``: on CUDA tensors the forward
+    kernel, dense or, with ``bounds`` (and ``window``), masked (and the
+    tile-summary pre-pass unless ``summary`` gives its result), raising on
+    what they do not take; on CPU tensors the plain version.
+    ``tile_kinds``, for checking the masked kernel (a direct launch, not
+    the op): an int8 CUDA tensor [b * h, nq, nk] of the kernel's tiles
+    (``KIND_TILE[q.dtype]`` rows and keys) where it writes each tile's
+    kind, 0 skipped, 1 partial or 2 full, for every tile its loop ranges
+    over."""
+    on_cuda = _on_cuda(q, k, v, causal, bounds, window)
+    if tile_kinds is not None:
+        if not on_cuda:
+            raise ValueError("tile_kinds is the CUDA kernel's")
+        return _forward_launch(q, k, v, causal, scale, bounds, window,
+                               summary, tile_kinds)
+    wl, wr = (None, None) if window is None else window
+    return flash_fwd_op(q, k, v, bool(causal),
+                        None if scale is None else float(scale), bounds,
+                        summary, window is not None,
+                        None if wl is None else int(wl),
+                        None if wr is None else int(wr))
 
 
 def flash_backward(q, k, v, out, lse, dout, causal=False, scale=None,
@@ -470,6 +553,40 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+class _PlainFlashAttention(torch.autograd.Function):
+    """(out, lse) = flash_forward_plain(...); the backward is
+    flash_backward_plain from the saved out and lse: the kernels'
+    function and roundings, on any device, for the calls the kernels do
+    not take."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, bounds, window):
+        out, lse = flash_forward_plain(q, k, v, causal, scale, bounds, window)
+        ctx.save_for_backward(q, k, v, out, lse, bounds)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        ctx.mark_non_differentiable(lse)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, bounds = ctx.saved_tensors
+        dq, dk, dv = flash_backward_plain(q, k, v, out, lse, dout,
+                                          ctx.causal, ctx.scale, bounds,
+                                          ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flashmask_attention_plain(q, k, v, bounds, causal=False, scale=None,
+                              window=None):
+    """``flashmask_attention``'s function through the plain versions on
+    any device and at any (sq, sk), causal top-left as the JAX dense path
+    has it: (out, lse), differentiable in q, k and v."""
+    return _PlainFlashAttention.apply(q, k, v, bool(causal), scale, bounds,
+                                      None if window is None
+                                      else tuple(window))
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Attention over ``[b, h, s, d]`` inputs, differentiable."""
     return FlashAttention.apply(q, k, v, bool(causal), scale)[0]
@@ -496,4 +613,6 @@ __all__ = ["flash_attention", "flash_attention_bshd", "flash_takes",
            "flash_forward", "flash_backward", "flash_forward_plain",
            "flash_backward_plain",
            "FlashAttention", "flashmask_visible", "flashmask_summary",
-           "flashmask_summary_plain", "flashmask_attention"]
+           "flashmask_summary_plain", "flashmask_attention",
+           "flashmask_attention_plain", "flash_fwd_op",
+           "flashmask_summary_op"]

@@ -20,6 +20,12 @@ writes the result once.
 ``h = h + o; x = rms(h)`` reads h and o once instead of writing h and
 reading it back.
 
+Each kernel is also a ``torch.library`` op (``ptt::rms_norm``,
+``ptt::add_rms_norm``, ``ptt::rope``) whose CPU implementation is the
+plain version and whose CUDA implementation launches the kernel and
+counts it: the wrappers and autograd functions below call the ops, and a
+program exported by ``jit.save`` holds them.
+
 Triton is imported, and the kernels compiled, at the first launch: the
 functions below are plain Python until ``_jit`` wraps them, so importing
 this module needs no Triton.
@@ -27,6 +33,7 @@ this module needs no Triton.
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 
@@ -167,19 +174,88 @@ def _norm_launch(x, weight, eps, residual):
     return y, s
 
 
+# -- the kernels as torch.library ops ---------------------------------------------
+#
+# Each op's CPU implementation is the plain version and its CUDA
+# implementation launches the kernel (and counts it): the dispatcher picks
+# by the tensors' device, so a program exported with ``torch.export`` (the
+# ``jit`` artifact) holds the op and, loaded on the card, launches the
+# kernel. The fake implementations give the shapes to the tracer.
+
+@torch.library.custom_op("ptt::rms_norm", mutates_args=(),
+                         device_types="cpu")
+def rms_norm_op(x: torch.Tensor, weight: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis: the Triton kernel on CUDA tensors."""
+    return rms_norm_plain(x, weight, eps)
+
+
+@rms_norm_op.register_kernel("cuda")
+def _rms_norm_cuda(x, weight, eps):
+    _on_cuda("rms_norm", x, weight)
+    y, _ = _norm_launch(x, weight, eps, None)
+    LAUNCHES["rms_norm"] += 1
+    return y
+
+
+@rms_norm_op.register_fake
+def _rms_norm_fake(x, weight, eps):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("ptt::add_rms_norm", mutates_args=(),
+                         device_types="cpu")
+def add_rms_norm_op(x: torch.Tensor, residual: torch.Tensor,
+                    weight: torch.Tensor,
+                    eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + residual, RMSNorm(x + residual)): the Triton kernel with its
+    residual on CUDA tensors."""
+    return add_rms_norm_plain(x, residual, weight, eps)
+
+
+@add_rms_norm_op.register_kernel("cuda")
+def _add_rms_norm_cuda(x, residual, weight, eps):
+    _on_cuda("add_rms_norm", x, residual, weight)
+    y, s = _norm_launch(x, weight, eps, residual)
+    LAUNCHES["rms_norm_residual"] += 1
+    return s, y
+
+
+@add_rms_norm_op.register_fake
+def _add_rms_norm_fake(x, residual, weight, eps):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
+@torch.library.custom_op("ptt::rope", mutates_args=(), device_types="cpu")
+def rope_op(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved-pair RoPE of q and k: the Triton kernel on CUDA
+    tensors."""
+    return fused_rope_plain(q, k, cos, sin)
+
+
+@rope_op.register_kernel("cuda")
+def _rope_cuda(q, k, cos, sin):
+    _on_cuda("fused_rope", q, k, cos, sin)
+    return _rope_launch(q, k, cos, sin)
+
+
+@rope_op.register_fake
+def _rope_fake(q, k, cos, sin):
+    return q.new_empty(q.shape), k.new_empty(k.shape)
+
+
 class RMSNormFunction(torch.autograd.Function):
-    """RMSNorm whose forward launches the Triton kernel and whose backward
-    is the autograd of the fp32 formula (``rms_norm_plain``), as the JAX
-    code differentiates its oracle; the JAX package has no backward kernel
-    for it."""
+    """RMSNorm whose forward is ``rms_norm_op`` (the Triton kernel on CUDA
+    tensors) and whose backward is the autograd of the fp32 formula
+    (``rms_norm_plain``), as the JAX code differentiates its oracle; the
+    JAX package has no backward kernel for it."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):
-        y, _ = _norm_launch(x, weight, eps, None)
-        LAUNCHES["rms_norm"] += 1
         ctx.save_for_backward(x, weight)
         ctx.eps = eps
-        return y
+        return rms_norm_op(x, weight, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -193,12 +269,9 @@ class RMSNormFunction(torch.autograd.Function):
 
 
 def rms_norm(x, weight, eps=1e-6):
-    """RMSNorm of x over the last axis, in x's dtype. Launches the Triton
-    kernel on a CUDA tensor (through ``RMSNormFunction``, which records no
-    graph under ``no_grad``/``inference_mode``), runs the plain version on a
-    CPU tensor."""
-    if not _on_cuda("rms_norm", x, weight):
-        return rms_norm_plain(x, weight, eps)
+    """RMSNorm of x over the last axis, in x's dtype, differentiable,
+    through ``rms_norm_op``: the Triton kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
     return RMSNormFunction.apply(x, weight, eps)
 
 
@@ -208,12 +281,9 @@ def add_rms_norm(x, residual, weight, eps=1e-6):
     sum is rounded to x's dtype and the norm is taken of that rounded sum,
     as the decoder's ``h = h + o; _rms(h)`` does (the Pallas kernel
     normalises the unrounded fp32 sum: the same in float32, up to one
-    rounding of the sum in bf16)."""
-    if not _on_cuda("add_rms_norm", x, residual, weight):
-        return add_rms_norm_plain(x, residual, weight, eps)
-    y, s = _norm_launch(x, weight, eps, residual)
-    LAUNCHES["rms_norm_residual"] += 1
-    return s, y
+    rounding of the sum in bf16). Through ``add_rms_norm_op``; not
+    differentiable (serving's)."""
+    return add_rms_norm_op(x, residual, weight, eps)
 
 
 def _rope_launch(q, k, cos, sin):
@@ -241,33 +311,32 @@ def _rope_launch(q, k, cos, sin):
 
 
 class RopeFunction(torch.autograd.Function):
-    """Rotary embedding whose forward and backward both launch the Triton
-    kernel: the backward rotates the output gradients by -theta (the same
-    kernel with -sin), which is the exact transpose of the rotation. The
-    JAX code takes the vjp of its oracle, which computes the same."""
+    """Rotary embedding whose forward and backward are both ``rope_op``
+    (the Triton kernel on CUDA tensors): the backward rotates the output
+    gradients by -theta (the same op with -sin), which is the exact
+    transpose of the rotation. The JAX code takes the vjp of its oracle,
+    which computes the same."""
 
     @staticmethod
     def forward(ctx, q, k, cos, sin):
         ctx.save_for_backward(cos, sin)
-        return _rope_launch(q, k, cos, sin)
+        return rope_op(q, k, cos, sin)
 
     @staticmethod
     def backward(ctx, gq, gk):
         cos, sin = ctx.saved_tensors
-        dq, dk = _rope_launch(gq.contiguous(), gk.contiguous(), cos, -sin)
+        dq, dk = rope_op(gq.contiguous(), gk.contiguous(), cos, -sin)
         return dq, dk, None, None
 
 
 def fused_rope(q, k, cos, sin):
     """Interleaved-pair rotary embedding of q [b, s, h, d] and k
-    [b, s, kvh, d] with cos/sin [s, d/2] (fp32), in one pass over both.
-    Launches the Triton kernel on CUDA tensors (through ``RopeFunction``),
-    runs the plain version on CPU tensors."""
-    if not _on_cuda("fused_rope", q, k, cos, sin):
-        return fused_rope_plain(q, k, cos, sin)
+    [b, s, kvh, d] with cos/sin [s, d/2] (fp32), in one pass over both,
+    differentiable, through ``rope_op``: the Triton kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     return RopeFunction.apply(q, k, cos, sin)
 
 
 __all__ = ["rms_norm", "add_rms_norm", "fused_rope", "rms_norm_plain",
            "add_rms_norm_plain", "fused_rope_plain", "RMSNormFunction",
-           "RopeFunction"]
+           "RopeFunction", "rms_norm_op", "add_rms_norm_op", "rope_op"]

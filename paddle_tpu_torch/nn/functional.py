@@ -120,13 +120,25 @@ class FlashMaskBounds(NamedTuple):
     causal: bool
 
 
+def flashmask_kernels_take(q, k, v):
+    """Whether the FlashMask kernels take a call on ``[batch, seq, heads,
+    head_dim]`` inputs: q_len == kv_len, head_dim in ``HEAD_DIMS``, and
+    q, k, v of one dtype the kernels take. The JAX package's ``use_pallas``
+    (``nn/functional/attention.py``) less its TPU tiling conditions; the
+    device plays no part."""
+    return (q.shape[1] == k.shape[1] and q.shape[-1] in FA.HEAD_DIMS
+            and q.dtype in (torch.float32, torch.bfloat16)
+            and k.dtype == q.dtype and v.dtype == q.dtype)
+
+
 def prepare_flashmask(startend_row_indices, q_len, num_heads, num_kv_heads,
-                      causal=False):
+                      causal=False, summarize=True):
     """``FlashMaskBounds`` of ``startend_row_indices [B, KH', Sk, C]`` for
     attention of ``q_len`` query rows and ``num_heads`` query heads over
     ``num_kv_heads`` kv heads: canonicalised, a KH' of kv_heads expanded to
     the query heads (1 stays broadcast, the kernels read it so) and, on
-    CUDA, summarised by the pre-pass kernel."""
+    CUDA unless ``summarize`` is False (a call routed to the plain
+    versions), summarised by the pre-pass kernel."""
     se = startend_row_indices
     if se.dim() != 4:
         raise ValueError(f"startend_row_indices must be [batch, kv_heads, "
@@ -140,7 +152,8 @@ def prepare_flashmask(startend_row_indices, q_len, num_heads, num_kv_heads,
             f"startend_row_indices kv_heads dim {bounds.shape[1]} must be "
             f"1, {kh}, or {h}")
     bounds = bounds.contiguous()
-    summary = FA.flashmask_summary(bounds) if bounds.is_cuda else None
+    summary = FA.flashmask_summary(bounds) \
+        if bounds.is_cuda and summarize else None
     return FlashMaskBounds(bounds, summary, bool(causal))
 
 
@@ -160,9 +173,13 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
     the heads), on CPU tensors their plain versions.
     ``return_softmax_lse`` also returns the kernel's lse ``[b, heads,
     sq]``. A row that sees no key gives 0 (see
-    ``kernels/flash_attention.py``). Not ported: dropout (raises) and
-    ``return_seed_offset`` (the JAX package raises too); q_len != kv_len
-    runs only on CPU tensors, with the JAX dense path's top-left causal."""
+    ``kernels/flash_attention.py``). A call the kernels do not take
+    (``flashmask_kernels_take``: q_len != kv_len, a head_dim outside
+    ``HEAD_DIMS``, another dtype) runs the plain versions on either
+    device, counted in ``LAUNCHES["sdpa_plain"]``, with the JAX dense
+    path's top-left causal, as the JAX package sends what its kernel does
+    not take to that path. Not ported: dropout (raises) and
+    ``return_seed_offset`` (the JAX package raises too)."""
     if return_seed_offset:
         raise NotImplementedError(
             "return_seed_offset tracks the reference's CUDA dropout RNG "
@@ -180,6 +197,7 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
                 "return_softmax_lse requires startend_row_indices")
         return scaled_dot_product_attention(query, key, value,
                                             is_causal=causal)
+    takes = flashmask_kernels_take(query, key, value)
     if isinstance(mask, FlashMaskBounds):
         if mask.causal != bool(causal):
             raise ValueError(f"bounds prepared with causal={mask.causal}, "
@@ -189,7 +207,8 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
             raise ValueError(
                 f"startend_row_indices must be [batch, kv_heads, {sk}, C], "
                 f"got {tuple(mask.shape)}")
-        mask = prepare_flashmask(mask.to(query.device), sq, h, kh, causal)
+        mask = prepare_flashmask(mask.to(query.device), sq, h, kh, causal,
+                                 summarize=takes)
     else:
         # window-only: empty bands (nothing extra masked)
         mask = FlashMaskBounds(torch.tensor(
@@ -201,10 +220,17 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
     if kh != h:                                    # GQA: expand kv
         k = k.repeat_interleave(h // kh, dim=1)
         v = v.repeat_interleave(h // kh, dim=1)
-    out, lse = FA.flashmask_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), mask.bounds,
-                                      causal=causal, window=window,
-                                      summary=mask.summary)
+    if takes:
+        # the kernels' lse is the function's, so return_softmax_lse stays
+        # on them (the JAX package computes it on its dense path)
+        out, lse = FA.flashmask_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), mask.bounds,
+                                          causal=causal, window=window,
+                                          summary=mask.summary)
+    else:
+        LAUNCHES["sdpa_plain"] += 1
+        out, lse = FA.flashmask_attention_plain(q, k, v, mask.bounds,
+                                                causal=causal, window=window)
     out = out.transpose(1, 2)
     return (out, lse) if return_softmax_lse else out
 
@@ -282,6 +308,6 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 
 
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
-           "FlashMaskBounds", "prepare_flashmask",
+           "FlashMaskBounds", "prepare_flashmask", "flashmask_kernels_take",
            "rms_norm", "layer_norm",
            "cross_entropy", "gelu", "linear", "embedding"]

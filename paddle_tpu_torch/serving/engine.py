@@ -29,6 +29,7 @@ the CPU the same step runs op by op. ``EnginePredictor`` and
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 import time
@@ -137,7 +138,9 @@ class ServingEngine:
     live there. On the GPU the step is captured in a CUDA graph here, and
     the engine raises if capture fails (it never falls back to the eager
     step). Thread-safe: ``submit`` may be called from client threads while
-    one thread drives ``step()``."""
+    one thread drives ``step()`` (``wait_for_work`` blocks that thread
+    until there is work; ``abort_all`` fails every live request). A step
+    runs on the engine's stream, whichever thread drives it."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  device=None):
@@ -214,6 +217,8 @@ class ServingEngine:
                                                 self.max_pages_per_seq)
         self._tables[:] = -1
         self._lock = threading.RLock()
+        self._work = threading.Event()     # set while requests wait or run
+        self.requests_failed = 0
         self.steps = 0
         self.tokens_fed = 0            # packed tokens run through the model
         self.tokens_generated = 0
@@ -230,6 +235,8 @@ class ServingEngine:
         self.capture_seconds = None
         self.graph_pool_bytes = None
         self._step = self._step_eager
+        self._stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
         if self.device.type == "cuda":
             self._capture()
             self._step = self._replay
@@ -245,6 +252,14 @@ class ServingEngine:
             x[3 * t:4 * t] != 0, x[4 * t:].view(self._tables.shape),
             self._kp, self._vp)
         return _argmax_rows(self._logits)
+
+    def _on_stream(self):
+        """The engine's stream (the one current where it was built) as the
+        calling thread's current stream: a step's staging copy, replay and
+        synchronize stay on one stream whichever thread drives it."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -323,6 +338,7 @@ class ServingEngine:
                 f"({self.pool.num_blocks} x {self.pool.block_size})")
         with self._lock:
             self.sched.submit(req)
+            self._work.set()
         return req
 
     # -- stepping side --------------------------------------------------------
@@ -337,6 +353,8 @@ class ServingEngine:
                 self._run_plan(plan)
                 self.steps += 1
                 self.tokens_fed += plan.total_tokens
+            if not self.sched.has_work():
+                self._work.clear()
             return self.sched.has_work()
 
     def _run_plan(self, plan) -> None:
@@ -363,7 +381,8 @@ class ServingEngine:
                      self._valid):
             rows[idx:] = 0             # padding rows
         t1 = time.perf_counter()
-        all_tok = self._step()
+        with self._on_stream():
+            all_tok = self._step()
         t2 = time.perf_counter()
         for e in plan.entries:
             e.req.pos = e.start + e.n  # draft positions confirmed below
@@ -417,7 +436,7 @@ class ServingEngine:
         """Copy one page across every layer of both pools (the device half
         of a copy-on-write rollback), on the engine's stream between two
         steps; the pools keep their addresses."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._on_stream():
             self._kp[:, dst].copy_(self._kp[:, src])
             self._vp[:, dst].copy_(self._vp[:, src])
 
@@ -440,6 +459,30 @@ class ServingEngine:
     def has_work(self) -> bool:
         with self._lock:
             return self.sched.has_work()
+
+    def wait_for_work(self, timeout: Optional[float] = None) -> bool:
+        """Block until a request is submitted, at most ``timeout``
+        seconds; True if there is work."""
+        return self._work.wait(timeout)
+
+    def abort_all(self, exc: Optional[BaseException] = None) -> int:
+        """Fail EVERY live request (running and waiting) with a
+        RuntimeError caused by ``exc`` and release their pages: the
+        cleanup a front door (``inference.BatchingServer``) runs when a
+        step raised, so that no client waits forever. Returns how many
+        requests were failed."""
+        with self._lock:
+            live = list(self.sched.running) + list(self.sched.waiting)
+            for req in live:
+                err = RuntimeError(f"request {req.rid} failed: the engine "
+                                   f"aborted ({exc!r})")
+                err.__cause__ = exc
+                self.sched.fail_request(req, err)
+            self.requests_failed += len(live)
+            self._tables[:] = -1
+            if not self.sched.has_work():
+                self._work.clear()
+        return len(live)
 
     def generate_batch(self, prompts: Sequence[Sequence[int]],
                        max_new_tokens: int = 32,

@@ -75,25 +75,33 @@ class Request:
         self.arrival = time.monotonic()
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        self.error: Optional[BaseException] = None
         self._done = threading.Event()
         self._stream: Optional["queue.Queue"] = queue.Queue() if stream \
             else None
 
     # -- client-side API ------------------------------------------------------
     def result(self, timeout: Optional[float] = None) -> List[int]:
-        """The full output token list once the request has finished."""
+        """The full output token list once the request has finished; raises
+        the request's error if the engine failed it."""
         if not self._done.wait(timeout):
             raise TimeoutError(f"request {self.rid} not finished")
+        if self.error is not None:
+            raise self.error
         return list(self.output)
 
     def stream(self):
-        """Yield tokens as they are generated (requires stream=True)."""
+        """Yield tokens as they are generated (requires stream=True); a
+        failed request's stream raises its error after the tokens it
+        delivered."""
         if self._stream is None:
             raise ValueError("request was not created with stream=True")
         while True:
             tok = self._stream.get()
             if tok is None:
                 return
+            if isinstance(tok, BaseException):
+                raise tok
             yield tok
 
     @property
@@ -114,6 +122,20 @@ class Request:
         self.finished_at = time.monotonic()
         if self._stream is not None:
             self._stream.put(None)
+        self._done.set()
+
+    def fail(self, exc: BaseException) -> None:
+        """Resolve this request with an error: ``result()`` raises it,
+        ``stream()`` raises it after the tokens it delivered. The first
+        terminal state wins."""
+        if self._done.is_set():
+            return
+        self.error = exc
+        self.finish_reason = "error"
+        self.state = FINISHED
+        self.finished_at = time.monotonic()
+        if self._stream is not None:
+            self._stream.put(exc)
         self._done.set()
 
 
@@ -226,6 +248,17 @@ class Scheduler:
         self.running.remove(req)
         self._release(req, cache_prefix=True)
         req.finish()
+
+    def fail_request(self, req: Request, exc: BaseException) -> None:
+        """Fail one request (an engine abort): take it out of the running
+        or waiting list, release its pages without caching them (their
+        K/V is not trusted) and resolve it with ``exc``."""
+        if req in self.running:
+            self.running.remove(req)
+            self._release(req, cache_prefix=False)
+        elif req in self.waiting:
+            self.waiting.remove(req)
+        req.fail(exc)
 
     def _preempt_youngest(self) -> Optional[Request]:
         """Pool pressure relief: kick the most recently admitted running

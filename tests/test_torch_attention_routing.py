@@ -209,3 +209,124 @@ def test_make_attend_keeps_the_kernel_path_for_what_it_takes():
     want = RA.ragged_attention_plain(t(q), t(kp), t(vp), t(tables), t(slot),
                                      t(pos), t(valid), 2)
     assert torch.equal(got, want)
+
+
+# -- FlashMask calls the kernels do not take ------------------------------------
+#
+# The JAX package sends them (``use_pallas`` off: q_len != kv_len, a head
+# dim its kernel lacks) to its dense path, whose causal is top-left; the
+# port's ``flashmask_kernels_take`` sends them to the plain versions on
+# either device, counted in ``sdpa_plain``. A row that sees no key is 0 in
+# the port and the mean of v in the JAX dense path (ROADMAP F2): it is
+# compared only with zero, and gradients are taken of the other rows.
+
+# (sq, sk, head_dim, kv heads of 4): shapes the FlashMask kernels refuse
+FM_ROUTED = {
+    "causal_q_longer": (24, 16, 64, 2),     # leading rows may see no key
+    "causal_q_shorter": (12, 20, 64, 4),
+    "d32": (16, 16, 32, 2),
+    "d256": (12, 12, 256, 4),
+    "d32_q_longer": (14, 9, 32, 4),
+}
+
+
+def _fm_inputs(sq, sk, kh, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, sq, 4, d)).astype(np.float32)
+    k, v = (rng.standard_normal((2, sk, kh, d)).astype(np.float32)
+            for _ in range(2))
+    # each key column's document end (its LTS): rows at or past it are
+    # masked from the column
+    se = rng.integers(max(1, sq // 2), sq + 1, (2, 1, sk, 1)).astype(np.int32)
+    return q, k, v, se
+
+
+def _fm_seen(se, sq, sk):
+    """[b, 1, sq, 1] bool: the rows that see at least one key."""
+    bounds = F._canonical_startend(torch.from_numpy(se), sq, True)
+    vis = FA.flashmask_visible(bounds, sq, sk, True)
+    return vis.any(-1)[..., None].permute(0, 2, 1, 3).numpy()
+
+
+@pytest.mark.parametrize("case", list(FM_ROUTED))
+def test_flashmask_routes_what_the_kernels_lack_like_jax(case):
+    sq, sk, d, kh = FM_ROUTED[case]
+    q, k, v, se = _fm_inputs(sq, sk, kh, d, seed=len(case))
+    want = JF.flashmask_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v, se)), causal=True).numpy()
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    assert not F.flashmask_kernels_take(*t)
+    before = dict(K.LAUNCHES)
+    got = F.flashmask_attention(*t, torch.from_numpy(se), causal=True)
+    assert K.LAUNCHES["sdpa_plain"] == before["sdpa_plain"] + 1
+    assert K.kernel_launches() == {n: c for n, c in before.items()
+                                   if n not in K.ROUTED}
+    seen = _fm_seen(se, sq, sk)
+    np.testing.assert_allclose(got.numpy() * seen, want * seen, atol=1e-5,
+                               rtol=1e-5)
+    assert not (got.numpy() * ~seen).any()
+    if case == "causal_q_longer":
+        assert not seen.all()           # the case has rows without a key
+
+
+@pytest.mark.parametrize("case", ["causal_q_longer", "causal_q_shorter",
+                                  "d256"])
+def test_flashmask_routed_gradients_match_jax(case):
+    sq, sk, d, kh = FM_ROUTED[case]
+    q, k, v, se = _fm_inputs(sq, sk, kh, d, seed=5)
+    seen = _fm_seen(se, sq, sk).astype(np.float32)
+    g = np.random.default_rng(6).standard_normal(q.shape).astype(
+        np.float32) * seen
+
+    def jax_fn(a, b, c):
+        return JF.flashmask_attention(paddle.Tensor(a), paddle.Tensor(b),
+                                      paddle.Tensor(c),
+                                      paddle.to_tensor(se),
+                                      causal=True)._data
+    _, vjp = jax.vjp(jax_fn, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    F.flashmask_attention(tq, tk, tv, torch.from_numpy(se),
+                          causal=True).backward(torch.from_numpy(g))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["causal_q_longer", "d32"])
+def test_flashmask_routed_bf16_matches_jax(case):
+    sq, sk, d, kh = FM_ROUTED[case]
+    arrays = [a.astype(jnp.bfloat16)
+              for a in _fm_inputs(sq, sk, kh, d, seed=9)[:3]]
+    se = _fm_inputs(sq, sk, kh, d, seed=9)[3]
+    want = JF.flashmask_attention(*(paddle.to_tensor(a) for a in arrays),
+                                  paddle.to_tensor(se), causal=True)
+    want = np.asarray(jnp.asarray(want._data, jnp.float32))
+    t = [torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+         for a in arrays]
+    before = K.LAUNCHES["sdpa_plain"]
+    got = F.flashmask_attention(*t, torch.from_numpy(se), causal=True)
+    assert got.dtype == torch.bfloat16
+    assert K.LAUNCHES["sdpa_plain"] == before + 1
+    seen = _fm_seen(se, sq, sk)
+    # the port rounds P to bf16 before P.V (the kernels' rounding), the
+    # JAX dense path does not: two ulps of each row's largest value
+    ref = np.abs(want * seen).max(-1, keepdims=True)
+    err = np.abs(got.float().numpy() * seen - want * seen)
+    assert (err <= 2 * 2.0 ** -7 * ref + 1e-6).all()
+
+
+def test_flashmask_keeps_the_kernel_path_for_what_it_takes():
+    """q_len == kv_len, head_dim 64: the kernels' path (their plain version
+    on the CPU), nothing routed."""
+    q, k, v, se = _fm_inputs(16, 16, 2, 64, seed=3)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    assert F.flashmask_kernels_take(*t)
+    assert not F.flashmask_kernels_take(t[0], t[1].double(), t[2])
+    before = dict(K.LAUNCHES)
+    got = F.flashmask_attention(*t, torch.from_numpy(se), causal=True)
+    assert K.LAUNCHES == before
+    want = JF.flashmask_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v, se)), causal=True).numpy()
+    seen = _fm_seen(se, 16, 16)
+    np.testing.assert_allclose(got.numpy() * seen, want * seen, atol=1e-5)

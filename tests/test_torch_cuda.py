@@ -1087,7 +1087,7 @@ def test_sampled_graph_draws_new_noise_each_step(dev):
     assert int(a.min()) >= 0 and int(a.max()) < 97
     dec = G._decoder_for(gpu)
     loop = G._loop_for(dec, dec.weights(gpu), 4, 20, 8, True, False, 50,
-                       0.9, False)
+                       0.9, False, 1)
     assert loop.graph is not None
     loop.start(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
                0.8, 0, 1.0, seed=7)
@@ -1410,3 +1410,185 @@ def test_spec_rollback_copies_a_shared_page_on_card(dev):
     assert torch.equal(eng._vp[:, cow[1]], v_before)
     assert torch.equal(eng._kp[:, pages[1]], k_before)
     assert torch.equal(eng._vp[:, pages[1]], v_before)
+
+
+# -- the kernels as torch.library ops, the artifact, beams, routing ------------
+#
+# Tolerances as above: each op on CUDA tensors (the kernel) against the
+# same op on CPU tensors (the plain version) from the same inputs.
+
+def test_library_ops_launch_their_kernels(dev):
+    """Each op on CUDA tensors launches its kernel (and counts it), on CPU
+    tensors runs the plain version (and counts nothing); the two agree."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 256, generator=g).bfloat16()
+    r = torch.randn(6, 256, generator=g).bfloat16()
+    w = torch.rand(256, generator=g).bfloat16() + 0.5
+    q = torch.randn(2, 9, 4, 64, generator=g).bfloat16()
+    k = torch.randn(2, 9, 2, 64, generator=g).bfloat16()
+    cos = torch.rand(9, 32, generator=g)
+    sin = torch.rand(9, 32, generator=g)
+    fq = torch.randn(1, 2, 100, 64, generator=g).bfloat16()
+    fk = torch.randn(1, 2, 100, 64, generator=g).bfloat16()
+    fv = torch.randn(1, 2, 100, 64, generator=g).bfloat16()
+    cases = {
+        "rms_norm": (fused.rms_norm_op, (x, w, 1e-6)),
+        "rms_norm_residual": (fused.add_rms_norm_op, (x, r, w, 1e-6)),
+        "rope": (fused.rope_op, (q, k, cos, sin)),
+        "flash_fwd": (FA.flash_fwd_op,
+                      (fq, fk, fv, True, None, None, None, False, None,
+                       None)),
+    }
+    for name, (op, args) in cases.items():
+        before = dict(K.LAUNCHES)
+        want = op(*args)
+        assert K.LAUNCHES == before
+        got = op(*[a.to(dev) if isinstance(a, torch.Tensor) else a
+                   for a in args])
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before[name] + 1, name
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for gt, wt in zip(got, want):
+            if name == "flash_fwd" and gt.dtype == torch.bfloat16:
+                _assert_rows_close(gt.cpu(), wt, 2)
+            else:
+                assert float((gt.cpu().float() - wt.float()).abs().max()) \
+                    <= _tol(wt, wt.dtype), name
+
+
+def test_flash_op_refuses_what_the_kernel_does_not_take(dev):
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    q = torch.zeros(1, 2, 8, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_fwd_op(q, q, q, False, None, None, None, False, None, None)
+
+
+@pytest.mark.parametrize("case", ["causal_q_longer", "causal_q_shorter",
+                                  "d32"])
+def test_flashmask_routed_to_the_plain_path_on_card(dev, case):
+    """FlashMask calls the kernels do not take run the plain versions on
+    the card, counted in sdpa_plain, equal to the CPU's within the
+    tolerances above; the rows that see a key only (a row without one is
+    0 on both)."""
+    from paddle_tpu_torch.nn import functional as F
+    sq, sk, d = {"causal_q_longer": (24, 16, 64),
+                 "causal_q_shorter": (16, 24, 64),
+                 "d32": (20, 20, 32)}[case]
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(2, sq, 4, d, generator=g)
+    k = torch.randn(2, sk, 2, d, generator=g)
+    v = torch.randn(2, sk, 2, d, generator=g)
+    se = torch.randint(sq // 2, sq + 1, (2, 1, sk, 1), generator=g,
+                       dtype=torch.int32)
+    want = F.flashmask_attention(q, k, v, se, causal=True)
+    before = dict(K.LAUNCHES)
+    got = F.flashmask_attention(q.to(dev), k.to(dev), v.to(dev), se.to(dev),
+                                causal=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sdpa_plain"] == before["sdpa_plain"] + 1
+    assert K.kernel_launches() == {n: c for n, c in before.items()
+                                   if n not in K.ROUTED}
+    assert float((got.cpu() - want).abs().max()) <= _tol(want,
+                                                         torch.float32)
+
+
+def test_dense_attention_reads_the_bf16_cache_in_place(dev):
+    """generate()'s attention over a bf16 heads-major cache on the card
+    (fp32-output bmms for the scores and for P.V, P as a bf16 head and
+    tail) against the fp32 form on the CPU (K and V copied to fp32, P
+    unrounded, the JAX function's arithmetic), within one bf16 ulp of the
+    tensor's largest value."""
+    from paddle_tpu_torch import generation as G
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(3, 1, 8, 64, generator=g).bfloat16()
+    kc = torch.randn(3, 2, 40, 64, generator=g).bfloat16()
+    vc = torch.randn(3, 2, 40, 64, generator=g).bfloat16()
+    mask = torch.rand(3, 1, 1, 40, generator=g) > 0.3
+    want = G._attend_gqa(q.float(), kc.float(), vc.float(), mask, 4) \
+        .bfloat16()
+    got = G._attend_gqa(q.to(dev), kc.to(dev), vc.to(dev), mask.to(dev), 4)
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= _tol(want, torch.bfloat16), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_beams_match_eager(dev, dtype):
+    """generate(num_beams=3)'s captured beam loop against the same loop
+    run op by op on the card: equal tokens and finished flags; float32
+    also equal to the CPU's beams."""
+    from paddle_tpu_torch import generation as G
+    cpu, gpu = _tiny_llama_pair(dev, dtype, kv_heads=2)
+    ids, mask = _left_padded(3, 20, seed=5)
+    kw = dict(max_new_tokens=8, num_beams=3, eos_token_id=11,
+              length_penalty=0.8)
+    got = G.generate(gpu, ids, attention_mask=mask, **kw)
+    dec = G._decoder_for(gpu)
+    want = G._decode(dec, dec.weights(gpu), torch.from_numpy(ids).to(dev),
+                     torch.from_numpy(mask).to(dev), 8, eos_token_id=11,
+                     num_beams=3, length_penalty=0.8, capture=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if dtype == torch.float32:
+        ref = G.generate(cpu, ids, attention_mask=mask, device="cpu", **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_artifact_runs_the_kernels_on_card(dev, tmp_path):
+    """A bf16 tiny Llama saved on the card and loaded there: its logits
+    equal the live forward's bit for bit, and the program launches the
+    RMSNorm, RoPE and flash kernels (no call routed to a plain path). The
+    float32 artifact saved on the CPU, loaded on the card, launches them
+    too and agrees with the CPU's logits within 2e-5."""
+    from paddle_tpu_torch import jit
+    cpu, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    ids = torch.from_numpy(_left_padded(2, 24, seed=6)[0])
+    spec = [jit.InputSpec([None, None], "int64")]
+    jit.save(gpu, str(tmp_path / "gpu"), input_spec=spec)
+    jit.save(cpu, str(tmp_path / "cpu"), input_spec=spec)
+    for tag in ("gpu", "cpu"):
+        layer = jit.load(str(tmp_path / tag))
+        K.reset_launches()
+        got = layer(ids)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        assert launches["flash_fwd"] > 0 and launches["rms_norm"] > 0 \
+            and launches["rope"] > 0 and launches["sdpa_plain"] == 0, launches
+        with torch.no_grad():
+            if tag == "gpu":
+                assert torch.equal(got, gpu(ids.to(dev)))
+            else:
+                want = cpu(ids)
+                assert float((got.cpu() - want).abs().max()) \
+                    <= _tol(want, torch.float32)
+
+
+def test_batching_server_delegates_to_the_engine_on_card(dev):
+    """Requests submitted to a BatchingServer over an EnginePredictor from
+    4 threads: the worker thread drives the engine's captured step, and
+    every request gets generate_batch's tokens."""
+    import threading
+    from paddle_tpu_torch.inference import (BatchingServer,
+                                            create_llm_predictor)
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    _, gpu = _tiny_llama_pair(dev, torch.bfloat16)
+    prompts = _serve_prompts(1) + _serve_prompts(2)
+    want = ServingEngine(gpu, EngineConfig()) \
+        .generate_batch(prompts, max_new_tokens=6)
+    pred = create_llm_predictor(gpu, max_new_tokens=6)
+    server = BatchingServer(pred)
+    got = [None] * len(prompts)
+
+    def client(i):
+        for j in range(i, len(prompts), 4):
+            got[j] = server.submit([np.asarray(prompts[j])])
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    try:
+        outs = [f.result(timeout=120)[0].tolist() for f in got]
+    finally:
+        server.close()
+    assert outs == want

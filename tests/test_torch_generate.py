@@ -4,6 +4,9 @@ A tiny Llama (MHA and GQA) is built in paddle_tpu and its weights carried
 across as numpy. The prefill's last logits must match the JAX prefill's to
 1e-5 in float32 and the greedy tokens of generate() must equal JAX's, for
 a left-padded ragged batch, with eos and with the repetition penalty.
+The dense attention over a bf16 cache (read in place by the port, copied
+to fp32 by JAX) must match JAX's in bf16 within one bf16 ulp of the
+output's largest value.
 Sampling: the top-k and top-p keep sets must equal the JAX ``_sample``'s
 on fixed logits (the logits it hands to ``jax.random.categorical``, read
 by a stand-in), and the port's Gumbel-max draws must pass a chi-square
@@ -73,7 +76,8 @@ def test_prefill_matches_jax(kv_heads):
     wk, wv, wmask, want = G._prefill(jdec, jdec.weights(jm), jnp.asarray(ids),
                                      jnp.asarray(mask), max_new)
     dec = TG._decoder_for(pm)
-    kcs = torch.full((2, 3, ids.shape[1] + max_new, kv_heads, 8), 7.0)
+    # the port's caches are heads-major [L, B, kvh, M, hd]
+    kcs = torch.full((2, 3, kv_heads, ids.shape[1] + max_new, 8), 7.0)
     vcs = torch.full_like(kcs, 7.0)
     key_mask, got = TG._prefill(dec, dec.weights(pm),
                                 torch.from_numpy(ids).long(),
@@ -83,7 +87,7 @@ def test_prefill_matches_jax(kv_heads):
     np.testing.assert_array_equal(key_mask.numpy(), np.asarray(wmask))
     real = np.asarray(wmask)[None, :, :, None, None]
     for port, ref in ((kcs, wk), (vcs, wv)):
-        np.testing.assert_allclose(port.numpy() * real,
+        np.testing.assert_allclose(port.transpose(2, 3).numpy() * real,
                                    np.asarray(ref) * real, atol=1e-5)
 
 
@@ -130,6 +134,40 @@ def test_generate_greedy_matches_jax(kv_heads, case):
                 assert (row[first:] == eos).all()
 
 
+@pytest.mark.parametrize("rep, s", [(1, 1), (4, 1), (2, 5)],
+                         ids=["mha-decode", "gqa-decode", "gqa-prefill"])
+def test_dense_attention_bf16_matches_jax(rep, s):
+    """The port's _attend_gqa on a bf16 heads-major cache against JAX's
+    on the same bf16 values in its [B, T, G, D] layout: within one bf16
+    ulp (2^-7, relative) of the output's largest value, and each element
+    within one bf16 ulp of itself (the two fp32 results round to
+    neighbours at worst) plus 2^-16 of max|v| (P's head-and-tail error,
+    at most 2^-18 of P, with room for fp32 sums in another order). P
+    rounded once to bf16 before P.V misses the second bound 11-17 times
+    over on these inputs."""
+    rng = np.random.default_rng(7 + rep + s)
+    b, g, t, d = 3, 2, 40, 64
+    q = rng.standard_normal((b, s, g * rep, d)).astype(np.float32)
+    k = rng.standard_normal((b, g, t, d)).astype(np.float32)
+    v = rng.standard_normal((b, g, t, d)).astype(np.float32)
+    mask = rng.random((b, 1, s, t)) > 0.3
+    mask[..., 0] = True
+    want = G._attend_gqa(*(jnp.asarray(x, jnp.bfloat16) for x in
+                           (q, k.transpose(0, 2, 1, 3),
+                            v.transpose(0, 2, 1, 3))),
+                         jnp.asarray(mask), rep)
+    want = np.asarray(want.astype(jnp.float32))
+    got = TG._attend_gqa(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                         torch.from_numpy(mask), rep)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = np.abs(got.float().numpy() - want)
+    assert float(diff.max()) <= 2.0 ** -7 * float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    v_max = float(torch.from_numpy(v).bfloat16().abs().max())
+    assert float((diff / (ulp + 2.0 ** -16 * v_max)).max()) <= 1.0
+
+
 def test_model_generate_method_takes_the_model_device():
     ids, mask = _batch()
     model = _port_model(2)
@@ -149,7 +187,8 @@ def test_generate_rejects_right_padding():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(num_beams=2), "ROADMAP"),
+    # beam search is ported: sampling under beams raises, as in JAX
+    (dict(num_beams=2, do_sample=True), "beam search with samp"),
     # quantized decoding is ported: an algo the JAX package lacks raises
     (dict(quant="weight_only_int2"), "supported algos")],
     ids=["num_beams", "quant"])

@@ -169,7 +169,7 @@ def test_generate_matches_jax(model):
     jdec, dec = G._decoder_for(jm), TG._decoder_for(pm)
     _, _, _, jlast = G._prefill(jdec, jdec.weights(jm), jnp.asarray(ids),
                                 jnp.asarray(mask), 4)
-    kcs = torch.zeros(2, 3, ids.shape[1] + 4, 4, 8)
+    kcs = torch.zeros(2, 3, 4, ids.shape[1] + 4, 8)       # [L, B, kvh, M, hd]
     _, last = TG._prefill(dec, dec.weights(pm), torch.from_numpy(ids).long(),
                           torch.from_numpy(mask).long(), 4, kcs,
                           torch.zeros_like(kcs))

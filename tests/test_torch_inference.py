@@ -84,7 +84,6 @@ def test_tensorrt_max_batch_size_routed():
 
 
 @pytest.mark.parametrize("knob", ["switch_ir_optim", "enable_memory_optim",
-                                  "enable_use_gpu", "disable_gpu",
                                   "enable_xpu",
                                   "set_cpu_math_library_num_threads"])
 def test_noop_knobs_warn_once(knob, monkeypatch):
@@ -99,6 +98,35 @@ def test_noop_knobs_warn_once(knob, monkeypatch):
         getattr(conf, knob)(*args)             # once per process
 
 
+@pytest.mark.parametrize("knob, device, use_gpu, device_id", [
+    ("default", None, True, 0), ("enable_use_gpu", "cuda:1", True, 1),
+    ("disable_gpu", "cpu", False, 0)])
+def test_gpu_knobs_pick_the_predictors_device(knob, device, use_gpu,
+                                              device_id):
+    """enable_use_gpu / disable_gpu are routed, not warned: they name the
+    device the Predictors run on, and set_model keeps it."""
+    conf = inference.Config()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        if knob == "enable_use_gpu":
+            conf.enable_use_gpu(100, 1)
+        elif knob == "disable_gpu":
+            conf.disable_gpu()
+    conf.set_model("somewhere/model")
+    assert (conf.device(), conf.use_gpu(), conf.gpu_device_id()) == \
+        (device, use_gpu, device_id)
+
+
+def test_disable_gpu_puts_the_engine_predictor_on_the_cpu():
+    """create_llm_predictor with no device= serves on the config's
+    device: after disable_gpu() the CPU, with no GPU asked for."""
+    conf = inference.Config()
+    conf.disable_gpu()
+    pred = inference.create_llm_predictor(_port_model(), conf,
+                                          max_new_tokens=2)
+    assert pred.engine.device.type == "cpu"
+
+
 @pytest.mark.parametrize("call", ["set_tensor_parallel_degree",
                                   "set_speculative_config",
                                   "create_predictor"])
@@ -110,11 +138,15 @@ def test_unported_front_door_raises(call):
         with pytest.raises(ValueError, match="unknown speculative"):
             conf.set_speculative_config("medusa")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "set_tensor_parallel_degree":
-            conf.set_tensor_parallel_degree(2)
-        else:
+    if call == "create_predictor":
+        # the artifact Predictor is ported: a Config without a model path
+        # raises as in the JAX package (tests/test_torch_predictor.py runs
+        # the rest)
+        with pytest.raises(ValueError, match="model path"):
             inference.PredictorPool(config=conf)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conf.set_tensor_parallel_degree(2)
 
 
 def test_predictor_pool_clones_share_one_engine():

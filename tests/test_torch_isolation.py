@@ -51,7 +51,8 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.models.llama, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.generation, paddle_tpu_torch.quantization, "
             "paddle_tpu_torch.kernels.quant_matmul, "
-            "paddle_tpu_torch.serving.speculative; "
+            "paddle_tpu_torch.serving.speculative, paddle_tpu_torch.jit, "
+            "paddle_tpu_torch.kernels.fused; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -126,3 +127,30 @@ def test_training_follows_the_model_device():
     assert K.kernel_launches() == before
     assert all(s["moment1"].device.type == "cpu"
                for s in tr.opt._state.values())
+
+
+def test_artifact_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """jit.load and create_predictor (and so PredictorPool) load onto the
+    GPU unless the caller asks for the CPU; with it they run there."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import (Config, PredictorPool,
+                                            create_predictor)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(vocab_size=17, hidden_size=16, layers=1, heads=2,
+                           kv_heads=1, seq=16)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    path = str(tmp_path / "m")
+    jit.save(model, path, input_spec=[jit.InputSpec([None, 4], "int64")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = Config(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        jit.load(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_predictor(conf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PredictorPool(conf, size=2)
+    conf.disable_gpu()
+    (out,) = create_predictor(conf).run([[[1, 2, 3, 4]]])
+    assert out.shape == (1, 4, 17)
+    assert jit.load(path, device="cpu")(torch.ones(2, 4, dtype=torch.long)) \
+        .shape == (2, 4, 17)

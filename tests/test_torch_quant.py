@@ -261,7 +261,7 @@ def test_quantized_generate_matches_jax(model, algo):
     assert {k for k in jw if "::" in k} == {k for k in w if "::" in k}
     _, _, _, jlast = G._prefill(jdec, jw, jnp.asarray(ids), jnp.asarray(mask),
                                 4)
-    kcs = torch.zeros(dec.n_layers, 3, ids.shape[1] + 4, dec.n_kv, dec.hd)
+    kcs = torch.zeros(dec.n_layers, 3, dec.n_kv, ids.shape[1] + 4, dec.hd)
     _, last = TG._prefill(dec, w, torch.from_numpy(ids).long(),
                           torch.from_numpy(mask).long(), 4, kcs,
                           torch.zeros_like(kcs))
