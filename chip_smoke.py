@@ -127,6 +127,20 @@ Phases, each printing its own lines and its seconds:
      routed) through the kernels' torch.library ops; then the same model
      saved on the CPU and loaded on the card, with the same checks; save,
      load and run seconds; the artifacts are deleted;
+  12. the training surface on the llama-1.1b-b8 widths (bf16 weights,
+     batch 8 x 2048, nothing cut): the usual recipe (AdamW at warmup then
+     cosine, no decay on the named norms, the embedding at half the rate,
+     global-norm clipping) 5 steps, the rate of each update equal to the
+     scheduler's and exact launch counts; the same run saved after 3 steps
+     (model, optimizer, scheduler through framework.io) and resumed in a
+     fresh model, bit-equal to it, with save and load seconds; the same 5
+     steps under remat "dots", bit-equal, with step ms and peak memory
+     beside "full"; 3 steps of float32 weights under auto_cast O1 (flash
+     through the bf16 kernel); a 2-layer recipe (bf16, and auto_cast) no
+     further from float32 through the kernels than through the plain
+     versions (1.1x overall, 1.25x per parameter); GradScaler skipping a
+     step with an inf; every optimizer rule and LBFGS on a tiny float32
+     Llama equal to the CPU's within rtol 1e-5;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -140,6 +154,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -1685,8 +1700,10 @@ def phase_train_kernels(torch, results):
     GPT-MoE one [8, 12, 1024, 64] causal (both timed beside their bound
     and SDPA), at ragged lengths (d 64 and 128), causal with sq < sk and
     non-causal; float32 at a ragged and an sq < sk case. AdamW over one
-    decoder layer's tensors and the embedding of the 1.1B model."""
+    decoder layer's tensors and the embedding of the 1.1B model, with
+    per-tensor rates and decays in one launch."""
     import torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     from paddle_tpu_torch.kernels.optimizer import (adamw_plain,
                                                     multi_tensor_adamw)
@@ -1804,7 +1821,9 @@ def phase_train_kernels(torch, results):
         del q, k, v, dout, out, lse, qg, kg, vg
         torch.cuda.empty_cache()
 
-    # AdamW over one decoder layer of the 1.1B model and its embedding
+    # AdamW over one decoder layer of the 1.1B model and its embedding, as
+    # phase 12's recipe gives them: the embedding at half the rate, no
+    # decay on the two norms
     g = torch.Generator(device=dev).manual_seed(31)
     hid, inter, vocab = 2048, 5632, 32000
     shapes = [(hid, hid)] * 4 + [(hid, inter)] * 2 + [(inter, hid)] \
@@ -1815,15 +1834,20 @@ def phase_train_kernels(torch, results):
           for s in shapes]
     ms = [1e-4 * torch.randn(s, device=dev, generator=g) for s in shapes]
     vs = [1e-8 * torch.rand(s, device=dev, generator=g) for s in shapes]
-    wds = [0.01] * len(shapes)
+    wds = [0.01] * 7 + [0.0] * 2 + [0.01]
+    mults = [1.0] * 9 + [0.5]
     hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8)
     want = [adamw_plain(p, gg, m, v, hp["lr"], hp["beta1"], hp["beta2"],
-                        hp["eps"], wd, 3.0)
-            for p, gg, m, v, wd in zip(ps, gs, ms, vs, wds)]
+                        hp["eps"], wd, 3.0, True, mu)
+            for p, gg, m, v, wd, mu in zip(ps, gs, ms, vs, wds, mults)]
     # elements whose bf16 value the update changes: a kernel that did not
     # write p would differ from the plain version there
     changed = sum(int((wp != p).sum()) for (wp, _, _), p in zip(want, ps))
-    multi_tensor_adamw(ps, gs, ms, vs, wds=wds, step=3.0, **hp)
+    before = K.LAUNCHES["adamw"]
+    multi_tensor_adamw(ps, gs, ms, vs, wds=wds, step=3.0, lr_mults=mults,
+                       **hp)
+    if K.LAUNCHES["adamw"] != before + 1:
+        raise AssertionError("the AdamW check is not one launch")
     torch.cuda.synchronize()
     print(f"  adamw: the update changes {changed} bf16 parameter values",
           flush=True)
@@ -1841,12 +1865,13 @@ def phase_train_kernels(torch, results):
     # one launch of ~1 ms a call: CUDA events around eager calls time the
     # card, not the host
     ms_k = _time_ms(lambda: multi_tensor_adamw(ps, gs, ms, vs, wds=wds,
-                                               step=3.0, **hp), 10)
+                                               step=3.0, lr_mults=mults,
+                                               **hp), 10)
     ms_plain = _time_ms(lambda: [adamw_plain(p, gg, m, v, hp["lr"],
                                              hp["beta1"], hp["beta2"],
-                                             hp["eps"], wd, 3.0)
-                                 for p, gg, m, v, wd in zip(ps, gs, ms, vs,
-                                                            wds)], 3)
+                                             hp["eps"], wd, 3.0, True, mu)
+                                 for p, gg, m, v, wd, mu in zip(
+                                     ps, gs, ms, vs, wds, mults)], 3)
     del ps, gs, ms, vs
     torch.cuda.empty_cache()
     fp = [torch.nn.Parameter(torch.zeros(s, device=dev)) for s in shapes]
@@ -1862,10 +1887,13 @@ def phase_train_kernels(torch, results):
                             library_ms=lib_ms, elements=n,
                             library_bytes=28 * n)
     print(f"  adamw over {n} elements (bf16 p, g; fp32 m, v; 22 bytes an "
-          f"element): ms={ms_k:.4f} plain_ms={ms_plain:.4f} bound_ms="
-          f"{bound_ms:.4f} ({bound_by}); torch.optim.AdamW(fused=True) over "
-          f"fp32 tensors of the same count (28 bytes an element) "
-          f"{lib_ms:.4f} ms", flush=True)
+          f"element; rate multipliers 0.5 on the embedding, wd 0 on the "
+          f"norms): ms={ms_k:.4f} ({bound_ms / ms_k:.3f} of the bound; "
+          f"before per-tensor rates, PERF.md section 6: 0.9420 ms against "
+          f"0.7678) plain_ms={ms_plain:.4f} bound_ms={bound_ms:.4f} "
+          f"({bound_by}); torch.optim.AdamW(fused=True) over fp32 tensors "
+          f"of the same count (28 bytes an element) {lib_ms:.4f} ms "
+          f"[{_card_line()}]", flush=True)
     _norm_rope_at_training_shapes(torch, dev)
 
 
@@ -2628,6 +2656,24 @@ def _trainer_for(torch, model, lr=1e-4):
         remat_layers=list(model.model.layers), remat_policy="full")
 
 
+def _llama_train_per_step(n_l, packed=False):
+    """The kernel launches of one Llama training step with every layer
+    remat'd (full, dots or dots_no_batch: all three recompute the norms,
+    RoPE and the flash forward): each layer's two norms, RoPE and flash
+    forward in the forward and again in the recompute, the final norm
+    once, RoPE's and flash's backward once, one AdamW launch."""
+    from paddle_tpu_torch import kernels as K
+    per_step = {n: 0 for n in K.LAUNCHES}
+    per_step.update(rms_norm=2 * n_l + 1 + 2 * n_l, rope=3 * n_l, adamw=1)
+    if packed:       # the pre-pass runs once, in the model's forward
+        per_step.update(flashmask_fwd=2 * n_l, flashmask_bwd_dq=n_l,
+                        flashmask_bwd_dkv=n_l, flashmask_summary=1)
+    else:
+        per_step.update(flash_fwd=2 * n_l, flash_bwd_dq=n_l,
+                        flash_bwd_dkv=n_l)
+    return per_step
+
+
 def phase_training(torch, args, launches_out, packed=False):
     """The llama-1.1b-b8 recipe of bench.py at full width: bf16 weights
     (model.bfloat16()), fp32 moments, AdamW lr 1e-4 wd 0.01, full remat of
@@ -2682,14 +2728,7 @@ def phase_training(torch, args, launches_out, packed=False):
     launches = dict(K.LAUNCHES)
     losses += [float(x) for x in timed]
     n_l = cfg.num_hidden_layers
-    per_step = {n: 0 for n in K.LAUNCHES}
-    per_step.update(rms_norm=2 * n_l + 1 + 2 * n_l, rope=3 * n_l, adamw=1)
-    if packed:       # the pre-pass runs once, in the model's forward
-        per_step.update(flashmask_fwd=2 * n_l, flashmask_bwd_dq=n_l,
-                        flashmask_bwd_dkv=n_l, flashmask_summary=1)
-    else:
-        per_step.update(flash_fwd=2 * n_l, flash_bwd_dq=n_l,
-                        flash_bwd_dkv=n_l)
+    per_step = _llama_train_per_step(n_l, packed)
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
@@ -3845,6 +3884,492 @@ def phase_artifact(torch, args, launches_out):
     return out
 
 
+# -- phase 12: the training surface ------------------------------------------------
+
+def _recipe(model):
+    """The usual recipe: (scheduler, AdamW) with warmup then cosine, weight
+    decay 0.1 on every parameter whose name lacks "norm", global-norm
+    clipping at 1.0."""
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=10), 2, 0.0,
+                            3e-4)
+    return sched, AdamW(learning_rate=sched, parameters=model.parameters(),
+                        weight_decay=0.1,
+                        apply_decay_param_fun=lambda n: "norm" not in n,
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _recipe_model(torch, cfg, seed, dtype):
+    """The Llama of ``cfg`` on the card from ``seed``, in ``dtype``, with
+    the recipe's attributes: the norms named, the embedding at half the
+    rate."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn.initializer import ParamAttr, set_param_attr
+    model = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.to(dtype)
+    for n, p in model.named_parameters():
+        if "norm" in n:
+            set_param_attr(p, ParamAttr(name=n))
+    set_param_attr(model.model.embed_tokens.weight,
+                   ParamAttr(learning_rate=0.5))
+    return model
+
+
+def _recipe_trainer(model, opt, policy="full", cast=False):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.parallel import SpmdTrainer
+
+    def loss(m, ids, labels):
+        if not cast:
+            return m.forward_loss(ids, labels, loss_chunk_size=256)
+        with amp.auto_cast():
+            return m.forward_loss(ids, labels, loss_chunk_size=256)
+    return SpmdTrainer(model, opt, loss, remat_layers=list(model.model.layers),
+                       remat_policy=policy)
+
+
+def _recipe_steps(torch, trainer, sched, batch, n):
+    """``n`` steps, the scheduler stepped after each: (losses, each
+    step's seconds, the rate each step's update was given)."""
+    rates = []
+    update = trainer.opt._update_all
+
+    def spy(params, grads, lr, mults, step):
+        rates.append(lr)
+        return update(params, grads, lr, mults, step)
+
+    trainer.opt._update_all = spy
+    losses, secs = [], []
+    for _ in range(n):
+        t = time.monotonic()
+        losses.append(float(trainer.train_step(*batch)))
+        trainer.block()
+        secs.append(time.monotonic() - t)
+        sched.step()
+    trainer.opt._update_all = update
+    return losses, secs, rates
+
+
+def _free(torch):
+    """Give back the memory of the models just dropped: a remat'd layer
+    and its wrapped forward refer to each other, so only the cycle
+    collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _recipe_run(torch, cfg, seed, batch, n, policy="full"):
+    """A fresh recipe model and trainer (bf16), ``n`` steps with the
+    launch counts zeroed just before and read just after, then one
+    profiled step: (losses, seconds, rates, launches, peak GB, {name:
+    parameter on the CPU after the n steps}, the profiled step's
+    breakdown)."""
+    from paddle_tpu_torch import kernels as K
+    model = _recipe_model(torch, cfg, seed, torch.bfloat16)
+    sched, opt = _recipe(model)
+    trainer = _recipe_trainer(model, opt, policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    losses, secs, rates = _recipe_steps(torch, trainer, sched, batch, n)
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    _, breakdown = _profile(torch, lambda: trainer.train_step(*batch), 1)
+    del model, opt, trainer
+    _free(torch)
+    return losses, secs, rates, launches, peak, params, breakdown
+
+
+def _breakdown_line(m):
+    return (f"device {m['device_ms']:.2f} ms of a {m['wall_ms']:.2f} ms "
+            f"traced step (idle share {m['idle_share']:.3f}), "
+            f"{m['device_launches']:.0f} kernels; by group (ms): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in m["by_group_ms"].items()))
+
+
+def _hold_launches(tag, launches, per_step, n):
+    expect = {k: n * v for k, v in per_step.items()}
+    print(f"  {tag}: launches over {n} steps {launches} (expected "
+          f"{expect})", flush=True)
+    _nothing_routed(launches, tag)
+    if launches != expect:
+        raise AssertionError(f"{tag}: launch counts {launches} != {expect}")
+
+
+def _same_params(torch, tag, a, b):
+    diff = [k for k in b if not torch.equal(a[k], b[k])]
+    print(f"  {tag}: {len(b) - len(diff)} of {len(b)} parameters bit-equal",
+          flush=True)
+    if diff:
+        raise AssertionError(f"{tag}: parameters differ ({diff[:4]})")
+
+
+def _adamw_plain_all(params, grads, ms, vs, *, lr, beta1, beta2, eps, wds,
+                     step, decoupled=True, lr_mults=None):
+    """``multi_tensor_adamw`` through ``adamw_plain`` tensor by tensor (what
+    its CPU path runs), on any device."""
+    from paddle_tpu_torch.kernels.optimizer import adamw_plain
+    for p, g, m, v, wd, mult in zip(params, grads, ms, vs, wds,
+                                    lr_mults or [1.0] * len(params)):
+        pn, mn, vn = adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd, step,
+                                 decoupled, mult)
+        p.copy_(pn)
+        m.copy_(mn)
+        v.copy_(vn)
+
+
+def _recipe_agreement(torch, seed, cast):
+    """3 recipe steps at the 1.1B widths with 2 layers (batch 1 x 2048)
+    through the kernels and through the plain versions (the CPU's code,
+    here on the card), and a float32 reference through the plain
+    versions. bf16 (``cast`` False): bf16 weights; ``cast``: float32
+    weights under auto_cast O1 (the reference without it). Each run's
+    parameter change (final less initial) must be no further from the
+    reference's than the plain run's: within 1.1x over all parameters
+    and 1.25x for each."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch import optimizer as O
+    cfg = _llama_1b(layers=2)
+    ids = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (1, 2048))).cuda()
+    base = _recipe_model(torch, cfg, seed + 3, torch.bfloat16)
+    init = {n: p.detach().float() for n, p in base.named_parameters()}
+    del base
+
+    def run(dtype, plain, with_cast):
+        model = _recipe_model(torch, cfg, seed + 3, dtype)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n].to(dtype))
+        sched, opt = _recipe(model)
+        trainer = _recipe_trainer(model, opt, cast=with_cast)
+        before = dict(K.LAUNCHES)
+        with ExitStack() as stack:
+            if plain:
+                _plain_train_patches(stack)
+                stack.enter_context(mock.patch.object(
+                    O, "multi_tensor_adamw", _adamw_plain_all))
+            losses, _, _ = _recipe_steps(torch, trainer, sched, (ids, ids), 3)
+        if plain and K.LAUNCHES != before:
+            raise AssertionError("the plain recipe launched a kernel")
+        if not plain and K.LAUNCHES["flash_fwd"] == before["flash_fwd"]:
+            raise AssertionError("the kernel recipe launched no flash_fwd")
+        delta = {n: p.detach().float() - init[n]
+                 for n, p in model.named_parameters()}
+        del model, opt, trainer
+        _free(torch)
+        return losses, delta
+
+    low = torch.float32 if cast else torch.bfloat16
+    l32, d32 = run(torch.float32, True, False)
+    lk, dk = run(low, False, cast)
+    lp, dp = run(low, True, cast)
+    err_k, leaf_k = _rel_dist(dk, d32)
+    err_p, leaf_p = _rel_dist(dp, d32)
+    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
+    worst = max(ratio, key=ratio.get)
+    tag = "auto_cast O1 over float32" if cast else "bf16"
+    print(f"  2-layer recipe, {tag}: losses kernels {lk} plain {lp} float32 "
+          f"{l32}; the parameters' change, relative L2 distance from the "
+          f"float32 run's: kernels {err_k:.5g}, plain {err_p:.5g} (tol: "
+          f"kernels <= 1.1 x plain); per parameter the largest ratio "
+          f"{ratio[worst]:.4g} at {worst} (tol 1.25)", flush=True)
+    if not (err_k <= 1.1 * err_p and max(ratio.values()) <= 1.25
+            and all(math.isfinite(x) for x in lk + lp)):
+        raise AssertionError(f"the 2-layer recipe ({tag}) through the "
+                             f"kernels disagrees with the plain versions")
+    return dict(kernels=err_k, plain=err_p, worst_param_ratio=ratio[worst])
+
+
+def _grad_scaler_on_card(torch, seed):
+    """GradScaler under auto_cast on a 2-layer float32 model: an inf
+    planted in one gradient skips the step and halves the scale; the next,
+    clean step updates and keeps the scale."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = _llama_1b(layers=2)
+    model = _recipe_model(torch, cfg, seed + 4, torch.float32)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    ids = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab_size, (1, 512))).cuda()
+    seen = []
+    for plant in (True, False):
+        before = model.model.norm.weight.detach().clone()
+        with amp.auto_cast():
+            loss = model.forward_loss(ids, ids, loss_chunk_size=256)
+        scaler.scale(loss).backward()
+        if plant:
+            model.model.layers[1].mlp.up_proj.weight.grad[3, 5] = math.inf
+        scaler.step(opt)
+        opt.clear_grad()
+        seen.append((scaler._scale, opt._global_step,
+                     torch.equal(before, model.model.norm.weight.detach())))
+    print(f"  GradScaler: (scale, optimizer steps, norm weight unchanged) "
+          f"after a step with an inf, then a clean one: {seen}", flush=True)
+    if seen != [(2.0 ** 14, 0, True), (2.0 ** 14, 1, False)]:
+        raise AssertionError(f"GradScaler on the card: {seen}")
+    del model, opt
+    _free(torch)
+    return seen
+
+
+CARD_RULES = {
+    "SGD": lambda o, ps: o.SGD(learning_rate=0.05, parameters=ps,
+                               weight_decay=0.1),
+    "Momentum": lambda o, ps: o.Momentum(learning_rate=0.05, parameters=ps,
+                                         use_nesterov=True),
+    "Adam": lambda o, ps: o.Adam(learning_rate=1e-3, parameters=ps,
+                                 weight_decay=0.01),
+    "AdamW": lambda o, ps: o.AdamW(learning_rate=1e-3, parameters=ps),
+    "Adagrad": lambda o, ps: o.Adagrad(learning_rate=0.01, parameters=ps),
+    "Adadelta": lambda o, ps: o.Adadelta(learning_rate=1.0, parameters=ps),
+    "Adamax": lambda o, ps: o.Adamax(learning_rate=2e-3, parameters=ps),
+    "RMSProp": lambda o, ps: o.RMSProp(learning_rate=1e-3, parameters=ps,
+                                       momentum=0.5, centered=True),
+    "Lamb": lambda o, ps: o.Lamb(learning_rate=1e-2, parameters=ps),
+    "NAdam": lambda o, ps: o.NAdam(learning_rate=2e-3, parameters=ps),
+    "RAdam": lambda o, ps: o.RAdam(learning_rate=2e-3, parameters=ps),
+    "Rprop": lambda o, ps: o.Rprop(learning_rate=1e-3, parameters=ps),
+    "ASGD": lambda o, ps: o.ASGD(learning_rate=0.05, batch_num=2,
+                                 parameters=ps),
+}
+
+
+def _rules_on_card(torch):
+    """Every rule, 3 eager steps of the tiny float32 Llama of phase 3 on
+    the card and on the CPU, the CPU's gradients carried to the card each
+    step (so the rules, not the models' summation orders, are compared):
+    the parameters within rtol 1e-5 (atol 1e-7); LBFGS (with and without
+    strong Wolfe) on a least-squares fit within 1e-4."""
+    import numpy as np
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         load_numpy_state)
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256, layers=2,
+                           heads=4, kv_heads=2, seq=200)
+    ids = torch.from_numpy(np.random.default_rng(12).integers(0, 256,
+                                                              (2, 200)))
+    out = {}
+    for name, build in CARD_RULES.items():
+        cpu = LlamaForCausalLM(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(12))
+        gpu = LlamaForCausalLM(cfg, device="cuda")
+        load_numpy_state(gpu, {n: p.detach().numpy()
+                               for n, p in cpu.named_parameters()})
+        oc, og = build(O, cpu.parameters()), build(O, gpu.parameters())
+        for _ in range(3):
+            cpu.forward_loss(ids, ids, loss_chunk_size=64).backward()
+            gpu.forward_loss(ids.cuda(), ids.cuda(),
+                             loss_chunk_size=64).backward()
+            for p, q in zip(cpu.parameters(), gpu.parameters()):
+                q.grad = p.grad.cuda()
+            oc.step()
+            og.step()
+            oc.clear_grad()
+            og.clear_grad()
+        worst = 0.0
+        for p, q in zip(cpu.parameters(), gpu.parameters()):
+            a, b = q.detach().cpu(), p.detach()
+            worst = max(worst, float(((a - b).abs() / (b.abs() + 1e-2))
+                                     .max()))
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f"{name} on the card disagrees with "
+                                     f"the CPU")
+        out[name] = worst
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, 6)).astype(np.float32))
+    y = x @ torch.from_numpy(rng.standard_normal((6, 1)).astype(np.float32))
+    for search in (None, "strong_wolfe"):
+        got = []
+        for dev in ("cpu", "cuda"):
+            w = torch.nn.Parameter(torch.zeros(6, 1, device=dev))
+            xd, yd = x.to(dev), y.to(dev)
+            lb = O.LBFGS(max_iter=8, history_size=5, line_search_fn=search,
+                         parameters=[w])
+
+            def closure():
+                lb.clear_grad()
+                loss = ((xd @ w - yd) ** 2).mean()
+                loss.backward()
+                return loss
+            lb.step(closure)
+            got.append(w.detach().cpu())
+        err = float((got[1] - got[0]).abs().max())
+        out[f"LBFGS {search}"] = err
+        if not torch.allclose(got[1], got[0], rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"LBFGS ({search}) on the card disagrees "
+                                 f"with the CPU")
+    print("  the rules on the card vs the CPU, 3 steps of the tiny float32 "
+          "Llama (largest |card - cpu| / (|cpu| + 0.01); tol rtol 1e-5): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in out.items()), flush=True)
+    return out
+
+
+def phase_training_surface(torch, args, launches_out, phase5_step_ms):
+    """The llama-1.1b-b8 widths of phase 5 (bf16 weights, fp32 moments,
+    batch 8 x 2048, nothing cut) trained the usual way: (a) the recipe
+    (``_recipe``: warmup then cosine, decay off on the named norms, the
+    embedding at half the rate, global-norm clipping) for 5 steps under
+    full remat; (b) 3 steps, the model's, optimizer's and scheduler's
+    state saved with framework.io, a fresh model loaded from it and 2
+    steps more, bit-equal to (a); (c) the same 5 steps under remat "dots",
+    bit-equal to (a); (d) 3 steps of float32 weights under auto_cast O1
+    (flash through the bf16 kernel); then the 2-layer agreements, the
+    GradScaler and every optimizer rule against the CPU."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.framework import io
+    from paddle_tpu_torch.optimizer import lr
+    card = _card_line()
+    cfg = _llama_1b()
+    n_l = cfg.num_hidden_layers
+    batch = (torch.from_numpy(np.random.default_rng(args.seed + 5).integers(
+        0, cfg.vocab_size, (8, 2048))).cuda(),) * 2
+    _free(torch)
+    print(f"phase 12: the training surface on llama-1.1b-b8 (hidden "
+          f"{cfg.hidden_size}, {n_l} layers, batch 8 x 2048), bf16 weights, "
+          f"fp32 moments, seed {args.seed} [{card}]", flush=True)
+    per_step = _llama_train_per_step(n_l)
+    out = {"card": card}
+
+    # (a) the recipe, full remat
+    la, sa, ra, launches, peak_a, pa, prof_a = _recipe_run(
+        torch, cfg, args.seed, batch, 5)
+    want = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=10), 2, 0.0,
+                           3e-4)
+    want_rates = []
+    for _ in range(5):
+        want_rates.append(want())
+        want.step()
+    print(f"  (a) recipe: losses {la}; rates {ra} (the scheduler's "
+          f"{want_rates}); step s {[round(x, 4) for x in sa]}; peak "
+          f"{peak_a:.2f} GB", flush=True)
+    if ra != want_rates:
+        raise AssertionError("the rates the updates used are not the "
+                             "scheduler's")
+    _hold_launches("phase 12 (a)", launches, per_step, 5)
+    if not all(math.isfinite(x) for x in la):
+        raise AssertionError(f"recipe losses not finite: {la}")
+    total = dict(launches)
+    step_ms = 1e3 * sum(sa[1:]) / 4
+    out["recipe"] = dict(losses=la, rates=ra, step_ms=step_ms,
+                         step_seconds=sa, peak_memory_gb=peak_a,
+                         phase5_step_ms=phase5_step_ms, breakdown=prof_a)
+    print(f"  (a) step ms (mean of steps 2-5) {step_ms:.2f}, phase 5's "
+          f"{phase5_step_ms:.2f} in this call; a profiled step: "
+          f"{_breakdown_line(prof_a)} [{card}]", flush=True)
+
+    # (c) remat "dots"
+    lc, sc, _, launches, peak_c, pc, prof_c = _recipe_run(
+        torch, cfg, args.seed, batch, 5, policy="dots")
+    _hold_launches("phase 12 (c) dots", launches, per_step, 5)
+    for k, v in launches.items():
+        total[k] += v
+    dots_ms = 1e3 * sum(sc[1:]) / 4
+    print(f"  (c) remat dots: losses {lc}; step ms {dots_ms:.2f} (full "
+          f"{step_ms:.2f}); peak {peak_c:.2f} GB (full {peak_a:.2f}); a "
+          f"profiled step: {_breakdown_line(prof_c)} [{card}]", flush=True)
+    if lc != la:
+        raise AssertionError(f"dots losses {lc} != full {la}")
+    _same_params(torch, "phase 12 (c) dots against full", pc, pa)
+    del pc
+    out["dots"] = dict(losses=lc, step_ms=dots_ms, step_seconds=sc,
+                       peak_memory_gb=peak_c, breakdown=prof_c)
+
+    # (b) resume
+    path = os.path.join(args.out, "resume.pdparams")
+    model = _recipe_model(torch, cfg, args.seed, torch.bfloat16)
+    sched, opt = _recipe(model)
+    trainer = _recipe_trainer(model, opt)
+    lb, _, _ = _recipe_steps(torch, trainer, sched, batch, 3)
+    t = time.monotonic()
+    io.save({"model": model.state_dict(), "opt": opt.state_dict(),
+             "sched": sched.state_dict()}, path)
+    save_s = time.monotonic() - t
+    nbytes = os.path.getsize(path)
+    del model, opt, sched, trainer
+    _free(torch)
+    t = time.monotonic()
+    state = io.load_tensors(path)
+    model = _recipe_model(torch, cfg, args.seed + 99, torch.bfloat16)
+    sched, opt = _recipe(model)
+    model.load_state_dict(state["model"])
+    opt.set_state_dict(state["opt"])
+    sched.set_state_dict(state["sched"])
+    trainer = _recipe_trainer(model, opt)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t
+    del state
+    os.remove(path)
+    K.reset_launches()
+    lb2, _, _ = _recipe_steps(torch, trainer, sched, batch, 2)
+    launches = dict(K.LAUNCHES)
+    _hold_launches("phase 12 (b) resumed", launches, per_step, 2)
+    for k, v in launches.items():
+        total[k] += v
+    pb = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    del model, opt, sched, trainer
+    _free(torch)
+    print(f"  (b) resume: losses {lb} + {lb2}; saved {nbytes / 1e9:.3f} GB "
+          f"in {save_s:.2f} s, loaded in {load_s:.2f} s [{card}]",
+          flush=True)
+    if lb + lb2 != la:
+        raise AssertionError(f"resumed losses {lb + lb2} != {la}")
+    _same_params(torch, "phase 12 (b) resumed against uninterrupted", pb,
+                 pa)
+    del pa, pb
+    out["resume"] = dict(losses=lb + lb2, save_s=save_s, load_s=load_s,
+                         bytes=nbytes)
+
+    # (d) auto_cast O1 over float32 weights
+    model = _recipe_model(torch, cfg, args.seed, torch.float32)
+    sched, opt = _recipe(model)
+    trainer = _recipe_trainer(model, opt, cast=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    ld, sd, _ = _recipe_steps(torch, trainer, sched, batch, 3)
+    launches = dict(K.LAUNCHES)
+    peak_d = torch.cuda.max_memory_allocated() / 1e9
+    _hold_launches("phase 12 (d) auto_cast", launches, per_step, 3)
+    for k, v in launches.items():
+        total[k] += v
+    # which flash kernel the attention took: the ops of one forward,
+    # counted by name and input dtype (amp.debugging)
+    debugging.enable_operator_stats_collection()
+    try:
+        with torch.no_grad():
+            trainer.loss_fn(model, *batch)
+    finally:
+        stats = debugging.disable_operator_stats_collection()
+    del model, opt, sched, trainer
+    _free(torch)
+    cast_ms = 1e3 * sum(sd[1:]) / 2
+    print(f"  (d) auto_cast O1 over float32 weights: losses {ld}; step ms "
+          f"{cast_ms:.2f}; peak {peak_d:.2f} GB [{card}]", flush=True)
+    out["auto_cast"] = dict(losses=ld, step_ms=cast_ms, peak_memory_gb=peak_d,
+                            flash_ops=stats.get("flash_attention(bfloat16)"))
+    if not all(math.isfinite(x) for x in ld) \
+            or stats.get("flash_attention(bfloat16)") != n_l \
+            or "flash_attention(float32)" in stats:
+        raise AssertionError(f"auto_cast: losses {ld}, attention ops "
+                             f"{stats}")
+    out["recipe_2_layers"] = _recipe_agreement(torch, args.seed, False)
+    out["auto_cast_2_layers"] = _recipe_agreement(torch, args.seed, True)
+    out["grad_scaler"] = _grad_scaler_on_card(torch, args.seed)
+    out["rules"] = _rules_on_card(torch)
+    launches_out.update(total)
+    print("  training surface: " + json.dumps(out, default=str), flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3944,6 +4469,9 @@ def main(argv=None):
                  args, spec_launches)
     artifact = timed("phase 11 artifact", phase_artifact, torch, args,
                      artifact_launches)
+    surface_launches = {}
+    surface = timed("phase 12 training surface", phase_training_surface,
+                    torch, args, surface_launches, training["step_ms"])
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -3980,12 +4508,13 @@ def main(argv=None):
                              "paddle_tpu/quantization/_kernels.py:99"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
-    # packed-document training), summed; a backward's entry counts its dq
+    # packed-document training, the training surface's full-width runs),
+    # summed; a backward's entry counts its dq
     # launches, each paired with one dk/dv launch (the training runs check
     # both counts exactly)
     runs = (serve_launches, train_launches, gpt_launches, packed_launches,
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
-            artifact_launches)
+            artifact_launches, surface_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -4008,6 +4537,7 @@ def main(argv=None):
                    "packed_training": packed, "gpt_serving": gpt_serving,
                    "quant_serving": quant, "spec_serving": spec,
                    "artifact": artifact, "flashmask_routed": routed_f5,
+                   "training_surface": surface,
                    "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "training": train_launches,
@@ -4017,7 +4547,8 @@ def main(argv=None):
                                 "quant_serving": quant_launches,
                                 "spec_serving": spec_launches,
                                 "beams": beam_launches,
-                                "artifact": artifact_launches}}, f,
+                                "artifact": artifact_launches,
+                                "training_surface": surface_launches}}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

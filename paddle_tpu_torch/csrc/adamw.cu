@@ -7,8 +7,9 @@
 //   g' = decoupled ? g : g + wd * p
 //   m  = b1 * m + (1 - b1) * g'        v = b2 * v + (1 - b2) * g' * g'
 //   p  = (decoupled ? p * (1 - lr * wd) : p) - lr * (m / bc1) / (sqrt(v / bc2) + eps)
-// with p and g in the parameter's dtype (float32 or bfloat16) and m, v in
-// float32. Every operation is an explicitly rounded intrinsic, so the
+// with lr = base rate * the tensor's multiplier (a float32 product, the JAX
+// trainer's lr * _lr_mult(name)), p and g in the parameter's dtype
+// (float32 or bfloat16) and m, v in float32. Every operation is an explicitly rounded intrinsic, so the
 // compiler fuses no multiply-add and the result is the plain version's.
 //
 // Bound on the H100: bytes. An element costs ~15 flops against 22 bytes
@@ -20,8 +21,10 @@
 // concatenates the group into flat buffers and splits the result, which
 // triples the bytes moved; this kernel instead walks a device-side table of
 // (tensor, chunk) entries: the four pointers of a chunk of up to 65536
-// elements, its length, its tensor's weight decay and whether its pointers
-// allow 16-byte accesses. The caller builds the table once and reuses it
+// elements, its length, its tensor's weight decay and rate multiplier, and
+// whether its pointers allow 16-byte accesses. The base rate, which a
+// scheduler changes from step to step, is a launch argument, so the table
+// stays valid across steps. The caller builds the table once and reuses it
 // while the pointers stay the same (the update is in place). Each block
 // takes one chunk and moves it with 16-byte loads and stores (8 elements a
 // thread for bf16 p and g, two float4 of m and v); a misaligned tensor, or
@@ -40,10 +43,12 @@ namespace {
 
 struct Chunk {  // 48 bytes, written by the caller as six int64 values
   uint64_t p, g, m, v;
-  int64_t n;
+  int32_t n;    // at most 65536
   float wd;
+  float mult;   // the tensor's rate multiplier
   int32_t vec;  // 1: every pointer is 16-byte aligned
 };
+static_assert(sizeof(Chunk) == 48, "six int64 values an entry");
 
 constexpr int THREADS = 256;
 constexpr int VEC = 8;
@@ -64,17 +69,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// One element; returns the new parameter value, updates m and v in place.
+// One element at the rate lr; returns the new parameter value, updates m
+// and v in place.
 __device__ __forceinline__ float adam(float p, float g, float& m, float& v, float wd,
-                                      const Hyper& h) {
+                                      float lr, const Hyper& h) {
   if (!h.decoupled) g = __fadd_rn(g, __fmul_rn(wd, p));
   m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(__fsub_rn(1.f, h.b1), g));
   v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(__fsub_rn(1.f, h.b2), g), g));
   const float mhat = __fdiv_rn(m, h.bc1);
   const float vhat = __fdiv_rn(v, h.bc2);
   const float upd = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps));
-  if (h.decoupled) p = __fmul_rn(p, __fsub_rn(1.f, __fmul_rn(h.lr, wd)));
-  return __fsub_rn(p, __fmul_rn(h.lr, upd));
+  if (h.decoupled) p = __fmul_rn(p, __fsub_rn(1.f, __fmul_rn(lr, wd)));
+  return __fsub_rn(p, __fmul_rn(lr, upd));
 }
 
 template <typename T>
@@ -86,6 +92,7 @@ adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
   float* m = reinterpret_cast<float*>(c.m);
   float* v = reinterpret_cast<float*>(c.v);
   const int64_t n = c.n;
+  const float lr = __fmul_rn(h.lr, c.mult);
   int64_t done = 0;
   if (c.vec) {
     const int64_t n_vec = n / VEC * VEC;
@@ -107,7 +114,7 @@ adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
       }
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        pv[e] = from_f<T>(adam(to_f(pv[e]), to_f(gv[e]), mv[e], vv[e], c.wd, h));
+        pv[e] = from_f<T>(adam(to_f(pv[e]), to_f(gv[e]), mv[e], vv[e], c.wd, lr, h));
 #pragma unroll
       for (int w = 0; w < (int)(sizeof(T) * VEC / 16); ++w)
         reinterpret_cast<uint4*>(p + i)[w] = reinterpret_cast<const uint4*>(pv)[w];
@@ -121,7 +128,7 @@ adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
   }
   for (int64_t i = done + threadIdx.x; i < n; i += THREADS) {
     float mi = m[i], vi = v[i];
-    p[i] = from_f<T>(adam(to_f(p[i]), to_f(g[i]), mi, vi, c.wd, h));
+    p[i] = from_f<T>(adam(to_f(p[i]), to_f(g[i]), mi, vi, c.wd, lr, h));
     m[i] = mi;
     v[i] = vi;
   }

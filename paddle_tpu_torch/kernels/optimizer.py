@@ -5,8 +5,10 @@ Replaces ``paddle_tpu/kernels/optimizer_pallas.py``:
 -> ``multi_tensor_adamw``. The math is ``_adam_update`` of
 ``paddle_tpu/optimizer/__init__.py`` in fp32: ``(m/bc1) / (sqrt(v/bc2) +
 eps)``, decoupled decay ``p * (1 - lr*wd)`` or coupled ``g + wd*p``, with
-``bc1 = 1 - beta1**step`` and ``bc2 = 1 - beta2**step`` in float32; p is
-written back in its own dtype, m and v stay float32.
+``bc1 = 1 - beta1**step`` and ``bc2 = 1 - beta2**step`` in float32, at a
+rate per tensor: the base rate times the tensor's multiplier, a float32
+product (the JAX trainer's ``lr * _lr_mult(name)``); p is written back in
+its own dtype, m and v stay float32.
 
 **The update is in place.** The JAX arrays are immutable, so the TPU path
 returns new parameters and moments (and concatenates each group into flat
@@ -43,11 +45,15 @@ def bias_corrections(beta1, beta2, step):
             float(one - f(beta2) ** f(step)))
 
 
-def adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd, step, decoupled=True):
+def adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd, step, decoupled=True,
+                lr_mult=1.0):
     """(p_new, m_new, v_new) of one tensor, in fp32 with ``_adam_update``'s
-    order of operations; p_new in p's dtype. Nothing is written."""
+    order of operations at the rate ``float32(lr) * float32(lr_mult)``
+    (the JAX trainer's float32 product; with ``lr_mult`` 1.0 the rate is
+    ``float32(lr)``); p_new in p's dtype. Nothing is written."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=p.device)
     lr_, b1, b2, eps_, wd_ = map(f32, (lr, beta1, beta2, eps, wd))
+    lr_ = lr_ * f32(lr_mult)
     bc1, bc2 = map(f32, bias_corrections(beta1, beta2, step))
     gf = g.float()
     pf = p.float()
@@ -73,35 +79,40 @@ def _lib():
     return lib
 
 
+def _bits(x):
+    return int(np.float32(x).view(np.uint32))
+
+
 def _table(group, device):
     """The device table of (tensor, chunk) entries of ``group`` (a list of
-    (p, g, m, v, wd)), six int64 per entry: the four pointers at the
-    chunk's start, its length, and the tensor's wd (float32 bits) with a
-    16-byte-alignment flag in the upper word. Cached by pointers, lengths
-    and wd: an in-place update keeps them, so a training loop builds it
-    once."""
+    (p, g, m, v, wd, lr_mult)), six int64 per entry: the four pointers at
+    the chunk's start; its length with the tensor's wd (float32 bits) in
+    the upper word; the tensor's rate multiplier (float32 bits) with a
+    16-byte-alignment flag in the upper word. Cached by pointers, lengths,
+    wd and multipliers: an in-place update keeps them, and the base rate
+    (which a scheduler changes) is a launch argument, so a training loop
+    builds it once."""
     key = tuple((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                 p.numel(), p.element_size(), float(wd))
-                for p, g, m, v, wd in group)
+                 p.numel(), p.element_size(), float(wd), float(mult))
+                for p, g, m, v, wd, mult in group)
     table = _TABLES.get(key)
     if table is not None:
         _TABLES.move_to_end(key)
         return table
     blocks = []
-    for p, g, m, v, wd in group:
+    for p, g, m, v, wd, mult in group:
         n = p.numel()
         if n == 0:
             continue
         starts = np.arange(0, n, CHUNK, dtype=np.int64)
         ptrs = (p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
         vec = int(all(x % 16 == 0 for x in ptrs))
-        wd_bits = int(np.float32(wd).view(np.uint32))
         rows = np.empty((starts.size, 6), np.int64)
         for col, (ptr, size) in enumerate(zip(ptrs, (p.element_size(),
                                                      g.element_size(), 4, 4))):
             rows[:, col] = ptr + starts * size
-        rows[:, 4] = np.minimum(CHUNK, n - starts)
-        rows[:, 5] = wd_bits | (vec << 32)
+        rows[:, 4] = np.minimum(CHUNK, n - starts) | (_bits(wd) << 32)
+        rows[:, 5] = _bits(mult) | (vec << 32)
         blocks.append(rows)
     host = np.concatenate(blocks) if blocks else np.zeros((0, 6), np.int64)
     table = torch.from_numpy(host).to(device)
@@ -134,20 +145,25 @@ def _check(params, grads, ms, vs):
 
 @torch.no_grad()
 def multi_tensor_adamw(params, grads, ms, vs, *, lr, beta1, beta2, eps, wds,
-                       step, decoupled=True):
+                       step, decoupled=True, lr_mults=None):
     """AdamW over lists of tensors, IN PLACE: params, ms and vs are
-    overwritten. On CUDA tensors one kernel launch updates every tensor of
-    a dtype group (wd per tensor); on CPU tensors each tensor goes through
-    ``adamw_plain``."""
-    if not (len(params) == len(grads) == len(ms) == len(vs) == len(wds)):
+    overwritten; tensor i at the rate ``float32(lr) * float32(lr_mults[i])``
+    (every multiplier 1.0 when None) with weight decay ``wds[i]``. On CUDA
+    tensors one kernel launch updates every tensor of a dtype group; on CPU
+    tensors each tensor goes through ``adamw_plain``."""
+    if lr_mults is None:
+        lr_mults = [1.0] * len(params)
+    if not (len(params) == len(grads) == len(ms) == len(vs) == len(wds)
+            == len(lr_mults)):
         raise ValueError("multi_tensor_adamw: list length mismatch")
     if not params:
         return
     dev = params[0].device
     if dev.type == "cpu":
-        for p, g, m, v, wd in zip(params, grads, ms, vs, wds):
+        for p, g, m, v, wd, mult in zip(params, grads, ms, vs, wds,
+                                        lr_mults):
             pn, mn, vn = adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd,
-                                     step, decoupled)
+                                     step, decoupled, mult)
             p.copy_(pn)
             m.copy_(mn)
             v.copy_(vn)
@@ -157,7 +173,7 @@ def multi_tensor_adamw(params, grads, ms, vs, *, lr, beta1, beta2, eps, wds,
     _check(params, grads, ms, vs)
     bc1, bc2 = bias_corrections(beta1, beta2, step)
     groups = {}
-    for entry in zip(params, grads, ms, vs, wds):
+    for entry in zip(params, grads, ms, vs, wds, lr_mults):
         groups.setdefault(entry[0].dtype, []).append(entry)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -9,8 +9,11 @@ name for name. Serving reads the parameters through
 ``forward_loss`` below, whose RMSNorms, rotary embedding and attention
 (dense causal, or FlashMask with packed-document bounds) are the port's
 kernels on CUDA tensors (the plain versions on CPU tensors) and whose
-matrix products go to ``torch.matmul``; a dense ``attention_mask`` runs
-plain PyTorch attention, as the JAX model runs it in XLA.
+matrix products go to ``torch.matmul`` (the projections through
+``nn.functional.linear``, the JAX model's "linear" op); a dense
+``attention_mask`` runs plain PyTorch attention, as the JAX model runs it
+in XLA. ``load_numpy_state`` carries a JAX model's weights across and
+``load_numpy_optimizer_state`` its optimizer's state.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch.nn.functional as TF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .. import resolve_device
+from .. import amp, resolve_device
 from ..kernels import fused
 from ..nn import functional as F
 
@@ -68,6 +71,7 @@ def build_rope_cache(seq_len: int, head_dim: int, theta: float = 10000.0,
     return torch.cos(freqs), torch.sin(freqs)
 
 
+@amp.op("fused_rope", 2)
 def fused_rope(query, key, cos, sin):
     """Rotary embedding of q [b, s, h, d] and k [b, s, kvh, d] with the
     tables cos/sin [s, d/2] upcast to fp32 (the kernel's type; bf16 tables,
@@ -121,11 +125,11 @@ class LlamaAttention(nn.Module):
     def forward(self, hidden_states, rope_cache, attention_mask=None,
                 startend_row_indices=None):
         b, s, _ = hidden_states.shape
-        q = (hidden_states @ self.q_proj.weight).reshape(
+        q = F.linear(hidden_states, self.q_proj.weight).reshape(
             b, s, self.num_heads, self.head_dim)
-        k = (hidden_states @ self.k_proj.weight).reshape(
+        k = F.linear(hidden_states, self.k_proj.weight).reshape(
             b, s, self.num_kv_heads, self.head_dim)
-        v = (hidden_states @ self.v_proj.weight).reshape(
+        v = F.linear(hidden_states, self.v_proj.weight).reshape(
             b, s, self.num_kv_heads, self.head_dim)
         cos, sin = rope_cache
         q, k = fused_rope(q, k, cos, sin)
@@ -140,8 +144,8 @@ class LlamaAttention(nn.Module):
             # LlamaModel.forward), GQA handled inside
             out = F.flashmask_attention(q, k, v, startend_row_indices,
                                         causal=True)
-            return out.reshape(b, s, self.num_heads * self.head_dim) \
-                @ self.o_proj.weight
+            return F.linear(out.reshape(b, s, self.num_heads * self.head_dim),
+                            self.o_proj.weight)
         if self.num_kv_heads != self.num_heads:
             # outside the kernel, so autograd sums dk/dv over the repeats
             rep = self.num_heads // self.num_kv_heads
@@ -149,8 +153,8 @@ class LlamaAttention(nn.Module):
             v = v.repeat_interleave(rep, dim=2)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
                                              is_causal=True)
-        return out.reshape(b, s, self.num_heads * self.head_dim) \
-            @ self.o_proj.weight
+        return F.linear(out.reshape(b, s, self.num_heads * self.head_dim),
+                        self.o_proj.weight)
 
 
 class LlamaMLP(nn.Module):
@@ -162,8 +166,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = _Linear(i, h, device, dtype)
 
     def forward(self, x):
-        return (TF.silu(x @ self.gate_proj.weight) * (x @ self.up_proj.weight)) \
-            @ self.down_proj.weight
+        return F.linear(TF.silu(F.linear(x, self.gate_proj.weight))
+                        * F.linear(x, self.up_proj.weight),
+                        self.down_proj.weight)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -204,7 +209,7 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None,
                 attn_startend_row_indices=None):
-        h = TF.embedding(input_ids.long(), self.embed_tokens.weight)
+        h = F.embedding(input_ids, self.embed_tokens.weight)
         s = input_ids.shape[1]
         rope = (self.rope_cos[:s], self.rope_sin[:s])
         bounds = attn_startend_row_indices
@@ -269,7 +274,7 @@ class LlamaForCausalLM(nn.Module):
     def _head(self, h):
         if self.lm_head is None:
             return h @ self.model.embed_tokens.weight.T
-        return h @ self.lm_head.weight
+        return F.linear(h, self.lm_head.weight)
 
     def compute_loss(self, logits, labels):
         """Shifted next-token cross entropy."""
@@ -292,17 +297,7 @@ class LlamaForCausalLM(nn.Module):
         h = self.model(input_ids, attention_mask, attn_startend_row_indices)
         tied = self.lm_head is None
         w = self.model.embed_tokens.weight if tied else self.lm_head.weight
-        hs = h[:, :-1, :]
-        ys = labels[:, 1:].long()
-        c = int(loss_chunk_size)
-        tot = torch.zeros((), dtype=torch.float32, device=h.device)
-        cnt = torch.zeros((), dtype=torch.int64, device=h.device)
-        for i in range(0, hs.shape[1], c):
-            s_, n_ = checkpoint(_chunk_nll, hs[:, i:i + c], w, ys[:, i:i + c],
-                                tied, use_reentrant=False)
-            tot = tot + s_
-            cnt = cnt + n_
-        return tot / cnt.clamp(min=1).float()
+        return _chunked_causal_ce(h, w, labels, int(loss_chunk_size), tied)
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
@@ -314,6 +309,22 @@ class LlamaForCausalLM(nn.Module):
         c = self.config
         attn = 6.0 * c.num_hidden_layers * c.hidden_size * seq_len
         return 6.0 * self.num_params() + attn
+
+
+@amp.op("chunked_causal_ce", 3)
+def _chunked_causal_ce(h, w, labels, c, tied):
+    """The shifted cross entropy of the trunk's output ``h`` in chunks of
+    ``c`` positions, each under ``torch.utils.checkpoint``."""
+    hs = h[:, :-1, :]
+    ys = labels[:, 1:].long()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(0, hs.shape[1], c):
+        s_, n_ = checkpoint(_chunk_nll, hs[:, i:i + c], w, ys[:, i:i + c],
+                            tied, use_reentrant=False)
+        tot = tot + s_
+        cnt = cnt + n_
+    return tot / cnt.clamp(min=1).float()
 
 
 def _chunk_nll(hc, w, yc, tied):
@@ -364,5 +375,38 @@ def load_numpy_state(model: nn.Module, state: Dict[str, np.ndarray]) -> None:
             targets[name].copy_(src)
 
 
+def load_numpy_optimizer_state(optimizer, state) -> None:
+    """Load into the port's ``optimizer`` a JAX optimizer's
+    ``state_dict()`` with its tensors as numpy arrays (``{"global_step",
+    "accumulators": {key: {name: array}}, "LR_Scheduler"}``, as
+    ``{k: np.asarray(t._data)}`` turns each ``Tensor``): the optimizer-
+    state counterpart of ``load_numpy_state``. Both packages key a
+    parameter's state by ``param.name or f"param_{i}"`` in the order of
+    the parameter list. Every key must name a parameter and every array
+    match its state's shape; a mismatch raises before anything is
+    loaded."""
+    params = {getattr(p, "name", None) or f"param_{i}": p
+              for i, p in enumerate(optimizer._parameter_list)}
+    accs = {}
+    for key, acc in state.get("accumulators", {}).items():
+        if key not in params:
+            raise KeyError(f"optimizer state for {key!r}, which the "
+                           f"optimizer does not hold")
+        p = params[key]
+        want = optimizer._init_state(torch.empty(p.shape, dtype=p.dtype,
+                                                 device="meta"))
+        accs[key] = {}
+        for name, arr in acc.items():
+            if name == "_step":
+                accs[key][name] = int(np.asarray(arr))
+                continue
+            t = _to_tensor(np.array(arr))
+            if name not in want or tuple(t.shape) != tuple(want[name].shape):
+                raise ValueError(f"{key}.{name}: shape {tuple(t.shape)} is "
+                                 f"not the optimizer's")
+            accs[key][name] = t
+    optimizer.set_state_dict(dict(state, accumulators=accs))
+
+
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "build_rope_cache",
-           "load_numpy_state"]
+           "load_numpy_state", "load_numpy_optimizer_state"]

@@ -8,7 +8,8 @@ Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention`` and
 the cases the training paths use; anything else raises
 ``NotImplementedError``. ``layer_norm``, ``gelu``, ``linear``,
 ``embedding`` and attention with a dense ``attn_mask`` are plain PyTorch:
-the JAX package has no Pallas kernel for them either.
+the JAX package has no Pallas kernel for them either. Each is the JAX op
+of its name for ``amp.auto_cast`` (``amp.op``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as TF
 
+from .. import amp
 from ..kernels import LAUNCHES
 from ..kernels import flash_attention as FA
 from ..kernels import fused
@@ -62,11 +64,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         raise NotImplementedError(
             "scaled_dot_product_attention: dropout is not ported")
     if attn_mask is not None:
-        return _sdpa_reference(query, key, value, attn_mask, is_causal)
+        return _sdpa_op(query, key, value, attn_mask, is_causal)
     if not FA.flash_takes(query, key, is_causal, value):
         LAUNCHES["sdpa_plain"] += 1
-        return _sdpa_reference(query, key, value, causal=is_causal)
-    return FA.flash_attention_bshd(query, key, value, causal=is_causal)
+        return _sdpa_op(query, key, value, None, is_causal)
+    return _flash_op(query, key, value, is_causal)
+
+
+# the JAX ops: "sdpa" takes q, k, v and the mask, "flash_attention" q, k, v
+_sdpa_op = amp.op("sdpa", 4)(_sdpa_reference)
+
+
+@amp.op("flash_attention", 3)
+def _flash_op(query, key, value, causal):
+    return FA.flash_attention_bshd(query, key, value, causal=causal)
 
 
 def _canonical_startend(se, sq, causal):
@@ -157,6 +168,7 @@ def prepare_flashmask(startend_row_indices, q_len, num_heads, num_kv_heads,
     return FlashMaskBounds(bounds, summary, bool(causal))
 
 
+@amp.op("flashmask_attention", 3)
 def flashmask_attention(query, key, value, startend_row_indices=None, *,
                         dropout=0.0, causal=False, window_size=None,
                         return_softmax_lse=False, return_seed_offset=False,
@@ -235,12 +247,14 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
     return (out, lse) if return_softmax_lse else out
 
 
+@amp.op("rms_norm")
 def rms_norm(x, weight, epsilon=1e-6):
     """RMSNorm over the last axis with a weight, in x's dtype (fp32 inside):
     the Triton kernel on CUDA tensors, the plain version on CPU tensors."""
     return fused.rms_norm(x, weight, epsilon)
 
 
+@amp.op("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
                name=None):
     """LayerNorm over the trailing ``normalized_shape`` axes with the JAX
@@ -262,18 +276,21 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     return out.to(x.dtype)
 
 
+@amp.op("gelu")
 def gelu(x, approximate=False, name=None):
     """GELU in x's dtype: the erf form, or the tanh approximation with
     ``approximate=True``."""
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@amp.op("linear")
 def linear(x, weight, bias=None, name=None):
     """``x @ W + b`` with W in Paddle's ``[in, out]`` layout."""
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 
 
+@amp.op("embedding")
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at the ids ``x``; the rows of ``padding_idx``
     ids come out as zeros."""
@@ -286,6 +303,7 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     return out
 
 
+@amp.op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):

@@ -4,6 +4,10 @@ an explicit ``torch.Generator``.
 The draws differ from the JAX package's (another generator); the
 distributions are the same: Xavier fans of a 2-D ``[in, out]`` weight are
 its two dims, and a caller may give them (the MoE expert banks do).
+
+``ParamAttr`` and ``set_param_attr`` carry a parameter's name and learning
+rate multiplier onto an ``nn.Parameter``, as the JAX package's
+``_resolve_attr`` carries them onto the ``Parameter`` a layer creates.
 """
 from __future__ import annotations
 
@@ -39,4 +43,69 @@ def xavier_normal_(t, generator, fan_in=None, fan_out=None, gain=1.0):
                      generator=generator)
 
 
-__all__ = ["xavier_uniform_", "xavier_normal_"]
+class ParamAttr:
+    """A parameter's attributes, as ``paddle_tpu.nn.initializer.ParamAttr``
+    holds them."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.need_clip = need_clip
+
+
+def _resolve_attr(attr, default_initializer=None):
+    """(initializer, learning rate, name) of an attribute spec: a
+    ``ParamAttr``, a name, or an initializer. As in the JAX package, a
+    ``ParamAttr``'s ``regularizer`` and ``need_clip`` are not carried: only
+    attributes set on the parameter itself take effect."""
+    if attr is False:
+        raise ValueError("attr=False means no parameter; caller must handle it")
+    init, lr, name = default_initializer, 1.0, None
+    if isinstance(attr, ParamAttr):
+        if attr.initializer is not None:
+            init = attr.initializer
+        lr = attr.learning_rate
+        name = attr.name
+    elif isinstance(attr, str):
+        name = attr
+    elif callable(attr):
+        init = attr
+    return init, lr, name
+
+
+class NamedParameter(torch.nn.Parameter):
+    """An ``nn.Parameter`` whose ``name`` can be set: ``torch.Tensor.name``
+    is a read-only property, and the optimizers read ``param.name`` as the
+    JAX package's do (``apply_decay_param_fun``, ``state_dict`` keys)."""
+
+    @property
+    def name(self):
+        return self.__dict__.get("_param_name")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_param_name"] = value
+
+
+def set_param_attr(param, attr):
+    """Give the ``nn.Parameter`` ``param`` the name and learning-rate
+    multiplier of ``attr`` (see ``_resolve_attr``), as the JAX package's
+    ``Layer.create_parameter`` gives them to the parameter it creates; the
+    optimizers and the trainer read them (``name``, ``optimize_attr``).
+    The parameter becomes a ``NamedParameter`` in place (the same tensor,
+    in its module). Returns ``param``."""
+    _, lr, name = _resolve_attr(attr)
+    if not isinstance(param, NamedParameter):
+        param.__class__ = NamedParameter
+    param.name = name
+    param.optimize_attr = {"learning_rate": lr}
+    return param
+
+
+__all__ = ["xavier_uniform_", "xavier_normal_", "ParamAttr",
+           "NamedParameter", "set_param_attr"]

@@ -442,6 +442,51 @@ def test_adamw_kernel_matches_plain(dev, dtype, decoupled):
             and torch.equal(v, wv)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_per_tensor_rates(dev, dtype):
+    """Mixed rate multipliers and weight decays in one launch equal
+    ``adamw_plain`` with the same multipliers exactly; with every
+    multiplier 1.0 the kernel equals the multiplier-free plain version
+    (the rate the kernel had before it took multipliers)."""
+    from paddle_tpu_torch.kernels.optimizer import (CHUNK, adamw_plain,
+                                                    multi_tensor_adamw)
+    g = torch.Generator(device=dev).manual_seed(5)
+    sizes = [CHUNK + 77, 2048, 5, 2 * CHUNK]
+    wds = [0.1, 0.0, 0.01, 0.0]
+    hp = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8)
+
+    def inputs():
+        g.manual_seed(5)
+        return ([torch.randn(n, device=dev, generator=g).to(dtype)
+                 for n in sizes],
+                [torch.randn(n, device=dev, generator=g).to(dtype)
+                 for n in sizes],
+                [0.1 * torch.randn(n, device=dev, generator=g)
+                 for n in sizes],
+                [torch.rand(n, device=dev, generator=g) * 1e-3
+                 for n in sizes])
+
+    for mults in ([0.5, 1.0, 0.1, 2.0], [1.0] * 4):
+        ps, gs, ms, vs = inputs()
+        if mults[0] == 1.0:
+            want = [adamw_plain(p, gg, m, v, hp["lr"], hp["beta1"],
+                                hp["beta2"], hp["eps"], wd, 2.0)
+                    for p, gg, m, v, wd in zip(ps, gs, ms, vs, wds)]
+        else:
+            want = [adamw_plain(p, gg, m, v, hp["lr"], hp["beta1"],
+                                hp["beta2"], hp["eps"], wd, 2.0, True, mu)
+                    for p, gg, m, v, wd, mu in zip(ps, gs, ms, vs, wds,
+                                                   mults)]
+        before = K.LAUNCHES["adamw"]
+        multi_tensor_adamw(ps, gs, ms, vs, wds=wds, step=2.0, lr_mults=mults,
+                           **hp)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["adamw"] == before + 1
+        for (wp, wm, wv), p, m, v in zip(want, ps, ms, vs):
+            assert torch.equal(p, wp) and torch.equal(m, wm) \
+                and torch.equal(v, wv)
+
+
 def test_training_on_gpu_matches_cpu(dev):
     """A tiny float32 Llama (head_dim 64) trained 3 steps on the GPU
     through every training kernel matches the CPU trainer (plain

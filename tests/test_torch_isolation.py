@@ -52,9 +52,31 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.generation, paddle_tpu_torch.quantization, "
             "paddle_tpu_torch.kernels.quant_matmul, "
             "paddle_tpu_torch.serving.speculative, paddle_tpu_torch.jit, "
-            "paddle_tpu_torch.kernels.fused; "
+            "paddle_tpu_torch.kernels.fused, paddle_tpu_torch.optimizer.lr, "
+            "paddle_tpu_torch.optimizer.lbfgs, paddle_tpu_torch.regularizer, "
+            "paddle_tpu_torch.amp, paddle_tpu_torch.amp.debugging; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("package", ["optimizer", "amp"])
+def test_optimizer_and_amp_import_no_jax_package(package):
+    """The training surface (the optimizers, schedulers, LBFGS, the
+    regularizers, amp and its debugging tools) keeps its own copy of what
+    it needs: neither its files nor importing it bring in paddle_tpu."""
+    root = os.path.join(REPO, "paddle_tpu_torch", package)
+    files = [os.path.join(root, f) for f in os.listdir(root)
+             if f.endswith(".py")]
+    assert len(files) >= 2
+    for path in files:
+        assert not _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
+    code = (f"import sys, paddle_tpu_torch.{package}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -126,7 +148,7 @@ def test_training_follows_the_model_device():
     tr.train_step(ids, ids)
     assert K.kernel_launches() == before
     assert all(s["moment1"].device.type == "cpu"
-               for s in tr.opt._state.values())
+               for s in tr.opt._accumulators.values())
 
 
 def test_artifact_entry_points_raise_without_cuda(monkeypatch, tmp_path):
