@@ -47,7 +47,11 @@ Phases, each printing its own lines and its seconds:
      card against the CPU trainer; FlashMask calls the kernels do not take
      (causal q_len > kv_len, q_len < kv_len, head_dim 32) routed to the
      plain versions on the card (one ``sdpa_plain`` each, no kernel),
-     equal to the CPU's;
+     equal to the CPU's; the elementwise passes XLA fuses into the JAX
+     training step, as Triton kernels (RMSNorm's backward over [16384,
+     2048], SwiGLU's forward and backward over [16384, 5632], bf16) against
+     their plain versions, timed beside their bound and, for RMSNorm, the
+     autograd of F.rms_norm;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -80,22 +84,33 @@ Phases, each printing its own lines and its seconds:
      CPU's; and one ragged step through the kernels must agree with the
      same step through the plain versions (in bf16 and in float32);
   5. the llama-1.1b-b8 training recipe at full width (bf16 weights, fp32
-     moments, full remat, chunked loss): 2 warm-up and 5 timed steps with
-     exact launch counts, finite and falling losses, a profile of one step
-     by kernel group, and one step through the kernels against the plain
-     versions at the same widths with 2 layers;
+     moments, full remat, chunked loss), its step captured in one CUDA
+     graph (the trainer's first call runs the step and captures it): 2
+     warm-up and 5 timed steps with exact launch counts (each replay
+     adding the launches the capture counted), finite and falling losses,
+     the graph's pool, a profile of one step by kernel group with the
+     "other" group split by kernel (top 12); then 3 captured steps against
+     3 steps of a twin model and trainer run op by op (``_step_eager``)
+     from the same weights and optimizer state, losses, parameters and
+     moments bit-equal, with the eager step's ms and profile; 5 steps
+     captured anew under TF32 matmuls (the fp32 head; the setting reset
+     after); and one step through the kernels against the plain versions
+     at the same widths with 2 layers (and, recorded only, with TF32);
   6. GPT-MoE (GPTConfig.gpt_moe(8): GPT-2-small widths, 8 experts top-2 in
      every second block, dropless) trained at full width (bf16 weights,
-     fp32 moments, no remat, batch 8 x 1024): 2 warm-up and 5 timed steps
-     with exact launch counts, finite and falling losses, a profile of one
-     step, and one step through the kernels against the plain versions at
-     the same widths with 2 layers, on 8 seeds (routing flips make one
+     fp32 moments, no remat, batch 8 x 1024), captured as phase 5: 2
+     warm-up and 5 timed steps with exact launch counts, finite and
+     falling losses, a profile of one step (the "other" group split),
+     captured against eager as phase 5 (bit-equal; both step ms and idle
+     shares), and one step through the kernels against the plain versions
+     at the same widths with 2 layers, on 8 seeds (routing flips make one
      seed's bf16 gradients a matter of chance);
   7. the llama-1.1b-b8 recipe of phase 5 on packed documents (lengths
      uniform in [64, 1024] packed into each 2048-token row; FlashMask
      column bounds keep attention inside each document; labels cut at the
-     boundaries): the same steps, checks, profile and 2-layer agreement,
-     with exact FlashMask launch counts and no dense flash launch;
+     boundaries): the same captured steps, checks, profile, captured
+     against eager and 2-layer agreement, with exact FlashMask launch
+     counts and no dense flash launch;
   8. GPT-2 small and GPT-MoE (GPTConfig.gpt_moe(8)) in bf16 served at full
      width (engine max_seqs 8, budget 256, max_model_len 1024; 12 requests
      of 16-700 prompt tokens, 32 new tokens), eager then captured, with
@@ -124,19 +139,25 @@ Phases, each printing its own lines and its seconds:
      ``create_predictor`` on the card, a batch of 4 x 512: logits equal to
      the live model's forward bit for bit, exact launches (a flash
      forward, two RMSNorms and a RoPE a layer, the final RMSNorm; nothing
-     routed) through the kernels' torch.library ops; then the same model
+     routed; the MLP's SwiGLU) through the kernels' torch.library ops;
+     then the same model
      saved on the CPU and loaded on the card, with the same checks; save,
      load and run seconds; the artifacts are deleted;
   12. the training surface on the llama-1.1b-b8 widths (bf16 weights,
      batch 8 x 2048, nothing cut): the usual recipe (AdamW at warmup then
      cosine, no decay on the named norms, the embedding at half the rate,
-     global-norm clipping) 5 steps, the rate of each update equal to the
-     scheduler's and exact launch counts; the same run saved after 3 steps
-     (model, optimizer, scheduler through framework.io) and resumed in a
-     fresh model, bit-equal to it, with save and load seconds; the same 5
-     steps under remat "dots", bit-equal, with step ms and peak memory
-     beside "full"; 3 steps of float32 weights under auto_cast O1 (flash
-     through the bf16 kernel); a 2-layer recipe (bf16, and auto_cast) no
+     global-norm clipping) 5 steps, captured, the rate each replay read
+     equal to the scheduler's and exact launch counts; the same run saved
+     after 3 steps (model, optimizer, scheduler through framework.io), one
+     step more, then the save loaded in place into the same model,
+     optimizer and scheduler, whose captured graph goes on, and into a
+     fresh model, optimizer, scheduler and trainer, whose first call runs
+     eagerly and captures: each 2 steps bit-equal to the uninterrupted
+     run, with exact launch counts, save and load seconds; the same 5 steps
+     under remat "dots", bit-equal, with step ms and peak memory beside
+     "full"; 3 steps of float32 weights under auto_cast O1 (flash through
+     the bf16 kernel); every trainer's graph dropped (its pool given back)
+     before the next is built; a 2-layer recipe (bf16, and auto_cast) no
      further from float32 through the kernels than through the plain
      versions (1.1x overall, 1.25x per parameter); GradScaler skipping a
      step with an inf; every optimizer rule and LBFGS on a tiny float32
@@ -1450,6 +1471,10 @@ def _kernel_group(name):
         return "flash_bwd"
     if "adamw_kernel" in name:
         return "adamw"
+    if "_rms_norm_bwd_kernel" in name or "_col_sum_kernel" in name:
+        return "rms_norm_bwd"
+    if "_swiglu_" in name:
+        return "swiglu"
     if "sgemm" in name or "f32f32" in name:
         return "matmul_fp32"
     if "rms_norm" in name:
@@ -1496,6 +1521,7 @@ def _profile(torch, step, n, checked=None):
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         groups, names, counts, launches = {}, {}, {}, 0
+        other, other_n = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 g = _kernel_group(e.name)
@@ -1505,6 +1531,10 @@ def _profile(torch, step, n, checked=None):
                 names[key] = names.get(key, 0.0) + ms
                 counts[key] = counts.get(key, 0) + 1
                 launches += 1
+                if g == "other":      # PyTorch's kernels: named by functor
+                    key = _other_name(e.name)
+                    other[key] = other.get(key, 0.0) + ms
+                    other_n[key] = other_n.get(key, 0) + 1
         checked = checked or {}
         launched = {keys: sum(K.LAUNCHES[k] - before[k] for k in keys)
                     for keys in checked}
@@ -1521,6 +1551,7 @@ def _profile(torch, step, n, checked=None):
                              f"{PROFILE_TRACES} traces running")
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:20]
+    top_other = sorted(other.items(), key=lambda kv: -kv[1])[:12]
     plans = sum(c for k, c in counts.items()
                 if "ragged_attention_plan_kernel" in k)
     return prof, dict(wall_ms=1e3 * wall / n, device_ms=busy / n,
@@ -1530,7 +1561,33 @@ def _profile(torch, step, n, checked=None):
                       by_group_ms={k: v / n for k, v in sorted(
                           groups.items(), key=lambda kv: -kv[1])},
                       top_kernels_ms={k: v / n for k, v in top},
-                      top_kernels_launches={k: counts[k] / n for k, _ in top})
+                      top_kernels_launches={k: counts[k] / n for k, _ in top},
+                      other_top_ms={k: v / n for k, v in top_other},
+                      other_top_launches={k: other_n[k] / n
+                                          for k, _ in top_other})
+
+
+def _other_name(name):
+    """A PyTorch kernel's name shortened to what tells its op apart: the
+    kernel template and the functor (``vectorized_elementwise_kernel<4,
+    ...MulFunctor<float>``), without the argument lists."""
+    for cut in (", std::array", ">(int", "(at::", "(float", "(long"):
+        i = name.find(cut)
+        if i > 0:
+            name = name[:i]
+    name = name.replace("void ", "").replace("at::native::", "") \
+        .replace("(anonymous namespace)::", "")
+    return name[:150]
+
+
+def _print_other(m, tag):
+    """The by-op split of a profiled step's "other" group: the 12 kernels
+    with the most device ms a step."""
+    print(f"  {tag}: the \"other\" group ({m['by_group_ms'].get('other', 0):.3f}"
+          f" ms a step) by kernel, top 12:", flush=True)
+    for name, ms in m["other_top_ms"].items():
+        print(f"    {ms:9.3f} ms {m['other_top_launches'][name]:5.0f}x  "
+              f"{name}", flush=True)
 
 
 def _profile_steps(torch, eng, vocab, seed, out_dir, tag):
@@ -1862,11 +1919,14 @@ def phase_train_kernels(torch, results):
                   _check(f"adamw[{i}] v", v, wv, 0.0))
     del want
     n = sum(p.numel() for p in ps)
-    # one launch of ~1 ms a call: CUDA events around eager calls time the
-    # card, not the host
-    ms_k = _time_ms(lambda: multi_tensor_adamw(ps, gs, ms, vs, wds=wds,
-                                               step=3.0, lr_mults=mults,
-                                               **hp), 10)
+    # as the trainer calls it: the rate and step from device tensors (the
+    # scalars' few tiny kernels run before the launch), replayed from a
+    # CUDA graph so the host's launches of those are not in the number
+    lr_t = torch.full((), hp["lr"], device=dev)
+    step_t = torch.full((), 3.0, device=dev)
+    ms_k = _graph_ms(lambda: multi_tensor_adamw(
+        ps, gs, ms, vs, wds=wds, step=step_t, lr_mults=mults, lr=lr_t,
+        **{k: v for k, v in hp.items() if k != "lr"}), iters=10, reps=3)
     ms_plain = _time_ms(lambda: [adamw_plain(p, gg, m, v, hp["lr"],
                                              hp["beta1"], hp["beta2"],
                                              hp["eps"], wd, 3.0, True, mu)
@@ -1888,13 +1948,16 @@ def phase_train_kernels(torch, results):
                             library_bytes=28 * n)
     print(f"  adamw over {n} elements (bf16 p, g; fp32 m, v; 22 bytes an "
           f"element; rate multipliers 0.5 on the embedding, wd 0 on the "
-          f"norms): ms={ms_k:.4f} ({bound_ms / ms_k:.3f} of the bound; "
-          f"before per-tensor rates, PERF.md section 6: 0.9420 ms against "
-          f"0.7678) plain_ms={ms_plain:.4f} bound_ms={bound_ms:.4f} "
+          f"norms; rate and step read from the device, CUDA-graph "
+          f"replay): ms={ms_k:.4f} ({bound_ms / ms_k:.3f} of the bound; "
+          f"PR 12, with both as launch arguments, events around eager "
+          f"calls: 0.9275 ms) plain_ms={ms_plain:.4f} "
+          f"bound_ms={bound_ms:.4f} "
           f"({bound_by}); torch.optim.AdamW(fused=True) over fp32 tensors "
           f"of the same count (28 bytes an element) {lib_ms:.4f} ms "
           f"[{_card_line()}]", flush=True)
     _norm_rope_at_training_shapes(torch, dev)
+    _fused_passes(torch, results, dev)
 
 
 def _norm_rope_at_training_shapes(torch, dev):
@@ -1903,8 +1966,8 @@ def _norm_rope_at_training_shapes(torch, dev):
     2048, 2048]; q, k [8, 2048, 16, 128] with the model's bf16-rounded
     rope tables. Forward and the RoPE backward (the kernel with -sin): each
     row within one bf16 ulp of its largest plain value (both round one
-    fp32 result). The RMSNorm backward is the autograd of the plain
-    formula, so it must equal the plain version's exactly."""
+    fp32 result). The RMSNorm backward is its own kernel
+    (``_fused_passes`` holds it to the plain version and times it)."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import fused
     from paddle_tpu_torch.models import build_rope_cache
@@ -1922,8 +1985,7 @@ def _norm_rope_at_training_shapes(torch, dev):
     yp.backward(dy)
     torch.cuda.synchronize()
     _check_rows("rms_norm [8, 2048, 2048] forward", yk, yp, 1)
-    _check("rms_norm [8, 2048, 2048] dx", xk.grad, xp.grad, 0.0)
-    _check("rms_norm [8, 2048, 2048] dw", wk.grad, wp.grad, 0.0)
+    _check_rows("rms_norm [8, 2048, 2048] dx", xk.grad, xp.grad, 1)
     del x, w, dy, xk, wk, yk, xp, wp, yp
     cos, sin = (t.to(bf).float() for t in build_rope_cache(2048, 128,
                                                             device=dev))
@@ -1939,12 +2001,114 @@ def _norm_rope_at_training_shapes(torch, dev):
     for name, got, want in (("q", rq, pq), ("k", rk, pk),
                             ("dq", qk.grad, qp.grad), ("dk", kk.grad, kp.grad)):
         _check_rows(f"rope [8, 2048, 16, 128] {name}", got, want, 1)
-    used = {n: K.LAUNCHES[n] - before[n] for n in ("rms_norm", "rope")}
+    used = {n: K.LAUNCHES[n] - before[n]
+            for n in ("rms_norm", "rope", "rms_norm_bwd")}
     print(f"  launches of these checks: {used}", flush=True)
-    if used != {"rms_norm": 1, "rope": 2}:
+    if used != {"rms_norm": 1, "rope": 2, "rms_norm_bwd": 1}:
         raise AssertionError(f"the checks did not go through the kernels: "
                              f"{used}")
     del q, k, gq, gk, qk, kk, rq, rk, qp, kp, pq, pk
+    torch.cuda.empty_cache()
+
+
+def _fused_passes(torch, results, dev):
+    """The elementwise passes XLA fuses into the JAX training step, as the
+    port's Triton kernels, at the Llama step's shapes in bf16: RMSNorm's
+    backward over x [16384, 2048] (45 calls a step) and SwiGLU over gate,
+    up [16384, 5632] (forward 44 calls a step with the recompute, backward
+    22). Each against its plain version: every row within one bf16 ulp of
+    its largest plain value (dgate two: silu's backward cancels near
+    gate = -1.28, where Triton's exp and PyTorch's differ in the last fp32
+    bits), dw within one ulp of its largest value; and no further from the
+    float32 result than the plain bf16 version (1.1x). Timed by CUDA-graph
+    replay (the plain versions by events around eager calls), beside the
+    bound (each input read once, each output written once) and, for
+    RMSNorm, the autograd of ``F.rms_norm`` (SwiGLU has no single PyTorch
+    call)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import fused
+    g = torch.Generator(device=dev).manual_seed(33)
+    bf = torch.bfloat16
+    rows, hid, inter = 16384, 2048, 5632
+    card = _card_line()
+    x = torch.randn(rows, hid, device=dev, generator=g).to(bf)
+    w = (1 + 0.1 * torch.randn(hid, device=dev, generator=g)).to(bf)
+    dy = torch.randn(rows, hid, device=dev, generator=g).to(bf)
+    before = K.LAUNCHES["rms_norm_bwd"]
+    dx, dw = fused.rms_norm_backward(x, w, dy, 1e-5)
+    if K.LAUNCHES["rms_norm_bwd"] != before + 1:
+        raise AssertionError("rms_norm_backward did not launch its kernel")
+    pdx, pdw = fused.rms_norm_backward_plain(x, w, dy, 1e-5)
+    rdx, rdw = fused.rms_norm_backward_plain(x.float(), w.float(),
+                                             dy.float(), 1e-5)
+    torch.cuda.synchronize()
+    err = max(_check_rows("rms_norm_bwd dx", dx, pdx, 1),
+              _check("rms_norm_bwd dw", dw, pdw,
+                     ULP_BF16 * float(pdw.float().abs().max())))
+    _check_vs_f32("rms_norm_bwd dx", dx, pdx, rdx)
+    _check_vs_f32("rms_norm_bwd dw", dw, pdw, rdw)
+    del dx, dw, pdx, pdw, rdx, rdw
+    ms = _graph_ms(lambda: fused.rms_norm_backward(x, w, dy, 1e-5))
+    plain_ms = _time_ms(lambda: fused.rms_norm_backward_plain(x, w, dy, 1e-5),
+                        5)
+    xl = x.clone().requires_grad_()
+    wl = w.clone().requires_grad_()
+    yl = F.rms_norm(xl, (hid,), wl, 1e-5)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                  retain_graph=True), 5)
+    del xl, wl, yl
+    n = rows * hid
+    bound_ms, bound_by = _bound(3 * 2 * n + 2 * 2 * hid, 12 * n, FP32_FLOPS)
+    results["rms_norm_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=lib_ms, launches_a_step=45)
+    print(f"  rms_norm_bwd [{rows}, {hid}] bf16: ms={ms:.4f} "
+          f"({bound_ms / ms:.3f} of the bound) plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); autograd of F.rms_norm "
+          f"{lib_ms:.4f} ms [{card}]", flush=True)
+    del x, w, dy
+    gate = (3 * torch.randn(rows, inter, device=dev, generator=g)).to(bf)
+    up = torch.randn(rows, inter, device=dev, generator=g).to(bf)
+    dy = torch.randn(rows, inter, device=dev, generator=g).to(bf)
+    before = dict(K.LAUNCHES)
+    y = fused.swiglu_op(gate, up)
+    dg, du = fused.swiglu_backward(gate, up, dy)
+    if (K.LAUNCHES["swiglu_fwd"] - before["swiglu_fwd"],
+            K.LAUNCHES["swiglu_bwd"] - before["swiglu_bwd"]) != (1, 1):
+        raise AssertionError("swiglu did not launch its kernels")
+    py = fused.swiglu_plain(gate, up)
+    pdg, pdu = fused.swiglu_backward_plain(gate, up, dy)
+    ry = fused.swiglu_plain(gate.float(), up.float())
+    rdg, rdu = fused.swiglu_backward_plain(gate.float(), up.float(),
+                                           dy.float())
+    torch.cuda.synchronize()
+    err_f = _check_rows("swiglu_fwd y", y, py, 1)
+    err_b = max(_check_rows("swiglu_bwd dgate", dg, pdg, 2),
+                _check_rows("swiglu_bwd dup", du, pdu, 1))
+    _check_vs_f32("swiglu_fwd y", y, py, ry)
+    _check_vs_f32("swiglu_bwd dgate", dg, pdg, rdg)
+    _check_vs_f32("swiglu_bwd dup", du, pdu, rdu)
+    del y, dg, du, py, pdg, pdu, ry, rdg, rdu
+    n = rows * inter
+    for name, fn, plain, nbytes, flops, per_step, e in (
+            ("swiglu_fwd", lambda: fused.swiglu_op(gate, up),
+             lambda: fused.swiglu_plain(gate, up), 3 * 2 * n, 6 * n, 44,
+             err_f),
+            ("swiglu_bwd", lambda: fused.swiglu_backward(gate, up, dy),
+             lambda: fused.swiglu_backward_plain(gate, up, dy), 5 * 2 * n,
+             14 * n, 22, err_b)):
+        ms = _graph_ms(fn)
+        plain_ms = _time_ms(plain, 5)
+        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None, launches_a_step=per_step)
+        print(f"  {name} [{rows}, {inter}] bf16: ms={ms:.4f} "
+              f"({bound_ms / ms:.3f} of the bound) plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}); no single PyTorch "
+              f"call [{card}]", flush=True)
+    del gate, up, dy
     torch.cuda.empty_cache()
 
 
@@ -2244,7 +2408,7 @@ def _moe_layer_without_sync(torch, dev):
     print(f"  MoE layer [8 x 1024, 768 -> 3072, 8 experts] forward and "
           f"backward under set_sync_debug_mode('error'): no sync; launches "
           f"{used}; gradients finite: {finite}", flush=True)
-    if used != {"gmm": 4, "tgmm": 2} or not finite:
+    if used != {"gmm": 4, "tgmm": 4} or not finite:
         raise AssertionError("the MoE layer did not run through its kernels")
     del layer, x
     torch.cuda.empty_cache()
@@ -2659,12 +2823,15 @@ def _trainer_for(torch, model, lr=1e-4):
 def _llama_train_per_step(n_l, packed=False):
     """The kernel launches of one Llama training step with every layer
     remat'd (full, dots or dots_no_batch: all three recompute the norms,
-    RoPE and the flash forward): each layer's two norms, RoPE and flash
-    forward in the forward and again in the recompute, the final norm
-    once, RoPE's and flash's backward once, one AdamW launch."""
+    RoPE, the flash forward and SwiGLU): each layer's two norms, RoPE,
+    flash forward and SwiGLU in the forward and again in the recompute,
+    the final norm once, the backward of each norm, RoPE, flash and SwiGLU
+    once, one AdamW launch."""
     from paddle_tpu_torch import kernels as K
     per_step = {n: 0 for n in K.LAUNCHES}
-    per_step.update(rms_norm=2 * n_l + 1 + 2 * n_l, rope=3 * n_l, adamw=1)
+    per_step.update(rms_norm=2 * n_l + 1 + 2 * n_l, rope=3 * n_l, adamw=1,
+                    rms_norm_bwd=2 * n_l + 1, swiglu_fwd=2 * n_l,
+                    swiglu_bwd=n_l)
     if packed:       # the pre-pass runs once, in the model's forward
         per_step.update(flashmask_fwd=2 * n_l, flashmask_bwd_dq=n_l,
                         flashmask_bwd_dkv=n_l, flashmask_summary=1)
@@ -2717,7 +2884,7 @@ def phase_training(torch, args, launches_out, packed=False):
               f"rows; visible (query, key) pairs {pairs} = "
               f"{visible['of_causal']:.4f} of the causal pairs", flush=True)
     losses = []
-    for _ in range(2):
+    for _ in range(2):      # the first call runs the step, then captures it
         losses.append(float(trainer.train_step(*batch_)))
     trainer.block()
     K.reset_launches()
@@ -2727,6 +2894,7 @@ def phase_training(torch, args, launches_out, packed=False):
     secs = time.monotonic() - t0
     launches = dict(K.LAUNCHES)
     losses += [float(x) for x in timed]
+    graph = _graph_line(trainer, "phase 7" if packed else "phase 5", card)
     n_l = cfg.num_hidden_layers
     per_step = _llama_train_per_step(n_l, packed)
     expect = {k: 5 * v for k, v in per_step.items()}
@@ -2756,7 +2924,7 @@ def phase_training(torch, args, launches_out, packed=False):
     training = dict(params=n_params, batch=batch, seq=seq, step_ms=step_ms,
                     tokens_per_s=tok_s,
                     mfu_vs_989_tflops=mfu, peak_memory_gb=peak_gb,
-                    losses=losses, card=card, visible=visible)
+                    losses=losses, card=card, visible=visible, graph=graph)
     print("  training: " + json.dumps(training), flush=True)
     if packed:
         print(f"  MFU {mfu:.4f} with the dense-causal attention count (as "
@@ -2776,10 +2944,125 @@ def phase_training(torch, args, launches_out, packed=False):
     for name, ms in m["top_kernels_ms"].items():
         print(f"    {ms:9.3f} ms {m['top_kernels_launches'][name]:5.0f}x  "
               f"{name}", flush=True)
-    del trainer, model, ids, timed, prof, batch_
-    torch.cuda.empty_cache()
+    tag = "phase 7" if packed else "phase 5"
+    _print_other(m, f"{tag} captured step")
+    del prof
+    training["eager"] = _captured_against_eager(
+        torch, trainer, lambda: _trainer_for(torch, _llama_twin(torch, cfg)),
+        batch_, tag, card, step_ms, m)
+    if not packed:
+        training["tf32_head"] = _tf32_run(torch, trainer, batch_, card)
+    del trainer, model, ids, timed, batch_
+    _free(torch)
     training.update(_train_step_agreement(torch, args.seed, packed))
     return training
+
+
+def _llama_twin(torch, cfg):
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    model = LlamaForCausalLM(cfg, device="cuda")
+    model.bfloat16()
+    return model
+
+
+def _graph_line(trainer, tag, card):
+    """The trainer's one captured graph: its memory pool, capture seconds
+    (the eager step and the capture) and the launches a replay adds."""
+    if len(trainer._graphs) != 1:
+        raise AssertionError(f"{tag}: {len(trainer._graphs)} graphs, not "
+                             f"one for the one batch signature")
+    (cap,) = trainer._graphs.values()
+    graph = dict(pool_gb=cap.pool_bytes / 1e9, capture_s=cap.seconds,
+                 tally={k: v for k, v in cap.tally.items() if v})
+    print(f"  {tag}: one captured graph, its pool {graph['pool_gb']:.3f} GB,"
+          f" the first call (eager step and capture) {cap.seconds:.2f} s; a "
+          f"replay adds {graph['tally']} to the launch counts [{card}]",
+          flush=True)
+    return graph
+
+
+def _captured_against_eager(torch, trainer, make_twin, batch, tag, card,
+                            step_ms, captured):
+    """From the trainer's weights and optimizer state, 3 steps replayed
+    from its graph against 3 steps of a twin (another model and trainer
+    given the same weights and state) run op by op (``_step_eager``, the
+    CPU's path): each loss, and every parameter and moment after the
+    third, bit-equal. Returns the eager step ms (mean of steps 2 and 3,
+    host clock), a profile of one eager step and its idle share against
+    the eager step's wall time, beside the captured step's."""
+    twin = make_twin()
+    with torch.no_grad():
+        for p, q in zip(trainer.model.parameters(), twin.model.parameters()):
+            q.copy_(p)
+    twin.opt.set_state_dict(trainer.opt.state_dict())
+    got, want, secs = [], [], []
+    for _ in range(3):
+        got.append(trainer.train_step(*batch))
+        trainer.block()
+        t = time.monotonic()
+        want.append(twin._step_eager(*batch))
+        twin.block()
+        secs.append(time.monotonic() - t)
+    same_loss = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    differ = [n for (n, p), q in zip(trainer.model.named_parameters(),
+                                     twin.model.parameters())
+              if not torch.equal(p, q)]
+    moments = [n for (n, p), q in zip(trainer.model.named_parameters(),
+                                      twin.model.parameters())
+               if not all(torch.equal(trainer.opt._state_of(p)[k],
+                                      twin.opt._state_of(q)[k])
+                          for k in ("moment1", "moment2"))]
+    print(f"  {tag}: 3 captured steps against 3 eager ones from the same "
+          f"weights and state: losses {[float(x) for x in got]} vs "
+          f"{[float(x) for x in want]} (bit-equal {same_loss}); parameters "
+          f"differing {len(differ)}, moments differing {len(moments)}",
+          flush=True)
+    if not all(same_loss) or differ or moments:
+        raise AssertionError(f"{tag}: the captured step is not the eager "
+                             f"step bit for bit ({differ[:4]}, "
+                             f"{moments[:4]})")
+    eager_ms = 1e3 * (secs[1] + secs[2]) / 2
+    _, m = _profile(torch, lambda: twin._step_eager(*batch), 1)
+    out = dict(step_ms=eager_ms, bit_equal=True, breakdown=m,
+               idle_share_untraced=1 - m["device_ms"] / eager_ms)
+    print(f"  {tag}: step ms captured {step_ms:.3f}, eager {eager_ms:.3f}; "
+          f"idle share against the untraced step: captured "
+          f"{1 - captured['device_ms'] / step_ms:.4f}, eager "
+          f"{out['idle_share_untraced']:.4f}; device ms captured "
+          f"{captured['device_ms']:.3f} ({captured['device_launches']:.0f} "
+          f"kernels), eager {m['device_ms']:.3f} "
+          f"({m['device_launches']:.0f}) [{card}]", flush=True)
+    del twin
+    _free(torch)
+    return out
+
+
+def _tf32_run(torch, trainer, batch, card):
+    """The fp32 head (the chunked loss's logits and their gradients)
+    under TF32: the step captured anew with
+    ``torch.backends.cuda.matmul.allow_tf32`` set (cuBLAS picks its
+    kernels at capture), 2 warm-up and 5 timed steps, then the setting
+    reset and the graph dropped. A measurement only: the port has no
+    such option."""
+    trainer._drop_graphs()
+    _free(torch)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for _ in range(2):
+            trainer.train_step(*batch)
+        trainer.block()
+        t0 = time.monotonic()
+        for _ in range(5):
+            trainer.train_step(*batch)
+        trainer.block()
+        ms = 1e3 * (time.monotonic() - t0) / 5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        trainer._drop_graphs()
+        _free(torch)
+    print(f"  phase 5 under TF32 matmuls (the fp32 head): step ms {ms:.3f}"
+          f" captured [{card}]", flush=True)
+    return dict(step_ms=ms)
 
 
 def _plain_train_patches(stack):
@@ -2791,6 +3074,10 @@ def _plain_train_patches(stack):
                                           fused.rms_norm_plain))
     stack.enter_context(mock.patch.object(fused, "fused_rope",
                                           fused.fused_rope_plain))
+    stack.enter_context(mock.patch.object(fused, "swiglu",
+                                          fused.swiglu_plain))
+    stack.enter_context(mock.patch.object(fused, "rms_norm_backward",
+                                          fused.rms_norm_backward_plain))
     def plain(fn):      # the summary is the kernels' alone
         return lambda *a, summary=None, **kw: fn(*a, **kw)
     stack.enter_context(mock.patch.object(FA, "flash_forward",
@@ -2860,8 +3147,9 @@ def _train_step_agreement(torch, seed, packed=False):
             torch.cuda.synchronize()
         if plain and K.LAUNCHES != before:
             raise AssertionError("the plain step launched a kernel")
-        if not plain and K.LAUNCHES[attn] == before[attn]:
-            raise AssertionError(f"the kernel step launched no {attn}")
+        for name in (attn, "rms_norm_bwd", "swiglu_fwd", "swiglu_bwd"):
+            if not plain and K.LAUNCHES[name] == before[name]:
+                raise AssertionError(f"the kernel step launched no {name}")
         grads = {n: p.grad.float() for n, p in model.named_parameters()}
         return float(loss.detach()), grads
 
@@ -2874,7 +3162,30 @@ def _train_step_agreement(torch, seed, packed=False):
     del gk16
     lp16, gp16 = run(torch.bfloat16, True)
     err_p, leaf_p = _rel_dist(gp16, gp32)
-    del gp16, gp32
+    del gp16
+    tf32 = None
+    if not packed:
+        # the kernels' bf16 step with the fp32 head's products in TF32: a
+        # measurement for the TF32 question (no gate; the port has no such
+        # option)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            lt, gt = run(torch.bfloat16, False)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        err_t, leaf_t = _rel_dist(gt, gp32)
+        worst_t = max(leaf_t, key=lambda n: leaf_t[n] / leaf_p[n])
+        tf32 = dict(loss=lt, grad_err=err_t, grad_err_plain=err_p,
+                    worst_param=worst_t,
+                    worst_param_ratio=leaf_t[worst_t] / leaf_p[worst_t])
+        print(f"  2-layer bf16 step with TF32 matmuls: loss {lt:.6f}, the "
+              f"gradients' relative L2 distance from the float32 step "
+              f"{err_t:.5g} (kernels without TF32 {err_k:.5g}, plain "
+              f"{err_p:.5g}); per parameter the largest ratio to plain "
+              f"{tf32['worst_param_ratio']:.4g} at {worst_t} (recorded, "
+              f"not gated)", flush=True)
+        del gt
+    del gp32
     torch.cuda.empty_cache()
     ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
     worst = max(ratio, key=ratio.get)
@@ -2900,7 +3211,8 @@ def _train_step_agreement(torch, seed, packed=False):
                 train_step_grad_rel_err_f32=err32,
                 train_step_bf16_grad_err_kernels=err_k,
                 train_step_bf16_grad_err_plain=err_p,
-                train_step_bf16_grad_err_ratio_worst_param=ratio[worst])
+                train_step_bf16_grad_err_ratio_worst_param=ratio[worst],
+                train_step_tf32=tf32)
 
 
 # -- phase 6: GPT-MoE training at full width ------------------------------------
@@ -2943,7 +3255,7 @@ def phase_gpt_moe_training(torch, args, launches_out):
     ids = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (batch, seq))).cuda()
     losses = []
-    for _ in range(2):
+    for _ in range(2):      # the first call runs the step, then captures it
         losses.append(float(trainer.train_step(ids, ids)))
     trainer.block()
     K.reset_launches()
@@ -2953,11 +3265,12 @@ def phase_gpt_moe_training(torch, args, launches_out):
     secs = time.monotonic() - t0
     launches = dict(K.LAUNCHES)
     losses += [float(x) for x in timed]
+    graph = _graph_line(trainer, "phase 6", card)
     n_l = cfg.num_hidden_layers
     n_moe = sum(b.is_moe for b in model.transformer.h)
     per_step = {n: 0 for n in K.LAUNCHES}
     per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l,
-                    adamw=1, gmm=4 * n_moe, tgmm=2 * n_moe)
+                    adamw=1, gmm=4 * n_moe, tgmm=4 * n_moe)
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
@@ -2977,7 +3290,7 @@ def phase_gpt_moe_training(torch, args, launches_out):
                     flops_per_token=model.flops_per_token(seq),
                     mfu_vs_989_tflops=mfu, peak_memory_gb=peak_gb,
                     peak_memory_of_phase_gb=peak_gb - held / 1e9,
-                    losses=losses, card=card)
+                    losses=losses, card=card, graph=graph)
     print("  gpt_moe training: " + json.dumps(training), flush=True)
     prof, training["breakdown"] = _profile(
         torch, lambda: trainer.train_step(ids, ids), 1)
@@ -3005,8 +3318,17 @@ def phase_gpt_moe_training(torch, args, launches_out):
     for name, ms in m["top_kernels_ms"].items():
         print(f"    {ms:9.3f} ms {m['top_kernels_launches'][name]:5.0f}x  "
               f"{name}", flush=True)
-    del trainer, model, ids, timed, prof
-    torch.cuda.empty_cache()
+    _print_other(m, "phase 6 captured step")
+    del prof
+
+    def twin():
+        t = _dropless(GPTForCausalLM(cfg, device="cuda"))
+        t.bfloat16()
+        return _gpt_trainer_for(t)
+    training["eager"] = _captured_against_eager(
+        torch, trainer, twin, (ids, ids), "phase 6", card, step_ms, m)
+    del trainer, model, ids, timed
+    _free(torch)
     training.update(_gpt_train_step_agreement(torch, args.seed))
     return training
 
@@ -3055,7 +3377,7 @@ def _gpt_train_step_agreement(torch, seed, seeds=8):
         used = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
         if plain and any(used.values()):
             raise AssertionError("the plain step launched a kernel")
-        if not plain and (used["gmm"], used["tgmm"]) != (4, 2):
+        if not plain and (used["gmm"], used["tgmm"]) != (4, 4):
             raise AssertionError(f"the kernel step's launches: {used}")
         grads = {n: p.grad.float() for n, p in model.named_parameters()}
         return float(loss.detach()), grads
@@ -3830,7 +4152,8 @@ def phase_artifact(torch, args, launches_out):
     os.makedirs(root)
     spec = [jit.InputSpec([None, None], "int64")]
     expect = {n: 0 for n in K.LAUNCHES}
-    expect.update(flash_fwd=n_l, rms_norm=2 * n_l + 1, rope=n_l)
+    expect.update(flash_fwd=n_l, rms_norm=2 * n_l + 1, rope=n_l,
+                  swiglu_fwd=n_l)
     out = {}
     try:
         for where in ("cuda", "cpu"):
@@ -3932,23 +4255,16 @@ def _recipe_trainer(model, opt, policy="full", cast=False):
 
 def _recipe_steps(torch, trainer, sched, batch, n):
     """``n`` steps, the scheduler stepped after each: (losses, each
-    step's seconds, the rate each step's update was given)."""
-    rates = []
-    update = trainer.opt._update_all
-
-    def spy(params, grads, lr, mults, step):
-        rates.append(lr)
-        return update(params, grads, lr, mults, step)
-
-    trainer.opt._update_all = spy
-    losses, secs = [], []
+    step's seconds, the rate each step's update read: the trainer's rate
+    tensor, which its captured graph reads at each replay)."""
+    losses, secs, rates = [], [], []
     for _ in range(n):
         t = time.monotonic()
         losses.append(float(trainer.train_step(*batch)))
         trainer.block()
         secs.append(time.monotonic() - t)
+        rates.append(float(trainer._lr))
         sched.step()
-    trainer.opt._update_all = update
     return losses, secs, rates
 
 
@@ -3978,9 +4294,23 @@ def _recipe_run(torch, cfg, seed, batch, n, policy="full"):
     peak = torch.cuda.max_memory_allocated() / 1e9
     params = {k: p.detach().cpu() for k, p in model.named_parameters()}
     _, breakdown = _profile(torch, lambda: trainer.train_step(*batch), 1)
+    breakdown["graph"] = _graph_line(trainer, f"phase 12 {policy}",
+                                     _card_line())
+    _drop_trainer(torch, trainer)
     del model, opt, trainer
     _free(torch)
     return losses, secs, rates, launches, peak, params, breakdown
+
+
+def _drop_trainer(torch, trainer):
+    """Free a trainer's captured graphs and their pools before the next
+    full-width trainer is built (each pins its pool while it lives)."""
+    held = torch.cuda.memory_reserved()
+    trainer._drop_graphs()
+    _free(torch)
+    back = (held - torch.cuda.memory_reserved()) / 1e9
+    print(f"  the trainer's graphs dropped: {back:.3f} GB given back",
+          flush=True)
 
 
 def _breakdown_line(m):
@@ -4217,11 +4547,13 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     (``_recipe``: warmup then cosine, decay off on the named norms, the
     embedding at half the rate, global-norm clipping) for 5 steps under
     full remat; (b) 3 steps, the model's, optimizer's and scheduler's
-    state saved with framework.io, a fresh model loaded from it and 2
-    steps more, bit-equal to (a); (c) the same 5 steps under remat "dots",
-    bit-equal to (a); (d) 3 steps of float32 weights under auto_cast O1
-    (flash through the bf16 kernel); then the 2-layer agreements, the
-    GradScaler and every optimizer rule against the CPU."""
+    state saved with framework.io, then loaded in place into the trainer
+    that captured its step (b1) and into a fresh model and trainer whose
+    first call captures (b2), each 2 steps more, bit-equal to (a); (c)
+    the same 5 steps under remat "dots", bit-equal to (a); (d) 3 steps of
+    float32 weights under auto_cast O1 (flash through the bf16 kernel);
+    then the 2-layer agreements, the GradScaler and every optimizer rule
+    against the CPU."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.amp import debugging
@@ -4246,11 +4578,12 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
                            3e-4)
     want_rates = []
     for _ in range(5):
-        want_rates.append(want())
+        want_rates.append(float(np.float32(want())))
         want.step()
-    print(f"  (a) recipe: losses {la}; rates {ra} (the scheduler's "
-          f"{want_rates}); step s {[round(x, 4) for x in sa]}; peak "
-          f"{peak_a:.2f} GB", flush=True)
+    print(f"  (a) recipe, captured: losses {la}; rates the replays read "
+          f"{ra} (the scheduler's, in float32, {want_rates}); step s "
+          f"{[round(x, 4) for x in sa]} (the first runs the step and "
+          f"captures it); peak {peak_a:.2f} GB", flush=True)
     if ra != want_rates:
         raise AssertionError("the rates the updates used are not the "
                              "scheduler's")
@@ -4283,7 +4616,9 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     out["dots"] = dict(losses=lc, step_ms=dots_ms, step_seconds=sc,
                        peak_memory_gb=peak_c, breakdown=prof_c)
 
-    # (b) resume
+    # (b) resume: the saved state loaded (b1) in place into the trainer
+    # that captured its step, and (b2) into a fresh model, optimizer,
+    # scheduler and trainer whose first call runs eagerly and captures
     path = os.path.join(args.out, "resume.pdparams")
     model = _recipe_model(torch, cfg, args.seed, torch.bfloat16)
     sched, opt = _recipe(model)
@@ -4294,8 +4629,32 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
              "sched": sched.state_dict()}, path)
     save_s = time.monotonic() - t
     nbytes = os.path.getsize(path)
+    lost, _, _ = _recipe_steps(torch, trainer, sched, batch, 1)
+    # (b1) into the live parameters and state, which the trainer's graph,
+    # captured at the first step, reads and writes
+    t = time.monotonic()
+    state = io.load_tensors(path)
+    model.load_state_dict(state["model"])
+    opt.set_state_dict(state["opt"])
+    sched.set_state_dict(state["sched"])
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t
+    del state
+    K.reset_launches()
+    lb1, _, _ = _recipe_steps(torch, trainer, sched, batch, 2)
+    launches = dict(K.LAUNCHES)
+    _hold_launches("phase 12 (b1) resumed in place", launches, per_step, 2)
+    for k, v in launches.items():
+        total[k] += v
+    if len(trainer._graphs) != 1:
+        raise AssertionError("the resumed steps did not replay the graph "
+                             "captured before the load")
+    pb1 = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    _drop_trainer(torch, trainer)
     del model, opt, sched, trainer
     _free(torch)
+    # (b2) into a fresh model (other weights, so the load must replace
+    # them), optimizer, scheduler and trainer
     t = time.monotonic()
     state = io.load_tensors(path)
     model = _recipe_model(torch, cfg, args.seed + 99, torch.bfloat16)
@@ -4305,27 +4664,37 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     sched.set_state_dict(state["sched"])
     trainer = _recipe_trainer(model, opt)
     torch.cuda.synchronize()
-    load_s = time.monotonic() - t
+    load2_s = time.monotonic() - t
     del state
     os.remove(path)
     K.reset_launches()
     lb2, _, _ = _recipe_steps(torch, trainer, sched, batch, 2)
     launches = dict(K.LAUNCHES)
-    _hold_launches("phase 12 (b) resumed", launches, per_step, 2)
+    _hold_launches("phase 12 (b2) resumed into a fresh trainer", launches,
+                   per_step, 2)
     for k, v in launches.items():
         total[k] += v
-    pb = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    if len(trainer._graphs) != 1:
+        raise AssertionError("the fresh trainer did not capture its step")
+    pb2 = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    _drop_trainer(torch, trainer)
     del model, opt, sched, trainer
     _free(torch)
-    print(f"  (b) resume: losses {lb} + {lb2}; saved {nbytes / 1e9:.3f} GB "
-          f"in {save_s:.2f} s, loaded in {load_s:.2f} s [{card}]",
-          flush=True)
-    if lb + lb2 != la:
-        raise AssertionError(f"resumed losses {lb + lb2} != {la}")
-    _same_params(torch, "phase 12 (b) resumed against uninterrupted", pb,
-                 pa)
-    del pa, pb
-    out["resume"] = dict(losses=lb + lb2, save_s=save_s, load_s=load_s,
+    print(f"  (b) resume: losses {lb} saved, then (b1) in place into the "
+          f"captured trainer {lb1} (a step {lost} taken and undone by the "
+          f"load), (b2) into a fresh model and trainer {lb2}; saved "
+          f"{nbytes / 1e9:.3f} GB in {save_s:.2f} s, loaded in place in "
+          f"{load_s:.2f} s, into the fresh model in {load2_s:.2f} s "
+          f"[{card}]", flush=True)
+    for name, got, pb in (("b1", lb1, pb1), ("b2", lb2, pb2)):
+        if lb + got != la:
+            raise AssertionError(f"({name}) resumed losses {lb + got} != "
+                                 f"{la}")
+        _same_params(torch, f"phase 12 ({name}) resumed against "
+                     f"uninterrupted", pb, pa)
+    del pa, pb1, pb2
+    out["resume"] = dict(losses=lb + lb1, fresh_losses=lb + lb2,
+                         save_s=save_s, load_s=load_s, fresh_load_s=load2_s,
                          bytes=nbytes)
 
     # (d) auto_cast O1 over float32 weights
@@ -4342,25 +4711,38 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     for k, v in launches.items():
         total[k] += v
     # which flash kernel the attention took: the ops of one forward,
-    # counted by name and input dtype (amp.debugging)
+    # counted by name and input dtype (amp.debugging), which the kernels
+    # still run
+    K.reset_launches()
     debugging.enable_operator_stats_collection()
     try:
         with torch.no_grad():
             trainer.loss_fn(model, *batch)
     finally:
         stats = debugging.disable_operator_stats_collection()
+    observed = dict(K.LAUNCHES)
+    graph_d = _graph_line(trainer, "phase 12 (d) auto_cast", card)
+    _drop_trainer(torch, trainer)
     del model, opt, sched, trainer
     _free(torch)
     cast_ms = 1e3 * sum(sd[1:]) / 2
     print(f"  (d) auto_cast O1 over float32 weights: losses {ld}; step ms "
           f"{cast_ms:.2f}; peak {peak_d:.2f} GB [{card}]", flush=True)
     out["auto_cast"] = dict(losses=ld, step_ms=cast_ms, peak_memory_gb=peak_d,
-                            flash_ops=stats.get("flash_attention(bfloat16)"))
+                            flash_ops=stats.get("flash_attention(bfloat16)"),
+                            graph=graph_d)
     if not all(math.isfinite(x) for x in ld) \
             or stats.get("flash_attention(bfloat16)") != n_l \
             or "flash_attention(float32)" in stats:
         raise AssertionError(f"auto_cast: losses {ld}, attention ops "
                              f"{stats}")
+    def ops(name):
+        return sum(v for k, v in stats.items() if k.split("(")[0] == name)
+    if ops("silu") != n_l or ops("multiply") < n_l \
+            or observed["swiglu_fwd"] != n_l or observed["flash_fwd"] != n_l:
+        raise AssertionError(f"(d) a forward under operator stats: ops "
+                             f"{stats}, launches {observed} (the SwiGLU and "
+                             f"flash kernels once a layer)")
     out["recipe_2_layers"] = _recipe_agreement(torch, args.seed, False)
     out["auto_cast_2_layers"] = _recipe_agreement(torch, args.seed, True)
     out["grad_scaler"] = _grad_scaler_on_card(torch, args.seed)
@@ -4506,6 +4888,14 @@ def main(argv=None):
         "weight_only_gemm": ("cuda",
                              "paddle_tpu_torch/csrc/weight_only_gemm.cu",
                              "paddle_tpu/quantization/_kernels.py:99"),
+        # no Pallas kernel: passes XLA fuses into the compiled training step
+        # (the vjp of the RMSNorm oracle; the Llama MLP's silu * up)
+        "rms_norm_bwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
+                         "paddle_tpu/nn/functional/norm.py:60"),
+        "swiglu_fwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
+                       "paddle_tpu/models/llama.py:197"),
+        "swiglu_bwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
+                       "paddle_tpu/models/llama.py:197"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),

@@ -22,10 +22,14 @@
 // triples the bytes moved; this kernel instead walks a device-side table of
 // (tensor, chunk) entries: the four pointers of a chunk of up to 65536
 // elements, its length, its tensor's weight decay and rate multiplier, and
-// whether its pointers allow 16-byte accesses. The base rate, which a
-// scheduler changes from step to step, is a launch argument, so the table
-// stays valid across steps. The caller builds the table once and reuses it
-// while the pointers stay the same (the update is in place). Each block
+// whether its pointers allow 16-byte accesses. The base rate and the bias
+// corrections, which change from step to step, are read from a float32
+// device array [lr, bc1, bc2] (as the Pallas kernel reads its scalars
+// from SMEM), so neither the table nor the launch's arguments change
+// across steps, and a launch captured in a CUDA graph replays every step
+// with the rate and step count of that replay. The caller builds the table
+// once and reuses it while the pointers stay the same (the update is in
+// place). Each block
 // takes one chunk and moves it with 16-byte loads and stores (8 elements a
 // thread for bf16 p and g, two float4 of m and v); a misaligned tensor, or
 // the tail of a chunk, takes element accesses.
@@ -54,8 +58,12 @@ constexpr int THREADS = 256;
 constexpr int VEC = 8;
 
 struct Hyper {
-  float lr, b1, b2, eps, bc1, bc2;
+  float b1, b2, eps;
   int decoupled;
+};
+
+struct Step {  // what the device array gives a block: this step's scalars
+  float lr, bc1, bc2;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -72,12 +80,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 // One element at the rate lr; returns the new parameter value, updates m
 // and v in place.
 __device__ __forceinline__ float adam(float p, float g, float& m, float& v, float wd,
-                                      float lr, const Hyper& h) {
+                                      float lr, const Step& st, const Hyper& h) {
   if (!h.decoupled) g = __fadd_rn(g, __fmul_rn(wd, p));
   m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(__fsub_rn(1.f, h.b1), g));
   v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(__fsub_rn(1.f, h.b2), g), g));
-  const float mhat = __fdiv_rn(m, h.bc1);
-  const float vhat = __fdiv_rn(v, h.bc2);
+  const float mhat = __fdiv_rn(m, st.bc1);
+  const float vhat = __fdiv_rn(v, st.bc2);
   const float upd = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps));
   if (h.decoupled) p = __fmul_rn(p, __fsub_rn(1.f, __fmul_rn(lr, wd)));
   return __fsub_rn(p, __fmul_rn(lr, upd));
@@ -85,14 +93,16 @@ __device__ __forceinline__ float adam(float p, float g, float& m, float& v, floa
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
+adamw_kernel(const Chunk* __restrict__ table, const float* __restrict__ scalars,
+             Hyper h) {
   const Chunk c = table[blockIdx.x];
+  const Step st{scalars[0], scalars[1], scalars[2]};
   T* p = reinterpret_cast<T*>(c.p);
   const T* g = reinterpret_cast<const T*>(c.g);
   float* m = reinterpret_cast<float*>(c.m);
   float* v = reinterpret_cast<float*>(c.v);
   const int64_t n = c.n;
-  const float lr = __fmul_rn(h.lr, c.mult);
+  const float lr = __fmul_rn(st.lr, c.mult);
   int64_t done = 0;
   if (c.vec) {
     const int64_t n_vec = n / VEC * VEC;
@@ -114,7 +124,7 @@ adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
       }
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        pv[e] = from_f<T>(adam(to_f(pv[e]), to_f(gv[e]), mv[e], vv[e], c.wd, lr, h));
+        pv[e] = from_f<T>(adam(to_f(pv[e]), to_f(gv[e]), mv[e], vv[e], c.wd, lr, st, h));
 #pragma unroll
       for (int w = 0; w < (int)(sizeof(T) * VEC / 16); ++w)
         reinterpret_cast<uint4*>(p + i)[w] = reinterpret_cast<const uint4*>(pv)[w];
@@ -128,7 +138,7 @@ adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
   }
   for (int64_t i = done + threadIdx.x; i < n; i += THREADS) {
     float mi = m[i], vi = v[i];
-    p[i] = from_f<T>(adam(to_f(p[i]), to_f(g[i]), mi, vi, c.wd, lr, h));
+    p[i] = from_f<T>(adam(to_f(p[i]), to_f(g[i]), mi, vi, c.wd, lr, st, h));
     m[i] = mi;
     v[i] = vi;
   }
@@ -138,20 +148,21 @@ adamw_kernel(const Chunk* __restrict__ table, Hyper h) {
 
 extern "C" {
 
-// table: device array of n_chunks Chunk entries; dtype: 0 = float32,
-// 1 = bfloat16 (the parameters' and gradients' type). Returns a
-// cudaError_t value.
-int ptt_adamw(const void* table, int n_chunks, int dtype, float lr, float b1, float b2,
-              float eps, float bc1, float bc2, int decoupled, void* stream) {
+// table: device array of n_chunks Chunk entries; scalars: device float32
+// [lr, bc1, bc2]; dtype: 0 = float32, 1 = bfloat16 (the parameters' and
+// gradients' type). Returns a cudaError_t value.
+int ptt_adamw(const void* table, int n_chunks, int dtype, const void* scalars, float b1,
+              float b2, float eps, int decoupled, void* stream) {
   if (n_chunks == 0) return 0;
   if (n_chunks < 0) return (int)cudaErrorInvalidValue;
-  const Hyper h{lr, b1, b2, eps, bc1, bc2, decoupled};
+  const Hyper h{b1, b2, eps, decoupled};
+  const float* sc = static_cast<const float*>(scalars);
   const Chunk* t = static_cast<const Chunk*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    adamw_kernel<float><<<n_chunks, THREADS, 0, s>>>(t, h);
+    adamw_kernel<float><<<n_chunks, THREADS, 0, s>>>(t, sc, h);
   else if (dtype == 1)
-    adamw_kernel<__nv_bfloat16><<<n_chunks, THREADS, 0, s>>>(t, h);
+    adamw_kernel<__nv_bfloat16><<<n_chunks, THREADS, 0, s>>>(t, sc, h);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

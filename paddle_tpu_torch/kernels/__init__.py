@@ -10,7 +10,16 @@ count sits in the op's CUDA implementation, so a program exported with
 
 A CUDA graph's replay runs no Python, so no wrapper counts it: code
 that captures a graph takes the launches the capture counted back out
-(``uncount_since``) and adds that tally at every replay.
+(``uncount_since``) and adds that tally at every replay (the serving
+engine's step, generate()'s decode loops, and ``parallel.SpmdTrainer``'s
+training step, one graph per batch signature, whose replays each add the
+launches of one step).
+
+``rms_norm_bwd`` counts one call of RMSNorm's backward (two Triton
+kernels: the rows' pass and the sum of its dw partials); ``swiglu_fwd``
+and ``swiglu_bwd`` the Llama MLP's fused ``silu(gate) * up`` and its
+backward. They port no TPU kernel: they are passes XLA fuses into the
+JAX package's compiled training step.
 
 ``weight_only_gemm`` counts every call of the weight-only GEMM on the
 card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
@@ -32,6 +41,7 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "adamw": 0, "gmm": 0, "tgmm": 0, "flashmask_summary": 0,
             "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0,
             "weight_only_gemm": 0, "weight_only_gemm_sm80": 0,
+            "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
             "sdpa_plain": 0, "ragged_plain": 0}
 
 

@@ -7,8 +7,27 @@ Replaces ``paddle_tpu/kernels/fused_pallas.py``:
     Triton kernel for both;
   * ``fused_rope_pallas`` (``_rope_kernel``) -> ``fused_rope``.
 For training, ``RMSNormFunction`` and ``RopeFunction`` put the kernels under
-autograd: RMSNorm's backward is the autograd of its fp32 formula, RoPE's
-is the same kernel with -sin.
+autograd: RMSNorm's backward is its own kernel (below), RoPE's is the same
+kernel with -sin.
+
+Two more passes are no TPU kernel: they are the elementwise work that XLA
+fuses into the JAX package's compiled training step, and that PyTorch ran
+as separate passes (a profile of the 1.1B Llama step put them first and
+second among its elementwise work):
+  * ``rms_norm_backward`` (``RMSNormFunction``'s backward): dx, and dw as
+    per-program partial sums added up by a second pass (no atomics, so the
+    sum is the same every run), for the vjp of the JAX oracle that
+    ``fused_rms_norm_pallas``'s ``custom_vjp`` recomputes
+    (``paddle_tpu/nn/functional/norm.py`` ``rms_norm``). The autograd of
+    the fp32 formula made about twenty passes over [rows, hidden] fp32
+    copies; the kernel reads x and dy once and writes dx once;
+  * ``swiglu`` (``SwiGLUFunction``): ``silu(gate) * up`` of the Llama MLP
+    (``paddle_tpu/models/llama.py`` ``LlamaMLP.forward``), forward in one
+    pass and backward (dgate, dup) in one pass, where PyTorch ran silu, the
+    product and, in the backward, two products and silu's backward. They
+    round as the plain ops do: silu(gate) to the input dtype, then the
+    product.
+Both are bound by bytes on the H100 like the other kernels here.
 
 Bound on the H100: bytes, for both. RMSNorm does about 4 flops per element
 it reads and writes, RoPE about 6; the card needs ~295 per byte before
@@ -88,6 +107,74 @@ def _rope_kernel(q_ptr, k_ptr, cos_ptr, sin_ptr, oq_ptr, ok_ptr, seq, H, KVH,
     tl.store(dst + off, y.to(dst.dtype.element_ty), mask=m)
 
 
+def _rms_norm_bwd_kernel(x_ptr, w_ptr, dy_ptr, dx_ptr, part_ptr, n_rows,
+                         n_cols, rows_per_prog, eps, BLOCK: tl.constexpr):
+    """Program p: rows [p * rows_per_prog, ...) of dx, and its fp32 partial
+    sum of dw over those rows into part[p]."""
+    pid = tl.program_id(0)
+    offs = tl.arange(0, BLOCK)
+    cm = offs < n_cols
+    w = tl.load(w_ptr + offs, mask=cm, other=0.0).to(tl.float32)
+    dw = tl.zeros([BLOCK], dtype=tl.float32)
+    for i in range(0, rows_per_prog):
+        row = pid.to(tl.int64) * rows_per_prog + i
+        m = cm & (row < n_rows)
+        x = tl.load(x_ptr + row * n_cols + offs, mask=m, other=0.0)
+        x = x.to(tl.float32)
+        dy = tl.load(dy_ptr + row * n_cols + offs, mask=m,
+                     other=0.0).to(tl.float32)
+        r = tl.rsqrt(tl.sum(x * x, axis=0) / n_cols + eps)
+        dw += dy * (x * r)
+        da = dy * w
+        # y = (x * r) * w, r = (mean(x^2) + eps)^-1/2
+        dms = -0.5 * tl.sum(da * x, axis=0) * (r * r * r)
+        dx = da * r + (2.0 * dms / n_cols) * x
+        tl.store(dx_ptr + row * n_cols + offs,
+                 dx.to(dx_ptr.dtype.element_ty), mask=m)
+    tl.store(part_ptr + pid * n_cols + offs, dw, mask=cm)
+
+
+def _col_sum_kernel(part_ptr, out_ptr, n_parts, n_cols,
+                    BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
+    """out[c] = sum over p of part[p, c] (fp32, in a fixed order), cast to
+    out's dtype."""
+    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+    cm = cols < n_cols
+    acc = tl.zeros([BLOCK_C], dtype=tl.float32)
+    for p0 in range(0, n_parts, BLOCK_P):
+        ps = p0 + tl.arange(0, BLOCK_P)
+        tile = tl.load(part_ptr + ps[:, None] * n_cols + cols[None, :],
+                       mask=(ps < n_parts)[:, None] & cm[None, :], other=0.0)
+        acc += tl.sum(tile, axis=0)
+    tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty), mask=cm)
+
+
+def _swiglu_fwd_kernel(g_ptr, u_ptr, y_ptr, n, BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = offs < n
+    g = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
+    u = tl.load(u_ptr + offs, mask=m, other=0.0).to(tl.float32)
+    # silu rounded to gate's dtype, the product to the output's
+    s = (g / (1.0 + tl.exp(-g))).to(g_ptr.dtype.element_ty).to(tl.float32)
+    tl.store(y_ptr + offs, (s * u).to(y_ptr.dtype.element_ty), mask=m)
+
+
+def _swiglu_bwd_kernel(g_ptr, u_ptr, dy_ptr, dg_ptr, du_ptr, n,
+                       BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = offs < n
+    g = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
+    u = tl.load(u_ptr + offs, mask=m, other=0.0).to(tl.float32)
+    dy = tl.load(dy_ptr + offs, mask=m, other=0.0).to(tl.float32)
+    tg = dg_ptr.dtype.element_ty          # each gradient in its input's
+    sig = 1.0 / (1.0 + tl.exp(-g))
+    s = (g / (1.0 + tl.exp(-g))).to(tg).to(tl.float32)
+    tl.store(du_ptr + offs, (dy * s).to(du_ptr.dtype.element_ty), mask=m)
+    ds = (dy * u).to(tg).to(tl.float32)
+    tl.store(dg_ptr + offs, (ds * sig * (1.0 + g * (1.0 - sig))).to(tg),
+             mask=m)
+
+
 @functools.lru_cache(maxsize=None)
 def _jit():
     """Import Triton and wrap the kernels (once)."""
@@ -96,6 +183,10 @@ def _jit():
     import triton.language
     tl = triton.language
     return triton, {"rms": triton.jit(_rms_norm_kernel),
+                    "rms_bwd": triton.jit(_rms_norm_bwd_kernel),
+                    "col_sum": triton.jit(_col_sum_kernel),
+                    "swiglu_fwd": triton.jit(_swiglu_fwd_kernel),
+                    "swiglu_bwd": triton.jit(_swiglu_bwd_kernel),
                     # H and KVH pick the head count in one branch or the
                     # other: an argument equal to 1 must not turn constexpr
                     "rope": triton.jit(_rope_kernel,
@@ -116,6 +207,33 @@ def add_rms_norm_plain(x, residual, weight, eps=1e-6):
     dtype, then the norm of that rounded sum."""
     h = (x.float() + residual.float()).to(x.dtype)
     return h, rms_norm_plain(h, weight, eps)
+
+
+def rms_norm_backward_plain(x, weight, dy, eps=1e-6):
+    """(dx, dw) of ``rms_norm_plain`` at x for the output gradient dy: the
+    autograd of its fp32 formula, dx in x's dtype and dw in the weight's."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_()
+        ww = weight.detach().requires_grad_()
+        y = rms_norm_plain(xx, ww, eps)
+        dx, dw = torch.autograd.grad(y, (xx, ww), dy)
+    return dx, dw
+
+
+def swiglu_plain(gate, up):
+    """``silu(gate) * up`` as the Llama MLP's two ops: silu rounded to
+    gate's dtype, then the product in the two dtypes' promotion (each
+    computed in fp32)."""
+    return torch.nn.functional.silu(gate) * up
+
+
+def swiglu_backward_plain(gate, up, dy):
+    """(dgate, dup) of ``swiglu_plain``: its autograd."""
+    with torch.enable_grad():
+        g = gate.detach().requires_grad_()
+        u = up.detach().requires_grad_()
+        dg, du = torch.autograd.grad(swiglu_plain(g, u), (g, u), dy)
+    return dg, du
 
 
 def fused_rope_plain(q, k, cos, sin):
@@ -246,10 +364,9 @@ def _rope_fake(q, k, cos, sin):
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """RMSNorm whose forward is ``rms_norm_op`` (the Triton kernel on CUDA
-    tensors) and whose backward is the autograd of the fp32 formula
-    (``rms_norm_plain``), as the JAX code differentiates its oracle; the
-    JAX package has no backward kernel for it."""
+    """RMSNorm whose forward is ``rms_norm_op`` and whose backward is
+    ``rms_norm_backward`` (the Triton kernels on CUDA tensors), the vjp of
+    the fp32 formula, as the JAX code differentiates its oracle."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):
@@ -260,12 +377,43 @@ class RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_()
-            ww = weight.detach().requires_grad_()
-            y = rms_norm_plain(xx, ww, ctx.eps)
-            dx, dw = torch.autograd.grad(y, (xx, ww), dy)
+        dx, dw = rms_norm_backward(x, weight, dy, ctx.eps)
         return dx, dw, None
+
+
+def rms_norm_backward(x, weight, dy, eps=1e-6):
+    """(dx, dw) of RMSNorm over the last axis: on CUDA tensors the Triton
+    kernels (one pass over the rows, each program summing its rows' dw in
+    fp32; a second pass adding the programs' sums in order), on CPU
+    tensors ``rms_norm_backward_plain``."""
+    dy = dy.contiguous()
+    if not _on_cuda("rms_norm_backward", x, weight, dy):
+        return rms_norm_backward_plain(x, weight, dy, eps)
+    hidden = x.shape[-1]
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype \
+            or weight.shape != (hidden,) or dy.shape != x.shape:
+        raise ValueError(f"rms_norm_backward takes float32/bfloat16 x and dy "
+                         f"of one shape [..., {hidden}] and weight "
+                         f"[{hidden}], got {x.dtype}, {dy.dtype}, "
+                         f"{tuple(dy.shape)}, {tuple(weight.shape)}")
+    triton, k = _jit()
+    rows = x.numel() // hidden
+    progs = max(1, min(rows, 4 * torch.cuda.get_device_properties(
+        x.device).multi_processor_count))
+    per = triton.cdiv(rows, progs)
+    progs = triton.cdiv(rows, per)
+    block = triton.next_power_of_2(hidden)
+    dx = torch.empty_like(x)
+    part = torch.empty(progs, hidden, dtype=torch.float32, device=x.device)
+    k["rms_bwd"][(progs,)](x, weight, dy, dx, part, rows, hidden, per, eps,
+                           BLOCK=block,
+                           num_warps=min(max(block // 256, 1), 16))
+    dw = torch.empty_like(weight)
+    k["col_sum"][(triton.cdiv(hidden, 64),)](part, dw, progs, hidden,
+                                             BLOCK_P=64, BLOCK_C=64,
+                                             num_warps=4)
+    LAUNCHES["rms_norm_bwd"] += 1
+    return dx, dw
 
 
 def rms_norm(x, weight, eps=1e-6):
@@ -329,6 +477,93 @@ class RopeFunction(torch.autograd.Function):
         return dq, dk, None, None
 
 
+class SwiGLUFunction(torch.autograd.Function):
+    """``silu(gate) * up`` whose forward (``swiglu_op``, so an exported
+    program holds it) and backward are one Triton kernel each on CUDA
+    tensors (the plain versions on CPU tensors). It keeps gate
+    and up for the backward, as PyTorch kept them for silu's backward and
+    the product's (and silu's output, which the kernel recomputes)."""
+
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return swiglu_op(gate, up)
+
+    @staticmethod
+    def backward(ctx, dy):
+        gate, up = ctx.saved_tensors
+        return swiglu_backward(gate, up, dy)
+
+
+def swiglu_backward(gate, up, dy):
+    """(dgate, dup) of ``silu(gate) * up``: one Triton kernel on CUDA
+    tensors (silu recomputed from gate), ``swiglu_backward_plain`` on CPU
+    tensors."""
+    dy = dy.contiguous()
+    if not _swiglu_on_cuda(gate, up, dy):
+        return swiglu_backward_plain(gate, up, dy)
+    triton, k = _jit()
+    dg = torch.empty_like(gate)
+    du = torch.empty_like(up)
+    n = dg.numel()
+    k["swiglu_bwd"][(triton.cdiv(n, _SWIGLU_BLOCK),)](
+        gate, up, dy, dg, du, n, BLOCK=_SWIGLU_BLOCK, num_warps=8)
+    LAUNCHES["swiglu_bwd"] += 1
+    return dg, du
+
+
+_SWIGLU_BLOCK = 4096
+
+
+@torch.library.custom_op("ptt::swiglu", mutates_args=(), device_types="cpu")
+def swiglu_op(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up``: the Triton kernel on CUDA tensors."""
+    return swiglu_plain(gate, up)
+
+
+@swiglu_op.register_kernel("cuda")
+def _swiglu_cuda(gate, up):
+    _swiglu_on_cuda(gate, up)
+    triton, k = _jit()
+    y = torch.empty(gate.shape, dtype=_promoted(gate, up),
+                    device=gate.device)
+    n = y.numel()
+    k["swiglu_fwd"][(triton.cdiv(n, _SWIGLU_BLOCK),)](
+        gate, up, y, n, BLOCK=_SWIGLU_BLOCK, num_warps=8)
+    LAUNCHES["swiglu_fwd"] += 1
+    return y
+
+
+@swiglu_op.register_fake
+def _swiglu_fake(gate, up):
+    return gate.new_empty(gate.shape, dtype=_promoted(gate, up))
+
+
+def _promoted(gate, up):
+    """The product's dtype, as ``silu(gate) * up`` promotes."""
+    return torch.promote_types(gate.dtype, up.dtype)
+
+
+def _swiglu_on_cuda(*tensors):
+    if not _on_cuda("swiglu", *tensors):
+        return False
+    x = tensors[0]
+    if any(t.dtype not in _DTYPES or t.shape != x.shape for t in tensors):
+        raise ValueError(f"swiglu takes float32/bfloat16 tensors of one "
+                         f"shape, got "
+                         f"{[(tuple(t.shape), t.dtype) for t in tensors]}")
+    return True
+
+
+def swiglu(gate, up):
+    """``silu(gate) * up``, differentiable, through ``SwiGLUFunction``: a
+    Triton kernel forward and backward on CUDA tensors (gate and up of one
+    shape, in float32 or bfloat16 each: silu rounds to gate's dtype and
+    the product to the two dtypes' promotion, as the two ops do), the
+    plain version on CPU tensors."""
+    return SwiGLUFunction.apply(gate, up)
+
+
 def fused_rope(q, k, cos, sin):
     """Interleaved-pair rotary embedding of q [b, s, h, d] and k
     [b, s, kvh, d] with cos/sin [s, d/2] (fp32), in one pass over both,
@@ -339,4 +574,7 @@ def fused_rope(q, k, cos, sin):
 
 __all__ = ["rms_norm", "add_rms_norm", "fused_rope", "rms_norm_plain",
            "add_rms_norm_plain", "fused_rope_plain", "RMSNormFunction",
-           "RopeFunction", "rms_norm_op", "add_rms_norm_op", "rope_op"]
+           "RopeFunction", "rms_norm_op", "add_rms_norm_op", "rope_op",
+           "rms_norm_backward", "rms_norm_backward_plain", "swiglu",
+           "swiglu_plain", "swiglu_backward_plain", "SwiGLUFunction",
+           "swiglu_op", "swiglu_backward"]

@@ -211,6 +211,34 @@ class GMMFunction(torch.autograd.Function):
         return dx, dw, None
 
 
+class ExpertBias(torch.autograd.Function):
+    """Each expert-sorted row's bias, ``b[es]`` (``b`` [e, n] fp32) cast
+    to ``dtype``, whose gradient sums each group's rows with ``tgmm``
+    against columns of ones (the kernel on CUDA tensors, the bf16 one for
+    a bf16 gradient, whose values it reads exactly and sums in fp32): a
+    sum in a fixed order, the same every run, where the backward of an
+    indexed gather adds the rows with atomics, in whatever order they
+    arrive, or sorts them first (slower than the step's grouped products
+    together). Rows past the groups (the padding) are left out: their
+    gradient is zero, since the products' rows past the groups are."""
+
+    @staticmethod
+    def forward(ctx, b, es, group_sizes, dtype):
+        ctx.save_for_backward(group_sizes)
+        ctx.rows = es.shape[0]
+        return torch.index_select(b, 0, es).to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (group_sizes,) = ctx.saved_tensors
+        # 128 columns fill one of the bf16 kernel's tiles; the float32
+        # kernel takes 16
+        ones = dy.new_ones(ctx.rows, 128 if dy.dtype == torch.bfloat16
+                           else 16)
+        db = tgmm(ones, dy.contiguous(), group_sizes)[:, 0, :]
+        return db, None, None, None
+
+
 # -- routing and the dropless FFN ---------------------------------------------
 
 def topk_route(logits, top_k: int, normalize: bool = True):
@@ -280,7 +308,8 @@ def moe_dropless_ffn(x2, logits, top_k: int, w1, b1, w2, b2, *,
     ``bt``, the padded rows take expert 0's biases and are sliced off
     before the combine, and the activation runs in fp32. Biases are
     gathered from fp32 copies, so their gradients sum in fp32 before the
-    cast to the bias dtype (the values gathered are the same)."""
+    cast to the bias dtype (the values gathered are the same), in the same
+    order every run (``ExpertBias``)."""
     t, d = x2.shape
     e = logits.shape[-1]
     probs, topv, topi = topk_route(logits, top_k, normalize)
@@ -294,15 +323,16 @@ def moe_dropless_ffn(x2, logits, top_k: int, w1, b1, w2, b2, *,
         xs = torch.cat([xs, xs.new_zeros(pad, d)])
         es = torch.cat([es, es.new_zeros(pad)])
     h = GMMFunction.apply(xs, w1, group_sizes)
-    h = h + torch.index_select(b1.float(), 0, es).to(h.dtype)
+    h = h + ExpertBias.apply(b1.float(), es, group_sizes, h.dtype)
     h = act(h.float()).to(h.dtype)
     y = GMMFunction.apply(h, w2, group_sizes)
-    y = y + torch.index_select(b2.float(), 0, es).to(y.dtype)
+    y = y + ExpertBias.apply(b2.float(), es, group_sizes, y.dtype)
     y = torch.index_select(y[:tk], 0, pos).reshape(t, top_k, d)
     out = torch.einsum("tk,tkd->td", topv.to(y.dtype), y)
     return out.to(x2.dtype), load_balance_aux(probs, topi)
 
 
 __all__ = ["gmm", "tgmm", "gmm_plain", "tgmm_plain", "GMMFunction",
+           "ExpertBias",
            "topk_route", "load_balance_aux",
            "route_sorted", "moe_dropless_ffn", "gelu_tanh"]

@@ -27,6 +27,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .._scalars import const, scalar
 from . import LAUNCHES
 from ._build import library
 
@@ -36,13 +37,17 @@ _TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 _MAX_TABLES = 8
 
 
-def bias_corrections(beta1, beta2, step):
-    """(1 - beta1**step, 1 - beta2**step), computed in float32 as the JAX
-    update computes them."""
-    f = lambda x: torch.tensor(x, dtype=torch.float32)
-    one = f(1.0)
-    return (float(one - f(beta1) ** f(step)),
-            float(one - f(beta2) ** f(step)))
+def adamw_scalars(lr, beta1, beta2, step, device):
+    """float32 ``[lr, 1 - beta1**step, 1 - beta2**step]`` on ``device``,
+    from ``lr`` and ``step`` given as numbers or 0-d tensors: the bias
+    corrections in float32 as the JAX update computes them, on the device
+    (``_fused_adamw_flat`` computes them in the compiled program). The
+    kernel reads this array, and ``adamw_plain`` computes with it."""
+    one = const(1.0, device)
+    st = scalar(step, device)
+    return torch.stack([scalar(lr, device),
+                        one - const(beta1, device) ** st,
+                        one - const(beta2, device) ** st])
 
 
 def adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd, step, decoupled=True,
@@ -50,11 +55,12 @@ def adamw_plain(p, g, m, v, lr, beta1, beta2, eps, wd, step, decoupled=True,
     """(p_new, m_new, v_new) of one tensor, in fp32 with ``_adam_update``'s
     order of operations at the rate ``float32(lr) * float32(lr_mult)``
     (the JAX trainer's float32 product; with ``lr_mult`` 1.0 the rate is
-    ``float32(lr)``); p_new in p's dtype. Nothing is written."""
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=p.device)
-    lr_, b1, b2, eps_, wd_ = map(f32, (lr, beta1, beta2, eps, wd))
-    lr_ = lr_ * f32(lr_mult)
-    bc1, bc2 = map(f32, bias_corrections(beta1, beta2, step))
+    ``float32(lr)``); p_new in p's dtype. ``lr`` and ``step`` are numbers
+    or 0-d tensors (``adamw_scalars``). Nothing is written."""
+    dev = p.device
+    lr_, bc1, bc2 = adamw_scalars(lr, beta1, beta2, step, dev)
+    lr_ = lr_ * const(lr_mult, dev)
+    b1, b2, eps_, wd_ = (const(x, dev) for x in (beta1, beta2, eps, wd))
     gf = g.float()
     pf = p.float()
     if not decoupled:
@@ -71,8 +77,9 @@ def _lib():
     lib = library("adamw")
     fn = lib.ptt_adamw
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p] + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ptt_error_string.argtypes = [ctypes.c_int]
         lib.ptt_error_string.restype = ctypes.c_char_p
@@ -90,8 +97,10 @@ def _table(group, device):
     the upper word; the tensor's rate multiplier (float32 bits) with a
     16-byte-alignment flag in the upper word. Cached by pointers, lengths,
     wd and multipliers: an in-place update keeps them, and the base rate
-    (which a scheduler changes) is a launch argument, so a training loop
-    builds it once."""
+    and step (which change) are read from ``adamw_scalars``, so a training
+    loop builds it once. A CUDA graph that captured a launch reads the
+    table at every replay: its owner keeps the tensor
+    (``multi_tensor_adamw`` returns it) as long as the graph."""
     key = tuple((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
                  p.numel(), p.element_size(), float(wd), float(mult))
                 for p, g, m, v, wd, mult in group)
@@ -148,16 +157,21 @@ def multi_tensor_adamw(params, grads, ms, vs, *, lr, beta1, beta2, eps, wds,
                        step, decoupled=True, lr_mults=None):
     """AdamW over lists of tensors, IN PLACE: params, ms and vs are
     overwritten; tensor i at the rate ``float32(lr) * float32(lr_mults[i])``
-    (every multiplier 1.0 when None) with weight decay ``wds[i]``. On CUDA
-    tensors one kernel launch updates every tensor of a dtype group; on CPU
-    tensors each tensor goes through ``adamw_plain``."""
+    (every multiplier 1.0 when None) with weight decay ``wds[i]``; ``lr``
+    and ``step`` are numbers or 0-d tensors on the parameters' device (a
+    trainer's, which it fills before each step). On CUDA tensors one kernel
+    launch updates every tensor of a dtype group, reading the rate and the
+    bias corrections from ``adamw_scalars`` on the device; on CPU tensors
+    each tensor goes through ``adamw_plain``. Returns the device tensors
+    the launches read (the tables and the scalars), which a CUDA graph
+    that captured them must keep."""
     if lr_mults is None:
         lr_mults = [1.0] * len(params)
     if not (len(params) == len(grads) == len(ms) == len(vs) == len(wds)
             == len(lr_mults)):
         raise ValueError("multi_tensor_adamw: list length mismatch")
     if not params:
-        return
+        return []
     dev = params[0].device
     if dev.type == "cpu":
         for p, g, m, v, wd, mult in zip(params, grads, ms, vs, wds,
@@ -167,25 +181,32 @@ def multi_tensor_adamw(params, grads, ms, vs, *, lr, beta1, beta2, eps, wds,
             p.copy_(pn)
             m.copy_(mn)
             v.copy_(vn)
-        return
+        return []
     if dev.type != "cuda":
         raise ValueError(f"multi_tensor_adamw runs on cuda or cpu, not {dev}")
     _check(params, grads, ms, vs)
-    bc1, bc2 = bias_corrections(beta1, beta2, step)
+    scalars = adamw_scalars(lr, beta1, beta2, step, dev)
+    if scalars.device != dev:
+        raise ValueError(f"multi_tensor_adamw: lr and step are on "
+                         f"{scalars.device}, the params on {dev}")
     groups = {}
     for entry in zip(params, grads, ms, vs, wds, lr_mults):
         groups.setdefault(entry[0].dtype, []).append(entry)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    read = [scalars]
     for dtype, group in groups.items():
         table = _table(group, dev)
         err = lib.ptt_adamw(table.data_ptr(), table.shape[0],
-                            _DTYPE_CODE[dtype], lr, beta1, beta2, eps, bc1,
-                            bc2, int(bool(decoupled)), stream)
+                            _DTYPE_CODE[dtype], scalars.data_ptr(), beta1,
+                            beta2, eps, int(bool(decoupled)), stream)
         if err != 0:
             raise RuntimeError("adamw kernel launch failed: "
                                + lib.ptt_error_string(err).decode())
         LAUNCHES["adamw"] += 1
+        read.append(table)
+    return read
 
 
-__all__ = ["multi_tensor_adamw", "adamw_plain", "bias_corrections", "CHUNK"]
+__all__ = ["multi_tensor_adamw", "adamw_plain", "adamw_scalars", "const",
+           "CHUNK"]

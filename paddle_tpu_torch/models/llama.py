@@ -22,7 +22,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as TF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -166,8 +165,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = _Linear(i, h, device, dtype)
 
     def forward(self, x):
-        return F.linear(TF.silu(F.linear(x, self.gate_proj.weight))
-                        * F.linear(x, self.up_proj.weight),
+        return F.linear(F.swiglu(F.linear(x, self.gate_proj.weight),
+                                 F.linear(x, self.up_proj.weight)),
                         self.down_proj.weight)
 
 

@@ -5,7 +5,8 @@ Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention`` and
 ``flashmask_attention`` (``attention.py``), ``rms_norm`` and ``layer_norm``
 (``norm.py``), ``cross_entropy`` (``loss.py``), ``gelu``
 (``activation.py``), ``linear`` and ``embedding`` (``common.py``), each for
-the cases the training paths use; anything else raises
+the cases the training paths use, and ``swiglu`` (the Llama MLP's
+``silu(gate) * up``); anything else raises
 ``NotImplementedError``. ``layer_norm``, ``gelu``, ``linear``,
 ``embedding`` and attention with a dense ``attn_mask`` are plain PyTorch:
 the JAX package has no Pallas kernel for them either. Each is the JAX op
@@ -283,6 +284,37 @@ def gelu(x, approximate=False, name=None):
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def swiglu(x, y, name=None):
+    """``silu(x) * y`` (``paddle.incubate.nn.functional.swiglu`` with both
+    halves given): the Llama MLP's JAX ops "silu" then "multiply", in one
+    Triton kernel forward and one backward on CUDA tensors
+    (``kernels.fused.swiglu``; XLA fuses the two ops), the plain ops on
+    CPU tensors. As ops (``amp``), the two are cast, observed and checked
+    in their order around the one kernel: silu's input is cast as silu
+    casts (its output keeps its input's dtype), then both factors as
+    multiply casts; ``amp.debugging``'s observers see "silu" with x and
+    "multiply" with the cast x standing for silu's output (its dtype and
+    shape; the kernel never writes it), and the checker sees the product,
+    which is not finite wherever silu's output is not."""
+    st = amp.amp_state
+    as_ops = not st.depth and amp._active()
+    if as_ops:
+        for observe in st.observers:
+            observe("silu", [x])
+        (x,) = amp._maybe_cast("silu", (x,))
+        for observe in st.observers:
+            observe("multiply", [x, y])
+        x, y = amp._maybe_cast("multiply", (x, y))
+    st.depth += 1          # the kernel's own calls are not ops
+    try:
+        out = fused.swiglu(x, y)
+    finally:
+        st.depth -= 1
+    if as_ops and st.checker is not None:
+        st.checker("multiply", out)
+    return out
+
+
 @amp.op("linear")
 def linear(x, weight, bias=None, name=None):
     """``x @ W + b`` with W in Paddle's ``[in, out]`` layout."""
@@ -328,4 +360,4 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "FlashMaskBounds", "prepare_flashmask", "flashmask_kernels_take",
            "rms_norm", "layer_norm",
-           "cross_entropy", "gelu", "linear", "embedding"]
+           "cross_entropy", "gelu", "linear", "embedding", "swiglu"]

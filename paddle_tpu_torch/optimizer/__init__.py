@@ -19,7 +19,13 @@ acts as a default JAX one (``nn.initializer.set_param_attr`` sets the
 first two from a ``ParamAttr``).
 
 Each rule computes in float32 with its jnp function's order of operations
-and writes the parameter in place (the JAX optimizer makes new arrays).
+and writes the parameter and its state in place (the JAX optimizer makes
+new arrays): a CUDA graph that captured a step (``parallel.trainer``)
+reads and writes the same tensors at every replay. The rate and the update
+count enter a rule as float32 0-d tensors on the parameter's device, as
+the JAX trainer traces them; the constants (betas, eps, decay) are tensors
+made once (``_scalars.const``), so an update copies nothing from
+the host.
 ``Adam`` and ``AdamW`` go through ``kernels.optimizer.multi_tensor_adamw``:
 one kernel launch per (rate, step, dtype) group on CUDA tensors, the plain
 version on CPU tensors. The other rules are PyTorch tensor operations, as
@@ -39,6 +45,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .._scalars import const, scalar
 from ..kernels.optimizer import multi_tensor_adamw
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from . import lr
@@ -179,15 +186,18 @@ class Optimizer:
         return state
 
     def set_state_dict(self, state):
-        """Load a ``state_dict()`` (its tensors, or numpy arrays, are copied
-        to each parameter's device)."""
+        """Load a ``state_dict()`` (its tensors, or numpy arrays) IN PLACE:
+        each value is copied into the parameter's live state tensor of that
+        name (created first where the parameter has none), so a CUDA graph
+        captured before the load updates the loaded state."""
         self._global_step = int(state.get("global_step", 0))
         accs = state.get("accumulators", {})
         for i, p in enumerate(self._parameter_list):
             key = _key(p, i)
             if key in accs:
-                self._accumulators[id(p)] = {
-                    k: _restored(k, v, p.device) for k, v in accs[key].items()}
+                acc = self._state_of(p)
+                for k, v in accs[key].items():
+                    _load_into(acc, k, v, p.device)
         if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
             self._lr.set_state_dict(state["LR_Scheduler"])
 
@@ -271,14 +281,17 @@ class Optimizer:
         return acc, int(acc["_step"]) + 1, self.get_lr() * _lr_mult(p)
 
     @torch.no_grad()
-    def _apply_one(self, p, g, acc, lr_val, step):
-        """One rule's update of ``p`` in place, at the float32 rate
-        ``lr_val``; the new state replaces ``acc``."""
+    def _apply_one(self, p, g, acc, lr_t, step_t):
+        """One rule's update of ``p`` in place at the rate ``lr_t`` and
+        update count ``step_t`` (float32 0-d tensors on p's device); the new
+        state is copied into ``acc``'s tensors."""
         state = {k: v for k, v in acc.items() if k != "_step"}
-        new_p, new_state = self._update(p.detach(), g, state, lr_val,
-                                        self._wd_coeff(p), step)
+        new_p, new_state = self._update(p.detach(), g, state, lr_t,
+                                        self._wd_coeff(p), step_t)
         p.copy_(new_p)
-        self._accumulators[id(p)] = dict(new_state, _step=step)
+        for k, v in new_state.items():
+            if v is not acc[k]:
+                acc[k].copy_(v)
 
     @torch.no_grad()
     def step(self):
@@ -289,18 +302,24 @@ class Optimizer:
         for p, g in self._collect_params_grads():
             acc, step, lr_val = self._resolve_param_step(p)
             self._apply_one(p, self._reg_grad(p, g.to(p.dtype)), acc,
-                            _as_f32(lr_val), step)
+                            scalar(lr_val, p.device), scalar(step, p.device))
+            acc["_step"] = step
 
     @torch.no_grad()
     def _update_all(self, params, grads, lr, mults, step):
-        """The trainer's update: every parameter at update ``step`` and
-        rate ``float32(lr) * float32(mult)`` (the JAX trainer's float32
-        product); ``grads`` are already in each parameter's dtype and
-        regularized."""
-        lr32 = np.float32(lr)
+        """The trainer's update: every parameter at the rate ``lr *
+        float32(mult)`` (the JAX trainer's float32 product) and update
+        count ``step``, both float32 0-d tensors on the parameters' device
+        (the trainer's buffers; what it writes in them before each step is
+        what the update reads, also from a CUDA graph); ``grads`` are
+        already in each parameter's dtype and regularized. The trainer
+        keeps each parameter's ``_step``. Returns the device tensors that a
+        captured update reads besides the parameters, gradients and state
+        (none here; the AdamW kernel's tables)."""
         for p, g, mult in zip(params, grads, mults):
             self._apply_one(p, g, self._state_of(p),
-                            float(lr32 * np.float32(mult)), step)
+                            lr * const(_as_f32(mult), p.device), step)
+        return []
 
     def _init_state(self, param) -> Dict:
         return {}
@@ -310,24 +329,32 @@ class Optimizer:
         raise NotImplementedError
 
 
-def _restored(key, v, device):
+def _load_into(acc, key, v, device):
+    """Load one saved state value into ``acc``: ``_step`` as an int, a
+    tensor into the live tensor of that name when shapes agree (in place),
+    else as a new tensor on ``device``."""
     if key == "_step":
-        return int(v)
+        acc[key] = int(v)
+        return
     t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
-    return t.to(device=device, copy=True).contiguous()
+    live = acc.get(key)
+    if torch.is_tensor(live) and live.shape == t.shape:
+        live.copy_(t)
+    else:
+        acc[key] = t.to(device=device, copy=True).contiguous()
 
 
 def _consts(p, *values):
-    """float32 scalars on p's device: the JAX rules' ``_f32`` operands."""
-    return [torch.tensor(v, dtype=torch.float32, device=p.device)
-            for v in values]
+    """float32 scalars on p's device, each made once and kept: the JAX
+    rules' ``_f32`` operands (``_scalars.const``)."""
+    return [const(v, p.device) for v in values]
 
 
 # -- the rules -------------------------------------------------------------------
 
 class SGD(Optimizer):
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, wd_ = _consts(param, lr_val, wd)
+        lr_, (wd_,) = lr_val, _consts(param, wd)
         g = grad.float() + wd_ * param.float()
         return (param.float() - lr_ * g).to(param.dtype), state
 
@@ -345,7 +372,7 @@ class Momentum(Optimizer):
         return {"velocity": torch.zeros_like(param.detach())}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, mu, wd_ = _consts(param, lr_val, self._momentum, wd)
+        lr_, (mu, wd_) = lr_val, _consts(param, self._momentum, wd)
         g = grad.float() + wd_ * param.float()
         v = mu * state["velocity"].float() + g
         upd = g + mu * v if self._use_nesterov else v
@@ -373,24 +400,24 @@ class Adam(Optimizer):
                                        device=param.device)}
 
     @torch.no_grad()
-    def _adam(self, params, grads, lr32, mults, step):
+    def _adam(self, params, grads, lr, mults, step):
         """One ``multi_tensor_adamw`` call (a kernel launch per dtype group
         on the card) over ``params`` at update ``step``: tensor i at the
-        float32 rate ``lr32 * mults[i]``."""
+        float32 rate ``lr * mults[i]`` (``lr`` and ``step`` numbers, or
+        0-d device tensors). Returns what the launches read."""
         states = [self._state_of(p) for p in params]
-        multi_tensor_adamw(
+        read = multi_tensor_adamw(
             [p.data for p in params], [g.detach().contiguous() for g in grads],
             [s["moment1"] for s in states], [s["moment2"] for s in states],
-            lr=lr32, lr_mults=mults, beta1=self._beta1, beta2=self._beta2,
+            lr=lr, lr_mults=mults, beta1=self._beta1, beta2=self._beta2,
             eps=self._epsilon, wds=[self._wd_coeff(p) for p in params],
-            step=float(step), decoupled=self._decoupled_wd)
+            step=step, decoupled=self._decoupled_wd)
         for p in params:
             # the update writes through p.data (and, on the card, a raw
             # pointer), which leaves p's version counter alone: bump it, so
             # what keys on it (the quantized decode weights) sees the step
             torch.autograd.graph.increment_version(p)
-        for s in states:
-            s["_step"] = step
+        return read
 
     @torch.no_grad()
     def step(self):
@@ -406,13 +433,16 @@ class Adam(Optimizer):
                 (p, self._reg_grad(p, g.to(p.dtype))))
         for (lr32, step), items in buckets.items():
             self._adam([p for p, _ in items], [g for _, g in items], lr32,
-                       [1.0] * len(items), step)
+                       [1.0] * len(items), float(step))
+            for p, _ in items:
+                self._state_of(p)["_step"] = step
 
     def _update_all(self, params, grads, lr, mults, step):
-        """One ``_adam`` call at the base rate ``float32(lr)`` with each
-        parameter's multiplier: the kernel forms the float32 product."""
-        self._adam(params, grads, _as_f32(lr), [_as_f32(m) for m in mults],
-                   step)
+        """One ``_adam`` call at the base rate ``lr`` (a float32 0-d
+        tensor) with each parameter's multiplier: the kernel forms the
+        float32 product."""
+        return self._adam(params, grads, lr, [_as_f32(m) for m in mults],
+                          step)
 
 
 class AdamW(Adam):
@@ -451,7 +481,7 @@ class Adagrad(Optimizer):
                                      device=param.device)}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, eps, wd_ = _consts(param, lr_val, self._epsilon, wd)
+        lr_, (eps, wd_) = lr_val, _consts(param, self._epsilon, wd)
         pf = param.float()
         g = grad.float() + wd_ * pf
         mom = state["moment"] + g * g
@@ -473,8 +503,8 @@ class Adadelta(Optimizer):
         return {"avg_squared_grad": z, "avg_squared_update": z.clone()}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        rho, eps, lr_, wd_ = _consts(param, self._rho, self._epsilon, lr_val,
-                                     wd)
+        lr_, (rho, eps, wd_) = lr_val, _consts(param, self._rho,
+                                               self._epsilon, wd)
         pf = param.float()
         g = grad.float() + wd_ * pf
         sq = rho * state["avg_squared_grad"] + (1 - rho) * g * g
@@ -498,9 +528,9 @@ class Adamax(Optimizer):
         return {"moment": z, "inf_norm": z.clone()}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, b1, b2, eps, st, wd_ = _consts(param, lr_val, self._beta1,
-                                            self._beta2, self._epsilon, step,
-                                            wd)
+        lr_, st = lr_val, step
+        b1, b2, eps, wd_ = _consts(param, self._beta1, self._beta2,
+                                   self._epsilon, wd)
         pf = param.float()
         g = grad.float() + wd_ * pf
         m = b1 * state["moment"] + (1 - b1) * g
@@ -523,8 +553,9 @@ class RMSProp(Optimizer):
         return {"mean_square": z, "mean_grad": z.clone(), "momentum": z.clone()}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, rho, eps, mom_, wd_ = _consts(param, lr_val, self._rho,
-                                           self._epsilon, self._momentum, wd)
+        lr_ = lr_val
+        rho, eps, mom_, wd_ = _consts(param, self._rho, self._epsilon,
+                                      self._momentum, wd)
         pf = param.float()
         g = grad.float() + wd_ * pf
         ms = rho * state["mean_square"] + (1 - rho) * g * g
@@ -563,9 +594,9 @@ class Lamb(Optimizer):
         return super()._wd_coeff(param)
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, b1, b2, eps, st, wd_ = _consts(param, lr_val, self._beta1,
-                                            self._beta2, self._epsilon, step,
-                                            wd)
+        lr_, st = lr_val, step
+        b1, b2, eps, wd_ = _consts(param, self._beta1, self._beta2,
+                                   self._epsilon, wd)
         gf, pf = grad.float(), param.float()
         m = b1 * state["moment1"] + (1 - b1) * gf
         v = b2 * state["moment2"] + (1 - b2) * gf * gf
@@ -599,9 +630,10 @@ class NAdam(Optimizer):
                                          device=param.device)}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, b1, b2, eps, psi, st, wd_, c96 = _consts(
-            param, lr_val, self._beta1, self._beta2, self._epsilon,
-            self._momentum_decay, step, wd, 0.96)
+        lr_, st = lr_val, step
+        b1, b2, eps, psi, wd_, c96 = _consts(
+            param, self._beta1, self._beta2, self._epsilon,
+            self._momentum_decay, wd, 0.96)
         pf = param.float()
         g = grad.float() + wd_ * pf
         md_pow = c96 ** st
@@ -634,9 +666,9 @@ class RAdam(Optimizer):
         return {"moment1": z, "moment2": z.clone()}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        lr_, b1, b2, eps, st, wd_ = _consts(param, lr_val, self._beta1,
-                                            self._beta2, self._epsilon, step,
-                                            wd)
+        lr_, st = lr_val, step
+        b1, b2, eps, wd_ = _consts(param, self._beta1, self._beta2,
+                                   self._epsilon, wd)
         pf = param.float()
         g = grad.float() + wd_ * pf
         beta1_pow = b1 ** st
@@ -707,14 +739,18 @@ class ASGD(Optimizer):
                                   dtype=torch.float32, device=param.device)}
 
     def _update(self, param, grad, state, lr_val, wd, step):
-        idx = (int(step) - 1) % self._n
-        lr_, n_eff, wd_ = _consts(param, lr_val, min(int(step), self._n), wd)
+        # the history slot (step - 1) % n and min(step, n), on the device
+        # from the update count (exact in float32 below 2**24)
+        n, (wd_,) = self._n, _consts(param, wd)
+        idx = torch.remainder(step - 1, n).long().reshape(1)
+        n_eff = torch.clamp(step, max=float(n))
         pf = param.float()
         g = grad.float() + wd_ * pf
         ys = state["ys"]
-        d = state["d"] - ys[idx] + g
-        ys[idx] = g
-        return (pf - (lr_ / n_eff) * d).to(param.dtype), {"d": d, "ys": ys}
+        d = state["d"] - ys.index_select(0, idx)[0] + g
+        ys.index_copy_(0, idx, g[None])
+        return (pf - (lr_val / n_eff) * d).to(param.dtype), \
+            {"d": d, "ys": ys}
 
 
 from .lbfgs import LBFGS  # noqa: E402  (lbfgs imports nothing from here)

@@ -9,22 +9,42 @@ trainer's, ignores ``need_clip``; then, per parameter as in its
 ``_update_loop``, the regularizer's penalty on the gradient and the
 optimizer's rule at the rate ``float32(get_lr()) * multiplier`` read at
 every step, with bias correction from the trainer's own step count),
-``block()`` and ``sync_optimizer_state()``. PyTorch runs the step eagerly:
-autograd takes the place of ``jax.value_and_grad`` and
-``torch.utils.checkpoint`` that of ``jax.checkpoint``, with the remat
-policies "full", "dots", "dots_no_batch" and "nothing". Meshes, ZeRO,
-context parallelism, the AOT program cache and the memory watcher are not
-ported and raise.
+``block()`` and ``sync_optimizer_state()``. Autograd takes the place of
+``jax.value_and_grad`` and ``torch.utils.checkpoint`` that of
+``jax.checkpoint``, with the remat policies "full", "dots",
+"dots_no_batch" and "nothing". Meshes, ZeRO, context parallelism, the AOT
+program cache and the memory watcher are not ported and raise.
+
+**The step as one program.** The JAX trainer traces its step once per
+batch signature and runs it compiled (``_build``, ``_jit_step``), with the
+rate and the step count as traced arguments. On a CUDA model this trainer
+captures its step in one CUDA graph per batch signature (shapes and
+dtypes) and replays it: ``_step_body`` reads only static buffers (the
+batch, staged by ``copy_``; the rate and the step count, float32 0-d
+tensors the driver fills from ``opt.get_lr()`` and its own count before
+each step) and writes only persistent tensors (parameters, the
+optimizer's state, the kept gradient buffers, the loss slot). The first
+call of a signature runs the body eagerly on a side stream (the real step:
+it compiles the Triton kernels and makes cuBLAS's handles) and then
+captures it; later calls stage, fill and replay. A replay runs no Python,
+so the launches the capture counted are taken back out and added at each
+replay (``kernels.uncount_since``). A step that cannot be captured raises;
+a CUDA model is never trained op by op behind the caller's back. On a CPU
+model the body runs eagerly (``_step_eager``), which on the card is the
+captured step's yardstick.
 
 The optimizer's state is the trainer's: the update writes the optimizer's
-own moments, and the step count starts at the optimizer's
-``_global_step``, so a trainer built on an optimizer that
-``set_state_dict`` loaded resumes where the saved run stopped. (The JAX
-trainer starts its state afresh whatever its optimizer holds.)
+own moments (in place, so a captured step keeps updating them), and each
+step is numbered one past the optimizer's ``_global_step``, so a trainer
+whose optimizer ``set_state_dict`` loaded, before or after the trainer
+captured its step, resumes where the saved run stopped. (The JAX trainer
+starts its state afresh whatever its optimizer holds.)
 """
 from __future__ import annotations
 
 import functools
+import gc
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -32,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import amp
+from ..kernels import LAUNCHES, uncount_since
 from ..optimizer import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                          Optimizer, _lr_mult)
 
@@ -104,6 +125,27 @@ def _wrap_remat(layer, policy: str = "full"):
     layer._remat_wrapped = True
 
 
+class _Captured:
+    """One batch signature's captured step (it reads the signature's
+    static batch buffers, ``SpmdTrainer._staged``): the CUDA graph, the
+    launches a replay makes (``tally``), the device tensors the update
+    reads besides the model's and optimizer's (``kept``: the AdamW
+    kernel's tables), and the capture's cost (``seconds``; ``pool_bytes``,
+    what the capture added to the trainer's graph pool, and so to the
+    memory PyTorch holds)."""
+
+    def __init__(self):
+        self.graph = None
+        self.tally: Dict[str, int] = {}
+        self.kept = []
+        self.seconds = 0.0
+        self.pool_bytes = 0
+
+
+def _signature(batch):
+    return tuple((tuple(b.shape), b.dtype) for b in batch)
+
+
 def _refuse(what, value, item):
     if value not in (None, False):
         raise NotImplementedError(
@@ -139,6 +181,15 @@ class SpmdTrainer:
         self._param_list = list(self._params)
         self._grads: Optional[Dict[str, torch.Tensor]] = None
         self._step_count = optimizer._global_step
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._pool = None          # the memory pool all its graphs share
+        self._staged: Dict[tuple, tuple] = {}
+        # the static scalars the body reads: rate, step count, loss slot
+        self._lr = self._step = self._loss = None
+
+    @property
+    def _device(self) -> torch.device:
+        return self._params[self._param_list[0]].device
 
     def _grads_of(self, batch):
         """(fp32 loss, {name: grad}) of one (micro-)batch."""
@@ -150,25 +201,103 @@ class SpmdTrainer:
             for n, p, g in zip(self._param_list, params, grads)}
 
     def train_step(self, *batch) -> torch.Tensor:
-        """One forward + backward + update. batch: tensors on the model's
-        device; returns the (fp32) loss."""
+        """One forward + backward + update. batch: tensors (staged into the
+        signature's buffers on the model's device); returns the (fp32)
+        loss, a tensor of its own. On a CUDA model the step is the
+        signature's captured graph (captured at the signature's first
+        call, which runs the step eagerly); on a CPU model it runs
+        eagerly."""
+        if self._device.type != "cuda":
+            return self._step_eager(*batch)
+        self._check_batch(batch)
+        sig = _signature(batch)
+        cap = self._graphs.get(sig)
+        if cap is None:
+            return self._capture(batch)
+        self._stage(batch)
+        self._begin_step()
+        cap.graph.replay()
+        for name, n in cap.tally.items():
+            LAUNCHES[name] += n
+        self._end_step(replayed=True)
+        return self._loss.clone()
+
+    def _step_eager(self, *batch) -> torch.Tensor:
+        """The same step op by op: the CPU's path, and on the card the
+        captured step's yardstick (the same body on the same buffers)."""
+        self._check_batch(batch)
+        static = self._stage(batch)
+        self._begin_step()
+        self._step_body(static)
+        self._end_step()
+        return self._loss.clone()
+
+    def _check_batch(self, batch):
         k = self.accumulate_steps
-        if k > 1:
-            for b in batch:
-                if b.dim() < 1 or b.shape[0] % k:
-                    raise ValueError(
-                        f"accumulate_steps={k} must divide the batch dim of "
-                        f"every input (got shape {tuple(b.shape)})")
-        self._step_count += 1
+        for b in batch:
+            if not torch.is_tensor(b):
+                raise TypeError(f"train_step takes tensors, got {type(b)}")
+            if k > 1 and (b.dim() < 1 or b.shape[0] % k):
+                raise ValueError(
+                    f"accumulate_steps={k} must divide the batch dim of "
+                    f"every input (got shape {tuple(b.shape)})")
+
+    def _stage(self, batch) -> tuple:
+        """Copy the batch into its signature's static buffers (made at the
+        signature's first call) on the model's device."""
+        sig = _signature(batch)
+        static = self._staged.get(sig)
+        if static is None:
+            static = tuple(torch.empty(b.shape, dtype=b.dtype,
+                                       device=self._device) for b in batch)
+            self._staged[sig] = static
+        for dst, src in zip(static, batch):
+            dst.copy_(src, non_blocking=True)
+        return static
+
+    def _begin_step(self):
+        """The host's part of a step before the device's: count it (one
+        past the optimizer's ``_global_step``, which the trainer keeps at
+        its count, so an optimizer state loaded in place resumes the
+        count too), write the rate (float32, as the JAX trainer's
+        ``jnp.float32(get_lr())``) and the count into the static scalars,
+        and give every parameter's state the count (``_step``)."""
+        if self._lr is None:
+            dev = self._device
+            self._lr, self._step, self._loss = (
+                torch.zeros((), dtype=torch.float32, device=dev)
+                for _ in range(3))
+        self._step_count = self.opt._global_step + 1
+        self._lr.fill_(self.opt.get_lr())
+        self._step.fill_(float(self._step_count))
+        for n in self._param_list:
+            self.opt._state_of(self._params[n])["_step"] = self._step_count
+
+    def _end_step(self, replayed=False):
+        self.opt._global_step = self._step_count
+        if replayed:
+            # a replay writes the parameters without autograd seeing it:
+            # bump their version counters as the eager update does, so
+            # what keys on them (the quantized decode weights) sees it
+            for n in self._param_list:
+                torch.autograd.graph.increment_version(self._params[n])
+
+    def _step_body(self, batch) -> list:
+        """The device's part of a step, reading only ``batch`` (static
+        buffers), ``self._lr`` and ``self._step``, writing only the
+        parameters, the optimizer's state, ``self._grads`` and
+        ``self._loss``. Returns the device tensors the update reads that a
+        CUDA graph of it must keep (``Optimizer._update_all``)."""
+        k = self.accumulate_steps
         if k == 1:
             loss, grads = self._grads_of(batch)
         else:
             micro = [b.chunk(k, dim=0) for b in batch]
-            loss = torch.zeros((), dtype=torch.float32)
+            loss = torch.zeros((), dtype=torch.float32, device=self._device)
             acc = None
             for i in range(k):
                 l, g = self._grads_of([m[i] for m in micro])
-                loss = loss.to(l.device) + l
+                loss = loss + l
                 if acc is None:
                     acc = {n: x.float() for n, x in g.items()}
                 else:
@@ -185,10 +314,72 @@ class SpmdTrainer:
             for p, g in zip(params, grads):
                 if self.opt._needs_grad_transform(p):
                     g.copy_(self.opt._reg_grad(p, g))
-        self.opt._update_all(params, grads, self.opt.get_lr(),
-                             [_lr_mult(p) for p in params], self._step_count)
-        self.opt._global_step = self._step_count
+            self._loss.copy_(loss)
+        return self.opt._update_all(params, grads, self._lr,
+                                    [_lr_mult(p) for p in params], self._step)
+
+    def _capture(self, batch) -> torch.Tensor:
+        """A new signature's first call: the step run eagerly on a side
+        stream (the real step, which also compiles every Triton kernel it
+        reaches and makes cuBLAS's handles), then the same body captured
+        in a CUDA graph (the capture runs no kernel). Returns the eager
+        step's loss."""
+        t0 = time.perf_counter()
+        dev = self._device
+        static = self._stage(batch)
+        self._begin_step()
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._step_body(static)
+        cur.wait_stream(side)
+        self._end_step()
+        loss = self._loss.clone()
+        # what the capture adds to the memory PyTorch holds is what it adds
+        # to the pool (a remat'd layer and its wrapped forward form a cycle
+        # that only the collector frees)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        cap = _Captured()
+        cap.graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(cap.graph, pool=self._shared_pool()):
+                cap.kept = self._step_body(static)
+        except RuntimeError as exc:
+            raise RuntimeError(
+                f"SpmdTrainer: the training step cannot be captured in a "
+                f"CUDA graph (the operation that refused is named above): "
+                f"{exc}") from exc
+        finally:
+            cap.tally = uncount_since(before)
+        cap.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        cap.seconds = time.perf_counter() - t0
+        self._graphs[_signature(batch)] = cap
         return loss
+
+    def _shared_pool(self):
+        """The memory pool every graph of this trainer is captured into, so
+        a second signature reuses the first one's activation memory
+        (``jit`` keeps one program per signature, not its memory). The
+        sharing is safe because the replays run one at a time on one
+        stream and a replay reads, of what lives in the pool, only what it
+        wrote itself earlier in the same replay: every tensor that one
+        step leaves for the next (parameters, state, gradient buffers,
+        the loss slot, the staged batches, the update's tables) was made
+        by an eager step, outside the pool."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _drop_graphs(self):
+        """Free every captured step (and so their memory pool): the next
+        call of each signature captures anew."""
+        self._graphs.clear()
+        self._pool = None
 
     @torch.no_grad()
     def _store_grads(self, grads):

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ._scalars import const
+
 
 class WeightDecayRegularizer:
     def __init__(self, coeff: float = 0.0):
@@ -28,7 +30,10 @@ class WeightDecayRegularizer:
         return f"{type(self).__name__}(coeff={self._coeff})"
 
     def _c(self, grad):
-        return torch.tensor(self._coeff, dtype=grad.dtype, device=grad.device)
+        """The coefficient in the gradient's dtype on its device, made once
+        (``_scalars.const``): applying the penalty copies nothing
+        from the host, so a captured step can hold it."""
+        return const(self._coeff, grad.device, grad.dtype)
 
     def apply(self, grad, param):
         """The regularized gradient (grad + d penalty / d param)."""

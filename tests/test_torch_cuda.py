@@ -750,7 +750,8 @@ def test_gpt_moe_training_on_gpu_matches_cpu(dev):
         close += int((d <= 1e-5).sum())
         total += d.numel()
     assert close >= 0.999 * total, (close, total)
-    assert K.LAUNCHES["gmm"] == 3 * 2 * 4 and K.LAUNCHES["tgmm"] == 3 * 2 * 2
+    # tgmm: each MoE layer's two weight gradients and its two biases'
+    assert K.LAUNCHES["gmm"] == 3 * 2 * 4 and K.LAUNCHES["tgmm"] == 3 * 2 * 4
     assert K.LAUNCHES["adamw"] == 3 and K.LAUNCHES["flash_fwd"] == 3 * 2
 
 
@@ -1637,3 +1638,377 @@ def test_batching_server_delegates_to_the_engine_on_card(dev):
     finally:
         server.close()
     assert outs == want
+
+
+# -- the captured training step and the fused passes ---------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 2048), (3, 5, 130), (7, 64)])
+def test_rms_norm_backward_matches_plain(dev, dtype, shape):
+    """The backward kernels against the autograd of the fp32 formula: dx
+    each row within one ulp of its largest value in bf16 (2e-5 in fp32);
+    dw, a sum over every row in fp32 before one rounding, within one ulp
+    of its largest value in bf16 (2e-5 relative in fp32; the partials
+    are summed in another order); two calls give the same bits (the
+    partials are summed in a fixed order, without atomics)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    w = (1 + 0.1 * torch.randn(shape[-1], device=dev, generator=g)).to(dtype)
+    dy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    want = fused.rms_norm_backward_plain(x, w, dy, 1e-6)
+    before = K.LAUNCHES["rms_norm_bwd"]
+    got = fused.rms_norm_backward(x, w, dy, 1e-6)
+    again = fused.rms_norm_backward(x, w, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rms_norm_bwd"] == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if dtype == torch.float32:
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= _tol(b, dtype)
+    else:
+        _assert_rows_close(got[0], want[0], 1)
+        assert float((got[1].float() - want[1].float()).abs().max()) \
+            <= _tol(want[1], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2048, 5632), (3, 7, 33)])
+def test_swiglu_matches_plain(dev, dtype, shape):
+    """silu(gate) * up and its backward against PyTorch's ops: the kernel
+    computes silu with Triton's exp, so its fp32 values differ from
+    PyTorch's in the last bits and a bf16 result may round the other way:
+    y and dup each row within one ulp of its largest value, dgate within
+    two (silu's backward cancels near gate = -1.28); fp32 2e-5."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    gate = (3 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+    up = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    dy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    before = (K.LAUNCHES["swiglu_fwd"], K.LAUNCHES["swiglu_bwd"])
+    a, b = gate.clone().requires_grad_(), up.clone().requires_grad_()
+    y = fused.swiglu(a, b)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["swiglu_fwd"], K.LAUNCHES["swiglu_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    want_y = fused.swiglu_plain(gate, up)
+    want_dg, want_du = fused.swiglu_backward_plain(gate, up, dy)
+    if dtype == torch.float32:
+        for got, want in ((y, want_y), (a.grad, want_dg), (b.grad, want_du)):
+            assert float((got - want).abs().max()) <= _tol(want, dtype)
+    else:
+        _assert_rows_close(y.detach(), want_y, 1)
+        _assert_rows_close(b.grad, want_du, 1)
+        _assert_rows_close(a.grad, want_dg, 2)
+
+
+def test_adamw_reads_rate_and_step_from_the_device(dev):
+    """One launch captured in a CUDA graph, replayed after the rate and
+    step tensors were rewritten: each replay equals ``adamw_plain`` at
+    the new values bit for bit."""
+    from paddle_tpu_torch.kernels.optimizer import (adamw_plain,
+                                                    multi_tensor_adamw)
+    g = torch.Generator(device=dev).manual_seed(13)
+    p = torch.randn(70000, device=dev, generator=g).to(torch.bfloat16)
+    grad = torch.randn(70000, device=dev, generator=g).to(torch.bfloat16)
+    m = torch.zeros(70000, device=dev)
+    v = torch.zeros(70000, device=dev)
+    lr = torch.zeros((), device=dev)
+    step = torch.zeros((), device=dev)
+    hp = dict(beta1=0.9, beta2=0.95, eps=1e-8, wds=[0.1], lr_mults=[0.5])
+    lr.fill_(1e-3)
+    step.fill_(1.0)
+    kept = multi_tensor_adamw([p], [grad], [m], [v], lr=lr, step=step, **hp)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = multi_tensor_adamw([p], [grad], [m], [v], lr=lr, step=step,
+                                  **hp)
+    assert len(kept) == 2                         # the scalars and a table
+    for rate, n in ((3e-4, 2.0), (5e-5, 3.0)):
+        want = adamw_plain(p, grad, m, v, rate, 0.9, 0.95, 1e-8, 0.1, n,
+                           True, 0.5)
+        lr.fill_(rate)
+        step.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(p, want[0]) and torch.equal(m, want[1]) \
+            and torch.equal(v, want[2])
+
+
+def _tiny_train_pair(dev, kind, seed=7):
+    """Two identical tiny bf16 models on the card with their trainers
+    (AdamW at warmup then cosine, clipping; Llama: full remat, the
+    chunked loss): (model, trainer, scheduler) twice."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaConfig, LlamaForCausalLM)
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    out = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if kind == "llama":
+            model = LlamaForCausalLM(LlamaConfig.tiny(
+                vocab_size=97, hidden_size=128, layers=2, heads=2,
+                kv_heads=1, seq=64), device=dev, generator=gen)
+            loss = lambda m, i, l: m.forward_loss(i, l, loss_chunk_size=16)
+            layers = list(model.model.layers)
+        else:
+            model = GPTForCausalLM(GPTConfig.tiny(
+                vocab_size=97, hidden_size=128, layers=2, heads=2, seq=64,
+                num_experts=4, moe_every=2), device=dev, generator=gen)
+            for block in model.transformer.h:
+                if block.is_moe:
+                    block.mlp.dropless = True
+            loss = lambda m, i, l: m.compute_loss(m(i), l)
+            layers = None
+        model.bfloat16()
+        sched = O.lr.LinearWarmup(O.lr.CosineAnnealingDecay(1e-3, T_max=6),
+                                  2, 0.0, 1e-3)
+        opt = O.AdamW(learning_rate=sched, parameters=model.parameters(),
+                      weight_decay=0.01, grad_clip=O.ClipGradByGlobalNorm(1))
+        out += [model, SpmdTrainer(model, opt, loss, remat_layers=layers),
+                sched]
+    return out
+
+
+def _train_ids(dev, shape=(4, 64), seed=8):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 97, shape)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt_moe"])
+def test_captured_train_step_equals_eager(dev, kind):
+    """The same 4 steps captured (``train_step``: the first eager on a side
+    stream, then replays) and op by op (``_step_eager``): every loss,
+    parameter and moment bit-equal, under a rate that changes every step
+    (0 at the first: the parameters stay, so the rate reached the
+    update); one graph, whose replays count one step's launches each."""
+    m1, t1, s1, m2, t2, s2 = _tiny_train_pair(dev, kind)
+    ids = _train_ids(dev)
+    first = [p.detach().clone() for p in m1.parameters()]
+    for i in range(4):
+        K.reset_launches()
+        a = t1.train_step(ids, ids)
+        cap = dict(K.LAUNCHES)
+        K.reset_launches()
+        b = t2._step_eager(ids, ids)
+        assert cap == dict(K.LAUNCHES), (i, cap, dict(K.LAUNCHES))
+        assert torch.equal(a, b), (i, float(a), float(b))
+        assert float(t1._lr) == float(np.float32(s1()))
+        if i == 0:
+            assert all(torch.equal(p, q) for p, q in zip(m1.parameters(),
+                                                         first))
+        s1.step()
+        s2.step()
+    torch.cuda.synchronize()
+    assert len(t1._graphs) == 1 and not t2._graphs
+    for p, q in zip(m1.parameters(), m2.parameters()):
+        assert torch.equal(p, q)
+        sa, sb = t1.opt._state_of(p), t2.opt._state_of(q)
+        assert torch.equal(sa["moment1"], sb["moment1"]) \
+            and torch.equal(sa["moment2"], sb["moment2"])
+    assert not any(torch.equal(p, q) for p, q in zip(m1.parameters(), first)
+                   if p.dim() > 1)
+
+
+def test_a_second_batch_signature_makes_a_second_graph(dev):
+    """Two batch shapes, alternated: a graph each, each replay equal to the
+    eager step on the same shape."""
+    m1, t1, _, m2, t2, _ = _tiny_train_pair(dev, "llama")
+    batches = [_train_ids(dev, (4, 64)), _train_ids(dev, (2, 32), 9)]
+    for i in range(5):
+        ids = batches[i % 2]
+        assert torch.equal(t1.train_step(ids, ids), t2._step_eager(ids, ids))
+    assert len(t1._graphs) == 2 and len(t1._staged) == 2
+    assert all(c.pool_bytes >= 0 and c.tally["rms_norm_bwd"] > 0
+               for c in t1._graphs.values())
+    for p, q in zip(m1.parameters(), m2.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_resume_into_a_captured_trainer(dev):
+    """State loaded (in place) into an optimizer whose trainer already
+    captured its step: the next replays continue from the loaded state,
+    as an eager trainer loaded from the same state does."""
+    m1, t1, _, m2, t2, _ = _tiny_train_pair(dev, "llama")
+    ids = _train_ids(dev)
+    for _ in range(3):
+        t1.train_step(ids, ids)
+        t2._step_eager(ids, ids)
+    saved = t2.opt.state_dict()
+    weights = {n: p.detach().clone() for n, p in m2.named_parameters()}
+    t2._step_eager(ids, ids)            # move on, then go back
+    with torch.no_grad():
+        for n, p in m1.named_parameters():
+            p.copy_(weights[n])
+        for n, p in m2.named_parameters():
+            p.copy_(weights[n])
+    t1.opt.set_state_dict(saved)
+    t2.opt.set_state_dict(saved)
+    for _ in range(2):
+        assert torch.equal(t1.train_step(ids, ids), t2._step_eager(ids, ids))
+    for p, q in zip(m1.parameters(), m2.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_a_second_signature_shares_the_first_ones_pool(dev):
+    """A trainer captures every signature into one memory pool: a second,
+    smaller signature adds at most a quarter of what the first capture
+    added (a trainer of its own for that signature needs a pool of its
+    own), and alternating replays still equal the eager steps."""
+    m1, t1, _, m2, t2, _ = _tiny_train_pair(dev, "llama")
+    big, small = _train_ids(dev, (16, 64)), _train_ids(dev, (8, 64), 9)
+    for ids in (big, small, big, small):
+        assert torch.equal(t1.train_step(ids, ids), t2._step_eager(ids, ids))
+    first, second = (t1._graphs[((tuple(b.shape), b.dtype),) * 2]
+                     for b in (big, small))
+    _, alone, _, _, _, _ = _tiny_train_pair(dev, "llama")
+    alone.train_step(small, small)
+    alone.train_step(small, small)
+    own = next(iter(alone._graphs.values())).pool_bytes
+    print(f"pool bytes: first {first.pool_bytes}, second {second.pool_bytes},"
+          f" the second signature alone {own}")
+    assert first.pool_bytes > 0 and own > 0
+    assert second.pool_bytes <= first.pool_bytes // 4
+    for p, q in zip(m1.parameters(), m2.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_resume_into_a_fresh_trainer_that_captures(dev):
+    """The usual resume: the model's, optimizer's and scheduler's state
+    after 3 captured steps, loaded into a fresh model (other weights),
+    optimizer, scheduler and trainer, whose first call runs eagerly and
+    captures: its 2 steps equal the uninterrupted run's bit for bit
+    (losses, parameters, moments), with one step's launches each."""
+    m1, t1, s1, _, _, _ = _tiny_train_pair(dev, "llama")
+    m3, t3, s3, _, _, _ = _tiny_train_pair(dev, "llama", seed=99)
+    ids = _train_ids(dev)
+    for _ in range(3):
+        t1.train_step(ids, ids)
+        s1.step()
+    weights = {k: v.detach().clone() for k, v in m1.state_dict().items()}
+    saved, sched = t1.opt.state_dict(), s1.state_dict()
+    K.reset_launches()
+    want, rates = [], []
+    for _ in range(2):
+        want.append(t1.train_step(ids, ids))
+        rates.append(float(t1._lr))
+        s1.step()
+    per_step = {k: v // 2 for k, v in K.LAUNCHES.items()}
+    m3.load_state_dict(weights)
+    t3.opt.set_state_dict(saved)
+    s3.set_state_dict(sched)
+    for i in range(2):
+        K.reset_launches()
+        assert torch.equal(t3.train_step(ids, ids), want[i])
+        assert dict(K.LAUNCHES) == per_step and float(t3._lr) == rates[i]
+        s3.step()
+    assert len(t3._graphs) == 1
+    for p, q in zip(m1.parameters(), m3.parameters()):
+        assert torch.equal(p, q)
+        sa, sb = t1.opt._state_of(p), t3.opt._state_of(q)
+        assert torch.equal(sa["moment1"], sb["moment1"]) \
+            and torch.equal(sa["moment2"], sb["moment2"])
+
+
+def test_swiglu_kernels_run_under_operator_stats(dev):
+    """With operator-stats collection on, ``F.swiglu`` still launches its
+    forward and backward kernels (and counts "silu" and "multiply"), with
+    the same values as without it."""
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device=dev).manual_seed(15)
+    gate = torch.randn(64, 256, device=dev, generator=g)
+    up = torch.randn(64, 256, device=dev, generator=g)
+    out = []
+    for stats in (False, True):
+        a, b = gate.clone().requires_grad_(), up.clone().requires_grad_()
+        before = (K.LAUNCHES["swiglu_fwd"], K.LAUNCHES["swiglu_bwd"])
+        if stats:
+            debugging.enable_operator_stats_collection()
+        try:
+            y = F.swiglu(a, b)
+        finally:
+            counted = (debugging.disable_operator_stats_collection()
+                       if stats else None)
+        y.backward(torch.ones_like(y))
+        torch.cuda.synchronize()
+        assert (K.LAUNCHES["swiglu_fwd"], K.LAUNCHES["swiglu_bwd"]) == \
+            (before[0] + 1, before[1] + 1)
+        out.append((y.detach(), a.grad, b.grad))
+    assert counted == {"silu(float32)": 1, "multiply(float32)": 1}
+    assert all(torch.equal(x, z) for x, z in zip(*out))
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32-bf16", "bf16-f32"])
+def test_swiglu_mixed_dtypes_match_the_two_ops(dev, dtypes):
+    """Gate and up in two dtypes: the kernels give what ``silu(gate) *
+    up`` gives (silu rounded to gate's dtype, the product in float32,
+    each gradient in its input's dtype), also through ``F.swiglu`` under
+    auto_cast O1, which leaves a float32 gate and a bf16 up as they are.
+    Float32 results within 2e-5 of the largest value; bf16 ones each row
+    within one ulp of its largest value, and where silu is rounded to bf16
+    (a bf16 gate) two: Triton's exp may round it the other way."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    gd, ud = dtypes
+    g = torch.Generator(device=dev).manual_seed(16)
+    gate = (3 * torch.randn(96, 512, device=dev, generator=g)).to(gd)
+    up = torch.randn(96, 512, device=dev, generator=g).to(ud)
+    dy = torch.randn(96, 512, device=dev, generator=g)
+    want = (fused.swiglu_plain(gate, up),
+            *fused.swiglu_backward_plain(gate, up, dy))
+    for route in ("fused", "auto_cast"):
+        a, b = gate.clone().requires_grad_(), up.clone().requires_grad_()
+        before = (K.LAUNCHES["swiglu_fwd"], K.LAUNCHES["swiglu_bwd"])
+        if route == "fused":
+            y = fused.swiglu(a, b)
+        else:
+            with amp.auto_cast(level="O1"):
+                y = F.swiglu(a, b)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert (K.LAUNCHES["swiglu_fwd"], K.LAUNCHES["swiglu_bwd"]) == \
+            (before[0] + 1, before[1] + 1)
+        got = (y.detach(), a.grad, b.grad)
+        assert [t.dtype for t in got] == [torch.float32, gd, ud]
+        for x, ref in zip(got, want):
+            if x.dtype == gd == torch.float32:
+                assert float((x - ref).abs().max()) <= _tol(ref, x.dtype)
+            else:
+                _assert_rows_close(x, ref, 1 if gd == torch.float32 else 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_bias_gradient_sums_in_a_fixed_order(dev, dtype):
+    """The MoE expert biases' gradient through tgmm: each group's rows
+    summed in fp32, within 1e-5 of the largest value of an ``index_add_``
+    in float64 (the exact sum, near enough), the padding rows left out,
+    and the same bits on a second call (no atomics)."""
+    from paddle_tpu_torch.kernels.gmm import ExpertBias
+    g = torch.Generator(device=dev).manual_seed(14)
+    sizes = torch.tensor([2048, 0, 1500, 2596, 2048, 2048, 3000, 3144],
+                         dtype=torch.int32, device=dev)
+    rows = int(sizes.sum()) + 96                    # 96 padding rows
+    es = torch.repeat_interleave(torch.arange(8, device=dev),
+                                 sizes.long())
+    es = torch.cat([es, es.new_zeros(96)])
+    b = torch.randn(8, 3072, device=dev, generator=g)
+    dy = torch.randn(rows, 3072, device=dev, generator=g).to(dtype)
+    dy[-96:] = 0          # as the FFN's padding rows' gradient always is
+    out = []
+    for _ in range(2):
+        bb = b.clone().requires_grad_()
+        y = ExpertBias.apply(bb, es, sizes, dtype)
+        assert y.dtype == dtype and torch.equal(y.float(), b[es].to(dtype)
+                                                .float())
+        y.backward(dy)
+        out.append(bb.grad)
+    torch.cuda.synchronize()
+    want = torch.zeros(8, 3072, dtype=torch.float64, device=dev) \
+        .index_add_(0, es, dy.double())
+    assert torch.equal(out[0], out[1])
+    assert float((out[0].double() - want).abs().max()) \
+        <= 1e-5 * float(want.abs().max())
+    assert not out[0][1].any()                       # the empty group
