@@ -51,7 +51,13 @@ Phases, each printing its own lines and its seconds:
      training step, as Triton kernels (RMSNorm's backward over [16384,
      2048], SwiGLU's forward and backward over [16384, 5632], bf16) against
      their plain versions, timed beside their bound and, for RMSNorm, the
-     autograd of F.rms_norm;
+     autograd of F.rms_norm; the dropout kernel over the ERNIE step's
+     hidden states ([16384, 768] bf16) and attention probabilities ([32,
+     12, 512, 512] fp32) bit-equal to its plain version (Philox4x32-10 in
+     both), beside torch's F.dropout, and a captured call replayed with
+     new keys equal to eager calls; LayerNorm(residual + dropout(x +
+     bias)) forward and backward over [16384, 768] bf16, with the dropout
+     and as a plain LayerNorm, beside F.layer_norm and its autograd;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -162,6 +168,23 @@ Phases, each printing its own lines and its seconds:
      versions (1.1x overall, 1.25x per parameter); GradScaler skipping a
      step with an inf; every optimizer rule and LBFGS on a tiny float32
      Llama equal to the CPU's within rtol 1e-5;
+  13. ERNIE-base pretraining (BASELINE configuration 3) at its published
+     widths, uncut (vocab 18000, hidden 768, 12 layers, dropout 0.1 /
+     0.1; bf16 weights, fp32 moments, AdamW, batch 32 x 512): (a) the
+     step captured, 2 warm-up and 5 timed steps with exact launch counts
+     (AdamW 1, dropout 26, LayerNorm 26 + 26 backward, 12 dense attention
+     calls, no flash), finite and falling losses, step ms, tokens/s, MFU,
+     peak memory, pool, a profile by kernel group; 3 captured steps
+     against 3 eager ones of a twin from the same random state,
+     bit-equal; one step from one snapshot twice under one seed
+     (bit-equal) and once under another (a different loss); (b) the same
+     at dropout 0 (flash 12 + 12 a step, nothing dense); (c) one step at 2
+     layers through the kernels against the plain versions (the phase 5
+     gate; every path draws the same masks); (d) a tiny float32 ERNIE at
+     dropout 0.1 trained 3 steps on the card against the CPU trainer;
+     (e) ErnieForSequenceClassification in eval at [32, 512] bf16,
+     through flash without a mask and the dense route with one, logits
+     no further from float32 than the plain path's (2x);
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -917,6 +940,7 @@ def _plain_patches(stack):
         ragged, "ragged_attention",
         lambda *a, plan=None, **k: ragged_attention_plain(*a, **k)))
     stack.enter_context(mock.patch.object(G, "_qmm", quant_matmul_arrays))
+    _plain_fusion_patches(stack)
 
 
 def _nothing_routed(launches, phase):
@@ -1471,8 +1495,16 @@ def _kernel_group(name):
         return "flash_bwd"
     if "adamw_kernel" in name:
         return "adamw"
-    if "_rms_norm_bwd_kernel" in name or "_col_sum_kernel" in name:
+    if "_rms_norm_bwd_kernel" in name:
         return "rms_norm_bwd"
+    if "_col_sum_kernel" in name:   # _profile: its caller's group
+        return "col_sum"
+    if "_dln_fwd_kernel" in name:
+        return "layer_norm"
+    if "_dln_bwd_kernel" in name:
+        return "layer_norm_bwd"
+    if "_dropout_kernel" in name:
+        return "dropout"
     if "_swiglu_" in name:
         return "swiglu"
     if "sgemm" in name or "f32f32" in name:
@@ -1522,19 +1554,27 @@ def _profile(torch, step, n, checked=None):
             wall = time.monotonic() - t0
         groups, names, counts, launches = {}, {}, {}, 0
         other, other_n = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                g = _kernel_group(e.name)
-                ms = e.time_range.elapsed_us() / 1e3
-                groups[g] = groups.get(g, 0.0) + ms
-                key = e.name[:80]
-                names[key] = names.get(key, 0.0) + ms
-                counts[key] = counts.get(key, 0) + 1
-                launches += 1
-                if g == "other":      # PyTorch's kernels: named by functor
-                    key = _other_name(e.name)
-                    other[key] = other.get(key, 0.0) + ms
-                    other_n[key] = other_n.get(key, 0) + 1
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        prev = "other"
+        for e in kernels:
+            g = _kernel_group(e.name)
+            if g == "col_sum":
+                # the second kernel of RMSNorm's or LayerNorm's
+                # backward, launched right after the rows' kernel
+                g = prev
+            prev = g
+            ms = e.time_range.elapsed_us() / 1e3
+            groups[g] = groups.get(g, 0.0) + ms
+            key = e.name[:80]
+            names[key] = names.get(key, 0.0) + ms
+            counts[key] = counts.get(key, 0) + 1
+            launches += 1
+            if g == "other":      # PyTorch's kernels: named by functor
+                key = _other_name(e.name)
+                other[key] = other.get(key, 0.0) + ms
+                other_n[key] = other_n.get(key, 0) + 1
         checked = checked or {}
         launched = {keys: sum(K.LAUNCHES[k] - before[k] for k in keys)
                     for keys in checked}
@@ -2986,7 +3026,8 @@ def _captured_against_eager(torch, trainer, make_twin, batch, tag, card,
     """From the trainer's weights and optimizer state, 3 steps replayed
     from its graph against 3 steps of a twin (another model and trainer
     given the same weights and state) run op by op (``_step_eager``, the
-    CPU's path): each loss, and every parameter and moment after the
+    CPU's path), each pair from the same random state (the same step
+    key): each loss, and every parameter and moment after the
     third, bit-equal. Returns the eager step ms (mean of steps 2 and 3,
     host clock), a profile of one eager step and its idle share against
     the eager step's wall time, beside the captured step's."""
@@ -2995,10 +3036,13 @@ def _captured_against_eager(torch, trainer, make_twin, batch, tag, card,
         for p, q in zip(trainer.model.parameters(), twin.model.parameters()):
             q.copy_(p)
     twin.opt.set_state_dict(trainer.opt.state_dict())
+    from paddle_tpu_torch.framework import random as R
     got, want, secs = [], [], []
     for _ in range(3):
+        state = R.get_rng_state()       # both steps draw the same key
         got.append(trainer.train_step(*batch))
         trainer.block()
+        R.set_rng_state(state)
         t = time.monotonic()
         want.append(twin._step_eager(*batch))
         twin.block()
@@ -3065,6 +3109,20 @@ def _tf32_run(torch, trainer, batch, card):
     return dict(step_ms=ms)
 
 
+def _plain_fusion_patches(stack):
+    """Dropout and LayerNorm (with its dropout and residual) through
+    their plain versions: the same masks (the plain Philox is the
+    kernels')."""
+    from paddle_tpu_torch.kernels import dropout as D
+    from paddle_tpu_torch.kernels import fused
+
+    def dropout_plain(x, key, p, mode="upscale_in_train", mask_shape=None):
+        return D.dropout_plain(x, p, key, mode, mask_shape)
+    stack.enter_context(mock.patch.object(D, "dropout", dropout_plain))
+    stack.enter_context(mock.patch.object(
+        fused, "dropout_add_layer_norm", fused.dropout_add_layer_norm_plain))
+
+
 def _plain_train_patches(stack):
     """Route the training step through the plain versions (the wrappers
     would launch the kernels on CUDA tensors)."""
@@ -3078,6 +3136,8 @@ def _plain_train_patches(stack):
                                           fused.swiglu_plain))
     stack.enter_context(mock.patch.object(fused, "rms_norm_backward",
                                           fused.rms_norm_backward_plain))
+    _plain_fusion_patches(stack)
+
     def plain(fn):      # the summary is the kernels' alone
         return lambda *a, summary=None, **kw: fn(*a, **kw)
     stack.enter_context(mock.patch.object(FA, "flash_forward",
@@ -3269,8 +3329,10 @@ def phase_gpt_moe_training(torch, args, launches_out):
     n_l = cfg.num_hidden_layers
     n_moe = sum(b.is_moe for b in model.transformer.h)
     per_step = {n: 0 for n in K.LAUNCHES}
+    # LayerNorm: two a block and the final one, forward and backward
     per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l,
-                    adamw=1, gmm=4 * n_moe, tgmm=4 * n_moe)
+                    adamw=1, gmm=4 * n_moe, tgmm=4 * n_moe,
+                    dropout_add_ln=2 * n_l + 1, dropout_add_ln_bwd=2 * n_l + 1)
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
@@ -3469,6 +3531,28 @@ def _gpt_f32_pair(cfg):
     return make
 
 
+def _ln_agreement(torch, model, cfg, seed):
+    """The decoders' LayerNorm (``generation._ln``: the kernel on the bf16
+    hidden state) bit-equal to the kernel run in fp32 and rounded after,
+    over [4096, hidden] rows of the model's first LayerNorm."""
+    from paddle_tpu_torch import generation
+    from paddle_tpu_torch.kernels import fused
+    ln = model.transformer.h[0].ln_1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (4 * torch.randn(4096, cfg.hidden_size, device="cuda", generator=g)
+         ).to(ln.weight.dtype)
+    eps = cfg.layer_norm_epsilon
+    got = generation._ln(x, ln.weight, ln.bias, eps)
+    want = fused.dropout_add_layer_norm(x.float(), ln.weight.float(),
+                                        ln.bias.float(), eps).to(x.dtype)
+    if not torch.equal(got, want):
+        raise AssertionError("the LayerNorm on the bf16 state differs from "
+                             "the fp32 one rounded after")
+    print("  LayerNorm on the bf16 state = fp32 rounded after: bit-equal "
+          f"over [4096, {cfg.hidden_size}]", flush=True)
+    return True
+
+
 def phase_gpt_serving(torch, args, launches_out):
     """GPTConfig.gpt2_small() and GPTConfig.gpt_moe(8) in bf16, each served
     by two engines in turn (eager, then captured; max_seqs 8, budget 256,
@@ -3477,7 +3561,8 @@ def phase_gpt_serving(torch, args, launches_out):
     ragged attention a layer, at head_dim 64), tokens equal, every step's
     logits bit-equal, pages equal, a profile; generate() captured against
     eager; one ragged step through the kernels against the plain versions;
-    a 2-layer float32 pair."""
+    the LayerNorm on the bf16 state bit-equal to the fp32 form rounded
+    after; a 2-layer float32 pair."""
     import numpy as np
     from paddle_tpu_torch.models import GPTConfig
     from paddle_tpu_torch.serving import EngineConfig
@@ -3500,15 +3585,21 @@ def phase_gpt_serving(torch, args, launches_out):
         rng.shuffle(lens)
         prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist()
                    for n in lens]
+        # a forward: a ragged attention and two LayerNorms a layer, the
+        # final LayerNorm
+        n_ln = 2 * cfg.num_hidden_layers + 1
         stats, _ = _serve_pair(
             torch, model, EngineConfig(**ecfg), prompts, 32,
-            {"ragged_attention": cfg.num_hidden_layers}, tag, args,
-            launches_out)
+            {"ragged_attention": cfg.num_hidden_layers,
+             "dropout_add_ln": n_ln}, tag, args, launches_out)
         stats["generate"] = _generate_checks(torch, model, cfg, args,
-                                             launches_out, {}, tag=tag,
-                                             full=False)
+                                             launches_out,
+                                             {"dropout_add_ln": n_ln},
+                                             tag=tag, full=False)
         stats.update(_step_agreement(torch, model, cfg,
                                      EngineConfig(**ecfg), args.seed))
+        stats["ln_bf16_equals_f32"] = _ln_agreement(torch, model, cfg,
+                                                    args.seed)
         del model
         torch.cuda.empty_cache()
         stats["captured_step_f32"] = _captured_step_f32(
@@ -4752,6 +4843,639 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     return out
 
 
+# -- phase 3 (dropout and LayerNorm kernels) and phase 13: ERNIE pretraining ----------
+
+ERNIE_STEP = 26        # LayerNorms a step: embeddings, 2 a layer, MLM head
+ERNIE_DROPOUTS = 13    # dropout calls a step: embeddings, 1 a layer (attn)
+
+
+def _philox_ops(n):
+    """Integer operations of n elements' Philox words: 10 rounds of 2
+    multiply-highs, 2 multiply-lows, 4 xors and 2 key adds a block of 4
+    words (25 an element), and the compare and select (2)."""
+    return 27 * n
+
+
+def _rk(base, site):
+    from paddle_tpu_torch.framework.random import RandomKey
+    return RandomKey(base, site)
+
+
+def _dropout_case(torch, results, dev, name, shape, dtype, p, seed):
+    """The dropout kernel over ``shape`` against its plain version (bit
+    for bit) and torch's own ``F.dropout`` (its own stream: the library
+    yardstick), with the keep fraction within 5 sigma of 1 - p."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import dropout as D
+    card = _card_line()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    key = _rk(torch.tensor([seed, 77], device=dev), 5)
+    before = K.LAUNCHES["dropout"]
+    with torch.no_grad():
+        y = D.dropout(x, key, p)
+    if K.LAUNCHES["dropout"] != before + 1:
+        raise AssertionError(f"{name}: the dropout kernel did not launch")
+    want = D.dropout_plain(x, p, key)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y, want))
+    n = x.numel()
+    frac = float((want != 0).float().mean()) if dtype == torch.float32 \
+        else float(D.keep_mask_plain(shape, p, key, dev).float().mean())
+    sigma = (p * (1 - p) / n) ** 0.5
+    err = float((y.float() - want.float()).abs().max())
+    print(f"  {name} {list(shape)} {str(dtype)[6:]} p={p}: bit-equal to the "
+          f"plain version {same}; keep fraction {frac:.6f} (1 - p = {1 - p},"
+          f" {abs(frac - (1 - p)) / sigma:.2f} sigma)", flush=True)
+    if not same or abs(frac - (1 - p)) > 5 * sigma:
+        raise AssertionError(f"{name}: the dropout kernel disagrees with "
+                             f"its plain version or its rate")
+    del y, want
+    with torch.no_grad():
+        ms = _graph_ms(lambda: D.dropout(x, key, p), iters=10, reps=3)
+        plain_ms = _time_ms(lambda: D.dropout_plain(x, p, key), 2, warmup=1)
+        lib_ms = _time_ms(lambda: TF.dropout(x, p), 10)
+    esize = x.element_size()
+    bound_ms, bound_by = _bound(2 * esize * n, _philox_ops(n), FP32_FLOPS)
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms, shape=list(shape),
+                         dtype=str(dtype)[6:], keep_fraction=frac)
+    print(f"  {name}: ms={ms:.4f} ({bound_ms / ms:.3f} of the bound) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
+          f"F.dropout {lib_ms:.4f} ms [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+
+def _dropout_replay(torch, dev):
+    """One dropout call captured in a CUDA graph under a key tensor: each
+    replay after the tensor was rewritten equals an eager call with the
+    new key's words (a host key), bit for bit."""
+    from paddle_tpu_torch.kernels import dropout as D
+    x = torch.randn(16384, 768, device=dev).to(torch.bfloat16)
+    keyt = torch.tensor([1, 2], device=dev)
+    with torch.no_grad():
+        D.dropout(x, _rk(keyt, 3), 0.1)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = D.dropout(x, _rk(keyt, 3), 0.1)
+        same = []
+        for words in ((7, 8), (2 ** 32 - 1, 12345), (0, 0)):
+            keyt.copy_(torch.tensor(words))
+            graph.replay()
+            same.append(bool(torch.equal(out, D.dropout(x, _rk(words, 3),
+                                                        0.1))))
+    print(f"  dropout replayed from a CUDA graph with three new keys: equal "
+          f"to the eager calls {same}", flush=True)
+    if not all(same):
+        raise AssertionError("a replayed dropout disagrees with the eager "
+                             "call for its key")
+    del graph
+
+
+def _dln_case(torch, results, dev, p, seed=41):
+    """LayerNorm(residual + dropout(x + bias)) over [16384, 768] bf16 (the
+    ERNIE step's Add&LN; ``p`` = 0 with no residual and no bias: its plain
+    LayerNorms), forward and backward, against the plain ops: the norm's
+    input bit-equal to the ops one by one (the dropout kernel's mask), y
+    and every gradient each row within one bf16 ulp of its largest plain
+    value (vectors: of the largest), and no further from float32 than the
+    plain bf16 ops (1.1x); timed beside F.layer_norm and its autograd."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import dropout as D
+    from paddle_tpu_torch.kernels import fused
+    card = _card_line()
+    rows, n, bf, eps = 16384, 768, torch.bfloat16, 1e-12
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, n, device=dev, generator=g).to(bf)
+    r = torch.randn(rows, n, device=dev, generator=g).to(bf) if p else None
+    b = (0.1 * torch.randn(n, device=dev, generator=g)).to(bf) if p else None
+    w = (1 + 0.1 * torch.randn(n, device=dev, generator=g)).to(bf)
+    nb = (0.1 * torch.randn(n, device=dev, generator=g)).to(bf)
+    dy = torch.randn(rows, n, device=dev, generator=g).to(bf)
+    key = _rk(torch.tensor([seed, 5], device=dev), 2) if p else None
+    tag = "dropout_add_ln" + ("" if p else " (LayerNorm, p 0)")
+    before = dict(K.LAUNCHES)
+    y, h = fused.dropout_add_layer_norm_forward(x, w, nb, eps, r, b, p, key)
+    dx, dh, dw, dnb, db = fused.dropout_add_layer_norm_backward(
+        h, w, dy, eps, p, key)
+    used = (K.LAUNCHES["dropout_add_ln"] - before["dropout_add_ln"],
+            K.LAUNCHES["dropout_add_ln_bwd"] - before["dropout_add_ln_bwd"])
+    if used != (1, 1):
+        raise AssertionError(f"{tag}: kernel launches {used}")
+    with torch.no_grad():
+        want_h = x if b is None else x + b
+        if p:
+            want_h = D.dropout(want_h, key, p)
+        if r is not None:
+            want_h = want_h + r
+    same_h = bool(torch.equal(h, want_h))
+
+    def plain(dtype, plain_ops):
+        leaves = [t.detach().to(dtype).clone().requires_grad_()
+                  if t is not None else None for t in (x, r, b, w, nb)]
+        lx, lr, lb, lw, lnb = leaves
+        with ExitStack() as stack:
+            if plain_ops:
+                _plain_train_patches(stack)
+            out = fused.dropout_add_layer_norm(lx, lw, lnb, eps, lr, lb, p,
+                                               key)
+            out.backward(dy.to(dtype))
+        grads = {"dx": lx.grad, "dw": lw.grad, "dnb": lnb.grad}
+        if lr is not None:
+            grads.update(dres=lr.grad, dbias=lb.grad)
+        return out.detach(), grads
+    py, pg = plain(bf, True)
+    ry, rg = plain(torch.float32, True)
+    torch.cuda.synchronize()
+    got = {"dx": dx, "dw": dw.to(bf), "dnb": dnb.to(bf)}
+    if r is not None:
+        got.update(dres=dh, dbias=db.to(bf))
+    print(f"  {tag}: the norm's input bit-equal to the ops one by one "
+          f"{same_h}", flush=True)
+    if not same_h:
+        raise AssertionError(f"{tag}: h differs from dropout, add, add")
+    err_f = _check_rows(f"{tag} y", y, py, 1)
+    _check_vs_f32(f"{tag} y", y, py, ry)
+    err_b = 0.0
+    for k in got:
+        if got[k].dim() > 1:
+            err_b = max(err_b, _check_rows(f"{tag} {k}", got[k], pg[k], 1))
+        else:
+            err_b = max(err_b, _check(f"{tag} {k}", got[k], pg[k],
+                                      ULP_BF16 * float(pg[k].float().abs()
+                                                       .max())))
+        _check_vs_f32(f"{tag} {k}", got[k], pg[k], rg[k])
+    del py, pg, ry, rg, got, dx, dh, y
+    fwd = lambda: fused.dropout_add_layer_norm_forward(x, w, nb, eps, r, b,
+                                                       p, key)
+    bwd = lambda: fused.dropout_add_layer_norm_backward(h, w, dy, eps, p,
+                                                        key)
+    with torch.no_grad():
+        ms_f = _graph_ms(fwd)
+        ms_b = _graph_ms(bwd)
+        plain_f = _time_ms(lambda: fused.dropout_add_layer_norm_plain(
+            x, w, nb, eps, r, b, p, key), 5)
+    lib_f = _time_ms(lambda: TF.layer_norm(h, (n,), w, nb, eps), 10)
+    hl, wl, nbl = (t.clone().requires_grad_() for t in (h, w, nb))
+    yl = TF.layer_norm(hl, (n,), wl, nbl, eps)
+    lib_b = _time_ms(lambda: torch.autograd.grad(yl, (hl, wl, nbl), dy,
+                                                 retain_graph=True), 10)
+
+    def plain_bwd():
+        leaves = [t.detach().clone().requires_grad_() if t is not None
+                  else None for t in (x, r, b, w, nb)]
+        with ExitStack() as stack:
+            _plain_train_patches(stack)
+            out = fused.dropout_add_layer_norm(leaves[0], leaves[3],
+                                               leaves[4], eps, leaves[1],
+                                               leaves[2], p, key)
+        return lambda: torch.autograd.grad(
+            out, [t for t in leaves if t is not None], dy, retain_graph=True)
+    plain_b = _time_ms(plain_bwd(), 5)
+    del hl, wl, nbl, yl
+    nel = rows * n
+    extra = 2 if p else 0            # the residual and the written h
+    fb, fo = _bound(2 * nel * (2 + extra) + 2 * 3 * n,
+                    8 * nel + (_philox_ops(nel) if p else 0), FP32_FLOPS)
+    bb, bo = _bound(2 * nel * (3 + (1 if p else 0)) + 2 * 4 * n,
+                    14 * nel + (_philox_ops(nel) if p else 0), FP32_FLOPS)
+    suffix = "" if p else "[ln]"
+    results["dropout_add_ln" + suffix] = dict(
+        max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=fb,
+        bound_by=fo, library_ms=lib_f, shape=[rows, n], p=p)
+    results["dropout_add_ln_bwd" + suffix] = dict(
+        max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bb,
+        bound_by=bo, library_ms=lib_b, shape=[rows, n], p=p)
+    print(f"  {tag} [{rows}, {n}] bf16: forward ms={ms_f:.4f} ({fb / ms_f:.3f}"
+          f" of the bound) plain_ms={plain_f:.4f} bound_ms={fb:.4f} ({fo}), "
+          f"F.layer_norm {lib_f:.4f}; backward ms={ms_b:.4f} "
+          f"({bb / ms_b:.3f}) plain_ms={plain_b:.4f} bound_ms={bb:.4f} "
+          f"({bo}), autograd of F.layer_norm {lib_b:.4f} [{card}]",
+          flush=True)
+    del x, r, b, w, nb, dy, h
+    torch.cuda.empty_cache()
+
+
+def phase_dropout_kernels(torch, results):
+    """The dropout kernel over the ERNIE step's hidden states ([16384,
+    768] bf16) and attention probabilities ([32, 12, 512, 512] fp32) at p
+    0.1, and LayerNorm(residual + dropout(x + bias)) forward and backward
+    over [16384, 768] bf16 with the dropout and as a plain LayerNorm, each
+    against its plain version, timed (graph replay) beside its bound, its
+    plain version and a PyTorch call; then a captured dropout replayed
+    with new keys."""
+    dev = torch.device("cuda")
+    print("phase 3: dropout and LayerNorm kernels against their plain "
+          "versions (dropout bit-equal; LayerNorm's input bit-equal, its "
+          "output and gradients each row within one bf16 ulp of its largest "
+          "plain value, and no further from float32 than plain bf16, 1.1x)",
+          flush=True)
+    _dropout_case(torch, results, dev, "dropout", (32, 12, 512, 512),
+                  torch.float32, 0.1, 51)
+    _dropout_case(torch, results, dev, "dropout[hidden]", (16384, 768),
+                  torch.bfloat16, 0.1, 52)
+    _dropout_replay(torch, dev)
+    _dln_case(torch, results, dev, 0.1)
+    _dln_case(torch, results, dev, 0.0)
+
+
+def _ernie_batch(torch, cfg, seed, b=32, s=512):
+    """A pretraining batch from ``seed``: random ids, two segments a row
+    (token types 0 then 1, the cut uniform in [s / 8, 7 s / 8]), 15% of the
+    positions labelled with their ids (the rest -100), NSP labels 0/1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    tt = np.zeros((b, s), np.int64)
+    for i, cut in enumerate(rng.integers(s // 8, s - s // 8 + 1, b)):
+        tt[i, cut:] = 1
+    labels = np.where(rng.random((b, s)) < 0.15, ids, -100)
+    nsp = rng.integers(0, 2, b)
+    return tuple(torch.from_numpy(a).cuda() for a in (ids, tt, labels, nsp))
+
+
+def _ernie_loss(m, ids, tt, labels, nsp):
+    from paddle_tpu_torch.models import ernie_pretrain_step
+    return ernie_pretrain_step(m, {"input_ids": ids, "token_type_ids": tt,
+                                   "mlm_labels": labels, "nsp_labels": nsp})
+
+
+def _ernie_model(torch, cfg, seed, dtype=None, device="cuda"):
+    from paddle_tpu_torch.models import ErnieForPretraining
+    gen = torch.Generator(device=device).manual_seed(seed) if seed \
+        is not None else None
+    model = ErnieForPretraining(cfg, device=device, generator=gen)
+    if dtype == torch.bfloat16:
+        model.bfloat16()
+    return model
+
+
+def _ernie_trainer(model, lr=1e-4):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    return SpmdTrainer(model, AdamW(learning_rate=lr, weight_decay=0.01,
+                                    parameters=model.parameters()),
+                       _ernie_loss)
+
+
+def _ernie_per_step(cfg, dropout):
+    from paddle_tpu_torch import kernels as K
+    n_l = cfg.num_hidden_layers
+    per_step = {n: 0 for n in K.LAUNCHES}
+    per_step.update(adamw=1, dropout_add_ln=2 * n_l + 2,
+                    dropout_add_ln_bwd=2 * n_l + 2)
+    if dropout:
+        # forward and backward: the embeddings' and each layer's
+        # attention probabilities'
+        per_step.update(dropout=2 * (n_l + 1), sdpa_dense=n_l)
+    else:
+        per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l)
+    return per_step
+
+
+def _ernie_run(torch, cfg, args, tag, launches_out, dropout):
+    """ERNIE-base pretraining, captured: 2 warm-up and 5 timed steps with
+    exact launch counts, finite and falling losses, step ms, tokens/s,
+    MFU, peak memory, the graph's pool, a profile of one step by kernel
+    group. Returns (stats, trainer, batch, the profile's breakdown)."""
+    from paddle_tpu_torch import kernels as K
+    card = _card_line()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = _ernie_model(torch, cfg, args.seed, torch.bfloat16)
+    trainer = _ernie_trainer(model)
+    batch = _ernie_batch(torch, cfg, args.seed)
+    b, s = batch[0].shape
+    losses = []
+    for _ in range(2):      # the first call runs the step, then captures it
+        losses.append(float(trainer.train_step(*batch)))
+    trainer.block()
+    K.reset_launches()
+    t0 = time.monotonic()
+    timed = [trainer.train_step(*batch) for _ in range(5)]
+    trainer.block()
+    secs = time.monotonic() - t0
+    launches = dict(K.LAUNCHES)
+    losses += [float(x) for x in timed]
+    graph = _graph_line(trainer, tag, card)
+    per_step = _ernie_per_step(cfg, dropout)
+    expect = {k: 5 * v for k, v in per_step.items()}
+    print(f"  {tag} launches over 5 steps: {launches} (expected {expect}: "
+          f"per step {per_step})", flush=True)
+    if launches != expect:
+        raise AssertionError(f"{tag}: launch counts {launches} != {expect}")
+    for k, v in launches.items():
+        launches_out[k] = launches_out.get(k, 0) + v
+    step_ms = 1e3 * secs / 5
+    tok_s = b * s / (secs / 5)
+    fpt = model.flops_per_token(s)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {tag} losses {losses} [{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{tag}: losses not finite and falling: "
+                             f"{losses}")
+    stats = dict(params=model.num_params(), batch=b, seq=s, step_ms=step_ms,
+                 tokens_per_s=tok_s, flops_per_token=fpt,
+                 mfu_vs_989_tflops=fpt * tok_s / BF16_FLOPS,
+                 peak_memory_gb=peak_gb,
+                 peak_memory_of_phase_gb=peak_gb - held / 1e9, losses=losses,
+                 card=card, graph=graph, launches_a_step=per_step)
+    prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1)
+    prof.export_chrome_trace(os.path.join(
+        args.out, f"ernie_train_step_trace{'' if dropout else '_p0'}.json"))
+    del prof
+    stats["breakdown"] = m
+    stats["idle_share_untraced"] = 1 - m["device_ms"] / step_ms
+    print(f"  {tag}: step {step_ms:.3f} ms, {tok_s:.0f} tokens/s, MFU "
+          f"{stats['mfu_vs_989_tflops']:.4f} (flops/token {fpt:.4g}), peak "
+          f"{peak_gb:.2f} GB; {_breakdown_line(m)}; idle share against the "
+          f"untraced step {stats['idle_share_untraced']:.4f} [{card}]",
+          flush=True)
+    print(f"  {tag} by group (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in m["by_group_ms"].items()), flush=True)
+    _print_other(m, tag)
+    return stats, trainer, batch, m
+
+
+def _same_seed_same_step(torch, trainer, batch, seed):
+    """From one snapshot of weights and optimizer state (loaded back in
+    place each time), one captured step under ``seed``, again under
+    ``seed``, then under ``seed + 1``: the first two bit-equal (loss and
+    every parameter), the third's loss different (new masks)."""
+    import paddle_tpu_torch as ptt
+    params = [p.detach().clone() for p in trainer.model.parameters()]
+    state = trainer.opt.state_dict()
+    step0 = trainer.opt._global_step
+    out = []
+    for sd in (seed, seed, seed + 1):
+        with torch.no_grad():
+            for p, q in zip(trainer.model.parameters(), params):
+                p.copy_(q)
+        trainer.opt.set_state_dict(state)
+        trainer.opt._global_step = step0
+        ptt.seed(sd)
+        loss = trainer.train_step(*batch)
+        trainer.block()
+        out.append((loss, [p.detach().clone() for p in
+                           trainer.model.parameters()]))
+    same = bool(torch.equal(out[0][0], out[1][0])) and all(
+        torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    other = not bool(torch.equal(out[0][0], out[2][0]))
+    print(f"  phase 13 (a): one step from one snapshot under seed {seed} "
+          f"twice: bit-equal {same} (loss {float(out[0][0]):.6f}); under "
+          f"seed {seed + 1}: loss {float(out[2][0]):.6f}, different {other} "
+          f"[{_card_line()}]", flush=True)
+    if not (same and other):
+        raise AssertionError("phase 13: a seed does not fix the step's "
+                             "masks")
+    return dict(same_seed_bit_equal=same, other_seed_differs=other)
+
+
+def _ernie_agreement(torch, seed):
+    """One forward + backward of ERNIE-base widths at 2 layers (batch 8 x
+    512, dropout 0.1) through the kernels and through the plain versions,
+    in bf16 and in float32 (the same bf16-valued weights, upcast), every
+    run under one fixed key (so every path draws the same masks: the
+    kernels' and the plain versions' bits are equal). float32: loss 1e-5
+    relative, gradients 1e-3 relative L2; bf16: the kernels' gradients no
+    further from the float32 step than the plain bf16 path's, 1.1x over
+    all and 1.25x each (the phase 5 gate)."""
+    import dataclasses
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.framework.random import key_context
+    from paddle_tpu_torch.models import ErnieConfig
+    cfg = dataclasses.replace(ErnieConfig.ernie_base(), num_hidden_layers=2)
+    batch = _ernie_batch(torch, cfg, seed + 13, b=8)
+    base = _ernie_model(torch, cfg, seed + 13, torch.bfloat16)
+    state = {n: p.detach() for n, p in base.named_parameters()}
+    del base
+
+    def run(dtype, plain):
+        model = _ernie_model(torch, cfg, None, dtype)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n].to(dtype))
+        before = dict(K.LAUNCHES)
+        with ExitStack() as stack, key_context((seed + 13, 99)):
+            if plain:
+                _plain_train_patches(stack)
+            loss = _ernie_loss(model, *batch).float()
+            loss.backward()
+            torch.cuda.synchronize()
+        used = {n: K.LAUNCHES[n] - before[n] for n in K.kernel_launches()}
+        if plain and any(used.values()):
+            raise AssertionError(f"the plain ERNIE step launched {used}")
+        if not plain and not all(used[n] for n in (
+                "dropout", "dropout_add_ln", "dropout_add_ln_bwd")):
+            raise AssertionError(f"the kernel ERNIE step launched {used}")
+        return float(loss.detach()), {n: p.grad.float() for n, p in
+                                      model.named_parameters()}
+
+    lk32, gk32 = run(torch.float32, False)
+    lp32, gp32 = run(torch.float32, True)
+    err32, _ = _rel_dist(gk32, gp32)
+    del gk32
+    lk16, gk16 = run(torch.bfloat16, False)
+    err_k, leaf_k = _rel_dist(gk16, gp32)
+    del gk16
+    lp16, gp16 = run(torch.bfloat16, True)
+    err_p, leaf_p = _rel_dist(gp16, gp32)
+    del gp16, gp32
+    torch.cuda.empty_cache()
+    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
+    worst = max(ratio, key=ratio.get)
+    loss32 = abs(lk32 / lp32 - 1)
+    print(f"  phase 13 (c) ERNIE step kernels vs plain (ERNIE-base widths, 2"
+          f" layers, 8 x 512, dropout 0.1, the same masks): float32 loss "
+          f"{lk32:.6f} vs {lp32:.6f} (rel err {loss32:.3g}, tol 1e-5), grads "
+          f"rel L2 err {err32:.3g} (tol 1e-3); bf16 loss kernels {lk16:.6f} "
+          f"plain {lp16:.6f}, grads' rel L2 distance from the float32 step: "
+          f"kernels {err_k:.5g}, plain {err_p:.5g} (tol 1.1x); per "
+          f"parameter the largest ratio {ratio[worst]:.4g} at {worst} (tol "
+          f"1.25) [{_card_line()}]", flush=True)
+    if not (loss32 <= 1e-5 and err32 <= 1e-3 and err_k <= 1.1 * err_p
+            and max(ratio.values()) <= 1.25
+            and all(math.isfinite(x) for x in (lk16, lp16, err_k, err_p))):
+        raise AssertionError("the ERNIE kernel step disagrees with the "
+                             "plain step")
+    return dict(loss_rel_err_f32=loss32, grad_rel_err_f32=err32,
+                bf16_grad_err_kernels=err_k, bf16_grad_err_plain=err_p,
+                bf16_grad_err_ratio_worst_param=ratio[worst],
+                worst_param=worst)
+
+
+def _ernie_tiny_on_card(torch):
+    """A tiny float32 ERNIE (hidden 256, 4 heads of 64, 2 layers, 128
+    positions) at dropout 0.1 trained 3 steps on the card against the
+    port's CPU trainer from the same seed (the same masks, bit for bit):
+    losses within 1e-5 relative, weights within 1e-5 for 99.9% of the
+    elements and 3 lr for all."""
+    import dataclasses
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import ErnieConfig, load_numpy_state
+    cfg = dataclasses.replace(
+        ErnieConfig.tiny(vocab_size=512, hidden_size=256, layers=2, heads=4,
+                         seq=128),
+        hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    cpu = _ernie_model(torch, cfg, 9, device="cpu")
+    gpu = _ernie_model(torch, cfg, None)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    batch = tuple(t.cpu() for t in _ernie_batch(torch, cfg, 9, b=4, s=128))
+    lr = 1e-3
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        ptt.seed(17)
+        tr = _ernie_trainer(model, lr)
+        K.reset_launches()
+        losses.append([float(tr.train_step(*(t.to(dev) for t in batch)))
+                       for _ in range(3)])
+    used = dict(K.LAUNCHES)
+    close = total = 0
+    worst = 0.0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        worst = max(worst, float(d.max()))
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    want, got = losses
+    loss_err = max(abs(a / b - 1) for a, b in zip(got, want))
+    print(f"  phase 13 (d) tiny f32 ERNIE at dropout 0.1, 3 steps on the "
+          f"card vs the CPU trainer: losses {got} vs {want} (max rel err "
+          f"{loss_err:.3g}, tol 1e-5); weights within 1e-5: {close}/{total},"
+          f" worst {worst:.3g} (tol {3 * lr}); launches {used} "
+          f"[{_card_line()}]", flush=True)
+    if not (loss_err <= 1e-5 and close >= 0.999 * total and worst <= 3 * lr
+            and used["dropout"] > 0 and used["dropout_add_ln"] > 0):
+        raise AssertionError("ERNIE training on the card disagrees with the "
+                             "CPU")
+    return dict(loss_rel_err=loss_err, weights_close=close / total,
+                worst=worst)
+
+
+def _ernie_classifier(torch, args, card):
+    """ErnieForSequenceClassification (3 classes) in eval at [32, 512]
+    bf16: without a mask through flash (12 forwards, nothing dense), with a
+    padding mask through the dense route (12 ``sdpa_dense``, no flash);
+    each path's logits no further from the float32 plain forward than the
+    plain bf16 path's, within 2x (the serving gate), with ms."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = ErnieConfig.ernie_base()
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=3, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(args.seed + 5))
+    model.bfloat16()
+    model.eval()
+    ids, tt = _ernie_batch(torch, cfg, args.seed + 5)[:2]
+    mask = torch.ones(32, 1, 1, 512, dtype=torch.bool, device="cuda")
+    for i in range(1, 32):          # row i's last 8 i keys are padding
+        mask[i, ..., 512 - 8 * i:] = False
+    out = {}
+    n_l = cfg.num_hidden_layers
+    for kind, m, route in (("no mask", None, {"flash_fwd": n_l}),
+                           ("padding mask", mask, {"sdpa_dense": n_l})):
+        with torch.no_grad():
+            K.reset_launches()
+            logits = model(ids, tt, m)
+            torch.cuda.synchronize()
+            used = {k: v for k, v in K.LAUNCHES.items()
+                    if v and k not in ("dropout_add_ln",)}
+            ms = _time_ms(lambda: model(ids, tt, m), 5)
+            with ExitStack() as stack:
+                _plain_train_patches(stack)
+                plain = model(ids, tt, m)
+            model.float()
+            with ExitStack() as stack:
+                _plain_train_patches(stack)
+                ref = model(ids, tt, m)
+            model.bfloat16()
+        if used != route:
+            raise AssertionError(f"phase 13 (e) {kind}: launches {used}, "
+                                 f"not {route}")
+        d_k = float((logits.float() - ref).abs().max())
+        d_p = float((plain.float() - ref).abs().max())
+        diff = float((logits.float() - plain.float()).abs().max())
+        ok = bool(torch.isfinite(logits).all()) and d_k <= 2 * d_p
+        print(f"  phase 13 (e) classifier eval [32, 512] bf16, {kind}: "
+              f"launches {used}, {ms:.3f} ms a forward; logits vs plain bf16 "
+              f"{diff:.4g}, from the float32 forward: kernels {d_k:.4g}, "
+              f"plain {d_p:.4g} (tol 2x) {'ok' if ok else 'FAIL'} [{card}]",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"phase 13 (e) {kind}: the kernels' logits "
+                                 f"disagree with the plain path")
+        out[kind] = dict(ms=ms, launches=used, err_vs_plain=diff,
+                         err_f32_kernels=d_k, err_f32_plain=d_p)
+    del model
+    _free(torch)
+    return out
+
+
+def phase_ernie_training(torch, args, launches_out):
+    """ERNIE-base pretraining (BASELINE configuration 3) at its published
+    widths, uncut: vocab 18000, hidden 768, 12 layers, 12 heads, FFN 3072,
+    512 positions, 4 token types, eps 1e-12, dropout 0.1 / 0.1; bf16
+    weights, fp32 moments, AdamW lr 1e-4 wd 0.01, no remat, batch 32 x 512
+    from the seed. (a) the captured step at dropout 0.1 (2 warm-up and 5
+    timed steps, exact launch counts, then 3 captured steps against 3
+    eager ones of a twin from the same random state, bit-equal, and one
+    step from one snapshot under one seed twice and another once); (b)
+    the same at dropout 0 (flash 12 + 12 a step); (c) the 2-layer
+    agreement through kernels and plain versions; (d) a tiny float32
+    ERNIE at dropout 0.1 on the card against the CPU trainer; (e)
+    ErnieForSequenceClassification in eval with and without a mask."""
+    import dataclasses
+    from paddle_tpu_torch.models import ErnieConfig
+    card = _card_line()
+    cfg = ErnieConfig.ernie_base()
+    print(f"phase 13: ERNIE-base pretraining (vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, "
+          f"dropout {cfg.hidden_dropout_prob} / "
+          f"{cfg.attention_probs_dropout_prob}; batch 32 x 512) bf16 "
+          f"weights, fp32 moments, seed {args.seed} [{card}]", flush=True)
+    out = {}
+    stats, trainer, batch, m = _ernie_run(torch, cfg, args,
+                                          "phase 13 (a)", launches_out, True)
+
+    def twin():
+        return _ernie_trainer(_ernie_model(torch, cfg, None, torch.bfloat16))
+    stats["eager"] = _captured_against_eager(
+        torch, trainer, twin, batch, "phase 13 (a)", card, stats["step_ms"],
+        m)
+    stats.update(_same_seed_same_step(torch, trainer, batch, args.seed + 1))
+    out["dropout_0.1"] = stats
+    _drop_trainer(torch, trainer)
+    del trainer, batch
+    _free(torch)
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    stats0, trainer, batch, _ = _ernie_run(torch, cfg0, args, "phase 13 (b)",
+                                           launches_out, False)
+    out["dropout_0"] = stats0
+    print(f"  phase 13: step ms at dropout 0.1 {stats['step_ms']:.3f} "
+          f"(dense attention) vs at dropout 0 {stats0['step_ms']:.3f} "
+          f"(flash): the dense route costs "
+          f"{stats['step_ms'] - stats0['step_ms']:.3f} ms a step [{card}]",
+          flush=True)
+    _drop_trainer(torch, trainer)
+    del trainer, batch
+    _free(torch)
+    out["agreement"] = _ernie_agreement(torch, args.seed)
+    out["tiny_f32_vs_cpu"] = _ernie_tiny_on_card(torch)
+    out["classifier"] = _ernie_classifier(torch, args, card)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4832,6 +5556,8 @@ def main(argv=None):
     timed("phase 3 tiny packed training", phase_tiny_training, torch, True)
     routed_f5 = timed("phase 3 F5 FlashMask routing",
                       _flashmask_routed_on_card, torch)
+    timed("phase 3 dropout and LayerNorm kernels", phase_dropout_kernels,
+          torch, results)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
     packed_launches, beam_launches, artifact_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
@@ -4854,6 +5580,9 @@ def main(argv=None):
     surface_launches = {}
     surface = timed("phase 12 training surface", phase_training_surface,
                     torch, args, surface_launches, training["step_ms"])
+    ernie_launches = {}
+    ernie = timed("phase 13 ERNIE pretraining", phase_ernie_training, torch,
+                  args, ernie_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -4896,6 +5625,16 @@ def main(argv=None):
                        "paddle_tpu/models/llama.py:197"),
         "swiglu_bwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
                        "paddle_tpu/models/llama.py:197"),
+        # no Pallas kernel: the dropout and the bias, dropout, residual and
+        # LayerNorm XLA fuses (forward; the vjp of the same function)
+        "dropout": ("triton", "paddle_tpu_torch/kernels/dropout.py",
+                    "paddle_tpu/nn/functional/common.py:40"),
+        "dropout_add_ln": ("triton", "paddle_tpu_torch/kernels/fused.py",
+                           "paddle_tpu/incubate/nn/functional/fused_ops.py"
+                           ":636"),
+        "dropout_add_ln_bwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
+                               "paddle_tpu/incubate/nn/functional/"
+                               "fused_ops.py:636"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
@@ -4904,7 +5643,7 @@ def main(argv=None):
     # both counts exactly)
     runs = (serve_launches, train_launches, gpt_launches, packed_launches,
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
-            artifact_launches, surface_launches)
+            artifact_launches, surface_launches, ernie_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -4927,7 +5666,7 @@ def main(argv=None):
                    "packed_training": packed, "gpt_serving": gpt_serving,
                    "quant_serving": quant, "spec_serving": spec,
                    "artifact": artifact, "flashmask_routed": routed_f5,
-                   "training_surface": surface,
+                   "training_surface": surface, "ernie_training": ernie,
                    "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "training": train_launches,
@@ -4938,7 +5677,8 @@ def main(argv=None):
                                 "spec_serving": spec_launches,
                                 "beams": beam_launches,
                                 "artifact": artifact_launches,
-                                "training_surface": surface_launches}}, f,
+                                "training_surface": surface_launches,
+                                "ernie_training": ernie_launches}}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

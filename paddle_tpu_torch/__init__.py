@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of paddle_tpu: Llama serving and training, and GPT
-(dense and dropless MoE) training.
+"""PyTorch/CUDA port of paddle_tpu: Llama serving and training, GPT
+(dense and dropless MoE) training and ERNIE pretraining.
 
 A package of its own beside ``paddle_tpu`` (the JAX reference): it imports
 ``torch`` and nothing of JAX or of ``paddle_tpu``. Module names mirror the
@@ -25,4 +25,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+from .framework.random import get_rng_state, seed, set_rng_state  # noqa: E402
+
+__all__ = ["resolve_device", "seed", "get_rng_state", "set_rng_state"]

@@ -1,3 +1,4 @@
+from . import random
 from .io import load
 
-__all__ = ["load"]
+__all__ = ["load", "random"]

@@ -354,9 +354,11 @@ class _LlamaDecoder:
 
 
 def _ln(x, w, b, eps):
-    """LayerNorm in fp32, rounded to x's dtype (the JAX ``_ln``)."""
-    return F.layer_norm(x.float(), x.shape[-1:], w.float(), b.float(),
-                        eps).to(x.dtype)
+    """LayerNorm in fp32, rounded to x's dtype (the JAX ``_ln``): the
+    LayerNorm kernel of ``kernels.fused`` on CUDA tensors (it reads x, w
+    and b in their dtypes, normalises in fp32 and rounds once), its plain
+    version (the JAX formula) on CPU tensors."""
+    return fused.dropout_add_layer_norm(x, w, b, eps)
 
 
 class _GPTDecoder:

@@ -21,18 +21,28 @@ and ``swiglu_bwd`` the Llama MLP's fused ``silu(gate) * up`` and its
 backward. They port no TPU kernel: they are passes XLA fuses into the
 JAX package's compiled training step.
 
+``dropout`` counts the launches of the dropout kernel (a forward, a
+backward, one each); ``dropout_add_ln`` and ``dropout_add_ln_bwd`` the
+calls of ``LayerNorm(residual + dropout(x + bias))``'s forward kernel and
+of its backward (the rows' pass and the column sums: two Triton kernels),
+which every LayerNorm on the card goes through. They port no TPU kernel
+either: XLA fuses the JAX package's dropout and LayerNorm.
+
 ``weight_only_gemm`` counts every call of the weight-only GEMM on the
 card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
 counts those that went to the mma.sync kernel (shapes TMA cannot read).
 
-Two keys count calls instead, on any device: ``sdpa_plain`` the attention
+Three keys count calls instead, on any device: ``sdpa_plain`` the attention
 calls that ``nn.functional.scaled_dot_product_attention`` routes to its
 plain ``_sdpa_reference`` because the flash kernels do not take their
 shapes (``flash_attention.flash_takes``), and ``ragged_plain`` the serving
 attention calls that ``serving.ragged.make_attend`` routes to
 ``ragged_attention_plain`` for the same reason (``ragged_attention.
-kernel_takes``). Both routings are the JAX package's own; a main path
-that takes them reads above 0 there.
+kernel_takes``). ``sdpa_dense`` counts the attention calls that take
+the dense ``_sdpa_reference`` because they have a mask or a dropout
+(``scaled_dot_product_attention`` with ``attn_mask`` or ``dropout_p``,
+``flashmask_attention`` with a dropout in training). Every routing is the
+JAX package's own; a main path that takes one reads above 0 there.
 """
 from __future__ import annotations
 
@@ -42,10 +52,12 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "flashmask_fwd": 0, "flashmask_bwd_dq": 0, "flashmask_bwd_dkv": 0,
             "weight_only_gemm": 0, "weight_only_gemm_sm80": 0,
             "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
-            "sdpa_plain": 0, "ragged_plain": 0}
+            "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
+            "sdpa_plain": 0, "sdpa_dense": 0, "ragged_plain": 0}
 
 
-ROUTED = ("sdpa_plain", "ragged_plain")     # the keys that count calls
+# the keys that count calls
+ROUTED = ("sdpa_plain", "sdpa_dense", "ragged_plain")
 
 
 def reset_launches() -> None:

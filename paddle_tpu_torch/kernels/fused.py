@@ -1,5 +1,6 @@
-"""RMSNorm (with and without a residual) and rotary embedding: Triton
-kernels and their plain PyTorch versions.
+"""RMSNorm (with and without a residual), rotary embedding and the passes
+XLA fuses into the training step: Triton kernels and their plain PyTorch
+versions.
 
 Replaces ``paddle_tpu/kernels/fused_pallas.py``:
   * ``fused_rms_norm_pallas`` (``_rmsnorm_kernel`` -> ``rms_norm``, and
@@ -28,6 +29,20 @@ second among its elementwise work):
     round as the plain ops do: silu(gate) to the input dtype, then the
     product.
 Both are bound by bytes on the H100 like the other kernels here.
+One more of that kind:
+  * ``dropout_add_layer_norm`` (``DropoutAddLayerNormFunction``):
+    ``LayerNorm(residual + dropout(x + bias))`` over the last axis, the
+    JAX ``fused_bias_dropout_residual_layer_norm``
+    (``paddle_tpu/incubate/nn/functional/fused_ops.py:636``) and the Add&LN
+    of ERNIE's post-LN blocks; with no dropout, residual or bias, plain
+    LayerNorm, which every ``nn.functional.layer_norm`` on the card runs.
+    One program a row as a [hidden / 4, 4] tile (a row of the tile is one
+    Philox block of ``kernels/dropout.py``'s mask, drawn in registers);
+    the sums and the dropout round to x's dtype where the separate ops
+    round, the statistics are fp32. The backward reads the norm's input
+    (kept by the forward) and draws the mask again: dx, the residual's
+    gradient and per-program partials of the three vector gradients,
+    summed in order by the column-sum kernel.
 
 Bound on the H100: bytes, for both. RMSNorm does about 4 flops per element
 it reads and writes, RoPE about 6; the card needs ~295 per byte before
@@ -57,8 +72,10 @@ from typing import Tuple
 import torch
 
 from . import LAUNCHES
+from . import dropout as D
 
 tl = None    # triton.language, bound by _jit() at the first launch
+_mask_bits = None   # kernels/dropout.py's, bound by _jit()
 
 
 def _rms_norm_kernel(x_ptr, r_ptr, w_ptr, y_ptr, s_ptr, n_cols, eps,
@@ -175,18 +192,121 @@ def _swiglu_bwd_kernel(g_ptr, u_ptr, dy_ptr, dg_ptr, du_ptr, n,
              mask=m)
 
 
+def _dln_fwd_kernel(x_ptr, b_ptr, r_ptr, w_ptr, nb_ptr, y_ptr, h_ptr,
+                    key_ptr, n_cols, site, thresh, scale, eps,
+                    HAS_BIAS: tl.constexpr, HAS_RES: tl.constexpr,
+                    HAS_DROP: tl.constexpr, WRITE_H: tl.constexpr,
+                    ALIGNED: tl.constexpr, BLOCK_G: tl.constexpr):
+    """Program = one row, as a [BLOCK_G, 4] tile (column 4g + j): h =
+    residual + dropout(x + bias), each sum and the dropout rounded to x's
+    dtype as the separate ops round, written where asked; y = LayerNorm(h)
+    with fp32 statistics."""
+    row = tl.program_id(0).to(tl.int64)
+    g = tl.arange(0, BLOCK_G)
+    j = tl.arange(0, 4)
+    col = g[:, None] * 4 + j[None, :]
+    cm = col < n_cols
+    off = row * n_cols + col
+    dt = y_ptr.dtype.element_ty
+    v = tl.load(x_ptr + off, mask=cm, other=0.0).to(tl.float32)
+    if HAS_BIAS:
+        b = tl.load(b_ptr + col, mask=cm, other=0.0).to(tl.float32)
+        v = (v + b).to(dt).to(tl.float32)
+    if HAS_DROP:
+        if ALIGNED:     # a row starts a Philox block
+            bits = _mask_bits(row * (n_cols // 4) + g[:, None], j[None, :],
+                              key_ptr, site)
+        else:
+            bits = _mask_bits(off >> 2, off & 3, key_ptr, site)
+        keep = (bits >> 8).to(tl.int32) >= thresh
+        v = tl.where(keep, v * scale, 0.0).to(dt).to(tl.float32)
+    if HAS_RES:
+        r = tl.load(r_ptr + off, mask=cm, other=0.0).to(tl.float32)
+        v = (v + r).to(dt).to(tl.float32)
+    if WRITE_H:
+        tl.store(h_ptr + off, v.to(dt), mask=cm)
+    mean = tl.sum(tl.sum(v, axis=1), axis=0) / n_cols
+    c = tl.where(cm, v - mean, 0.0)
+    var = tl.sum(tl.sum(c * c, axis=1), axis=0) / n_cols
+    rstd = tl.rsqrt(var + eps)
+    w = tl.load(w_ptr + col, mask=cm, other=0.0).to(tl.float32)
+    nb = tl.load(nb_ptr + col, mask=cm, other=0.0).to(tl.float32)
+    tl.store(y_ptr + off, (c * rstd * w + nb).to(dt), mask=cm)
+
+
+def _dln_bwd_kernel(h_ptr, w_ptr, dy_ptr, dh_ptr, dx_ptr, part_ptr, key_ptr,
+                    n_rows, n_cols, rows_per_prog, site, thresh, scale, eps,
+                    HAS_DROP: tl.constexpr, ALIGNED: tl.constexpr,
+                    BLOCK_G: tl.constexpr):
+    """Program p: rows [p * rows_per_prog, ...) of dh (LayerNorm's input
+    gradient, rounded to h's dtype: the residual's), dx (dh through the
+    dropout's mask, drawn again) and its fp32 partial sums of dweight,
+    dbias of the norm and dbias of the input into part[p] ([3, n_cols])."""
+    pid = tl.program_id(0)
+    g = tl.arange(0, BLOCK_G)
+    j = tl.arange(0, 4)
+    col = g[:, None] * 4 + j[None, :]
+    cm = col < n_cols
+    dt = dh_ptr.dtype.element_ty
+    w = tl.load(w_ptr + col, mask=cm, other=0.0).to(tl.float32)
+    acc_w = tl.zeros([BLOCK_G, 4], dtype=tl.float32)
+    acc_b = tl.zeros([BLOCK_G, 4], dtype=tl.float32)
+    acc_x = tl.zeros([BLOCK_G, 4], dtype=tl.float32)
+    for i in range(0, rows_per_prog):
+        row = pid.to(tl.int64) * rows_per_prog + i
+        m = cm & (row < n_rows)
+        off = row * n_cols + col
+        h = tl.load(h_ptr + off, mask=m, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + off, mask=m, other=0.0).to(tl.float32)
+        mean = tl.sum(tl.sum(h, axis=1), axis=0) / n_cols
+        c = tl.where(m, h - mean, 0.0)
+        var = tl.sum(tl.sum(c * c, axis=1), axis=0) / n_cols
+        rstd = tl.rsqrt(var + eps)
+        xhat = c * rstd
+        acc_w += dy * xhat
+        acc_b += dy
+        gw = dy * w
+        mg = tl.sum(tl.sum(gw, axis=1), axis=0) / n_cols
+        mgx = tl.sum(tl.sum(gw * xhat, axis=1), axis=0) / n_cols
+        dh = (rstd * (gw - mg - xhat * mgx)).to(dt)
+        tl.store(dh_ptr + off, dh, mask=m)
+        d = dh.to(tl.float32)
+        if HAS_DROP:
+            if ALIGNED:
+                bits = _mask_bits(row * (n_cols // 4) + g[:, None],
+                                  j[None, :], key_ptr, site)
+            else:
+                bits = _mask_bits(off >> 2, off & 3, key_ptr, site)
+            keep = (bits >> 8).to(tl.int32) >= thresh
+            d = tl.where(keep, d * scale, 0.0).to(dt).to(tl.float32)
+            tl.store(dx_ptr + off, d.to(dt), mask=m)
+        acc_x += d
+    base = part_ptr + pid.to(tl.int64) * (3 * n_cols)
+    tl.store(base + col, acc_w, mask=cm)
+    tl.store(base + n_cols + col, acc_b, mask=cm)
+    tl.store(base + 2 * n_cols + col, acc_x, mask=cm)
+
+
 @functools.lru_cache(maxsize=None)
 def _jit():
     """Import Triton and wrap the kernels (once)."""
-    global tl
+    global tl, _mask_bits
     import triton
     import triton.language
     tl = triton.language
+    D._jit()
+    _mask_bits = D._mask_bits      # the dropout kernel's mask, wrapped
     return triton, {"rms": triton.jit(_rms_norm_kernel),
                     "rms_bwd": triton.jit(_rms_norm_bwd_kernel),
                     "col_sum": triton.jit(_col_sum_kernel),
                     "swiglu_fwd": triton.jit(_swiglu_fwd_kernel),
                     "swiglu_bwd": triton.jit(_swiglu_bwd_kernel),
+                    "dln_fwd": triton.jit(_dln_fwd_kernel,
+                                          do_not_specialize=["site",
+                                                             "thresh"]),
+                    "dln_bwd": triton.jit(_dln_bwd_kernel,
+                                          do_not_specialize=["site",
+                                                             "thresh"]),
                     # H and KVH pick the head count in one branch or the
                     # other: an argument equal to 1 must not turn constexpr
                     "rope": triton.jit(_rope_kernel,
@@ -572,9 +692,208 @@ def fused_rope(q, k, cos, sin):
     return RopeFunction.apply(q, k, cos, sin)
 
 
+# -- LayerNorm with a dropout and a residual ----------------------------------------
+
+def layer_norm_plain(x, weight=None, bias=None, eps=1e-5, n_axes=1):
+    """LayerNorm over the trailing ``n_axes`` axes with the JAX formula
+    (``paddle_tpu/nn/functional/norm.py:27``): mean and (biased) variance
+    of x in fp32, ``(x - mean) / sqrt(var + eps)``, times the weight and
+    plus the bias in fp32, cast back to x's dtype."""
+    axes = tuple(range(x.dim() - n_axes, x.dim()))
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    centered = xf - mean
+    var = (centered * centered).mean(dim=axes, keepdim=True)
+    out = centered / torch.sqrt(var + eps)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def dropout_add_plain(x, residual=None, bias=None, p=0.0, key=None,
+                      mode="upscale_in_train"):
+    """``residual + dropout(x + bias)`` as the separate ops compute it
+    (each rounded to its dtype): the input of the norm."""
+    h = x if bias is None else x + bias
+    if p > 0.0:
+        h = D.dropout_plain(h, p, key, mode)
+    return h if residual is None else h + residual
+
+
+def dropout_add_layer_norm_plain(x, weight=None, norm_bias=None, eps=1e-5,
+                                 residual=None, bias=None, p=0.0, key=None,
+                                 mode="upscale_in_train"):
+    """``LayerNorm(residual + dropout(x + bias))`` over the last axis by
+    the plain ops (the JAX ``fused_bias_dropout_residual_layer_norm``,
+    ``paddle_tpu/incubate/nn/functional/fused_ops.py:636``), differentiable
+    by autograd."""
+    h = dropout_add_plain(x, residual, bias, p, key, mode)
+    return layer_norm_plain(h, weight, norm_bias, eps)
+
+
+def _dln_check(x, weight, norm_bias, residual, bias, p, key):
+    n = x.shape[-1]
+    if x.dtype not in D._DTYPES:
+        raise ValueError(f"layer_norm takes {D._DTYPES}, got {x.dtype}")
+    for name, t, shape in (("weight", weight, (n,)),
+                           ("norm bias", norm_bias, (n,)),
+                           ("bias", bias, (n,)),
+                           ("residual", residual, tuple(x.shape))):
+        if t is not None and (tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"dropout_add_layer_norm: {name} must be "
+                             f"contiguous {list(shape)}, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("bias", bias), ("residual", residual)):
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"dropout_add_layer_norm: {name} must have "
+                             f"x's dtype {x.dtype}, got {t.dtype}")
+    if p > 0.0 and key is None:
+        raise ValueError("dropout_add_layer_norm: p > 0 needs a key")
+
+
+def _dln_args(x, p, key, mode):
+    """(key tensor, site, threshold, scale, aligned) of a launch; without
+    a dropout the kernel reads no key, and x stands in for its pointer."""
+    if p > 0.0:
+        base, site = key
+        return (D.key_tensor(base, x.device), int(site) & D.M32,
+                D.threshold(p), D.scale_of(p, mode), x.shape[-1] % 4 == 0)
+    return x, 0, 0, 1.0, True
+
+
+def _dln_block(n):
+    return max(1, 1 << (max(n, 4) - 1).bit_length()) // 4
+
+
+def dropout_add_layer_norm_forward(x, weight, norm_bias, eps=1e-5,
+                                   residual=None, bias=None, p=0.0,
+                                   key=None, mode="upscale_in_train"):
+    """(y, h) of the forward kernel on CUDA tensors: h = residual +
+    dropout(x + bias) (x itself when there is nothing to add or drop), y =
+    LayerNorm(h) over the last axis with ``weight`` and ``norm_bias``
+    (tensors of [hidden]), both in x's dtype."""
+    _on_cuda("dropout_add_layer_norm", *(t for t in (x, weight, norm_bias,
+                                                     residual, bias)
+                                         if t is not None))
+    _dln_check(x, weight, norm_bias, residual, bias, p, key)
+    triton, k = _jit()
+    n = x.shape[-1]
+    rows = x.numel() // n if n else 0
+    y = torch.empty_like(x)
+    write_h = residual is not None or bias is not None or p > 0.0
+    h = torch.empty_like(x) if write_h else x
+    kt, site, thresh, scale, aligned = _dln_args(x, p, key, mode)
+    bg = _dln_block(n)
+    if rows:
+        k["dln_fwd"][(rows,)](
+            x, bias if bias is not None else x,
+            residual if residual is not None else x, weight, norm_bias, y, h,
+            kt, n, site, thresh, scale, eps, HAS_BIAS=bias is not None,
+            HAS_RES=residual is not None, HAS_DROP=p > 0.0, WRITE_H=write_h,
+            ALIGNED=aligned, BLOCK_G=bg,
+            num_warps=min(max(4 * bg // 256, 1), 16))
+    LAUNCHES["dropout_add_ln"] += 1
+    return y, h
+
+
+def dropout_add_layer_norm_backward(h, weight, dy, eps=1e-5, p=0.0, key=None,
+                                    mode="upscale_in_train"):
+    """(dx, dh, dweight, dnorm_bias, dbias) of ``LayerNorm(residual +
+    dropout(x + bias))`` on CUDA tensors, from the norm's input h: dh (the
+    residual's gradient) rounded to h's dtype, dx = dh through the mask
+    drawn again (dh itself without dropout), and the three parameter
+    gradients in fp32, each a sum over the rows of per-program partials
+    added in a fixed order (no atomics: the same bits every run)."""
+    dy = dy.contiguous()
+    _on_cuda("dropout_add_layer_norm_backward", h, weight, dy)
+    n = h.shape[-1]
+    if dy.shape != h.shape or dy.dtype != h.dtype:
+        raise ValueError(f"dropout_add_layer_norm_backward: dy {dy.dtype} "
+                         f"{tuple(dy.shape)} against h {h.dtype} "
+                         f"{tuple(h.shape)}")
+    triton, k = _jit()
+    rows = h.numel() // n if n else 0
+    progs = max(1, min(rows, 4 * torch.cuda.get_device_properties(
+        h.device).multi_processor_count))
+    per = triton.cdiv(max(rows, 1), progs)
+    progs = triton.cdiv(max(rows, 1), per)
+    dh = torch.empty_like(h)
+    dx = torch.empty_like(h) if p > 0.0 else dh
+    part = torch.empty(progs, 3 * n, dtype=torch.float32, device=h.device)
+    kt, site, thresh, scale, aligned = _dln_args(h, p, key, mode)
+    bg = _dln_block(n)
+    k["dln_bwd"][(progs,)](
+        h, weight, dy, dh, dx, part, kt, rows, n, per, site, thresh, scale,
+        eps, HAS_DROP=p > 0.0, ALIGNED=aligned, BLOCK_G=bg,
+        num_warps=min(max(4 * bg // 256, 1), 16))
+    sums = torch.empty(3 * n, dtype=torch.float32, device=h.device)
+    k["col_sum"][(triton.cdiv(3 * n, 64),)](part, sums, progs, 3 * n,
+                                            BLOCK_P=64, BLOCK_C=64,
+                                            num_warps=4)
+    LAUNCHES["dropout_add_ln_bwd"] += 1
+    return dx, dh, sums[:n], sums[n:2 * n], sums[2 * n:]
+
+
+class DropoutAddLayerNormFunction(torch.autograd.Function):
+    """``LayerNorm(residual + dropout(x + bias))`` through the two kernels:
+    it keeps the norm's input h (x itself when nothing is added or
+    dropped) and the weight; the mask is drawn again in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, norm_bias, eps, residual, bias, p, key, mode):
+        n = x.shape[-1]
+        w = weight if weight is not None else torch.ones(
+            n, dtype=torch.float32, device=x.device)
+        nb = norm_bias if norm_bias is not None else torch.zeros(
+            n, dtype=torch.float32, device=x.device)
+        y, h = dropout_add_layer_norm_forward(x, w, nb, eps, residual, bias,
+                                              p, key, mode)
+        ctx.save_for_backward(h, w)
+        ctx.args = (eps, p, key, mode)
+        ctx.dtypes = tuple(None if t is None else t.dtype
+                           for t in (weight, norm_bias, residual, bias))
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        eps, p, key, mode = ctx.args
+        dx, dh, dw, dnb, db = dropout_add_layer_norm_backward(
+            h, w, dy, eps, p, key, mode)
+        tw, tnb, tres, tb = ctx.dtypes
+        return (dx, None if tw is None else dw.to(tw), None if tnb is None
+                else dnb.to(tnb), None, None if tres is None else dh,
+                None if tb is None else db.to(tb), None, None, None)
+
+
+def dropout_add_layer_norm(x, weight=None, norm_bias=None, eps=1e-5,
+                           residual=None, bias=None, p=0.0, key=None,
+                           mode="upscale_in_train"):
+    """``LayerNorm(residual + dropout(x + bias))`` over the last axis in
+    x's dtype, differentiable (``p = 0`` and no residual or bias: plain
+    LayerNorm): on CUDA tensors one Triton kernel forward and one backward
+    (with the column sums), the mask drawn under ``key`` (a
+    ``RandomKey``) as ``kernels.dropout`` draws it; on CPU tensors
+    ``dropout_add_layer_norm_plain``."""
+    if x.device.type == "cpu":
+        return dropout_add_layer_norm_plain(x, weight, norm_bias, eps,
+                                            residual, bias, p, key, mode)
+    if p > 0.0:
+        D.scale_of(p, mode)
+    return DropoutAddLayerNormFunction.apply(
+        x.contiguous(), weight, norm_bias, float(eps), residual, bias,
+        float(p), key, mode)
+
+
 __all__ = ["rms_norm", "add_rms_norm", "fused_rope", "rms_norm_plain",
            "add_rms_norm_plain", "fused_rope_plain", "RMSNormFunction",
            "RopeFunction", "rms_norm_op", "add_rms_norm_op", "rope_op",
            "rms_norm_backward", "rms_norm_backward_plain", "swiglu",
            "swiglu_plain", "swiglu_backward_plain", "SwiGLUFunction",
-           "swiglu_op", "swiglu_backward"]
+           "swiglu_op", "swiglu_backward", "layer_norm_plain",
+           "dropout_add_plain", "dropout_add_layer_norm_plain",
+           "dropout_add_layer_norm", "dropout_add_layer_norm_forward",
+           "dropout_add_layer_norm_backward", "DropoutAddLayerNormFunction"]

@@ -1,7 +1,12 @@
+from .ernie import (ErnieConfig, ErnieForPretraining,
+                    ErnieForSequenceClassification, ErnieModel,
+                    ernie_pretrain_step)
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel
 from .llama import (LlamaConfig, LlamaForCausalLM, build_rope_cache,
                     load_numpy_optimizer_state, load_numpy_state)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "LlamaConfig",
-           "LlamaForCausalLM", "build_rope_cache", "load_numpy_optimizer_state",
-           "load_numpy_state"]
+__all__ = ["ErnieConfig", "ErnieForPretraining",
+           "ErnieForSequenceClassification", "ErnieModel",
+           "ernie_pretrain_step", "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "LlamaConfig", "LlamaForCausalLM", "build_rope_cache",
+           "load_numpy_optimizer_state", "load_numpy_state"]

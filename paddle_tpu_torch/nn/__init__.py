@@ -1,3 +1,5 @@
 from . import functional
+from .layer import Dropout, Embedding, LayerList, LayerNorm, Linear
 
-__all__ = ["functional"]
+__all__ = ["functional", "Dropout", "Embedding", "LayerList", "LayerNorm",
+           "Linear"]

@@ -3,14 +3,16 @@ layouts.
 
 Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention`` and
 ``flashmask_attention`` (``attention.py``), ``rms_norm`` and ``layer_norm``
-(``norm.py``), ``cross_entropy`` (``loss.py``), ``gelu``
-(``activation.py``), ``linear`` and ``embedding`` (``common.py``), each for
-the cases the training paths use, and ``swiglu`` (the Llama MLP's
-``silu(gate) * up``); anything else raises
-``NotImplementedError``. ``layer_norm``, ``gelu``, ``linear``,
-``embedding`` and attention with a dense ``attn_mask`` are plain PyTorch:
-the JAX package has no Pallas kernel for them either. Each is the JAX op
-of its name for ``amp.auto_cast`` (``amp.op``).
+(``norm.py``), ``cross_entropy`` (``loss.py``), ``gelu`` and ``tanh``
+(``activation.py``), ``linear``, ``embedding`` and ``dropout``
+(``common.py``), each for the cases the training paths use, and
+``swiglu`` (the Llama MLP's ``silu(gate) * up``); anything else raises
+``NotImplementedError``. ``gelu``, ``tanh``, ``linear``, ``embedding``
+and attention with a dense ``attn_mask`` or a dropout are plain PyTorch:
+the JAX package has no Pallas kernel for them either. ``dropout`` and
+``layer_norm`` run Triton kernels on CUDA tensors (``kernels/dropout.py``,
+``kernels/fused.py``): the passes XLA fuses. Each is the JAX op of its
+name for ``amp.auto_cast`` (``amp.op``).
 """
 from __future__ import annotations
 
@@ -21,17 +23,22 @@ import torch
 import torch.nn.functional as TF
 
 from .. import amp
+from ..framework.random import next_key
 from ..kernels import LAUNCHES
+from ..kernels import dropout as D
 from ..kernels import flash_attention as FA
 from ..kernels import fused
 
 
-def _sdpa_reference(q, k, v, mask=None, causal=False):
+def _sdpa_reference(q, k, v, mask=None, causal=False, dropout_p=0.0,
+                    key=None):
     """Attention over ``[batch, seq, heads, head_dim]`` inputs with a dense
     mask, as the JAX package's ``_sdpa_reference``: fp32 scores, causal
     (bottom-right) and a bool mask as -1e30, an additive mask added, fp32
-    softmax (a row that sees no key averages every value), out cast to
-    q's dtype. The mask broadcasts to ``[b, h, sq, sk]``."""
+    softmax (a row that sees no key averages every value), with
+    ``dropout_p`` > 0 the probabilities dropped under ``key`` (the dropout
+    kernel on CUDA tensors), out cast to q's dtype. The mask broadcasts to
+    ``[b, h, sq, sk]``."""
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
         / math.sqrt(q.shape[-1])
     if causal:
@@ -45,6 +52,8 @@ def _sdpa_reference(q, k, v, mask=None, causal=False):
         else:
             scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1)
+    if dropout_p > 0.0 and key is not None:
+        probs = D.dropout(probs, key, dropout_p)
     return torch.einsum("bhst,bthd->bshd", probs, v.float()).to(q.dtype)
 
 
@@ -52,24 +61,29 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
     """Attention over ``[batch, seq, heads, head_dim]`` inputs (the JAX
-    package's layout), differentiable. Without a mask, a call the flash
-    kernels take (``FA.flash_takes``) runs them on CUDA tensors and their
-    plain versions on CPU tensors; any other (a head_dim outside
-    ``FA.HEAD_DIMS``, causal with q_len > kv_len, where the leading rows
-    average v) is the plain ``_sdpa_reference`` on either device, counted
-    in ``LAUNCHES["sdpa_plain"]``, as the JAX package gates its kernel
-    with ``is_available``. With ``attn_mask`` (bool, True = visible, or
-    additive) it is ``_sdpa_reference`` on any device, as the JAX package
-    computes it in XLA outside any Pallas kernel."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: dropout is not ported")
-    if attn_mask is not None:
-        return _sdpa_op(query, key, value, attn_mask, is_causal)
-    if not FA.flash_takes(query, key, is_causal, value):
-        LAUNCHES["sdpa_plain"] += 1
-        return _sdpa_op(query, key, value, None, is_causal)
-    return _flash_op(query, key, value, is_causal)
+    package's layout), differentiable, routed as the JAX package routes it
+    (``paddle_tpu/nn/functional/attention.py:57``). Without a mask and
+    with ``dropout_p == 0``, a call the flash kernels take
+    (``FA.flash_takes``) runs them on CUDA tensors and their plain versions
+    on CPU tensors; any other (a head_dim outside ``FA.HEAD_DIMS``, causal
+    with q_len > kv_len, where the leading rows average v) is the plain
+    ``_sdpa_reference`` on either device, counted in
+    ``LAUNCHES["sdpa_plain"]``, as the JAX package gates its kernel with
+    ``is_available``. With ``attn_mask`` (bool, True = visible, or
+    additive) or ``dropout_p != 0`` it is ``_sdpa_reference`` on any
+    device, counted in ``LAUNCHES["sdpa_dense"]``, as the JAX package
+    computes it in XLA outside any Pallas kernel; the probabilities are
+    dropped only when ``training`` (a ``dropout_p`` with ``training=False``
+    still takes this route, as in the JAX package)."""
+    if attn_mask is None and dropout_p == 0.0:
+        if not FA.flash_takes(query, key, is_causal, value):
+            LAUNCHES["sdpa_plain"] += 1
+            return _sdpa_op(query, key, value, None, is_causal)
+        return _flash_op(query, key, value, is_causal)
+    p_drop = float(dropout_p) if training else 0.0
+    rng = next_key() if p_drop > 0.0 else None
+    LAUNCHES["sdpa_dense"] += 1
+    return _sdpa_op(query, key, value, attn_mask, is_causal, p_drop, rng)
 
 
 # the JAX ops: "sdpa" takes q, k, v and the mask, "flash_attention" q, k, v
@@ -191,15 +205,18 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
     ``HEAD_DIMS``, another dtype) runs the plain versions on either
     device, counted in ``LAUNCHES["sdpa_plain"]``, with the JAX dense
     path's top-left causal, as the JAX package sends what its kernel does
-    not take to that path. Not ported: dropout (raises) and
-    ``return_seed_offset`` (the JAX package raises too)."""
+    not take to that path. With ``dropout`` in training, the call takes
+    that dense path with the probabilities dropped (``_sdpa_reference``
+    over the bounds' visibility, ``_flashmask_dropout``), counted in
+    ``LAUNCHES["sdpa_dense"]``, as the JAX package's
+    (``attention.py:242-273``); ``return_seed_offset`` raises, as in the
+    JAX package."""
     if return_seed_offset:
         raise NotImplementedError(
             "return_seed_offset tracks the reference's CUDA dropout RNG "
-            "state; the port has no dropout")
-    if dropout > 0.0 and training:
-        raise NotImplementedError("flashmask_attention: dropout is not "
-                                  "ported")
+            "state; randomness here comes from framework.random, which has "
+            "no seed-offset notion")
+    p_drop = float(dropout) if training else 0.0
     b, sq, h, _ = query.shape
     sk, kh = key.shape[1], key.shape[2]
     window = _norm_window(window_size, causal)
@@ -209,8 +226,10 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
             raise NotImplementedError(
                 "return_softmax_lse requires startend_row_indices")
         return scaled_dot_product_attention(query, key, value,
-                                            is_causal=causal)
-    takes = flashmask_kernels_take(query, key, value)
+                                            dropout_p=dropout,
+                                            is_causal=causal,
+                                            training=training)
+    takes = flashmask_kernels_take(query, key, value) and p_drop == 0.0
     if isinstance(mask, FlashMaskBounds):
         if mask.causal != bool(causal):
             raise ValueError(f"bounds prepared with causal={mask.causal}, "
@@ -227,6 +246,9 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
         mask = FlashMaskBounds(torch.tensor(
             [sq, sq, 0, 0], dtype=torch.int32,
             device=query.device).expand(b, 1, sk, 4), None, bool(causal))
+    if p_drop > 0.0:
+        return _flashmask_dropout(query, key, value, mask.bounds, causal,
+                                  window, p_drop, return_softmax_lse)
     q = query.transpose(1, 2)
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)
@@ -248,6 +270,27 @@ def flashmask_attention(query, key, value, startend_row_indices=None, *,
     return (out, lse) if return_softmax_lse else out
 
 
+def _flashmask_dropout(query, key, value, bounds, causal, window, p, lse):
+    """The JAX package's dense FlashMask path with a dropout: the bounds'
+    visibility (top-left causal, ``FA.flashmask_visible``) as the mask of
+    ``_sdpa_reference``, GQA k/v expanded, the probabilities dropped; lse
+    from the masked scores where asked."""
+    b, sq, h, d = query.shape
+    sk, kh = key.shape[1], key.shape[2]
+    if kh != h:
+        key = key.repeat_interleave(h // kh, dim=2)
+        value = value.repeat_interleave(h // kh, dim=2)
+    vis = FA.flashmask_visible(bounds, sq, sk, causal, window)
+    LAUNCHES["sdpa_dense"] += 1
+    out = _sdpa_reference(query, key, value, mask=vis, dropout_p=p,
+                          key=next_key())
+    if not lse:
+        return out
+    scores = torch.einsum("bshd,bthd->bhst", query.float(), key.float()) \
+        / math.sqrt(d)
+    return out, torch.logsumexp(scores.masked_fill(~vis, -1e30), dim=-1)
+
+
 @amp.op("rms_norm")
 def rms_norm(x, weight, epsilon=1e-6):
     """RMSNorm over the last axis with a weight, in x's dtype (fp32 inside):
@@ -261,20 +304,49 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     """LayerNorm over the trailing ``normalized_shape`` axes with the JAX
     formula: mean and (biased) variance of x in fp32, ``(x - mean) /
     sqrt(var + eps)``, times the weight and plus the bias in fp32, cast
-    back to x's dtype."""
+    back to x's dtype. On CUDA tensors the Triton kernel of
+    ``fused.dropout_add_layer_norm`` (no dropout, no residual; the
+    trailing axes as one), on CPU tensors ``fused.layer_norm_plain``."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
-    axes = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
-    xf = x.float()
-    mean = xf.mean(dim=axes, keepdim=True)
-    centered = xf - mean
-    var = (centered * centered).mean(dim=axes, keepdim=True)
-    out = centered / torch.sqrt(var + epsilon)
-    if weight is not None:
-        out = out * weight.float()
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(x.dtype)
+    n_axes = len(tuple(normalized_shape))
+    if x.device.type == "cpu":
+        return fused.layer_norm_plain(x, weight, bias, epsilon, n_axes)
+    n = math.prod(x.shape[x.dim() - n_axes:])
+    flat = (lambda t: None if t is None else t.reshape(n))
+    y = fused.dropout_add_layer_norm(x.reshape(*x.shape[:x.dim() - n_axes],
+                                               n), flat(weight), flat(bias),
+                                     epsilon)
+    return y.reshape(x.shape)
+
+
+@amp.op("dropout", 1)
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Dropout as the JAX package's (``common.py:40-59``): in eval or at
+    ``p = 0`` x itself ("downscale_in_infer" scales by ``1 - p`` in eval);
+    at ``p = 1`` zeros; else the elements kept with probability ``1 - p``
+    under ``next_key()`` ("upscale_in_train": divided by ``1 - p``),
+    ``axis`` (an int or a list) naming the axes the mask spans, broadcast
+    over the others. The mask is ``kernels.dropout``'s: the Triton kernel
+    on CUDA tensors, its plain version on CPU tensors, the same bits."""
+    if mode not in D.MODES:
+        raise ValueError(f"dropout mode must be one of {D.MODES}, got "
+                         f"{mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            # the factor in x's dtype, as JAX's weak-typed scalar
+            return x * torch.full((), 1.0 - p, dtype=x.dtype,
+                                  device=x.device)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    mask_shape = None
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        axes = [a % x.dim() for a in axes]
+        mask_shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
+    return D.dropout(x, next_key(), p, mode, mask_shape)
 
 
 @amp.op("gelu")
@@ -282,6 +354,12 @@ def gelu(x, approximate=False, name=None):
     """GELU in x's dtype: the erf form, or the tanh approximation with
     ``approximate=True``."""
     return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+@amp.op("tanh")
+def tanh(x, name=None):
+    """tanh in x's dtype."""
+    return torch.tanh(x)
 
 
 def swiglu(x, y, name=None):
@@ -359,5 +437,5 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "FlashMaskBounds", "prepare_flashmask", "flashmask_kernels_take",
-           "rms_norm", "layer_norm",
+           "rms_norm", "layer_norm", "dropout", "tanh",
            "cross_entropy", "gelu", "linear", "embedding", "swiglu"]

@@ -1,0 +1,44 @@
+"""``LayerList`` (``paddle_tpu/nn/layer/layers.py:398``), and what the
+layers of ``nn/layer`` share: where a parameter is made and how its
+attribute is read."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ... import resolve_device
+from ..initializer import ParamAttr, set_param_attr
+
+
+class LayerList(nn.ModuleList):
+    """Sublayers held in order and named "0", "1", ...: the JAX
+    ``LayerList``'s indexing, slicing, ``append``, ``insert``,
+    ``extend`` and iteration are ``nn.ModuleList``'s."""
+
+
+def placement(device, dtype):
+    """(device, dtype) of a layer's parameters: None = the GPU (raises
+    without one) and float32."""
+    return resolve_device(device), dtype or torch.float32
+
+
+def make_parameter(shape, attr, device, dtype, init):
+    """A parameter of ``shape`` filled by ``init(tensor)`` (under no_grad),
+    carrying ``attr``'s name and learning rate (a ``ParamAttr`` or a name;
+    its own initializer is not ported and raises); None where ``attr`` is
+    False."""
+    if attr is False:
+        return None
+    if isinstance(attr, ParamAttr) and attr.initializer is not None:
+        raise NotImplementedError("ParamAttr(initializer=...) is not ported: "
+                                  "the layers draw their default "
+                                  "initializers")
+    p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+    with torch.no_grad():
+        init(p)
+    if attr is not None:
+        set_param_attr(p, attr)
+    return p
+
+
+__all__ = ["LayerList", "placement", "make_parameter"]

@@ -17,12 +17,13 @@ program cache and the memory watcher are not ported and raise.
 
 **The step as one program.** The JAX trainer traces its step once per
 batch signature and runs it compiled (``_build``, ``_jit_step``), with the
-rate and the step count as traced arguments. On a CUDA model this trainer
-captures its step in one CUDA graph per batch signature (shapes and
-dtypes) and replays it: ``_step_body`` reads only static buffers (the
-batch, staged by ``copy_``; the rate and the step count, float32 0-d
-tensors the driver fills from ``opt.get_lr()`` and its own count before
-each step) and writes only persistent tensors (parameters, the
+rate, the step count and the random key as traced arguments. On a CUDA
+model this trainer captures its step in one CUDA graph per batch
+signature (shapes and dtypes) and replays it: ``_step_body`` reads only
+static buffers (the batch, staged by ``copy_``; the rate and the step
+count, float32 0-d tensors the driver fills from ``opt.get_lr()`` and its
+own count before each step; the step's random keys, ``_key``, which the
+dropout kernels read) and writes only persistent tensors (parameters, the
 optimizer's state, the kept gradient buffers, the loss slot). The first
 call of a signature runs the body eagerly on a side stream (the real step:
 it compiles the Triton kernels and makes cuBLAS's handles) and then
@@ -52,6 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import amp
+from ..framework import random as rnd
 from ..kernels import LAUNCHES, uncount_since
 from ..optimizer import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                          Optimizer, _lr_mult)
@@ -102,7 +104,9 @@ def _wrap_remat(layer, policy: str = "full"):
     them: its forward runs under ``torch.utils.checkpoint``
     (non-reentrant), which keeps its inputs and what ``policy`` saves
     (``REMAT_POLICIES``). The recompute runs under the ``amp.auto_cast``
-    state of the forward, so it casts as the forward did."""
+    state of the forward, so it casts as the forward did, and from the
+    random key position of the forward's entry (``framework.random.
+    replaying``), so it draws the forward's dropout masks again."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of "
                          f"{list(REMAT_POLICIES)}, got {policy!r}")
@@ -115,9 +119,10 @@ def _wrap_remat(layer, policy: str = "full"):
     @functools.wraps(orig)
     def remat_forward(*args, **kwargs):
         cast = amp.current_state()
+        pos = rnd.position()
 
         def run(*a, **kw):
-            with amp.restored_state(cast):
+            with amp.restored_state(cast), rnd.replaying(pos):
                 return orig(*a, **kw)
         return checkpoint(run, *args, use_reentrant=False, **extra, **kwargs)
 
@@ -186,6 +191,8 @@ class SpmdTrainer:
         self._staged: Dict[tuple, tuple] = {}
         # the static scalars the body reads: rate, step count, loss slot
         self._lr = self._step = self._loss = None
+        # the step's random keys, one a micro-batch (int64 [k, 2])
+        self._key = None
 
     @property
     def _device(self) -> torch.device:
@@ -261,15 +268,28 @@ class SpmdTrainer:
         its count, so an optimizer state loaded in place resumes the
         count too), write the rate (float32, as the JAX trainer's
         ``jnp.float32(get_lr())``) and the count into the static scalars,
-        and give every parameter's state the count (``_step``)."""
+        and give every parameter's state the count (``_step``). Draw the
+        step's key (``next_key()`` once a step, as the JAX trainer's
+        ``train_step``), folded into one key a micro-batch (the JAX
+        trainer splits its key over the micro-batches), into
+        ``self._key``, which the random ops of the step read on the
+        device."""
+        k = self.accumulate_steps
         if self._lr is None:
             dev = self._device
             self._lr, self._step, self._loss = (
                 torch.zeros((), dtype=torch.float32, device=dev)
                 for _ in range(3))
+            self._key = torch.zeros((k, 2), dtype=torch.int64, device=dev)
         self._step_count = self.opt._global_step + 1
         self._lr.fill_(self.opt.get_lr())
         self._step.fill_(float(self._step_count))
+        drawn = rnd.next_key()
+        key = rnd.fold_in(drawn.base, drawn.site)
+        for i in range(k):
+            words = key if k == 1 else rnd.fold_in(key, i)
+            for j in range(2):
+                self._key[i, j].fill_(words[j])
         for n in self._param_list:
             self.opt._state_of(self._params[n])["_step"] = self._step_count
 
@@ -284,19 +304,23 @@ class SpmdTrainer:
 
     def _step_body(self, batch) -> list:
         """The device's part of a step, reading only ``batch`` (static
-        buffers), ``self._lr`` and ``self._step``, writing only the
+        buffers), ``self._lr``, ``self._step`` and ``self._key`` (each
+        micro-batch's loss and backward run under its key's
+        ``key_context``, whose sites restart each step), writing only the
         parameters, the optimizer's state, ``self._grads`` and
         ``self._loss``. Returns the device tensors the update reads that a
         CUDA graph of it must keep (``Optimizer._update_all``)."""
         k = self.accumulate_steps
         if k == 1:
-            loss, grads = self._grads_of(batch)
+            with rnd.key_context(self._key[0]):
+                loss, grads = self._grads_of(batch)
         else:
             micro = [b.chunk(k, dim=0) for b in batch]
             loss = torch.zeros((), dtype=torch.float32, device=self._device)
             acc = None
             for i in range(k):
-                l, g = self._grads_of([m[i] for m in micro])
+                with rnd.key_context(self._key[i]):
+                    l, g = self._grads_of([m[i] for m in micro])
                 loss = loss + l
                 if acc is None:
                     acc = {n: x.float() for n, x in g.items()}

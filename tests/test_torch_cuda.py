@@ -26,7 +26,12 @@ pre-pass and the bf16 ragged kernels' work plan equal their plain versions
 exactly, and two bf16 ragged calls (also a CUDA-graph replay on rewritten
 metadata) give the same bits. Attention shapes the
 kernels do not take: the plain path on the card against the same function
-on the CPU, at the tolerances above.
+on the CPU, at the tolerances above. Dropout: the kernel equal to its plain
+version bit for bit (the same Philox words), also after a graph replay
+with a new key. LayerNorm with a dropout and a residual: the sum it
+normalises bit-equal to the ops one by one, its output and gradients
+within one ulp of the row's largest value in bf16 (2e-5 in fp32) of the
+plain ops' autograd, which sums in another order.
 """
 import numpy as np
 import pytest
@@ -1390,7 +1395,9 @@ def test_gpt_engine_on_card(dev, dtype, experts):
     graph, eager = (ServingEngine(gpu, EngineConfig(**ecfg))
                     for _ in range(2))
     eager._step = eager._step_eager
-    assert graph._tally == {"ragged_attention": 2}
+    # a replay: one ragged attention a layer, and the LayerNorms (two a
+    # layer and the final one) through the LayerNorm kernel
+    assert graph._tally == {"ragged_attention": 2, "dropout_add_ln": 5}
     reqs = [[e.submit(p, max_new_tokens=6) for p in _serve_prompts(2)]
             for e in (graph, eager)]
     more = True
@@ -2012,3 +2019,313 @@ def test_expert_bias_gradient_sums_in_a_fixed_order(dev, dtype):
     assert float((out[0].double() - want).abs().max()) \
         <= 1e-5 * float(want.abs().max())
     assert not out[0][1].any()                       # the empty group
+
+
+# -- dropout and the fused LayerNorm ------------------------------------------------
+
+def _rk(base, site):
+    from paddle_tpu_torch.framework.random import RandomKey
+    return RandomKey(base, site)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,p", [((16384, 768), 0.1), ((3, 5, 7), 0.5),
+                                     ((2, 4, 64, 64), 0.9)])
+@pytest.mark.parametrize("mode", ["upscale_in_train", "downscale_in_infer"])
+def test_dropout_kernel_matches_plain(dev, dtype, shape, p, mode):
+    """The kernel's output and its backward (the same kernel on the
+    gradient) equal the plain version bit for bit, from a host key and
+    from a key tensor on the card; the keep fraction is within 5 sigma."""
+    from paddle_tpu_torch.kernels import dropout as D
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    key = _rk((12345, 678), 3)
+    want = D.dropout_plain(x, p, key, mode)
+    before = K.LAUNCHES["dropout"]
+    xx = x.clone().requires_grad_()
+    y = D.dropout(xx, key, p, mode)
+    y.backward(x)
+    tkey = _rk(torch.tensor([12345, 678], device=dev), 3)
+    again = D.dropout(x, tkey, p, mode)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["dropout"] == before + 3
+    assert torch.equal(y, want) and torch.equal(again, want)
+    assert torch.equal(xx.grad, want)
+    n = x.numel()
+    if n > 10000:
+        frac = float(D.keep_mask_plain(shape, p, key, dev).float().mean())
+        assert abs(frac - (1 - p)) <= 5 * (p * (1 - p) / n) ** 0.5
+
+
+def test_dropout_axis_on_card(dev):
+    from paddle_tpu_torch.kernels import dropout as D
+    x = torch.randn(4, 6, 8, device=dev)
+    key = _rk((1, 2), 7)
+    got = D.dropout(x, key, 0.5, mask_shape=(1, 6, 1))
+    assert torch.equal(got, D.dropout_plain(x, 0.5, key,
+                                            mask_shape=(1, 6, 1)))
+
+
+def test_dropout_replays_with_each_steps_key(dev):
+    """``F.dropout`` under a key context over a key tensor, captured once:
+    a replay after the tensor was rewritten gives the eager call's bits
+    for the new key."""
+    from paddle_tpu_torch.framework import random as R
+    from paddle_tpu_torch.kernels import dropout as D
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.randn(1000, 77, device=dev)
+    keyt = torch.tensor([5, 6], device=dev)
+    with R.key_context(keyt):
+        F.dropout(x, 0.2)           # compiles the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), R.key_context(keyt):
+        out = F.dropout(x, 0.2)
+    for words in ((5, 6), (2 ** 32 - 1, 9), (77, 0)):
+        keyt.copy_(torch.tensor(words))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, D.dropout_plain(x, 0.2, _rk(words, 1)))
+
+
+def _dln_inputs(dev, dtype, shape, seed=22):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = shape[-1]
+    x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    r = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    b = (0.1 * torch.randn(n, device=dev, generator=g)).to(dtype)
+    w = (1 + 0.1 * torch.randn(n, device=dev, generator=g)).to(dtype)
+    nb = (0.1 * torch.randn(n, device=dev, generator=g)).to(dtype)
+    dy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    return x, r, b, w, nb, dy
+
+
+def _close(got, want, dtype):
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= _tol(want, dtype)
+    elif want.dim() > 1:
+        _assert_rows_close(got, want, 1)
+    else:
+        assert float((got.float() - want.float()).abs().max()) \
+            <= 2.0 ** -7 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16384, 768), (3, 5, 130), (7, 64)])
+@pytest.mark.parametrize("p,parts", [(0.1, "residual_bias"),
+                                     (0.0, "residual_bias"),
+                                     (0.0, "plain_ln")])
+def test_dropout_add_layer_norm_matches_plain(dev, dtype, shape, p, parts):
+    """Kernel 2 forward and backward: the normalised sum h bit-equal to
+    the ops one by one (the dropout kernel's mask: the same key, the same
+    bits), y and every gradient within the tolerance of the plain ops'
+    autograd; two calls give the same bits."""
+    from paddle_tpu_torch.kernels import dropout as D
+    x, r, b, w, nb, dy = _dln_inputs(dev, dtype, shape)
+    if parts == "plain_ln":
+        r = b = None
+    key = _rk((99, 1), 4) if p else None
+    y, h = fused.dropout_add_layer_norm_forward(x, w, nb, 1e-5, r, b, p,
+                                                key)
+    y2, h2 = fused.dropout_add_layer_norm_forward(x, w, nb, 1e-5, r, b, p,
+                                                  key)
+    dropped = (x + b) if b is not None else x
+    if p:
+        dropped = D.dropout(dropped, key, p)
+    want_h = dropped + r if r is not None else dropped
+    assert torch.equal(h, want_h) and torch.equal(y, y2) and \
+        torch.equal(h, h2)
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in (x, r, b, w, nb)]
+    lx, lr, lb, lw, lnb = leaves
+    before = (K.LAUNCHES["dropout_add_ln"], K.LAUNCHES["dropout_add_ln_bwd"])
+    out = fused.dropout_add_layer_norm(lx, lw, lnb, 1e-5, lr, lb, p, key)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["dropout_add_ln"], K.LAUNCHES["dropout_add_ln_bwd"]) \
+        == (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() if t is not None else None
+             for t in (x, r, b, w, nb)]
+    px, pr, pb, pw, pnb = plain
+    want = fused.dropout_add_layer_norm_plain(px, pw, pnb, 1e-5, pr, pb, p,
+                                              key)
+    want.backward(dy)
+    _close(out.detach(), want.detach(), dtype)
+    for a, c in zip(leaves, plain):
+        if a is not None:
+            _close(a.grad, c.grad, dtype)
+
+
+def test_layer_norm_functional_takes_the_kernel(dev):
+    """``nn.functional.layer_norm`` on CUDA tensors launches kernel 2 (two
+    trailing axes as one), within the tolerance of the plain formula."""
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.randn(4, 6, 10, device=dev)
+    w = 1 + 0.1 * torch.randn(6, 10, device=dev)
+    before = K.LAUNCHES["dropout_add_ln"]
+    got = F.layer_norm(x, [6, 10], w, None, 1e-5)
+    assert K.LAUNCHES["dropout_add_ln"] == before + 1
+    want = fused.layer_norm_plain(x, w, None, 1e-5, n_axes=2)
+    assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+
+
+def _tiny_ernie(dev, seed=31, dropout=0.1):
+    import dataclasses
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    cfg = dataclasses.replace(ErnieConfig.tiny(hidden_size=128, heads=2,
+                                               seq=64),
+                              hidden_dropout_prob=dropout,
+                              attention_probs_dropout_prob=dropout)
+    return ErnieForPretraining(cfg, device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(seed))
+
+
+def _ernie_batch(seed=0, b=4, s=64, vocab=128):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, s))
+    tt = np.zeros((b, s), np.int64)
+    tt[:, s // 2:] = 1
+    labels = np.where(rng.random((b, s)) < 0.15, ids, -100)
+    nsp = np.arange(b) % 2
+    return tuple(torch.from_numpy(a) for a in (ids, tt, labels, nsp))
+
+
+def _ernie_trainer(model):
+    from paddle_tpu_torch.models import ernie_pretrain_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    keys = ("input_ids", "token_type_ids", "mlm_labels", "nsp_labels")
+    return SpmdTrainer(model, AdamW(learning_rate=1e-3,
+                                    parameters=model.parameters()),
+                       lambda m, *a: ernie_pretrain_step(m, dict(zip(keys,
+                                                                     a))))
+
+
+def test_tiny_ernie_with_dropout_trains_on_card_as_on_cpu(dev):
+    """A tiny float32 ERNIE at dropout 0.1 (head_dim 64), 3 steps captured
+    on the card against the CPU trainer from the same seed: the masks are
+    the same bits, losses 1e-5 relative, weights within 3 lr and within
+    1e-5 for 99.9% of the elements."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import load_numpy_state
+    cpu = _tiny_ernie("cpu")
+    gpu = _tiny_ernie(dev)
+    load_numpy_state(gpu, {n: p.detach().numpy()
+                           for n, p in cpu.named_parameters()})
+    batch = _ernie_batch()
+    runs = []
+    for model, b in ((cpu, batch), (gpu, tuple(t.to(dev) for t in batch))):
+        ptt.seed(7)
+        tr = _ernie_trainer(model)
+        K.reset_launches()
+        runs.append([float(tr.train_step(*b)) for _ in range(3)])
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-5)
+    assert K.LAUNCHES["dropout"] > 0 and K.LAUNCHES["dropout_add_ln"] > 0
+    assert K.LAUNCHES["sdpa_dense"] > 0 and K.LAUNCHES["flash_fwd"] == 0
+    close = total = 0
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        d = (q.detach().cpu() - p.detach()).abs()
+        assert float(d.max()) <= 3e-3, n
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    assert close >= 0.999 * total, (close, total)
+
+
+def test_captured_ernie_step_with_dropout_equals_eager(dev):
+    """The ERNIE step at dropout 0.1 captured and op by op from the same
+    random state: losses, parameters and moments bit-equal over 3 steps;
+    the replays draw new masks each step (the losses differ from a run
+    whose key is held)."""
+    from paddle_tpu_torch.framework import random as R
+    m1 = _tiny_ernie(dev)
+    m2 = _tiny_ernie(dev)
+    m2.load_state_dict(m1.state_dict())
+    t1, t2 = _ernie_trainer(m1), _ernie_trainer(m2)
+    batch = tuple(t.to(dev) for t in _ernie_batch(1))
+    R.seed(3)
+    for _ in range(3):
+        state = R.get_rng_state()
+        a = t1.train_step(*batch)
+        R.set_rng_state(state)
+        b = t2._step_eager(*batch)
+        assert torch.equal(a, b)
+    assert len(t1._graphs) == 1
+    for p, q in zip(m1.parameters(), m2.parameters()):
+        assert torch.equal(p, q)
+        sa, sb = t1.opt._state_of(p), t2.opt._state_of(q)
+        assert torch.equal(sa["moment1"], sb["moment1"])
+
+
+def test_ernie_eval_takes_flash_and_a_mask_the_dense_route(dev):
+    """ErnieForSequenceClassification in eval at head_dim 64: without a
+    mask one flash forward a layer; with a padding mask the dense route
+    (one ``sdpa_dense`` a layer) and no flash."""
+    import dataclasses
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = dataclasses.replace(ErnieConfig.tiny(hidden_size=128, heads=2,
+                                               seq=64))
+    model = ErnieForSequenceClassification(cfg, num_classes=3, device=dev)
+    model.eval()
+    ids, tt = (t.to(dev) for t in _ernie_batch(2)[:2])
+    mask = torch.ones(4, 1, 1, 64, dtype=torch.bool, device=dev)
+    mask[1, ..., 50:] = False
+    with torch.no_grad():
+        K.reset_launches()
+        model(ids, tt)
+        assert K.LAUNCHES["flash_fwd"] == 2 and K.LAUNCHES["sdpa_dense"] == 0
+        K.reset_launches()
+        model(ids, tt, mask)
+        assert K.LAUNCHES["flash_fwd"] == 0 and K.LAUNCHES["sdpa_dense"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_table_gradient_is_the_same_bits_every_run(dev, dtype):
+    """ERNIE's token-type table, whose 4 ids each take thousands of the
+    step's 16384 rows: its gradient (one fp32 matmul with the ids' one-hot
+    matrix) the same bits twice and from a graph replay, and within the
+    tolerance of the fp32 scatter-add."""
+    from paddle_tpu_torch.models.ernie import _SegmentEmbedding
+    g = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.randint(0, 4, (32, 512), device=dev, generator=g)
+    dy = torch.randn(32, 512, 256, device=dev, generator=g).to(dtype)
+    table = _SegmentEmbedding(4, 256, device=dev, dtype=dtype)
+
+    def grad():
+        return torch.autograd.grad(table(ids), table.weight, dy)[0]
+    got = grad()
+    assert torch.equal(got, grad())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grad()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = grad()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, cap)
+    want = torch.zeros(4, 256, dtype=torch.float32, device=dev).index_add_(
+        0, ids.reshape(-1), dy.reshape(-1, 256).float()).to(dtype)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max()))
+    else:
+        _assert_rows_close(got, want, 1)
+
+
+def test_decoder_layer_norm_on_the_bf16_state_equals_the_fp32_form(dev):
+    """The GPT decoders' LayerNorm (``generation._ln``: the kernel on the
+    bf16 hidden state) bit-equal to the kernel run in fp32 and rounded
+    after."""
+    from paddle_tpu_torch import generation
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (4 * torch.randn(512, 768, device=dev, generator=g)).bfloat16()
+    w = torch.randn(768, device=dev, generator=g).bfloat16()
+    b = torch.randn(768, device=dev, generator=g).bfloat16()
+    want = fused.dropout_add_layer_norm(x.float(), w.float(), b.float(),
+                                        1e-5).to(x.dtype)
+    assert torch.equal(generation._ln(x, w, b, 1e-5), want)

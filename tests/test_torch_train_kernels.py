@@ -154,11 +154,13 @@ def test_flash_refuses_what_it_does_not_take():
     q = torch.zeros(1, 1, 8, 64)
     with pytest.raises(ValueError, match="q_len <= kv_len"):
         flash_attention(q, q[:, :, :4], q[:, :, :4], causal=True)
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8),
-                                       dropout_p=0.1)
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    # a dropout is no refusal: it takes the dense route, as in the JAX
+    # package (counted in sdpa_dense)
+    before = K.LAUNCHES["sdpa_dense"]
+    for kw in (dict(attn_mask=torch.zeros(1, 1), dropout_p=0.1),
+               dict(dropout_p=0.1)):
+        assert F.scaled_dot_product_attention(q, q, q, **kw).shape == q.shape
+    assert K.LAUNCHES["sdpa_dense"] == before + 2
 
 
 # -- AdamW -----------------------------------------------------------------------
