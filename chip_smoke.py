@@ -58,6 +58,12 @@ Phases, each printing its own lines and its seconds:
      new keys equal to eager calls; LayerNorm(residual + dropout(x +
      bias)) forward and backward over [16384, 768] bf16, with the dropout
      and as a plain LayerNorm, beside F.layer_norm and its autograd;
+     GroupNorm with and without the SiLU, forward and backward, at the
+     UNet's [4, 320, 64, 64], [4, 960, 64, 64] and [4, 1280, 8, 8] in
+     bf16, [4, 320, 64, 64] in fp32 and [4, 64, 64, 320] NHWC, against
+     its plain version, replayed from a graph, and (bf16) against the O2
+     composition (the norm in fp32, the SiLU on its cast), timed beside
+     its bound, F.group_norm (+ F.silu) and its autograd;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -96,9 +102,10 @@ Phases, each printing its own lines and its seconds:
      adding the launches the capture counted), finite and falling losses,
      the graph's pool, a profile of one step by kernel group with the
      "other" group split by kernel (top 12); then 3 captured steps against
-     3 steps of a twin model and trainer run op by op (``_step_eager``)
-     from the same weights and optimizer state, losses, parameters and
-     moments bit-equal, with the eager step's ms and profile; 5 steps
+     3 steps of the same trainer run op by op (``_step_eager``) from one
+     snapshot of its weights, buffers, optimizer state and random state,
+     losses, parameters and moments bit-equal, with the eager step's ms
+     and profile; 5 steps
      captured anew under TF32 matmuls (the fp32 head; the setting reset
      after); and one step through the kernels against the plain versions
      at the same widths with 2 layers (and, recorded only, with TF32);
@@ -175,8 +182,7 @@ Phases, each printing its own lines and its seconds:
      (AdamW 1, dropout 26, LayerNorm 26 + 26 backward, 12 dense attention
      calls, no flash), finite and falling losses, step ms, tokens/s, MFU,
      peak memory, pool, a profile by kernel group; 3 captured steps
-     against 3 eager ones of a twin from the same random state,
-     bit-equal; one step from one snapshot twice under one seed
+     against 3 eager ones from one snapshot, bit-equal; one step from one snapshot twice under one seed
      (bit-equal) and once under another (a different loss); (b) the same
      at dropout 0 (flash 12 + 12 a step, nothing dense); (c) one step at 2
      layers through the kernels against the plain versions (the phase 5
@@ -185,6 +191,25 @@ Phases, each printing its own lines and its seconds:
      (e) ErnieForSequenceClassification in eval at [32, 512] bf16,
      through flash without a mask and the dense route with one, logits
      no further from float32 than the plain path's (2x);
+  14. the Stable Diffusion UNet (BASELINE configuration 5, SD 1.5 uncut:
+     channels 320 / 640 / 1280 / 1280, 810M parameters, random weights
+     from the seed), bf16 under amp O2: (a) one denoising forward at
+     batch 2 x [4, 64, 64] (timesteps 999, a [2, 77, 768] context), exact
+     launch counts (61 GroupNorms, 45 with the SiLU; 48 LayerNorms; 32
+     dense attention calls), ms (median of 20), a profile, peak memory;
+     (b) the training step at batch 4, AdamW, captured, timed with cuDNN's
+     own choice and under cudnn.deterministic, exact launch counts,
+     images/s, MFU, peak, pool, a profile, then 3 replayed steps against
+     3 eager ones from one snapshot, bit-equal; (c) a 2-level UNet at its
+     widths through the kernels against the plain versions (the phase 5
+     gate); (d) a tiny float32 UNet on the card against the CPU trainer;
+  15. ResNet-50 (BASELINE configuration 1) at ImageNet shape, batch 128 x
+     [3, 224, 224], float32 weights under amp O1, Momentum with L2Decay,
+     captured: step ms with cuDNN's own choice and deterministic,
+     images/s, MFU, peak, a profile, the 53 BatchNorms' device ms alone;
+     3 replayed steps against 3 eager ones from one snapshot, bit-equal
+     with every running statistic; an eval forward at batch 128; a tiny
+     float32 ResNet-18 on the card against the CPU trainer;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -1475,6 +1500,13 @@ def _captured_step_f32(torch, make_model, seed, quant=None):
 
 
 def _kernel_group(name):
+    if "_gn_bwd_" in name:
+        return "group_norm_bwd"
+    if "_gn_stats_kernel" in name or "_gn_fwd_kernel" in name:
+        return "group_norm"
+    if any(k in name for k in ("fprop", "dgrad", "wgrad", "implicit_gemm",
+                               "conv2d", "cudnn")):
+        return "conv"
     if "weight_only_gemm" in name:
         return "weight_only_gemm"
     if "flashmask_summary" in name:
@@ -2987,22 +3019,14 @@ def phase_training(torch, args, launches_out, packed=False):
     tag = "phase 7" if packed else "phase 5"
     _print_other(m, f"{tag} captured step")
     del prof
-    training["eager"] = _captured_against_eager(
-        torch, trainer, lambda: _trainer_for(torch, _llama_twin(torch, cfg)),
-        batch_, tag, card, step_ms, m)
+    training["eager"] = _captured_against_eager(torch, trainer, batch_, tag,
+                                                card, step_ms, m)
     if not packed:
         training["tf32_head"] = _tf32_run(torch, trainer, batch_, card)
     del trainer, model, ids, timed, batch_
     _free(torch)
     training.update(_train_step_agreement(torch, args.seed, packed))
     return training
-
-
-def _llama_twin(torch, cfg):
-    from paddle_tpu_torch.models import LlamaForCausalLM
-    model = LlamaForCausalLM(cfg, device="cuda")
-    model.bfloat16()
-    return model
 
 
 def _graph_line(trainer, tag, card):
@@ -3021,54 +3045,81 @@ def _graph_line(trainer, tag, card):
     return graph
 
 
-def _captured_against_eager(torch, trainer, make_twin, batch, tag, card,
-                            step_ms, captured):
-    """From the trainer's weights and optimizer state, 3 steps replayed
-    from its graph against 3 steps of a twin (another model and trainer
-    given the same weights and state) run op by op (``_step_eager``, the
-    CPU's path), each pair from the same random state (the same step
-    key): each loss, and every parameter and moment after the
-    third, bit-equal. Returns the eager step ms (mean of steps 2 and 3,
-    host clock), a profile of one eager step and its idle share against
-    the eager step's wall time, beside the captured step's."""
-    twin = make_twin()
+def _state_snapshot(torch, trainer):
+    """The trainer's parameters, buffers, optimizer state and step count,
+    copied on the card."""
+    model = trainer.model
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            {n: b.detach().clone() for n, b in model.named_buffers()},
+            trainer.opt.state_dict(), trainer.opt._global_step)
+
+
+def _state_restore(torch, trainer, snap):
+    params, buffers, opt_state, step = snap
     with torch.no_grad():
-        for p, q in zip(trainer.model.parameters(), twin.model.parameters()):
-            q.copy_(p)
-    twin.opt.set_state_dict(trainer.opt.state_dict())
+        for n, p in trainer.model.named_parameters():
+            p.copy_(params[n])
+        for n, b in trainer.model.named_buffers():
+            b.copy_(buffers[n])
+    trainer.opt.set_state_dict(opt_state)
+    trainer.opt._global_step = step
+
+
+def _captured_against_eager(torch, trainer, batch, tag, card, step_ms,
+                            captured, n=3):
+    """From one snapshot of the trainer's weights, buffers and optimizer
+    state, ``n`` steps replayed from its graph, then (the graph and its
+    pool dropped, the snapshot loaded back in place, the random state
+    restored) ``n`` steps of the same trainer op by op (``_step_eager``):
+    each loss, every parameter, moment and buffer (BatchNorm's running
+    statistics) after the last, bit-equal. One model and no twin: a
+    full-width model's activations (the UNet's) fit once, not twice. Returns the eager
+    step ms (mean of steps 2..n, host clock), a profile of one eager step
+    and its idle share."""
     from paddle_tpu_torch.framework import random as R
-    got, want, secs = [], [], []
-    for _ in range(3):
-        state = R.get_rng_state()       # both steps draw the same key
-        got.append(trainer.train_step(*batch))
-        trainer.block()
-        R.set_rng_state(state)
+    snap = _state_snapshot(torch, trainer)
+    rng = R.get_rng_state()
+    got = [trainer.train_step(*batch) for _ in range(n)]
+    trainer.block()
+    after = _state_snapshot(torch, trainer)
+    _state_restore(torch, trainer, snap)
+    del snap
+    R.set_rng_state(rng)
+    trainer._drop_graphs()
+    _free(torch)
+    want, secs = [], []
+    for _ in range(n):
         t = time.monotonic()
-        want.append(twin._step_eager(*batch))
-        twin.block()
+        want.append(trainer._step_eager(*batch))
+        trainer.block()
         secs.append(time.monotonic() - t)
-    same_loss = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
-    differ = [n for (n, p), q in zip(trainer.model.named_parameters(),
-                                     twin.model.parameters())
-              if not torch.equal(p, q)]
-    moments = [n for (n, p), q in zip(trainer.model.named_parameters(),
-                                      twin.model.parameters())
-               if not all(torch.equal(trainer.opt._state_of(p)[k],
-                                      twin.opt._state_of(q)[k])
-                          for k in ("moment1", "moment2"))]
-    print(f"  {tag}: 3 captured steps against 3 eager ones from the same "
-          f"weights and state: losses {[float(x) for x in got]} vs "
+    params, buffers, opt_state, _ = after
+    same_loss = [bool(torch.equal(a, c)) for a, c in zip(got, want)]
+    differ = [k for k, p in trainer.model.named_parameters()
+              if not torch.equal(p, params[k])]
+    bdiffer = [k for k, b in trainer.model.named_buffers()
+               if not torch.equal(b, buffers[k])]
+    mine = trainer.opt.state_dict()["accumulators"]
+    sdiffer = [k for k, acc in opt_state["accumulators"].items()
+               if not all(torch.equal(v, mine[k][s]) for s, v in acc.items()
+                          if torch.is_tensor(v))]
+    print(f"  {tag}: {n} replayed steps against {n} eager ones from one "
+          f"snapshot: losses {[float(x) for x in got]} vs "
           f"{[float(x) for x in want]} (bit-equal {same_loss}); parameters "
-          f"differing {len(differ)}, moments differing {len(moments)}",
-          flush=True)
-    if not all(same_loss) or differ or moments:
+          f"differing {len(differ)} of {len(params)}, optimizer states "
+          f"differing {len(sdiffer)}, buffers differing {len(bdiffer)} of "
+          f"{len(buffers)}", flush=True)
+    if not all(same_loss) or differ or sdiffer or bdiffer:
         raise AssertionError(f"{tag}: the captured step is not the eager "
-                             f"step bit for bit ({differ[:4]}, "
-                             f"{moments[:4]})")
-    eager_ms = 1e3 * (secs[1] + secs[2]) / 2
-    _, m = _profile(torch, lambda: twin._step_eager(*batch), 1)
+                             f"step bit for bit ({differ[:3]}, {sdiffer[:3]}"
+                             f", {bdiffer[:3]})")
+    n_buffers = len(buffers)
+    del after, params, buffers, opt_state
+    eager_ms = 1e3 * sum(secs[1:]) / (n - 1)
+    _, m = _profile(torch, lambda: trainer._step_eager(*batch), 1)
     out = dict(step_ms=eager_ms, bit_equal=True, breakdown=m,
-               idle_share_untraced=1 - m["device_ms"] / eager_ms)
+               idle_share_untraced=1 - m["device_ms"] / eager_ms,
+               buffers_compared=n_buffers)
     print(f"  {tag}: step ms captured {step_ms:.3f}, eager {eager_ms:.3f}; "
           f"idle share against the untraced step: captured "
           f"{1 - captured['device_ms'] / step_ms:.4f}, eager "
@@ -3076,8 +3127,6 @@ def _captured_against_eager(torch, trainer, make_twin, batch, tag, card,
           f"{captured['device_ms']:.3f} ({captured['device_launches']:.0f} "
           f"kernels), eager {m['device_ms']:.3f} "
           f"({m['device_launches']:.0f}) [{card}]", flush=True)
-    del twin
-    _free(torch)
     return out
 
 
@@ -3110,9 +3159,9 @@ def _tf32_run(torch, trainer, batch, card):
 
 
 def _plain_fusion_patches(stack):
-    """Dropout and LayerNorm (with its dropout and residual) through
-    their plain versions: the same masks (the plain Philox is the
-    kernels')."""
+    """Dropout, LayerNorm (with its dropout and residual) and GroupNorm
+    (with its SiLU) through their plain versions: the same masks (the
+    plain Philox is the kernels')."""
     from paddle_tpu_torch.kernels import dropout as D
     from paddle_tpu_torch.kernels import fused
 
@@ -3121,6 +3170,9 @@ def _plain_fusion_patches(stack):
     stack.enter_context(mock.patch.object(D, "dropout", dropout_plain))
     stack.enter_context(mock.patch.object(
         fused, "dropout_add_layer_norm", fused.dropout_add_layer_norm_plain))
+    from paddle_tpu_torch.kernels import group_norm as GN
+    stack.enter_context(mock.patch.object(GN, "group_norm",
+                                          GN.group_norm_plain))
 
 
 def _plain_train_patches(stack):
@@ -3382,13 +3434,8 @@ def phase_gpt_moe_training(torch, args, launches_out):
               f"{name}", flush=True)
     _print_other(m, "phase 6 captured step")
     del prof
-
-    def twin():
-        t = _dropless(GPTForCausalLM(cfg, device="cuda"))
-        t.bfloat16()
-        return _gpt_trainer_for(t)
     training["eager"] = _captured_against_eager(
-        torch, trainer, twin, (ids, ids), "phase 6", card, step_ms, m)
+        torch, trainer, (ids, ids), "phase 6", card, step_ms, m)
     del trainer, model, ids, timed
     _free(torch)
     training.update(_gpt_train_step_agreement(torch, args.seed))
@@ -5427,7 +5474,7 @@ def phase_ernie_training(torch, args, launches_out):
     weights, fp32 moments, AdamW lr 1e-4 wd 0.01, no remat, batch 32 x 512
     from the seed. (a) the captured step at dropout 0.1 (2 warm-up and 5
     timed steps, exact launch counts, then 3 captured steps against 3
-    eager ones of a twin from the same random state, bit-equal, and one
+    eager ones from one snapshot and random state, bit-equal, and one
     step from one snapshot under one seed twice and another once); (b)
     the same at dropout 0 (flash 12 + 12 a step); (c) the 2-layer
     agreement through kernels and plain versions; (d) a tiny float32
@@ -5446,12 +5493,8 @@ def phase_ernie_training(torch, args, launches_out):
     out = {}
     stats, trainer, batch, m = _ernie_run(torch, cfg, args,
                                           "phase 13 (a)", launches_out, True)
-
-    def twin():
-        return _ernie_trainer(_ernie_model(torch, cfg, None, torch.bfloat16))
     stats["eager"] = _captured_against_eager(
-        torch, trainer, twin, batch, "phase 13 (a)", card, stats["step_ms"],
-        m)
+        torch, trainer, batch, "phase 13 (a)", card, stats["step_ms"], m)
     stats.update(_same_seed_same_step(torch, trainer, batch, args.seed + 1))
     out["dropout_0.1"] = stats
     _drop_trainer(torch, trainer)
@@ -5473,6 +5516,877 @@ def phase_ernie_training(torch, args, launches_out):
     out["agreement"] = _ernie_agreement(torch, args.seed)
     out["tiny_f32_vs_cpu"] = _ernie_tiny_on_card(torch)
     out["classifier"] = _ernie_classifier(torch, args, card)
+    return out
+
+
+# -- phase 3: GroupNorm; phases 14-15: the convolutional models ---------------------
+
+GN_CASES = (   # (tag, shape, layout, dtype): the UNet's level 0 and 3 in bf16,
+    # an fp32 and an NHWC case
+    ("[4, 320, 64, 64] bf16", (4, 320, 64, 64), "NCHW", "bfloat16"),
+    ("[4, 960, 64, 64] bf16", (4, 960, 64, 64), "NCHW", "bfloat16"),
+    ("[4, 1280, 8, 8] bf16", (4, 1280, 8, 8), "NCHW", "bfloat16"),
+    ("[4, 320, 64, 64] fp32", (4, 320, 64, 64), "NCHW", "float32"),
+    ("[4, 64, 64, 320] bf16 NHWC", (4, 64, 64, 320), "NHWC", "bfloat16"))
+GN_MAIN = "[4, 960, 64, 64] bf16"      # the case of the kernels line
+GN_GROUPS = 32
+
+
+def _gn_bytes_ops(n_el, esize, backward, silu):
+    """(bytes, operations) of a GroupNorm call: x read and y written once
+    (backward: x and dy read, dx written); about 10 operations an element
+    forward and 20 backward, 12 more for the SiLU (exp, division) or its
+    derivative."""
+    nbytes = (3 if backward else 2) * n_el * esize
+    ops = (20 if backward else 10) * n_el + (12 * n_el if silu else 0)
+    return nbytes, ops
+
+
+def _ulps_apart(a, b):
+    """The largest distance between a and b in bf16 ulps of each value,
+    and how many elements differ."""
+    import torch
+    a, b = a.detach().float(), b.detach().float()
+    ulp = ULP_BF16 * torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    return float(((a - b).abs() / ulp).max()), int((a != b).sum())
+
+
+def _gn_o2_composition(torch, x, w, b, dy, tag):
+    """Under ``amp.auto_cast(level="O2")`` the fused call (``then="silu"``)
+    against the separate ops (the black-listed norm in fp32, then the SiLU
+    on its cast) and the norm written for a convolution (``then=
+    "conv2d"``) against the norm's fp32 output cast: forward and every
+    gradient. The norm's rounding is bit-equal; the fused SiLU and its
+    backward within one bf16 ulp of each value (the counts of elements
+    that differ are printed)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    fused_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    sep_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    with amp.auto_cast(level="O2"):
+        y = F.group_norm(fused_in[0], GN_GROUPS, 1e-5, fused_in[1],
+                         fused_in[2], then="silu")
+        norm = F.group_norm(sep_in[0], GN_GROUPS, 1e-5, sep_in[1], sep_in[2])
+        want = F.silu(norm)
+        for_conv = F.group_norm(x, GN_GROUPS, 1e-5, w, b, then="conv2d")
+    same_norm = bool(torch.equal(for_conv, norm.to(torch.bfloat16)))
+    y.backward(dy)
+    want.backward(dy)
+    torch.cuda.synchronize()
+    out = {"norm_bit_equal": same_norm}
+    worst = 0.0
+    for name, a, c in (("y", y, want), ("dx", fused_in[0].grad,
+                                         sep_in[0].grad),
+                       ("dw", fused_in[1].grad, sep_in[1].grad),
+                       ("db", fused_in[2].grad, sep_in[2].grad)):
+        ulps, differ = _ulps_apart(a, c)
+        out[name] = dict(ulps=ulps, differing=differ, of=a.numel())
+        worst = max(worst, ulps)
+    print(f"  group_norm {tag}: under auto_cast O2, the norm for a conv "
+          f"bit-equal to the fp32 norm cast {same_norm}; the fused SiLU vs "
+          f"the separate ops: " + ", ".join(
+              f"{k} {v['differing']} of {v['of']} differ (at most "
+              f"{v['ulps']:.3g} ulps)" for k, v in out.items()
+              if k != "norm_bit_equal")
+          + f" (tol 1 ulp) {'ok' if same_norm and worst <= 1 else 'FAIL'}",
+          flush=True)
+    if not same_norm or worst > 1:
+        raise AssertionError(f"group_norm {tag}: the fused call is not the "
+                             f"O2 composition")
+    return out
+
+
+def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
+    """One GroupNorm shape: the kernels (forward with and without the
+    SiLU, backward with it) against the plain version (fp32 2e-5 of the
+    largest value; bf16 each row within one ulp of its largest plain value
+    without the SiLU, two with it, and two for the gradients), two calls
+    and a graph replay bit-equal; bf16 NCHW: the O2 composition; ms by
+    graph replay beside the bound, the plain version and F.group_norm
+    (+ F.silu) and its autograd."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import group_norm as GN
+    card = _card_line()
+    dtype = getattr(torch, dtype_name)
+    last = layout == "NHWC"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (3 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+    c = shape[-1] if last else shape[1]
+    w = (1 + 0.2 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    b = (0.2 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    dy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    before = dict(K.LAUNCHES)
+    errs = {}
+    for silu in (False, True):
+        y, stats = GN.group_norm_forward(x, w, b, GN_GROUPS, 1e-5, last,
+                                         silu)
+        y2, _ = GN.group_norm_forward(x, w, b, GN_GROUPS, 1e-5, last, silu)
+        want = GN.group_norm_plain(x, GN_GROUPS, w, b, 1e-5, last, silu)
+        if not torch.equal(y, y2):
+            raise AssertionError(f"group_norm {tag}: two calls differ")
+        name = f"group_norm {tag}{' +SiLU' if silu else ''}"
+        if dtype == torch.float32:
+            errs[silu] = _check(name, y, want, 2e-5 * max(
+                1.0, float(want.abs().max())))
+        else:
+            errs[silu] = _check_rows(name, y, want, 2 if silu else 1)
+    dx, dw, db = GN.group_norm_backward(x, w, b, stats, dy, GN_GROUPS, last,
+                                        True)
+    dx2, dw2, db2 = GN.group_norm_backward(x, w, b, stats, dy, GN_GROUPS,
+                                           last, True)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            and torch.equal(db, db2)):
+        raise AssertionError(f"group_norm {tag}: two backward calls differ")
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    GN.group_norm_plain(leaves[0], GN_GROUPS, leaves[1], leaves[2], 1e-5,
+                        last, True).backward(dy)
+    err_b = 0.0
+    for name, got, want in (("dx", dx, leaves[0].grad),
+                            ("dw", dw.to(dtype), leaves[1].grad),
+                            ("db", db.to(dtype), leaves[2].grad)):
+        if dtype == torch.float32 or got.dim() == 1:
+            tol = (2e-5 if dtype == torch.float32 else 2 * ULP_BF16) * max(
+                1.0, float(want.float().abs().max()))
+            err_b = max(err_b, _check(f"group_norm_bwd {tag} {name}", got,
+                                      want, tol))
+        else:
+            err_b = max(err_b, _check_rows(f"group_norm_bwd {tag} {name}",
+                                           got, want, 2))
+    used = (K.LAUNCHES["group_norm"] - before["group_norm"],
+            K.LAUNCHES["group_norm_bwd"] - before["group_norm_bwd"])
+    if used != (4, 2):
+        raise AssertionError(f"group_norm {tag}: launches {used}")
+    o2 = None
+    if dtype == torch.bfloat16 and not last:
+        o2 = _gn_o2_composition(torch, x, w, b, dy, tag)
+    replay_equal = _gn_replay(torch, x, w, b, dy, last)
+
+    def fwd(silu):
+        return lambda: GN.group_norm_forward(x, w, b, GN_GROUPS, 1e-5, last,
+                                             silu)
+    with torch.no_grad():
+        ms = {silu: _graph_ms(fwd(silu), iters=10, reps=3)
+              for silu in (False, True)}
+        ms_b = _graph_ms(lambda: GN.group_norm_backward(
+            x, w, b, stats, dy, GN_GROUPS, last, True), iters=10, reps=3)
+        plain = {silu: _time_ms(lambda s=silu: GN.group_norm_plain(
+            x, GN_GROUPS, w, b, 1e-5, last, s), 3, warmup=1)
+            for silu in (False, True)}
+    pl = [t.clone().requires_grad_() for t in (x, w, b)]
+    py = GN.group_norm_plain(pl[0], GN_GROUPS, pl[1], pl[2], 1e-5, last,
+                             True)
+    plain_b = _time_ms(lambda: torch.autograd.grad(py, pl, dy,
+                                                   retain_graph=True), 3,
+                       warmup=1)
+    del py, pl
+    xl = x.permute(0, 3, 1, 2) if last else x
+
+    def lib(silu):
+        def run():
+            out = TF.group_norm(xl, GN_GROUPS, w, b, 1e-5)
+            return TF.silu(out) if silu else out
+        return run
+    # the library's few kernels by graph replay too: launched one by one
+    # from Python they measure the host at these sizes; its backward is
+    # its forward and backward captured together, less the forward
+    with torch.no_grad():
+        lib_ms = {silu: _graph_ms(lib(silu), iters=10, reps=3)
+                  for silu in (False, True)}
+    ll = [t.clone().requires_grad_() for t in (xl, w, b)]
+    dyl = dy.permute(0, 3, 1, 2) if last else dy
+    lib_fb = _graph_ms(lambda: torch.autograd.grad(
+        TF.silu(TF.group_norm(ll[0], GN_GROUPS, ll[1], ll[2], 1e-5)), ll,
+        dyl), iters=10, reps=3)
+    lib_b = lib_fb - lib_ms[True]
+    del ll
+    n_el, es = x.numel(), x.element_size()
+    rec = {}
+    for silu in (False, True):
+        bound, by = _bound(*_gn_bytes_ops(n_el, es, False, silu), FP32_FLOPS)
+        rec[silu] = dict(max_abs_err=errs[silu], ms=ms[silu],
+                         plain_ms=plain[silu], bound_ms=bound, bound_by=by,
+                         library_ms=lib_ms[silu], shape=list(shape),
+                         layout=layout, dtype=dtype_name, silu=silu)
+    bound_b, by_b = _bound(*_gn_bytes_ops(n_el, es, True, True), FP32_FLOPS)
+    rec_b = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bound_b, bound_by=by_b, library_ms=lib_b,
+                 shape=list(shape), layout=layout, dtype=dtype_name,
+                 silu=True, replay_bit_equal=replay_equal, o2=o2)
+    results[f"group_norm[{tag}]"] = rec[False]
+    results[f"group_norm[{tag} +SiLU]"] = rec[True]
+    results[f"group_norm_bwd[{tag} +SiLU]"] = rec_b
+    if tag == GN_MAIN:
+        results["group_norm"] = rec[True]
+        results["group_norm_bwd"] = rec_b
+    for silu in (False, True):
+        r = rec[silu]
+        print(f"  group_norm {tag}{' +SiLU' if silu else ''}: ms="
+              f"{r['ms']:.4f} ({r['bound_ms'] / r['ms']:.3f} of the bound) "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}); F.group_norm{' + F.silu' if silu else ''}"
+              f" {r['library_ms']:.4f} [{card}]", flush=True)
+    print(f"  group_norm_bwd {tag} +SiLU: ms={ms_b:.4f} ({bound_b / ms_b:.3f}"
+          f" of the bound) plain_ms={plain_b:.4f} bound_ms={bound_b:.4f} "
+          f"({by_b}); autograd of F.group_norm + F.silu {lib_b:.4f}; a graph "
+          f"replay bit-equal to the eager call {replay_equal} [{card}]",
+          flush=True)
+    del x, w, b, dy, y, y2, dx, dx2
+    torch.cuda.empty_cache()
+
+
+def _gn_replay(torch, x, w, b, dy, last):
+    """Forward (with the SiLU) and backward captured in one CUDA graph: a
+    replay after the input is rewritten equals an eager call bit for
+    bit."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    xs = x.clone()
+
+    def step():
+        y, stats = GN.group_norm_forward(xs, w, b, GN_GROUPS, 1e-5, last,
+                                         True)
+        return (y,) + GN.group_norm_backward(xs, w, b, stats, dy, GN_GROUPS,
+                                             last, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = step()
+    xs.copy_(x.flip(0))
+    graph.replay()
+    eager = step()
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, c)) for a, c in zip(cap, eager))
+    del graph, cap, eager, xs
+    if not same:
+        raise AssertionError("a replayed GroupNorm differs from the eager "
+                             "call")
+    return same
+
+
+def phase_group_norm_kernels(torch, results):
+    """GroupNorm (with and without the SiLU) forward and backward at the
+    UNet's shapes (level 0's 320 and 960 channels, level 3's 1280 at 8 x
+    8), one fp32 and one NHWC case, against the plain version, replayed,
+    against the O2 composition, timed beside the bound and F.group_norm."""
+    dev = torch.device("cuda")
+    print(f"phase 3: GroupNorm kernels (G {GN_GROUPS}, eps 1e-5) against "
+          f"their plain version (fp32 2e-5 of the largest value; bf16 each "
+          f"row within 1 ulp of its largest plain value, 2 with the SiLU "
+          f"and for the gradients)", flush=True)
+    for i, (tag, shape, layout, dtype_name) in enumerate(GN_CASES):
+        _gn_case(torch, results, dev, tag, shape, layout, dtype_name, 70 + i)
+
+
+def _conv_linear_flops(model):
+    """Forward hooks that add up the products of every Conv2D and Linear
+    (2 x outputs x inputs a output element) and of every CrossAttention's
+    two attention products (QK^T and PV: 4 x b x s x sk x inner) of the
+    forwards run while installed: (the running count [1], the hooks)."""
+    from paddle_tpu_torch.models.unet import CrossAttention
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    count = [0]
+
+    def conv(m, inp, out):
+        count[0] += 2 * out.numel() * m.weight[0].numel()
+
+    def linear(m, inp, out):
+        count[0] += 2 * out.numel() * m.weight.shape[0]
+
+    def attention(m, inp, out):
+        x = inp[0]
+        ctx = inp[1] if len(inp) > 1 and inp[1] is not None else x
+        count[0] += 4 * x.shape[0] * x.shape[1] * ctx.shape[1] * \
+            m.heads * m.head_dim
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, Conv2D):
+            hooks.append(mod.register_forward_hook(conv))
+        elif isinstance(mod, Linear):
+            hooks.append(mod.register_forward_hook(linear))
+        elif isinstance(mod, CrossAttention):
+            hooks.append(mod.register_forward_hook(attention))
+    return count, hooks
+
+
+def _forward_flops(torch, model, args):
+    """The products' FLOPs of one forward of ``model`` on ``args`` (counted
+    by hooks on one forward, under no_grad)."""
+    count, hooks = _conv_linear_flops(model)
+    try:
+        with torch.no_grad():
+            model(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    return count[0]
+
+
+def _timed_steps(torch, trainer, batch, n_warm=2, n=5):
+    """``n_warm`` warm-up steps (the first runs the step and captures it)
+    and ``n`` timed ones: (losses, ms a step, launches of the timed
+    steps)."""
+    from paddle_tpu_torch import kernels as K
+    losses = [float(trainer.train_step(*batch)) for _ in range(n_warm)]
+    trainer.block()
+    K.reset_launches()
+    t0 = time.monotonic()
+    timed = [trainer.train_step(*batch) for _ in range(n)]
+    trainer.block()
+    secs = time.monotonic() - t0
+    launches = dict(K.LAUNCHES)
+    return losses + [float(x) for x in timed], 1e3 * secs / n, launches
+
+
+UNET_GROUP_NORMS = 61      # sd15 a forward: 2 a ResNet block (22), 1 a
+UNET_GN_SILU = 45          # transformer (16), conv_norm_out; 45 with SiLU
+UNET_ATTENTION = 32        # 2 a transformer, all dense (head_dim 40/80/160)
+UNET_LAYER_NORMS = 48      # 3 a transformer
+
+
+def _unet_forward_launches():
+    from paddle_tpu_torch import kernels as K
+    per = {n: 0 for n in K.LAUNCHES}
+    per.update(group_norm=UNET_GROUP_NORMS, dropout_add_ln=UNET_LAYER_NORMS,
+               sdpa_plain=UNET_ATTENTION)
+    return per
+
+
+def _unet_inputs(torch, cfg, seed, b, hw=64, ctx_len=77):
+    """Latents [b, 4, hw, hw], integer timesteps in [0, 1000) (999 for the
+    forward), a context [b, ctx_len, cross dim], noise: from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, cfg.in_channels, hw, hw, device="cuda", generator=g)
+    t = torch.randint(0, 1000, (b,), device="cuda", generator=g)
+    ctx = torch.randn(b, ctx_len, cfg.cross_attention_dim, device="cuda",
+                      generator=g)
+    noise = torch.randn(b, cfg.out_channels, hw, hw, device="cuda",
+                        generator=g)
+    return x, t, ctx, noise
+
+
+def _unet_model(torch, cfg, seed, bf16=True, device="cuda"):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import UNet2DConditionModel
+    gen = torch.Generator(device=device).manual_seed(seed) \
+        if seed is not None else None
+    model = UNet2DConditionModel(cfg, device=device, generator=gen)
+    if bf16:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+    return model
+
+
+def _unet_loss_o2(m, x, t, ctx, noise):
+    """The denoising loss under auto_cast O2 (as the JAX package runs the
+    UNet in bf16): mean((unet(x, t, ctx) - noise)^2)."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        return ((m(x, t, ctx) - noise) ** 2).mean()
+
+
+def _unet_trainer(model, lr=1e-4, cast=True):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    loss = _unet_loss_o2 if cast else (
+        lambda m, x, t, ctx, n: ((m(x, t, ctx) - n) ** 2).mean())
+    return SpmdTrainer(model, AdamW(learning_rate=lr,
+                                    parameters=model.parameters()), loss)
+
+
+def _unet_forward(torch, args, card, launches_out):
+    """(a): one denoising forward of SD 1.5 at full width, batch 2 (the
+    conditioned and unconditioned halves of classifier-free guidance) at
+    [2, 4, 64, 64], timesteps 999, a [2, 77, 768] context, eval, no_grad,
+    bf16 under O2: exact launch counts, ms (median of 20), a profile,
+    peak memory, the products' FLOPs."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import UNetConfig
+    cfg = UNetConfig.sd15()
+    torch.cuda.reset_peak_memory_stats()
+    model = _unet_model(torch, cfg, args.seed)
+    model.eval()
+    x, _, ctx, _ = _unet_inputs(torch, cfg, args.seed, 2)
+    t = torch.full((2,), 999, dtype=torch.int64, device="cuda")
+
+    def fwd():
+        with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model(x, t, ctx)
+    out = fwd()             # compiles the Triton kernels
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = fwd()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    per = _unet_forward_launches()
+    print(f"  phase 14 (a) launches a forward: {launches} (expected "
+          f"{per}); of the GroupNorms {UNET_GN_SILU} with the SiLU fused",
+          flush=True)
+    if launches != per:
+        raise AssertionError(f"phase 14 (a): launch counts {launches} != "
+                             f"{per}")
+    for k, v in launches.items():
+        launches_out[k] = launches_out.get(k, 0) + v
+    if out.shape != (2, 4, 64, 64) or out.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"phase 14 (a): output {out.dtype} "
+                             f"{tuple(out.shape)}, not finite bf16 [2, 4, "
+                             f"64, 64]")
+    secs = []
+    for _ in range(20):
+        t0 = time.monotonic()
+        fwd()
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+    secs.sort()
+    ms = 1e3 * secs[len(secs) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        flops = _forward_flops(torch, model, (x, t, ctx))
+    prof, m = _profile(torch, fwd, 1)
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          "unet_forward_trace.json"))
+    del prof
+    stats = dict(params=model.num_params(), ms=ms, ms_min=1e3 * secs[0],
+                 peak_memory_gb=peak, flops=flops,
+                 tflops_per_s=flops / ms / 1e9, launches=launches,
+                 breakdown=m, idle_share_untraced=1 - m["device_ms"] / ms,
+                 card=card)
+    print(f"  phase 14 (a) SD 1.5 UNet forward, batch 2 x [4, 64, 64], "
+          f"{stats['params'] / 1e6:.1f}M parameters, bf16 under O2: "
+          f"{ms:.3f} ms a forward (median of 20; min {stats['ms_min']:.3f}),"
+          f" {flops / 1e12:.4f} TFLOP of products ({stats['tflops_per_s']:.1f}"
+          f" TFLOP/s), peak {peak:.2f} GB; {_breakdown_line(m)}; idle share "
+          f"against the untraced forward {stats['idle_share_untraced']:.4f} "
+          f"[{card}]", flush=True)
+    _print_other(m, "phase 14 (a)")
+    del model, out, x, ctx
+    _free(torch)
+    return stats
+
+
+def _unet_train(torch, args, card, launches_out):
+    """(b): the training step, batch 4 x [4, 64, 64], AdamW lr 1e-4,
+    captured, no remat: cuDNN free to choose (5 timed steps), then
+    ``cudnn.deterministic`` (recaptured; 5 timed steps, exact launches, a
+    profile), then replayed against eager from one snapshot."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import UNetConfig
+    cfg = UNetConfig.sd15()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = _unet_model(torch, cfg, args.seed + 1)
+    trainer = _unet_trainer(model)
+    batch = _unet_inputs(torch, cfg, args.seed + 1, 4)
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        flops = 3 * _forward_flops(torch, model, batch[:3])
+    out = {}
+    torch.backends.cudnn.deterministic = False
+    losses0, ms0, _ = _timed_steps(torch, trainer, batch)
+    print(f"  phase 14 (b) cuDNN's own choice of algorithms: step "
+          f"{ms0:.3f} ms captured, losses {losses0} [{card}]", flush=True)
+    trainer._drop_graphs()
+    _free(torch)
+    torch.backends.cudnn.deterministic = True
+    losses, step_ms, launches = _timed_steps(torch, trainer, batch)
+    graph = _graph_line(trainer, "phase 14 (b)", card)
+    per = _unet_forward_launches()
+    per.update(group_norm_bwd=UNET_GROUP_NORMS,
+               dropout_add_ln_bwd=UNET_LAYER_NORMS, adamw=1)
+    expect = {k: 5 * v for k, v in per.items()}
+    print(f"  phase 14 (b) launches over 5 steps: {launches} (expected "
+          f"{expect})", flush=True)
+    if launches != expect:
+        raise AssertionError(f"phase 14 (b): launch counts {launches} != "
+                             f"{expect}")
+    for k, v in launches.items():
+        launches_out[k] = launches_out.get(k, 0) + v
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"phase 14 (b): losses not finite and "
+                             f"falling: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1)
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          "unet_train_step_trace.json"))
+    del prof
+    img_s = 4 / (step_ms / 1e3)
+    out.update(step_ms=step_ms, step_ms_cudnn_free=ms0, images_per_s=img_s,
+               flops_per_step=flops,
+               mfu_vs_989_tflops=flops / (step_ms / 1e3) / BF16_FLOPS,
+               peak_memory_gb=peak, peak_memory_of_phase_gb=peak - held / 1e9,
+               losses=losses, graph=graph, breakdown=m,
+               idle_share_untraced=1 - m["device_ms"] / step_ms,
+               launches_a_step=per, card=card)
+    print(f"  phase 14 (b) SD 1.5 UNet training step, batch 4, AdamW, "
+          f"captured, cudnn.deterministic: {step_ms:.3f} ms ({ms0:.3f} with "
+          f"cuDNN's own choice), {img_s:.2f} images/s, MFU "
+          f"{out['mfu_vs_989_tflops']:.4f} ({flops / 1e12:.3f} TFLOP a step),"
+          f" peak {peak:.2f} GB; {_breakdown_line(m)}; idle share against "
+          f"the untraced step {out['idle_share_untraced']:.4f}; losses "
+          f"{losses} [{card}]", flush=True)
+    _print_other(m, "phase 14 (b)")
+    out["eager"] = _captured_against_eager(torch, trainer, batch,
+                                         "phase 14 (b)", card, step_ms, m)
+    _drop_trainer(torch, trainer)
+    del trainer, model, batch
+    _free(torch)
+    return out
+
+
+def _unet_agreement(torch, seed):
+    """(c): one forward + backward of a 2-level UNet at SD 1.5's widths
+    (channels 320 / 640, 2 layers a block, 8 heads, 32 groups, cross 768;
+    batch 2 x [4, 32, 32], a [2, 77, 768] context) through the kernels and
+    through the plain versions, bf16 under O2 and float32 (the same
+    bf16-valued weights, upcast): float32 loss 1e-5 relative and
+    gradients 1e-3 relative L2; bf16 gradients no further from the
+    float32 step than the plain bf16 path's (1.1x over all, 1.25x per
+    parameter)."""
+    import dataclasses
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import UNetConfig
+    cfg = dataclasses.replace(UNetConfig.sd15(),
+                              block_out_channels=(320, 640))
+    batch = _unet_inputs(torch, cfg, seed + 13, 2, hw=32)
+    base = _unet_model(torch, cfg, seed + 13)
+    state = {n: p.detach() for n, p in base.named_parameters()}
+    del base
+
+    def run(bf16, plain):
+        model = _unet_model(torch, cfg, None, bf16=bf16)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n].to(p.dtype))
+        before = dict(K.LAUNCHES)
+        with ExitStack() as stack:
+            if plain:
+                _plain_train_patches(stack)
+            loss_fn = _unet_loss_o2 if bf16 else (
+                lambda m, x, t, c, n: ((m(x, t, c) - n) ** 2).mean())
+            loss = loss_fn(model, *batch).float()
+            loss.backward()
+            torch.cuda.synchronize()
+        used = {n: K.LAUNCHES[n] - before[n] for n in K.kernel_launches()}
+        if plain and any(used.values()):
+            raise AssertionError(f"the plain UNet step launched {used}")
+        if not plain and not all(used[n] for n in (
+                "group_norm", "group_norm_bwd", "dropout_add_ln")):
+            raise AssertionError(f"the kernel UNet step launched {used}")
+        return float(loss.detach()), {n: p.grad.float() for n, p in
+                                      model.named_parameters()}
+
+    lk32, gk32 = run(False, False)
+    lp32, gp32 = run(False, True)
+    err32, _ = _rel_dist(gk32, gp32)
+    del gk32
+    lk16, gk16 = run(True, False)
+    err_k, leaf_k = _rel_dist(gk16, gp32)
+    del gk16
+    lp16, gp16 = run(True, True)
+    err_p, leaf_p = _rel_dist(gp16, gp32)
+    del gp16, gp32
+    torch.cuda.empty_cache()
+    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p if leaf_p[n] > 0}
+    worst = max(ratio, key=ratio.get)
+    loss32 = abs(lk32 / lp32 - 1)
+    print(f"  phase 14 (c) UNet step kernels vs plain (SD 1.5 widths, 2 "
+          f"levels, 2 x [4, 32, 32]): float32 loss {lk32:.6f} vs {lp32:.6f} "
+          f"(rel err {loss32:.3g}, tol 1e-5), grads rel L2 err {err32:.3g} "
+          f"(tol 1e-3); bf16 O2 loss kernels {lk16:.6f} plain {lp16:.6f}, "
+          f"grads' rel L2 distance from the float32 step: kernels "
+          f"{err_k:.5g}, plain {err_p:.5g} (tol 1.1x); per parameter the "
+          f"largest ratio {ratio[worst]:.4g} at {worst} (tol 1.25) "
+          f"[{_card_line()}]", flush=True)
+    if not (loss32 <= 1e-5 and err32 <= 1e-3 and err_k <= 1.1 * err_p
+            and max(ratio.values()) <= 1.25
+            and all(math.isfinite(v) for v in (lk16, lp16, err_k, err_p))):
+        raise AssertionError("the UNet kernel step disagrees with the "
+                             "plain step")
+    return dict(loss_rel_err_f32=loss32, grad_rel_err_f32=err32,
+                bf16_grad_err_kernels=err_k, bf16_grad_err_plain=err_p,
+                bf16_grad_err_ratio_worst_param=ratio[worst],
+                worst_param=worst)
+
+
+def _tiny_on_card(torch, tag, make, make_opt, loss_fn, batch, lr):
+    """A tiny float32 model trained 3 steps on the card (captured) against
+    the port's CPU trainer from the same weights and buffers: the forward
+    and the losses within 1e-5 relative, weights and buffers within 1e-5
+    for 99.9% of the elements and 3 lr for all."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import load_numpy_state
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    cpu = make("cpu")
+    gpu = make("cuda")
+    load_numpy_state(gpu, {k: v.numpy() for k, v in
+                           cpu.state_dict().items()})
+    with torch.no_grad():
+        fc = loss_fn(cpu, *batch)
+        fg = loss_fn(gpu, *(t.cuda() for t in batch))
+    fwd_err = abs(float(fg) / float(fc) - 1)
+    losses = []
+    K.reset_launches()
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        tr = SpmdTrainer(model, make_opt(model), loss_fn)
+        losses.append([float(tr.train_step(*(t.to(dev) for t in batch)))
+                       for _ in range(3)])
+    used = {k: v for k, v in K.LAUNCHES.items() if v}
+    close = total = 0
+    worst = 0.0
+    want = cpu.state_dict()
+    for k, v in gpu.state_dict().items():
+        d = (v.cpu() - want[k]).abs()
+        worst = max(worst, float(d.max()))
+        close += int((d <= 1e-5).sum())
+        total += d.numel()
+    want_l, got_l = losses
+    loss_err = max(abs(a / b - 1) for a, b in zip(got_l, want_l))
+    ok = (fwd_err <= 1e-5 and loss_err <= 1e-5 and close >= 0.999 * total
+          and worst <= 3 * lr)
+    print(f"  {tag} tiny float32 on the card vs the CPU: first loss rel err "
+          f"{fwd_err:.3g}; 3 trainer steps' losses {got_l} vs {want_l} (max "
+          f"rel err {loss_err:.3g}, tol 1e-5); weights and buffers within "
+          f"1e-5: {close}/{total}, worst {worst:.3g} (tol {3 * lr}); "
+          f"launches {used} {'ok' if ok else 'FAIL'} [{_card_line()}]",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: training on the card disagrees with "
+                             f"the CPU")
+    return dict(forward_rel_err=fwd_err, loss_rel_err=loss_err,
+                weights_close=close / total, worst=worst, launches=used)
+
+
+def _unet_tiny_on_card(torch):
+    """(d): a tiny float32 UNet (channels 32 / 64, groups 8, cross 32) on
+    [2, 4, 16, 16], AdamW lr 1e-4."""
+    import numpy as np
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = UNetConfig.tiny(ch=(32, 64), cross=32, groups=8)
+    rng = np.random.default_rng(61)
+    batch = tuple(torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 4, 16, 16)).astype(np.float32),
+        np.array([3, 900]), rng.standard_normal((2, 7, 32))
+        .astype(np.float32),
+        rng.standard_normal((2, 4, 16, 16)).astype(np.float32)))
+    torch.manual_seed(61)
+    return _tiny_on_card(
+        torch, "phase 14 (d)", lambda d: UNet2DConditionModel(cfg, device=d),
+        lambda m: AdamW(learning_rate=1e-4, parameters=m.parameters()),
+        lambda m, x, t, c, n: ((m(x, t, c) - n) ** 2).mean(), batch, 1e-4)
+
+
+def phase_unet(torch, args, launches_out):
+    """The Stable Diffusion UNet (BASELINE configuration 5, SD 1.5 uncut:
+    channels 320 / 640 / 1280 / 1280, 2 layers a block, 8 heads, 32
+    groups, cross dim 768; random weights from the seed), bf16 under O2:
+    (a) one denoising forward at batch 2; (b) the captured training step
+    at batch 4, bit-equal to the eager one; (c) the 2-level agreement
+    through kernels and plain versions; (d) a tiny float32 UNet on the
+    card against the CPU trainer."""
+    card = _card_line()
+    print(f"phase 14: the SD 1.5 UNet, bf16 under amp O2, seed {args.seed} "
+          f"[{card}]", flush=True)
+    prev = torch.backends.cudnn.deterministic
+    try:
+        out = {"forward": _unet_forward(torch, args, card, launches_out)}
+        out["train"] = _unet_train(torch, args, card, launches_out)
+        torch.backends.cudnn.deterministic = True
+        out["agreement"] = _unet_agreement(torch, args.seed)
+        out["tiny_f32_vs_cpu"] = _unet_tiny_on_card(torch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return out
+
+
+def _resnet_loss_o1(m, x, y):
+    """Cross entropy of ResNet's logits under auto_cast O1 (convs and
+    linears in bf16, BatchNorm in fp32)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        return F.cross_entropy(m(x), y)
+
+
+def _resnet_trainer(model, lr=0.1):
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    from paddle_tpu_torch.regularizer import L2Decay
+    return SpmdTrainer(model, Momentum(learning_rate=lr, momentum=0.9,
+                                       parameters=model.parameters(),
+                                       weight_decay=L2Decay(1e-4)),
+                       _resnet_loss_o1)
+
+
+def _batch_norm_ms(torch, model, x):
+    """Device ms of every BatchNorm's forward and backward at the step's
+    shapes, bf16 inputs under O1 (their casts included), the 53 layers'
+    calls captured in one CUDA graph and replayed: the step's BatchNorm
+    work as its own group (its kernels are PyTorch's elementwise and
+    reduction kernels, which a profile cannot tell from the others)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import BatchNorm2D
+    from paddle_tpu_torch.nn import functional as F
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append((mod, tuple(inp[0].shape))))
+        for m in model.modules() if isinstance(m, BatchNorm2D)]
+    try:
+        with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    inputs = [(mod, torch.randn(s, device="cuda").to(torch.bfloat16)
+               .requires_grad_()) for mod, s in shapes]
+    means = [m._mean.clone() for m, _ in inputs]
+    variances = [m._variance.clone() for m, _ in inputs]
+
+    def run():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            for (mod, xi), rm, rv in zip(inputs, means, variances):
+                y = F.batch_norm(xi, rm, rv, mod.weight, mod.bias,
+                                 training=True)
+                torch.autograd.grad(y, (xi, mod.weight, mod.bias),
+                                    torch.ones_like(y))
+    ms = _graph_ms(run, iters=1, reps=5)
+    del inputs, means, variances
+    return ms, len(shapes)
+
+
+def _resnet_tiny_on_card(torch):
+    """A tiny float32 ResNet-18 (5 classes) on [8, 3, 64, 64] (layer4's
+    BatchNorms over 8 x 2 x 2 values), Momentum 1e-4 with L2Decay (a
+    rate at which the loss stays away from 0, where its relative error
+    grows)."""
+    import numpy as np
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.models import resnet18
+    rng = np.random.default_rng(62)
+    batch = (torch.from_numpy(rng.standard_normal((8, 3, 64, 64))
+                              .astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 5, 8)))
+    torch.manual_seed(62)
+    return _tiny_on_card(
+        torch, "phase 15 (d)",
+        lambda d: resnet18(num_classes=5, device=d),
+        lambda m: Momentum(learning_rate=1e-4, momentum=0.9,
+                           parameters=m.parameters(),
+                           weight_decay=L2Decay(1e-4)),
+        lambda m, x, y: F.cross_entropy(m(x), y), batch, 1e-4)
+
+
+def phase_resnet(torch, args, launches_out):
+    """ResNet-50 (BASELINE configuration 1) at ImageNet shape: 1000
+    classes, float32 weights, batch 128 x [3, 224, 224] from the seed,
+    under auto_cast O1, Momentum(0.1, 0.9) with L2Decay(1e-4), captured:
+    (a) 2 warm-up and 5 timed steps with cuDNN's own choice, then under
+    cudnn.deterministic (exact launches: none of the port's kernels is on
+    this path), images/s, MFU, peak, a profile, BatchNorm's device ms;
+    replayed against eager with the 53 BatchNorms' running statistics; (b)
+    an eval forward at batch 128 on the running statistics; (d) a tiny
+    float32 ResNet-18 on the card against the CPU trainer."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.nn import BatchNorm2D
+    from paddle_tpu_torch.vision.models import resnet50
+    card = _card_line()
+    print(f"phase 15: ResNet-50, 1000 classes, batch 128 x [3, 224, 224], "
+          f"float32 weights under amp O1, Momentum 0.1 / 0.9, L2Decay 1e-4, "
+          f"seed {args.seed} [{card}]", flush=True)
+    prev = torch.backends.cudnn.deterministic
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    model = resnet50(num_classes=1000, device="cuda", generator=g)
+    n_bn = sum(1 for m in model.modules() if isinstance(m, BatchNorm2D))
+    x = torch.randn(128, 3, 224, 224, device="cuda", generator=g)
+    y = torch.randint(0, 1000, (128,), device="cuda", generator=g)
+    trainer = _resnet_trainer(model)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        flops = 3 * _forward_flops(torch, model, (x,))
+    out = {}
+    try:
+        torch.backends.cudnn.deterministic = False
+        losses0, ms0, _ = _timed_steps(torch, trainer, (x, y))
+        print(f"  phase 15 cuDNN's own choice of algorithms: step "
+              f"{ms0:.3f} ms captured, losses {losses0} [{card}]",
+              flush=True)
+        trainer._drop_graphs()
+        _free(torch)
+        torch.backends.cudnn.deterministic = True
+        losses, step_ms, launches = _timed_steps(torch, trainer, (x, y))
+        graph = _graph_line(trainer, "phase 15", card)
+        expect = {k: 0 for k in K.LAUNCHES}
+        print(f"  phase 15 launches over 5 steps: {launches} (expected "
+              f"{expect}: no kernel of the port is on ResNet's path)",
+              flush=True)
+        if launches != expect:
+            raise AssertionError(f"phase 15: launch counts {launches}")
+        for k, v in launches.items():
+            launches_out[k] = launches_out.get(k, 0) + v
+        # Momentum at 0.1 from a random start without warm-up need not
+        # lower the loss within 7 steps; the step's correctness is its
+        # bit-equality to eager and the tiny model's agreement with the CPU
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase 15: losses not finite: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof, m = _profile(torch, lambda: trainer.train_step(x, y), 1)
+        prof.export_chrome_trace(os.path.join(args.out,
+                                              "resnet50_step_trace.json"))
+        del prof
+        bn_ms, bn_calls = _batch_norm_ms(torch, model, x)
+        img_s = 128 / (step_ms / 1e3)
+        out.update(step_ms=step_ms, step_ms_cudnn_free=ms0,
+                   images_per_s=img_s, flops_per_step=flops,
+                   mfu_vs_989_tflops=flops / (step_ms / 1e3) / BF16_FLOPS,
+                   peak_memory_gb=peak,
+                   peak_memory_of_phase_gb=peak - held / 1e9, losses=losses,
+                   graph=graph, breakdown=m,
+                   idle_share_untraced=1 - m["device_ms"] / step_ms,
+                   batch_norm_ms=bn_ms, batch_norms=bn_calls, card=card)
+        print(f"  phase 15 ResNet-50 training step, batch 128, captured, "
+              f"cudnn.deterministic: {step_ms:.3f} ms ({ms0:.3f} with "
+              f"cuDNN's own choice), {img_s:.1f} images/s, MFU "
+              f"{out['mfu_vs_989_tflops']:.4f} ({flops / 1e12:.3f} TFLOP a "
+              f"step), peak {peak:.2f} GB; {_breakdown_line(m)}; idle share "
+              f"against the untraced step {out['idle_share_untraced']:.4f}; "
+              f"the {bn_calls} BatchNorms' forward and backward alone "
+              f"{bn_ms:.3f} ms (graph replay) [{card}]", flush=True)
+        _print_other(m, "phase 15")
+        if bn_calls != n_bn or n_bn != 53:
+            raise AssertionError(f"phase 15: {bn_calls} BatchNorm calls of "
+                                 f"{n_bn} layers, not 53")
+        out["eager"] = _captured_against_eager(torch, trainer, (x, y),
+                                             "phase 15", card, step_ms, m)
+        _drop_trainer(torch, trainer)
+        model.eval()
+
+        def evaluate():
+            with torch.no_grad(), amp.auto_cast(level="O1",
+                                                dtype="bfloat16"):
+                return model(x)
+        logits = evaluate()
+        eval_ms = _time_ms(evaluate, 5)
+        ok = logits.shape == (128, 1000) and bool(
+            torch.isfinite(logits).all())
+        print(f"  phase 15 (b) eval forward at batch 128 on the running "
+              f"statistics: {eval_ms:.3f} ms, logits {logits.dtype} "
+              f"{tuple(logits.shape)} finite {ok} [{card}]", flush=True)
+        if not ok:
+            raise AssertionError("phase 15 (b): eval logits not finite")
+        out["eval_ms"] = eval_ms
+        del trainer, model, x, y, logits
+        _free(torch)
+        torch.backends.cudnn.deterministic = True
+        out["tiny_f32_vs_cpu"] = _resnet_tiny_on_card(torch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
     return out
 
 
@@ -5558,6 +6472,8 @@ def main(argv=None):
                       _flashmask_routed_on_card, torch)
     timed("phase 3 dropout and LayerNorm kernels", phase_dropout_kernels,
           torch, results)
+    timed("phase 3 GroupNorm kernels", phase_group_norm_kernels, torch,
+          results)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
     packed_launches, beam_launches, artifact_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
@@ -5583,6 +6499,10 @@ def main(argv=None):
     ernie_launches = {}
     ernie = timed("phase 13 ERNIE pretraining", phase_ernie_training, torch,
                   args, ernie_launches)
+    unet_launches, resnet_launches = {}, {}
+    unet = timed("phase 14 UNet", phase_unet, torch, args, unet_launches)
+    resnet = timed("phase 15 ResNet-50", phase_resnet, torch, args,
+                   resnet_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -5635,6 +6555,12 @@ def main(argv=None):
         "dropout_add_ln_bwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
                                "paddle_tpu/incubate/nn/functional/"
                                "fused_ops.py:636"),
+        # no Pallas kernel: the GroupNorm (and the SiLU after it) XLA fuses
+        "group_norm": ("triton", "paddle_tpu_torch/kernels/group_norm.py",
+                       "paddle_tpu/nn/functional/norm.py:186"),
+        "group_norm_bwd": ("triton",
+                           "paddle_tpu_torch/kernels/group_norm.py",
+                           "paddle_tpu/nn/functional/norm.py:186"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
@@ -5643,7 +6569,8 @@ def main(argv=None):
     # both counts exactly)
     runs = (serve_launches, train_launches, gpt_launches, packed_launches,
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
-            artifact_launches, surface_launches, ernie_launches)
+            artifact_launches, surface_launches, ernie_launches,
+            unet_launches, resnet_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -5667,7 +6594,7 @@ def main(argv=None):
                    "quant_serving": quant, "spec_serving": spec,
                    "artifact": artifact, "flashmask_routed": routed_f5,
                    "training_surface": surface, "ernie_training": ernie,
-                   "seconds": seconds,
+                   "unet": unet, "resnet50": resnet, "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "training": train_launches,
                                 "gpt_moe_training": gpt_launches,
@@ -5678,7 +6605,9 @@ def main(argv=None):
                                 "beams": beam_launches,
                                 "artifact": artifact_launches,
                                 "training_surface": surface_launches,
-                                "ernie_training": ernie_launches}}, f,
+                                "ernie_training": ernie_launches,
+                                "unet": unet_launches,
+                                "resnet50": resnet_launches}}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of paddle_tpu: Llama serving and training, GPT
-(dense and dropless MoE) training and ERNIE pretraining.
+(dense and dropless MoE) training, ERNIE pretraining, the Stable
+Diffusion UNet and ResNet.
 
 A package of its own beside ``paddle_tpu`` (the JAX reference): it imports
 ``torch`` and nothing of JAX or of ``paddle_tpu``. Module names mirror the

@@ -68,6 +68,7 @@ _TORCH_OPS = {
     "sigmoid": "sigmoid", "embedding": "embedding", "reshape": "reshape",
     "view": "reshape", "repeat_interleave": "repeat_interleave",
     "transpose": "transpose", "cat": "concat", "stack": "stack",
+    "flatten": "flatten",
 }
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -90,22 +91,35 @@ class _AmpState(threading.local):
 amp_state = _AmpState()
 
 
+def cast_dtype(op_name, dtype):
+    """The dtype a tensor of ``dtype`` has as an input of the op
+    ``op_name`` under the current ``auto_cast``: ``_maybe_cast`` without
+    the cast (a kernel that computes in fp32 anyway reads the input as it
+    is and writes the dtype the casts would give)."""
+    if not amp_state.enabled:
+        return dtype
+    white = (WHITE_LIST | amp_state.custom_white) - amp_state.custom_black
+    black = BLACK_LIST | amp_state.custom_black
+    low = amp_state.dtype
+    if op_name in white or (amp_state.level == "O2" and op_name not in black):
+        return low if dtype == torch.float32 else dtype
+    if op_name in black:
+        return torch.float32 if dtype == low else dtype
+    return dtype
+
+
 def _maybe_cast(op_name, tensors):
     """``tensors`` as the op ``op_name`` takes them under the current
     ``auto_cast`` (the JAX package's ``_maybe_cast``)."""
     if not amp_state.enabled:
         return tuple(tensors)
-    white = (WHITE_LIST | amp_state.custom_white) - amp_state.custom_black
-    black = BLACK_LIST | amp_state.custom_black
-    low = amp_state.dtype
-    if op_name in white or (amp_state.level == "O2" and op_name not in black):
-        src, dst = torch.float32, low
-    elif op_name in black:
-        src, dst = low, torch.float32
-    else:
-        return tuple(tensors)
-    return tuple(t.to(dst) if isinstance(t, torch.Tensor) and t.dtype == src
-                 else t for t in tensors)
+
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        dt = cast_dtype(op_name, t.dtype)
+        return t if dt == t.dtype else t.to(dt)
+    return tuple(one(t) for t in tensors)
 
 
 def _cast_args(name, args, kwargs, n):
@@ -381,5 +395,6 @@ def is_bfloat16_supported(device=None):
 from . import debugging  # noqa: E402,F401  (debugging reads amp_state)
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler", "op",
+           "cast_dtype",
            "WHITE_LIST", "BLACK_LIST", "is_float16_supported",
            "is_bfloat16_supported", "debugging"]

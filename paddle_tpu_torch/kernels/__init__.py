@@ -28,6 +28,14 @@ of its backward (the rows' pass and the column sums: two Triton kernels),
 which every LayerNorm on the card goes through. They port no TPU kernel
 either: XLA fuses the JAX package's dropout and LayerNorm.
 
+``group_norm`` and ``group_norm_bwd`` count the calls of GroupNorm's
+forward (two Triton kernels: the chunks' statistics, then the
+normalisation, with the SiLU where fused) and of its backward (three: the
+chunks' partial sums, dx, and the column sums of the weight and bias
+gradients), which every GroupNorm on the card goes through (the
+convolutional models). No TPU kernel either: XLA fuses the JAX package's
+GroupNorm and SiLU.
+
 ``weight_only_gemm`` counts every call of the weight-only GEMM on the
 card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
 counts those that went to the mma.sync kernel (shapes TMA cannot read).
@@ -53,7 +61,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "weight_only_gemm": 0, "weight_only_gemm_sm80": 0,
             "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
             "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
-            "sdpa_plain": 0, "sdpa_dense": 0, "ragged_plain": 0}
+            "group_norm": 0, "group_norm_bwd": 0, "sdpa_plain": 0,
+            "sdpa_dense": 0, "ragged_plain": 0}
 
 
 # the keys that count calls

@@ -1,0 +1,570 @@
+"""GroupNorm, with a SiLU after it where the model applies one, forward and
+backward: Triton kernels and their plain PyTorch version.
+
+No TPU kernel: the JAX package's ``F.group_norm``
+(``paddle_tpu/nn/functional/norm.py:186-223``) is jnp, which XLA fuses
+with the SiLU that follows it into the convolutions' neighbourhood. The
+Stable Diffusion UNet makes 61 GroupNorm calls a forward, 45 of them
+followed by SiLU: its largest elementwise work outside attention.
+
+What it computes: per (sample, group) the mean and biased variance in
+fp32, ``(x - mean) / sqrt(var + eps)``, times the fp32 weight plus the
+fp32 bias, written in ``out_dtype`` (x's dtype by default). With
+``silu=True`` the result is first rounded to ``out_dtype`` (where the
+separate ops round: the norm's output, or ``amp``'s cast of it to the
+SiLU's dtype) and then ``z / (1 + exp(-z))`` in fp32 (IEEE division and
+libdevice's exp, as PyTorch's own SiLU computes it) is rounded again.
+``amp.auto_cast`` at level O2 runs the UNet's GroupNorms in fp32 (the
+black list) and casts their outputs back to bf16 for the SiLU or the
+convolution that follows; reading x in bf16 and writing the bf16 rounding
+gives the same bits with two bytes read and two written an element, where
+the casts and an fp32 norm move twenty.
+
+Bound on the H100: bytes (about 10 flops an element forward, 20 backward;
+the card needs ~295 a byte before compute is the limit). The design:
+
+* A group of an NCHW tensor is (C / G) rows of H * W contiguous elements;
+  at the UNet's batch 2 there are 64 groups against 132 SMs, of up to
+  122,880 elements each. One program a group would leave half the card
+  idle, so a group's spatial range is cut into chunks (``_plan``: about
+  four programs an SM, a chunk a whole number of tiles; a small group,
+  as [B, 1280, 8, 8]'s 2,560 elements, is one chunk). The forward is two
+  kernels: ``_gn_stats_kernel`` writes each chunk's fp32 (count, mean,
+  M2), merging its [BLOCK_C, BLOCK_S] tiles by Chan's formula (each
+  tile's own mean and centred sum of squares: no E[x^2] - E[x]^2, which
+  cancels); ``_gn_fwd_kernel`` merges its group's chunks in a fixed order
+  (every program of the group the same bits) and normalises its chunk.
+  The chunk's program 0 saves the group's mean and rstd.
+* The backward saves x, the mean and rstd (not an fp32 x-hat) and is
+  three kernels: ``_gn_bwd_part_kernel`` recomputes x-hat (and, under
+  SiLU, z and dy * silu'(z), rounded where the separate ops round) and
+  writes per (sample, chunk, channel) fp32 sums of dz * x-hat and dz;
+  ``_gn_bwd_dx_kernel`` adds its group's chunks in a fixed order, forms
+  ``dx = rstd * (g - mean(g) - x-hat * mean(g * x-hat))`` with g = dz *
+  gamma, and writes dx in x's dtype; ``kernels/fused.py``'s column sum
+  adds the partials over samples and chunks, in order, into d(gamma) and
+  d(beta). No atomics: a captured step equals an eager one bit for bit.
+* NHWC (``channels_last``): the same kernels with the channel stride 1
+  and the spatial stride C.
+
+A forward reads x twice (the stats, then the normalisation) and the
+backward reads x and dy twice: the second reads of a chunk come soon
+after the first, mostly from L2.
+
+Triton is imported, and the kernels compiled, at the first launch.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from . import LAUNCHES
+
+tl = None    # triton.language, bound by _jit() at the first launch
+ld = None    # Triton's libdevice (exp, IEEE division), bound by _jit()
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_TILE = 4096            # elements of a [BLOCK_C, BLOCK_S] tile
+_PROGRAMS_PER_SM = 4
+
+
+# -- the kernels ------------------------------------------------------------------
+
+def _silu_tl(z):
+    """PyTorch's SiLU in fp32: ``z / (1 + exp(-z))``."""
+    return ld.div_rn(z, 1.0 + ld.exp(-z))
+
+
+def _dsilu_tl(z, dy):
+    """PyTorch's SiLU backward in fp32: ``dy * s * (1 + z * (1 - s))``,
+    s = 1 / (1 + exp(-z))."""
+    s = ld.div_rn(1.0, 1.0 + ld.exp(-z))
+    return dy * s * (1.0 + z * (1.0 - s))
+
+
+def _gn_stats_kernel(x_ptr, part_ptr, S, G, Cg, sN, sC, sS, chunk, n_chunks,
+                     BLOCK_C: tl.constexpr, BLOCK_S: tl.constexpr):
+    """Program (group ng, chunk k): the chunk's fp32 (count, mean, M2) into
+    part[ng, k], its tiles merged by Chan's formula."""
+    ng = tl.program_id(0)
+    k = tl.program_id(1)
+    n = ng // G
+    g = ng % G
+    base = x_ptr + n.to(tl.int64) * sN + (g * Cg).to(tl.int64) * sC
+    s_lo = k * chunk
+    s_hi = tl.minimum(s_lo + chunk, S)
+    cnt = 0.0
+    mean = 0.0
+    m2 = 0.0
+    for c0 in range(0, Cg, BLOCK_C):
+        c = c0 + tl.arange(0, BLOCK_C)
+        cm = c < Cg
+        rows = base + c[:, None].to(tl.int64) * sC
+        nc = tl.minimum(Cg - c0, BLOCK_C)
+        for s0 in range(s_lo, s_hi, BLOCK_S):
+            s = s0 + tl.arange(0, BLOCK_S)
+            m = cm[:, None] & (s < s_hi)[None, :]
+            v = tl.load(rows + s[None, :].to(tl.int64) * sS, mask=m,
+                        other=0.0).to(tl.float32)
+            nt = (nc * tl.minimum(s_hi - s0, BLOCK_S)).to(tl.float32)
+            mt = tl.sum(tl.sum(v, axis=1), axis=0) / nt
+            dv = tl.where(m, v - mt, 0.0)
+            m2t = tl.sum(tl.sum(dv * dv, axis=1), axis=0)
+            tot = cnt + nt
+            d = mt - mean
+            w = nt / tot
+            mean = mean + d * w
+            m2 = m2 + m2t + d * d * cnt * w
+            cnt = tot
+    p = part_ptr + (ng * n_chunks + k) * 3
+    tl.store(p, cnt)
+    tl.store(p + 1, mean)
+    tl.store(p + 2, m2)
+
+
+def _group_stats(part_ptr, ng, n_chunks, eps):
+    """(mean, rstd) of group ng: its chunks' partials merged in order."""
+    cnt = 0.0
+    mean = 0.0
+    m2 = 0.0
+    for j in range(0, n_chunks):
+        p = part_ptr + (ng * n_chunks + j) * 3
+        cb = tl.load(p)
+        mb = tl.load(p + 1)
+        tot = cnt + cb
+        d = mb - mean
+        w = cb / tot
+        mean = mean + d * w
+        m2 = m2 + tl.load(p + 2) + d * d * cnt * w
+        cnt = tot
+    return mean, 1.0 / tl.sqrt(m2 / cnt + eps)
+
+
+def _gn_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, part_ptr, stat_ptr, S, G, Cg,
+                   sN, sC, sS, chunk, n_chunks, eps, SILU: tl.constexpr,
+                   BLOCK_C: tl.constexpr, BLOCK_S: tl.constexpr):
+    """Program (group ng, chunk k): y over the chunk; program k = 0 also
+    saves the group's (mean, rstd) into stat[ng]."""
+    ng = tl.program_id(0)
+    k = tl.program_id(1)
+    n = ng // G
+    g = ng % G
+    mean, rstd = _group_stats(part_ptr, ng, n_chunks, eps)
+    if k == 0:
+        tl.store(stat_ptr + 2 * ng, mean)
+        tl.store(stat_ptr + 2 * ng + 1, rstd)
+    off0 = n.to(tl.int64) * sN + (g * Cg).to(tl.int64) * sC
+    s_lo = k * chunk
+    s_hi = tl.minimum(s_lo + chunk, S)
+    dt = y_ptr.dtype.element_ty
+    for c0 in range(0, Cg, BLOCK_C):
+        c = c0 + tl.arange(0, BLOCK_C)
+        cm = c < Cg
+        w = tl.load(w_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        b = tl.load(b_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        rows = off0 + c[:, None].to(tl.int64) * sC
+        for s0 in range(s_lo, s_hi, BLOCK_S):
+            s = s0 + tl.arange(0, BLOCK_S)
+            m = cm[:, None] & (s < s_hi)[None, :]
+            off = rows + s[None, :].to(tl.int64) * sS
+            v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
+            z = (v - mean) * rstd * w[:, None] + b[:, None]
+            if SILU:
+                z = _silu(z.to(dt).to(tl.float32))
+            tl.store(y_ptr + off, z.to(dt), mask=m)
+
+
+def _gn_bwd_part_kernel(x_ptr, w_ptr, b_ptr, dy_ptr, stat_ptr, part_ptr, C,
+                        S, G, Cg, sN, sC, sS, chunk, n_chunks,
+                        SILU: tl.constexpr, BLOCK_C: tl.constexpr,
+                        BLOCK_S: tl.constexpr):
+    """Program (group ng, chunk k): per channel of the group, fp32 sums over
+    the chunk of dz * x-hat and of dz (dz = dy, or under SiLU dy * silu'(z)
+    rounded to dy's dtype) into row n * n_chunks + k of part ([., 2 C]:
+    the first C columns the former, the next C the latter)."""
+    ng = tl.program_id(0)
+    k = tl.program_id(1)
+    n = ng // G
+    g = ng % G
+    mean = tl.load(stat_ptr + 2 * ng)
+    rstd = tl.load(stat_ptr + 2 * ng + 1)
+    off0 = n.to(tl.int64) * sN + (g * Cg).to(tl.int64) * sC
+    row = part_ptr + (n * n_chunks + k).to(tl.int64) * (2 * C) + g * Cg
+    s_lo = k * chunk
+    s_hi = tl.minimum(s_lo + chunk, S)
+    dt = dy_ptr.dtype.element_ty
+    for c0 in range(0, Cg, BLOCK_C):
+        c = c0 + tl.arange(0, BLOCK_C)
+        cm = c < Cg
+        w = tl.load(w_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        b = tl.load(b_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        rows = off0 + c[:, None].to(tl.int64) * sC
+        acc_a = tl.zeros([BLOCK_C, BLOCK_S], dtype=tl.float32)
+        acc_b = tl.zeros([BLOCK_C, BLOCK_S], dtype=tl.float32)
+        for s0 in range(s_lo, s_hi, BLOCK_S):
+            s = s0 + tl.arange(0, BLOCK_S)
+            m = cm[:, None] & (s < s_hi)[None, :]
+            off = rows + s[None, :].to(tl.int64) * sS
+            v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
+            dz = tl.load(dy_ptr + off, mask=m, other=0.0).to(tl.float32)
+            xh = (v - mean) * rstd
+            if SILU:
+                z = (xh * w[:, None] + b[:, None]).to(dt).to(tl.float32)
+                dz = _dsilu(z, dz).to(dt).to(tl.float32)
+            acc_a += tl.where(m, dz * xh, 0.0)
+            acc_b += dz
+        tl.store(row + c, tl.sum(acc_a, axis=1), mask=cm)
+        tl.store(row + C + c, tl.sum(acc_b, axis=1), mask=cm)
+
+
+def _gn_bwd_dx_kernel(x_ptr, w_ptr, b_ptr, dy_ptr, dx_ptr, stat_ptr, part_ptr,
+                      C, S, G, Cg, sN, sC, sS, chunk, n_chunks,
+                      SILU: tl.constexpr, BLOCK_C: tl.constexpr,
+                      BLOCK_S: tl.constexpr):
+    """Program (group ng, chunk k): dx over the chunk, from the group's
+    sums (its chunks' partials added in order)."""
+    ng = tl.program_id(0)
+    k = tl.program_id(1)
+    n = ng // G
+    g = ng % G
+    mean = tl.load(stat_ptr + 2 * ng)
+    rstd = tl.load(stat_ptr + 2 * ng + 1)
+    sa = 0.0
+    sb = 0.0
+    for c0 in range(0, Cg, BLOCK_C):
+        c = c0 + tl.arange(0, BLOCK_C)
+        cm = c < Cg
+        w = tl.load(w_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        acc_a = tl.zeros([BLOCK_C], dtype=tl.float32)
+        acc_b = tl.zeros([BLOCK_C], dtype=tl.float32)
+        for j in range(0, n_chunks):
+            row = part_ptr + (n * n_chunks + j).to(tl.int64) * (2 * C) \
+                + g * Cg
+            acc_a += tl.load(row + c, mask=cm, other=0.0)
+            acc_b += tl.load(row + C + c, mask=cm, other=0.0)
+        sa += tl.sum(w * acc_a, axis=0)
+        sb += tl.sum(w * acc_b, axis=0)
+    m_count = (Cg * S) * 1.0     # Cg, S may be constexpr 1
+    mgx = sa / m_count
+    mg = sb / m_count
+    off0 = n.to(tl.int64) * sN + (g * Cg).to(tl.int64) * sC
+    s_lo = k * chunk
+    s_hi = tl.minimum(s_lo + chunk, S)
+    dt = dy_ptr.dtype.element_ty
+    for c0 in range(0, Cg, BLOCK_C):
+        c = c0 + tl.arange(0, BLOCK_C)
+        cm = c < Cg
+        w = tl.load(w_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        b = tl.load(b_ptr + g * Cg + c, mask=cm, other=0.0).to(tl.float32)
+        rows = off0 + c[:, None].to(tl.int64) * sC
+        for s0 in range(s_lo, s_hi, BLOCK_S):
+            s = s0 + tl.arange(0, BLOCK_S)
+            m = cm[:, None] & (s < s_hi)[None, :]
+            off = rows + s[None, :].to(tl.int64) * sS
+            v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
+            dz = tl.load(dy_ptr + off, mask=m, other=0.0).to(tl.float32)
+            xh = (v - mean) * rstd
+            if SILU:
+                z = (xh * w[:, None] + b[:, None]).to(dt).to(tl.float32)
+                dz = _dsilu(z, dz).to(dt).to(tl.float32)
+            dx = rstd * (dz * w[:, None] - mg - xh * mgx)
+            tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=m)
+
+
+_silu = None     # the wrapped ``_silu_tl``, bound by _jit()
+_dsilu = None    # the wrapped ``_dsilu_tl``, bound by _jit()
+
+
+def _libdevice():
+    try:
+        from triton.language.extra import libdevice
+        libdevice.exp       # noqa: B018  (a stub module in some versions)
+    except (ImportError, AttributeError):
+        from triton.language.extra.cuda import libdevice
+    return libdevice
+
+
+@functools.lru_cache(maxsize=None)
+def _jit():
+    """Import Triton and wrap the kernels and their helpers (once)."""
+    global tl, ld, _silu, _dsilu, _group_stats
+    import triton
+    import triton.language
+    tl = triton.language
+    ld = _libdevice()
+    _silu = triton.jit(_silu_tl)
+    _dsilu = triton.jit(_dsilu_tl)
+    _group_stats = triton.jit(_group_stats)
+    from . import fused
+    _, fk = fused._jit()
+    # the counts that set loop bounds and masks across the channels only
+    # are not specialised (each value would compile anew); the spatial size,
+    # the chunk and the strides are (their divisibility lets loads along
+    # the contiguous axis vectorise)
+    loose = ["G", "Cg", "n_chunks"]
+    return triton, {"stats": triton.jit(_gn_stats_kernel,
+                                        do_not_specialize=loose),
+                    "fwd": triton.jit(_gn_fwd_kernel,
+                                      do_not_specialize=loose),
+                    "bwd_part": triton.jit(_gn_bwd_part_kernel,
+                                           do_not_specialize=loose + ["C"]),
+                    "bwd_dx": triton.jit(_gn_bwd_dx_kernel,
+                                         do_not_specialize=loose + ["C"]),
+                    "col_sum": fk["col_sum"]}
+
+
+# -- the launch plan ----------------------------------------------------------------
+
+def _layout(shape, channels_last):
+    """(N, C, S, sN, sC, sS) of a contiguous tensor: S the spatial size
+    (1 for [N, C]), strides in elements."""
+    if len(shape) < 2:
+        raise ValueError(f"group_norm takes [N, C, ...] tensors, got "
+                         f"{list(shape)}")
+    n = shape[0]
+    c = shape[-1] if channels_last else shape[1]
+    s = math.prod(shape[1:-1] if channels_last else shape[2:])
+    if channels_last:
+        return n, c, s, s * c, 1, c
+    return n, c, s, c * s, s, 1
+
+
+def _next_pow2(v):
+    return 1 << max(int(v) - 1, 0).bit_length()
+
+
+def _tiles(cg, s, n_chunks):
+    """(BLOCK_C, BLOCK_S, chunk): tiles of about ``_TILE`` elements (at
+    most 64 channels), and the spatial range of size ``s`` cut into
+    ``n_chunks`` chunks of whole tiles (the last may be shorter)."""
+    bc = min(_next_pow2(cg), 64)
+    bs = max(16, min(_next_pow2(s), _TILE // bc))
+    return bc, bs, -(-(-(-s // n_chunks)) // bs) * bs
+
+
+def _plan(n, groups, cg, s, sms):
+    """(BLOCK_C, BLOCK_S, chunk, n_chunks): each group's spatial range cut
+    into chunks of whole tiles so that there are about
+    ``_PROGRAMS_PER_SM`` programs an SM (one chunk where the group is a
+    tile or less)."""
+    bs = _tiles(cg, s, 1)[1]
+    want = -(-(_PROGRAMS_PER_SM * sms) // max(n * groups, 1))
+    bc, bs, chunk = _tiles(cg, s, max(1, min(want, -(-s // bs))))
+    return bc, bs, chunk, -(-s // chunk)
+
+
+# -- plain versions -----------------------------------------------------------------
+
+def group_norm_plain(x, num_groups, weight=None, bias=None, eps=1e-5,
+                     channels_last=False, silu=False, out_dtype=None):
+    """The JAX formula (``paddle_tpu/nn/functional/norm.py:186``): mean and
+    biased variance of each (sample, group) in fp32, ``(x - mean) /
+    sqrt(var + eps)``, times the weight and plus the bias in fp32, cast to
+    ``out_dtype`` (x's dtype); with ``silu``, ``F.silu`` of that in
+    ``out_dtype``. Differentiable by autograd."""
+    out_dtype = out_dtype or x.dtype
+    a = x.movedim(-1, 1) if channels_last else x
+    n, c = a.shape[0], a.shape[1]
+    r = a.reshape(n, num_groups, c // num_groups, -1).float()
+    mean = r.mean(dim=(2, 3), keepdim=True)
+    centered = r - mean
+    var = (centered * centered).mean(dim=(2, 3), keepdim=True)
+    out = (centered / torch.sqrt(var + eps)).reshape(a.shape)
+    shape = [1] * a.dim()
+    shape[1] = -1
+    if weight is not None:
+        out = out * weight.float().reshape(shape)
+    if bias is not None:
+        out = out + bias.float().reshape(shape)
+    out = out.to(out_dtype)
+    if silu:
+        out = torch.nn.functional.silu(out)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def group_stats_split_plain(x, num_groups, n_chunks, channels_last=False):
+    """(mean, var) [N, G] of x's groups by the kernel's arithmetic, in fp32:
+    each group's spatial range cut into ``n_chunks`` chunks of the kernel's
+    tiles (``_tiles``), each tile's mean and centred
+    sum of squares merged into its chunk's by Chan's formula, then the
+    chunks merged in order."""
+    n, c, s, *_ = _layout(tuple(x.shape), channels_last)
+    cg = c // num_groups
+    a = x.movedim(-1, 1) if channels_last else x
+    r = a.reshape(n, num_groups, cg, s).float()
+    bc, bs, chunk = _tiles(cg, s, n_chunks)
+
+    def merge(acc, part):
+        cnt, mean, m2 = acc
+        cb, mb, m2b = part
+        tot = cnt + cb
+        d = mb - mean
+        w = cb / tot
+        return tot, mean + d * w, m2 + m2b + d * d * cnt * w
+
+    zero = torch.zeros(n, num_groups)
+    total = (zero, zero, zero)
+    for s_lo in range(0, s, chunk):
+        acc = (zero, zero, zero)
+        s_hi = min(s_lo + chunk, s)
+        for c0 in range(0, cg, bc):
+            for s0 in range(s_lo, s_hi, bs):
+                t = r[:, :, c0:c0 + bc, s0:min(s0 + bs, s_hi)]
+                nt = torch.full_like(zero, float(t.shape[2] * t.shape[3]))
+                mt = t.sum(dim=(2, 3)) / nt
+                dv = t - mt[..., None, None]
+                acc = merge(acc, (nt, mt, (dv * dv).sum(dim=(2, 3))))
+        total = merge(total, acc)
+    cnt, mean, m2 = total
+    return mean, m2 / cnt
+
+
+# -- wrappers -----------------------------------------------------------------------
+
+def _check(x, num_groups, weight, bias, channels_last):
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"group_norm takes {_DTYPES}, got {x.dtype}")
+    n, c, s, *_ = _layout(tuple(x.shape), channels_last)
+    if num_groups < 1 or c % num_groups:
+        raise ValueError(f"group_norm: {c} channels do not split into "
+                         f"{num_groups} groups")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and (tuple(t.shape) != (c,)
+                              or t.device != x.device):
+            raise ValueError(f"group_norm: {name} must be [{c}] on "
+                             f"{x.device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+    return n, c, s
+
+
+def _args(x, num_groups, channels_last):
+    """(triton, kernels, grid, the layout's and plan's launch arguments,
+    BLOCK_C, BLOCK_S, n_chunks) of a CUDA tensor."""
+    n, c, s, sn, sc, ss = _layout(tuple(x.shape), channels_last)
+    cg = c // num_groups
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bc, bs, chunk, n_chunks = _plan(n, num_groups, cg, s, sms)
+    triton, k = _jit()
+    grid = (n * num_groups, n_chunks)
+    return (triton, k, grid, (s, num_groups, cg, sn, sc, ss, chunk, n_chunks),
+            bc, bs, n_chunks)
+
+
+def _warps(bc, bs):
+    return 8 if bc * bs >= _TILE else 4
+
+
+def group_norm_forward(x, weight, bias, num_groups, eps=1e-5,
+                       channels_last=False, silu=False, out_dtype=None):
+    """(y, stats) of the forward kernels on a contiguous CUDA x: y in
+    ``out_dtype`` (x's dtype), stats the fp32 (mean, rstd) of each
+    (sample, group), ``[N * G, 2]``. ``weight`` and ``bias`` are tensors
+    of [C], in any dtype."""
+    _check(x, num_groups, weight, bias, channels_last)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"group_norm writes {_DTYPES}, not {out_dtype}")
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    n = x.shape[0]
+    stats = torch.empty(n * num_groups, 2, dtype=torch.float32,
+                        device=x.device)
+    if x.numel():
+        triton, k, grid, geo, bc, bs, n_chunks = _args(x, num_groups,
+                                                       channels_last)
+        part = torch.empty(grid[0] * n_chunks, 3, dtype=torch.float32,
+                           device=x.device)
+        nw = _warps(bc, bs)
+        k["stats"][grid](x, part, *geo, BLOCK_C=bc, BLOCK_S=bs,
+                         num_warps=nw)
+        k["fwd"][grid](x, weight, bias, y, part, stats, *geo, float(eps),
+                       SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs, num_warps=nw)
+    LAUNCHES["group_norm"] += 1
+    return y, stats
+
+
+def group_norm_backward(x, weight, bias, stats, dy, num_groups,
+                        channels_last=False, silu=False):
+    """(dx, dweight, dbias) on CUDA tensors from the forward's x and stats:
+    dx in x's dtype, the two [C] vector gradients in fp32, each a sum over
+    samples and chunks of per-program partials added in a fixed order."""
+    dy = dy.contiguous()
+    _check(x, num_groups, weight, bias, channels_last)
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"group_norm_backward: dy {tuple(dy.shape)} "
+                         f"against x {tuple(x.shape)}")
+    c = x.shape[-1] if channels_last else x.shape[1]
+    dx = torch.empty_like(x)
+    sums = torch.zeros(2 * c, dtype=torch.float32, device=x.device)
+    if x.numel():
+        triton, k, grid, geo, bc, bs, n_chunks = _args(x, num_groups,
+                                                       channels_last)
+        rows = x.shape[0] * n_chunks
+        part = torch.empty(rows, 2 * c, dtype=torch.float32,
+                           device=x.device)
+        nw = _warps(bc, bs)
+        k["bwd_part"][grid](x, weight, bias, dy, stats, part, c, *geo,
+                            SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs,
+                            num_warps=nw)
+        k["bwd_dx"][grid](x, weight, bias, dy, dx, stats, part, c, *geo,
+                          SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs,
+                          num_warps=nw)
+        k["col_sum"][(triton.cdiv(2 * c, 64),)](part, sums, rows, 2 * c,
+                                                BLOCK_P=64, BLOCK_C=64,
+                                                num_warps=4)
+    LAUNCHES["group_norm_bwd"] += 1
+    return dx, sums[:c], sums[c:]
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """GroupNorm (with the SiLU after it) through the kernels: it keeps x,
+    the weight and bias (ones and zeros where there are none) and the
+    groups' (mean, rstd)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, channels_last, silu,
+                out_dtype):
+        c = x.shape[-1] if channels_last else x.shape[1]
+        w = weight if weight is not None else torch.ones(
+            c, dtype=torch.float32, device=x.device)
+        b = bias if bias is not None else torch.zeros(
+            c, dtype=torch.float32, device=x.device)
+        y, stats = group_norm_forward(x, w, b, num_groups, eps,
+                                      channels_last, silu, out_dtype)
+        ctx.save_for_backward(x, w, b, stats)
+        ctx.args = (num_groups, channels_last, silu)
+        ctx.dtypes = tuple(None if t is None else t.dtype
+                           for t in (weight, bias))
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, stats = ctx.saved_tensors
+        dx, dw, db = group_norm_backward(x, w, b, stats, dy, *ctx.args)
+        tw, tb = ctx.dtypes
+        return (dx, None if tw is None else dw.to(tw),
+                None if tb is None else db.to(tb), None, None, None, None,
+                None)
+
+
+def group_norm(x, num_groups, weight=None, bias=None, eps=1e-5,
+               channels_last=False, silu=False, out_dtype=None):
+    """GroupNorm of x ([N, C, ...], or [N, ..., C] with ``channels_last``)
+    over ``num_groups`` groups, written in ``out_dtype`` (x's dtype), with
+    ``silu`` a SiLU after it; differentiable: on a CUDA tensor the Triton
+    kernels (forward and backward), on a CPU tensor
+    ``group_norm_plain``."""
+    if x.device.type == "cpu":
+        return group_norm_plain(x, num_groups, weight, bias, eps,
+                                channels_last, silu, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
+    return GroupNormFunction.apply(x.contiguous(), weight, bias,
+                                   int(num_groups), float(eps),
+                                   bool(channels_last), bool(silu),
+                                   out_dtype)
+
+
+__all__ = ["group_norm", "group_norm_plain", "group_stats_split_plain",
+           "group_norm_forward", "group_norm_backward", "GroupNormFunction"]

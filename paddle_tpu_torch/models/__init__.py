@@ -4,9 +4,11 @@ from .ernie import (ErnieConfig, ErnieForPretraining,
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel
 from .llama import (LlamaConfig, LlamaForCausalLM, build_rope_cache,
                     load_numpy_optimizer_state, load_numpy_state)
+from .unet import UNet2DConditionModel, UNetConfig
 
 __all__ = ["ErnieConfig", "ErnieForPretraining",
            "ErnieForSequenceClassification", "ErnieModel",
            "ernie_pretrain_step", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "LlamaConfig", "LlamaForCausalLM", "build_rope_cache",
-           "load_numpy_optimizer_state", "load_numpy_state"]
+           "load_numpy_optimizer_state", "load_numpy_state",
+           "UNet2DConditionModel", "UNetConfig"]

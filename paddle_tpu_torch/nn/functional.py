@@ -12,7 +12,11 @@ and attention with a dense ``attn_mask`` or a dropout are plain PyTorch:
 the JAX package has no Pallas kernel for them either. ``dropout`` and
 ``layer_norm`` run Triton kernels on CUDA tensors (``kernels/dropout.py``,
 ``kernels/fused.py``): the passes XLA fuses. Each is the JAX op of its
-name for ``amp.auto_cast`` (``amp.op``).
+name for ``amp.auto_cast`` (``amp.op``). The convolutional models'
+functionals (``conv2d``, ``silu``, ``relu``, ``interpolate``,
+``group_norm``, ``batch_norm``, ``max_pool2d``, ``adaptive_avg_pool2d``)
+are at the end; ``group_norm`` runs Triton kernels on CUDA tensors
+(``kernels/group_norm.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from ..kernels import LAUNCHES
 from ..kernels import dropout as D
 from ..kernels import flash_attention as FA
 from ..kernels import fused
+from ..kernels import group_norm as GN
 
 
 def _sdpa_reference(q, k, v, mask=None, causal=False, dropout_p=0.0,
@@ -428,6 +433,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             "softmax over the last axis and no class weights")
     logp = torch.log_softmax(input.float(), dim=-1)
     lab = label.long()
+    if lab.dim() == input.dim():        # [N, 1] labels
+        lab = lab.squeeze(-1)
     valid = lab != ignore_index
     safe = torch.where(valid, lab, torch.zeros_like(lab))
     loss = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
@@ -435,7 +442,282 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     return loss.sum() / valid.sum().float().clamp(min=1.0)
 
 
+# -- the convolutional models' functionals ----------------------------------------
+#
+# The Stable Diffusion UNet's and ResNet's (``paddle_tpu/nn/functional/
+# {conv,activation,common,norm,pooling}.py``), for the cases the two
+# models use; other arguments raise NotImplementedError. The JAX package
+# computes them in XLA outside any Pallas kernel: ``conv2d`` is cuDNN's
+# (``torch.nn.functional.conv2d``), as a plain matmul is cuBLAS's; the
+# rest are PyTorch ops but ``group_norm``, which runs the Triton kernels of
+# ``kernels/group_norm.py`` on CUDA tensors (the pass XLA fuses).
+
+def _pair(v, name):
+    if isinstance(v, int):
+        return (v, v)
+    v = tuple(int(a) for a in v)
+    if len(v) != 2:
+        raise NotImplementedError(f"{name}: two spatial dims are ported, "
+                                  f"got {v}")
+    return v
+
+
+def _conv_pads(padding, x_hw, k, stride, dilation):
+    """((top, bottom), (left, right)) of ``padding`` in the JAX package's
+    forms (``conv.py:21`` ``_norm_padding``): an int, [ph, pw], [top,
+    bottom, left, right], [[0, 0], [0, 0], [t, b], [l, r]], or "SAME" /
+    "VALID" as ``lax.conv_general_dilated`` reads them."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return ((0, 0), (0, 0))
+        if mode != "SAME":
+            raise ValueError(f"conv2d padding {padding!r}")
+        pads = []
+        for n, kk, s, d in zip(x_hw, k, stride, dilation):
+            out = -(-n // s)
+            total = max((out - 1) * s + (kk - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    padding = list(padding)
+    if len(padding) == 2 and all(isinstance(p, int) for p in padding):
+        return tuple((p, p) for p in padding)
+    if len(padding) == 4 and all(isinstance(p, int) for p in padding):
+        return ((padding[0], padding[1]), (padding[2], padding[3]))
+    pairs = [tuple(int(a) for a in p) for p in padding
+             if not isinstance(p, int)]
+    if len(pairs) == 4:
+        pairs = pairs[2:]
+    if len(pairs) != 2:
+        raise ValueError(f"conv2d padding {padding!r}")
+    return tuple(pairs)
+
+
+@amp.op("conv2d")
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """2-D convolution as the JAX package's (``conv.py:39`` ``_conv_nd``):
+    x NCHW, weight ``[out, in / groups, kh, kw]``, stride, dilation,
+    groups and its padding forms; the product accumulated in fp32 and
+    rounded once to x's dtype, then the bias added in that dtype (as the
+    JAX op adds it after its ``astype``)."""
+    if data_format != "NCHW" or x.dim() != 4:
+        raise NotImplementedError(f"conv2d is ported for 4-D NCHW inputs, "
+                                  f"got {data_format!r} {x.dim()}-D")
+    stride, dilation = _pair(stride, "conv2d"), _pair(dilation, "conv2d")
+    (pt, pb), (pl, pr) = _conv_pads(padding, x.shape[2:],
+                                    tuple(weight.shape[2:]), stride,
+                                    dilation)
+    if pt == pb and pl == pr:
+        sym = (pt, pl)
+    else:
+        x = TF.pad(x, (pl, pr, pt, pb))
+        sym = (0, 0)
+    out = TF.conv2d(x, weight, None, stride, sym, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+@amp.op("silu")
+def silu(x, name=None):
+    """SiLU (``x * sigmoid(x)``) in x's dtype."""
+    return TF.silu(x)
+
+
+@amp.op("relu")
+def relu(x, name=None):
+    """ReLU in x's dtype."""
+    return TF.relu(x)
+
+
+def _nearest_index(n_in, n_out):
+    """The JAX package's nearest source index of each output position,
+    ``floor(i * (n_in / n_out))`` in fp32 (``common.py:157-166``)."""
+    ratio = torch.tensor(n_in / n_out, dtype=torch.float32)
+    return torch.floor(torch.arange(n_out, dtype=torch.float32) * ratio) \
+        .to(torch.int64)
+
+
+@amp.op("interpolate")
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Nearest-neighbour resizing of an NCHW tensor, with the JAX package's
+    index rule ``floor(i * in / out)``. Where that rule repeats each
+    source row and column k times (an integer factor), the output is a
+    broadcast and a reshape, whose backward is a plain sum; otherwise a
+    gather (its backward accumulates with atomics on the card, in no
+    fixed order). Other modes and layouts raise."""
+    if mode.lower() != "nearest":
+        raise NotImplementedError(f"interpolate mode {mode!r}: nearest is "
+                                  f"ported")
+    if data_format != "NCHW" or x.dim() != 4:
+        raise NotImplementedError("interpolate is ported for 4-D NCHW")
+    hw = tuple(x.shape[2:])
+    if size is not None:
+        size = [size] * 2 if isinstance(size, int) else list(size)
+        out_hw = tuple(int(s) for s in size)
+    else:
+        f = [scale_factor] * 2 if isinstance(scale_factor, (int, float)) \
+            else list(scale_factor)
+        out_hw = tuple(int(s * k) for s, k in zip(hw, f))
+    idx = [_nearest_index(n, o) for n, o in zip(hw, out_hw)]
+    reps = [o // n if o % n == 0 else 0 for n, o in zip(hw, out_hw)]
+    if all(r and torch.equal(i, torch.arange(o) // r)
+           for i, r, o in zip(idx, reps, out_hw)):
+        (h, w), (rh, rw) = hw, reps
+        b, c = x.shape[:2]
+        out = x[:, :, :, None, :, None].expand(b, c, h, rh, w, rw) \
+            .reshape(b, c, h * rh, w * rw)
+    else:
+        out = x.index_select(2, idx[0].to(x.device)) \
+            .index_select(3, idx[1].to(x.device))
+    return out
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None, *, then=None):
+    """GroupNorm as the JAX package's (``norm.py:186``): mean and biased
+    variance of each (sample, group) in fp32, ``(x - mean) / sqrt(var +
+    eps)``, times the weight and plus the bias in fp32, in x's dtype; the
+    channels at axis 1 (``data_format`` "NCHW") or last ("NHWC"). On CUDA
+    tensors the Triton kernels of ``kernels.group_norm``, on CPU tensors
+    its plain version.
+
+    ``then`` names the JAX op that consumes the output, so that the one
+    kernel does the work of the ops between: "silu" fuses the SiLU in;
+    another op (a white-listed "conv2d") has the output written in the
+    dtype that op's ``amp`` cast gives it. Under ``amp.auto_cast`` the
+    op is "group_norm" (black-listed: it computes in fp32 and its output
+    is fp32) and then ``then`` (which casts that output, at O2 to the low
+    dtype); the kernel reads x and the parameters as they are (their fp32
+    casts are exact) and writes what the casts would give, so the bits are
+    the separate ops'. ``amp.debugging`` sees "group_norm" and then
+    "silu", as the JAX package dispatches them."""
+    if data_format not in ("NCHW", "NHWC", "NCL", "NLC", "NC"):
+        raise NotImplementedError(f"group_norm data_format {data_format!r}")
+    if then is not None and not isinstance(then, str):
+        raise TypeError(f"group_norm: then names an op, got {then!r}")
+    last = data_format in ("NHWC", "NLC")
+    st = amp.amp_state
+    as_ops = not st.depth and amp._active()
+    out_dtype = x.dtype
+    if as_ops:
+        for observe in st.observers:
+            observe("group_norm", [t for t in (x, weight, bias)
+                                   if t is not None])
+        out_dtype = amp.cast_dtype("group_norm", x.dtype)
+        if then is not None:
+            if then == "silu":
+                for observe in st.observers:
+                    observe("silu", [torch.empty(x.shape, dtype=out_dtype,
+                                                 device="meta")])
+            out_dtype = amp.cast_dtype(then, out_dtype)
+    st.depth += 1          # the kernel's own calls are not ops
+    try:
+        out = GN.group_norm(x, int(num_groups), weight, bias, epsilon, last,
+                            then == "silu", out_dtype)
+    finally:
+        st.depth -= 1
+    if as_ops and st.checker is not None:
+        st.checker(then if then == "silu" else "group_norm", out)
+    return out
+
+
+@amp.op("batch_norm")
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """BatchNorm as the JAX package's (``norm.py:95``): in training (and
+    not ``use_global_stats``) x normalised by the batch's mean and biased
+    variance in fp32, and the running statistics updated in place,
+    ``momentum * running + (1 - momentum) * batch`` (momentum weighs the
+    old value; the variance is the biased one), so that a captured step's
+    replay updates them too; in eval by the running statistics. The
+    weight and bias apply in fp32; the output is in x's dtype.
+    PyTorch's own ``F.batch_norm`` updates with the other convention
+    (its momentum weighs the new value, its variance is unbiased) and is
+    not used."""
+    last = data_format.endswith("C") and data_format != "NCHW"
+    ch = x.dim() - 1 if last and x.dim() > 2 else 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    shape = [1] * x.dim()
+    shape[ch] = -1
+    x32 = x.float()
+    if training and not use_global_stats:
+        var, mean = torch.var_mean(x32, dim=axes, unbiased=False)
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean.float()
+                               + (1 - momentum) * mean)
+            running_var.copy_(momentum * running_var.float()
+                              + (1 - momentum) * var)
+    else:
+        mean, var = running_mean.float(), running_var.float()
+    # (x - mean) / sqrt(var + eps) * w + b with the per-channel factors
+    # formed first: two passes over x forward, and few in the backward
+    scale = 1.0 / torch.sqrt(var + epsilon)
+    if weight is not None:
+        scale = scale * weight.float()
+    centered = x32 - mean.reshape(shape)
+    if bias is None:
+        out = centered * scale.reshape(shape)
+    else:
+        out = torch.addcmul(bias.float().reshape(shape), centered,
+                            scale.reshape(shape))
+    return out.to(x.dtype)
+
+
+def _pool_pads(padding, name):
+    if isinstance(padding, int):
+        return (padding, padding)
+    padding = list(padding)
+    if len(padding) == 2 and all(isinstance(p, int) for p in padding):
+        return tuple(padding)
+    if len(padding) == 4 and padding[0] == padding[1] \
+            and padding[2] == padding[3]:
+        return (padding[0], padding[2])
+    raise NotImplementedError(f"{name}: symmetric padding is ported, got "
+                              f"{padding!r}")
+
+
+@amp.op("max_pool2d")
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCHW", name=None):
+    """Max pooling of NCHW as the JAX package's (``pooling.py:117``,
+    windows padded with -inf), for symmetric padding without ``ceil_mode``
+    or a mask.
+    PyTorch's CUDA backward of it gathers, for each input element, the
+    gradients of the windows that chose it, in a fixed order: the same
+    bits every run."""
+    if return_mask or ceil_mode or data_format != "NCHW":
+        raise NotImplementedError("max_pool2d is ported for NCHW without "
+                                  "return_mask or ceil_mode")
+    k = _pair(kernel_size, "max_pool2d")
+    s = k if stride is None else _pair(stride, "max_pool2d")
+    return TF.max_pool2d(x, k, s, _pool_pads(padding, "max_pool2d"))
+
+
+@amp.op("adaptive_avg_pool2d")
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Adaptive average pooling of NCHW (``pooling.py:473``) where each
+    output cell averages an equal window (the size divides the input's:
+    (1, 1) is the mean over H * W), in x's dtype. The mean's backward is a
+    broadcast, where PyTorch's adaptive pooling backward is on its list of
+    nondeterministic ops on the card."""
+    b, c, h, w = x.shape
+    oh, ow = _pair(output_size, "adaptive_avg_pool2d")
+    oh, ow = oh or h, ow or w
+    if data_format != "NCHW" or h % oh or w % ow:
+        raise NotImplementedError("adaptive_avg_pool2d is ported for NCHW "
+                                  "and output sizes that divide the input's")
+    return x.reshape(b, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "FlashMaskBounds", "prepare_flashmask", "flashmask_kernels_take",
            "rms_norm", "layer_norm", "dropout", "tanh",
-           "cross_entropy", "gelu", "linear", "embedding", "swiglu"]
+           "cross_entropy", "gelu", "linear", "embedding", "swiglu",
+           "conv2d", "silu", "relu", "interpolate", "group_norm",
+           "batch_norm", "max_pool2d", "adaptive_avg_pool2d"]

@@ -1,5 +1,6 @@
-"""The initial distributions of ``paddle_tpu/nn/initializer``, drawn from
-an explicit ``torch.Generator``.
+"""The initial distributions of ``paddle_tpu/nn/initializer`` (Xavier,
+``Constant``, ``Uniform``, ``KaimingUniform``), drawn from an explicit
+``torch.Generator``.
 
 The draws differ from the JAX package's (another generator); the
 distributions are the same: Xavier fans of a 2-D ``[in, out]`` weight are
@@ -41,6 +42,36 @@ def xavier_normal_(t, generator, fan_in=None, fan_out=None, gain=1.0):
     fo = fo if fan_out is None else fan_out
     return t.normal_(0.0, gain * math.sqrt(2.0 / (fi + fo)),
                      generator=generator)
+
+
+@torch.no_grad()
+def constant_(t, value=0.0):
+    """``Constant(value)``."""
+    return t.fill_(value)
+
+
+@torch.no_grad()
+def uniform_(t, generator, low=-1.0, high=1.0):
+    """``Uniform(low, high)``."""
+    return t.uniform_(low, high, generator=generator)
+
+
+@torch.no_grad()
+def kaiming_uniform_(t, generator, fan_in=None, negative_slope=0.0,
+                     nonlinearity="leaky_relu"):
+    """``KaimingUniform``: uniform in +-gain * sqrt(3 / fan_in), the gain
+    sqrt(2) for "relu", sqrt(2 / (1 + slope^2)) for "leaky_relu" and 1
+    otherwise; ``fan_in`` the weight's (``_fans``) unless given (a conv
+    weight's is (in / groups) * kh * kw)."""
+    fi = _fans(tuple(t.shape))[0] if fan_in is None else fan_in
+    if nonlinearity == "relu":
+        gain = math.sqrt(2.0)
+    elif nonlinearity == "leaky_relu":
+        gain = math.sqrt(2.0 / (1 + negative_slope ** 2))
+    else:
+        gain = 1.0
+    limit = gain * math.sqrt(3.0 / fi)
+    return t.uniform_(-limit, limit, generator=generator)
 
 
 class ParamAttr:
@@ -107,5 +138,6 @@ def set_param_attr(param, attr):
     return param
 
 
-__all__ = ["xavier_uniform_", "xavier_normal_", "ParamAttr",
+__all__ = ["xavier_uniform_", "xavier_normal_", "constant_", "uniform_",
+           "kaiming_uniform_", "ParamAttr",
            "NamedParameter", "set_param_attr"]

@@ -1,5 +1,6 @@
-"""``Linear``, ``Embedding`` and ``Dropout``
-(``paddle_tpu/nn/layer/common.py:20, :47, :69``) as ``nn.Module``s: the
+"""``Identity``, ``Linear``, ``Embedding``, ``Dropout`` and ``Flatten``
+(``paddle_tpu/nn/layer/common.py:12, :20, :47, :69, :115``) as
+``nn.Module``s: the
 JAX layers' arguments, parameter names, layouts and initial distributions
 (``Linear``: weight ``[in, out]`` Xavier-normal, bias zeros;
 ``Embedding``: Normal(0, 1), the padding row zeros), drawn on an explicit
@@ -13,6 +14,14 @@ from torch import nn
 from .. import functional as F
 from ..initializer import xavier_normal_
 from .layers import make_parameter, placement
+
+
+class Identity(nn.Module):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(nn.Module):
@@ -84,4 +93,16 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+class Flatten(nn.Module):
+    """``torch.flatten`` of the axes ``start_axis`` to ``stop_axis``."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+__all__ = ["Identity", "Linear", "Embedding", "Dropout", "Flatten"]

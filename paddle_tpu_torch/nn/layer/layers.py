@@ -1,4 +1,5 @@
-"""``LayerList`` (``paddle_tpu/nn/layer/layers.py:398``), and what the
+"""``LayerList`` and ``Sequential`` (``paddle_tpu/nn/layer/layers.py:398,
+:364``), and what the
 layers of ``nn/layer`` share: where a parameter is made and how its
 attribute is read."""
 from __future__ import annotations
@@ -14,6 +15,24 @@ class LayerList(nn.ModuleList):
     """Sublayers held in order and named "0", "1", ...: the JAX
     ``LayerList``'s indexing, slicing, ``append``, ``insert``,
     ``extend`` and iteration are ``nn.ModuleList``'s."""
+
+
+class Sequential(nn.Sequential):
+    """Sublayers run in order, named "0", "1", ... (or the names of
+    ``(name, layer)`` pairs, given one by one or as one list), as the JAX
+    ``Sequential`` names them, so parameter names match."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) \
+                and len(layers[0]) and isinstance(layers[0][0],
+                                                  (list, tuple)):
+            layers = tuple(layers[0])
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_module(layer[0], layer[1])
+            else:
+                self.add_module(str(i), layer)
 
 
 def placement(device, dtype):
@@ -41,4 +60,4 @@ def make_parameter(shape, attr, device, dtype, init):
     return p
 
 
-__all__ = ["LayerList", "placement", "make_parameter"]
+__all__ = ["LayerList", "Sequential", "placement", "make_parameter"]

@@ -2329,3 +2329,255 @@ def test_decoder_layer_norm_on_the_bf16_state_equals_the_fp32_form(dev):
     want = fused.dropout_add_layer_norm(x.float(), w.float(), b.float(),
                                         1e-5).to(x.dtype)
     assert torch.equal(generation._ln(x, w, b, 1e-5), want)
+
+
+def _gn_inputs(dev, dtype, shape, seed=3, affine=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = (3 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+    w = (1 + 0.2 * torch.randn(c, device=dev, generator=g)).to(dtype) \
+        if affine else None
+    b = (0.2 * torch.randn(c, device=dev, generator=g)).to(dtype) \
+        if affine else None
+    dy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    return x, w, b, dy
+
+
+def _gn_close(got, want, dtype, ulps, scale=0.0):
+    """fp32: within 2e-5 of the largest of 1, the reference and ``scale``
+    (dx's own: rstd * |dy * w|, whose rounding it carries where a group's
+    variance is 0 and dx is 0 in exact arithmetic); bf16: ``ulps`` ulps
+    of each row's largest value."""
+    if dtype == torch.float32:
+        tol = 2e-5 * max(1.0, float(want.abs().max()), scale)
+        assert float((got - want).abs().max()) <= tol
+    elif want.dim() > 1:
+        _assert_rows_close(got, want, ulps)
+    else:
+        assert float((got.float() - want.float()).abs().max()) \
+            <= ulps * 2.0 ** -7 * float(want.float().abs().max())
+
+
+_GN_CASES = [((4, 320, 64, 64), 32, "NCHW"), ((2, 1280, 8, 8), 32, "NCHW"),
+             ((3, 12, 5, 7), 3, "NCHW"), ((2, 8, 1, 1), 8, "NCHW"),
+             ((2, 6, 9), 1, "NCHW"), ((2, 96, 33, 17), 1, "NCHW"),
+             ((2, 320, 32, 32), 32, "NHWC"), ((3, 12, 5, 7), 3, "NHWC"),
+             ((2, 96, 33, 17), 1, "NHWC")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,layout", _GN_CASES)
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_matches_plain(dev, dtype, shape, groups, layout, silu):
+    """The GroupNorm kernels, forward and backward, with and without the
+    SiLU, channels first and last, against the plain formula's autograd:
+    fp32 within 2e-5 of the largest value, bf16 each row within one ulp
+    of its largest plain value (two with the SiLU: the rounded norm it
+    reads may sit one ulp apart); two calls give the same bits."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    x, w, b, dy = _gn_inputs(dev, dtype, shape)
+    last = layout == "NHWC"
+    if last:
+        x, dy = (t.permute(0, 2, 3, 1).contiguous() for t in (x, dy))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = (K.LAUNCHES["group_norm"], K.LAUNCHES["group_norm_bwd"])
+    out = GN.group_norm(leaves[0], groups, leaves[1], leaves[2], 1e-5, last,
+                        silu)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["group_norm"], K.LAUNCHES["group_norm_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    again = [t.clone().requires_grad_() for t in (x, w, b)]
+    out2 = GN.group_norm(again[0], groups, again[1], again[2], 1e-5, last,
+                         silu)
+    out2.backward(dy)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a.grad, c.grad) for a, c in zip(leaves, again))
+    plain = [t.clone().requires_grad_() for t in (x, w, b)]
+    want = GN.group_norm_plain(plain[0], groups, plain[1], plain[2], 1e-5,
+                               last, silu)
+    want.backward(dy)
+    ulps = 2 if silu else 1
+    _gn_close(out.detach(), want.detach(), dtype, ulps)
+    xg = (x.movedim(-1, 1) if last else x).float().reshape(shape[0], groups,
+                                                           -1)
+    rstd = float((xg.var(-1, unbiased=False) + 1e-5).rsqrt().max())
+    dx_scale = rstd * float((dy.float().abs().max() * w.float().abs().max()))
+    for a, c, scale in zip(leaves, plain, (dx_scale, 0.0, 0.0)):
+        _gn_close(a.grad, c.grad, dtype, 2, scale)
+
+
+def test_group_norm_without_affine_and_out_dtype(dev):
+    """No weight and no bias (ones and zeros stand in), and a bf16 input
+    written in fp32 and an fp32 input written in bf16."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    x, _, _, _ = _gn_inputs(dev, torch.bfloat16, (2, 64, 16, 16),
+                            affine=False)
+    got = GN.group_norm(x, 8, out_dtype=torch.float32)
+    want = GN.group_norm_plain(x, 8, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+    got = GN.group_norm(x.float(), 8, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    _assert_rows_close(got, want.bfloat16(), 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (2, 1280, 8, 8)])
+def test_group_norm_fused_silu_is_the_o2_composition(dev, shape):
+    """Under ``amp.auto_cast(level="O2")`` with bf16 x and parameters, the
+    fused call (``then="silu"``: the kernel reads bf16 and writes the bf16
+    SiLU) against the separate ops (the black-listed norm in fp32, then
+    the SiLU on its cast): the norm's output bit-equal, the SiLU's output
+    and every gradient within one bf16 ulp of each value (bit-equal where
+    the kernel's fp32 SiLU is PyTorch's)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    x, w, b, dy = _gn_inputs(dev, torch.bfloat16, shape)
+    fused_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    sep_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    with amp.auto_cast(level="O2"):
+        y = F.group_norm(fused_in[0], 32, 1e-5, fused_in[1], fused_in[2],
+                         then="silu")
+        norm = F.group_norm(sep_in[0], 32, 1e-5, sep_in[1], sep_in[2])
+        want = F.silu(norm)
+        norm_cast = F.group_norm(x, 32, 1e-5, w, b, then="conv2d")
+    assert norm.dtype == torch.float32 and y.dtype == torch.bfloat16
+    assert torch.equal(norm_cast, norm.to(torch.bfloat16))
+    y.backward(dy)
+    want.backward(dy)
+    torch.cuda.synchronize()
+
+    def within_one_ulp(a, c):
+        a, c = a.float(), c.float()
+        ulp = 2.0 ** -7 * c.abs().clamp(min=2.0 ** -126)
+        assert bool(((a - c).abs() <= ulp).all())
+    within_one_ulp(y, want)
+    for a, c in zip(fused_in, sep_in):
+        within_one_ulp(a.grad, c.grad)
+
+
+def test_group_norm_replays_from_a_graph(dev):
+    """Forward and backward captured in a CUDA graph: each replay after
+    the input is rewritten equals an eager call bit for bit."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    x, w, b, dy = _gn_inputs(dev, torch.bfloat16, (2, 640, 32, 32))
+    xs = x.clone().requires_grad_()
+
+    def step():
+        xs.grad = None
+        y = GN.group_norm(xs, 32, w, b, 1e-5, silu=True)
+        return y, torch.autograd.grad(y, xs, dy)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_cap, dx_cap = step()
+    for seed in (1, 2):
+        with torch.no_grad():
+            xs.copy_(_gn_inputs(dev, torch.bfloat16, (2, 640, 32, 32),
+                                seed=seed)[0])
+        graph.replay()
+        y, dx = step()
+        torch.cuda.synchronize()
+        assert torch.equal(y_cap, y) and torch.equal(dx_cap, dx)
+
+
+def test_pool_and_interpolate_backwards_are_deterministic(dev):
+    """The ResNet stem's max pool (3 x 3, stride 2, padding 1) and the
+    UNet's nearest upsampling: their backwards run under
+    ``torch.use_deterministic_algorithms`` (PyTorch raises on an op it
+    knows to be nondeterministic) and give the same bits twice."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, 64, 56, 56, device=dev, generator=g)
+    dy_pool = torch.randn(8, 64, 28, 28, device=dev, generator=g)
+    dy_up = torch.randn(8, 64, 112, 112, device=dev, generator=g)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = []
+        for _ in range(2):
+            xs = x.clone().requires_grad_()
+            a = torch.autograd.grad(F.max_pool2d(xs, 3, 2, 1), xs,
+                                    dy_pool)[0]
+            c = torch.autograd.grad(F.interpolate(xs, scale_factor=2), xs,
+                                    dy_up)[0]
+            e = torch.autograd.grad(F.adaptive_avg_pool2d(xs, 1), xs,
+                                    dy_pool[:, :, :1, :1])[0]
+            grads.append((a, c, e))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert all(torch.equal(p, q) for p, q in zip(*grads))
+    want = dy_up.reshape(8, 64, 56, 2, 56, 2).sum(dim=(3, 5))
+    assert float((grads[0][1] - want).abs().max()) <= 1e-5
+
+
+def test_tiny_unet_and_resnet_train_on_card_as_on_cpu(dev):
+    """A tiny float32 UNet (AdamW lr 1e-4) and ResNet-18 (Momentum 1e-4,
+    L2 decay; [8, 3, 64, 64], so that layer4's BatchNorms see 32 values),
+    3 trainer steps each on the card (captured) against the CPU trainer
+    from the same weights: losses 1e-5 relative, weights within 1e-5 for
+    99.9% of the elements and 3 lr for all, the ResNet's running
+    statistics within 1e-4 of each buffer's largest value (at least 1):
+    layer4's BatchNorms take their statistics over 32 values, which
+    magnifies the rounding differences of the layers before."""
+    from paddle_tpu_torch.models import (UNet2DConditionModel, UNetConfig,
+                                         load_numpy_state)
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.models import resnet18
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(4)
+    cfg = UNetConfig.tiny(ch=(32, 64), cross=32, groups=8)
+    unet_batch = [torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 4, 16, 16)).astype(np.float32),
+        np.array([3, 900]), rng.standard_normal((2, 7, 32))
+        .astype(np.float32),
+        rng.standard_normal((2, 4, 16, 16)).astype(np.float32))]
+    res_batch = [torch.from_numpy(rng.standard_normal((8, 3, 64, 64))
+                                  .astype(np.float32)),
+                 torch.from_numpy(rng.integers(0, 5, 8))]
+
+    def unet_loss(m, x, t, ctx, noise):
+        return ((m(x, t, ctx) - noise) ** 2).mean()
+
+    ce = CrossEntropyLoss()
+    cases = (
+        (lambda d: UNet2DConditionModel(cfg, device=d),
+         lambda m: AdamW(learning_rate=1e-4, parameters=m.parameters()),
+         unet_loss, unet_batch, 1e-4),
+        (lambda d: resnet18(num_classes=5, device=d),
+         lambda m: Momentum(learning_rate=1e-4, momentum=0.9,
+                            parameters=m.parameters(),
+                            weight_decay=L2Decay(1e-4)),
+         lambda m, x, y: ce(m(x), y), res_batch, 1e-4))
+    for make, make_opt, loss_fn, batch, lr in cases:
+        torch.manual_seed(0)
+        cpu = make("cpu")
+        gpu = make(dev)
+        load_numpy_state(gpu, {k: v.numpy() for k, v in
+                               cpu.state_dict().items()})
+        losses = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            tr = SpmdTrainer(model, make_opt(model), loss_fn)
+            losses.append([float(tr.train_step(*(t.to(d) for t in batch)))
+                           for _ in range(3)])
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+        want = cpu.state_dict()
+        close = total = 0
+        for k, v in gpu.state_dict().items():
+            d = (v.cpu() - want[k]).abs()
+            if "_mean" in k or "_variance" in k:
+                tol = 1e-4 * max(1.0, float(want[k].abs().max()))
+            else:
+                tol = 3 * lr
+            assert float(d.max()) <= tol, k
+            close += int((d <= 1e-5).sum())
+            total += d.numel()
+        assert close >= 0.999 * total

@@ -1,6 +1,7 @@
 """paddle_tpu_torch stands alone: no module of it, nor chip_smoke.py,
-imports JAX or paddle_tpu, importing it loads no JAX, and its entry
-points refuse to fall back to the CPU when no GPU is there."""
+imports JAX or paddle_tpu, importing it loads no JAX (nor Triton: the
+kernels import it at their first launch), and its entry points refuse to
+fall back to the CPU when no GPU is there."""
 import ast
 import os
 import subprocess
@@ -59,7 +60,14 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.kernels.dropout, paddle_tpu_torch.nn.layer, "
             "paddle_tpu_torch.distributed.fleet.meta_parallel, "
             "paddle_tpu_torch.incubate.nn.functional, "
-            "paddle_tpu_torch.models.ernie; "
+            "paddle_tpu_torch.models.ernie, paddle_tpu_torch.models.unet, "
+            "paddle_tpu_torch.vision, paddle_tpu_torch.vision.models, "
+            "paddle_tpu_torch.vision.models.resnet, "
+            "paddle_tpu_torch.kernels.group_norm, "
+            "paddle_tpu_torch.nn.layer.conv, "
+            "paddle_tpu_torch.nn.layer.activation, "
+            "paddle_tpu_torch.nn.layer.pooling, "
+            "paddle_tpu_torch.nn.layer.loss, paddle_tpu_torch.nn.layer.norm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -181,3 +189,25 @@ def test_artifact_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert out.shape == (1, 4, 17)
     assert jit.load(path, device="cpu")(torch.ones(2, 4, dtype=torch.long)) \
         .shape == (2, 4, 17)
+
+
+@pytest.mark.parametrize("module", ["models/unet.py", "vision",
+                                    "kernels/group_norm.py", "nn/layer"])
+def test_convolutional_slice_imports_no_jax_package(module):
+    """The UNet, ResNet, the GroupNorm kernels and the nn layers they are
+    built from: no file imports jax or paddle_tpu, and the GroupNorm
+    module imports Triton only inside the function that launches."""
+    root = os.path.join(REPO, "paddle_tpu_torch", module)
+    files = [root] if root.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+        if f.endswith(".py")]
+    assert files
+    for path in files:
+        assert not _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
+        with open(path) as f:
+            body = ast.parse(f.read()).body
+        top = {a.name.split(".")[0] for node in body
+               if isinstance(node, ast.Import) for a in node.names}
+        top |= {node.module.split(".")[0] for node in body
+                if isinstance(node, ast.ImportFrom) and node.level == 0}
+        assert "triton" not in top, path
