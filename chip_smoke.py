@@ -63,7 +63,17 @@ Phases, each printing its own lines and its seconds:
      bf16, [4, 320, 64, 64] in fp32 and [4, 64, 64, 320] NHWC, against
      its plain version, replayed from a graph, and (bf16) against the O2
      composition (the norm in fp32, the SiLU on its cast), timed beside
-     its bound, F.group_norm (+ F.silu) and its autograd;
+     its bound, F.group_norm (+ F.silu) and its autograd; BatchNorm with
+     the ReLU, with the residual add and the ReLU, and alone, forward
+     (training and eval) and backward, at ResNet-50's [128, 64, 112,
+     112], [128, 256, 56, 56] and [128, 2048, 7, 7] in bf16 under O1's
+     dtypes (fp32 weights, residual and output), one fp32 and one NHWC
+     case, against its plain version, two calls and a graph replay with
+     the running statistics bit-equal, the fused calls bit-equal to the
+     unfused kernel followed by PyTorch's add and ReLU under amp O1,
+     timed beside its bound, the plain version and cuDNN's F.batch_norm
+     (+ add, + F.relu) and its autograd; an InstanceNorm2D through the
+     GroupNorm kernel against its plain version;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -95,6 +105,9 @@ Phases, each printing its own lines and its seconds:
      reorder's ms alone, and a float32 2-layer pair's beams must equal the
      CPU's; and one ragged step through the kernels must agree with the
      same step through the plain versions (in bf16 and in float32);
+     4b. ``LlamaConfig.llama2_13b()`` at full width in bf16 (26 GB of
+     seeded random weights) served through the engine's captured step,
+     6 requests, exact launch counts, decode and prefill ms;
   5. the llama-1.1b-b8 training recipe at full width (bf16 weights, fp32
      moments, full remat, chunked loss), its step captured in one CUDA
      graph (the trainer's first call runs the step and captures it): 2
@@ -206,10 +219,14 @@ Phases, each printing its own lines and its seconds:
   15. ResNet-50 (BASELINE configuration 1) at ImageNet shape, batch 128 x
      [3, 224, 224], float32 weights under amp O1, Momentum with L2Decay,
      captured: step ms with cuDNN's own choice and deterministic,
-     images/s, MFU, peak, a profile, the 53 BatchNorms' device ms alone;
-     3 replayed steps against 3 eager ones from one snapshot, bit-equal
-     with every running statistic; an eval forward at batch 128; a tiny
-     float32 ResNet-18 on the card against the CPU trainer;
+     images/s, MFU, peak, a profile, exact launch counts (53 BatchNorm
+     forwards and 53 backwards a step, the ReLU and the residual add
+     fused), the 53 BatchNorms' device ms alone through the kernels and
+     through the composition of PyTorch ops they replaced, in the same
+     call; 3 replayed steps against 3 eager ones from one snapshot,
+     bit-equal with every running statistic; an eval forward at batch
+     128 (53 BatchNorm launches); a tiny float32 ResNet-18 on the card
+     against the CPU trainer;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -223,6 +240,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -1228,6 +1246,71 @@ def phase_serving(torch, args, launches_out, beam_launches_out):
     return serving
 
 
+def phase_llama13b_serving(torch, args, launches_out):
+    """``LlamaConfig.llama2_13b()`` (the JAX preset: hidden 5120, 40
+    layers, 40 heads; BASELINE configuration 2's larger model) at full
+    width in bf16 (26 GB of random weights from the seed) served through
+    the engine's captured step: 6 requests of 64-700 prompt tokens, 16
+    new tokens each; exact launch counts, nothing routed, every request
+    its tokens; decode and prefill step ms at a batch of at most 6
+    requests: a latency check of the preset, not a serving rate (phase 4
+    measures that)."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    card = _card_line()
+    cfg = LlamaConfig.llama2_13b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(args.seed + 3))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 4b: Llama-2-13B (llama2_13b(): hidden {cfg.hidden_size}, "
+          f"{cfg.num_hidden_layers} layers, {cfg.num_attention_heads} "
+          f"heads) bf16, {n_params / 1e9:.3f}B random parameters from seed "
+          f"{args.seed + 3}, init {time.monotonic() - t0:.2f}s [{card}]",
+          flush=True)
+    eng = ServingEngine(model, EngineConfig(max_seqs=6, token_budget=256,
+                                            block_size=16,
+                                            max_model_len=1024))
+    per_step = _llama_per_step(cfg.num_hidden_layers)
+    if eng._tally != {k: v for k, v in per_step.items() if v}:
+        raise AssertionError(f"phase 4b: a replay launches {eng._tally}, "
+                             f"not {per_step}")
+    eng.generate_batch([list(range(1, 17))], max_new_tokens=2)  # warm-up
+    rng = np.random.default_rng(args.seed + 3)
+    prompts = [rng.integers(1, cfg.vocab_size, (int(n),)).tolist()
+               for n in np.linspace(64, 700, 6)]
+    stats, outs, launches, _ = _serve_requests(torch, eng, prompts, 16)
+    expect = {n: per_step.get(n, 0) * stats["steps"] for n in K.LAUNCHES}
+    _nothing_routed(launches, "phase 4b")
+    ok = launches == expect and all(
+        len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o)
+        for o in outs)
+    for n, c in launches.items():
+        launches_out[n] = launches_out.get(n, 0) + c
+    for k in ("rids", "decode_tokens_per_s", "prefill_tokens_per_s"):
+        stats.pop(k)
+    stats.update(params=n_params, capture_seconds=eng.capture_seconds,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 card=card)
+    print(f"  phase 4b Llama-2-13B captured: {stats['steps']} steps, decode "
+          f"{stats['decode_step_ms']:.3f} ms a step, prefill "
+          f"{stats['prefill_step_ms']:.3f} ms a step (latencies at a batch "
+          f"of at most 6 requests, not a serving rate), capture "
+          f"{eng.capture_seconds:.2f}s, peak {stats['peak_memory_gb']:.2f} "
+          f"GB; launches {launches} (expected {expect}) "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError("phase 4b: launch counts or tokens wrong")
+    del eng, model
+    _free(torch)
+    return stats
+
+
 def _fmt_host(h):
     return "/".join(f"{h[k]:.2f}" for k in ("schedule", "pack", "device",
                                             "emit"))
@@ -1500,6 +1583,10 @@ def _captured_step_f32(torch, make_model, seed, quant=None):
 
 
 def _kernel_group(name):
+    if "_bn_bwd_" in name:
+        return "batch_norm_bwd"
+    if "_bn_stats_kernel" in name or "_bn_fwd_kernel" in name:
+        return "batch_norm"
     if "_gn_bwd_" in name:
         return "group_norm_bwd"
     if "_gn_stats_kernel" in name or "_gn_fwd_kernel" in name:
@@ -4771,7 +4858,7 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     # (b1) into the live parameters and state, which the trainer's graph,
     # captured at the first step, reads and writes
     t = time.monotonic()
-    state = io.load_tensors(path)
+    state = io.load(path)
     model.load_state_dict(state["model"])
     opt.set_state_dict(state["opt"])
     sched.set_state_dict(state["sched"])
@@ -4794,7 +4881,7 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     # (b2) into a fresh model (other weights, so the load must replace
     # them), optimizer, scheduler and trainer
     t = time.monotonic()
-    state = io.load_tensors(path)
+    state = io.load(path)
     model = _recipe_model(torch, cfg, args.seed + 99, torch.bfloat16)
     sched, opt = _recipe(model)
     model.load_state_dict(state["model"])
@@ -5781,6 +5868,430 @@ def phase_group_norm_kernels(torch, results):
         _gn_case(torch, results, dev, tag, shape, layout, dtype_name, 70 + i)
 
 
+# -- phase 3: the BatchNorm kernels ------------------------------------------------
+
+# (tag, shape, layout, x dtype, form): ResNet-50's stem, a layer1 block's
+# last BatchNorm and layer4's, in bf16 under O1's dtypes (fp32 weights,
+# residual and output), a downsample's (no ReLU), one fp32 and one NHWC
+BN_CASES = (
+    ("[128, 64, 112, 112] bf16 +ReLU", (128, 64, 112, 112), "NCHW",
+     "bfloat16", "relu"),
+    ("[128, 256, 56, 56] bf16 +residual +ReLU", (128, 256, 56, 56), "NCHW",
+     "bfloat16", "residual_relu"),
+    ("[128, 2048, 7, 7] bf16 +residual +ReLU", (128, 2048, 7, 7), "NCHW",
+     "bfloat16", "residual_relu"),
+    ("[128, 2048, 7, 7] bf16", (128, 2048, 7, 7), "NCHW", "bfloat16",
+     "plain"),
+    ("[32, 256, 56, 56] fp32 +ReLU", (32, 256, 56, 56), "NCHW", "float32",
+     "relu"),
+    ("[32, 56, 56, 256] bf16 NHWC +residual +ReLU", (32, 56, 56, 256),
+     "NHWC", "bfloat16", "residual_relu"),
+)
+BN_MAIN = "[128, 256, 56, 56] bf16 +residual +ReLU"   # the kernels line's
+
+
+def _bn_bytes_ops(n_el, esize, backward, res, relu):
+    """(bytes, operations) of a BatchNorm call under O1's dtypes: forward x
+    read, the fp32 residual read and the fp32 output written once;
+    backward x, dy (fp32) and, under the ReLU, the output read, dx and the
+    fp32 residual's gradient written once; about 10 operations an element
+    forward and 20 backward."""
+    if backward:
+        nbytes = n_el * (2 * esize + 4 + (4 if relu else 0)
+                         + (4 if res else 0))
+    else:
+        nbytes = n_el * (esize + 4 + (4 if res else 0))
+    return nbytes, (20 if backward else 10) * n_el
+
+
+def _bn_abs_sums(torch, x, y, dy, relu, last):
+    """Per channel, sum |g| and sum |g * x-hat| (g: dy under the ReLU's
+    mask): the scale of the rounding of the two gradient sums."""
+    ch = x.dim() - 1 if last else 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    shape = [1] * x.dim()
+    shape[ch] = -1
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=axes, unbiased=False)
+    xh = (x32 - mean.reshape(shape)) * (var + 1e-5).rsqrt().reshape(shape)
+    g = torch.where(y <= 0, 0.0, dy) if relu else dy
+    return (g * xh).abs().sum(dim=axes), g.abs().sum(dim=axes)
+
+
+def _bn_o1_composition(torch, x, w, b, r, stats, dy, tag, fmt):
+    """Under ``amp.auto_cast(level="O1")`` the fused calls (``then=
+    "relu"``, with the residual where the case has one) against the
+    kernel's unfused output followed by PyTorch's add and ReLU: output,
+    dx, dresidual, dweight, dbias and the running statistics bit-equal."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    runs = []
+    for fused in (True, False):
+        xi, wi, bi = (t.clone().requires_grad_() for t in (x, w, b))
+        ri = None if r is None else r.clone().requires_grad_()
+        rm, rv = (t.clone() for t in stats)
+        with amp.auto_cast(level="O1"):
+            if fused:
+                y = F.batch_norm(xi, rm, rv, wi, bi, training=True,
+                                 data_format=fmt, residual=ri, then="relu")
+            else:
+                z = F.batch_norm(xi, rm, rv, wi, bi, training=True,
+                                 data_format=fmt)
+                y = F.relu(z if ri is None else z + ri)
+        y.backward(dy)
+        runs.append([y, xi.grad, wi.grad, bi.grad, rm, rv]
+                    + ([] if ri is None else [ri.grad]))
+    torch.cuda.synchronize()
+    same = all(a.dtype == c.dtype and bool(torch.equal(a, c))
+               for a, c in zip(*runs))
+    print(f"  batch_norm {tag}: under auto_cast O1 the fused call against "
+          f"the unfused kernel, PyTorch's add and ReLU: output, every "
+          f"gradient and the running statistics bit-equal {same} "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError(f"batch_norm {tag}: the fused call is not the "
+                             f"composition")
+    del runs
+    return same
+
+
+def _bn_replay(torch, x, w, b, r, stats, dy, relu, last):
+    """Forward and backward captured in one CUDA graph with the running
+    statistics: a replay after the input is rewritten equals an eager
+    call, statistics included, bit for bit."""
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    xs = x.clone()
+    cap_stats = [t.clone() for t in stats]
+    eager_stats = [t.clone() for t in stats]
+
+    def step(st):
+        y, saved = BN.batch_norm_forward(xs, w, b, st[0], st[1], True, 0.9,
+                                         1e-5, last, r, relu, False,
+                                         torch.float32)
+        return (y,) + BN.batch_norm_backward(
+            xs, w, saved, dy, y, True, last, relu, False,
+            None if r is None else r.dtype)[::2]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step([t.clone() for t in stats])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = step(cap_stats)
+    for t, src in zip(cap_stats, stats):
+        t.copy_(src)
+    xs.copy_(x.flip(0))
+    graph.replay()
+    eager = step(eager_stats)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, c)) for a, c in zip(
+        list(cap) + cap_stats, list(eager) + eager_stats))
+    del graph, cap, eager, xs
+    if not same:
+        raise AssertionError("a replayed BatchNorm differs from the eager "
+                             "call")
+    return same
+
+
+def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
+             seed):
+    """One BatchNorm shape: the kernels (forward in training and eval,
+    backward) against the plain version (the fp32 output within 2e-5 of
+    its largest value; dx in bf16 each row within two ulps of its largest
+    plain value, fp32 2e-5 of dx's scale; the weight's and bias's
+    gradients within 1e-5 of each channel's sum of the terms' magnitudes;
+    the running statistics within 2e-5), two calls and a graph replay
+    bit-equal, bf16: the O1 composition bit-equal; ms by graph replay
+    beside the bound, the plain version and F.batch_norm (cuDNN) with
+    PyTorch's add and ReLU and its autograd."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    card = _card_line()
+    dtype = getattr(torch, dtype_name)
+    last = layout == "NHWC"
+    relu = form != "plain"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (3 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+    c = shape[-1] if last else shape[1]
+    w = 1 + 0.2 * torch.randn(c, device=dev, generator=g)
+    b = 0.2 * torch.randn(c, device=dev, generator=g)
+    r = torch.randn(*shape, device=dev, generator=g) \
+        if form == "residual_relu" else None
+    dy = torch.randn(*shape, device=dev, generator=g)
+    stats = (0.1 * torch.randn(c, device=dev, generator=g),
+             1 + 0.1 * torch.rand(c, device=dev, generator=g))
+    args = (True, 0.9, 1e-5, last, r, relu, False, torch.float32)
+    before = dict(K.LAUNCHES)
+    st1, st2, stp = ([t.clone() for t in stats] for _ in range(3))
+    y, saved = BN.batch_norm_forward(x, w, b, *st1, *args)
+    y2, _ = BN.batch_norm_forward(x, w, b, *st2, *args)
+    want = BN.batch_norm_plain(x, *stp, w, b, *args)
+    if not (torch.equal(y, y2) and torch.equal(st1[0], st2[0])
+            and torch.equal(st1[1], st2[1])):
+        raise AssertionError(f"batch_norm {tag}: two calls differ")
+    err = _check(f"batch_norm {tag}", y, want,
+                 2e-5 * max(1.0, float(want.abs().max())))
+    for name, a, e in (("running mean", st1[0], stp[0]),
+                       ("running variance", st1[1], stp[1])):
+        _check(f"batch_norm {tag} {name}", a, e,
+               2e-5 * max(1.0, float(e.abs().max())))
+    ye, _ = BN.batch_norm_forward(x, w, b, *stats, False, *args[1:])
+    we = BN.batch_norm_plain(x, *stats, w, b, False, *args[1:])
+    err = max(err, _check(f"batch_norm {tag} eval", ye, we,
+                          2e-5 * max(1.0, float(we.abs().max()))))
+    rdt = None if r is None else r.dtype
+    bwd = (x, w, saved, dy, y, True, last, relu, False, rdt)
+    dx, dres, dw, db = BN.batch_norm_backward(*bwd)
+    dx2, dres2, dw2, db2 = BN.batch_norm_backward(*bwd)
+    if not all(torch.equal(p, q) for p, q in
+               ((dx, dx2), (dw, dw2), (db, db2))
+               + (((dres, dres2),) if r is not None else ())):
+        raise AssertionError(f"batch_norm {tag}: two backward calls differ")
+    # the plain norm's autograd from the gradient the kernel's own output
+    # lets through the ReLU (a value within rounding of 0 may take the
+    # other side in the plain forward), which is the residual's gradient
+    gk = torch.where(y <= 0, 0.0, dy) if relu else dy
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    BN.batch_norm_plain(leaves[0], *[t.clone() for t in stats], leaves[1],
+                        leaves[2], True, 0.9, 1e-5, last, None, False, False,
+                        torch.float32).backward(gk)
+    abs_dw, abs_db = _bn_abs_sums(torch, x, y, dy, relu, last)
+    err_b = 0.0
+    if dtype == torch.float32:
+        ch = x.dim() - 1 if last else 1
+        axes = tuple(i for i in range(x.dim()) if i != ch)
+        var = x.float().var(dim=axes, unbiased=False)
+        scale = float((var + 1e-5).rsqrt().max()) * float(
+            dy.abs().max() * w.abs().max())
+        err_b = _check(f"batch_norm_bwd {tag} dx", dx, leaves[0].grad,
+                       2e-5 * max(1.0, scale))
+    else:
+        err_b = _check_rows(f"batch_norm_bwd {tag} dx", dx, leaves[0].grad,
+                            2)
+    for name, got, ref, mag in (("dw", dw, leaves[1].grad, abs_dw),
+                                ("db", db, leaves[2].grad, abs_db)):
+        d = (got - ref).abs()
+        ok = bool((d <= 1e-5 * mag + 1e-6).all())
+        print(f"  batch_norm_bwd {tag} {name}: max_abs_err="
+              f"{float(d.max()):.6g}, worst channel at "
+              f"{float((d / (1e-5 * mag + 1e-6)).max()):.3g} of its "
+              f"tolerance (1e-5 of its terms' magnitudes) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"batch_norm_bwd {tag} {name}: kernel "
+                                 f"disagrees with its plain version")
+        err_b = max(err_b, float(d.max()))
+    if r is not None:
+        err_b = max(err_b, _check(f"batch_norm_bwd {tag} dresidual", dres,
+                                  gk, 0.0))
+    used = (K.LAUNCHES["batch_norm"] - before["batch_norm"],
+            K.LAUNCHES["batch_norm_bwd"] - before["batch_norm_bwd"])
+    if used != (3, 2):
+        raise AssertionError(f"batch_norm {tag}: launches {used}")
+    composition = None
+    if dtype == torch.bfloat16 and relu:
+        composition = _bn_o1_composition(torch, x, w, b, r, stats, dy, tag,
+                                         layout)
+    replay_equal = _bn_replay(torch, x, w, b, r, stats, dy, relu, last)
+    del leaves, gk, want, we, ye, dx2, dres2, y2
+    torch.cuda.empty_cache()
+    stk = [t.clone() for t in stats]
+    with torch.no_grad():
+        ms = _graph_ms(lambda: BN.batch_norm_forward(x, w, b, *stk, *args),
+                       iters=10, reps=3)
+        ms_b = _graph_ms(lambda: BN.batch_norm_backward(*bwd), iters=10,
+                         reps=3)
+        plain = _time_ms(lambda: BN.batch_norm_plain(
+            x, *[t.clone() for t in stats], w, b, *args), 3, warmup=1)
+    pl = [t.clone().requires_grad_() for t in (x, w, b)]
+    py = BN.batch_norm_plain(pl[0], *[t.clone() for t in stats], pl[1],
+                             pl[2], *args)
+    plain_b = _time_ms(lambda: torch.autograd.grad(py, pl, dy,
+                                                   retain_graph=True), 3,
+                       warmup=1)
+    del py, pl
+    xl = x.permute(0, 3, 1, 2) if last else x
+    rl = None if r is None else (r.permute(0, 3, 1, 2) if last else r)
+    lib_stats = [t.clone() for t in stats]
+
+    def lib(xin, win, bin_):
+        out = TF.batch_norm(xin, *lib_stats, win, bin_, training=True,
+                            momentum=0.1, eps=1e-5)
+        if rl is not None:
+            out = out + rl
+        return TF.relu(out) if relu else out
+    # cuDNN's few kernels by graph replay too; its backward is its forward
+    # and backward captured together, less the forward
+    with torch.no_grad():
+        lib_ms = _graph_ms(lambda: lib(xl, w, b), iters=10, reps=3)
+    ll = [t.clone().requires_grad_() for t in (xl, w, b)]
+    dyl = dy.permute(0, 3, 1, 2) if last else dy
+    lib_fb = _graph_ms(lambda: torch.autograd.grad(
+        lib(*ll), ll, dyl.to(x.dtype) if r is None else dyl), iters=10,
+        reps=3)
+    lib_b = lib_fb - lib_ms
+    del ll
+    n_el, es = x.numel(), x.element_size()
+    bound, by = _bound(*_bn_bytes_ops(n_el, es, False, r is not None, relu),
+                       FP32_FLOPS)
+    bound_b, by_b = _bound(*_bn_bytes_ops(n_el, es, True, r is not None,
+                                          relu), FP32_FLOPS)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+               bound_by=by, library_ms=lib_ms, shape=list(shape),
+               layout=layout, dtype=dtype_name, form=form,
+               o1_composition_bit_equal=composition)
+    rec_b = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bound_b, bound_by=by_b, library_ms=lib_b,
+                 shape=list(shape), layout=layout, dtype=dtype_name,
+                 form=form, replay_bit_equal=replay_equal)
+    results[f"batch_norm[{tag}]"] = rec
+    results[f"batch_norm_bwd[{tag}]"] = rec_b
+    if tag == BN_MAIN:
+        results["batch_norm"] = rec
+        results["batch_norm_bwd"] = rec_b
+    lib_name = "F.batch_norm" + (" + add" if r is not None else "") + \
+        (" + F.relu" if relu else "")
+    print(f"  batch_norm {tag}: ms={ms:.4f} ({bound / ms:.3f} of the bound) "
+          f"plain_ms={plain:.4f} bound_ms={bound:.4f} ({by}); {lib_name} "
+          f"(cuDNN) {lib_ms:.4f} [{card}]", flush=True)
+    print(f"  batch_norm_bwd {tag}: ms={ms_b:.4f} ({bound_b / ms_b:.3f} of "
+          f"the bound) plain_ms={plain_b:.4f} bound_ms={bound_b:.4f} "
+          f"({by_b}); autograd of {lib_name}, less its forward {lib_b:.4f};"
+          f" a graph replay bit-equal to the eager call {replay_equal} "
+          f"[{card}]", flush=True)
+    del x, w, b, r, dy, y, dx, dres, saved, stats, stk, lib_stats
+    torch.cuda.empty_cache()
+
+
+def _instance_norm_case(torch, dev):
+    """``InstanceNorm2D`` on the card: the GroupNorm kernels with one
+    channel a group, forward and backward against the plain version (bf16
+    each row within one ulp of its largest plain value, two for dx; the
+    weight's and bias's gradients within two ulps of their largest)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import group_norm as GN
+    from paddle_tpu_torch.nn import InstanceNorm2D
+    g = torch.Generator(device=dev).manual_seed(75)
+    layer = InstanceNorm2D(64, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        layer.weight.normal_(1.0, 0.2, generator=g)
+        layer.bias.normal_(0.0, 0.2, generator=g)
+    x = (3 + 2 * torch.randn(16, 64, 56, 56, device=dev, generator=g)) \
+        .to(torch.bfloat16).requires_grad_()
+    dy = torch.randn(16, 64, 56, 56, device=dev, generator=g) \
+        .to(torch.bfloat16)
+    before = (K.LAUNCHES["group_norm"], K.LAUNCHES["group_norm_bwd"])
+    y = layer(x)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    used = (K.LAUNCHES["group_norm"] - before[0],
+            K.LAUNCHES["group_norm_bwd"] - before[1])
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, layer.weight, layer.bias)]
+    want = GN.group_norm_plain(leaves[0], 64, leaves[1], leaves[2])
+    want.backward(dy)
+    err = _check_rows("InstanceNorm2D [16, 64, 56, 56] bf16 (GroupNorm "
+                      "kernel, 64 groups)", y, want, 1)
+    err = max(err, _check_rows("InstanceNorm2D dx", x.grad, leaves[0].grad,
+                               2))
+    for name, got, ref in (("dweight", layer.weight.grad, leaves[1].grad),
+                           ("dbias", layer.bias.grad, leaves[2].grad)):
+        err = max(err, _check(f"InstanceNorm2D {name}", got, ref,
+                              2 * ULP_BF16 * float(ref.float().abs().max())))
+    if used != (1, 1):
+        raise AssertionError(f"InstanceNorm2D: GroupNorm launches {used}")
+    print(f"  InstanceNorm2D through the GroupNorm kernel: launches "
+          f"{used} [{_card_line()}]", flush=True)
+    return dict(max_abs_err=err, launches=used)
+
+
+def _resnet50_bn_calls(batch=128):
+    """ResNet-50's BatchNorm calls at [batch, 3, 224, 224], one of each
+    kind, as (x shape, with the residual, with the ReLU): the stem's; in
+    each stage the first block's (stride on its 3 x 3, a downsample) and
+    the next blocks'."""
+    calls = {((batch, 64, 112, 112), False, True)}
+    hw = 56
+    for planes, stride in ((64, 1), (128, 2), (256, 2), (512, 2)):
+        out = hw // stride
+        for h_in in (hw, out):
+            calls.add(((batch, planes, h_in, h_in), False, True))
+            calls.add(((batch, planes, out, out), False, True))
+            calls.add(((batch, 4 * planes, out, out), True, True))
+        calls.add(((batch, 4 * planes, out, out), False, False))
+        hw = out
+    return sorted(calls)
+
+
+def _bn_warm_one(torch, shape, last, dtype, res, relu, unfused):
+    """Launch, once each, the BatchNorm kernels a shape's calls in phase 3
+    or 15 launch: training forward and backward (and the unfused form the
+    O1 composition runs) and the eval forward, with the arguments' dtypes
+    and flags, so that Triton compiles each of them here."""
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    c = shape[-1] if last else shape[1]
+    z = functools.partial(torch.zeros, device="cuda")
+    x, dy = z(shape, dtype=dtype), z(shape)
+    w, b = torch.ones(c, device="cuda"), z(c)
+    r = z(shape) if res else None
+    for ri, rel in [(r, relu)] + ([(None, False)] if unfused else []):
+        rm, rv = z(c), torch.ones(c, device="cuda")
+        y, st = BN.batch_norm_forward(x, w, b, rm, rv, True, 0.9, 1e-5,
+                                      last, ri, rel, False, torch.float32)
+        BN.batch_norm_backward(x, w, st, dy, y if rel else None, True, last,
+                               rel, False, None if ri is None else ri.dtype)
+    BN.batch_norm_forward(x, w, b, rm, rv, False, 0.9, 1e-5, last, r, relu,
+                          False, torch.float32)
+    torch.cuda.synchronize()
+
+
+def _bn_warm(torch):
+    """Compile the BatchNorm kernels of phase 3's cases and of ResNet-50's
+    53 calls (phase 15) in 8 threads at once: Triton compiles a kernel at
+    its first launch with each new set of argument dtypes, flags and
+    shapes' divisibilities, and much of a compile lets other threads run,
+    where the phases would compile them one after the other. Nothing is
+    measured or counted from these launches: each phase sets the counts
+    to 0, or takes their difference, around its own run."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    BN._jit()          # the kernels wrapped once, before the threads
+    # (shape, channels last, dtype, residual, ReLU) -> the unfused form too
+    specs = {(shape, False, torch.bfloat16, res, relu): False
+             for shape, res, relu in _resnet50_bn_calls()}
+    for _, shape, layout, dt, form in BN_CASES:
+        key = (shape, layout == "NHWC", getattr(torch, dt),
+               form == "residual_relu", form != "plain")
+        specs[key] = dt == "bfloat16" and form != "plain"
+    t = time.monotonic()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda kv: _bn_warm_one(torch, *kv[0], kv[1]), sorted(
+            specs.items(), key=lambda kv: -math.prod(kv[0][0]))))
+    torch.cuda.empty_cache()
+    print(f"  BatchNorm kernels compiled for {len(specs)} shapes and forms "
+          f"in 8 threads: {time.monotonic() - t:.1f}s", flush=True)
+
+
+def phase_batch_norm_kernels(torch, results):
+    """BatchNorm (with the ReLU, with the residual add and the ReLU, and
+    alone) forward, eval and backward at ResNet-50's shapes in bf16 under
+    O1's dtypes, one fp32 and one NHWC case, against the plain version,
+    replayed, against the O1 composition, timed beside the bound,
+    the plain version and cuDNN's F.batch_norm; then an InstanceNorm2D on
+    the GroupNorm kernel."""
+    dev = torch.device("cuda")
+    print("phase 3: BatchNorm kernels (momentum 0.9, eps 1e-5; bf16 x, fp32 "
+          "weights, residual and output, as ResNet-50 under amp O1) against "
+          "their plain version", flush=True)
+    _bn_warm(torch)
+    for i, case in enumerate(BN_CASES):
+        _bn_case(torch, results, dev, *case, 80 + i)
+    results["instance_norm[InstanceNorm2D]"] = _instance_norm_case(torch,
+                                                                   dev)
+
+
 def _conv_linear_flops(model):
     """Forward hooks that add up the products of every Conv2D and Linear
     (2 x outputs x inputs a output element) and of every CrossAttention's
@@ -6221,40 +6732,85 @@ def _resnet_trainer(model, lr=0.1):
                        _resnet_loss_o1)
 
 
+def _batch_norm_ops(torch, x, rm, rv, w, b, residual, relu):
+    """BatchNorm as ``F.batch_norm`` computed it with PyTorch ops before
+    the kernels, under O1 (x cast to fp32, ``var_mean``, per-channel
+    factors, one ``addcmul``, the running statistics updated in place),
+    then PyTorch's add and ReLU: the yardstick of the kernels on the
+    step's calls."""
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+    with torch.no_grad():
+        rm.copy_(0.9 * rm + 0.1 * mean)
+        rv.copy_(0.9 * rv + 0.1 * var)
+    scale = (1.0 / torch.sqrt(var + 1e-5)) * w
+    out = torch.addcmul(b.reshape(1, -1, 1, 1), x32 - mean.reshape(
+        1, -1, 1, 1), scale.reshape(1, -1, 1, 1))
+    if residual is not None:
+        out = out + residual
+    return torch.relu(out) if relu else out
+
+
 def _batch_norm_ms(torch, model, x):
-    """Device ms of every BatchNorm's forward and backward at the step's
-    shapes, bf16 inputs under O1 (their casts included), the 53 layers'
-    calls captured in one CUDA graph and replayed: the step's BatchNorm
-    work as its own group (its kernels are PyTorch's elementwise and
-    reduction kernels, which a profile cannot tell from the others)."""
+    """Device ms of every BatchNorm's forward and backward as the step
+    makes them (bf16 inputs under O1; the stem's and the blocks' inner
+    ones with the ReLU fused, each block's last with the residual add and
+    the ReLU), the 53 calls captured in one CUDA graph and replayed:
+    through the kernels (``F.batch_norm``), and through the
+    composition of PyTorch ops with PyTorch's add and ReLU, in the same
+    call. Returns (kernel ms, ops ms, calls, their kinds: (x shape, with
+    the residual, with the ReLU))."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.nn import BatchNorm2D
     from paddle_tpu_torch.nn import functional as F
-    shapes = []
-    hooks = [m.register_forward_hook(
-        lambda mod, inp, out: shapes.append((mod, tuple(inp[0].shape))))
-        for m in model.modules() if isinstance(m, BatchNorm2D)]
+    calls = []
+
+    def hook(mod, args, kwargs, out):
+        res = kwargs.get("residual")
+        calls.append((mod, tuple(args[0].shape),
+                      None if res is None else tuple(res.shape),
+                      kwargs.get("then") == "relu"))
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for m in model.modules() if isinstance(m, BatchNorm2D)]
     try:
         with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
             model(x)
     finally:
         for h in hooks:
             h.remove()
-    inputs = [(mod, torch.randn(s, device="cuda").to(torch.bfloat16)
-               .requires_grad_()) for mod, s in shapes]
-    means = [m._mean.clone() for m, _ in inputs]
-    variances = [m._variance.clone() for m, _ in inputs]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    inputs = [(mod, torch.randn(s, device="cuda", generator=g)
+               .to(torch.bfloat16).requires_grad_(),
+               None if rs is None else torch.randn(
+                   rs, device="cuda", generator=g).requires_grad_(), relu)
+              for mod, s, rs, relu in calls]
+    means = [m._mean.clone() for m, *_ in inputs]
+    variances = [m._variance.clone() for m, *_ in inputs]
 
-    def run():
+    def run(kernels):
         with amp.auto_cast(level="O1", dtype="bfloat16"):
-            for (mod, xi), rm, rv in zip(inputs, means, variances):
-                y = F.batch_norm(xi, rm, rv, mod.weight, mod.bias,
-                                 training=True)
-                torch.autograd.grad(y, (xi, mod.weight, mod.bias),
-                                    torch.ones_like(y))
-    ms = _graph_ms(run, iters=1, reps=5)
+            for (mod, xi, ri, relu), rm, rv in zip(inputs, means,
+                                                    variances):
+                if kernels:
+                    y = F.batch_norm(xi, rm, rv, mod.weight, mod.bias,
+                                     training=True, residual=ri,
+                                     then="relu" if relu else None)
+                else:
+                    # the ops' casts are explicit in _batch_norm_ops
+                    amp.amp_state.depth += 1
+                    try:
+                        y = _batch_norm_ops(torch, xi, rm, rv, mod.weight,
+                                            mod.bias, ri, relu)
+                    finally:
+                        amp.amp_state.depth -= 1
+                leaves = (xi, mod.weight, mod.bias) + (
+                    () if ri is None else (ri,))
+                torch.autograd.grad(y, leaves, torch.ones_like(y))
+    ms = {k: _graph_ms(lambda k=k: run(k), iters=1, reps=5)
+          for k in (True, False)}
     del inputs, means, variances
-    return ms, len(shapes)
+    kinds = sorted({(s, rs is not None, relu) for _, s, rs, relu in calls})
+    return ms[True], ms[False], len(calls), kinds
 
 
 def _resnet_tiny_on_card(torch):
@@ -6286,11 +6842,13 @@ def phase_resnet(torch, args, launches_out):
     classes, float32 weights, batch 128 x [3, 224, 224] from the seed,
     under auto_cast O1, Momentum(0.1, 0.9) with L2Decay(1e-4), captured:
     (a) 2 warm-up and 5 timed steps with cuDNN's own choice, then under
-    cudnn.deterministic (exact launches: none of the port's kernels is on
-    this path), images/s, MFU, peak, a profile, BatchNorm's device ms;
-    replayed against eager with the 53 BatchNorms' running statistics; (b)
-    an eval forward at batch 128 on the running statistics; (d) a tiny
-    float32 ResNet-18 on the card against the CPU trainer."""
+    cudnn.deterministic (exact launches: the 53 BatchNorms' kernels, 53
+    forward and 53 backward a step, nothing else of the port), images/s,
+    MFU, peak, a profile, the BatchNorms' device ms through the kernels
+    and through the PyTorch ops they replaced; replayed against eager
+    with the 53 BatchNorms' running statistics; (b) an eval forward at
+    batch 128 on the running statistics (53 BatchNorm launches); (d) a
+    tiny float32 ResNet-18 on the card against the CPU trainer."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.nn import BatchNorm2D
@@ -6323,8 +6881,10 @@ def phase_resnet(torch, args, launches_out):
         losses, step_ms, launches = _timed_steps(torch, trainer, (x, y))
         graph = _graph_line(trainer, "phase 15", card)
         expect = {k: 0 for k in K.LAUNCHES}
+        expect.update(batch_norm=5 * n_bn, batch_norm_bwd=5 * n_bn)
         print(f"  phase 15 launches over 5 steps: {launches} (expected "
-              f"{expect}: no kernel of the port is on ResNet's path)",
+              f"{expect}: the BatchNorm kernels, one forward and one "
+              f"backward a layer, and no other kernel of the port)",
               flush=True)
         if launches != expect:
             raise AssertionError(f"phase 15: launch counts {launches}")
@@ -6340,7 +6900,8 @@ def phase_resnet(torch, args, launches_out):
         prof.export_chrome_trace(os.path.join(args.out,
                                               "resnet50_step_trace.json"))
         del prof
-        bn_ms, bn_calls = _batch_norm_ms(torch, model, x)
+        bn_ms, bn_ops_ms, bn_calls, bn_kinds = _batch_norm_ms(torch, model,
+                                                              x)
         img_s = 128 / (step_ms / 1e3)
         out.update(step_ms=step_ms, step_ms_cudnn_free=ms0,
                    images_per_s=img_s, flops_per_step=flops,
@@ -6349,7 +6910,8 @@ def phase_resnet(torch, args, launches_out):
                    peak_memory_of_phase_gb=peak - held / 1e9, losses=losses,
                    graph=graph, breakdown=m,
                    idle_share_untraced=1 - m["device_ms"] / step_ms,
-                   batch_norm_ms=bn_ms, batch_norms=bn_calls, card=card)
+                   batch_norm_ms=bn_ms, batch_norm_ops_ms=bn_ops_ms,
+                   batch_norms=bn_calls, card=card)
         print(f"  phase 15 ResNet-50 training step, batch 128, captured, "
               f"cudnn.deterministic: {step_ms:.3f} ms ({ms0:.3f} with "
               f"cuDNN's own choice), {img_s:.1f} images/s, MFU "
@@ -6357,11 +6919,17 @@ def phase_resnet(torch, args, launches_out):
               f"step), peak {peak:.2f} GB; {_breakdown_line(m)}; idle share "
               f"against the untraced step {out['idle_share_untraced']:.4f}; "
               f"the {bn_calls} BatchNorms' forward and backward alone "
-              f"{bn_ms:.3f} ms (graph replay) [{card}]", flush=True)
+              f"{bn_ms:.3f} ms through the kernels, {bn_ops_ms:.3f} ms "
+              f"through the PyTorch ops they replaced (graph replay, the "
+              f"same call) [{card}]", flush=True)
         _print_other(m, "phase 15")
         if bn_calls != n_bn or n_bn != 53:
             raise AssertionError(f"phase 15: {bn_calls} BatchNorm calls of "
                                  f"{n_bn} layers, not 53")
+        if bn_kinds != _resnet50_bn_calls():
+            raise AssertionError(f"phase 15: the BatchNorm calls' kinds "
+                                 f"{bn_kinds} are not those phase 3 "
+                                 f"compiled for ({_resnet50_bn_calls()})")
         out["eager"] = _captured_against_eager(torch, trainer, (x, y),
                                              "phase 15", card, step_ms, m)
         _drop_trainer(torch, trainer)
@@ -6371,15 +6939,23 @@ def phase_resnet(torch, args, launches_out):
             with torch.no_grad(), amp.auto_cast(level="O1",
                                                 dtype="bfloat16"):
                 return model(x)
+        evaluate()
+        K.reset_launches()
         logits = evaluate()
+        torch.cuda.synchronize()
+        eval_launches = {k: v for k, v in K.LAUNCHES.items() if v}
         eval_ms = _time_ms(evaluate, 5)
         ok = logits.shape == (128, 1000) and bool(
-            torch.isfinite(logits).all())
+            torch.isfinite(logits).all()) \
+            and eval_launches == {"batch_norm": n_bn}
         print(f"  phase 15 (b) eval forward at batch 128 on the running "
               f"statistics: {eval_ms:.3f} ms, logits {logits.dtype} "
-              f"{tuple(logits.shape)} finite {ok} [{card}]", flush=True)
+              f"{tuple(logits.shape)} finite, launches {eval_launches} "
+              f"(expected {{'batch_norm': {n_bn}}}) "
+              f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
         if not ok:
-            raise AssertionError("phase 15 (b): eval logits not finite")
+            raise AssertionError("phase 15 (b): eval logits not finite or "
+                                 "the BatchNorm launches not 53")
         out["eval_ms"] = eval_ms
         del trainer, model, x, y, logits
         _free(torch)
@@ -6474,10 +7050,15 @@ def main(argv=None):
           torch, results)
     timed("phase 3 GroupNorm kernels", phase_group_norm_kernels, torch,
           results)
+    timed("phase 3 BatchNorm kernels", phase_batch_norm_kernels, torch,
+          results)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
     packed_launches, beam_launches, artifact_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
                     serve_launches, beam_launches)
+    serve13_launches = {}
+    serving13 = timed("phase 4b Llama-2-13B serving", phase_llama13b_serving,
+                      torch, args, serve13_launches)
     training = timed("phase 5 training", phase_training, torch, args,
                      train_launches)
     gpt_moe = timed("phase 6 GPT-MoE training", phase_gpt_moe_training,
@@ -6561,13 +7142,21 @@ def main(argv=None):
         "group_norm_bwd": ("triton",
                            "paddle_tpu_torch/kernels/group_norm.py",
                            "paddle_tpu/nn/functional/norm.py:186"),
+        # no Pallas kernel: the BatchNorm (and the add and ReLU after it)
+        # XLA fuses
+        "batch_norm": ("triton", "paddle_tpu_torch/kernels/batch_norm.py",
+                       "paddle_tpu/nn/functional/norm.py:95"),
+        "batch_norm_bwd": ("triton",
+                           "paddle_tpu_torch/kernels/batch_norm.py",
+                           "paddle_tpu/nn/functional/norm.py:95"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
     # summed; a backward's entry counts its dq
     # launches, each paired with one dk/dv launch (the training runs check
     # both counts exactly)
-    runs = (serve_launches, train_launches, gpt_launches, packed_launches,
+    runs = (serve_launches, serve13_launches, train_launches, gpt_launches,
+            packed_launches,
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
             artifact_launches, surface_launches, ernie_launches,
             unet_launches, resnet_launches)
@@ -6588,7 +7177,7 @@ def main(argv=None):
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": results, "sass": sass,
                    "build_seconds": {n: i["seconds"] for n, i in built.items()},
-                   "serving": serving,
+                   "serving": serving, "serving_llama2_13b": serving13,
                    "training": training, "gpt_moe_training": gpt_moe,
                    "packed_training": packed, "gpt_serving": gpt_serving,
                    "quant_serving": quant, "spec_serving": spec,
@@ -6596,6 +7185,7 @@ def main(argv=None):
                    "training_surface": surface, "ernie_training": ernie,
                    "unet": unet, "resnet50": resnet, "seconds": seconds,
                    "launches": {"serving": serve_launches,
+                                "serving_llama2_13b": serve13_launches,
                                 "training": train_launches,
                                 "gpt_moe_training": gpt_launches,
                                 "packed_training": packed_launches,

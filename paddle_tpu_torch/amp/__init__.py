@@ -172,6 +172,47 @@ def _active():
         or amp_state.checker is not None
 
 
+class FusedOps:
+    """How ``amp`` sees one kernel that does the work of several ops one
+    after the other: call ``op`` (or ``cast``) for each of those ops in
+    order, then ``run`` the kernel. Outside any op and with amp active,
+    each observer sees every op, each op takes its inputs in the dtypes
+    its casts give (the kernel reads them as they are: their fp32 casts
+    are exact) and the checker sees the kernel's output as the last op's;
+    the kernel's own calls are not ops."""
+
+    def __init__(self):
+        self.active = not amp_state.depth and _active()
+        self.last = None
+
+    def op(self, name, inputs):
+        """The dtypes in which the op ``name`` takes ``inputs`` (tensors,
+        or meta tensors standing for an earlier op's output), after the
+        observers have seen them."""
+        if not self.active:
+            return tuple(t.dtype for t in inputs)
+        for observe in amp_state.observers:
+            observe(name, list(inputs))
+        self.last = name
+        return tuple(cast_dtype(name, t.dtype) for t in inputs)
+
+    def cast(self, name, dtype):
+        """The dtype in which the op ``name``, which observes itself, takes
+        an input of ``dtype``."""
+        return cast_dtype(name, dtype) if self.active else dtype
+
+    def run(self, launch):
+        """``launch()``, its calls not ops, its output checked."""
+        amp_state.depth += 1
+        try:
+            out = launch()
+        finally:
+            amp_state.depth -= 1
+        if self.active and amp_state.checker is not None:
+            amp_state.checker(self.last, out)
+        return out
+
+
 class _OpMode(TorchFunctionMode):
     """Runs each torch call named in ``_TORCH_OPS``, made outside any op,
     as that op."""
@@ -395,6 +436,6 @@ def is_bfloat16_supported(device=None):
 from . import debugging  # noqa: E402,F401  (debugging reads amp_state)
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler", "op",
-           "cast_dtype",
+           "cast_dtype", "FusedOps",
            "WHITE_LIST", "BLACK_LIST", "is_float16_supported",
            "is_bfloat16_supported", "debugging"]

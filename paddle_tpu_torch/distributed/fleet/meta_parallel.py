@@ -44,7 +44,8 @@ class ColumnParallelLinear(nn.Module):
                                      dev, dt,
                                      lambda t: xavier_normal_(t, generator))
         self.bias = make_parameter((out_features,), None if has_bias
-                                   else False, dev, dt, torch.Tensor.zero_)
+                                   else False, dev, dt, torch.Tensor.zero_,
+                                   True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -67,7 +68,8 @@ class RowParallelLinear(nn.Module):
                                      dev, dt,
                                      lambda t: xavier_normal_(t, generator))
         self.bias = make_parameter((out_features,), None if has_bias
-                                   else False, dev, dt, torch.Tensor.zero_)
+                                   else False, dev, dt, torch.Tensor.zero_,
+                                   True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

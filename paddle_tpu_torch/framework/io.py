@@ -5,7 +5,7 @@ The file is a pickled nested structure in which every tensor is stored
 as ``{"__tensor__": True, "data": <numpy array>, ...}``. numpy has no
 bfloat16: the port stores a bf16 tensor's bits as uint16 with
 ``"dtype": "bfloat16"`` beside them (the JAX package pickles an
-``ml_dtypes`` bfloat16 array, which ``load_tensors`` also reads where
+``ml_dtypes`` bfloat16 array, which ``load`` also reads where
 ``ml_dtypes`` is installed). Unpickling can run code, so load only files
 this project wrote.
 """
@@ -50,7 +50,7 @@ def _to_storable(obj):
     return obj
 
 
-def save(obj, path, protocol=4):
+def save(obj, path, protocol=4, **configs):
     """Write ``obj`` (nested dicts, lists and tensors) to ``path``, every
     tensor copied to the CPU."""
     d = os.path.dirname(path)
@@ -60,18 +60,14 @@ def save(obj, path, protocol=4):
         pickle.dump(_to_storable(obj), f, protocol=protocol)
 
 
-def load(path):
-    """The object saved at ``path``, with every tensor as a numpy array
-    (a bf16 tensor the port wrote as its uint16 bits)."""
+def load(path, return_numpy=False, **configs):
+    """The object saved at ``path``, as the JAX package's ``load``: every
+    tensor a CPU ``torch.Tensor`` of its own dtype (the JAX package's
+    ``Tensor``), or with ``return_numpy`` a numpy array (a bf16 tensor the
+    port wrote as its uint16 bits). ``configs`` are accepted and ignored,
+    as there."""
     with open(path, "rb") as f:
-        return _from_storable(pickle.load(f))
+        return _from_storable(pickle.load(f), as_torch=not return_numpy)
 
 
-def load_tensors(path):
-    """The object saved at ``path``, with every tensor as a CPU
-    ``torch.Tensor`` of its own dtype (bf16 included)."""
-    with open(path, "rb") as f:
-        return _from_storable(pickle.load(f), as_torch=True)
-
-
-__all__ = ["save", "load", "load_tensors"]
+__all__ = ["save", "load"]

@@ -252,7 +252,7 @@ def load(path, device=None) -> TranslatedLayer:
         from torch.export.passes import move_to_device_pass
         program = move_to_device_pass(program, dev)
     state = {n: t.to(dev) for n, t in
-             _io.load_tensors(path + ".pdiparams").items()}
+             _io.load(path + ".pdiparams").items()}
     missing = [n for n in meta["param_names"] if n not in state]
     if missing:
         raise KeyError(f"{path}.pdiparams lacks {missing[:8]}")

@@ -36,6 +36,14 @@ gradients), which every GroupNorm on the card goes through (the
 convolutional models). No TPU kernel either: XLA fuses the JAX package's
 GroupNorm and SiLU.
 
+``batch_norm`` and ``batch_norm_bwd`` count the calls of BatchNorm's
+forward (two Triton kernels in training: the chunks' statistics, then the
+normalisation with the residual add and the ReLU where fused; one in
+eval) and of its backward (two: the chunks' partial sums, then dx and the
+residual's gradient), which every BatchNorm on the card goes through
+(ResNet). No TPU kernel either: XLA fuses the JAX package's BatchNorm with
+the add and the ReLU after it.
+
 ``weight_only_gemm`` counts every call of the weight-only GEMM on the
 card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
 counts those that went to the mma.sync kernel (shapes TMA cannot read).
@@ -61,7 +69,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "weight_only_gemm": 0, "weight_only_gemm_sm80": 0,
             "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
             "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
-            "group_norm": 0, "group_norm_bwd": 0, "sdpa_plain": 0,
+            "group_norm": 0, "group_norm_bwd": 0, "batch_norm": 0,
+            "batch_norm_bwd": 0, "sdpa_plain": 0,
             "sdpa_dense": 0, "ragged_plain": 0}
 
 

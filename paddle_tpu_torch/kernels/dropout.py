@@ -186,6 +186,14 @@ def keep_mask_plain(shape, p, key, device=None):
     return ((bits >> 8) >= threshold(p)).reshape(shape)
 
 
+def uniform_plain(shape, key, device=None):
+    """Uniform fp32 values in (0, 1) of ``shape`` under ``key`` (a
+    ``RandomKey``): the top 24 bits of the mask's words, plus a half, over
+    2^24. The port's random layers and initializers draw from these."""
+    bits = mask_bits_plain(math.prod(shape), key, device)
+    return (((bits >> 8).float() + 0.5) * 2.0 ** -24).reshape(tuple(shape))
+
+
 def dropout_plain(x, p, key, mode="upscale_in_train", mask_shape=None):
     """``where(keep, x * scale, 0)`` in fp32, rounded to x's dtype, with
     the keep mask of ``mask_shape`` (x's shape when None; else it
@@ -277,6 +285,6 @@ def dropout(x, key, p, mode="upscale_in_train", mask_shape=None):
                                  else tuple(mask_shape))
 
 
-__all__ = ["dropout", "dropout_plain", "DropoutFunction", "philox_plain",
-           "mask_bits_plain", "keep_mask_plain", "key_tensor", "threshold",
-           "scale_of", "MODES"]
+__all__ = ["dropout", "dropout_plain", "uniform_plain", "DropoutFunction",
+           "philox_plain", "mask_bits_plain", "keep_mask_plain", "key_tensor",
+           "threshold", "scale_of", "MODES"]

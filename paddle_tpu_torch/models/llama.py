@@ -42,11 +42,17 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
     dtype: str = "float32"
 
     @staticmethod
     def llama2_7b():
         return LlamaConfig()
+
+    @staticmethod
+    def llama2_13b():
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_hidden_layers=40, num_attention_heads=40)
 
     @staticmethod
     def tiny(vocab_size=256, hidden_size=64, layers=2, heads=4, kv_heads=2,
@@ -59,15 +65,28 @@ class LlamaConfig:
 
 
 def build_rope_cache(seq_len: int, head_dim: int, theta: float = 10000.0,
-                     device=None):
-    """cos/sin tables [seq_len, head_dim / 2] in fp32: fp32 inverse
-    frequencies, fp32 outer product, then cos and sin."""
+                     dtype=torch.float32, device=None):
+    """cos/sin tables [seq_len, head_dim / 2]: fp32 inverse frequencies,
+    fp32 outer product, cos and sin in fp32, cast to ``dtype``."""
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
                                              dtype=torch.float32,
                                              device=device) / head_dim))
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
-    return torch.cos(freqs), torch.sin(freqs)
+    return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
+
+
+def apply_rope(q, k, cos, sin):
+    """The JAX package's plain rotation (``paddle_tpu/models/llama.py:87``)
+    of q, k [b, s, h, d] by cos/sin [s, d/2]: each interleaved pair (x1,
+    x2) becomes (x1 cos - x2 sin, x2 cos + x1 sin), in the promoted dtype
+    and cast back to the input's."""
+    def rotate(x):
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+        return out.reshape(x.shape).to(x.dtype)
+    return rotate(q), rotate(k)
 
 
 @amp.op("fused_rope", 2)
@@ -78,6 +97,12 @@ def fused_rope(query, key, cos, sin):
     Differentiable: on CUDA tensors forward and backward launch the RoPE
     kernel."""
     return fused.fused_rope(query, key, cos.float(), sin.float())
+
+
+def _placement(config, device, dtype):
+    """(device, dtype) of a module's parameters: None = the GPU (raises
+    without one) and ``config.dtype``."""
+    return resolve_device(device), dtype or getattr(torch, config.dtype)
 
 
 def _param(*shape, device, dtype):
@@ -99,7 +124,7 @@ class _Norm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        return F.rms_norm(x, self.weight, self.eps)
+        return F.rms_norm(x, self.weight, epsilon=self.eps)
 
 
 class _Embedding(nn.Module):
@@ -109,12 +134,14 @@ class _Embedding(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        heads = cfg.num_attention_heads
-        kvh = cfg.num_key_value_heads or heads
-        hd = cfg.hidden_size // heads
-        h = cfg.hidden_size
+        device, dtype = _placement(config, device, dtype)
+        heads = config.num_attention_heads
+        kvh = config.num_key_value_heads or heads
+        hd = config.hidden_size // heads
+        h = config.hidden_size
+        self.config = config
         self.q_proj = _Linear(h, heads * hd, device, dtype)
         self.k_proj = _Linear(h, kvh * hd, device, dtype)
         self.v_proj = _Linear(h, kvh * hd, device, dtype)
@@ -150,16 +177,18 @@ class LlamaAttention(nn.Module):
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
-                                             is_causal=True)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attention_mask, is_causal=True,
+            allow_flash=self.config.use_flash_attention)
         return F.linear(out.reshape(b, s, self.num_heads * self.head_dim),
                         self.o_proj.weight)
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        h, i = cfg.hidden_size, cfg.intermediate_size
+        device, dtype = _placement(config, device, dtype)
+        h, i = config.hidden_size, config.intermediate_size
         self.gate_proj = _Linear(h, i, device, dtype)
         self.up_proj = _Linear(h, i, device, dtype)
         self.down_proj = _Linear(i, h, device, dtype)
@@ -171,14 +200,15 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        self.self_attn = LlamaAttention(cfg, device, dtype)
-        self.mlp = LlamaMLP(cfg, device, dtype)
-        self.input_layernorm = _Norm(cfg.hidden_size, device, dtype,
-                                     cfg.rms_norm_eps)
-        self.post_attention_layernorm = _Norm(cfg.hidden_size, device, dtype,
-                                              cfg.rms_norm_eps)
+        device, dtype = _placement(config, device, dtype)
+        self.self_attn = LlamaAttention(config, device, dtype)
+        self.mlp = LlamaMLP(config, device, dtype)
+        self.input_layernorm = _Norm(config.hidden_size, device, dtype,
+                                     config.rms_norm_eps)
+        self.post_attention_layernorm = _Norm(config.hidden_size, device,
+                                              dtype, config.rms_norm_eps)
 
     def forward(self, hidden_states, rope_cache, attention_mask=None,
                 startend_row_indices=None):
@@ -189,18 +219,21 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        self.embed_tokens = _Embedding(cfg.vocab_size, cfg.hidden_size,
+        device, dtype = _placement(config, device, dtype)
+        self.config = config
+        self.embed_tokens = _Embedding(config.vocab_size, config.hidden_size,
                                        device, dtype)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(cfg, device, dtype)
-            for _ in range(cfg.num_hidden_layers))
-        self.norm = _Norm(cfg.hidden_size, device, dtype, cfg.rms_norm_eps)
+            LlamaDecoderLayer(config, device, dtype)
+            for _ in range(config.num_hidden_layers))
+        self.norm = _Norm(config.hidden_size, device, dtype,
+                          config.rms_norm_eps)
         cos, sin = build_rope_cache(
-            cfg.max_position_embeddings,
-            cfg.hidden_size // cfg.num_attention_heads, cfg.rope_theta,
-            device=device)
+            config.max_position_embeddings,
+            config.hidden_size // config.num_attention_heads,
+            config.rope_theta, device=device)
         # fp32 whatever the model's dtype, as in the JAX model; like the
         # JAX Layer.to, model.bfloat16() casts them (the forward upcasts)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -407,5 +440,7 @@ def load_numpy_optimizer_state(optimizer, state) -> None:
     optimizer.set_state_dict(dict(state, accumulators=accs))
 
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "build_rope_cache",
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
+           "build_rope_cache", "apply_rope",
            "load_numpy_state", "load_numpy_optimizer_state"]

@@ -1,10 +1,5 @@
-from . import functional
-from .layer import (GELU, AdaptiveAvgPool2D, BatchNorm2D, Conv2D,
-                    CrossEntropyLoss, Dropout, Embedding, Flatten, GroupNorm,
-                    Identity, LayerList, LayerNorm, Linear, MaxPool2D, ReLU,
-                    Sequential)
+from . import functional, initializer
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
 
-__all__ = ["functional", "GELU", "AdaptiveAvgPool2D", "BatchNorm2D",
-           "Conv2D", "CrossEntropyLoss", "Dropout", "Embedding", "Flatten",
-           "GroupNorm", "Identity", "LayerList", "LayerNorm", "Linear",
-           "MaxPool2D", "ReLU", "Sequential"]
+__all__ = ["functional", "initializer"] + list(_layers)

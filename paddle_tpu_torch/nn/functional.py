@@ -15,8 +15,12 @@ the JAX package has no Pallas kernel for them either. ``dropout`` and
 name for ``amp.auto_cast`` (``amp.op``). The convolutional models'
 functionals (``conv2d``, ``silu``, ``relu``, ``interpolate``,
 ``group_norm``, ``batch_norm``, ``max_pool2d``, ``adaptive_avg_pool2d``)
-are at the end; ``group_norm`` runs Triton kernels on CUDA tensors
-(``kernels/group_norm.py``).
+are at the end; ``group_norm`` and ``instance_norm`` run the Triton
+kernels of ``kernels/group_norm.py`` on CUDA tensors, ``batch_norm`` (with
+the residual add and the ReLU after it fused) those of
+``kernels/batch_norm.py``. The rest of ``norm.py`` (``rms_norm`` with the
+JAX signature, ``local_response_norm``, ``normalize``) and of
+``activation.py`` are plain PyTorch, as XLA-fused elementwise work.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch.nn.functional as TF
 from .. import amp
 from ..framework.random import next_key
 from ..kernels import LAUNCHES
+from ..kernels import batch_norm as BN
 from ..kernels import dropout as D
 from ..kernels import flash_attention as FA
 from ..kernels import fused
@@ -64,7 +69,7 @@ def _sdpa_reference(q, k, v, mask=None, causal=False, dropout_p=0.0,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, name=None):
+                                 training=True, name=None, allow_flash=True):
     """Attention over ``[batch, seq, heads, head_dim]`` inputs (the JAX
     package's layout), differentiable, routed as the JAX package routes it
     (``paddle_tpu/nn/functional/attention.py:57``). Without a mask and
@@ -79,8 +84,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     device, counted in ``LAUNCHES["sdpa_dense"]``, as the JAX package
     computes it in XLA outside any Pallas kernel; the probabilities are
     dropped only when ``training`` (a ``dropout_p`` with ``training=False``
-    still takes this route, as in the JAX package)."""
-    if attn_mask is None and dropout_p == 0.0:
+    still takes this route, as in the JAX package). ``allow_flash=False``
+    (the Llama config's ``use_flash_attention``) sends a call without a
+    mask or a dropout there too, counted in ``sdpa_dense``, as the JAX
+    package then takes its XLA path."""
+    if attn_mask is None and dropout_p == 0.0 and allow_flash:
         if not FA.flash_takes(query, key, is_causal, value):
             LAUNCHES["sdpa_plain"] += 1
             return _sdpa_op(query, key, value, None, is_causal)
@@ -297,10 +305,28 @@ def _flashmask_dropout(query, key, value, bounds, causal, window, p, lse):
 
 
 @amp.op("rms_norm")
-def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last axis with a weight, in x's dtype (fp32 inside):
-    the Triton kernel on CUDA tensors, the plain version on CPU tensors."""
-    return fused.rms_norm(x, weight, epsilon)
+def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
+             name=None):
+    """RMSNorm over the axes from ``begin_norm_axis`` on, in x's dtype (fp32
+    inside), routed as the JAX package routes it to Pallas
+    (``paddle_tpu/nn/functional/norm.py:77-78``): over the last axis with
+    a weight and no bias, the Triton kernel on CUDA tensors (its plain
+    version on CPU tensors); anything else the JAX formula (``_oracle``:
+    ``x * rsqrt(mean(x^2) + eps)``, times the weight, plus the bias, in
+    fp32) on either device."""
+    if begin_norm_axis in (-1, x.dim() - 1) and weight is not None \
+            and bias is None:
+        return fused.rms_norm(x, weight, epsilon)
+    ax = begin_norm_axis if begin_norm_axis >= 0 \
+        else x.dim() + begin_norm_axis
+    x32 = x.float()
+    ms = (x32 * x32).mean(dim=tuple(range(ax, x.dim())), keepdim=True)
+    out = x32 * (1.0 / torch.sqrt(ms + epsilon))
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 @amp.op("layer_norm")
@@ -379,23 +405,12 @@ def swiglu(x, y, name=None):
     "multiply" with the cast x standing for silu's output (its dtype and
     shape; the kernel never writes it), and the checker sees the product,
     which is not finite wherever silu's output is not."""
-    st = amp.amp_state
-    as_ops = not st.depth and amp._active()
-    if as_ops:
-        for observe in st.observers:
-            observe("silu", [x])
-        (x,) = amp._maybe_cast("silu", (x,))
-        for observe in st.observers:
-            observe("multiply", [x, y])
-        x, y = amp._maybe_cast("multiply", (x, y))
-    st.depth += 1          # the kernel's own calls are not ops
-    try:
-        out = fused.swiglu(x, y)
-    finally:
-        st.depth -= 1
-    if as_ops and st.checker is not None:
-        st.checker("multiply", out)
-    return out
+    ops = amp.FusedOps()
+    (dt,) = ops.op("silu", [x])
+    x = x.to(dt)
+    dx, dy = ops.op("multiply", [x, y])
+    x, y = x.to(dx), y.to(dy)
+    return ops.run(lambda: fused.swiglu(x, y))
 
 
 @amp.op("linear")
@@ -533,6 +548,211 @@ def relu(x, name=None):
     return TF.relu(x)
 
 
+# -- the rest of activation.py ------------------------------------------------------
+#
+# ``paddle_tpu/nn/functional/activation.py``'s formulas (jax.nn's where the
+# JAX package calls it), each the JAX op of its name for ``amp``; plain
+# PyTorch on either device, as XLA fuses them. ``jnp.clip``, ``maximum``
+# and ``minimum`` split the gradient of a tie in half, as
+# ``torch.maximum`` / ``torch.minimum`` do (``torch.clamp`` passes all
+# of it): bf16 inputs meet the bounds exactly often enough to matter.
+
+def _clip(x, lo, hi):
+    """jnp.clip: ``minimum(maximum(x, lo), hi)``, ties' gradient halved."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+def relu_(x, name=None):
+    """ReLU in place: x takes ``relu(x)``'s values and is returned."""
+    return x.copy_(relu(x))
+
+
+@amp.op("relu6")
+def relu6(x, name=None):
+    """jax.nn.relu6: ``min(max(x, 0), 6)`` with gradient 1 strictly
+    inside (0, 6) and 0 on the bounds."""
+    inside = (x > 0) & (x < 6)
+    return torch.where(inside, x, x.detach().clamp(0.0, 6.0))
+
+
+@amp.op("sigmoid")
+def sigmoid(x, name=None):
+    return torch.sigmoid(x)
+
+
+swish = silu
+
+
+@amp.op("leaky_relu")
+def leaky_relu(x, negative_slope=0.01, name=None):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+@amp.op("elu")
+def elu(x, alpha=1.0, name=None):
+    """jax.nn.elu: ``where(x > 0, x, alpha * expm1(x))``, the expm1 of
+    ``min(x, 0)`` so that its gradient stays finite."""
+    return torch.where(x > 0, x, alpha * torch.expm1(
+        torch.where(x > 0, torch.zeros_like(x), x)))
+
+
+@amp.op("celu")
+def celu(x, alpha=1.0, name=None):
+    zero = x.new_zeros(())
+    return torch.maximum(x, zero) + alpha * torch.expm1(
+        torch.minimum(x, zero) / alpha)
+
+
+@amp.op("selu")
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+@amp.op("prelu")
+def prelu(x, weight, data_format="NCHW", name=None):
+    """``where(x > 0, x, w * x)``: one weight for every element, or one a
+    channel (axis 1 for "NC..." formats, else the last)."""
+    if weight.numel() == 1:
+        return torch.where(x > 0, x, weight.reshape(()) * x)
+    shape = [1] * x.dim()
+    shape[1 if data_format.startswith("NC") else x.dim() - 1] = -1
+    return torch.where(x > 0, x, weight.reshape(shape) * x)
+
+
+@amp.op("rrelu")
+def rrelu(x, lower=0.125, upper=0.3333333333333333, training=False,
+          name=None):
+    """In training the negative part times a slope drawn uniform in
+    [lower, upper) for each element under ``next_key()`` (in x's dtype);
+    in eval times their mean."""
+    if training:
+        u = D.uniform_plain(x.shape, next_key(), x.device)
+        slope = (lower + (upper - lower) * u).to(x.dtype)
+        return torch.where(x >= 0, x, slope * x)
+    return torch.where(x >= 0, x, (lower + upper) / 2.0 * x)
+
+
+@amp.op("hardshrink")
+def hardshrink(x, threshold=0.5, name=None):
+    return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
+
+
+@amp.op("softshrink")
+def softshrink(x, threshold=0.5, name=None):
+    return torch.where(x > threshold, x - threshold, torch.where(
+        x < -threshold, x + threshold, torch.zeros_like(x)))
+
+
+@amp.op("tanhshrink")
+def tanhshrink(x, name=None):
+    return x - torch.tanh(x)
+
+
+@amp.op("hardtanh")
+def hardtanh(x, min=-1.0, max=1.0, name=None):
+    return _clip(x, min, max)
+
+
+@amp.op("hardsigmoid")
+def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
+    """``clip(x * slope + offset, 0, 1)`` with the JAX package's slope
+    0.1666667 (not 1/6)."""
+    return _clip(x * slope + offset, 0.0, 1.0)
+
+
+@amp.op("hardswish")
+def hardswish(x, name=None):
+    return x * _clip(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def _softplus(x):
+    """jax.nn.softplus: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+@amp.op("mish")
+def mish(x, name=None):
+    return x * torch.tanh(_softplus(x))
+
+
+@amp.op("softplus")
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    scaled = beta * x
+    return torch.where(scaled > threshold, x, _softplus(scaled) / beta)
+
+
+@amp.op("softsign")
+def softsign(x, name=None):
+    return x / (1 + x.abs())
+
+
+@amp.op("thresholded_relu")
+def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
+    return torch.where(x > threshold, x, torch.full_like(x, value))
+
+
+@amp.op("log_sigmoid")
+def log_sigmoid(x, name=None):
+    """jax.nn.log_sigmoid: ``-softplus(-x)``."""
+    return -_softplus(-x)
+
+
+@amp.op("maxout")
+def maxout(x, groups, axis=1, name=None):
+    """The largest of each ``groups`` consecutive channels along ``axis``
+    (its gradient shared among ties, as jnp.max's)."""
+    ax = axis % x.dim()
+    ch = x.shape[ax]
+    shape = x.shape[:ax] + (ch // groups, groups) + x.shape[ax + 1:]
+    return torch.amax(x.reshape(shape), dim=ax + 1)
+
+
+def _dtype(dtype):
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+@amp.op("softmax")
+def softmax(x, axis=-1, dtype=None, name=None):
+    """Softmax along ``axis``, x first cast to ``dtype`` where given."""
+    if dtype is not None:
+        x = x.to(_dtype(dtype))
+    return torch.softmax(x, dim=int(axis))
+
+
+def softmax_(x, axis=-1, dtype=None, name=None):
+    """Softmax in place: x takes ``softmax(x)``'s values and is
+    returned."""
+    return x.copy_(softmax(x, axis, dtype))
+
+
+@amp.op("log_softmax")
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    if dtype is not None:
+        x = x.to(_dtype(dtype))
+    return torch.log_softmax(x, dim=int(axis))
+
+
+@amp.op("gumbel_softmax")
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
+    """``softmax((x + g) / temperature)`` with Gumbel noise ``g = -log(-log
+    u)`` (u uniform under ``next_key()``, g in x's dtype); ``hard`` the
+    one-hot of its argmax with the soft values' gradient."""
+    u = D.uniform_plain(x.shape, next_key(), x.device)
+    g = (-torch.log(-torch.log(u))).to(x.dtype)
+    y = torch.softmax((x + g) / temperature, dim=axis)
+    if hard:
+        onehot = torch.zeros_like(y).scatter(
+            axis, y.argmax(dim=axis, keepdim=True), 1.0)
+        y = onehot + y - y.detach()
+    return y
+
+
+@amp.op("glu")
+def glu(x, axis=-1, name=None):
+    """The first half along ``axis`` times the sigmoid of the second."""
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
 def _nearest_index(n_in, n_out):
     """The JAX package's nearest source index of each output position,
     ``floor(i * (n_in / n_out))`` in fp32 (``common.py:157-166``)."""
@@ -578,6 +798,10 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
     return out
 
 
+def _meta(dtype, like):
+    return torch.empty(like.shape, dtype=dtype, device="meta")
+
+
 def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
                data_format="NCHW", name=None, *, then=None):
     """GroupNorm as the JAX package's (``norm.py:186``): mean and biased
@@ -602,72 +826,117 @@ def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
     if then is not None and not isinstance(then, str):
         raise TypeError(f"group_norm: then names an op, got {then!r}")
     last = data_format in ("NHWC", "NLC")
-    st = amp.amp_state
-    as_ops = not st.depth and amp._active()
-    out_dtype = x.dtype
-    if as_ops:
-        for observe in st.observers:
-            observe("group_norm", [t for t in (x, weight, bias)
-                                   if t is not None])
-        out_dtype = amp.cast_dtype("group_norm", x.dtype)
-        if then is not None:
-            if then == "silu":
-                for observe in st.observers:
-                    observe("silu", [torch.empty(x.shape, dtype=out_dtype,
-                                                 device="meta")])
-            out_dtype = amp.cast_dtype(then, out_dtype)
-    st.depth += 1          # the kernel's own calls are not ops
-    try:
-        out = GN.group_norm(x, int(num_groups), weight, bias, epsilon, last,
-                            then == "silu", out_dtype)
-    finally:
-        st.depth -= 1
-    if as_ops and st.checker is not None:
-        st.checker(then if then == "silu" else "group_norm", out)
-    return out
+    ops = amp.FusedOps()
+    out_dtype = ops.op("group_norm", [t for t in (x, weight, bias)
+                                      if t is not None])[0]
+    if then == "silu":
+        out_dtype = ops.op("silu", [_meta(out_dtype, x)])[0]
+    elif then is not None:
+        out_dtype = ops.cast(then, out_dtype)
+    return ops.run(lambda: GN.group_norm(x, int(num_groups), weight, bias,
+                                         epsilon, last, then == "silu",
+                                         out_dtype))
 
 
-@amp.op("batch_norm")
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
-               data_format="NCHW", use_global_stats=None, name=None):
+               data_format="NCHW", use_global_stats=None, name=None, *,
+               residual=None, then=None):
     """BatchNorm as the JAX package's (``norm.py:95``): in training (and
     not ``use_global_stats``) x normalised by the batch's mean and biased
     variance in fp32, and the running statistics updated in place,
     ``momentum * running + (1 - momentum) * batch`` (momentum weighs the
     old value; the variance is the biased one), so that a captured step's
     replay updates them too; in eval by the running statistics. The
-    weight and bias apply in fp32; the output is in x's dtype.
-    PyTorch's own ``F.batch_norm`` updates with the other convention
-    (its momentum weighs the new value, its variance is unbiased) and is
-    not used."""
-    last = data_format.endswith("C") and data_format != "NCHW"
-    ch = x.dim() - 1 if last and x.dim() > 2 else 1
-    axes = tuple(i for i in range(x.dim()) if i != ch)
-    shape = [1] * x.dim()
-    shape[ch] = -1
-    x32 = x.float()
-    if training and not use_global_stats:
-        var, mean = torch.var_mean(x32, dim=axes, unbiased=False)
-        with torch.no_grad():
-            running_mean.copy_(momentum * running_mean.float()
-                               + (1 - momentum) * mean)
-            running_var.copy_(momentum * running_var.float()
-                              + (1 - momentum) * var)
+    weight and bias apply in fp32; the output is in x's dtype. The
+    channels are at axis 1, or last for a channel-last ``data_format``
+    ("NHWC", "NLC", "NDHWC"); a 2-D input's at axis 1. On CUDA tensors the
+    Triton kernels of ``kernels.batch_norm``, on CPU tensors its plain
+    version. PyTorch's own ``F.batch_norm`` updates with the other
+    convention (its momentum weighs the new value, its variance is
+    unbiased) and is not used.
+
+    ``residual`` and ``then="relu"`` fuse what ResNet's blocks do next:
+    ``relu(batch_norm(x) + residual)`` in one kernel forward and one
+    backward, with the bits of the ops one by one. Under ``amp.auto_cast``
+    the ops are "batch_norm" (black-listed: fp32 output), "add" and "relu",
+    each casting its inputs as the separate op would; the kernel reads x
+    and the parameters as they are (their fp32 casts are exact) and writes
+    the dtype the casts give. ``amp.debugging`` sees the three ops, the
+    checker the last one's output."""
+    if then not in (None, "relu"):
+        raise NotImplementedError(f"batch_norm: then={then!r}; \"relu\" is "
+                                  f"ported")
+    last = data_format.endswith("C") and data_format != "NCHW" \
+        and x.dim() > 2
+    batch_stats = bool(training and not use_global_stats)
+    ops = amp.FusedOps()
+    ins = [x] if batch_stats else [x, running_mean, running_var]
+    norm_dt = out_dt = ops.op("batch_norm", ins + [
+        t for t in (weight, bias) if t is not None])[0]
+    if residual is not None:
+        add_dt = ops.op("add", [_meta(norm_dt, x), residual])
+        out_dt = torch.promote_types(*add_dt)
+        if add_dt[0] not in (norm_dt, out_dt):
+            raise NotImplementedError(f"batch_norm: the add casts the "
+                                      f"norm's {norm_dt} to {add_dt[0]}")
+    if then == "relu":
+        relu_dt = ops.op("relu", [_meta(out_dt, x)])[0]
+        if residual is not None and relu_dt != out_dt:
+            raise NotImplementedError(f"batch_norm: the relu casts the "
+                                      f"sum's {out_dt} to {relu_dt}")
+        out_dt = relu_dt
+    if norm_dt not in (x.dtype, torch.float32):
+        raise NotImplementedError(f"batch_norm: a {x.dtype} input written "
+                                  f"in {norm_dt}")
+    return ops.run(lambda: BN.batch_norm(
+        x, running_mean, running_var, weight, bias, batch_stats, momentum,
+        epsilon, last, residual, then == "relu", norm_dt == x.dtype, out_dt))
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    """InstanceNorm as the JAX package's (``norm.py:158``): each (sample,
+    channel)'s mean and biased variance over axes 2 and up in fp32,
+    whatever ``data_format`` says, times the weight and plus the bias (at
+    axis 1) in fp32, in x's dtype; the running statistics are never read
+    or written. It is GroupNorm with one channel a group: on CUDA tensors
+    the Triton kernels of ``kernels.group_norm``, on CPU tensors its plain
+    version. Under ``amp`` the op "instance_norm" (black-listed: fp32
+    output; the kernel reads x as it is)."""
+    ops = amp.FusedOps()
+    out_dtype = ops.op("instance_norm", [t for t in (x, weight, bias)
+                                         if t is not None])[0]
+    return ops.run(lambda: GN.group_norm(x, x.shape[1], weight, bias, eps,
+                                         False, False, out_dtype))
+
+
+@amp.op("local_response_norm")
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha * sum)^beta`` in fp32, the sum of x^2 over a window
+    of ``size`` channels at axis 1 (whatever ``data_format`` says), zero
+    padded (``size // 2`` before): the JAX package's sum
+    (``norm.py:225-240``), not PyTorch's mean over the window."""
+    sq = x.float() ** 2
+    c, half = x.shape[1], size // 2
+    padded = TF.pad(sq, [0, 0] * (x.dim() - 2) + [half, size - half - 1])
+    acc = torch.zeros_like(sq)
+    for i in range(size):
+        acc = acc + padded.narrow(1, i, c)
+    return (x.float() / (k + alpha * acc) ** beta).to(x.dtype)
+
+
+@amp.op("normalize")
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x over its p-norm along ``axis`` (at least ``epsilon``), in x's
+    dtype."""
+    if p == 2:
+        n = torch.sqrt((x * x).sum(dim=axis, keepdim=True))
     else:
-        mean, var = running_mean.float(), running_var.float()
-    # (x - mean) / sqrt(var + eps) * w + b with the per-channel factors
-    # formed first: two passes over x forward, and few in the backward
-    scale = 1.0 / torch.sqrt(var + epsilon)
-    if weight is not None:
-        scale = scale * weight.float()
-    centered = x32 - mean.reshape(shape)
-    if bias is None:
-        out = centered * scale.reshape(shape)
-    else:
-        out = torch.addcmul(bias.float().reshape(shape), centered,
-                            scale.reshape(shape))
-    return out.to(x.dtype)
+        n = (x.abs() ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(n, epsilon)
 
 
 def _pool_pads(padding, name):
@@ -720,4 +989,10 @@ __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "rms_norm", "layer_norm", "dropout", "tanh",
            "cross_entropy", "gelu", "linear", "embedding", "swiglu",
            "conv2d", "silu", "relu", "interpolate", "group_norm",
-           "batch_norm", "max_pool2d", "adaptive_avg_pool2d"]
+           "batch_norm", "instance_norm", "local_response_norm", "normalize",
+           "max_pool2d", "adaptive_avg_pool2d", "relu_", "relu6", "sigmoid",
+           "swish", "leaky_relu", "elu", "celu", "selu", "prelu", "rrelu",
+           "hardshrink", "softshrink", "tanhshrink", "hardtanh",
+           "hardsigmoid", "hardswish", "mish", "softplus", "softsign",
+           "thresholded_relu", "log_sigmoid", "maxout", "softmax",
+           "softmax_", "log_softmax", "gumbel_softmax", "glu"]

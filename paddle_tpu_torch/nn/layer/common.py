@@ -38,7 +38,7 @@ class Linear(nn.Module):
             (in_features, out_features), weight_attr, dev, dt,
             lambda t: xavier_normal_(t, generator))
         self.bias = make_parameter((out_features,), bias_attr, dev, dt,
-                                   torch.Tensor.zero_)
+                                   torch.Tensor.zero_, True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

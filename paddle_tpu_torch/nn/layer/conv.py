@@ -43,7 +43,7 @@ class Conv2D(nn.Module):
         bound = 1.0 / math.sqrt(fan_in)
         self.bias = make_parameter(
             (out_channels,), bias_attr, dev, dt,
-            lambda t: uniform_(t, generator, -bound, bound))
+            lambda t: uniform_(t, generator, -bound, bound), True)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,

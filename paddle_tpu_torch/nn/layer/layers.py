@@ -8,13 +8,16 @@ import torch
 from torch import nn
 
 from ... import resolve_device
-from ..initializer import ParamAttr, set_param_attr
+from ..initializer import _resolve_attr, set_param_attr
 
 
 class LayerList(nn.ModuleList):
     """Sublayers held in order and named "0", "1", ...: the JAX
     ``LayerList``'s indexing, slicing, ``append``, ``insert``,
     ``extend`` and iteration are ``nn.ModuleList``'s."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)
 
 
 class Sequential(nn.Sequential):
@@ -41,20 +44,22 @@ def placement(device, dtype):
     return resolve_device(device), dtype or torch.float32
 
 
-def make_parameter(shape, attr, device, dtype, init):
-    """A parameter of ``shape`` filled by ``init(tensor)`` (under no_grad),
-    carrying ``attr``'s name and learning rate (a ``ParamAttr`` or a name;
-    its own initializer is not ported and raises); None where ``attr`` is
-    False."""
+def make_parameter(shape, attr, device, dtype, init, is_bias=False):
+    """A parameter of ``shape`` carrying ``attr``'s name and learning rate
+    (a ``ParamAttr``, a name or an ``Initializer``); None where ``attr`` is
+    False. Its values come from the attribute's initializer, else the
+    global one of weights or biases (``is_bias``;
+    ``initializer.set_global_initializer``), else ``init(tensor)`` (under
+    no_grad), the layer's own: the JAX ``create_parameter``'s order."""
     if attr is False:
         return None
-    if isinstance(attr, ParamAttr) and attr.initializer is not None:
-        raise NotImplementedError("ParamAttr(initializer=...) is not ported: "
-                                  "the layers draw their default "
-                                  "initializers")
+    chosen = _resolve_attr(attr, None, is_bias)[0]
     p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
     with torch.no_grad():
-        init(p)
+        if chosen is None:
+            init(p)
+        else:
+            p.copy_(chosen(tuple(shape), dtype, device))
     if attr is not None:
         set_param_attr(p, attr)
     return p

@@ -14,8 +14,15 @@ statistics normalise, and the running statistics are updated in place
 replay. The JAX package's ``SpmdTrainer`` drops that update (its
 ``batch_norm`` assigns the buffers while the step is traced; ROADMAP F11);
 the port does not follow it there. On the card the convolutions are
-cuDNN's and BatchNorm, ReLU and the pools are PyTorch ops: the JAX package
-has no Pallas kernel in this model.
+cuDNN's and the pools PyTorch ops; every BatchNorm runs the Triton kernels
+of ``kernels/batch_norm.py`` with what follows it fused, as XLA fuses it
+in the JAX package's step: the stem's and each block's inner BatchNorms
+with their ReLU (``bn(conv(x), then="relu")``), each block's last with
+the residual add and the ReLU (``bn(conv(out), residual=identity,
+then="relu")``). The results are the separate ops' bits, and the
+parameter and buffer names those of the JAX model (its ``relu`` modules
+hold neither, and the port has none). The JAX package has no Pallas
+kernel in this model.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from torch import nn
 
 from ... import resolve_device
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D,
-                   ReLU, Sequential)
+                   Sequential)
 
 
 class BasicBlock(nn.Module):
@@ -45,7 +52,6 @@ class BasicBlock(nn.Module):
         self.conv1 = Conv2D(inplanes, planes, 3, padding=1, stride=stride,
                             bias_attr=False, **at)
         self.bn1 = norm_layer(planes)
-        self.relu = ReLU()
         self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
                             **at)
         self.bn2 = norm_layer(planes)
@@ -53,12 +59,9 @@ class BasicBlock(nn.Module):
         self.stride = stride
 
     def forward(self, x):
-        identity = x
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        if self.downsample is not None:
-            identity = self.downsample(x)
-        return self.relu(out + identity)
+        out = self.conv2(self.bn1(self.conv1(x), then="relu"))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.bn2(out, residual=identity, then="relu")
 
 
 class BottleneckBlock(nn.Module):
@@ -82,18 +85,15 @@ class BottleneckBlock(nn.Module):
         self.conv3 = Conv2D(width, planes * self.expansion, 1,
                             bias_attr=False, **at)
         self.bn3 = norm_layer(planes * self.expansion)
-        self.relu = ReLU()
         self.downsample = downsample
         self.stride = stride
 
     def forward(self, x):
-        identity = x
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        if self.downsample is not None:
-            identity = self.downsample(x)
-        return self.relu(out + identity)
+        out = self.bn2(self.conv2(self.bn1(self.conv1(x), then="relu")),
+                       then="relu")
+        out = self.conv3(out)
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.bn3(out, residual=identity, then="relu")
 
 
 class ResNet(nn.Module):
@@ -122,7 +122,6 @@ class ResNet(nn.Module):
         self.conv1 = Conv2D(3, self.inplanes, kernel_size=7, stride=2,
                             padding=3, bias_attr=False, **self._at)
         self.bn1 = self._norm_layer(self.inplanes)
-        self.relu = ReLU()
         self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
         self.layer1 = self._make_layer(block, 64, layers[0])
         self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
@@ -153,8 +152,7 @@ class ResNet(nn.Module):
         return Sequential(*layers)
 
     def forward(self, x):
-        x = self.relu(self.bn1(self.conv1(x)))
-        x = self.maxpool(x)
+        x = self.maxpool(self.bn1(self.conv1(x), then="relu"))
         x = self.layer1(x)
         x = self.layer2(x)
         x = self.layer3(x)

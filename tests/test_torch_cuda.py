@@ -31,7 +31,17 @@ version bit for bit (the same Philox words), also after a graph replay
 with a new key. LayerNorm with a dropout and a residual: the sum it
 normalises bit-equal to the ops one by one, its output and gradients
 within one ulp of the row's largest value in bf16 (2e-5 in fp32) of the
-plain ops' autograd, which sums in another order.
+plain ops' autograd, which sums in another order. BatchNorm: as GroupNorm
+(fp32 2e-5 of the largest value, dx's own scale where the variance makes
+it large; bf16 one ulp of each row's largest value, two for the
+gradients, and dx within 2e-5 of its own scale, where a channel of two
+values makes it rounding noise), its weight and bias gradients, sums over
+a channel's n values, within 2e-5 times max(1, sqrt(n) / 8) of the
+largest (at least two bf16 ulps in bf16), the running statistics within
+2e-5, a bf16 norm added to an fp32 residual within one bf16 ulp of the
+norm's largest value; the fused residual add
+and ReLU bit-equal to the unfused kernel followed by PyTorch's add and
+ReLU, and a graph replay bit-equal to an eager call.
 """
 import numpy as np
 import pytest
@@ -2581,3 +2591,224 @@ def test_tiny_unet_and_resnet_train_on_card_as_on_cpu(dev):
             close += int((d <= 1e-5).sum())
             total += d.numel()
         assert close >= 0.999 * total
+
+
+# -- BatchNorm ---------------------------------------------------------------------
+
+_BN_CASES = [((4, 6, 5, 5), "NCHW"), ((3, 5, 7), "NCL"), ((16, 12), "NC"),
+             ((2, 3, 4, 3, 5), "NCDHW"), ((3, 5, 6, 8), "NHWC"),
+             ((2, 4, 3, 5, 6), "NDHWC"), ((8, 64, 28, 28), "NCHW"),
+             ((6, 96, 7, 7), "NCHW"), ((2, 7, 1, 1), "NCHW"),
+             ((4, 9, 9, 40), "NHWC")]
+
+
+def _bn_inputs(dev, dtype, shape, last, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1] if last else shape[1]
+    x = (3 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+    res = torch.randn(*shape, device=dev, generator=g)
+    w = (1 + 0.2 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    b = (0.2 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    dy = torch.randn(*shape, device=dev, generator=g)
+    stats = (0.1 * torch.randn(c, device=dev, generator=g),
+             1 + 0.1 * torch.rand(c, device=dev, generator=g))
+    return x, res, w, b, dy, stats
+
+
+def _bn_dx_close(got, want, dtype, scale):
+    """dx: as ``_gn_close``, and in bf16 also within 2e-5 of dx's own
+    scale (rstd * |dy * w|): where a channel has two values its x-hat is
+    +-1 whatever x is, dx is 0 in exact arithmetic, and both sides write
+    rounding noise."""
+    if dtype == torch.float32:
+        _gn_close(got, want, dtype, 2, scale)
+        return
+    mag = want.float().abs().amax(-1, keepdim=True)
+    tol = torch.clamp(2 * 2.0 ** -7 * mag, min=2e-5 * scale)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,fmt", _BN_CASES)
+@pytest.mark.parametrize("form", ["plain", "relu", "residual_relu"])
+@pytest.mark.parametrize("batch_stats", [True, False])
+def test_batch_norm_matches_plain(dev, dtype, shape, fmt, form,
+                                  batch_stats):
+    """The BatchNorm kernels, forward and backward, unfused, with the ReLU
+    and with the residual add and the ReLU, in training and on the
+    running statistics, every layout: against the plain formula's
+    autograd (fp32 within 2e-5 of the largest value, bf16 each row within
+    one ulp of its largest plain value, two for the gradients), the
+    running statistics within 2e-5; one launch each way; two calls give
+    the same bits."""
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    last = fmt.endswith("C") and fmt != "NCHW" and len(shape) > 2
+    x, res, w, b, dy, stats = _bn_inputs(dev, dtype, shape, last)
+    res = res if form == "residual_relu" else None
+    relu = form != "plain"
+    out_dtype = torch.float32 if res is not None else dtype
+
+    def run(fn, fused=True, grad=None):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        r = None if res is None else res.clone().requires_grad_()
+        rm, rv = (t.clone() for t in stats)
+        y = fn(leaves[0], rm, rv, leaves[1], leaves[2], batch_stats, 0.9,
+               1e-5, last, r if fused else None, relu and fused, True,
+               out_dtype if fused else dtype)
+        y.backward(dy.to(y.dtype) if grad is None else grad.to(y.dtype))
+        return [y.detach()] + [t.grad for t in leaves] + \
+            [None if r is None or not fused else r.grad, rm, rv]
+    before = (K.LAUNCHES["batch_norm"], K.LAUNCHES["batch_norm_bwd"])
+    got = run(BN.batch_norm)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["batch_norm"], K.LAUNCHES["batch_norm_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    again = run(BN.batch_norm)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    # the gradients: the plain norm's autograd from the gradient the
+    # kernel's own output lets through the ReLU (a value within rounding of
+    # 0 may fall on the other side in the plain forward), which is also
+    # the residual's gradient
+    dyo = dy.to(got[0].dtype).float()
+    g = torch.where(got[0] <= 0, 0.0, dyo) if relu else dyo
+    want = run(BN.batch_norm_plain, fused=False, grad=g)
+    plain = run(BN.batch_norm_plain)[0]
+    if res is not None and dtype == torch.bfloat16:
+        # the norm rounded to bf16 before the fp32 add: the two sides'
+        # roundings may sit one bf16 ulp of the norm's value apart
+        tol = 2.0 ** -7 * float(want[0].float().abs().max()) \
+            + 2e-5 * float(plain.abs().max())
+        assert float((got[0] - plain).abs().max()) <= tol
+    else:
+        _gn_close(got[0], plain, got[0].dtype, 1)
+    if res is not None:
+        assert got[4].dtype == res.dtype and torch.equal(got[4], g)
+    ch = len(shape) - 1 if last else 1
+    axes = tuple(i for i in range(len(shape)) if i != ch)
+    var = stats[1] if not batch_stats else \
+        x.float().var(dim=axes, unbiased=False)
+    dx_scale = float((var + 1e-5).rsqrt().max()) * float(
+        dy.abs().max() * w.float().abs().max())
+    _bn_dx_close(got[1], want[1], dtype, dx_scale)
+    n = x.numel() // x.shape[ch]
+    for a, c in zip(got[2:4], want[2:4]):
+        # a sum over n values: fp32 rounding of n terms
+        tol = 2e-5 * max(1.0, float(c.float().abs().max())) * max(
+            1.0, n ** 0.5 / 8)
+        if dtype == torch.bfloat16:
+            tol = max(tol, 2 * 2.0 ** -7 * float(c.float().abs().max()))
+        assert float((a.float() - c.float()).abs().max()) <= tol
+    for a, c in zip(got[5:], want[5:]):
+        assert float((a - c).abs().max()) <= 2e-5 * max(
+            1.0, float(c.abs().max()))
+
+
+@pytest.mark.parametrize("level", [None, "O1", "O2"])
+@pytest.mark.parametrize("shape", [(8, 64, 28, 28), (4, 256, 7, 7),
+                                   (6, 16, 5, 5)])
+def test_batch_norm_fused_is_the_composition(dev, level, shape):
+    """Through ``nn.functional.batch_norm`` with bf16 x, fp32 weights and
+    an fp32 residual (ResNet's dtypes under amp O1), with and without
+    ``auto_cast``: ``then="relu"`` with and without ``residual`` against
+    the kernel's unfused output followed by PyTorch's add and ReLU,
+    output, dx, dresidual, dweight, dbias and the running statistics all
+    bit-equal."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    x, res, w, b, dy, stats = _bn_inputs(dev, torch.bfloat16, shape, False)
+    w, b = w.float(), b.float()
+    for with_res in (True, False):
+        runs = []
+        for fused in (True, False):
+            xi = x.clone().requires_grad_()
+            ri = res.clone().requires_grad_()
+            wi, bi = w.clone().requires_grad_(), b.clone().requires_grad_()
+            rm, rv = (t.clone() for t in stats)
+            ctx = amp.auto_cast(level=level) if level else \
+                torch.enable_grad()
+            with ctx:
+                if fused:
+                    y = F.batch_norm(xi, rm, rv, wi, bi, training=True,
+                                     residual=ri if with_res else None,
+                                     then="relu")
+                else:
+                    z = F.batch_norm(xi, rm, rv, wi, bi, training=True)
+                    y = F.relu(z + ri if with_res else z)
+            y.backward(dy.to(y.dtype))
+            runs.append((y, xi.grad, ri.grad, wi.grad, bi.grad, rm, rv))
+        torch.cuda.synchronize()
+        for a, c in zip(*runs):
+            assert (a is None) == (c is None)
+            if a is not None:
+                assert a.dtype == c.dtype and torch.equal(a, c)
+
+
+def test_batch_norm_replays_from_a_graph_with_running_statistics(dev):
+    """Forward (residual and ReLU fused) and backward captured in a CUDA
+    graph with the running statistics: each replay after the input is
+    rewritten equals an eager call bit for bit, and each moves the running
+    statistics as the eager call does."""
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    x, res, w, b, dy, stats = _bn_inputs(dev, torch.bfloat16,
+                                         (8, 128, 14, 14), False)
+    w, b = w.float(), b.float()
+    xs = x.clone().requires_grad_()
+    rm, rv = (t.clone() for t in stats)
+
+    def step(m, v):
+        xs.grad = None
+        y = BN.batch_norm(xs, m, v, w, b, True, 0.9, 1e-5, False, res,
+                          True, False, torch.float32)
+        return y, torch.autograd.grad(y, xs, dy)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(rm.clone(), rv.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_cap, dx_cap = step(rm, rv)
+    em, ev = (t.clone() for t in stats)
+    rm.copy_(stats[0])
+    rv.copy_(stats[1])
+    for seed in (1, 2):
+        with torch.no_grad():
+            xs.copy_(_bn_inputs(dev, torch.bfloat16, (8, 128, 14, 14),
+                                False, seed=seed)[0])
+        graph.replay()
+        y, dx = step(em, ev)
+        torch.cuda.synchronize()
+        assert torch.equal(y_cap, y) and torch.equal(dx_cap, dx)
+        assert torch.equal(rm, em) and torch.equal(rv, ev)
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 33, 17), (3, 4, 9), (2, 3, 4, 5, 6),
+                                   (5, 3)])
+def test_instance_norm_runs_the_group_norm_kernel(dev, shape):
+    """``instance_norm`` on the card is GroupNorm with one channel a group
+    (the plan's ``Cg = 1``): one ``group_norm`` launch each way, output
+    and gradients as the plain version's (fp32 2e-5; bf16 one ulp of each
+    row's largest, two for the gradients), under O1 an fp32 output."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import group_norm as GN
+    from paddle_tpu_torch.nn import functional as F
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b, dy = _gn_inputs(dev, dtype, shape)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        before = (K.LAUNCHES["group_norm"], K.LAUNCHES["group_norm_bwd"])
+        y = F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2])
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert (K.LAUNCHES["group_norm"], K.LAUNCHES["group_norm_bwd"]) == \
+            (before[0] + 1, before[1] + 1)
+        plain = [t.clone().requires_grad_() for t in (x, w, b)]
+        want = GN.group_norm_plain(plain[0], shape[1], plain[1], plain[2])
+        want.backward(dy)
+        _gn_close(y.detach(), want.detach(), dtype, 1)
+        xg = x.float().reshape(shape[0], shape[1], -1)
+        rstd = float((xg.var(-1, unbiased=False) + 1e-5).rsqrt().max())
+        scale = rstd * float(dy.float().abs().max() * w.float().abs().max())
+        for a, c, s in zip(leaves, plain, (scale, 0.0, 0.0)):
+            _gn_close(a.grad, c.grad, dtype, 2, s)
+    with amp.auto_cast(level="O1"):
+        assert F.instance_norm(x, weight=w, bias=b).dtype == torch.float32

@@ -211,3 +211,32 @@ def test_convolutional_slice_imports_no_jax_package(module):
         top |= {node.module.split(".")[0] for node in body
                 if isinstance(node, ast.ImportFrom) and node.level == 0}
         assert "triton" not in top, path
+
+
+@pytest.mark.parametrize("module", ["kernels/batch_norm.py",
+                                    "nn/functional.py", "nn/initializer.py",
+                                    "nn/layer/activation.py",
+                                    "nn/layer/norm.py", "models/llama.py",
+                                    "framework/io.py"])
+def test_norm_activation_initializer_slice_imports_no_jax_or_triton(module):
+    """The BatchNorm kernels, the norms, activations and initializers and
+    the F13 modules: no file imports jax or paddle_tpu, none imports
+    Triton at its top level (the BatchNorm module imports it inside the
+    function that launches), and importing them in a fresh process loads
+    neither."""
+    path = os.path.join(REPO, "paddle_tpu_torch", module)
+    assert not _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
+    with open(path) as f:
+        body = ast.parse(f.read()).body
+    top = {a.name.split(".")[0] for node in body
+           if isinstance(node, ast.Import) for a in node.names}
+    top |= {node.module.split(".")[0] for node in body
+            if isinstance(node, ast.ImportFrom) and node.level == 0}
+    assert "triton" not in top
+    name = "paddle_tpu_torch." + module[:-3].replace("/", ".")
+    code = (f"import sys, {name}; "
+            "print(sorted(m for m in ('jax', 'triton', 'paddle_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr

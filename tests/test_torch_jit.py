@@ -274,7 +274,7 @@ def test_bf16_state_round_trips(tmp_path):
     model = pm.bfloat16()
     path = str(tmp_path / "llama_bf16")
     jit.save(model, path, input_spec=[jit.InputSpec([None, None], "int64")])
-    state = pio.load_tensors(path + ".pdiparams")
+    state = pio.load(path + ".pdiparams")
     for n, p in model.named_parameters():
         assert state[n].dtype == torch.bfloat16 and torch.equal(state[n], p)
     ids = torch.from_numpy(np.random.default_rng(7).integers(0, 64, (2, 6)))

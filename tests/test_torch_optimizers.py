@@ -324,7 +324,7 @@ def _resume_run(rule, split, tmp_path):
             pio.save({"model": pm.state_dict(), "opt": o.state_dict(),
                       "sched": sched.state_dict()}, str(tmp_path / "ck"))
             pm, sched, o = fresh()
-            ck = pio.load_tensors(str(tmp_path / "ck"))
+            ck = pio.load(str(tmp_path / "ck"))
             pm.load_state_dict(ck["model"])
             o.set_state_dict(ck["opt"])
             sched.set_state_dict(ck["sched"])
@@ -357,7 +357,7 @@ def test_state_dict_is_a_snapshot_and_round_trips_through_io(tmp_path):
     o.step()
     assert torch.equal(state["accumulators"]["param_0"]["moment1"], m1)
     pio.save(state, str(tmp_path / "o"))
-    back = pio.load_tensors(str(tmp_path / "o"))
+    back = pio.load(str(tmp_path / "o"))
     assert back["global_step"] == 1 and back["LR_Scheduler"] == \
         state["LR_Scheduler"]
     for key, acc in state["accumulators"].items():

@@ -117,7 +117,7 @@ def test_pdparams_round_trip(tmp_path):
     jm = _jax_model(4)
     path = str(tmp_path / "tiny.pdparams")
     paddle.save(jm.state_dict(), path)
-    state = framework.load(path)
+    state = framework.load(path, return_numpy=True)
     assert all(isinstance(v, np.ndarray) for v in state.values())
     model = LlamaForCausalLM(_port_config(4), device="cpu")
     load_numpy_state(model, state)

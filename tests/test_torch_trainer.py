@@ -490,7 +490,7 @@ def test_trainer_resumes_from_saved_state(tmp_path):
                 pio.save({"model": pm.state_dict(), "opt": o.state_dict()},
                          str(tmp_path / "ck"))
                 pm, o, tr = fresh()
-                ck = pio.load_tensors(str(tmp_path / "ck"))
+                ck = pio.load(str(tmp_path / "ck"))
                 pm.load_state_dict(ck["model"])
                 o.set_state_dict(ck["opt"])
                 assert tr._step_count == 0
