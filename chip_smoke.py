@@ -73,7 +73,13 @@ Phases, each printing its own lines and its seconds:
      unfused kernel followed by PyTorch's add and ReLU under amp O1,
      timed beside its bound, the plain version and cuDNN's F.batch_norm
      (+ add, + F.relu) and its autograd; an InstanceNorm2D through the
-     GroupNorm kernel against its plain version;
+     GroupNorm kernel against its plain version; the CTC and RNN-T
+     kernels (a pass over the rows and a recursion each way) against
+     their plain loops at phase 16's shapes, fp32 and bf16, ragged
+     lengths, an empty label sequence, norm_by_times and fastemit_lambda,
+     two runs bit-equal, timed beside their bounds, the plain loops and
+     F.ctc_loss; the new losses, common functionals and layers on the
+     card against the same calls on the CPU;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -170,9 +176,9 @@ Phases, each printing its own lines and its seconds:
      saved on the CPU and loaded on the card, with the same checks; save,
      load and run seconds; the artifacts are deleted;
   12. the training surface on the llama-1.1b-b8 widths (bf16 weights,
-     batch 8 x 2048, nothing cut): the usual recipe (AdamW at warmup then
-     cosine, no decay on the named norms, the embedding at half the rate,
-     global-norm clipping) 5 steps, captured, the rate each replay read
+     batch 8 x 2048) at 6 of its 22 layers: the usual recipe (AdamW at
+     warmup then cosine, no decay on the named norms, the embedding at
+     half the rate, global-norm clipping) 5 steps, captured, the rate each replay read
      equal to the scheduler's and exact launch counts; the same run saved
      after 3 steps (model, optimizer, scheduler through framework.io), one
      step more, then the save loaded in place into the same model,
@@ -227,6 +233,19 @@ Phases, each printing its own lines and its seconds:
      bit-equal with every running statistic; an eval forward at batch
      128 (53 BatchNorm launches); a tiny float32 ResNet-18 on the card
      against the CPU trainer;
+  16. sequence-loss training through the captured trainer with AdamW,
+     no plain loop allowed to run: CTC at DeepSpeech2's English output
+     (features [500, 32, 1024] -> Linear(1024, 29) -> CTCLoss, input
+     lengths 400-500, labels 100-200) and over a 4,200-character Mandarin
+     vocabulary ([250, 32, 1024], labels up to 40); RNN-T at a
+     Conformer-Transducer's joint (encoder [16, 200, 512] and prediction
+     network [16, 61, 640] each to 640, added, tanh, Linear(640, 1024),
+     RNNTLoss on [16, 200, 61, 1024] fp32, input lengths 150-200, labels
+     30-60): for each, exact launch counts (the loss's forward and
+     backward kernels and AdamW, one each a step), step ms, a profile
+     (the loss kernels' share), 2 replayed steps against 2 eager ones,
+     bit-equal; a tiny float32 CTC head and joint on the card against the
+     CPU trainer;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -1583,6 +1602,11 @@ def _captured_step_f32(torch, make_model, seed, quant=None):
 
 
 def _kernel_group(name):
+    for kind in ("ctc", "rnnt"):
+        if f"{kind}_rows_kernel" in name or f"{kind}_alpha_kernel" in name:
+            return f"{kind}_fwd"
+        if f"{kind}_adjoint_kernel" in name or f"{kind}_grad_rows" in name:
+            return f"{kind}_bwd"
     if "_bn_bwd_" in name:
         return "batch_norm_bwd"
     if "_bn_stats_kernel" in name or "_bn_fwd_kernel" in name:
@@ -1647,14 +1671,16 @@ _STEP_TRACE_CHECKED = {
     ("ragged_attention",): lambda k: ("ragged_attention_wgmma_kernel" in k
                                       or "ragged_attention_kernel" in k),
 }
-PROFILE_TRACES = 3     # traces taken before a lossy one fails the phase
+PROFILE_TRACES = 8     # traces taken before a lossy one fails the phase
 
 
 def _profile(torch, step, n, checked=None):
     """Wall ms per step and device ms per step by kernel group, from a
     torch.profiler trace of ``n`` calls of ``step`` (kernels replayed from
     a CUDA graph appear in the trace as launched ones do). The tracer can
-    drop kernel records (a few dozen of a step's ~640, now and then): with
+    drop kernel records (a few dozen of a step's ~640, now and then; after
+    some hundreds of traces in one process, every record of a few traces
+    in a row, then it recovers): with
     ``checked`` (as ``_STEP_TRACE_CHECKED``) a trace must hold each of its
     kernels as many times as the wrapper counted launches over the traced
     calls, or it is taken again over the next ``n`` calls, up to
@@ -3153,7 +3179,7 @@ def _state_restore(torch, trainer, snap):
 
 
 def _captured_against_eager(torch, trainer, batch, tag, card, step_ms,
-                            captured, n=3):
+                            captured, n=3, checked=None):
     """From one snapshot of the trainer's weights, buffers and optimizer
     state, ``n`` steps replayed from its graph, then (the graph and its
     pool dropped, the snapshot loaded back in place, the random state
@@ -3162,7 +3188,7 @@ def _captured_against_eager(torch, trainer, batch, tag, card, step_ms,
     statistics) after the last, bit-equal. One model and no twin: a
     full-width model's activations (the UNet's) fit once, not twice. Returns the eager
     step ms (mean of steps 2..n, host clock), a profile of one eager step
-    and its idle share."""
+    and its idle share (``checked``: as ``_profile``'s)."""
     from paddle_tpu_torch.framework import random as R
     snap = _state_snapshot(torch, trainer)
     rng = R.get_rng_state()
@@ -3203,7 +3229,7 @@ def _captured_against_eager(torch, trainer, batch, tag, card, step_ms,
     n_buffers = len(buffers)
     del after, params, buffers, opt_state
     eager_ms = 1e3 * sum(secs[1:]) / (n - 1)
-    _, m = _profile(torch, lambda: trainer._step_eager(*batch), 1)
+    _, m = _profile(torch, lambda: trainer._step_eager(*batch), 1, checked)
     out = dict(step_ms=eager_ms, bit_equal=True, breakdown=m,
                idle_share_untraced=1 - m["device_ms"] / eager_ms,
                buffers_compared=n_buffers)
@@ -4768,7 +4794,8 @@ def _rules_on_card(torch):
 
 def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     """The llama-1.1b-b8 widths of phase 5 (bf16 weights, fp32 moments,
-    batch 8 x 2048, nothing cut) trained the usual way: (a) the recipe
+    batch 8 x 2048) at 6 of its 22 layers (depth cut for the smoke's
+    time limit) trained the usual way: (a) the recipe
     (``_recipe``: warmup then cosine, decay off on the named norms, the
     embedding at half the rate, global-norm clipping) for 5 steps under
     full remat; (b) 3 steps, the model's, optimizer's and scheduler's
@@ -4785,7 +4812,7 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
     from paddle_tpu_torch.framework import io
     from paddle_tpu_torch.optimizer import lr
     card = _card_line()
-    cfg = _llama_1b()
+    cfg = _llama_1b(6)
     n_l = cfg.num_hidden_layers
     batch = (torch.from_numpy(np.random.default_rng(args.seed + 5).integers(
         0, cfg.vocab_size, (8, 2048))).cuda(),) * 2
@@ -4821,7 +4848,7 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
                          step_seconds=sa, peak_memory_gb=peak_a,
                          phase5_step_ms=phase5_step_ms, breakdown=prof_a)
     print(f"  (a) step ms (mean of steps 2-5) {step_ms:.2f}, phase 5's "
-          f"{phase5_step_ms:.2f} in this call; a profiled step: "
+          f"(22 layers) {phase5_step_ms:.2f} in this call; a profiled step: "
           f"{_breakdown_line(prof_a)} [{card}]", flush=True)
 
     # (c) remat "dots"
@@ -6966,6 +6993,545 @@ def phase_resnet(torch, args, launches_out):
     return out
 
 
+# -- phases 3 and 16: CTC and RNN-T ----------------------------------------------
+
+# the sequence losses' configurations: DeepSpeech2's English output (Amodei
+# et al., 2016: 28 characters and the blank) over 500 frames of a batch of
+# 32; an AISHELL-1-sized Mandarin character vocabulary; a
+# Conformer-Transducer's joint (Gulati et al., 2020: encoder 512 and
+# prediction network 640 wide, joint 640, 1024 word pieces)
+CTC_EN = dict(T=500, B=32, C=29, L=200, feat=1024, ilen=(400, 500),
+              llen=(100, 200))
+CTC_ZH = dict(T=250, B=32, C=4200, L=40, feat=1024, ilen=(200, 250),
+              llen=(10, 40))
+RNNT_CFG = dict(B=16, T=200, U=60, V=1024, enc=512, pred=640, hidden=640,
+                ilen=(150, 200), llen=(30, 60))
+SEQ_PLAIN = ("ctc_forward_plain", "ctc_backward_plain", "rnnt_forward_plain",
+             "rnnt_backward_plain")
+
+
+def _lengths(torch, g, n, lo_hi):
+    return torch.randint(lo_hi[0], lo_hi[1] + 1, (n,), device="cuda",
+                         generator=g, dtype=torch.int32)
+
+
+def _seq_targets(torch, cfg, vocab, n_labels, seed, empty=False):
+    """Labels [B, n_labels] (no blank) and input and label lengths in the
+    configuration's ranges (one empty label sequence with ``empty``),
+    int32 on the card, from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lab = torch.randint(1, vocab, (cfg["B"], n_labels), device="cuda",
+                        generator=g, dtype=torch.int32)
+    il, ll = _lengths(torch, g, cfg["B"], cfg["ilen"]), \
+        _lengths(torch, g, cfg["B"], cfg["llen"])
+    if empty:
+        ll[0] = 0
+    return lab, il, ll
+
+
+def _ctc_inputs(torch, cfg, seed, dtype=None, empty=False):
+    """Logits [T, B, C] (2x standard normals) and ``_seq_targets``."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    x = (torch.randn(cfg["T"], cfg["B"], cfg["C"], device="cuda",
+                     generator=g) * 2).to(dtype or torch.float32)
+    return (x,) + _seq_targets(torch, cfg, cfg["C"], cfg["L"], seed, empty)
+
+
+def _rnnt_inputs(torch, cfg, seed, dtype=None, empty=False):
+    """The joint's logits [B, T, U+1, V] and ``_seq_targets``."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    x = torch.randn(cfg["B"], cfg["T"], cfg["U"] + 1, cfg["V"],
+                    device="cuda", generator=g).to(dtype or torch.float32)
+    return (x,) + _seq_targets(torch, cfg, cfg["V"], cfg["U"], seed, empty)
+
+
+def _seq_bytes(kind, x, il, ll):
+    """(forward bytes, backward bytes) the loss must move: the rows of x
+    its recursion reads (t <= the sample's t_last, and for RNN-T u <= its
+    label length) once, and for the backward dx written whole; the
+    lengths, labels, nll and upstream gradient are a few KB."""
+    esize = x.element_size()
+    il, ll = il.cpu().long(), ll.cpu().long()
+    if kind == "ctc":
+        T, _, C = x.shape
+        rows = int(il.clamp(1, T).sum())
+        width = C
+    else:
+        _, T, _, V = x.shape
+        rows = int((il.clamp(1, T) * (ll + 1)).sum())
+        width = V
+    read = rows * width * esize
+    return read, read + x.numel() * esize
+
+
+def _seq_dx_check(torch, dx, x, glp):
+    """A kernel's dx against the plain gradient, element by element. The
+    plain dx is ``glp - p * sum(glp)`` (``glp`` the plain gradient on the
+    log-probabilities, p the softmax of x); each element may differ by
+    2e-3 of the size of its two terms, ``|glp| + p * |sum(glp)|`` (the
+    adjoints are exps of fp32 sums near -1000, a few 1e-4 of it off),
+    plus 1e-12 of the largest such size (values near the denormal
+    range), plus in bf16 one ulp of the plain value (both round).
+    Returns (ok, the worst error's share of its tolerance, the max abs
+    error, the worst row's max error over its largest |plain dx|, and in
+    fp32 the shares two wrong gradients read: the softmax term 1% off,
+    and the rows (lattice cells) of less than the median size 1% off)."""
+    p = torch.softmax(x.float(), -1)
+    total = glp.sum(-1, keepdim=True)
+    want = glp - p * total
+    size = glp.abs() + p * total.abs()
+    tol = 2e-3 * size + 1e-12 * float(size.max())
+    if dx.dtype != torch.float32:
+        want = want.to(dx.dtype).float()
+        tol += 2.0 ** -7 * want.abs()
+    err = (dx.float() - want).abs()
+    share = float((err / tol).max())
+    rowmax = want.abs().amax(-1)
+    row = float((err.amax(-1) / rowmax.clamp(min=1e-30))[rowmax > 0].max())
+    wrong = None
+    if dx.dtype == torch.float32:
+        rows = size.amax(-1)
+        low = (rows > 0) & (rows < rows[rows > 0].median())
+        wrong = (float((0.01 * p * total.abs() / tol).max()),
+                 float((0.01 * want.abs() / tol)[low].max()) if low.any()
+                 else math.inf)
+    return share <= 1.0, share, float(err.max()), row, wrong
+
+
+def _seq_case(torch, results, name, kind, inputs, g, opt):
+    """The kernels of ``kind`` ("ctc": opt is norm_by_times; "rnnt":
+    fastemit_lambda) forward and backward against their plain versions on
+    the same inputs, one launch each, two runs bit-equal; each timed
+    (graph replay) beside its bound, the plain version and (CTC)
+    ``F.ctc_loss`` on the log-softmaxed fp32 input (forward; forward and
+    backward less forward), into ``results[name + "_fwd" / "_bwd"]``."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import seq_loss as SL
+    card = _card_line()
+    x, lab, il, ll = inputs
+    if kind == "ctc":
+        fwd = lambda: SL.ctc_forward(x, lab, il, ll)               # noqa: E731
+        bwd = lambda s: SL.ctc_backward(x, lab, il, ll, *s, g, 0, opt)  # noqa: E731
+        pfwd = lambda: SL.ctc_forward_plain(x, lab, il, ll)        # noqa: E731
+        pbwd = lambda a: SL.ctc_backward_plain(x, lab, il, ll, a, g, 0,  # noqa: E731
+                                               opt)
+        pglp = lambda a: SL.ctc_log_prob_grad_plain(  # noqa: E731
+            x, lab, il, ll, a, g, 0, opt)
+    else:
+        fwd = lambda: SL.rnnt_forward(x, lab, il, ll)              # noqa: E731
+        bwd = lambda s: SL.rnnt_backward(x, lab, il, ll, *s, g, 0, opt)  # noqa: E731
+        pfwd = lambda: SL.rnnt_forward_plain(x, lab, il, ll)       # noqa: E731
+        pbwd = lambda a: SL.rnnt_backward_plain(x, lab, il, ll, a, g, 0,  # noqa: E731
+                                                opt)
+        pglp = lambda a: SL.rnnt_log_prob_grad_plain(  # noqa: E731
+            x, lab, il, ll, a, g, 0, opt)
+    keys = (f"{kind}_fwd", f"{kind}_bwd")
+    before = [K.LAUNCHES[k] for k in keys]
+    nll, *saved = fwd()
+    dx = bwd(saved)
+    torch.cuda.synchronize()
+    if [K.LAUNCHES[k] for k in keys] != [b + 1 for b in before]:
+        raise AssertionError(f"{name}: not one launch each way")
+    nll2, *saved2 = fwd()
+    same = bool(torch.equal(nll, nll2) and torch.equal(dx, bwd(saved2)))
+    del saved2
+    pn, pa = pfwd()
+    ok_b, share, err_b, row, wrong = _seq_dx_check(torch, dx, x, pglp(pa))
+    del pa
+    rel = float(((nll - pn).abs() / pn.abs().clamp(min=1.0)).max())
+    err_f = float((nll - pn).abs().max())
+    if wrong is not None and min(wrong) <= 1.0:
+        raise AssertionError(f"{name}: the dx check passes a wrong "
+                             f"gradient (shares {wrong})")
+    tol_line = (f"each element's share of its tolerance {share:.3g}, the "
+                f"worst row's error {row:.3g} of its largest")
+    if wrong is not None:
+        tol_line += (f"; a softmax term 1% off reads {wrong[0]:.3g}, the "
+                     f"rows below the median size 1% off {wrong[1]:.3g}")
+    print(f"  {name} {list(x.shape)} {str(x.dtype)[6:]} "
+          f"{'norm_by_times' if kind == 'ctc' else 'fastemit_lambda'}="
+          f"{opt}: nll max rel err {rel:.3g} (tol 1e-5), dx max abs err "
+          f"{err_b:.3g} ({tol_line}): {'ok' if rel <= 1e-5 and ok_b else 'FAIL'};"
+          f" two runs bit-equal {same}", flush=True)
+    if rel > 1e-5 or not ok_b or not same:
+        raise AssertionError(f"{name}: the {kind} kernels disagree with "
+                             f"their plain versions or with themselves")
+    nbytes_f, nbytes_b = _seq_bytes(kind, x, il, ll)
+    steps = int((il.long().clamp(1, x.shape[0 if kind == "ctc" else 1])
+                 + (0 if kind == "ctc" else ll.long())).max())
+    ms_f = _graph_ms(fwd, iters=10, reps=3)
+    ms_b = _graph_ms(lambda: bwd(saved), iters=10, reps=3)
+    plain_f = _time_ms(pfwd, 1, warmup=1)
+    pa = pfwd()[1]
+    plain_b = _time_ms(lambda: pbwd(pa), 1, warmup=1)
+    del pa
+    lib_f = lib_b = None
+    if kind == "ctc":
+        lp = torch.log_softmax(x.float(), -1).detach().requires_grad_()
+        args = (lab.long(), il.long(), ll.long())
+        lib_f = _time_ms(lambda: TF.ctc_loss(lp, *args, reduction="sum"), 5)
+        lib_b = _time_ms(lambda: TF.ctc_loss(lp, *args, reduction="sum")
+                         .backward(), 5) - lib_f
+        del lp
+    out = {}
+    for key, ms, plain, nbytes, lib, err in (
+            ("fwd", ms_f, plain_f, nbytes_f, lib_f, err_f),
+            ("bwd", ms_b, plain_b, nbytes_b, lib_b, err_b)):
+        bound_ms, bound_by = _bound(nbytes, 0, FP32_FLOPS)
+        results[f"{name}_{key}"] = out[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib, shape=list(x.shape),
+            dtype=str(x.dtype)[6:], dependent_steps=steps)
+        print(f"  {name} {key}: ms={ms:.4f} ({bound_ms / ms:.3f} of the "
+              f"bound) bound_ms={bound_ms:.4f} ({bound_by}; and {steps} "
+              f"dependent steps a sample) plain_ms={plain:.2f} library_ms="
+              f"{'none' if lib is None else f'{lib:.4f}'} [{card}]",
+              flush=True)
+
+
+def phase_seq_loss_kernels(torch, results):
+    """CTC and RNN-T forward and backward kernels against their plain
+    versions at phase 16's shapes: CTC at DeepSpeech2's [500, 32, 29]
+    (labels up to 200) in fp32, and in bf16 with an empty label sequence
+    and ``norm_by_times``; at the Mandarin [250, 32, 4200] (labels up to
+    40); RNN-T at the Conformer-Transducer's joint [16, 200, 61, 1024] in
+    fp32 with ``fastemit_lambda`` 0.001, and in bf16 with an empty label
+    sequence; ragged input and label lengths throughout. Each timed beside
+    its bound, its plain version and (CTC) ``F.ctc_loss``."""
+    dev = torch.device("cuda")
+    print("phase 3: CTC and RNN-T kernels against their plain versions "
+          "(nll within 1e-5 relative; each element of dx within 2e-3 of the "
+          "size of its two terms |d/dlogp| + p |sum d/dlogp|, plus 1e-12 of "
+          "the largest size, plus in bf16 one ulp)", flush=True)
+    g32 = torch.rand(CTC_EN["B"], device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(71))
+    _seq_case(torch, results, "ctc", "ctc", _ctc_inputs(torch, CTC_EN, 72),
+              g32, False)
+    _seq_case(torch, results, "ctc[bf16]", "ctc",
+              _ctc_inputs(torch, CTC_EN, 73, torch.bfloat16, True), g32,
+              True)
+    _seq_case(torch, results, "ctc[zh]", "ctc",
+              _ctc_inputs(torch, CTC_ZH, 74), g32, False)
+    g16 = g32[:RNNT_CFG["B"]]
+    _seq_case(torch, results, "rnnt", "rnnt",
+              _rnnt_inputs(torch, RNNT_CFG, 75), g16, 0.001)
+    _seq_case(torch, results, "rnnt[bf16]", "rnnt",
+              _rnnt_inputs(torch, RNNT_CFG, 76, torch.bfloat16, True), g16,
+              0.0)
+    torch.cuda.empty_cache()
+
+
+def _layer_cases(torch, F, nn):
+    """(name, call(tensors, device), numpy inputs, indices of the inputs
+    that carry gradients) for the functionals and layers of this slice."""
+    import numpy as np
+    rng = np.random.default_rng(81)
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    x, y = f32(4, 5), f32(4, 5)
+    logp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    lab = rng.integers(0, 5, 4)
+    p = rng.uniform(0.05, 0.95, (4, 5)).astype(np.float32)
+    bits = rng.integers(0, 2, (4, 5)).astype(np.float32)
+    sign = np.where(rng.random(4) < 0.5, -1.0, 1.0).astype(np.float32)
+    e1, e2, e3 = f32(5, 4), f32(5, 4), f32(5, 4)
+    img = f32(2, 4, 6, 6)
+    cases = [
+        ("cross_entropy", lambda t, d: F.cross_entropy(
+            t[0], t[1], label_smoothing=0.1, reduction="sum"), [x, lab], [0]),
+        ("cross_entropy[soft]", lambda t, d: F.cross_entropy(
+            t[0], t[1], soft_label=True), [x, p], [0]),
+        ("nll_loss", lambda t, d: F.nll_loss(t[0], t[1]), [logp, lab], [0]),
+        ("mse_loss", lambda t, d: F.mse_loss(*t), [x, y], [0, 1]),
+        ("smooth_l1_loss", lambda t, d: F.smooth_l1_loss(*t), [x, y], [0]),
+        ("bce", lambda t, d: F.binary_cross_entropy(*t), [p, bits], [0]),
+        ("bce_with_logits", lambda t, d: F.binary_cross_entropy_with_logits(
+            t[0], t[1], pos_weight=t[2]), [x, bits, p[0]], [0]),
+        ("kl_div", lambda t, d: F.kl_div(*t, reduction="batchmean"),
+         [logp, p], [0]),
+        ("margin_ranking_loss", lambda t, d: F.margin_ranking_loss(*t),
+         [x[:, 0], y[:, 0], sign], [0, 1]),
+        ("cosine_embedding_loss", lambda t, d: F.cosine_embedding_loss(*t),
+         [e1, e2, np.array([1, -1, 1, 1, -1])], [0, 1]),
+        ("triplet_margin_loss", lambda t, d: F.triplet_margin_loss(
+            *t, swap=True), [e1, e2, e3], [0, 1, 2]),
+        ("sigmoid_focal_loss", lambda t, d: F.sigmoid_focal_loss(*t),
+         [x, bits], [0]),
+        ("margin_cross_entropy", lambda t, d: F.margin_cross_entropy(
+            t[0], t[1]), [np.tanh(x), lab], [0]),
+        ("hsigmoid_loss", lambda t, d: F.hsigmoid_loss(
+            t[0], t[1], 6, t[2], t[3]), [e1, rng.integers(0, 6, 5),
+                                         f32(5, 4), f32(5, 1)], [0, 2, 3]),
+        ("dice_loss", lambda t, d: F.dice_loss(torch.softmax(t[0], -1), t[1]),
+         [img, rng.integers(0, 6, (2, 4, 6, 1))], [0]),
+        ("gaussian_nll_loss", lambda t, d: F.gaussian_nll_loss(*t),
+         [x, y, p], [0, 2]),
+        ("poisson_nll_loss", lambda t, d: F.poisson_nll_loss(*t, full=True),
+         [x, bits * 3], [0]),
+        ("multi_margin_loss", lambda t, d: F.multi_margin_loss(*t, p=2),
+         [x, lab], [0]),
+        ("multi_label_soft_margin_loss", lambda t, d:
+         F.multi_label_soft_margin_loss(*t), [x, bits], [0]),
+        ("triplet_margin_with_distance_loss", lambda t, d:
+         F.triplet_margin_with_distance_loss(*t), [e1, e2, e3], [0, 1, 2]),
+        ("npair_loss", lambda t, d: F.npair_loss(*t),
+         [e1, e2, np.array([0, 1, 0, 2, 1])], [0, 1]),
+        ("adaptive_log_softmax", lambda t, d: nn.AdaptiveLogSoftmaxWithLoss(
+            4, 10, [3, 6], head_bias=True, device=d)(t[0], t[1])[1],
+         [e1, np.array([0, 2, 5, 7, 9])], [0]),
+        ("interpolate[bicubic]", lambda t, d: F.interpolate(
+            t[0], size=[4, 9], mode="bicubic"), [img], [0]),
+        ("interpolate[area]", lambda t, d: F.interpolate(
+            t[0], size=[3, 2], mode="area"), [img], [0]),
+        ("interpolate[trilinear]", lambda t, d: F.interpolate(
+            t[0][:, :, None], size=[2, 9, 4], mode="trilinear",
+            data_format="NCDHW"), [img], [0]),
+        ("upsample[corners]", lambda t, d: nn.UpsamplingBilinear2D(
+            scale_factor=2, data_format="NHWC")(t[0]), [img], [0]),
+        ("pad[reflect]", lambda t, d: nn.Pad2D([1, 2, 2, 1], "reflect")(
+            t[0]), [img], [0]),
+        ("pad[circular]", lambda t, d: F.pad(t[0], [1, 1, 2, 0], "circular",
+                                              data_format="NHWC"), [img], [0]),
+        ("fold", lambda t, d: nn.Fold([6, 6], 3, 1, 1)(
+            nn.Unfold(3, 1, 1)(t[0])), [img], [0]),
+        ("shuffles", lambda t, d: nn.ChannelShuffle(2)(nn.PixelUnshuffle(2)(
+            nn.PixelShuffle(2)(t[0]))), [img], [0]),
+        ("cosine_similarity", lambda t, d: nn.CosineSimilarity()(*t),
+         [e1, e2], [0, 1]),
+        ("bilinear", lambda t, d: nn.Bilinear(4, 4, 3, device=d)(*t),
+         [e1, e2], [0, 1]),
+        ("softmax2d", lambda t, d: nn.Softmax2D()(t[0]), [img], [0]),
+        ("spectral_norm", lambda t, d: nn.SpectralNorm([4, 5], device=d)(
+            t[0]), [f32(4, 5)], [0]),
+        ("dropout2d", lambda t, d: nn.Dropout2D(0.3)(t[0]), [img], [0]),
+        ("alpha_dropout", lambda t, d: nn.AlphaDropout(0.2)(t[0]), [img],
+         [0]),
+        ("feature_alpha_dropout", lambda t, d: nn.FeatureAlphaDropout(0.2)(
+            t[0]), [img], [0]),
+        ("class_center_sample", lambda t, d: F.class_center_sample(
+            t[0], 20, 8)[1], [np.array([3, 7, 3, 12])], []),
+    ]
+    return cases
+
+
+def phase_new_layers_on_card(torch):
+    """Each new functional and layer of this slice on CUDA tensors against
+    the same call on CPU tensors (the same seed before each, so layers
+    draw the same parameters and the random ones the same bits): outputs
+    and input gradients within 1e-5 of the largest CPU value (float32 sums
+    in another order); the random ones equal."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    print("phase 3: the new losses, common functionals and layers on the "
+          "card against the CPU (within 1e-5 of the largest CPU value)",
+          flush=True)
+    worst, n = 0.0, 0
+    for name, call, arrays, diff in _layer_cases(torch, F, nn):
+        got = []
+        for dev in ("cpu", "cuda"):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_(i in diff)
+                  for i, a in enumerate(arrays)]
+            ptt.seed(82)
+            out = call(ts, dev)
+            grads = []
+            if diff:
+                ct = torch.from_numpy(np.asarray(
+                    np.random.default_rng(83).standard_normal(
+                        tuple(out.shape)), np.float32)).to(dev)
+                grads = torch.autograd.grad((out.float() * ct).sum(),
+                                            [ts[i] for i in diff])
+            got.append([t.detach().cpu() for t in (out, *grads)])
+        for a, b in zip(got[1], got[0]):
+            if not a.is_floating_point():
+                err = 0.0 if torch.equal(a, b) else float("inf")
+            else:
+                err = float((a - b).abs().max()) / max(1.0,
+                                                       float(b.abs().max()))
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise AssertionError(f"{name}: the card's result differs "
+                                     f"from the CPU's ({err})")
+        n += 1
+    print(f"  {n} calls, outputs and gradients: the worst at {worst:.3g} of "
+          f"the largest CPU value (tol 1e-5) ok [{_card_line()}]",
+          flush=True)
+    return dict(calls=n, worst_rel=worst)
+
+
+def _ctc_model(torch, cfg, device, seed):
+    """The CTC head: ``Linear(feat, C)`` over features [T, B, feat]."""
+    from paddle_tpu_torch.nn import Linear
+    g = torch.Generator(device=device).manual_seed(seed)
+    return Linear(cfg["feat"], cfg["C"], device=device, generator=g)
+
+
+def _ctc_loss_fn(m, feats, labels, il, ll):
+    from paddle_tpu_torch.nn import CTCLoss
+    return CTCLoss()(m(feats), labels, il, ll)
+
+
+def _joint_model(torch, cfg, device, seed):
+    """The transducer's joint: the encoder's [B, T, enc] and the
+    prediction network's [B, U+1, pred] outputs each through a Linear to
+    ``hidden``, added with broadcasting, tanh, then ``Linear(hidden, V)``:
+    logits [B, T, U+1, V]."""
+    from paddle_tpu_torch.nn import Layer, Linear
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    class Joint(Layer):
+        def __init__(self):
+            super().__init__()
+            self.enc = Linear(cfg["enc"], cfg["hidden"], device=device,
+                              generator=g)
+            self.pred = Linear(cfg["pred"], cfg["hidden"], device=device,
+                               generator=g)
+            self.out = Linear(cfg["hidden"], cfg["V"], device=device,
+                              generator=g)
+
+        def forward(self, enc, pred):
+            h = self.enc(enc)[:, :, None, :] + self.pred(pred)[:, None, :, :]
+            return self.out(torch.tanh(h))
+    return Joint()
+
+
+def _rnnt_loss_fn(m, enc, pred, labels, il, ll):
+    from paddle_tpu_torch.nn import RNNTLoss
+    return RNNTLoss()(m(enc, pred), labels, il, ll)
+
+
+def _seq_trainer(model, loss_fn, lr=1e-3):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    return SpmdTrainer(model, AdamW(learning_rate=lr,
+                                    parameters=model.parameters()), loss_fn)
+
+
+def _seq_train(torch, tag, model, loss_fn, batch, kind, card, launches_out):
+    """Phase 16's run of one configuration: the trainer's first step
+    (eager, then captured) and two replayed steps with exact launch
+    counts (the loss's two kernels and AdamW, one each a step, nothing
+    else of the port), finite losses, step ms, a profile of one step (the
+    loss kernels' share), then 2 replayed steps against 2 eager ones from
+    one snapshot, bit-equal."""
+    from paddle_tpu_torch import kernels as K
+    trainer = _seq_trainer(model, loss_fn)
+    losses, step_ms, launches = _timed_steps(torch, trainer, batch, 1, 2)
+    want = {k: 0 for k in K.LAUNCHES}
+    want.update({f"{kind}_fwd": 2, f"{kind}_bwd": 2, "adamw": 2})
+    got = {k: v for k, v in launches.items() if v}
+    ok = launches == want and all(math.isfinite(v) for v in losses)
+    print(f"  {tag}: losses {losses}; 2 replayed steps launched {got} "
+          f"(want {kind}_fwd 2, {kind}_bwd 2, adamw 2) "
+          f"{'ok' if ok else 'FAIL'}; step ms {step_ms:.3f} [{card}]",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: launches {got} or losses {losses}")
+    for k, v in launches.items():
+        launches_out[k] = launches_out.get(k, 0) + v
+    # one CUDA kernel of each call is named here; a trace that lost one
+    # is taken again (``_profile``)
+    checked = {(f"{kind}_fwd",): lambda n: f"{kind}_alpha_kernel" in n,
+               (f"{kind}_bwd",): lambda n: f"{kind}_adjoint_kernel" in n,
+               ("adamw",): lambda n: "adamw_kernel" in n}
+    _, prof = _profile(torch, lambda: trainer.train_step(*batch), 1,
+                       checked)
+    share = sum(prof["by_group_ms"].get(k, 0.0)
+                for k in (f"{kind}_fwd", f"{kind}_bwd")) / prof["device_ms"]
+    print(f"  {tag}: {_breakdown_line(prof)}; the loss kernels "
+          f"{share:.3f} of the device ms", flush=True)
+    eager = _captured_against_eager(torch, trainer, batch, tag, card,
+                                    step_ms, prof, n=2, checked=checked)
+    _drop_trainer(torch, trainer)
+    return dict(losses=losses, step_ms=step_ms, breakdown=prof,
+                loss_kernel_share=share, eager=eager, launches=got)
+
+
+def _seq_tiny_on_card(torch):
+    """A tiny float32 CTC head and RNN-T joint trained 3 steps on the card
+    against the CPU trainer (``_tiny_on_card``)."""
+    import numpy as np
+    from paddle_tpu_torch.optimizer import AdamW
+    rng = np.random.default_rng(84)
+    ctc = dict(T=20, B=3, C=7, L=5, feat=16)
+    batch = tuple(torch.from_numpy(a) for a in (
+        rng.standard_normal((20, 3, 16)).astype(np.float32),
+        rng.integers(1, 7, (3, 5)).astype(np.int32),
+        np.array([20, 15, 9], np.int32), np.array([5, 0, 3], np.int32)))
+    opt = lambda m: AdamW(learning_rate=1e-3, parameters=m.parameters())  # noqa: E731
+    out = {"ctc": _tiny_on_card(
+        torch, "phase 16 (ctc)", lambda d: _ctc_model(torch, ctc, d, 85),
+        opt, _ctc_loss_fn, batch, 1e-3)}
+    joint = dict(B=2, T=8, U=3, V=9, enc=12, pred=10, hidden=16)
+    batch = tuple(torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 8, 12)).astype(np.float32),
+        rng.standard_normal((2, 4, 10)).astype(np.float32),
+        rng.integers(1, 9, (2, 3)).astype(np.int32),
+        np.array([8, 5], np.int32), np.array([3, 1], np.int32)))
+    out["rnnt"] = _tiny_on_card(
+        torch, "phase 16 (rnnt)", lambda d: _joint_model(torch, joint, d, 86),
+        opt, _rnnt_loss_fn, batch, 1e-3)
+    return out
+
+
+def phase_seq_loss_training(torch, args, launches_out):
+    """Sequence-loss training through ``SpmdTrainer`` (captured, AdamW),
+    with no plain loop allowed to run (each raises): (a) CTC at
+    DeepSpeech2's English output, features [500, 32, 1024] ->
+    ``Linear(1024, 29)`` -> ``CTCLoss``, input lengths 400-500, labels
+    100-200; (b) CTC over a 4,200-character Mandarin vocabulary, [250, 32,
+    1024], labels up to 40; (c) RNN-T at a Conformer-Transducer's joint:
+    encoder [16, 200, 512] and prediction [16, 61, 640] each to 640, added,
+    tanh, ``Linear(640, 1024)``, ``RNNTLoss`` (fastemit 0.001) on [16, 200,
+    61, 1024] fp32, input lengths 150-200, labels 30-60; each as
+    ``_seq_train``; (d) a tiny float32 CTC head and joint on the card
+    against the CPU trainer."""
+    from paddle_tpu_torch.kernels import seq_loss as SL
+    card = _card_line()
+    print(f"phase 16: sequence-loss training, captured, AdamW, seed "
+          f"{args.seed} [{card}]", flush=True)
+    out = {}
+    with ExitStack() as stack:
+        for fn in SEQ_PLAIN:
+            stack.enter_context(mock.patch.object(
+                SL, fn, side_effect=AssertionError(f"{fn} ran on the card")))
+        for tag, cfg in (("ctc_en", CTC_EN), ("ctc_zh", CTC_ZH)):
+            g = torch.Generator(device="cuda").manual_seed(args.seed + 90)
+            feats = torch.randn(cfg["T"], cfg["B"], cfg["feat"],
+                                device="cuda", generator=g)
+            lab, il, ll = _seq_targets(torch, cfg, cfg["C"], cfg["L"],
+                                       args.seed + 91)
+            model = _ctc_model(torch, cfg, "cuda", args.seed + 92)
+            out[tag] = _seq_train(torch, f"phase 16 ({tag})", model,
+                                  _ctc_loss_fn, (feats, lab, il, ll), "ctc",
+                                  card, launches_out)
+            del model, feats
+            _free(torch)
+        cfg = RNNT_CFG
+        g = torch.Generator(device="cuda").manual_seed(args.seed + 93)
+        enc = torch.randn(cfg["B"], cfg["T"], cfg["enc"], device="cuda",
+                          generator=g)
+        pred = torch.randn(cfg["B"], cfg["U"] + 1, cfg["pred"],
+                           device="cuda", generator=g)
+        lab, il, ll = _seq_targets(torch, cfg, cfg["V"], cfg["U"],
+                                   args.seed + 94)
+        torch.cuda.reset_peak_memory_stats()
+        model = _joint_model(torch, cfg, "cuda", args.seed + 95)
+        out["rnnt"] = _seq_train(torch, "phase 16 (rnnt)", model,
+                                 _rnnt_loss_fn, (enc, pred, lab, il, ll),
+                                 "rnnt", card, launches_out)
+        out["rnnt"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  phase 16 (rnnt): peak {out['rnnt']['peak_gb']:.2f} GB",
+              flush=True)
+        del model, enc, pred
+        _free(torch)
+    out["tiny_f32_vs_cpu"] = _seq_tiny_on_card(torch)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -7018,6 +7584,8 @@ def main(argv=None):
     _build.library("adamw")
     _build.library("gmm")
     _build.library("weight_only_gemm")
+    _build.library("ctc_loss")
+    _build.library("rnnt_loss")
     print(f"phase 2: nvcc {nvcc_s:.2f}s, triton compile "
           f"{time.monotonic() - t1:.2f}s", flush=True)
     sass = _wgmma_sass(built)
@@ -7052,6 +7620,10 @@ def main(argv=None):
           results)
     timed("phase 3 BatchNorm kernels", phase_batch_norm_kernels, torch,
           results)
+    timed("phase 3 CTC and RNN-T kernels", phase_seq_loss_kernels, torch,
+          results)
+    new_layers = timed("phase 3 new layers on the card",
+                       phase_new_layers_on_card, torch)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
     packed_launches, beam_launches, artifact_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
@@ -7084,6 +7656,9 @@ def main(argv=None):
     unet = timed("phase 14 UNet", phase_unet, torch, args, unet_launches)
     resnet = timed("phase 15 ResNet-50", phase_resnet, torch, args,
                    resnet_launches)
+    seq_launches = {}
+    seq = timed("phase 16 sequence-loss training", phase_seq_loss_training,
+                torch, args, seq_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -7149,6 +7724,15 @@ def main(argv=None):
         "batch_norm_bwd": ("triton",
                            "paddle_tpu_torch/kernels/batch_norm.py",
                            "paddle_tpu/nn/functional/norm.py:95"),
+        # no Pallas kernel: the scans XLA compiles into loops on the device
+        "ctc_fwd": ("cuda", "paddle_tpu_torch/csrc/ctc_loss.cu",
+                    "paddle_tpu/nn/functional/loss.py:282"),
+        "ctc_bwd": ("cuda", "paddle_tpu_torch/csrc/ctc_loss.cu",
+                    "paddle_tpu/nn/functional/loss.py:282"),
+        "rnnt_fwd": ("cuda", "paddle_tpu_torch/csrc/rnnt_loss.cu",
+                     "paddle_tpu/nn/functional/loss.py:363"),
+        "rnnt_bwd": ("cuda", "paddle_tpu_torch/csrc/rnnt_loss.cu",
+                     "paddle_tpu/nn/functional/loss.py:363"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
@@ -7159,7 +7743,7 @@ def main(argv=None):
             packed_launches,
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
             artifact_launches, surface_launches, ernie_launches,
-            unet_launches, resnet_launches)
+            unet_launches, resnet_launches, seq_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -7183,7 +7767,9 @@ def main(argv=None):
                    "quant_serving": quant, "spec_serving": spec,
                    "artifact": artifact, "flashmask_routed": routed_f5,
                    "training_surface": surface, "ernie_training": ernie,
-                   "unet": unet, "resnet50": resnet, "seconds": seconds,
+                   "unet": unet, "resnet50": resnet,
+                   "seq_loss_training": seq, "new_layers": new_layers,
+                   "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "serving_llama2_13b": serve13_launches,
                                 "training": train_launches,
@@ -7197,7 +7783,8 @@ def main(argv=None):
                                 "training_surface": surface_launches,
                                 "ernie_training": ernie_launches,
                                 "unet": unet_launches,
-                                "resnet50": resnet_launches}}, f,
+                                "resnet50": resnet_launches,
+                                "seq_loss_training": seq_launches}}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,7 +16,7 @@ from torch import nn
 
 from ...nn import functional as F
 from ...nn.initializer import xavier_normal_
-from ...nn.layer.layers import make_parameter, placement
+from ...nn.layer.layers import Layer, make_parameter, placement
 
 
 def _one_device(layer, mp_group):
@@ -27,7 +27,7 @@ def _one_device(layer, mp_group):
             f"port runs on one device (ROADMAP Queue 1, distributed)")
 
 
-class ColumnParallelLinear(nn.Module):
+class ColumnParallelLinear(Layer):
     """Weight ``[in, out]`` (sharded on out over mp in the JAX package)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
@@ -51,7 +51,7 @@ class ColumnParallelLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class RowParallelLinear(nn.Module):
+class RowParallelLinear(Layer):
     """Weight ``[in, out]`` (sharded on in over mp in the JAX package)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
@@ -75,7 +75,7 @@ class RowParallelLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class VocabParallelEmbedding(nn.Module):
+class VocabParallelEmbedding(Layer):
     """Embedding table ``[num_embeddings, embedding_dim]``, Normal(0,
     0.02) (sharded on the vocabulary over mp in the JAX package)."""
 

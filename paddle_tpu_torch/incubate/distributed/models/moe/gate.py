@@ -19,9 +19,10 @@ from torch import nn
 from ..... import resolve_device
 from .....nn import functional as F
 from .....nn.initializer import xavier_uniform_
+from .....nn.layer.layers import Layer
 
 
-class BaseGate(nn.Module):
+class BaseGate(Layer):
     """Linear router over experts: ``top_k`` choices per token;
     ``capacity_factor(train)`` bounds tokens per expert (None = no bound)."""
 

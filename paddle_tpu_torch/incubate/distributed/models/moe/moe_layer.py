@@ -27,6 +27,7 @@ from torch import nn
 from ..... import resolve_device
 from .....kernels.gmm import gelu_tanh, moe_dropless_ffn
 from .....nn.initializer import xavier_uniform_
+from .....nn.layer.layers import Layer
 from .gate import BaseGate, GShardGate, NaiveGate, SwitchGate
 
 # jax.nn's activations by name; jax.nn.gelu defaults to the tanh form
@@ -46,7 +47,7 @@ def _unported(what):
         f"Queue 1); set dropless=True for the grouped-matmul path")
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """Mixture-of-experts FFN block over stacked expert banks. Parameters
     on ``device`` (None = the GPU; raises without one) in ``dtype`` (None
     = float32), drawn from ``generator`` (None = a generator seeded with

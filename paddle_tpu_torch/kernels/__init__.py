@@ -44,6 +44,12 @@ residual's gradient), which every BatchNorm on the card goes through
 (ResNet). No TPU kernel either: XLA fuses the JAX package's BatchNorm with
 the add and the ReLU after it.
 
+``ctc_fwd`` and ``ctc_bwd`` count the calls of CTC's forward and
+backward, ``rnnt_fwd`` and ``rnnt_bwd`` those of RNN-T's (two CUDA
+kernels a call each: a pass over the rows and the recursion,
+``kernels/seq_loss.py``). No TPU kernel either: XLA compiles the JAX
+package's scans into loops on the device.
+
 ``weight_only_gemm`` counts every call of the weight-only GEMM on the
 card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
 counts those that went to the mma.sync kernel (shapes TMA cannot read).
@@ -70,7 +76,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
             "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
             "group_norm": 0, "group_norm_bwd": 0, "batch_norm": 0,
-            "batch_norm_bwd": 0, "sdpa_plain": 0,
+            "batch_norm_bwd": 0, "ctc_fwd": 0, "ctc_bwd": 0, "rnnt_fwd": 0,
+            "rnnt_bwd": 0, "sdpa_plain": 0,
             "sdpa_dense": 0, "ragged_plain": 0}
 
 

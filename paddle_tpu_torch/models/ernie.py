@@ -37,6 +37,7 @@ from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
 from ..incubate.nn.functional import fused_bias_dropout_residual_layer_norm
 from ..nn import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ..nn import functional as F
+from ..nn.layer.layers import Layer
 from .llama import load_numpy_state
 
 
@@ -108,7 +109,7 @@ class _SegmentEmbedding(Embedding):
         return _segment_rows(x, self.weight)
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     def __init__(self, config: ErnieConfig, device, dtype, generator):
         super().__init__()
         at = _where(device, dtype, generator)
@@ -136,7 +137,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class ErnieSelfAttention(nn.Module):
+class ErnieSelfAttention(Layer):
     def __init__(self, config: ErnieConfig, device, dtype, generator):
         super().__init__()
         at = _where(device, dtype, generator)
@@ -162,7 +163,7 @@ class ErnieSelfAttention(nn.Module):
         return self.out(self.context(x, attention_mask))
 
 
-class ErnieBlock(nn.Module):
+class ErnieBlock(Layer):
     """Post-LN encoder block (BERT layout)."""
 
     def __init__(self, config: ErnieConfig, device, dtype, generator):
@@ -194,7 +195,7 @@ class ErnieBlock(nn.Module):
                               self.ffn_norm)
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     def __init__(self, config: ErnieConfig, device, dtype, generator):
         super().__init__()
         self.config = config
@@ -220,7 +221,7 @@ def _placement(device, dtype, generator):
     return dev, dtype or torch.float32, generator
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(Layer):
     """MLM (tied decoder) + NSP heads; ``compute_loss`` is the pretraining
     criterion (masked positions use ignore_index=-100). Parameters on
     ``device`` (None = the GPU; raises without one), in ``dtype`` (None =
@@ -280,7 +281,7 @@ class ErnieForPretraining(nn.Module):
         return 6.0 * (per_token + per_sequence / seq_len) + attn
 
 
-class ErnieForSequenceClassification(nn.Module):
+class ErnieForSequenceClassification(Layer):
     def __init__(self, config: ErnieConfig, num_classes: int = 2,
                  dropout: Optional[float] = None, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):

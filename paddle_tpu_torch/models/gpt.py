@@ -32,6 +32,7 @@ from .. import resolve_device
 from ..incubate.distributed.models.moe import MoELayer
 from ..nn import functional as F
 from ..nn.initializer import xavier_normal_
+from ..nn.layer.layers import Layer
 from .llama import load_numpy_state
 
 
@@ -76,7 +77,7 @@ class GPTConfig:
                          **kw)
 
 
-class _Linear(nn.Module):
+class _Linear(Layer):
     """A linear layer with bias, weight in Paddle's ``[in, out]`` layout."""
 
     def __init__(self, n_in, n_out, device, dtype, generator, bias=True):
@@ -91,7 +92,7 @@ class _Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class _LayerNorm(nn.Module):
+class _LayerNorm(Layer):
     def __init__(self, hidden, eps, device, dtype):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(hidden, device=device,
@@ -104,7 +105,7 @@ class _LayerNorm(nn.Module):
         return F.layer_norm(x, x.shape[-1], self.weight, self.bias, self.eps)
 
 
-class _Embedding(nn.Module):
+class _Embedding(Layer):
     def __init__(self, n, hidden, std, device, dtype, generator):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(n, hidden, device=device,
@@ -116,7 +117,7 @@ class _Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device, dtype, generator):
         super().__init__()
         h = config.hidden_size
@@ -136,7 +137,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, device, dtype, generator):
         super().__init__()
         self.fc_in = _Linear(config.hidden_size, config.ffn_size, device,
@@ -148,7 +149,7 @@ class GPTMLP(nn.Module):
         return self.fc_out(F.gelu(self.fc_in(x)))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, config: GPTConfig, layer_idx: int, device, dtype,
                  generator):
         super().__init__()
@@ -174,7 +175,7 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, device, dtype, generator):
         super().__init__()
         self.config = config
@@ -201,7 +202,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT parameters on ``device`` (None = the GPU; raises without one),
     in ``dtype`` (None = ``config.dtype``), initialised from ``generator``
     (None = a generator seeded with 0)."""

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import amp, resolve_device
 from ..kernels import fused
 from ..nn import functional as F
+from ..nn.layer.layers import Layer
 
 
 @dataclass
@@ -109,7 +110,7 @@ def _param(*shape, device, dtype):
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
 
 
-class _Linear(nn.Module):
+class _Linear(Layer):
     """A bias-free linear layer's weight in Paddle's ``[in, out]`` layout."""
 
     def __init__(self, n_in, n_out, device, dtype):
@@ -117,7 +118,7 @@ class _Linear(nn.Module):
         self.weight = _param(n_in, n_out, device=device, dtype=dtype)
 
 
-class _Norm(nn.Module):
+class _Norm(Layer):
     def __init__(self, hidden, device, dtype, eps=1e-6):
         super().__init__()
         self.weight = _param(hidden, device=device, dtype=dtype)
@@ -127,13 +128,13 @@ class _Norm(nn.Module):
         return F.rms_norm(x, self.weight, epsilon=self.eps)
 
 
-class _Embedding(nn.Module):
+class _Embedding(Layer):
     def __init__(self, vocab, hidden, device, dtype):
         super().__init__()
         self.weight = _param(vocab, hidden, device=device, dtype=dtype)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         device, dtype = _placement(config, device, dtype)
@@ -184,7 +185,7 @@ class LlamaAttention(nn.Module):
                         self.o_proj.weight)
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         device, dtype = _placement(config, device, dtype)
@@ -199,7 +200,7 @@ class LlamaMLP(nn.Module):
                         self.down_proj.weight)
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         device, dtype = _placement(config, device, dtype)
@@ -218,7 +219,7 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         device, dtype = _placement(config, device, dtype)
@@ -257,7 +258,7 @@ class LlamaModel(nn.Module):
         return self.norm(h)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Llama parameters on ``device`` (None = the GPU; raises without one),
     in ``dtype`` (None = ``config.dtype``), initialised from ``generator``
     (None = a generator seeded with 0): matrices and embeddings normal
@@ -379,11 +380,13 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def load_numpy_state(model: nn.Module, state: Dict[str, np.ndarray]) -> None:
-    """Fill ``model``'s parameters (and rope buffers, where given) from
-    ``{name: array}``, such as the JAX model's
-    ``{n: np.asarray(t._data) for n, t in model.named_state().items()}``.
-    Every parameter must be given; an unknown name, or a shape or dtype
-    that differs, raises before anything is written."""
+    """Fill ``model``'s parameters and buffers (the rope tables,
+    BatchNorm's statistics, SpectralNorm's ``weight_u`` / ``weight_v``,
+    where given) from ``{name: array}``, such as the JAX model's
+    ``{n: np.asarray(t._data) for n, t in model.named_state().items()}``:
+    any ``nn.Layer`` tree, whose names are the JAX tree's. Every parameter
+    must be given; an unknown name, or a shape or dtype that differs,
+    raises before anything is written."""
     params = dict(model.named_parameters())
     targets = {**params, **dict(model.named_buffers())}
     missing = sorted(set(params) - set(state))

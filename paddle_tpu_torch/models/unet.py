@@ -42,6 +42,7 @@ from torch import nn
 from .. import amp, resolve_device
 from ..nn import Conv2D, GroupNorm, Identity, LayerList, LayerNorm, Linear
 from ..nn import functional as F
+from ..nn.layer.layers import Layer
 
 
 @dataclass
@@ -93,7 +94,7 @@ def _where(device, dtype, generator):
     return dict(device=device, dtype=dtype, generator=generator)
 
 
-class TimestepEmbedding(nn.Module):
+class TimestepEmbedding(Layer):
     def __init__(self, in_dim, time_embed_dim, device, dtype, generator):
         super().__init__()
         at = _where(device, dtype, generator)
@@ -104,7 +105,7 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 
-class ResnetBlock2D(nn.Module):
+class ResnetBlock2D(Layer):
     def __init__(self, in_ch, out_ch, temb_ch, groups, device, dtype,
                  generator):
         super().__init__()
@@ -127,7 +128,7 @@ class ResnetBlock2D(nn.Module):
         return skip + h
 
 
-class CrossAttention(nn.Module):
+class CrossAttention(Layer):
     def __init__(self, query_dim, context_dim, heads, head_dim, device,
                  dtype, generator):
         super().__init__()
@@ -151,7 +152,7 @@ class CrossAttention(nn.Module):
         return self.to_out(out.reshape(b, s, self.heads * self.head_dim))
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Layer):
     """Self-attn -> cross-attn -> FF (diffusers BasicTransformerBlock)."""
 
     def __init__(self, dim, context_dim, heads, head_dim, device, dtype,
@@ -173,7 +174,7 @@ class TransformerBlock(nn.Module):
         return x + self.ff_out(F.gelu(self.ff_in(self.norm3(x))))
 
 
-class SpatialTransformer(nn.Module):
+class SpatialTransformer(Layer):
     """GroupNorm -> 1x1 in -> transformer over HW tokens -> 1x1 out + skip."""
 
     def __init__(self, channels, context_dim, heads, groups, device, dtype,
@@ -198,7 +199,7 @@ class SpatialTransformer(nn.Module):
         return res + self.proj_out(x)
 
 
-class Downsample(nn.Module):
+class Downsample(Layer):
     def __init__(self, ch, device, dtype, generator):
         super().__init__()
         self.conv = Conv2D(ch, ch, 3, stride=2, padding=1,
@@ -208,7 +209,7 @@ class Downsample(nn.Module):
         return self.conv(x)
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     def __init__(self, ch, device, dtype, generator):
         super().__init__()
         self.conv = Conv2D(ch, ch, 3, padding=1,
@@ -218,7 +219,7 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
-class UNet2DConditionModel(nn.Module):
+class UNet2DConditionModel(Layer):
     """The UNet on an explicit ``device`` (None = the GPU) in ``dtype``
     (float32), its weights drawn from ``generator``."""
 

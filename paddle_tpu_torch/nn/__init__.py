@@ -1,5 +1,6 @@
 from . import functional, initializer
+from .initializer import ParamAttr
 from .layer import *  # noqa: F401,F403
 from .layer import __all__ as _layers
 
-__all__ = ["functional", "initializer"] + list(_layers)
+__all__ = ["functional", "initializer", "ParamAttr"] + list(_layers)

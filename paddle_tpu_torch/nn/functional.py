@@ -1,9 +1,9 @@
-"""The functionals the Llama and GPT models call, in the JAX package's
+"""The functionals of ``paddle_tpu/nn/functional``, in the JAX package's
 layouts.
 
-Mirrors ``paddle_tpu/nn/functional``: ``scaled_dot_product_attention`` and
+Here: ``scaled_dot_product_attention`` and
 ``flashmask_attention`` (``attention.py``), ``rms_norm`` and ``layer_norm``
-(``norm.py``), ``cross_entropy`` (``loss.py``), ``gelu`` and ``tanh``
+(``norm.py``), ``gelu`` and ``tanh``
 (``activation.py``), ``linear``, ``embedding`` and ``dropout``
 (``common.py``), each for the cases the training paths use, and
 ``swiglu`` (the Llama MLP's ``silu(gate) * up``); anything else raises
@@ -13,7 +13,7 @@ the JAX package has no Pallas kernel for them either. ``dropout`` and
 ``layer_norm`` run Triton kernels on CUDA tensors (``kernels/dropout.py``,
 ``kernels/fused.py``): the passes XLA fuses. Each is the JAX op of its
 name for ``amp.auto_cast`` (``amp.op``). The convolutional models'
-functionals (``conv2d``, ``silu``, ``relu``, ``interpolate``,
+functionals (``conv2d``, ``silu``, ``relu``,
 ``group_norm``, ``batch_norm``, ``max_pool2d``, ``adaptive_avg_pool2d``)
 are at the end; ``group_norm`` and ``instance_norm`` run the Triton
 kernels of ``kernels/group_norm.py`` on CUDA tensors, ``batch_norm`` (with
@@ -21,6 +21,11 @@ the residual add and the ReLU after it fused) those of
 ``kernels/batch_norm.py``. The rest of ``norm.py`` (``rms_norm`` with the
 JAX signature, ``local_response_norm``, ``normalize``) and of
 ``activation.py`` are plain PyTorch, as XLA-fused elementwise work.
+Re-exported at the end: every function of ``loss.py``
+(``functional_loss.py``: ``cross_entropy`` with every argument, CTC and
+RNN-T on the CUDA kernels of ``kernels/seq_loss.py``) and the rest of
+``common.py`` (``functional_common.py``: ``interpolate`` in every mode,
+``pad``, the shuffles, ...).
 """
 from __future__ import annotations
 
@@ -433,30 +438,6 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     return out
 
 
-@amp.op("cross_entropy")
-def cross_entropy(input, label, weight=None, ignore_index=-100,
-                  reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0, name=None):
-    """Hard-label cross entropy of ``input [N, C]`` logits in fp32; rows
-    whose label is ``ignore_index`` count for nothing, and the mean is over
-    the other rows (at least one)."""
-    if weight is not None or soft_label or not use_softmax \
-            or label_smoothing or reduction != "mean" \
-            or axis not in (-1, input.dim() - 1):
-        raise NotImplementedError(
-            "cross_entropy is ported for hard labels, mean reduction, "
-            "softmax over the last axis and no class weights")
-    logp = torch.log_softmax(input.float(), dim=-1)
-    lab = label.long()
-    if lab.dim() == input.dim():        # [N, 1] labels
-        lab = lab.squeeze(-1)
-    valid = lab != ignore_index
-    safe = torch.where(valid, lab, torch.zeros_like(lab))
-    loss = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
-    loss = torch.where(valid, loss, torch.zeros_like(loss))
-    return loss.sum() / valid.sum().float().clamp(min=1.0)
-
-
 # -- the convolutional models' functionals ----------------------------------------
 #
 # The Stable Diffusion UNet's and ResNet's (``paddle_tpu/nn/functional/
@@ -753,51 +734,6 @@ def glu(x, axis=-1, name=None):
     return a * torch.sigmoid(b)
 
 
-def _nearest_index(n_in, n_out):
-    """The JAX package's nearest source index of each output position,
-    ``floor(i * (n_in / n_out))`` in fp32 (``common.py:157-166``)."""
-    ratio = torch.tensor(n_in / n_out, dtype=torch.float32)
-    return torch.floor(torch.arange(n_out, dtype=torch.float32) * ratio) \
-        .to(torch.int64)
-
-
-@amp.op("interpolate")
-def interpolate(x, size=None, scale_factor=None, mode="nearest",
-                align_corners=False, align_mode=0, data_format="NCHW",
-                name=None):
-    """Nearest-neighbour resizing of an NCHW tensor, with the JAX package's
-    index rule ``floor(i * in / out)``. Where that rule repeats each
-    source row and column k times (an integer factor), the output is a
-    broadcast and a reshape, whose backward is a plain sum; otherwise a
-    gather (its backward accumulates with atomics on the card, in no
-    fixed order). Other modes and layouts raise."""
-    if mode.lower() != "nearest":
-        raise NotImplementedError(f"interpolate mode {mode!r}: nearest is "
-                                  f"ported")
-    if data_format != "NCHW" or x.dim() != 4:
-        raise NotImplementedError("interpolate is ported for 4-D NCHW")
-    hw = tuple(x.shape[2:])
-    if size is not None:
-        size = [size] * 2 if isinstance(size, int) else list(size)
-        out_hw = tuple(int(s) for s in size)
-    else:
-        f = [scale_factor] * 2 if isinstance(scale_factor, (int, float)) \
-            else list(scale_factor)
-        out_hw = tuple(int(s * k) for s, k in zip(hw, f))
-    idx = [_nearest_index(n, o) for n, o in zip(hw, out_hw)]
-    reps = [o // n if o % n == 0 else 0 for n, o in zip(hw, out_hw)]
-    if all(r and torch.equal(i, torch.arange(o) // r)
-           for i, r, o in zip(idx, reps, out_hw)):
-        (h, w), (rh, rw) = hw, reps
-        b, c = x.shape[:2]
-        out = x[:, :, :, None, :, None].expand(b, c, h, rh, w, rw) \
-            .reshape(b, c, h * rh, w * rw)
-    else:
-        out = x.index_select(2, idx[0].to(x.device)) \
-            .index_select(3, idx[1].to(x.device))
-    return out
-
-
 def _meta(dtype, like):
     return torch.empty(like.shape, dtype=dtype, device="meta")
 
@@ -984,15 +920,22 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
                                   "and output sizes that divide the input's")
     return x.reshape(b, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
 
+
+from . import functional_common as _common  # noqa: E402
+from . import functional_loss as _loss  # noqa: E402
+from .functional_common import *  # noqa: E402,F401,F403
+from .functional_loss import *  # noqa: E402,F401,F403
+
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "FlashMaskBounds", "prepare_flashmask", "flashmask_kernels_take",
            "rms_norm", "layer_norm", "dropout", "tanh",
-           "cross_entropy", "gelu", "linear", "embedding", "swiglu",
-           "conv2d", "silu", "relu", "interpolate", "group_norm",
+           "gelu", "linear", "embedding", "swiglu",
+           "conv2d", "silu", "relu", "group_norm",
            "batch_norm", "instance_norm", "local_response_norm", "normalize",
            "max_pool2d", "adaptive_avg_pool2d", "relu_", "relu6", "sigmoid",
            "swish", "leaky_relu", "elu", "celu", "selu", "prelu", "rrelu",
            "hardshrink", "softshrink", "tanhshrink", "hardtanh",
            "hardsigmoid", "hardswish", "mish", "softplus", "softsign",
            "thresholded_relu", "log_sigmoid", "maxout", "softmax",
-           "softmax_", "log_softmax", "gumbel_softmax", "glu"]
+           "softmax_", "log_softmax", "gumbel_softmax", "glu"] \
+    + list(_common.__all__) + list(_loss.__all__)

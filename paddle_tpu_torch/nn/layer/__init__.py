@@ -1,17 +1,25 @@
-"""The ``paddle_tpu.nn`` layers ported so far: those the ERNIE encoder, the
-Stable Diffusion UNet and ResNet are built from, the rest of ``norm.py``
-and of ``activation.py``."""
+"""The ``paddle_tpu.nn`` layers ported so far: ``Layer`` and its
+containers, those the ERNIE encoder, the Stable Diffusion UNet and ResNet
+are built from, and the whole of ``norm.py``, ``activation.py``,
+``loss.py`` and ``common.py``."""
 from . import activation as _activation
+from . import common as _common
+from . import layers as _layers
+from . import loss as _loss
 from . import norm as _norm
 from .activation import *  # noqa: F401,F403
-from .common import Dropout, Embedding, Flatten, Identity, Linear
+from .common import *  # noqa: F401,F403
 from .conv import Conv2D
-from .layers import LayerList, Sequential
-from .loss import CrossEntropyLoss
+from .layers import (  # noqa: F401
+    HookRemoveHelper, Layer, LayerDict, LayerList, ParameterDict,
+    ParameterList, Sequential, disable_static, enable_static,
+    in_dynamic_mode)
+from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import AdaptiveAvgPool2D, MaxPool2D
 
 __all__ = (list(_activation.__all__) + list(_norm.__all__)
-           + ["Dropout", "Embedding", "Flatten", "Identity", "Linear",
-              "Conv2D", "LayerList", "Sequential", "CrossEntropyLoss",
-              "AdaptiveAvgPool2D", "MaxPool2D"])
+           + list(_common.__all__) + list(_loss.__all__)
+           + [n for n in _layers.__all__
+              if n not in ("placement", "make_parameter")]
+           + ["Conv2D", "AdaptiveAvgPool2D", "MaxPool2D"])

@@ -1,4 +1,4 @@
-"""The layers of ``paddle_tpu/nn/layer/activation.py`` as ``nn.Module``s
+"""The layers of ``paddle_tpu/nn/layer/activation.py`` as ``Layer``s
 over the functionals: the twelve one-argument layers of its ``_simple``
 family (``ReLU`` ... ``LogSigmoid``, ``:26-37``) and the sixteen classes
 (``GELU``, ``LeakyReLU`` ... ``GLU``, ``:40-188``). ``PReLU`` holds its
@@ -6,16 +6,14 @@ weight (``init``, or a ``ParamAttr``'s initializer) on an explicit
 ``device`` (None = the GPU) in ``dtype`` (float32)."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
-from .layers import make_parameter, placement
+from .layers import Layer, make_parameter, placement
 
 
 def _simple(name, fn_name):
     fn = getattr(F, fn_name)
 
-    class _Act(nn.Module):
+    class _Act(Layer):
         def __init__(self, name=None):
             super().__init__()
 
@@ -40,7 +38,7 @@ Tanhshrink = _simple("Tanhshrink", "tanhshrink")
 LogSigmoid = _simple("LogSigmoid", "log_sigmoid")
 
 
-class GELU(nn.Module):
+class GELU(Layer):
     def __init__(self, approximate=False, name=None):
         super().__init__()
         self._approximate = approximate
@@ -49,7 +47,7 @@ class GELU(nn.Module):
         return F.gelu(x, self._approximate)
 
 
-class LeakyReLU(nn.Module):
+class LeakyReLU(Layer):
     def __init__(self, negative_slope=0.01, name=None):
         super().__init__()
         self._negative_slope = negative_slope
@@ -58,7 +56,7 @@ class LeakyReLU(nn.Module):
         return F.leaky_relu(x, self._negative_slope)
 
 
-class ELU(nn.Module):
+class ELU(Layer):
     def __init__(self, alpha=1.0, name=None):
         super().__init__()
         self._alpha = alpha
@@ -67,7 +65,7 @@ class ELU(nn.Module):
         return F.elu(x, self._alpha)
 
 
-class CELU(nn.Module):
+class CELU(Layer):
     def __init__(self, alpha=1.0, name=None):
         super().__init__()
         self._alpha = alpha
@@ -76,7 +74,7 @@ class CELU(nn.Module):
         return F.celu(x, self._alpha)
 
 
-class SELU(nn.Module):
+class SELU(Layer):
     def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
                  name=None):
         super().__init__()
@@ -87,7 +85,7 @@ class SELU(nn.Module):
         return F.selu(x, self._scale, self._alpha)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format="NCHW", name=None, *, device=None, dtype=None):
         super().__init__()
@@ -100,7 +98,7 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight, self._data_format)
 
 
-class RReLU(nn.Module):
+class RReLU(Layer):
     def __init__(self, lower=0.125, upper=0.3333333333333333, name=None):
         super().__init__()
         self._lower = lower
@@ -110,7 +108,7 @@ class RReLU(nn.Module):
         return F.rrelu(x, self._lower, self._upper, self.training)
 
 
-class Hardshrink(nn.Module):
+class Hardshrink(Layer):
     def __init__(self, threshold=0.5, name=None):
         super().__init__()
         self._threshold = threshold
@@ -119,7 +117,7 @@ class Hardshrink(nn.Module):
         return F.hardshrink(x, self._threshold)
 
 
-class Softshrink(nn.Module):
+class Softshrink(Layer):
     def __init__(self, threshold=0.5, name=None):
         super().__init__()
         self._threshold = threshold
@@ -128,7 +126,7 @@ class Softshrink(nn.Module):
         return F.softshrink(x, self._threshold)
 
 
-class Hardtanh(nn.Module):
+class Hardtanh(Layer):
     def __init__(self, min=-1.0, max=1.0, name=None):
         super().__init__()
         self._min, self._max = min, max
@@ -137,7 +135,7 @@ class Hardtanh(nn.Module):
         return F.hardtanh(x, self._min, self._max)
 
 
-class Softplus(nn.Module):
+class Softplus(Layer):
     def __init__(self, beta=1.0, threshold=20.0, name=None):
         super().__init__()
         self._beta, self._threshold = beta, threshold
@@ -146,7 +144,7 @@ class Softplus(nn.Module):
         return F.softplus(x, self._beta, self._threshold)
 
 
-class ThresholdedReLU(nn.Module):
+class ThresholdedReLU(Layer):
     def __init__(self, threshold=1.0, value=0.0, name=None):
         super().__init__()
         self._threshold, self._value = threshold, value
@@ -155,7 +153,7 @@ class ThresholdedReLU(nn.Module):
         return F.thresholded_relu(x, self._threshold, self._value)
 
 
-class Softmax(nn.Module):
+class Softmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -164,7 +162,7 @@ class Softmax(nn.Module):
         return F.softmax(x, self._axis)
 
 
-class LogSoftmax(nn.Module):
+class LogSoftmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -173,7 +171,7 @@ class LogSoftmax(nn.Module):
         return F.log_softmax(x, self._axis)
 
 
-class Maxout(nn.Module):
+class Maxout(Layer):
     def __init__(self, groups, axis=1, name=None):
         super().__init__()
         self._groups, self._axis = groups, axis
@@ -182,7 +180,7 @@ class Maxout(nn.Module):
         return F.maxout(x, self._groups, self._axis)
 
 
-class GLU(nn.Module):
+class GLU(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis

@@ -1,5 +1,5 @@
 """``Conv2D`` (``paddle_tpu/nn/layer/conv.py:19 _ConvNd``, ``:73``) as an
-``nn.Module``: the JAX layer's arguments and parameter names, weight
+``Layer``: the JAX layer's arguments and parameter names, weight
 ``[out, in / groups, kh, kw]`` (torch's layout too) drawn from
 ``KaimingUniform(fan_in=(in / groups) * kh * kw)`` and bias from
 ``Uniform(+-1 / sqrt(fan_in))`` (left out with ``bias_attr=False``), on an
@@ -9,14 +9,12 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
-
 from .. import functional as F
 from ..initializer import kaiming_uniform_, uniform_
-from .layers import make_parameter, placement
+from .layers import Layer, make_parameter, placement
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,

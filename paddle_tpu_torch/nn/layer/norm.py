@@ -1,4 +1,4 @@
-"""The layers of ``paddle_tpu/nn/layer/norm.py`` as ``nn.Module``s:
+"""The layers of ``paddle_tpu/nn/layer/norm.py`` as ``Layer``s:
 ``LayerNorm``, ``GroupNorm``, the BatchNorms (``BatchNorm``,
 ``BatchNorm1D`` / ``2D`` / ``3D``, ``SyncBatchNorm`` at world size 1 with
 ``convert_sync_batchnorm``), ``RMSNorm``, ``InstanceNorm1D`` / ``2D`` /
@@ -13,10 +13,9 @@ and ``F.rms_norm`` run Triton kernels on CUDA tensors."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import functional as F
-from .layers import make_parameter, placement
+from .layers import Layer, make_parameter, placement
 
 
 def _ones(t):
@@ -27,7 +26,7 @@ def _zeros(t):
     return t.zero_()
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
                  bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
@@ -48,7 +47,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self._normalized_shape}"
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     """``F.group_norm`` over ``num_groups`` groups of ``num_channels``;
     ``forward(x, then="silu")`` fuses the SiLU that follows (see
     ``F.group_norm``'s ``then``)."""
@@ -76,7 +75,7 @@ class GroupNorm(nn.Module):
                 f"num_channels={self._num_channels}")
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """``F.batch_norm`` over ``num_features`` channels;
     ``forward(x, residual=None, then=None)`` fuses the residual add and
     the ReLU that follow it (see ``F.batch_norm``)."""
@@ -160,7 +159,7 @@ class SyncBatchNorm(_BatchNormBase):
         return layer
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """``F.rms_norm`` over the last axis with a weight of ones (the Triton
     kernel on CUDA tensors)."""
 
@@ -177,7 +176,7 @@ class RMSNorm(nn.Module):
         return F.rms_norm(x, self.weight, epsilon=self._epsilon)
 
 
-class _InstanceNormBase(nn.Module):
+class _InstanceNormBase(Layer):
     """``F.instance_norm`` (no running statistics) with a weight and bias
     of ``num_features``."""
 
@@ -210,7 +209,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=0.0001, beta=0.75, k=1.0,
                  data_format="NCHW", name=None):
         super().__init__()

@@ -1,13 +1,12 @@
 """``MaxPool2D`` and ``AdaptiveAvgPool2D`` (``paddle_tpu/nn/layer/
-pooling.py:32, :102``) as ``nn.Module``s over the functionals."""
+pooling.py:32, :102``) as ``Layer``s over the functionals."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, return_mask=False,
                  ceil_mode=False, data_format="NCHW", name=None):
         super().__init__()
@@ -24,7 +23,7 @@ class MaxPool2D(nn.Module):
                             self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self._output_size = output_size

@@ -34,9 +34,10 @@ from torch import nn
 from ... import resolve_device
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D,
                    Sequential)
+from ...nn.layer.layers import Layer
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -64,7 +65,7 @@ class BasicBlock(nn.Module):
         return self.bn2(out, residual=identity, then="relu")
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -96,7 +97,7 @@ class BottleneckBlock(nn.Module):
         return self.bn3(out, residual=identity, then="relu")
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """ResNet of ``block`` at ``depth`` on an explicit ``device`` (None =
     the GPU) in ``dtype`` (float32), its weights drawn from
     ``generator``."""

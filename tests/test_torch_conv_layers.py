@@ -286,7 +286,9 @@ def test_batch_norm_train_output_matches_jax_and_not_torch_momentum():
 @pytest.mark.parametrize("case", ["scale2", "scale3", "size_odd", "shrink"])
 def test_interpolate_nearest_matches_jax(case):
     """Nearest resizing with the JAX index rule; at integer factors the
-    broadcast form, whose gradient sums each source pixel's copies."""
+    broadcast form, whose gradient sums each source pixel's copies. The
+    other modes run too (``test_torch_common_layers.py`` holds them all to
+    JAX): bilinear here as a check that it no longer raises."""
     rng = np.random.default_rng(10)
     x = rng.standard_normal((2, 3, 6, 5)).astype(np.float32)
     kw = {"scale2": dict(scale_factor=2), "scale3": dict(scale_factor=3),
@@ -299,8 +301,8 @@ def test_interpolate_nearest_matches_jax(case):
         np.testing.assert_allclose(
             px.grad.numpy(), dy.reshape(2, 3, 6, 2, 5, 2).sum(axis=(3, 5)),
             rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        F.interpolate(_pt(x), scale_factor=2, mode="bilinear")
+    kw = dict(scale_factor=2, mode="bilinear")
+    _close(F.interpolate(_pt(x), **kw), JF.interpolate(_jt(x), **kw), 1e-5)
 
 
 @pytest.mark.parametrize("case", ["max_3_2_1", "max_2", "avg_1", "avg_2"])
@@ -405,18 +407,16 @@ def test_amp_casts_the_new_ops_as_jax(level):
         assert str(pd).replace("torch.", "") == jd, (name, pd, jd)
 
 
-@pytest.mark.parametrize("call", ["conv2d_nhwc", "interpolate_nhwc",
-                                  "max_pool_nhwc", "max_pool_ceil",
-                                  "avg_pool_uneven"])
+@pytest.mark.parametrize("call", ["conv2d_nhwc", "max_pool_nhwc",
+                                  "max_pool_ceil", "avg_pool_uneven"])
 def test_cases_the_models_do_not_use_raise(call):
     """The convolutional functionals are ported for what the UNet and
-    ResNet use (NCHW, nearest, symmetric pools); the other arguments
-    raise and name the function."""
+    ResNet use (NCHW convolutions, symmetric pools); the other arguments
+    raise and name the function. ``interpolate`` takes every layout and
+    mode since the common layers were ported."""
     x = torch.zeros(1, 4, 6, 6)
     run = {"conv2d_nhwc": lambda: F.conv2d(x, torch.zeros(4, 6, 3, 3),
                                            data_format="NHWC"),
-           "interpolate_nhwc": lambda: F.interpolate(x, scale_factor=2,
-                                                     data_format="NHWC"),
            "max_pool_nhwc": lambda: F.max_pool2d(x, 2, data_format="NHWC"),
            "max_pool_ceil": lambda: F.max_pool2d(x, 3, 2, ceil_mode=True),
            "avg_pool_uneven": lambda: F.adaptive_avg_pool2d(x, 4)}[call]

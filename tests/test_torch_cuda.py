@@ -2812,3 +2812,167 @@ def test_instance_norm_runs_the_group_norm_kernel(dev, shape):
             _gn_close(a.grad, c.grad, dtype, 2, s)
     with amp.auto_cast(level="O1"):
         assert F.instance_norm(x, weight=w, bias=b).dtype == torch.float32
+
+
+# -- CTC and RNN-T (kernels/seq_loss.py) --------------------------------------
+#
+# Tolerances: each sample's nll within 1e-5 of max(1, |nll|) (the same fp32
+# recursion; exp and log1p differ in the last ulps). dx element by element:
+# the plain dx is glp - p * sum(glp) (glp the plain gradient on the
+# log-probabilities, p the softmax), and each element may differ by 2e-3
+# of the size of its two terms, |glp| + p * |sum(glp)| (the adjoints are
+# exps of fp32 sums near -1000; chip_smoke.py prints the worst share at
+# phase 16's shapes), plus 1e-12 of the largest such size (values near
+# the denormal range), plus in bfloat16 one ulp of the plain value (both
+# round an fp32 value). In fp32 the check must reject the plain gradient
+# with its softmax term 1% off, and with its rows (lattice cells) of less
+# than the median size 1% off. Two calls give the same bits (no atomics),
+# and a captured call its eager call's.
+
+
+def _seq_close(nll, dx, pn, x, glp):
+    finite = pn < 1e29
+    rel = ((nll - pn).abs() / pn.abs().clamp(min=1.0))[finite]
+    assert torch.isfinite(nll).all() and float(rel.max()) <= 1e-5
+    assert torch.equal(nll[~finite], pn[~finite])
+    assert torch.isfinite(dx).all()
+    p = torch.softmax(x.float(), -1)
+    total = glp.sum(-1, keepdim=True)
+    want = glp - p * total
+    size = glp.abs() + p * total.abs()
+    tol = 2e-3 * size + 1e-12 * float(size.max())
+    if dx.dtype != torch.float32:
+        want = want.to(dx.dtype).float()
+        tol += 2.0 ** -7 * want.abs()
+    assert bool(((dx.float() - want).abs() <= tol).all())
+    if dx.dtype == torch.float32:
+        assert not bool((0.01 * p * total.abs() <= tol).all())
+        rows = size.amax(-1)
+        low = (rows > 0) & (rows < rows[rows > 0].median())
+        if low.any():
+            assert not bool((0.01 * want.abs() <= tol)[low].all())
+
+
+def _ctc_case(dev, dtype, T, B, C, L, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(T, B, C, device=dev, generator=g) * 2).to(dtype)
+    lab = torch.randint(1, C, (B, L), device=dev, generator=g,
+                        dtype=torch.int32)
+    if L >= 3:
+        lab[1, 1:3] = lab[1, 0]                   # repeated labels
+    il = torch.randint(T * 4 // 5, T + 1, (B,), device=dev, generator=g,
+                       dtype=torch.int32)
+    ll = torch.randint(0, L + 1, (B,), device=dev, generator=g,
+                       dtype=torch.int32)
+    ll[0] = 0                                     # an empty sequence
+    il[-1], ll[-1] = 2, min(L, 5)                 # infeasible
+    w = torch.rand(B, device=dev, generator=g)
+    return x, lab, il, ll, w
+
+
+@pytest.mark.parametrize("norm_by_times", [False, True])
+@pytest.mark.parametrize("shape", [(50, 6, 29, 12), (60, 4, 300, 20),
+                                   (500, 32, 29, 200), (30, 3, 16, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ctc_kernels_match_plain(dev, dtype, shape, norm_by_times):
+    """Forward and backward, one launch each, against the plain loops;
+    ragged lengths, an empty and an infeasible sample, repeated labels;
+    two calls bit-equal."""
+    from paddle_tpu_torch.kernels import seq_loss as SL
+    x, lab, il, ll, w = _ctc_case(dev, dtype, *shape, seed=sum(shape))
+    before = (K.LAUNCHES["ctc_fwd"], K.LAUNCHES["ctc_bwd"])
+    nll, lse, alpha = SL.ctc_forward(x, lab, il, ll)
+    dx = SL.ctc_backward(x, lab, il, ll, lse, alpha, w, 0, norm_by_times)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["ctc_fwd"], K.LAUNCHES["ctc_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dtype and nll.dtype == torch.float32
+    pn, pa = SL.ctc_forward_plain(x, lab, il, ll)
+    glp = SL.ctc_log_prob_grad_plain(x, lab, il, ll, pa, w, 0, norm_by_times)
+    _seq_close(nll, dx, pn, x, glp)
+    nll2, lse2, alpha2 = SL.ctc_forward(x, lab, il, ll)
+    dx2 = SL.ctc_backward(x, lab, il, ll, lse2, alpha2, w, 0, norm_by_times)
+    assert torch.equal(nll, nll2) and torch.equal(dx, dx2)
+
+
+def _rnnt_case(dev, dtype, B, T, U, V, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, T, U + 1, V, device=dev, generator=g).to(dtype)
+    lab = torch.randint(1, V, (B, U), device=dev, generator=g,
+                        dtype=torch.int32)
+    il = torch.randint(max(1, T * 3 // 4), T + 1, (B,), device=dev,
+                       generator=g, dtype=torch.int32)
+    ll = torch.randint(0, U + 1, (B,), device=dev, generator=g,
+                       dtype=torch.int32)
+    ll[0] = 0
+    w = torch.rand(B, device=dev, generator=g)
+    return x, lab, il, ll, w
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.01])
+@pytest.mark.parametrize("shape", [(4, 20, 8, 33), (2, 30, 10, 128),
+                                   (3, 7, 0, 16), (16, 200, 60, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rnnt_kernels_match_plain(dev, dtype, shape, lam):
+    """Forward and backward (vectorised rows where V allows, single values
+    elsewhere), one launch each, against the plain lattice loops; ragged
+    lengths, an empty label sequence, ``fastemit_lambda``; two calls
+    bit-equal."""
+    from paddle_tpu_torch.kernels import seq_loss as SL
+    x, lab, il, ll, w = _rnnt_case(dev, dtype, *shape, seed=sum(shape))
+    before = (K.LAUNCHES["rnnt_fwd"], K.LAUNCHES["rnnt_bwd"])
+    nll, *saved = SL.rnnt_forward(x, lab, il, ll)
+    dx = SL.rnnt_backward(x, lab, il, ll, *saved, w, 0, lam)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["rnnt_fwd"], K.LAUNCHES["rnnt_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    pn, pa = SL.rnnt_forward_plain(x, lab, il, ll)
+    glp = SL.rnnt_log_prob_grad_plain(x, lab, il, ll, pa, w, 0, lam)
+    _seq_close(nll, dx, pn, x, glp)
+    del pa, glp
+    nll2, *saved2 = SL.rnnt_forward(x, lab, il, ll)
+    dx2 = SL.rnnt_backward(x, lab, il, ll, *saved2, w, 0, lam)
+    assert torch.equal(nll, nll2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.parametrize("loss", ["ctc", "rnnt"])
+def test_seq_losses_replay_from_a_graph(dev, loss):
+    """The functional's forward and backward (through the autograd
+    functions) captured in a CUDA graph: each replay after the logits are
+    rewritten equals an eager call bit for bit."""
+    from paddle_tpu_torch.nn import functional as F
+    if loss == "ctc":
+        x, lab, il, ll, _ = _ctc_case(dev, torch.float32, 40, 5, 29, 10, 3)
+        fn = lambda t: F.ctc_loss(t, lab, il, ll, norm_by_times=True)  # noqa: E731
+    else:
+        x, lab, il, ll, _ = _rnnt_case(dev, torch.float32, 3, 16, 6, 64, 4)
+        fn = lambda t: F.rnnt_loss(t, lab, il, ll)  # noqa: E731
+    xs = x.clone().requires_grad_()
+
+    def step():
+        v = fn(xs)
+        return v, torch.autograd.grad(v, xs)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        v_cap, g_cap = step()
+    for seed in (1, 2):
+        with torch.no_grad():
+            xs.copy_(torch.randn(x.shape, device=dev,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(seed)))
+        graph.replay()
+        v, g = step()
+        torch.cuda.synchronize()
+        assert torch.equal(v_cap, v) and torch.equal(g_cap, g)
+
+
+def test_seq_losses_refuse_other_dtypes(dev):
+    from paddle_tpu_torch.kernels import seq_loss as SL
+    x, lab, il, ll, _ = _ctc_case(dev, torch.float32, 10, 2, 5, 3, 5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        SL.ctc_forward(x.half(), lab, il, ll)

@@ -67,7 +67,12 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.nn.layer.conv, "
             "paddle_tpu_torch.nn.layer.activation, "
             "paddle_tpu_torch.nn.layer.pooling, "
-            "paddle_tpu_torch.nn.layer.loss, paddle_tpu_torch.nn.layer.norm; "
+            "paddle_tpu_torch.nn.layer.loss, paddle_tpu_torch.nn.layer.norm, "
+            "paddle_tpu_torch.nn.layer.common, "
+            "paddle_tpu_torch.nn.layer.layers, "
+            "paddle_tpu_torch.nn.functional_loss, "
+            "paddle_tpu_torch.nn.functional_common, "
+            "paddle_tpu_torch.kernels.seq_loss; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

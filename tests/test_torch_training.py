@@ -105,9 +105,12 @@ def test_cross_entropy_matches_jax():
     got = float(F.cross_entropy(torch.from_numpy(logits),
                                 torch.from_numpy(labels)))
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                        reduction="sum")
+    want = float(JF.cross_entropy(paddle.to_tensor(logits),
+                                  paddle.to_tensor(labels),
+                                  reduction="sum").numpy())
+    got = float(F.cross_entropy(torch.from_numpy(logits),
+                                torch.from_numpy(labels), reduction="sum"))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 @pytest.mark.parametrize("kv_heads,chunk", [(4, None), (2, 8)])
