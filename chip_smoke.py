@@ -78,8 +78,20 @@ Phases, each printing its own lines and its seconds:
      their plain loops at phase 16's shapes, fp32 and bf16, ragged
      lengths, an empty label sequence, norm_by_times and fastemit_lambda,
      two runs bit-equal, timed beside their bounds, the plain loops and
-     F.ctc_loss; the new losses, common functionals and layers on the
-     card against the same calls on the CPU;
+     F.ctc_loss; X2, the dense attention's middle (scale, masks, fp32
+     softmax, dropout; Triton), forward and backward against its plain
+     version at the UNet's [4, 8, 4096, 4096], ERNIE's [32, 12, 512, 512]
+     (a padding mask, p 0.1) and Transformer-base's [64, 8, 64, 64] (its
+     float causal mask plus padding, p 0.1), each timed beside its bound,
+     the plain version and torch.softmax alone, and at causal sq < sk,
+     a bool mask with a row that sees no key, an additive mask with a
+     gradient, rows longer than one block and flash_attn_unpadded's
+     segments: the probs and ds element by element, the dropout's keep
+     mask bit-equal to kernels/dropout.py's, two calls bit-equal (each
+     call form compiled at its first call); the new losses, common
+     functionals and layers, the attention functionals, the Transformer
+     and fused Transformer layers on the card against the same calls on
+     the CPU, and sparse_attention twice bit-equal;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -166,7 +178,8 @@ Phases, each printing its own lines and its seconds:
      difference must be a near tie: both tokens their run's argmax, the
      non-speculative top-2 margin within twice that noise); in float32
      (2 layers) speculative tokens identical to non-speculative ones;
-  11. the artifact path on the 1.1B Llama of phase 5 (bf16): ``jit.save``
+  11. the artifact path on the 1.1B Llama of phase 5 (bf16) at 11 of its
+     22 layers (a depth cut for the smoke's time): ``jit.save``
      with InputSpec([None, None], "int64") into a directory under --out,
      ``create_predictor`` on the card, a batch of 4 x 512: logits equal to
      the live model's forward bit for bit, exact launches (a flash
@@ -198,11 +211,16 @@ Phases, each printing its own lines and its seconds:
      widths, uncut (vocab 18000, hidden 768, 12 layers, dropout 0.1 /
      0.1; bf16 weights, fp32 moments, AdamW, batch 32 x 512): (a) the
      step captured, 2 warm-up and 5 timed steps with exact launch counts
-     (AdamW 1, dropout 26, LayerNorm 26 + 26 backward, 12 dense attention
-     calls, no flash), finite and falling losses, step ms, tokens/s, MFU,
-     peak memory, pool, a profile by kernel group; 3 captured steps
-     against 3 eager ones from one snapshot, bit-equal; one step from one snapshot twice under one seed
-     (bit-equal) and once under another (a different loss); (b) the same
+     (AdamW 1, dropout 2 (the embeddings'), LayerNorm 26 + 26 backward,
+     12 dense attention calls through X2, 12 + 12, the probabilities'
+     dropout inside it; no flash), finite and falling losses, step ms,
+     tokens/s, MFU, peak memory, pool, a profile by kernel group; 3
+     captured steps against 3 eager ones from one snapshot, bit-equal; one
+     step from one snapshot twice under one seed (bit-equal) and once
+     under another (a different loss); the 12 dense middles' device ms
+     through X2 and through the separate ops' composition (the plain
+     version), in
+     the same call; (b) the same
      at dropout 0 (flash 12 + 12 a step, nothing dense); (c) one step at 2
      layers through the kernels against the plain versions (the phase 5
      gate; every path draws the same masks); (d) a tiny float32 ERNIE at
@@ -215,11 +233,13 @@ Phases, each printing its own lines and its seconds:
      from the seed), bf16 under amp O2: (a) one denoising forward at
      batch 2 x [4, 64, 64] (timesteps 999, a [2, 77, 768] context), exact
      launch counts (61 GroupNorms, 45 with the SiLU; 48 LayerNorms; 32
-     dense attention calls), ms (median of 20), a profile, peak memory;
-     (b) the training step at batch 4, AdamW, captured, timed with cuDNN's
-     own choice and under cudnn.deterministic, exact launch counts,
-     images/s, MFU, peak, pool, a profile, then 3 replayed steps against
-     3 eager ones from one snapshot, bit-equal; (c) a 2-level UNet at its
+     dense attention calls, each through X2), ms (median of 20), a
+     profile, peak memory; (b) the training step at batch 4, AdamW,
+     captured, timed with cuDNN's own choice and under
+     cudnn.deterministic, exact launch counts (X2 32 + 32), images/s,
+     MFU, peak, pool, a profile, then 3 replayed steps against 3 eager
+     ones from one snapshot, bit-equal; the 32 dense middles' device ms
+     through X2 and through the ops' composition; (c) a 2-level UNet at its
      widths through the kernels against the plain versions (the phase 5
      gate); (d) a tiny float32 UNet on the card against the CPU trainer;
   15. ResNet-50 (BASELINE configuration 1) at ImageNet shape, batch 128 x
@@ -245,6 +265,21 @@ Phases, each printing its own lines and its seconds:
      backward kernels and AdamW, one each a step), step ms, a profile
      (the loss kernels' share), 2 replayed steps against 2 eager ones,
      bit-equal; a tiny float32 CTC head and joint on the card against the
+     CPU trainer;
+  17. Transformer-base (Vaswani et al., 2017, Table 3 "base") at full
+     width on nn.Transformer's defaults (d 512, 8 heads, 6 + 6 layers,
+     FFN 2048, ReLU, post-norm, dropout 0.1), a shared 37,000-token
+     vocabulary tied to the output, label-smoothed cross entropy, Adam
+     (0.9, 0.98, 1e-9) on NoamDecay(512, 4000), bf16 under amp O1, 64
+     sentence pairs of 16-64 tokens padded to 64 with their padding and
+     subsequent masks: the step captured, exact launch counts (X2 18 +
+     18, the dropout, LayerNorm and AdamW kernels, nothing on flash or
+     the plain path), step ms, tokens/s, MFU, peak memory, a profile, the
+     dense middles' ms through X2 and the ops' composition; 3 replayed
+     steps against 3 eager ones, bit-equal; an eval forward built at
+     dropout 0 without padding (flash for the encoder's self-attention
+     and the cross-attention, X2 for the decoder's masked
+     self-attention); a tiny float32 Transformer on the card against the
      CPU trainer;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
@@ -628,18 +663,22 @@ def _ragged_plan_items(torch, args, rep):
 
 def _kernels_a_call(torch, fn, calls=10):
     """{CUDA kernel name: [launches a call, device ms a call]} of ``fn``,
-    from a profile of ``calls`` calls."""
+    from a profile of ``calls`` calls (between spin bursts, as
+    ``_profile``)."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _spins(torch)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        _spins(torch)
     names = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name):
             m = re.search(r"\w*ragged_attention\w*", e.name)
             key = m.group(0) if m else e.name[:60]
             c = names.setdefault(key, [0, 0.0])
@@ -1607,6 +1646,10 @@ def _kernel_group(name):
             return f"{kind}_fwd"
         if f"{kind}_adjoint_kernel" in name or f"{kind}_grad_rows" in name:
             return f"{kind}_bwd"
+    if "_dense_softmax_bwd_kernel" in name:
+        return "dense_softmax_bwd"
+    if "_dense_softmax_fwd_kernel" in name:
+        return "dense_softmax"
     if "_bn_bwd_" in name:
         return "batch_norm_bwd"
     if "_bn_stats_kernel" in name or "_bn_fwd_kernel" in name:
@@ -1672,19 +1715,31 @@ _STEP_TRACE_CHECKED = {
                                       or "ragged_attention_kernel" in k),
 }
 PROFILE_TRACES = 8     # traces taken before a lossy one fails the phase
+SPINS = 64             # spin kernels before and after a trace's calls
+SPIN_CYCLES = 10 ** 6  # ~0.5 ms each on an H100
+
+
+def _spins(torch):
+    """SPINS spin kernels (``torch.cuda._sleep``, ``spin_kernel``), waited
+    for: the first and last records of a trace (``_profile``)."""
+    for _ in range(SPINS):
+        torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda.synchronize()
 
 
 def _profile(torch, step, n, checked=None):
     """Wall ms per step and device ms per step by kernel group, from a
     torch.profiler trace of ``n`` calls of ``step`` (kernels replayed from
-    a CUDA graph appear in the trace as launched ones do). The tracer can
-    drop kernel records (a few dozen of a step's ~640, now and then; after
-    some hundreds of traces in one process, every record of a few traces
-    in a row, then it recovers): with
-    ``checked`` (as ``_STEP_TRACE_CHECKED``) a trace must hold each of its
-    kernels as many times as the wrapper counted launches over the traced
-    calls, or it is taken again over the next ``n`` calls, up to
-    PROFILE_TRACES traces."""
+    a CUDA graph appear in the trace as launched ones do). The tracer now
+    and then loses a run of a trace's first kernel records (late in the
+    smoke's process, the first trace after a pause: its first few dozen,
+    ~20 ms of them, all of a short step's; a trace taken right after holds
+    them all) or its last ones. The calls therefore run between two bursts
+    of ``_spins`` (~32 ms each), which the counts and the wall time leave
+    out. With ``checked`` (as ``_STEP_TRACE_CHECKED``) a trace must still
+    hold each of its kernels as many times as the wrapper counted launches
+    over the traced calls, or it is taken again over the next ``n`` calls,
+    up to PROFILE_TRACES traces."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import kernels as K
     for attempt in range(1, PROFILE_TRACES + 1):
@@ -1692,15 +1747,18 @@ def _profile(torch, step, n, checked=None):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _spins(torch)
             t0 = time.monotonic()
             for _ in range(n):
                 step()
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
+            _spins(torch)
         groups, names, counts, launches = {}, {}, {}, 0
         other, other_n = {}, {}
         kernels = sorted((e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "spin_kernel" not in e.name),
                          key=lambda e: e.time_range.start)
         prev = "other"
         for e in kernels:
@@ -1730,7 +1788,9 @@ def _profile(torch, step, n, checked=None):
         lost = {"+".join(keys): f"{traced[keys]} of {launched[keys]}"
                 for keys in checked if traced[keys] != launched[keys]}
         print(f"  profiler trace {attempt}: it holds {lost} counted "
-              f"launches; the tracer dropped records", flush=True)
+              f"launches; the tracer dropped records (it holds "
+              f"{len(kernels)} kernel records, {len(counts)} names)",
+              flush=True)
     else:
         raise AssertionError(f"the profiler dropped kernel records in "
                              f"{PROFILE_TRACES} traces running")
@@ -3272,9 +3332,9 @@ def _tf32_run(torch, trainer, batch, card):
 
 
 def _plain_fusion_patches(stack):
-    """Dropout, LayerNorm (with its dropout and residual) and GroupNorm
-    (with its SiLU) through their plain versions: the same masks (the
-    plain Philox is the kernels')."""
+    """Dropout, LayerNorm (with its dropout and residual), the dense
+    attention's middle and GroupNorm (with its SiLU) through their plain
+    versions: the same masks (the plain Philox is the kernels')."""
     from paddle_tpu_torch.kernels import dropout as D
     from paddle_tpu_torch.kernels import fused
 
@@ -3283,6 +3343,13 @@ def _plain_fusion_patches(stack):
     stack.enter_context(mock.patch.object(D, "dropout", dropout_plain))
     stack.enter_context(mock.patch.object(
         fused, "dropout_add_layer_norm", fused.dropout_add_layer_norm_plain))
+    from paddle_tpu_torch.kernels import dense_attention as DA
+
+    def dense_plain(scores, mask=None, causal=False, scale=1.0, p=0.0,
+                    key=None):
+        return DA.dense_softmax_plain(scores, mask, causal, scale,
+                                      p if key is not None else 0.0, key)[1]
+    stack.enter_context(mock.patch.object(DA, "dense_softmax", dense_plain))
     from paddle_tpu_torch.kernels import group_norm as GN
     stack.enter_context(mock.patch.object(GN, "group_norm",
                                           GN.group_norm_plain))
@@ -3326,6 +3393,45 @@ def _rel_dist(a, b):
     sq, ref = _sq_dists(a, b)
     return (math.sqrt(sum(sq.values()) / sum(ref.values())),
             {n: math.sqrt(sq[n] / ref[n]) for n in b})
+
+
+SMALL_LEAF = 16      # a parameter of fewer elements: a handful of roundings
+
+
+def _leaf_ratios(leaf_k, leaf_p, sizes, err_p, skip_exact=False):
+    """({name: the kernel path's distance from float32 over the plain
+    path's}, {name: (elements, kernel distance, plain distance)} of the
+    parameters of fewer than SMALL_LEAF elements). Such a parameter (ERNIE's
+    2-way ``nsp_head.bias``, whose two gradients are one value and its
+    negative; the UNet's 4-channel ``conv_out.bias``) carries one rounding
+    or a few, and the ratio of two paths' roundings of one value swings
+    either way by seed (PERF.md, Findings): its ratio is over the larger of
+    its own plain distance and the plain path's over all (``err_p``), and
+    its readings are printed. ``skip_exact``: leave out a parameter the
+    plain path gives exactly."""
+    ratio, small = {}, {}
+    for n, p in leaf_p.items():
+        if skip_exact and p == 0:
+            continue
+        if sizes[n] < SMALL_LEAF:
+            small[n] = (sizes[n], leaf_k[n], p)
+            p = max(p, err_p)
+        ratio[n] = leaf_k[n] / p
+    return ratio, small
+
+
+def _small_leaves_line(small):
+    return "; ".join(f"{n} ({e} elements) kernels {k:.4g} plain {p:.4g}"
+                     for n, (e, k, p) in small.items()) or "none"
+
+
+def _worst_leaves(leaf_k, leaf_p, sizes, n=4):
+    """The ``n`` parameters of the largest ratio of their own distances
+    (kernels over plain), with their sizes (read over seeds by
+    ``paddle_tpu_torch/tools/agreement_seeds.py``)."""
+    own = {k: leaf_k[k] / leaf_p[k] for k in leaf_p if leaf_p[k] > 0}
+    return "; ".join(f"{k} ({sizes[k]}) {own[k]:.4g}" for k in sorted(
+        own, key=own.get, reverse=True)[:n])
 
 
 def _train_step_agreement(torch, seed, packed=False):
@@ -4372,15 +4478,19 @@ def _server_delegation(torch, model, ecfg, prompts, max_new, want):
     return dict(requests=len(prompts), seconds=secs, tokens_equal=True)
 
 
+ARTIFACT_LAYERS = 11      # of the 1.1B Llama's 22: a depth cut for time
+
+
 def phase_artifact(torch, args, launches_out):
-    """The artifact path at full width on the 1.1B Llama (hidden 2048, 22
-    layers, bf16, seeded random weights): jit.save with InputSpec([None,
-    None], "int64") into a gitignored directory, create_predictor on the
-    card, a batch of 4 x 512; its logits equal the live model's forward
-    bit for bit, with exact kernel launches (flash forward, RMSNorm, RoPE)
-    and nothing routed to a plain path. Then the same model saved on the
-    CPU and loaded on the card: the kernels launch and the logits equal
-    again. Save, load and run seconds; the artifacts are deleted."""
+    """The artifact path at full width on the 1.1B Llama (hidden 2048, 11
+    of its 22 layers, bf16, seeded random weights): jit.save with
+    InputSpec([None, None], "int64") into a gitignored directory,
+    create_predictor on the card, a batch of 4 x 512; its logits equal the
+    live model's forward bit for bit, with exact kernel launches (flash
+    forward, RMSNorm, RoPE) and nothing routed to a plain path. Then the
+    same model saved on the CPU and loaded on the card: the kernels launch
+    and the logits equal again. Save, load and run seconds; the artifacts
+    are deleted."""
     import shutil
     import numpy as np
     from paddle_tpu_torch import jit
@@ -4388,7 +4498,7 @@ def phase_artifact(torch, args, launches_out):
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.models import LlamaForCausalLM
     card = _card_line()
-    cfg = _llama_1b()
+    cfg = _llama_1b(layers=ARTIFACT_LAYERS)
     n_l = cfg.num_hidden_layers
     model = LlamaForCausalLM(
         cfg, device="cuda", dtype=torch.bfloat16,
@@ -5007,7 +5117,6 @@ def phase_training_surface(torch, args, launches_out, phase5_step_ms):
 # -- phase 3 (dropout and LayerNorm kernels) and phase 13: ERNIE pretraining ----------
 
 ERNIE_STEP = 26        # LayerNorms a step: embeddings, 2 a layer, MLM head
-ERNIE_DROPOUTS = 13    # dropout calls a step: embeddings, 1 a layer (attn)
 
 
 def _philox_ops(n):
@@ -5291,9 +5400,10 @@ def _ernie_per_step(cfg, dropout):
     per_step.update(adamw=1, dropout_add_ln=2 * n_l + 2,
                     dropout_add_ln_bwd=2 * n_l + 2)
     if dropout:
-        # forward and backward: the embeddings' and each layer's
-        # attention probabilities'
-        per_step.update(dropout=2 * (n_l + 1), sdpa_dense=n_l)
+        # forward and backward: the embeddings' dropout (the attention
+        # probabilities' is inside X2, the dense attention's middle)
+        per_step.update(dropout=2, sdpa_dense=n_l, dense_softmax=n_l,
+                        dense_softmax_bwd=n_l)
     else:
         per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l)
     return per_step
@@ -5405,7 +5515,8 @@ def _ernie_agreement(torch, seed):
     kernels' and the plain versions' bits are equal). float32: loss 1e-5
     relative, gradients 1e-3 relative L2; bf16: the kernels' gradients no
     further from the float32 step than the plain bf16 path's, 1.1x over
-    all and 1.25x each (the phase 5 gate)."""
+    all and 1.25x each (the phase 5 gate; a parameter of fewer than
+    SMALL_LEAF elements as ``_leaf_ratios`` says)."""
     import dataclasses
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.framework.random import key_context
@@ -5432,7 +5543,8 @@ def _ernie_agreement(torch, seed):
         if plain and any(used.values()):
             raise AssertionError(f"the plain ERNIE step launched {used}")
         if not plain and not all(used[n] for n in (
-                "dropout", "dropout_add_ln", "dropout_add_ln_bwd")):
+                "dropout", "dropout_add_ln", "dropout_add_ln_bwd",
+                "dense_softmax", "dense_softmax_bwd")):
             raise AssertionError(f"the kernel ERNIE step launched {used}")
         return float(loss.detach()), {n: p.grad.float() for n, p in
                                       model.named_parameters()}
@@ -5440,6 +5552,7 @@ def _ernie_agreement(torch, seed):
     lk32, gk32 = run(torch.float32, False)
     lp32, gp32 = run(torch.float32, True)
     err32, _ = _rel_dist(gk32, gp32)
+    sizes = {n: g.numel() for n, g in gp32.items()}
     del gk32
     lk16, gk16 = run(torch.bfloat16, False)
     err_k, leaf_k = _rel_dist(gk16, gp32)
@@ -5448,17 +5561,21 @@ def _ernie_agreement(torch, seed):
     err_p, leaf_p = _rel_dist(gp16, gp32)
     del gp16, gp32
     torch.cuda.empty_cache()
-    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p}
+    ratio, small = _leaf_ratios(leaf_k, leaf_p, sizes, err_p)
     worst = max(ratio, key=ratio.get)
     loss32 = abs(lk32 / lp32 - 1)
     print(f"  phase 13 (c) ERNIE step kernels vs plain (ERNIE-base widths, 2"
-          f" layers, 8 x 512, dropout 0.1, the same masks): float32 loss "
-          f"{lk32:.6f} vs {lp32:.6f} (rel err {loss32:.3g}, tol 1e-5), grads "
-          f"rel L2 err {err32:.3g} (tol 1e-3); bf16 loss kernels {lk16:.6f} "
-          f"plain {lp16:.6f}, grads' rel L2 distance from the float32 step: "
-          f"kernels {err_k:.5g}, plain {err_p:.5g} (tol 1.1x); per "
-          f"parameter the largest ratio {ratio[worst]:.4g} at {worst} (tol "
-          f"1.25) [{_card_line()}]", flush=True)
+          f" layers, 8 x 512, dropout 0.1, the same masks, seed {seed}): "
+          f"float32 loss {lk32:.6f} vs {lp32:.6f} (rel err {loss32:.3g}, tol "
+          f"1e-5), grads rel L2 err {err32:.3g} (tol 1e-3); bf16 loss "
+          f"kernels {lk16:.6f} plain {lp16:.6f}, grads' rel L2 distance from "
+          f"the float32 step: kernels {err_k:.5g}, plain {err_p:.5g} (tol "
+          f"1.1x); per parameter the largest ratio kernels / plain "
+          f"{ratio[worst]:.4g} at {worst} (tol 1.25; below {SMALL_LEAF} "
+          f"elements over the larger of its plain distance and the plain "
+          f"one over all: {_small_leaves_line(small)}); the largest ratios "
+          f"of own distances: {_worst_leaves(leaf_k, leaf_p, sizes)} "
+          f"[{_card_line()}]", flush=True)
     if not (loss32 <= 1e-5 and err32 <= 1e-3 and err_k <= 1.1 * err_p
             and max(ratio.values()) <= 1.25
             and all(math.isfinite(x) for x in (lk16, lp16, err_k, err_p))):
@@ -5467,7 +5584,7 @@ def _ernie_agreement(torch, seed):
     return dict(loss_rel_err_f32=loss32, grad_rel_err_f32=err32,
                 bf16_grad_err_kernels=err_k, bf16_grad_err_plain=err_p,
                 bf16_grad_err_ratio_worst_param=ratio[worst],
-                worst_param=worst)
+                worst_param=worst, small_params=small)
 
 
 def _ernie_tiny_on_card(torch):
@@ -5524,7 +5641,8 @@ def _ernie_tiny_on_card(torch):
 def _ernie_classifier(torch, args, card):
     """ErnieForSequenceClassification (3 classes) in eval at [32, 512]
     bf16: without a mask through flash (12 forwards, nothing dense), with a
-    padding mask through the dense route (12 ``sdpa_dense``, no flash);
+    padding mask through the dense route (12 ``sdpa_dense``, 12 X2
+    forwards, no flash);
     each path's logits no further from the float32 plain forward than the
     plain bf16 path's, within 2x (the serving gate), with ms."""
     from paddle_tpu_torch import kernels as K
@@ -5543,7 +5661,8 @@ def _ernie_classifier(torch, args, card):
     out = {}
     n_l = cfg.num_hidden_layers
     for kind, m, route in (("no mask", None, {"flash_fwd": n_l}),
-                           ("padding mask", mask, {"sdpa_dense": n_l})):
+                           ("padding mask", mask, {"sdpa_dense": n_l,
+                                                   "dense_softmax": n_l})):
         with torch.no_grad():
             K.reset_launches()
             logits = model(ids, tt, m)
@@ -5612,6 +5731,9 @@ def phase_ernie_training(torch, args, launches_out):
     stats.update(_same_seed_same_step(torch, trainer, batch, args.seed + 1))
     out["dropout_0.1"] = stats
     _drop_trainer(torch, trainer)
+    stats["dense_middle"] = _dense_middle_line(
+        torch, "phase 13 (a)", lambda: _ernie_loss(trainer.model, *batch),
+        card)
     del trainer, batch
     _free(torch)
     cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
@@ -6389,7 +6511,7 @@ def _unet_forward_launches():
     from paddle_tpu_torch import kernels as K
     per = {n: 0 for n in K.LAUNCHES}
     per.update(group_norm=UNET_GROUP_NORMS, dropout_add_ln=UNET_LAYER_NORMS,
-               sdpa_plain=UNET_ATTENTION)
+               sdpa_plain=UNET_ATTENTION, dense_softmax=UNET_ATTENTION)
     return per
 
 
@@ -6533,7 +6655,8 @@ def _unet_train(torch, args, card, launches_out):
     graph = _graph_line(trainer, "phase 14 (b)", card)
     per = _unet_forward_launches()
     per.update(group_norm_bwd=UNET_GROUP_NORMS,
-               dropout_add_ln_bwd=UNET_LAYER_NORMS, adamw=1)
+               dropout_add_ln_bwd=UNET_LAYER_NORMS,
+               dense_softmax_bwd=UNET_ATTENTION, adamw=1)
     expect = {k: 5 * v for k, v in per.items()}
     print(f"  phase 14 (b) launches over 5 steps: {launches} (expected "
           f"{expect})", flush=True)
@@ -6569,6 +6692,8 @@ def _unet_train(torch, args, card, launches_out):
     out["eager"] = _captured_against_eager(torch, trainer, batch,
                                          "phase 14 (b)", card, step_ms, m)
     _drop_trainer(torch, trainer)
+    out["dense_middle"] = _dense_middle_line(
+        torch, "phase 14 (b)", lambda: _unet_loss_o2(model, *batch), card)
     del trainer, model, batch
     _free(torch)
     return out
@@ -6582,7 +6707,8 @@ def _unet_agreement(torch, seed):
     bf16-valued weights, upcast): float32 loss 1e-5 relative and
     gradients 1e-3 relative L2; bf16 gradients no further from the
     float32 step than the plain bf16 path's (1.1x over all, 1.25x per
-    parameter)."""
+    parameter; one of fewer than SMALL_LEAF elements as ``_leaf_ratios``
+    says)."""
     import dataclasses
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import UNetConfig
@@ -6619,6 +6745,7 @@ def _unet_agreement(torch, seed):
     lk32, gk32 = run(False, False)
     lp32, gp32 = run(False, True)
     err32, _ = _rel_dist(gk32, gp32)
+    sizes = {n: g.numel() for n, g in gp32.items()}
     del gk32
     lk16, gk16 = run(True, False)
     err_k, leaf_k = _rel_dist(gk16, gp32)
@@ -6627,16 +6754,21 @@ def _unet_agreement(torch, seed):
     err_p, leaf_p = _rel_dist(gp16, gp32)
     del gp16, gp32
     torch.cuda.empty_cache()
-    ratio = {n: leaf_k[n] / leaf_p[n] for n in leaf_p if leaf_p[n] > 0}
+    ratio, small = _leaf_ratios(leaf_k, leaf_p, sizes, err_p,
+                                skip_exact=True)
     worst = max(ratio, key=ratio.get)
     loss32 = abs(lk32 / lp32 - 1)
     print(f"  phase 14 (c) UNet step kernels vs plain (SD 1.5 widths, 2 "
-          f"levels, 2 x [4, 32, 32]): float32 loss {lk32:.6f} vs {lp32:.6f} "
-          f"(rel err {loss32:.3g}, tol 1e-5), grads rel L2 err {err32:.3g} "
-          f"(tol 1e-3); bf16 O2 loss kernels {lk16:.6f} plain {lp16:.6f}, "
-          f"grads' rel L2 distance from the float32 step: kernels "
-          f"{err_k:.5g}, plain {err_p:.5g} (tol 1.1x); per parameter the "
-          f"largest ratio {ratio[worst]:.4g} at {worst} (tol 1.25) "
+          f"levels, 2 x [4, 32, 32], seed {seed}): float32 loss {lk32:.6f} "
+          f"vs {lp32:.6f} (rel err {loss32:.3g}, tol 1e-5), grads rel L2 err "
+          f"{err32:.3g} (tol 1e-3); bf16 O2 loss kernels {lk16:.6f} plain "
+          f"{lp16:.6f}, grads' rel L2 distance from the float32 step: "
+          f"kernels {err_k:.5g}, plain {err_p:.5g} (tol 1.1x); per parameter "
+          f"the largest ratio kernels / plain {ratio[worst]:.4g} at {worst} "
+          f"(tol 1.25; below {SMALL_LEAF} elements over the larger of its "
+          f"plain distance and the plain one over all: "
+          f"{_small_leaves_line(small)}); the largest ratios of own "
+          f"distances: {_worst_leaves(leaf_k, leaf_p, sizes)} "
           f"[{_card_line()}]", flush=True)
     if not (loss32 <= 1e-5 and err32 <= 1e-3 and err_k <= 1.1 * err_p
             and max(ratio.values()) <= 1.25
@@ -6646,14 +6778,18 @@ def _unet_agreement(torch, seed):
     return dict(loss_rel_err_f32=loss32, grad_rel_err_f32=err32,
                 bf16_grad_err_kernels=err_k, bf16_grad_err_plain=err_p,
                 bf16_grad_err_ratio_worst_param=ratio[worst],
-                worst_param=worst)
+                worst_param=worst, small_params=small)
 
 
-def _tiny_on_card(torch, tag, make, make_opt, loss_fn, batch, lr):
+def _tiny_on_card(torch, tag, make, make_opt, loss_fn, batch, lr,
+                  seed=None):
     """A tiny float32 model trained 3 steps on the card (captured) against
     the port's CPU trainer from the same weights and buffers: the forward
     and the losses within 1e-5 relative, weights and buffers within 1e-5
-    for 99.9% of the elements and 3 lr for all."""
+    for 99.9% of the elements and 3 lr for all. ``seed``: the random state
+    set before each device's forward and trainer (a model with dropout
+    draws the same masks on both)."""
+    import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import load_numpy_state
     from paddle_tpu_torch.parallel import SpmdTrainer
@@ -6661,13 +6797,18 @@ def _tiny_on_card(torch, tag, make, make_opt, loss_fn, batch, lr):
     gpu = make("cuda")
     load_numpy_state(gpu, {k: v.numpy() for k, v in
                            cpu.state_dict().items()})
+    reseed = (lambda: ptt.seed(seed)) if seed is not None else (
+        lambda: None)
     with torch.no_grad():
+        reseed()
         fc = loss_fn(cpu, *batch)
+        reseed()
         fg = loss_fn(gpu, *(t.cuda() for t in batch))
     fwd_err = abs(float(fg) / float(fc) - 1)
     losses = []
     K.reset_launches()
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        reseed()
         tr = SpmdTrainer(model, make_opt(model), loss_fn)
         losses.append([float(tr.train_step(*(t.to(dev) for t in batch)))
                        for _ in range(3)])
@@ -6675,11 +6816,15 @@ def _tiny_on_card(torch, tag, make, make_opt, loss_fn, batch, lr):
     close = total = 0
     worst = 0.0
     want = cpu.state_dict()
+    far = {}
     for k, v in gpu.state_dict().items():
         d = (v.cpu() - want[k]).abs()
         worst = max(worst, float(d.max()))
         close += int((d <= 1e-5).sum())
         total += d.numel()
+        far[k] = int((d > 1e-5).sum())
+    far = dict(sorted(((k, n) for k, n in far.items() if n),
+                      key=lambda kv: -kv[1])[:5])
     want_l, got_l = losses
     loss_err = max(abs(a / b - 1) for a, b in zip(got_l, want_l))
     ok = (fwd_err <= 1e-5 and loss_err <= 1e-5 and close >= 0.999 * total
@@ -6687,7 +6832,8 @@ def _tiny_on_card(torch, tag, make, make_opt, loss_fn, batch, lr):
     print(f"  {tag} tiny float32 on the card vs the CPU: first loss rel err "
           f"{fwd_err:.3g}; 3 trainer steps' losses {got_l} vs {want_l} (max "
           f"rel err {loss_err:.3g}, tol 1e-5); weights and buffers within "
-          f"1e-5: {close}/{total}, worst {worst:.3g} (tol {3 * lr}); "
+          f"1e-5: {close}/{total}, the most beyond it {far}, worst "
+          f"{worst:.3g} (tol {3 * lr}); "
           f"launches {used} {'ok' if ok else 'FAIL'} [{_card_line()}]",
           flush=True)
     if not ok:
@@ -7222,6 +7368,221 @@ def phase_seq_loss_kernels(torch, results):
     torch.cuda.empty_cache()
 
 
+# -- phase 3: the dense attention's middle (X2) --------------------------------
+
+# (tag, [b, h, sq, sk], the mask, causal, p, head_dim): the three main
+# paths' shapes (timed), then the cases that reach the kernels' other
+# branches (a row longer than one block, unaligned rows, a fully masked
+# row, an additive mask with a gradient, flash_attn_unpadded's segments)
+DENSE_MAIN = (
+    ("unet", (4, 8, 4096, 4096), None, False, 0.0, 40),
+    ("ernie", (32, 12, 512, 512), "padding", False, 0.1, 64),
+    ("transformer", (64, 8, 64, 64), "causal+padding", False, 0.1, 64),
+)
+DENSE_EXTRA = (
+    ("causal sq<sk, bool mask, a row without a key", (2, 3, 100, 300),
+     "bool", True, 0.1, 64),
+    ("additive mask with a gradient", (2, 2, 64, 130), "grad", False, 0.0,
+     32),
+    ("long unaligned row, causal, [sq, sk] mask", (1, 2, 8, 10001),
+     "additive2d", True, 0.1, 64),
+    ("long aligned row", (1, 1, 4, 16384), None, False, 0.1, 64),
+    ("flash_attn_unpadded segments", (1, 4, 700, 700), "segments", False,
+     0.0, 64),
+)
+DENSE_RTOL = 2e-5     # each element against its size (fp32 sums reordered)
+DENSE_KERNEL = "ernie"    # the kernels line's case
+
+
+def _dense_mask(torch, kind, shape, g, dev):
+    """The mask of a case: a [b, 1, 1, sk] bool padding mask (each row's
+    last 0-40% of keys hidden), the Transformer decoder's additive
+    [b, 1, sq, sk] (the square subsequent mask plus padding), a bool
+    [b, h, sq, sk] with the first query row of each head hidden, an
+    additive [b, 1, sq, sk] that needs a gradient, an additive [sq, sk],
+    or the bool [sq, sk] segments of three packed sequences (causal inside
+    each)."""
+    b, h, sq, sk = shape
+    if kind is None:
+        return None
+    if kind in ("padding", "causal+padding"):
+        keep = torch.randint(int(0.6 * sk), sk + 1, (b,), device=dev,
+                             generator=g)
+        pad = torch.arange(sk, device=dev)[None, :] < keep[:, None]
+        if kind == "padding":
+            return pad[:, None, None, :]
+        sub = torch.triu(torch.full((sq, sk), -1e9, device=dev), 1)
+        return sub[None, None] + torch.where(pad, 0.0, -1e9)[:, None, None]
+    if kind == "bool":
+        m = torch.rand(shape, device=dev, generator=g) < 0.7
+        m[:, :, 0] = False
+        return m
+    if kind == "grad":
+        return torch.randn(b, 1, sq, sk, device=dev,
+                           generator=g).requires_grad_()
+    if kind == "additive2d":
+        return torch.randn(sq, sk, device=dev, generator=g)
+    cu = torch.tensor([0, 180, 520, 700], device=dev)
+    seg = torch.searchsorted(cu, torch.arange(700, device=dev), right=True)
+    pos = torch.arange(700, device=dev) - cu[seg - 1]
+    return (seg[:, None] == seg[None, :]) & (pos[:, None] >= pos[None, :])
+
+
+def _dense_rel(name, got, want, size):
+    """Each element of ``got`` within DENSE_RTOL of its ``size`` (plus
+    1e-30; for ds the size of its terms, ``p |gp| + p sum(p |gp|)``): the
+    worst element's share of its tolerance."""
+    err = (got.detach() - want.detach()).abs()
+    worst = float((err / (DENSE_RTOL * size + 1e-30)).max())
+    ok = math.isfinite(worst) and worst <= 1.0
+    print(f"  {name}: max_abs_err={float(err.max()):.4g}, the worst element "
+          f"at {worst:.3g} of its tolerance ({DENSE_RTOL} of its size) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({worst} of the tolerance)")
+    return float(err.max())
+
+
+def _dense_bytes(shape, mask, p, backward):
+    """Bytes a call must move: forward the scores read and the probs (and
+    the dropped probs) written; backward g and the probs read, ds written;
+    the mask read once at its own size."""
+    n = math.prod(shape)
+    mb = 0 if mask is None else mask.numel() * mask.element_size()
+    return 4 * n * (3 if backward or p > 0 else 2) + mb
+
+
+def _dense_case(torch, results, tag, shape, mask_kind, causal, p, hd,
+                timed, seed):
+    """X2 at one shape against its plain version on the card: the probs
+    element by element, the dropped probs bit-equal to the kernel's own
+    probs under ``keep_mask_plain``'s bits, ds (and the additive mask's
+    gradient) against the plain version's autograd, two calls bit-equal;
+    ``timed``: ms by graph replay each way beside the bound, the plain
+    version and torch.softmax (the softmax alone)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    from paddle_tpu_torch.kernels import dropout as D
+    dev = torch.device("cuda")
+    card = _card_line()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.randn(shape, device=dev, generator=g) * 4.0
+    mask = _dense_mask(torch, mask_kind, shape, g, dev)
+    scale = 1.0 / math.sqrt(hd)
+    key = _rk(torch.tensor([seed, 99], device=dev), 7) if p > 0 else None
+    want_dz = mask_kind == "grad"
+    mk = None if mask is None else mask.detach()
+    before = (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_bwd"])
+    probs, dropped = DA.dense_softmax_forward(scores, mk, causal, scale, p,
+                                              key)
+    gy = torch.randn(shape, device=dev, generator=g)
+    ds, dz = DA.dense_softmax_backward(gy, probs, mk, causal, scale, p, key,
+                                       want_dz)
+    if (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_bwd"]) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError(f"dense attention [{tag}]: the kernels did not "
+                             f"launch once each")
+    sp = scores.clone().requires_grad_()
+    leaves = [sp] + ([mask] if want_dz else [])
+    pp, dp = DA.dense_softmax_plain(sp, mask, causal, scale, p, key)
+    grads = torch.autograd.grad(dp, leaves, gy)
+    name = f"dense attention [{tag}] {list(shape)}"
+    err = _dense_rel(f"{name} probs", probs, pp, pp.detach().abs())
+    if p > 0:
+        keep = D.keep_mask_plain(shape, p, key, dev)
+        want = torch.where(keep, probs * D.scale_of(p, "upscale_in_train"),
+                           torch.zeros((), device=dev))
+        same = bool(torch.equal(dropped, want))
+        print(f"  {name} p={p}: the dropped probs bit-equal to the kernel's "
+              f"probs under kernels/dropout.py's keep mask {same}; keep "
+              f"fraction {float(keep.float().mean()):.5f}", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the dropout's bits differ from "
+                                 f"kernels/dropout.py's")
+    gp = gy * (dropped != 0) * (D.scale_of(p, "upscale_in_train")
+                                if p > 0 else 1.0)
+    # the size of each element's terms: p |gp| and p sum(|gp| p)
+    dot = (gp.abs() * probs).sum(-1, keepdim=True)
+    size = probs * (gp.abs() + dot) * scale
+    _dense_rel(f"{name} ds", ds, grads[0], size)
+    if want_dz:
+        _dense_rel(f"{name} d(mask)", dz.sum_to_size(mask.shape), grads[1],
+                   (size / scale).sum_to_size(mask.shape))
+    probs2, dropped2 = DA.dense_softmax_forward(scores, mk, causal, scale, p,
+                                                key)
+    ds2, _ = DA.dense_softmax_backward(gy, probs, mk, causal, scale, p, key,
+                                       want_dz)
+    same2 = bool(torch.equal(probs, probs2) and torch.equal(dropped, dropped2)
+                 and torch.equal(ds, ds2))
+    print(f"  {name}: two calls bit-equal {same2}", flush=True)
+    if not same2:
+        raise AssertionError(f"{name}: two calls differ")
+    del pp, dp, grads, sp, probs2, dropped2, ds2, dz, gp, dot, size
+    if not timed:
+        torch.cuda.empty_cache()
+        return
+    n = math.prod(shape)
+    z = scores * scale
+    with torch.no_grad():
+        fwd = _graph_ms(lambda: DA.dense_softmax_forward(
+            scores, mk, causal, scale, p, key), iters=5, reps=3)
+        bwd = _graph_ms(lambda: DA.dense_softmax_backward(
+            gy, probs, mk, causal, scale, p, key), iters=5, reps=3)
+        plain_fwd = _time_ms(lambda: DA.dense_softmax_plain(
+            scores, mk, causal, scale, p, key), 3)
+        lib_fwd = _graph_ms(lambda: torch.softmax(z, -1), iters=5, reps=3)
+        lib_bwd = _graph_ms(lambda: torch._softmax_backward_data(
+            gy, probs, -1, torch.float32), iters=5, reps=3)
+    sp = scores.clone().requires_grad_()
+
+    def plain_both():
+        torch.autograd.grad(DA.dense_softmax_plain(sp, mk, causal, scale,
+                                                   p, key)[1], sp, gy)
+    plain_bwd = max(_time_ms(plain_both, 3) - plain_fwd, 0.0)
+    ops = 7 * n + (7 * n if p > 0 else 0)
+    for kind, ms, pl, lib, back in (("dense_softmax", fwd, plain_fwd,
+                                     lib_fwd, False),
+                                    ("dense_softmax_bwd", bwd, plain_bwd,
+                                     lib_bwd, True)):
+        bound_ms, bound_by = _bound(_dense_bytes(shape, mk, p, back),
+                                    ops, FP32_FLOPS)
+        results[f"{kind}[{tag}]"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pl, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib, shape=list(shape),
+            mask=mask_kind, p=p, share_of_bound=bound_ms / ms)
+        print(f"  {kind}[{tag}] {list(shape)} mask {mask_kind} p={p}: "
+              f"ms={ms:.4f} ({bound_ms / ms:.3f} of the bound) plain_ms="
+              f"{pl:.4f} bound_ms={bound_ms:.4f} ({bound_by}); torch.softmax"
+              f"{' backward' if back else ''} alone (pre-scaled scores) "
+              f"{lib:.4f} ms [{card}]", flush=True)
+    del scores, probs, dropped, ds, gy, z, sp
+    torch.cuda.empty_cache()
+
+
+def phase_dense_attention_kernels(torch, results):
+    """X2, the dense attention's middle (scale, masks, softmax, dropout),
+    forward and backward kernels against their plain version on the card
+    in fp32 at the UNet's [4, 8, 4096, 4096] (no mask, no dropout),
+    ERNIE's [32, 12, 512, 512] (a padding mask, p 0.1) and
+    Transformer-base's decoder self-attention [64, 8, 64, 64] (the float
+    causal mask plus padding, p 0.1), each timed; then causal with sq <
+    sk, a bool mask with a row that sees no key, an additive mask with a
+    gradient, rows longer than one block (unaligned and aligned) and
+    flash_attn_unpadded's segment mask."""
+    print(f"phase 3: the dense attention's middle (X2) against its plain "
+          f"version (probs and ds each element within {DENSE_RTOL} of its "
+          f"size: fp32 sums in another order; the dropout's keep mask "
+          f"bit-equal to kernels/dropout.py's; two calls bit-equal)",
+          flush=True)
+    for i, (tag, shape, mask, causal, p, hd) in enumerate(DENSE_MAIN):
+        _dense_case(torch, results, tag, shape, mask, causal, p, hd, True,
+                    91 + i)
+    for i, (tag, shape, mask, causal, p, hd) in enumerate(DENSE_EXTRA):
+        _dense_case(torch, results, tag, shape, mask, causal, p, hd, False,
+                    95 + i)
+
+
 def _layer_cases(torch, F, nn):
     """(name, call(tensors, device), numpy inputs, indices of the inputs
     that carry gradients) for the functionals and layers of this slice."""
@@ -7313,7 +7674,110 @@ def _layer_cases(torch, F, nn):
         ("class_center_sample", lambda t, d: F.class_center_sample(
             t[0], 20, 8)[1], [np.array([3, 7, 3, 12])], []),
     ]
-    return cases
+    return cases + _attention_cases(torch, F, nn, rng)
+
+
+def _sparse_csr(rng, b, h, s, nnz):
+    """CSR offsets [b, h, s + 1] and columns [b, h, nnz] (rows of 0-4
+    sorted keys, one row empty, the tail padding)."""
+    import numpy as np
+    offs, cols = [], []
+    for _ in range(b * h):
+        lens = rng.integers(0, 5, s)
+        lens[1] = 0
+        offs.append(np.concatenate([[0], np.cumsum(lens)]))
+        c = np.concatenate([np.sort(rng.choice(s, n, replace=False))
+                            for n in lens] + [np.zeros(0, np.int64)])
+        cols.append(np.concatenate([c, np.zeros(nnz - len(c))]))
+    return (np.stack(offs).reshape(b, h, s + 1).astype(np.int32),
+            np.stack(cols).reshape(b, h, nnz).astype(np.int32))
+
+
+def _attention_cases(torch, F, nn, rng):
+    """The attention functionals, sparse_attention, the
+    Transformer layers (weights made on the CPU from one seed and moved,
+    so both devices hold the same), the fused functionals and layers, the
+    in-place activations."""
+    import numpy as np
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def built(make, d):
+        torch.manual_seed(5)
+        return make().to(d)
+    q, k, v = f32(2, 64, 2, 64), f32(2, 64, 2, 64), f32(2, 64, 2, 64)
+    packed = f32(64, 3, 2, 64)
+    cu = np.array([0, 20, 44, 64], np.int32)
+    sq, sk, sv = f32(2, 2, 8, 16), f32(2, 2, 8, 16), f32(2, 2, 8, 16)
+    off, cols = _sparse_csr(rng, 2, 2, 8, 40)
+    kpm = (rng.random((2, 8)) > 0.2).astype(np.float32)
+    am = (rng.random((8, 8)) > 0.2).astype(np.float32)
+    x, mem = f32(2, 64, 64), f32(2, 64, 64)
+    pad = np.where(rng.random((2, 1, 1, 64)) > 0.3, 0.0, -1e9).astype(
+        np.float32)
+    sub = np.triu(np.full((64, 64), -1e9, np.float32), 1)
+    mmask = rng.random((2, 1, 64, 64)) > 0.3
+    w1, w2 = f32(64, 96, scale=0.1), f32(96, 64, scale=0.1)
+    qkvw, lw = f32(3, 2, 32, 64, scale=0.1), f32(64, 64, scale=0.1)
+    cache = f32(2, 2, 2, 4, 32)
+    mha = (lambda: nn.MultiHeadAttention(64, 2, dropout=0.1,
+                                         device="cpu"))
+    return [
+        ("flash_attention", lambda t, d: F.flash_attention(
+            *t, causal=True)[0], [q, k, v], [0, 1, 2]),
+        ("flash_attention[dropout]", lambda t, d: F.flash_attention(
+            *t, dropout=0.1)[0], [q, k, v], [0, 1, 2]),
+        ("flash_attn_qkvpacked", lambda t, d: F.flash_attn_qkvpacked(
+            t[0].reshape(2, 64, 3, 2, 64))[0],
+         [np.stack([q, k, v], 2).reshape(2, 64, 6, 64)], [0]),
+        ("flash_attn_unpadded[causal]", lambda t, d: F.flash_attn_unpadded(
+            t[0][:, 0], t[0][:, 1], t[0][:, 2], t[1], t[1], 24, 24, 0.125,
+            causal=True)[0], [packed, cu], [0]),
+        ("flash_attn_varlen_qkvpacked", lambda t, d:
+         F.flash_attn_varlen_qkvpacked(t[0], t[1], t[1], 24, 24, 0.2)[0],
+         [packed, cu], [0]),
+        ("sparse_attention", lambda t, d: F.sparse_attention(*t),
+         [sq, sk, sv, off, cols, kpm, am], [0, 1, 2]),
+        ("MultiHeadAttention[mask, Cache]", lambda t, d: (lambda m: m(
+            t[0], attn_mask=t[1], cache=m.gen_cache(t[0]))[0])(
+                built(mha, d)), [x, pad], [0]),
+        ("MultiHeadAttention[StaticCache]", lambda t, d: (lambda m: m(
+            t[0], t[1], t[1], cache=m.gen_cache(
+                t[1], type=nn.MultiHeadAttention.StaticCache))[0])(
+                    built(mha, d)), [x, mem], [0, 1]),
+        ("TransformerEncoderLayer[pre-norm]", lambda t, d: built(
+            lambda: nn.TransformerEncoderLayer(
+                64, 2, 96, normalize_before=True, activation="gelu",
+                device="cpu"), d)(t[0], t[1]), [x, pad], [0]),
+        ("TransformerDecoderLayer", lambda t, d: built(
+            lambda: nn.TransformerDecoderLayer(64, 2, 96, device="cpu"), d)(
+                t[0], t[1], t[2], t[3]), [x, mem, sub, mmask], [0, 1]),
+        ("Transformer", lambda t, d: built(
+            lambda: nn.Transformer(64, 2, 1, 1, 96, device="cpu"), d)(
+                t[0], t[1], None, t[2]), [mem, x, sub], [0, 1]),
+        ("fused_feedforward", lambda t, d: IF.fused_feedforward(
+            *t, dropout1_rate=0.1, dropout2_rate=0.1, pre_layer_norm=True),
+         [x, w1, w2], [0, 1, 2]),
+        ("fused_multi_head_attention[cache_kv]", lambda t, d:
+         IF.fused_multi_head_attention(
+             t[0], t[1], t[2], attn_mask=None, cache_kv=t[3],
+             dropout_rate=0.1, attn_dropout_rate=0.1)[0],
+         [x, qkvw, lw, cache], [0, 1, 2]),
+        ("FusedTransformerEncoderLayer", lambda t, d: built(
+            lambda: inn.FusedTransformerEncoderLayer(64, 2, 96,
+                                                     device="cpu"), d)(
+                t[0], t[1]), [x, pad], [0]),
+        ("FusedBiasDropoutResidualLayerNorm", lambda t, d: built(
+            lambda: inn.FusedBiasDropoutResidualLayerNorm(64, 0.1,
+                                                          device="cpu"), d)(
+                *t), [x, f32(2, 64, 64)], [0, 1]),
+        ("elu_ / leaky_relu_ / hardtanh_ / tanh_ / thresholded_relu_",
+         lambda t, d: F.thresholded_relu_(F.tanh_(F.hardtanh_(
+             F.leaky_relu_(F.elu_(t[0] * 1.0))))), [x], [0]),
+    ]
 
 
 def phase_new_layers_on_card(torch):
@@ -7326,8 +7790,9 @@ def phase_new_layers_on_card(torch):
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.nn import functional as F
-    print("phase 3: the new losses, common functionals and layers on the "
-          "card against the CPU (within 1e-5 of the largest CPU value)",
+    print("phase 3: the new losses, common functionals and layers, and the "
+          "attention functionals, Transformer and fused layers, on the card "
+          "against the CPU (within 1e-5 of the largest CPU value)",
           flush=True)
     worst, n = 0.0, 0
     for name, call, arrays, diff in _layer_cases(torch, F, nn):
@@ -7359,7 +7824,39 @@ def phase_new_layers_on_card(torch):
     print(f"  {n} calls, outputs and gradients: the worst at {worst:.3g} of "
           f"the largest CPU value (tol 1e-5) ok [{_card_line()}]",
           flush=True)
-    return dict(calls=n, worst_rel=worst)
+    same = _sparse_twice(torch, F)
+    return dict(calls=n, worst_rel=worst, sparse_attention_bit_equal=same)
+
+
+def _sparse_twice(torch, F):
+    """sparse_attention on the card twice at [4, 8, 512, 64] with 32 keys a
+    row (both masks): output and the q, k, v gradients bit-equal (its
+    reductions run in a fixed order)."""
+    import numpy as np
+    rng = np.random.default_rng(84)
+    b, h, s, d, per = 4, 8, 512, 64, 32
+    qkv = [torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).cuda() for _ in range(3)]
+    cols = np.sort(np.stack([rng.choice(s, per, replace=False)
+                             for _ in range(b * h * s)]), axis=-1)
+    cols = torch.from_numpy(cols.reshape(b, h, s * per)).cuda()
+    off = torch.arange(0, s * per + 1, per).repeat(b, h, 1).cuda()
+    kpm = torch.from_numpy((rng.random((b, s)) > 0.1).astype(
+        np.float32)).cuda()
+    am = torch.from_numpy((rng.random((s, s)) > 0.1).astype(
+        np.float32)).cuda()
+    gy = torch.randn(b, h, s, d, device="cuda")
+    runs = []
+    for _ in range(2):
+        ts = [t.clone().requires_grad_() for t in qkv]
+        out = F.sparse_attention(*ts, off, cols, kpm, am)
+        runs.append([out] + list(torch.autograd.grad(out, ts, gy)))
+    same = all(torch.equal(a, c) for a, c in zip(*runs))
+    print(f"  sparse_attention [4, 8, 512, 64], 32 keys a row, twice on the "
+          f"card: output and gradients bit-equal {same}", flush=True)
+    if not same:
+        raise AssertionError("sparse_attention: two calls on the card differ")
+    return same
 
 
 def _ctc_model(torch, cfg, device, seed):
@@ -7532,6 +8029,353 @@ def phase_seq_loss_training(torch, args, launches_out):
     return out
 
 
+# -- the dense attention's middle a step, through X2 and through the ops ------
+
+def _dense_calls(torch, run):
+    """The dense attention calls ``run()`` makes (through
+    ``kernels.dense_attention.dense_softmax``): (scores shape, mask, causal,
+    scale, p, key with its base on the card) each."""
+    from paddle_tpu_torch.framework.random import RandomKey
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    from paddle_tpu_torch.kernels import dropout as D
+    calls = []
+    real = DA.dense_softmax
+
+    def record(scores, mask=None, causal=False, scale=1.0, p=0.0, key=None):
+        k = None if key is None else RandomKey(
+            D.key_tensor(key[0], scores.device).clone(), key[1])
+        calls.append((tuple(scores.shape), None if mask is None
+                      else mask.detach(), causal, scale, p, k))
+        return real(scores, mask, causal, scale, p, k)
+    with mock.patch.object(DA, "dense_softmax", record), torch.no_grad():
+        run()
+    return calls
+
+
+def _dense_middle_ms(torch, calls):
+    """Device ms of a step's dense attention middles, forward and backward
+    (the recorded calls on seeded scores and gradients, one CUDA graph
+    replayed): through X2's kernels, and through the separate ops'
+    composition (the plain version: scale, masks, torch.softmax, the
+    dropout kernel), in the same call. Returns (X2 ms, composition
+    ms)."""
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = max(math.prod(c[0]) for c in calls)
+    s_buf = torch.randn(n, device="cuda", generator=g)
+    g_buf = torch.randn(n, device="cuda", generator=g)
+    views = [(s_buf[:math.prod(c[0])].view(c[0]).requires_grad_(),
+              g_buf[:math.prod(c[0])].view(c[0])) for c in calls]
+
+    def run(kernels):
+        for (s, gy), (_, mask, causal, scale, p, key) in zip(views, calls):
+            if kernels:
+                y = DA.DenseSoftmaxFunction.apply(s, mask, causal, scale, p,
+                                                  key)
+            else:
+                y = DA.dense_softmax_plain(s, mask, causal, scale, p, key)[1]
+            torch.autograd.grad(y, s, gy)
+    ms = {k: _graph_ms(lambda k=k: run(k), iters=1, reps=3)
+          for k in (True, False)}
+    del views, s_buf, g_buf
+    torch.cuda.empty_cache()
+    return ms[True], ms[False]
+
+
+def _dense_middle_line(torch, tag, run, card):
+    calls = _dense_calls(torch, run)
+    x2, ops = _dense_middle_ms(torch, calls)
+    print(f"  {tag}: the dense attention's middle a step ({len(calls)} calls"
+          f", forward and backward): X2 {x2:.3f} ms, the ops' composition "
+          f"(the plain version: scale, masks, torch.softmax, the dropout "
+          f"kernel) {ops:.3f} ms, in this call [{card}]", flush=True)
+    return dict(calls=len(calls), x2_ms=x2, composition_ms=ops)
+
+
+# -- phase 17: Transformer-base ------------------------------------------------
+
+TB_VOCAB = 37000      # the shared WMT14 En-De BPE vocabulary
+TB_BATCH = 64         # sentence pairs: ~4,096 tokens a side
+TB_LEN = 64           # lengths drawn in [16, 64], padded to 64
+TB_LAYERS = 6
+
+
+def _transformer_model(torch, seed, device="cuda", dropout=0.1, d=512,
+                       heads=8, layers=TB_LAYERS, ff=2048, vocab=TB_VOCAB,
+                       max_len=TB_LEN):
+    """Transformer-base as a user builds it on ``nn.Transformer``'s
+    defaults (Vaswani et al., 2017, Table 3 "base"): one embedding table
+    for source and target (id 0 the padding; N(0, d^-1/2)), scaled by
+    sqrt(d), sinusoidal positions, dropout on the sums, the output
+    projection tied to the table."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=device).manual_seed(seed)
+            self.embedding = nn.Embedding(vocab, d, padding_idx=0,
+                                          device=device, generator=gen)
+            with torch.no_grad():
+                self.embedding.weight.mul_(d ** -0.5)
+            torch.manual_seed(seed)
+            self.transformer = nn.Transformer(
+                d, heads, layers, layers, ff, dropout=dropout, device=device)
+            pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+            inv = torch.exp(torch.arange(0, d, 2, dtype=torch.float32)
+                            * (-math.log(10000.0) / d))
+            pe = torch.zeros(max_len, d)
+            pe[:, 0::2] = torch.sin(pos * inv)
+            pe[:, 1::2] = torch.cos(pos * inv)
+            self.register_buffer("pos", pe.to(device), persistable=False)
+            self.dropout = nn.Dropout(dropout)
+
+        def embed(self, ids):
+            x = self.embedding(ids) * d ** 0.5 + self.pos[:ids.shape[1]]
+            return self.dropout(x)
+
+        def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                    memory_mask=None):
+            h = self.transformer(self.embed(src), self.embed(tgt), src_mask,
+                                 tgt_mask, memory_mask)
+            return F.linear(h, self.embedding.weight.t())
+    return TransformerBase()
+
+
+def _transformer_batch(torch, seed, b=TB_BATCH, s=TB_LEN, vocab=TB_VOCAB,
+                       lo=16, pad=True):
+    """(src, tgt_in, labels, src_mask, tgt_mask) on the card: lengths in
+    [lo, s] from ``seed`` (all s without ``pad``), ids in [1, vocab), 0
+    past the length; labels the next target token (-100 past the end);
+    the key-padding mask additive [b, 1, 1, s] (0 or -1e9), the decoder's
+    ``generate_square_subsequent_mask(s)`` plus its padding [b, 1, s, s]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ls = rng.integers(lo, s + 1, b) if pad else np.full(b, s)
+    lt = rng.integers(lo, s + 1, b) if pad else np.full(b, s)
+    pos = np.arange(s)[None, :]
+    src = np.where(pos < ls[:, None], rng.integers(1, vocab, (b, s)), 0)
+    y = np.where(np.arange(s + 1)[None, :] <= lt[:, None],
+                 rng.integers(1, vocab, (b, s + 1)), 0)
+    tgt_in = np.where(pos < lt[:, None], y[:, :s], 0)
+    labels = np.where(pos < lt[:, None], y[:, 1:], -100)
+    src_pad = np.where(pos < ls[:, None], 0.0, -1e9).astype(np.float32)
+    tgt_pad = np.where(pos < lt[:, None], 0.0, -1e9).astype(np.float32)
+    sub = np.triu(np.full((s, s), -1e9, np.float32), 1)
+    src_mask = src_pad[:, None, None, :]
+    tgt_mask = sub[None, None] + tgt_pad[:, None, None, :]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in (src, tgt_in, labels, src_mask, tgt_mask))
+
+
+def _transformer_loss_o1(m, src, tgt, labels, src_mask, tgt_mask):
+    """Label-smoothed (0.1) cross entropy of the tied logits under
+    auto_cast O1 (the products in bf16), padding ignored."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        logits = m(src, tgt, src_mask, tgt_mask, src_mask)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1), label_smoothing=0.1)
+
+
+def _transformer_loss_f32(m, src, tgt, labels, src_mask, tgt_mask):
+    from paddle_tpu_torch.nn import functional as F
+    logits = m(src, tgt, src_mask, tgt_mask, src_mask)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1), label_smoothing=0.1)
+
+
+def _transformer_opt(model, warmup=4000, d=512):
+    """Adam(0.9, 0.98, 1e-9) on NoamDecay(d_model, warmup), the paper's."""
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+    return Adam(learning_rate=NoamDecay(d_model=d, warmup_steps=warmup),
+                beta1=0.9, beta2=0.98, epsilon=1e-9,
+                parameters=model.parameters())
+
+
+def _transformer_per_step(layers=TB_LAYERS):
+    """Launches a training step at dropout 0.1: the dense middle (X2) for
+    every attention (encoder self, decoder self and cross: 3 a pair of
+    layers) each way; dropout on the two embeddings, 3 an encoder layer
+    and 4 a decoder layer, each way; LayerNorm 2 an encoder layer and 3 a
+    decoder layer, each way; AdamW once. Nothing routed to flash or the
+    plain path."""
+    from paddle_tpu_torch import kernels as K
+    per = {n: 0 for n in K.LAUNCHES}
+    n_attn = 3 * layers
+    drops = 2 + 7 * layers
+    per.update(dense_softmax=n_attn, dense_softmax_bwd=n_attn,
+               sdpa_dense=n_attn, dropout=2 * drops,
+               dropout_add_ln=5 * layers, dropout_add_ln_bwd=5 * layers,
+               adamw=1)
+    return per
+
+
+def _transformer_flops(torch, model, batch):
+    """The products of one forward: every Linear (2 x out x in an output
+    row), both products of each attention (4 x b x sq x sk x d), and the
+    tied output projection (2 x tokens x d x vocab), counted by hooks."""
+    from paddle_tpu_torch import nn
+    count = [0]
+
+    def linear(m, inp, out):
+        count[0] += 2 * out.numel() * m.weight.shape[0]
+
+    def attention(m, inp, out):
+        q = inp[0]
+        k = inp[1] if len(inp) > 1 and inp[1] is not None else q
+        count[0] += 4 * q.shape[0] * q.shape[1] * k.shape[1] * m.embed_dim
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            hooks.append(mod.register_forward_hook(linear))
+        elif isinstance(mod, nn.MultiHeadAttention):
+            hooks.append(mod.register_forward_hook(attention))
+    try:
+        with torch.no_grad():
+            _transformer_loss_o1(model, *batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    b, s = batch[1].shape
+    return count[0] + 2 * b * s * model.embedding.weight.numel()
+
+
+def _transformer_eval_routes(torch, seed, card):
+    """One eval forward (under O1) of Transformer-base built with
+    ``dropout=0.0`` on a batch without padding: the encoder's self-attention
+    and the cross-attention take the flash kernel (no mask, no dropout: 12
+    forwards), the decoder's masked self-attention X2 (6), as the JAX
+    package routes them."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import kernels as K
+    model = _transformer_model(torch, seed, dropout=0.0)
+    model.eval()
+    src, tgt, _, _, tgt_mask = _transformer_batch(torch, seed, pad=False)
+    sub = tgt_mask[:1, :1]
+    want = {"flash_fwd": 2 * TB_LAYERS, "dense_softmax": TB_LAYERS,
+            "sdpa_dense": TB_LAYERS, "dropout_add_ln": 5 * TB_LAYERS}
+    with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
+        K.reset_launches()
+        logits = model(src, tgt, None, sub, None)
+        torch.cuda.synchronize()
+        used = {k: v for k, v in K.LAUNCHES.items() if v}
+        ms = _time_ms(lambda: model(src, tgt, None, sub, None), 5)
+    ok = used == want and bool(torch.isfinite(logits).all())
+    print(f"  phase 17 (c) eval forward at dropout 0, no padding, O1: "
+          f"launches {used} (expected {want}), {ms:.3f} ms a forward "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"phase 17 (c): the eval forward routed "
+                             f"{used}, not {want}")
+    del model
+    _free(torch)
+    return dict(launches=used, ms=ms)
+
+
+def _transformer_tiny_on_card(torch):
+    """(d): a tiny float32 Transformer (d 128, 2 heads of 64, 2 + 2 layers,
+    FFN 256, vocab 500, dropout 0.1) on [4, 16] pairs with padding,
+    Momentum at 1e-3 (so every element within 3e-3, as the other tiny
+    models' 3 lr), against the CPU trainer from the same seed. Not Adam:
+    it turns the rounding noise of gradients that are 0 or nearly (the
+    keys' biases, to which softmax is blind, and ~0.1% of the rest here)
+    into whole steps of the rate, which no two summation orders share."""
+    from paddle_tpu_torch.optimizer import Momentum
+    batch = tuple(t.cpu() for t in _transformer_batch(
+        torch, 71, b=4, s=16, vocab=500, lo=6))
+    return _tiny_on_card(
+        torch, "phase 17 (d)",
+        lambda dv: _transformer_model(torch, 71, dv, 0.1, d=128, heads=2,
+                                      layers=2, ff=256, vocab=500,
+                                      max_len=16),
+        lambda m: Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=m.parameters()),
+        _transformer_loss_f32, batch, 1e-3, seed=72)
+
+
+def phase_transformer_base(torch, args, launches_out):
+    """Transformer-base (Vaswani et al., 2017, Table 3 "base") at full
+    width on ``nn.Transformer``'s defaults: d_model 512, 8 heads, 6 + 6
+    layers, FFN 2048, ReLU, post-norm, dropout 0.1, a shared 37,000-token
+    vocabulary tied to the output; label-smoothed (0.1) cross entropy,
+    Adam(0.9, 0.98, 1e-9) on NoamDecay(512, 4000), bf16 under amp O1 with
+    float32 weights; 64 sentence pairs of 16-64 tokens a side padded to 64
+    (one GPU's share of the paper's 25,000-token batch over 8). (a) the
+    step captured: 2 warm-up and 3 timed steps with exact launch counts
+    (X2 18 + 18, no flash, nothing on the plain path), step ms, tokens/s,
+    MFU, peak memory, a profile by kernel group, the dense middles' ms
+    through X2 and through the ops' composition; (b) 3 replayed steps
+    against 3 eager ones from one snapshot, bit-equal; (c) the eval
+    forward's routes at dropout 0; (d) a tiny float32 Transformer on the
+    card against the CPU trainer."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    card = _card_line()
+    print(f"phase 17: Transformer-base (d 512, 8 heads, 6 + 6 layers, FFN "
+          f"2048, dropout 0.1, vocab {TB_VOCAB} shared and tied), batch "
+          f"{TB_BATCH} pairs padded to {TB_LEN}, bf16 under O1, Adam on "
+          f"NoamDecay, seed {args.seed} [{card}]", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ptt.seed(args.seed + 170)
+    model = _transformer_model(torch, args.seed + 170)
+    opt = _transformer_opt(model)
+    trainer = SpmdTrainer(model, opt, _transformer_loss_o1)
+    batch = _transformer_batch(torch, args.seed + 171)
+    tokens = int((batch[0] != 0).sum() + (batch[1] != 0).sum())
+    flops = 3 * _transformer_flops(torch, model, batch)
+    losses, step_ms, launches = _timed_steps(torch, trainer, batch,
+                                             n_warm=2, n=3)
+    per = _transformer_per_step()
+    expect = {k: 3 * v for k, v in per.items()}
+    print(f"  phase 17 (a): launches over 3 steps {launches} (expected "
+          f"{expect}; every attention on X2, none on the plain path)",
+          flush=True)
+    if launches != expect or launches["sdpa_plain"]:
+        raise AssertionError(f"phase 17 (a): launch counts {launches} != "
+                             f"{expect}")
+    for k, v in launches.items():
+        launches_out[k] = launches_out.get(k, 0) + v
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 17 (a): losses not finite: {losses}")
+    graph = _graph_line(trainer, "phase 17 (a)", card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1)
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          "transformer_step_trace.json"))
+    del prof
+    out = dict(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               tokens_a_step=tokens, flops_per_step=flops,
+               mfu_vs_989_tflops=flops / (step_ms / 1e3) / BF16_FLOPS,
+               peak_memory_gb=peak, peak_memory_of_phase_gb=peak - held / 1e9,
+               losses=losses, graph=graph, breakdown=m,
+               idle_share_untraced=1 - m["device_ms"] / step_ms,
+               launches_a_step=per, card=card)
+    print(f"  phase 17 (a): step {step_ms:.3f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s ({tokens} source and target tokens a step, padding "
+          f"excluded), MFU {out['mfu_vs_989_tflops']:.4f} ({flops / 1e12:.3f}"
+          f" TFLOP a step), peak {peak:.2f} GB; {_breakdown_line(m)}; idle "
+          f"share against the untraced step {out['idle_share_untraced']:.4f}"
+          f"; losses {losses} [{card}]", flush=True)
+    _print_other(m, "phase 17 (a)")
+    out["dense_middle"] = _dense_middle_line(
+        torch, "phase 17 (a)", lambda: _transformer_loss_o1(model, *batch),
+        card)
+    out["eager"] = _captured_against_eager(torch, trainer, batch,
+                                           "phase 17 (b)", card, step_ms, m)
+    _drop_trainer(torch, trainer)
+    del trainer, model, opt, batch
+    _free(torch)
+    out["eval_routes"] = _transformer_eval_routes(torch, args.seed + 172,
+                                                  card)
+    out["tiny_f32_vs_cpu"] = _transformer_tiny_on_card(torch)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -7622,6 +8466,8 @@ def main(argv=None):
           results)
     timed("phase 3 CTC and RNN-T kernels", phase_seq_loss_kernels, torch,
           results)
+    timed("phase 3 dense attention kernels", phase_dense_attention_kernels,
+          torch, results)
     new_layers = timed("phase 3 new layers on the card",
                        phase_new_layers_on_card, torch)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
@@ -7659,6 +8505,10 @@ def main(argv=None):
     seq_launches = {}
     seq = timed("phase 16 sequence-loss training", phase_seq_loss_training,
                 torch, args, seq_launches)
+    transformer_launches = {}
+    transformer = timed("phase 17 Transformer-base",
+                        phase_transformer_base, torch, args,
+                        transformer_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -7733,6 +8583,14 @@ def main(argv=None):
                      "paddle_tpu/nn/functional/loss.py:363"),
         "rnnt_bwd": ("cuda", "paddle_tpu_torch/csrc/rnnt_loss.cu",
                      "paddle_tpu/nn/functional/loss.py:363"),
+        # no Pallas kernel: the dense attention's scale, masks, softmax and
+        # dropout XLA fuses (forward; the vjp of the same function)
+        "dense_softmax": ("triton",
+                          "paddle_tpu_torch/kernels/dense_attention.py",
+                          "paddle_tpu/nn/functional/attention.py:20"),
+        "dense_softmax_bwd": ("triton",
+                              "paddle_tpu_torch/kernels/dense_attention.py",
+                              "paddle_tpu/nn/functional/attention.py:20"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
@@ -7743,7 +8601,8 @@ def main(argv=None):
             packed_launches,
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
             artifact_launches, surface_launches, ernie_launches,
-            unet_launches, resnet_launches, seq_launches)
+            unet_launches, resnet_launches, seq_launches,
+            transformer_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -7752,7 +8611,10 @@ def main(argv=None):
     for name, (route, source, tpu) in replaces.items():
         m = results[{"ragged_attention": "ragged_attention[mixed_mha]",
                      "weight_only_gemm":
-                         "weight_only_gemm[llama_qkvo int8 M=256]"}
+                         "weight_only_gemm[llama_qkvo int8 M=256]",
+                     "dense_softmax": f"dense_softmax[{DENSE_KERNEL}]",
+                     "dense_softmax_bwd":
+                         f"dense_softmax_bwd[{DENSE_KERNEL}]"}
                     .get(name, name)]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=tpu, launches=main_runs[name],
@@ -7769,6 +8631,7 @@ def main(argv=None):
                    "training_surface": surface, "ernie_training": ernie,
                    "unet": unet, "resnet50": resnet,
                    "seq_loss_training": seq, "new_layers": new_layers,
+                   "transformer_base": transformer,
                    "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "serving_llama2_13b": serve13_launches,
@@ -7784,7 +8647,9 @@ def main(argv=None):
                                 "ernie_training": ernie_launches,
                                 "unet": unet_launches,
                                 "resnet50": resnet_launches,
-                                "seq_loss_training": seq_launches}}, f,
+                                "seq_loss_training": seq_launches,
+                                "transformer_base": transformer_launches}},
+                  f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -50,6 +50,14 @@ kernels a call each: a pass over the rows and the recursion,
 ``kernels/seq_loss.py``). No TPU kernel either: XLA compiles the JAX
 package's scans into loops on the device.
 
+``dense_softmax`` and ``dense_softmax_bwd`` count the calls of the dense
+attention's middle (the scale, the masks, the fp32 softmax and the
+probabilities' dropout: ``kernels/dense_attention.py``, one Triton kernel
+each way), which every attention that takes ``_sdpa_reference`` on the
+card goes through (the ``sdpa_plain`` and ``sdpa_dense`` routes,
+``flash_attn_unpadded``). No TPU kernel either: XLA fuses those passes of
+the JAX package's ``_sdpa_reference``.
+
 ``weight_only_gemm`` counts every call of the weight-only GEMM on the
 card, whichever of its two kernels it launched; ``weight_only_gemm_sm80``
 counts those that went to the mma.sync kernel (shapes TMA cannot read).
@@ -63,7 +71,8 @@ attention calls that ``serving.ragged.make_attend`` routes to
 kernel_takes``). ``sdpa_dense`` counts the attention calls that take
 the dense ``_sdpa_reference`` because they have a mask or a dropout
 (``scaled_dot_product_attention`` with ``attn_mask`` or ``dropout_p``,
-``flashmask_attention`` with a dropout in training). Every routing is the
+``flashmask_attention`` with a dropout in training, ``flash_attn_unpadded``,
+whose segments are a mask). Every routing is the
 JAX package's own; a main path that takes one reads above 0 there.
 """
 from __future__ import annotations
@@ -77,7 +86,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
             "group_norm": 0, "group_norm_bwd": 0, "batch_norm": 0,
             "batch_norm_bwd": 0, "ctc_fwd": 0, "ctc_bwd": 0, "rnnt_fwd": 0,
-            "rnnt_bwd": 0, "sdpa_plain": 0,
+            "rnnt_bwd": 0, "dense_softmax": 0, "dense_softmax_bwd": 0,
+            "sdpa_plain": 0,
             "sdpa_dense": 0, "ragged_plain": 0}
 
 

@@ -1,6 +1,8 @@
 from . import functional, initializer
+from ..optimizer import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .initializer import ParamAttr
 from .layer import *  # noqa: F401,F403
 from .layer import __all__ as _layers
 
-__all__ = ["functional", "initializer", "ParamAttr"] + list(_layers)
+__all__ = ["functional", "initializer", "ParamAttr", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue"] + list(_layers)

@@ -1,15 +1,19 @@
 """The functionals of ``paddle_tpu/nn/functional``, in the JAX package's
 layouts.
 
-Here: ``scaled_dot_product_attention`` and
-``flashmask_attention`` (``attention.py``), ``rms_norm`` and ``layer_norm``
+Here: ``scaled_dot_product_attention``, ``flashmask_attention``,
+``flash_attention``, ``flash_attn_unpadded``, the two qkv-packed forms and
+``sdp_kernel`` (``attention.py``), ``rms_norm`` and ``layer_norm``
 (``norm.py``), ``gelu`` and ``tanh``
 (``activation.py``), ``linear``, ``embedding`` and ``dropout``
 (``common.py``), each for the cases the training paths use, and
 ``swiglu`` (the Llama MLP's ``silu(gate) * up``); anything else raises
-``NotImplementedError``. ``gelu``, ``tanh``, ``linear``, ``embedding``
-and attention with a dense ``attn_mask`` or a dropout are plain PyTorch:
-the JAX package has no Pallas kernel for them either. ``dropout`` and
+``NotImplementedError``. ``gelu``, ``tanh``, ``linear`` and ``embedding``
+are plain PyTorch: the JAX package has no Pallas kernel for them either.
+Attention with a dense ``attn_mask`` or a dropout (and shapes the flash
+kernels do not take) is two ``torch.einsum`` products around the Triton
+kernels of ``kernels/dense_attention.py`` on CUDA tensors (the scale,
+masks, softmax and dropout XLA fuses). ``dropout`` and
 ``layer_norm`` run Triton kernels on CUDA tensors (``kernels/dropout.py``,
 ``kernels/fused.py``): the passes XLA fuses. Each is the JAX op of its
 name for ``amp.auto_cast`` (``amp.op``). The convolutional models'
@@ -29,6 +33,7 @@ RNN-T on the CUDA kernels of ``kernels/seq_loss.py``) and the rest of
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -39,6 +44,7 @@ from .. import amp
 from ..framework.random import next_key
 from ..kernels import LAUNCHES
 from ..kernels import batch_norm as BN
+from ..kernels import dense_attention as DA
 from ..kernels import dropout as D
 from ..kernels import flash_attention as FA
 from ..kernels import fused
@@ -46,29 +52,20 @@ from ..kernels import group_norm as GN
 
 
 def _sdpa_reference(q, k, v, mask=None, causal=False, dropout_p=0.0,
-                    key=None):
+                    key=None, scale=None):
     """Attention over ``[batch, seq, heads, head_dim]`` inputs with a dense
-    mask, as the JAX package's ``_sdpa_reference``: fp32 scores, causal
-    (bottom-right) and a bool mask as -1e30, an additive mask added, fp32
-    softmax (a row that sees no key averages every value), with
-    ``dropout_p`` > 0 the probabilities dropped under ``key`` (the dropout
-    kernel on CUDA tensors), out cast to q's dtype. The mask broadcasts to
-    ``[b, h, sq, sk]``."""
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
-        / math.sqrt(q.shape[-1])
-    if causal:
-        sq, sk = scores.shape[-2], scores.shape[-1]
-        vis = torch.ones(sq, sk, dtype=torch.bool,
-                         device=q.device).tril(sk - sq)
-        scores = scores.masked_fill(~vis, -1e30)
-    if mask is not None:
-        if mask.dtype == torch.bool:
-            scores = scores.masked_fill(~mask, -1e30)
-        else:
-            scores = scores + mask.float()
-    probs = torch.softmax(scores, dim=-1)
-    if dropout_p > 0.0 and key is not None:
-        probs = D.dropout(probs, key, dropout_p)
+    mask, as the JAX package's ``_sdpa_reference``: fp32 scores times
+    ``scale`` (``1 / sqrt(head_dim)`` by default), causal (bottom-right)
+    and a bool mask as -1e30, an additive mask added, fp32 softmax (a row
+    that sees no key averages every value), with ``dropout_p`` > 0 the
+    probabilities dropped under ``key``, out cast to q's dtype. The mask
+    broadcasts to ``[b, h, sq, sk]``. The two products are
+    ``torch.einsum`` (the JAX package leaves them to XLA); the middle is
+    ``kernels.dense_attention.dense_softmax``: its Triton kernels on CUDA
+    tensors, its plain version on CPU tensors."""
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
+    probs = DA.dense_softmax(scores, mask, causal, s, dropout_p, key)
     return torch.einsum("bhst,bthd->bshd", probs, v.float()).to(q.dtype)
 
 
@@ -111,6 +108,97 @@ _sdpa_op = amp.op("sdpa", 4)(_sdpa_reference)
 @amp.op("flash_attention", 3)
 def _flash_op(query, key, value, causal):
     return FA.flash_attention_bshd(query, key, value, causal=causal)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """``paddle.nn.functional.flash_attention`` as the JAX package's
+    (``attention.py:106``): ``scaled_dot_product_attention(query, key,
+    value, dropout_p=dropout, is_causal=causal, training=training)``,
+    routed as that routes, returned as ``(out, None)``."""
+    out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
+                                       is_causal=causal, training=training)
+    return out, None
+
+
+def _segments(cu, total, device):
+    """(segment of each packed position, its position in the segment) from
+    ``cu_seqlens``: ``searchsorted(cu, arange(total), side="right")``, as
+    the JAX function."""
+    cu = cu.to(device=device, dtype=torch.int64)
+    pos = torch.arange(total, dtype=torch.int64, device=device)
+    seg = torch.searchsorted(cu, pos, right=True)
+    return seg, pos - cu[seg - 1]
+
+
+@amp.op("flash_attn_unpadded", 3)
+def _unpadded_op(query, key, value, cu_q, cu_k, scale, causal):
+    tq, tk = query.shape[0], key.shape[0]
+    seg_q, pos_q = _segments(cu_q, tq, query.device)
+    seg_k, pos_k = _segments(cu_k, tk, query.device)
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        mask = mask & (pos_q[:, None] >= pos_k[None, :])
+    scores = torch.einsum("shd,thd->hst", query.float(), key.float())
+    probs = DA.dense_softmax(scores[None], mask, False, scale)[0]
+    return torch.einsum("hst,thd->shd", probs,
+                        value.float()).to(query.dtype)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Attention over packed sequences ``[total, heads, head_dim]`` as the
+    JAX package's (``attention.py:286``): a bool mask keeps each query to
+    its own segment of ``cu_seqlens`` (and, ``causal``, to the keys at or
+    before its position in it), the scores times ``scale`` as given, the
+    dense attention's middle over ``[1, heads, total_q, total_k]``
+    (``kernels.dense_attention``: its Triton kernels on CUDA tensors),
+    counted in ``LAUNCHES["sdpa_dense"]``. ``dropout`` is ignored and the
+    return is ``(out, None)``, as in the JAX function."""
+    LAUNCHES["sdpa_dense"] += 1
+    return _unpadded_op(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        float(scale), bool(causal)), None
+
+
+def sdp_kernel(*args, **kwargs):
+    """A context that changes nothing, as the JAX package's (the routing
+    is ``scaled_dot_product_attention``'s)."""
+    return contextlib.nullcontext()
+
+
+def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,
+                         return_softmax=False, fixed_seed_offset=None,
+                         rng_name="", training=True, name=None):
+    """``flash_attention`` of ``qkv [batch, seq, 3, heads, head_dim]``
+    unpacked, as the JAX package's (``attention.py:323``)."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"flash_attn_qkvpacked expects [b, s, 3, h, d], "
+                         f"got {tuple(qkv.shape)}")
+    return flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                           dropout=dropout, causal=causal,
+                           return_softmax=return_softmax, training=training)
+
+
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
+                                max_seqlen_q, max_seqlen_k, scale,
+                                dropout=0.0, causal=False,
+                                return_softmax=False, fixed_seed_offset=None,
+                                rng_name="", varlen_padded=True,
+                                training=True, name=None):
+    """``flash_attn_unpadded`` of ``qkv [total, 3, heads, head_dim]``
+    unpacked, as the JAX package's (``attention.py:341``)."""
+    if qkv.dim() != 4 or qkv.shape[1] != 3:
+        raise ValueError(f"flash_attn_varlen_qkvpacked expects [total, 3, "
+                         f"h, d], got {tuple(qkv.shape)}")
+    return flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens_q,
+                               cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+                               scale, dropout=dropout, causal=causal,
+                               return_softmax=return_softmax,
+                               training=training)
 
 
 def _canonical_startend(se, sq, causal):
@@ -687,6 +775,25 @@ def maxout(x, groups, axis=1, name=None):
     return torch.amax(x.reshape(shape), dim=ax + 1)
 
 
+def _inplace(fn, name):
+    """The in-place form of ``fn``, as the JAX package's ``make_inplace``:
+    x takes ``fn(x, ...)``'s values and is returned (``fn`` reads a copy,
+    so what its backward saved is not overwritten)."""
+    def inplace(x, *args, **kwargs):
+        return x.copy_(fn(x.clone(), *args, **kwargs))
+    inplace.__name__ = name
+    inplace.__doc__ = f"``{fn.__name__}`` in place: x takes its values " \
+        "and is returned."
+    return inplace
+
+
+elu_ = _inplace(elu, "elu_")
+hardtanh_ = _inplace(hardtanh, "hardtanh_")
+leaky_relu_ = _inplace(leaky_relu, "leaky_relu_")
+tanh_ = _inplace(tanh, "tanh_")
+thresholded_relu_ = _inplace(thresholded_relu, "thresholded_relu_")
+
+
 def _dtype(dtype):
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
@@ -927,6 +1034,9 @@ from .functional_common import *  # noqa: E402,F401,F403
 from .functional_loss import *  # noqa: E402,F401,F403
 
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
+           "flash_attention", "flash_attn_unpadded", "sdp_kernel",
+           "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
+           "elu_", "hardtanh_", "leaky_relu_", "tanh_", "thresholded_relu_",
            "FlashMaskBounds", "prepare_flashmask", "flashmask_kernels_take",
            "rms_norm", "layer_norm", "dropout", "tanh",
            "gelu", "linear", "embedding", "swiglu",

@@ -3,7 +3,9 @@
 (which re-exports every name here): ``one_hot``, the channel dropouts and
 alpha dropouts, ``pad`` in every mode, ``interpolate`` in every mode and
 layout, ``unfold`` / ``fold``, the shuffles, ``cosine_similarity``,
-``label_smooth``, ``bilinear`` and ``class_center_sample``.
+``label_smooth``, ``bilinear``, ``class_center_sample`` and
+``sparse_attention`` (CSR-masked attention in O(nnz), its reductions in a
+fixed order).
 
 Each is the JAX function's formula in PyTorch ops, in the JAX dtypes and
 under the JAX op name (``amp.op``); XLA fuses them, so they are plain
@@ -365,8 +367,99 @@ def class_center_sample(label, num_classes, num_samples, group=None,
     return torch.searchsorted(sampled, lab), sampled
 
 
+class _SegmentGather(torch.autograd.Function):
+    """``x [n, S, D]`` gathered at ``idx [n, m]`` along dim 1, whose
+    backward adds the gradient's rows back into x's by segments: the rows
+    taken in ``order`` (None: idx is sorted already), then summed over the
+    segments ``offsets [n, S + 1]`` with ``torch.segment_reduce`` (one
+    segment after another in a fixed order; no atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, order, offsets):
+        ctx.save_for_backward(order, offsets)
+        return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        order, offsets = ctx.saved_tensors
+        if order is not None:
+            g = g.gather(1, order[..., None].expand(-1, -1, g.shape[-1]))
+        return (torch.segment_reduce(g, "sum", offsets=offsets, axis=1,
+                                     unsafe=True), None, None, None)
+
+
+def _by_column(cols, s):
+    """(order, offsets) that group the stored entries by their column:
+    a stable sort of ``cols [n, m]`` and each column's range in it."""
+    order = torch.argsort(cols, dim=1, stable=True)
+    bounds = torch.arange(s + 1, dtype=cols.dtype, device=cols.device)
+    offsets = torch.searchsorted(cols.gather(1, order).contiguous(),
+                                 bounds.expand(cols.shape[0], -1)
+                                 .contiguous())
+    return order, offsets
+
+
+@amp.op("sparse_attention", 3)
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention of ``[B, H, S, D]`` queries each over its own keys, given
+    in CSR form (``sparse_csr_offset [B, H, S + 1]``,
+    ``sparse_csr_columns [B, H, nnz]``), as the JAX package's
+    (``paddle_tpu/nn/functional/common.py:373``): O(nnz) work, a score per
+    stored entry in fp32 times ``1 / sqrt(D)``, ``-inf`` where
+    ``key_padding_mask [B, S]`` (its key) or ``attn_mask [S, S]`` (its
+    pair) is 0 and past the head's ``offset[-1]``, each row's softmax over
+    its entries (its max from a finite score, else 0; a row without a
+    finite score gives 0), ``p * v`` summed a row, in q's dtype. The
+    reductions run row by row over the contiguous CSR rows
+    (``torch.segment_reduce``), and the gradients of k and v are summed
+    column by column through a stable sort: no atomics, so two calls on
+    the card give the same bits."""
+    b, h, s, d = query.shape
+    nnz = sparse_csr_columns.shape[-1]
+    dev = query.device
+    n = b * h
+    off = sparse_csr_offset.reshape(n, s + 1).to(dev, torch.int64)
+    cols = sparse_csr_columns.reshape(n, nnz).to(dev, torch.int64)
+    pos = torch.arange(nnz, dtype=torch.int64, device=dev)
+    rows = torch.searchsorted(off[:, 1:].contiguous(),
+                              pos.expand(n, -1).contiguous(), right=True)
+    rows = rows.clamp(0, s - 1)
+    order, col_off = _by_column(cols, s)
+    qf = query.reshape(n, s, d).float()
+    kf = key.reshape(n, s, d).float()
+    vf = value.reshape(n, s, d).float()
+    qr = _SegmentGather.apply(qf, rows, None, off)
+    kc = _SegmentGather.apply(kf, cols, order, col_off)
+    vc = _SegmentGather.apply(vf, cols, order, col_off)
+    scl = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
+                                        device=dev))
+    scores = (qr * kc).sum(-1) * scl
+    ninf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
+    if key_padding_mask is not None:
+        kpm = key_padding_mask.to(dev).repeat_interleave(h, dim=0)
+        scores = torch.where(kpm.gather(1, cols) == 0, ninf, scores)
+    if attn_mask is not None:
+        am = attn_mask.to(dev).reshape(-1)
+        scores = torch.where(am[rows * s + cols] == 0, ninf, scores)
+    valid = pos[None, :] < off[:, -1:]
+    scores = torch.where(valid, scores, ninf)
+    rmax = torch.segment_reduce(scores.detach(), "max", offsets=off, axis=1,
+                                unsafe=True)
+    rmax = torch.where(torch.isfinite(rmax), rmax, torch.zeros_like(rmax))
+    p = torch.where(valid, torch.exp(scores - rmax.gather(1, rows)),
+                    torch.zeros((), dtype=torch.float32, device=dev))
+    denom = torch.segment_reduce(p, "sum", offsets=off, axis=1, unsafe=True)
+    num = torch.segment_reduce(p[..., None] * vc, "sum", offsets=off,
+                               axis=1, unsafe=True)
+    out = num / torch.clamp_min(denom, 1e-20)[..., None]
+    return out.reshape(b, h, s, d).to(query.dtype)
+
+
 __all__ = ["one_hot", "dropout2d", "dropout3d", "alpha_dropout",
            "feature_alpha_dropout", "pad", "zeropad2d", "interpolate",
            "upsample", "unfold", "fold", "cosine_similarity",
            "pixel_shuffle", "pixel_unshuffle", "channel_shuffle",
-           "label_smooth", "bilinear", "class_center_sample"]
+           "label_smooth", "bilinear", "class_center_sample",
+           "sparse_attention"]

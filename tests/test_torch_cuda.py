@@ -662,8 +662,9 @@ def test_gmm_kernels_at_tile_edges(dev, dtype, case):
                                                (8, 8, 256, True)])
 def test_sdpa_routes_what_the_kernels_lack(dev, dtype, sq, sk, d, causal):
     """On the card too, a call the flash kernels do not take runs the plain
-    path (the same function on the CPU), counted once, no kernel launched;
-    gradients flow."""
+    path (the same function on the CPU), counted once; no flash kernel
+    launches, only the dense middle's (X2) forward and backward, once
+    each; gradients flow."""
     from paddle_tpu_torch.nn import functional as F
     g = torch.Generator().manual_seed(d)
     q, k, v = (torch.randn(2, s, 3, d, generator=g).to(dtype)
@@ -675,7 +676,9 @@ def test_sdpa_routes_what_the_kernels_lack(dev, dtype, sq, sk, d, causal):
     got.float().sum().backward()
     torch.cuda.synchronize()
     assert K.LAUNCHES["sdpa_plain"] == before["sdpa_plain"] + 1
-    assert K.kernel_launches() == {n: c for n, c in before.items()
+    x2 = ("dense_softmax", "dense_softmax_bwd")
+    assert K.kernel_launches() == {n: c + (n in x2)
+                                   for n, c in before.items()
                                    if n not in K.ROUTED}
     assert qd.grad is not None and bool(torch.isfinite(qd.grad).all())
     err = float((got.detach().cpu().float() - want.float()).abs().max())
@@ -2976,3 +2979,198 @@ def test_seq_losses_refuse_other_dtypes(dev):
     x, lab, il, ll, _ = _ctc_case(dev, torch.float32, 10, 2, 5, 3, 5)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         SL.ctc_forward(x.half(), lab, il, ll)
+
+
+# -- the dense attention's middle (X2) -------------------------------------------
+
+def _x2_mask(dev, form, b, h, sq, sk, seed):
+    """A mask of ``form``: bool or additive at [sq, sk], [b, 1, 1, sk],
+    [b, 1, sq, sk] or [b, h, sq, sk] (a bool one with a whole row hidden)."""
+    if form is None:
+        return None
+    kind, where = form
+    shape = {"2d": (sq, sk), "pad": (b, 1, 1, sk), "rows": (b, 1, sq, sk),
+             "full": (b, h, sq, sk)}[where]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "bool":
+        m = torch.rand(shape, device=dev, generator=g) < 0.7
+        m[..., 0, :] = False
+        return m
+    return torch.randn(shape, device=dev, generator=g) * 2
+
+
+def _x2_close(got, want, size):
+    """Each element within 2e-5 of its size (fp32 sums in another order)."""
+    err = (got - want).abs()
+    assert bool((err <= 2e-5 * size + 1e-30).all()), float(
+        (err / (size + 1e-30)).max())
+
+
+X2_FORMS = [None] + [(k, w) for k in ("bool", "add")
+                     for w in ("2d", "pad", "rows", "full")]
+
+
+@pytest.mark.parametrize("form", X2_FORMS,
+                         ids=lambda f: "none" if f is None else "-".join(f))
+@pytest.mark.parametrize("causal,sq,sk,p", [
+    (False, 64, 64, 0.1), (True, 40, 130, 0.0), (True, 33, 9, 0.1),
+    (False, 5, 10001, 0.1), (True, 3, 16384, 0.0)])
+def test_dense_softmax_kernels_match_plain(dev, form, causal, sq, sk, p):
+    """X2 forward and backward against its plain version: the probs and ds
+    element by element, the dropped probs bit-equal to the kernel's probs
+    under ``keep_mask_plain``; rows longer than one block (aligned and
+    not), causal with sq != sk, a row without a key; one launch each."""
+    from paddle_tpu_torch.framework.random import RandomKey
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    from paddle_tpu_torch.kernels import dropout as D
+    b, h = 2, 3
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    scores = torch.randn(b, h, sq, sk, device=dev, generator=g) * 4
+    gy = torch.randn(b, h, sq, sk, device=dev, generator=g)
+    mask = _x2_mask(dev, form, b, h, sq, sk, sk)
+    key = RandomKey(torch.tensor([5, 6], device=dev), 9) if p else None
+    before = dict(K.LAUNCHES)
+    probs, dropped = DA.dense_softmax_forward(scores, mask, causal, 0.3, p,
+                                              key)
+    ds, _ = DA.dense_softmax_backward(gy, probs, mask, causal, 0.3, p, key)
+    assert K.LAUNCHES["dense_softmax"] == before["dense_softmax"] + 1
+    assert K.LAUNCHES["dense_softmax_bwd"] == before["dense_softmax_bwd"] + 1
+    sp = scores.clone().requires_grad_()
+    pp, dp = DA.dense_softmax_plain(sp, mask, causal, 0.3, p, key)
+    (want_ds,) = torch.autograd.grad(dp, sp, gy)
+    _x2_close(probs, pp.detach(), pp.detach().abs())
+    scale = D.scale_of(p, "upscale_in_train") if p else 1.0
+    if p:
+        keep = D.keep_mask_plain(tuple(scores.shape), p, key, dev)
+        assert torch.equal(dropped, torch.where(
+            keep, probs * scale, torch.zeros((), device=dev)))
+    gp = gy * (dropped != 0) * scale
+    size = probs * (gp.abs() + (gp.abs() * probs).sum(-1, keepdim=True))
+    _x2_close(ds, want_ds, 0.3 * size)
+
+
+def test_dense_softmax_additive_mask_gradient_matches_plain(dev):
+    """An additive mask that needs a gradient gets the softmax input's
+    gradient summed to its shape."""
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    g = torch.Generator(device=dev).manual_seed(3)
+    scores = torch.randn(2, 4, 16, 48, device=dev, generator=g)
+    mask = torch.randn(2, 1, 16, 48, device=dev, generator=g)
+    gy = torch.randn(2, 4, 16, 48, device=dev, generator=g)
+    grads = []
+    for fn in (DA.dense_softmax, lambda *a: DA.dense_softmax_plain(*a)[1]):
+        s, m = scores.clone().requires_grad_(), mask.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(s, m, True, 0.5), (s, m), gy))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=2e-5 * float(b.abs().max()))
+
+
+def test_dense_softmax_twice_and_replayed_are_bit_equal(dev):
+    """Two calls give the same bits; a forward and backward captured in a
+    CUDA graph and replayed with a new key (in its device tensor) and new
+    scores equal eager calls for that key."""
+    from paddle_tpu_torch.framework.random import RandomKey
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    g = torch.Generator(device=dev).manual_seed(4)
+    scores = torch.randn(4, 2, 64, 64, device=dev, generator=g)
+    mask = torch.randn(4, 1, 1, 64, device=dev, generator=g)
+    gy = torch.randn(4, 2, 64, 64, device=dev, generator=g)
+    keyt = torch.tensor([1, 2], device=dev)
+
+    def step():
+        s = scores.clone().requires_grad_()
+        y = DA.dense_softmax(s, mask, False, 0.125, 0.2, RandomKey(keyt, 3))
+        return y, torch.autograd.grad(y, s, gy)[0]
+    a, b = step(), step()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_cap, d_cap = step()
+    for words in ((7, 8), (2 ** 32 - 1, 5)):
+        keyt.copy_(torch.tensor(words))
+        scores.copy_(torch.randn(scores.shape, device=dev, generator=g))
+        graph.replay()
+        y, d = step()
+        torch.cuda.synchronize()
+        assert torch.equal(y_cap, y) and torch.equal(d_cap, d)
+
+
+def test_dense_softmax_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    with pytest.raises(ValueError, match="fp32"):
+        DA.dense_softmax_forward(torch.zeros(2, 3, 4, device=dev))
+    with pytest.raises(ValueError, match="fp32"):
+        DA.dense_softmax_forward(torch.zeros(1, 1, 2, 3, device=dev,
+                                             dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("route", ["sdpa", "unpadded", "flashmask_dropout"])
+def test_attention_routes_run_x2_on_the_card(dev, route):
+    """The dense attention routes launch X2 on CUDA tensors and equal the
+    same call on the CPU (the plain version)."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator().manual_seed(6)
+    if route == "unpadded":
+        qkv = torch.randn(40, 3, 2, 64, generator=g)
+        cu = torch.tensor([0, 11, 40], dtype=torch.int32)
+        fn = lambda t, c: F.flash_attn_varlen_qkvpacked(  # noqa: E731
+            t, c, c, 29, 29, 0.2, causal=True)[0]
+        args = (qkv, cu)
+    else:
+        q, k, v = (torch.randn(2, 32, 2, 64, generator=g) for _ in range(3))
+        mask = torch.rand(2, 1, 32, 32, generator=g) < 0.8
+        if route == "sdpa":
+            fn = lambda a, b, c, m: F.scaled_dot_product_attention(  # noqa
+                a, b, c, attn_mask=m)
+            args = (q, k, v, mask)
+        else:
+            se = torch.full((2, 1, 32, 1), 32, dtype=torch.int32)
+            se[:, :, :16] = 16
+            fn = lambda a, b, c, s: F.flashmask_attention(  # noqa: E731
+                a, b, c, s, dropout=0.1, causal=True)
+            args = (q, k, v, se)
+    import paddle_tpu_torch as ptt
+    ptt.seed(3)
+    want = fn(*args)
+    before = K.LAUNCHES["dense_softmax"]
+    ptt.seed(3)
+    got = fn(*(a.to(dev) for a in args))
+    assert K.LAUNCHES["dense_softmax"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_sparse_attention_twice_on_the_card_is_bit_equal(dev):
+    """``sparse_attention``'s reductions run in a fixed order on the card
+    (segment by segment, the k/v gradients through a stable sort): two
+    calls give the same output and gradients, and they equal the CPU's
+    within 1e-5 of the largest value."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator().manual_seed(8)
+    b, h, s, d, per = 2, 4, 128, 32, 24
+    qkv = [torch.randn(b, h, s, d, generator=g) for _ in range(3)]
+    cols = torch.sort(torch.stack([torch.randperm(s, generator=g)[:per]
+                                   for _ in range(b * h * s)]), -1)[0]
+    cols = cols.reshape(b, h, s * per).int()
+    off = torch.arange(0, s * per + 1, per, dtype=torch.int32).repeat(b, h, 1)
+    kpm = (torch.rand(b, s, generator=g) > 0.1).float()
+    am = (torch.rand(s, s, generator=g) > 0.1).float()
+    gy = torch.randn(b, h, s, d, generator=g)
+    runs = []
+    for device in ("cpu", dev, dev):
+        ts = [t.to(device).requires_grad_() for t in qkv]
+        out = F.sparse_attention(*ts, off.to(device), cols.to(device),
+                                 kpm.to(device), am.to(device))
+        runs.append([out] + list(torch.autograd.grad(out, ts,
+                                                     gy.to(device))))
+    runs = [[t.detach() for t in r] for r in runs]
+    assert all(torch.equal(a, c) for a, c in zip(runs[1], runs[2]))
+    for a, c in zip(runs[1], runs[0]):
+        torch.testing.assert_close(a.cpu(), c, rtol=0,
+                                   atol=1e-5 * float(c.abs().max()))

@@ -245,3 +245,33 @@ def test_norm_activation_initializer_slice_imports_no_jax_or_triton(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "kernels/dense_attention.py", "nn/layer/transformer.py",
+    "nn/functional_common.py", "incubate/nn/functional.py",
+    "incubate/nn/layer/fused_transformer.py", "incubate/nn/layer/__init__.py",
+    "nn/__init__.py"])
+def test_transformer_slice_imports_no_jax_or_triton(module):
+    """The dense attention's kernels, the Transformer layers, the attention
+    functionals and the fused Transformer layers: no file imports jax or
+    paddle_tpu, none imports Triton at its top level (the dense attention
+    module imports it inside the function that launches), and importing
+    them in a fresh process loads neither."""
+    path = os.path.join(REPO, "paddle_tpu_torch", module)
+    assert not _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
+    with open(path) as f:
+        body = ast.parse(f.read()).body
+    top = {a.name.split(".")[0] for node in body
+           if isinstance(node, ast.Import) for a in node.names}
+    top |= {node.module.split(".")[0] for node in body
+            if isinstance(node, ast.ImportFrom) and node.level == 0}
+    assert "triton" not in top
+    name = "paddle_tpu_torch." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    code = (f"import sys, {name}; "
+            "print(sorted(m for m in ('jax', 'triton', 'paddle_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
