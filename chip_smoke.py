@@ -91,7 +91,16 @@ Phases, each printing its own lines and its seconds:
      call form compiled at its first call); the new losses, common
      functionals and layers, the attention functionals, the Transformer
      and fused Transformer layers on the card against the same calls on
-     the CPU, and sparse_attention twice bit-equal;
+     the CPU, and sparse_attention twice bit-equal; the recurrence kernels
+     (``csrc/rnn_recurrence.cu``: one launch a time step each way) against
+     their plain loop, fp32, forward and backward with every gradient, at
+     the IWSLT'15 model's shapes (an LSTM, GRU and tanh RNN layer at [T 50,
+     B 128, in 512, H 512], the decoder's first cell at in 1024, a beam
+     step at B 1280; each timed by graph replay beside its bound, the plain
+     loop and cuDNN's layer on the same weights) and at small shapes in
+     every mode and direction, two runs bit-equal and a captured layer
+     equal to its eager call; the recurrent layers, sequence_mask,
+     gather_tree and a beam decode on the card against the CPU;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
      same 12 requests: with its step run op by op (the yardstick), then
@@ -281,6 +290,20 @@ Phases, each printing its own lines and its seconds:
      and the cross-attention, X2 for the decoder's masked
      self-attention); a tiny float32 Transformer on the card against the
      CPU trainer;
+  18. attention-based LSTM translation on IWSLT'15 English-Vietnamese at
+     full width, as PaddleNLP's examples/machine_translation/seq2seq
+     builds it (tensorflow/nmt's iwslt15 setting; vocabularies 17,191 /
+     7,709, width 512, 2 layers, dropout 0.2, uniform init 0.1): the
+     encoder nn.LSTM, the decoder nn.RNN over two LSTMCells with input
+     feeding and Luong attention, the loss masked by sequence_mask, Adam
+     with global-norm clipping at 5, fp32, 128 pairs of 10-50 tokens:
+     the step captured, exact launch counts (rnn_fwd 200, rnn_bwd 200,
+     dropout 202, AdamW 1 a step; no attention kernel), step ms,
+     tokens/s, MFU, peak memory, a profile, 3 replayed steps against 3
+     eager ones bit-equal; beam search (beam 10, at most 50 steps, 2
+     rnn_fwd a step) as built and with the EOS logit held at 0; a tiny
+     float32 model on the card against the CPU trainer, its beam 1
+     against the greedy chain and its beam 4 against the CPU's;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -1693,6 +1716,10 @@ def _kernel_group(name):
         return "dropout"
     if "_swiglu_" in name:
         return "swiglu"
+    if "rnn_fwd_kernel" in name:
+        return "rnn_fwd"
+    if "rnn_bwd_kernel" in name:
+        return "rnn_bwd"
     if "sgemm" in name or "f32f32" in name:
         return "matmul_fp32"
     if "rms_norm" in name:
@@ -8376,6 +8403,904 @@ def phase_transformer_base(torch, args, launches_out):
     return out
 
 
+# -- phase 3: the recurrence kernels -------------------------------------------
+
+RNN_FWD_TOL = 1e-5    # of the largest |plain value|: fp32 sums reordered
+RNN_BWD_TOL = 1e-4    # the gradients: sums over T steps and B rows besides
+# (tag, mode, T, B, in, H, reverse, timed): the shapes of the IWSLT'15
+# model (a layer and direction, the decoder's first cell at in 1024, a
+# beam step over 128 x 10 rows) timed; the rest cover every mode and
+# direction at shapes that are no multiple of the kernels' tiles
+RNN_CASES = (
+    ("lstm layer", "lstm", 50, 128, 512, 512, False, True),
+    ("gru layer", "gru", 50, 128, 512, 512, False, True),
+    ("rnn_tanh layer", "rnn_tanh", 50, 128, 512, 512, False, True),
+    ("lstm decoder cell", "lstm", 1, 128, 1024, 512, False, True),
+    ("lstm beam step", "lstm", 1, 1280, 1024, 512, False, True),
+    ("lstm reverse", "lstm", 9, 37, 24, 40, True, False),
+    ("gru reverse", "gru", 9, 37, 24, 40, True, False),
+    ("rnn_tanh reverse", "rnn_tanh", 9, 37, 24, 40, True, False),
+    ("rnn_relu", "rnn_relu", 9, 37, 24, 40, False, False),
+    ("rnn_relu reverse", "rnn_relu", 9, 37, 24, 40, True, False),
+    ("gru cell without b_hc", "gru", 1, 5, 24, 40, False, False),
+)
+RNN_MAIN = "lstm layer"       # the kernels line's case
+RNN_LIBRARY = {"lstm": "LSTM", "gru": "GRU", "rnn_tanh": "RNN",
+               "rnn_relu": "RNN"}
+
+
+def _rnn_inputs(torch, mode, T, B, n_in, H, seed):
+    """x [T, B, in], the weights and biases (uniform in ±1/sqrt(H), the
+    layers' init), the given initial states h0 and c0 (N(0, 0.25)), fp32
+    on the card from ``seed``."""
+    from paddle_tpu_torch.kernels import rnn as R
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = R.GATES[mode]
+
+    def u(*shape):
+        return (torch.rand(*shape, device="cuda", generator=g) * 2 - 1) \
+            * H ** -0.5
+    x = torch.randn(T, B, n_in, device="cuda", generator=g)
+    w_ih, w_hh, b_ih, b_hh = u(G * H, n_in), u(G * H, H), u(G * H), u(G * H)
+    h0 = torch.randn(B, H, device="cuda", generator=g) * 0.5
+    c0 = torch.randn(B, H, device="cuda", generator=g) * 0.5 \
+        if mode == "lstm" else None
+    return x, w_ih, w_hh, b_ih, b_hh, h0, c0
+
+
+def _rnn_terms(torch, mode, x, w_ih, b_ih, b_hh, has_b_hc=True):
+    """A layer's input term of all steps, ``torch.addmm`` over T x B rows
+    as ``nn.LSTM`` / ``GRU`` / ``SimpleRNN`` make it, and the gru
+    candidate's hidden bias (None without ``has_b_hc``)."""
+    from paddle_tpu_torch.nn.layer.rnn import _fold
+    T, B, _ = x.shape
+    fold, b_hc = _fold(mode, b_ih, b_hh)
+    xw = torch.addmm(fold, x.reshape(T * B, -1), w_ih.t()).view(T, B, -1)
+    return xw, (b_hc if has_b_hc else None)
+
+
+def _rnn_bytes_flops(mode, T, B, H, backward):
+    """(bytes, flops) of the steps: the recurrent products (2 B G H H a
+    step each way) and, each read once or written once, the input terms,
+    W_hh, the states, what the forward saves for the backward (lstm and
+    gru 4 H a row, the lstm's c_t) and the outputs."""
+    from paddle_tpu_torch.kernels import rnn as R
+    G = R.GATES[mode]
+    saved = (4 * H if G > 1 else 0) + (H if mode == "lstm" else 0)
+    states = (2 if mode == "lstm" else 1) * B * H
+    if backward:   # dy, saved, y read; dxw (and the gru's dhc) written
+        per_row = H + saved + H + G * H + (H if mode == "gru" else 0)
+    else:          # xw read; y and saved written
+        per_row = G * H + H + saved
+    return 4 * (T * B * per_row + G * H * H + 2 * states), \
+        2 * T * B * G * H * H
+
+
+def _rnn_cudnn(torch, mode, n_in, H, w_ih, w_hh, b_ih, b_hh):
+    """cuDNN's layer (``torch.nn.LSTM`` / ``GRU`` / ``RNN``: the library
+    yardstick, never on the port's path) on the same weights."""
+    kw = dict(nonlinearity=mode[4:]) if mode.startswith("rnn") else {}
+    lib = getattr(torch.nn, RNN_LIBRARY[mode])(n_in, H, **kw).cuda()
+    with torch.no_grad():
+        for name, w in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                        ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+            getattr(lib, name).copy_(w)
+    return lib
+
+
+def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
+    """The kernels against the plain loop on the same inputs (torch's
+    autograd through ``rnn_scan_plain`` on the card): y, h_T, c_T within
+    RNN_FWD_TOL of the largest plain value; the gradients of x, W_ih,
+    W_hh, b_ih, b_hh, h0, c0 within RNN_BWD_TOL of their largest; one
+    launch a step each way; two runs bit-equal. Returns (inputs, the
+    upstream gradients, {name: max abs err}, the outputs' count)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import rnn as R
+    has_b_hc = not tag.endswith("without b_hc")
+    inputs = _rnn_inputs(torch, mode, T, B, n_in, H, seed)
+    names = [n for n, t in zip(("x", "w_ih", "w_hh", "b_ih", "b_hh", "h0",
+                                "c0"), inputs) if t is not None]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ups = [torch.randn(T, B, H, device="cuda", generator=g)] + [
+        torch.randn(B, H, device="cuda", generator=g)
+        for _ in range(2 if mode == "lstm" else 1)]
+
+    def run(plain):
+        ins = {n: t.detach().requires_grad_() for n, t in
+               zip(names, [t for t in inputs if t is not None])}
+        xw, b_hc = _rnn_terms(torch, mode, ins["x"], ins["w_ih"],
+                              ins["b_ih"], ins["b_hh"], has_b_hc)
+        scan = R.rnn_scan_plain if plain else R.rnn_scan
+        outs = [o for o in scan(mode, xw, ins["h0"], ins.get("c0"),
+                                ins["w_hh"], b_hc, reverse=reverse)
+                if o is not None]
+        loss = sum((o * u).sum() for o, u in zip(outs, ups))
+        grads = torch.autograd.grad(loss, list(ins.values()))
+        return [t.detach() for t in outs + list(grads)]
+    before = (K.LAUNCHES["rnn_fwd"], K.LAUNCHES["rnn_bwd"])
+    got = run(False)
+    torch.cuda.synchronize()
+    if (K.LAUNCHES["rnn_fwd"] - before[0],
+            K.LAUNCHES["rnn_bwd"] - before[1]) != (T, T):
+        raise AssertionError(f"rnn {tag}: not one launch a step each way")
+    same = all(torch.equal(a, b) for a, b in zip(got, run(False)))
+    want = run(True)
+    n_out = len(ups)
+    keys = ["y", "h_T", "c_T"][:n_out] + [f"d{n}" for n in names]
+    errs, worst = {}, 0.0
+    for i, (key, a, b) in enumerate(zip(keys, got, want)):
+        errs[key] = float((a - b).abs().max())
+        tol = RNN_FWD_TOL if i < n_out else RNN_BWD_TOL
+        worst = max(worst, errs[key] / (tol * max(1.0, float(b.abs().max()))))
+    ok = worst <= 1.0 and same
+    print(f"  rnn {tag} [T {T}, B {B}, in {n_in}, H {H}]"
+          f"{' reverse' if reverse else ''}: max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; the worst {worst:.3g} of its tolerance (outputs "
+          f"{RNN_FWD_TOL:g}, gradients {RNN_BWD_TOL:g} of the largest plain "
+          f"value); two runs bit-equal {same} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"rnn {tag}: the kernels disagree with the "
+                             f"plain loop or with themselves")
+    return inputs, ups, errs, n_out
+
+
+def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
+              seed):
+    """``_rnn_check``; then, ``timed``, the kernels' ms by graph replay
+    (the T steps alone, and the whole layer: its input product, or its
+    weight, bias and input gradients' products) beside the bound, the
+    plain loop's ms (events; its backward autograd through the loop less
+    its forward) and cuDNN's layer on the same weights (by graph replay:
+    the forward, and the forward and backward less the training forward),
+    into ``results["rnn_fwd[tag]"]`` / ``["rnn_bwd[tag]"]``."""
+    from paddle_tpu_torch.kernels import rnn as R
+    inputs, ups, errs, n_out = _rnn_check(torch, tag, mode, T, B, n_in, H,
+                                          reverse, seed)
+    if not timed:
+        return
+    card = _card_line()
+    x, w_ih, w_hh, b_ih, b_hh, h0, c0 = inputs
+    xw, b_hc = _rnn_terms(torch, mode, x, w_ih, b_ih, b_hh)
+    gy, gh, gc_ = (ups + [None])[:3]
+    y, _, _, saved, cs = R.rnn_forward(mode, xw, h0, c0, w_hh, b_hc, reverse)
+    flat_x = x.reshape(T * B, -1)
+
+    def fwd():
+        R.rnn_forward(mode, xw, h0, c0, w_hh, b_hc, reverse)
+
+    def fwd_layer():
+        xw_, _ = _rnn_terms(torch, mode, x, w_ih, b_ih, b_hh)
+        R.rnn_forward(mode, xw_, h0, c0, w_hh, b_hc, reverse)
+
+    def bwd():
+        return R.rnn_backward(mode, gy, gh, gc_, saved, cs, h0, c0, y, w_hh,
+                              reverse)
+
+    def bwd_layer():
+        dxw, dhc, _, _ = bwd()
+        R.weight_grads(dxw, dhc, h0, y, reverse, b_hc is not None)
+        d = dxw.reshape(T * B, -1)
+        return d.t() @ flat_x, d @ w_ih, d.sum(0)
+    iters = 3 if T > 1 else 20
+    ms = {k: _graph_ms(f, iters=iters, reps=3) for k, f in (
+        ("fwd", fwd), ("fwd_layer", fwd_layer), ("bwd", bwd),
+        ("bwd_layer", bwd_layer))}
+    with torch.no_grad():
+        plain_f = _time_ms(lambda: R.rnn_scan_plain(mode, xw, h0, c0, w_hh,
+                                                    b_hc, reverse), 2)
+    # the plain backward: autograd through the loop, less its forward
+    pl = [None if t is None else t.detach().requires_grad_()
+          for t in (xw, h0, c0, w_hh, b_hc)]
+    pl_ups = [u for u in (gy, gh, gc_) if u is not None]
+
+    def plain_both():
+        outs = [o for o in R.rnn_scan_plain(mode, *pl, reverse=reverse)
+                if o is not None]
+        torch.autograd.grad(outs, [t for t in pl if t is not None], pl_ups)
+    plain_b = max(_time_ms(plain_both, 2) - plain_f, 0.0)
+    del pl
+    lib = _rnn_cudnn(torch, mode, n_in, H, w_ih, w_hh, b_ih, b_hh)
+    state = (h0[None], c0[None]) if c0 is not None else h0[None]
+    with torch.no_grad():
+        lib_diff = float((lib(x, state)[0] - y).abs().max())
+        lib_f = _graph_ms(lambda: lib(x, state), iters=iters, reps=3)
+    xl = x.detach().requires_grad_()
+    params = [xl] + list(lib.parameters())
+    # cuDNN's backward: its training forward and backward captured
+    # together, less its training forward captured alone
+    lib_ft = _graph_ms(lambda: lib(xl, state), iters=iters, reps=3)
+    lib_fb = _graph_ms(lambda: torch.autograd.grad(
+        lib(xl, state)[0], params, gy), iters=iters, reps=3)
+    lib_b = lib_fb - lib_ft
+    del lib, params, xl
+    for key, plain, library in (("fwd", plain_f, lib_f),
+                                ("bwd", plain_b, lib_b)):
+        nbytes, flops = _rnn_bytes_flops(mode, T, B, H, key == "bwd")
+        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
+        err = max(v for i, v in enumerate(errs.values())
+                  if (i < n_out) == (key == "fwd"))
+        results[f"rnn_{key}[{tag}]"] = dict(
+            max_abs_err=err, ms=ms[key], plain_ms=plain, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library,
+            layer_ms=ms[f"{key}_layer"], steps=T, us_a_step=ms[key] / T * 1e3,
+            share_of_bound=bound_ms / ms[key], mode=mode,
+            shape=dict(T=T, B=B, n_in=n_in, H=H),
+            cudnn_forward_max_abs_diff=lib_diff)
+        if key == "bwd":
+            results[f"rnn_bwd[{tag}]"].update(
+                library_fwd_bwd_ms=lib_fb, library_train_fwd_ms=lib_ft)
+        print(f"  rnn {tag} {key}: {T} step(s) {ms[key]:.4f} ms "
+              f"({ms[key] / T * 1e3:.2f} us a step; {bound_ms / ms[key]:.3f} "
+              f"of the bound {bound_ms:.4f} ms, {bound_by}); the whole layer "
+              f"{ms[f'{key}_layer']:.4f} ms; plain {plain:.3f} ms; cuDNN's "
+              f"{RNN_LIBRARY[mode]}, the whole layer "
+              f"{'(graph replay)' if key == 'fwd' else '(graph replay, fwd+bwd less its training fwd)'}"
+              f" {library:.4f} ms [{card}]", flush=True)
+    print(f"  rnn {tag}: cuDNN's training forward {lib_ft:.4f} ms, forward "
+          f"and backward {lib_fb:.4f} ms (graph replay)", flush=True)
+    print(f"  rnn {tag}: cuDNN's output against the kernel's, max abs diff "
+          f"{lib_diff:.3g}", flush=True)
+
+
+def _rnn_replay(torch):
+    """One LSTM layer's forward and backward kernels (T 50, B 128, H 512)
+    captured in a CUDA graph: the replay equal to an eager call bit for
+    bit."""
+    from paddle_tpu_torch.kernels import rnn as R
+    x, w_ih, w_hh, b_ih, b_hh, h0, c0 = _rnn_inputs(torch, "lstm", 50, 128,
+                                                    512, 512, 31)
+    xw, _ = _rnn_terms(torch, "lstm", x, w_ih, b_ih, b_hh)
+    dy = torch.randn(50, 128, 512, device="cuda")
+
+    def call():
+        y, hT, cT, saved, cs = R.rnn_forward("lstm", xw, h0, c0, w_hh)
+        return [y, hT, cT] + list(R.rnn_backward(
+            "lstm", dy, None, None, saved, cs, h0, c0, y, w_hh)[::2])
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(eager, static))
+    print(f"  rnn: one LSTM layer's forward and backward (T 50, B 128, H "
+          f"512) replayed from a CUDA graph equal to the eager call bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        raise AssertionError("rnn: the graph replay differs from the eager "
+                             "call")
+    del graph
+    return same
+
+
+def phase_rnn_kernels(torch, results):
+    """The recurrence kernels (``csrc/rnn_recurrence.cu``) against their
+    plain loop on the card, fp32, forward and backward, every mode and
+    direction, given initial states, every gradient, as ``RNN_CASES``;
+    the IWSLT'15 model's shapes timed beside their bounds, the plain loop
+    and cuDNN's layer; a graph replay bit-equal to the eager call."""
+    print(f"phase 3: the recurrence kernels against the plain loop, fp32 "
+          f"[{_card_line()}]", flush=True)
+    for i, (tag, mode, T, B, n_in, H, reverse, timed) in enumerate(RNN_CASES):
+        _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
+                  40 + i)
+    results["rnn_replay_bit_equal"] = _rnn_replay(torch)
+    torch.cuda.empty_cache()
+
+
+# -- phase 3: the recurrent layers and the decoder on the card ------------------
+
+RNN_LAYER_TOLS = (1e-5, 1e-4)   # outputs, gradients: of the largest CPU value
+# a cell under amp O2 computes in bf16: the CPU rounds each of a step's ops,
+# the card (the kernels in fp32) only the outputs; two steps differ by up to
+# 2 bf16 ulps of 1 in the outputs and 0.01 of the largest in the gradients
+RNN_O2_TOLS = (2.0 ** -6, 2.0 ** -5)
+
+
+def _rnn_layer_cases(torch, F, nn):
+    """(name, call(tensors, device), numpy inputs, indices of the inputs
+    that carry gradients, tolerances) for the layers and functionals of
+    ``nn/layer/rnn.py``, ``nn/decode.py`` and ``ops/special.py``, and the
+    three cells under ``auto_cast(level="O2")``."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    rng = np.random.default_rng(87)
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    class ScaledCell(nn.Layer):
+        """A GRU cell taking ``scale=`` through ``RNN``'s kwargs."""
+
+        def __init__(self, d):
+            super().__init__()
+            self.gru = nn.GRUCell(6, 5, device=d)
+
+        def forward(self, x, states, scale=1.0):
+            return self.gru(x * scale, states)
+
+    def lstm_cell(t, d):
+        h, (h2, c2) = nn.LSTMCell(6, 5, device=d)(t[0], (t[1], t[2]))
+        return torch.cat([h, c2], -1)
+
+    def stacked_lstm(t, d):
+        m = nn.LSTM(6, 5, num_layers=2, dropout=0.2, device=d)
+        y, (h, c) = m(t[0], (t[1], t[2]))
+        return torch.cat([y.reshape(-1), h.reshape(-1), c.reshape(-1)])
+
+    def decode(t, d, log_probs=False):
+        # the table and the Linear draw from a torch generator (its bits
+        # differ by device): made on the CPU from one seed, then moved
+        cell = nn.GRUCell(4, 6, device=d)
+        g = torch.Generator().manual_seed(90)
+        emb = nn.Embedding(9, 4, device="cpu", generator=g).to(d)
+        out = nn.Linear(6, 9, device="cpu", generator=g).to(d)
+        dec = nn.BeamSearchDecoder(cell, 1, 2, 4, embedding_fn=emb,
+                                   output_fn=out)
+        seqs, (_, lp, _), lens = nn.dynamic_decode(
+            dec, t[0], max_step_num=7, return_length=True)
+        if log_probs:
+            return lp
+        return torch.cat([seqs.reshape(-1), lens.reshape(-1)])
+
+    def o2_cell(cls):
+        # two steps in bf16, the second from the first's states
+        def call(t, d):
+            m = getattr(nn, cls)(6, 5, device=d)
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                return m(t[0], m(t[0])[1])[0]
+        return (f"{cls}[amp O2]", call, [x], [0], RNN_O2_TOLS)
+
+    x, x3 = f32(4, 6), f32(4, 7, 6)
+    h, c = f32(4, 5, scale=0.5), f32(4, 5, scale=0.5)
+    h2, c2 = f32(4, 4, 5, scale=0.5), f32(2, 4, 5, scale=0.5)
+    cases = [
+        ("SimpleRNNCell[tanh]", lambda t, d: nn.SimpleRNNCell(
+            6, 5, device=d)(t[0], t[1])[0], [x, h], [0, 1]),
+        ("SimpleRNNCell[relu]", lambda t, d: nn.SimpleRNNCell(
+            6, 5, "relu", device=d)(t[0], t[1])[0], [x, h], [0, 1]),
+        ("LSTMCell", lstm_cell, [x, h, c], [0, 1, 2]),
+        ("GRUCell[no bias]", lambda t, d: nn.GRUCell(
+            6, 5, bias_ih_attr=False, device=d)(t[0])[0], [x], [0]),
+        ("RNN[LSTMCell, reverse]", lambda t, d: nn.RNN(nn.LSTMCell(
+            6, 5, device=d), is_reverse=True)(t[0])[0], [x3], [0]),
+        ("RNN[kwargs]", lambda t, d: nn.RNN(ScaledCell(d))(
+            t[0], scale=0.5)[0], [x3], [0]),
+        ("BiRNN[GRUCell, time_major]", lambda t, d: nn.BiRNN(
+            nn.GRUCell(6, 5, device=d), nn.GRUCell(6, 5, device=d),
+            time_major=True)(t[0])[0], [x3], [0]),
+        ("SimpleRNN[relu, 2 layers, bidirect]", lambda t, d: nn.SimpleRNN(
+            6, 5, num_layers=2, direction="bidirect", activation="relu",
+            device=d)(t[0], t[1])[0], [x3, h2], [0, 1]),
+        ("LSTM[2 layers, dropout 0.2, states]", stacked_lstm,
+         [x3, c2, c2 * 0.5], [0, 1, 2]),
+        ("GRU[bidirectional, time_major]", lambda t, d: nn.GRU(
+            6, 5, direction="bidirectional", time_major=True, device=d)(
+            t[0])[0], [x3], [0]),
+        ("sequence_mask", lambda t, d: F.sequence_mask(
+            t[0], dtype="float32"), [np.array([3, 0, 7, 5])], []),
+        ("sequence_mask[maxlen]", lambda t, d: F.sequence_mask(
+            t[0], maxlen=9), [np.array([[3, 0], [7, 5]])], []),
+        ("gather_tree", lambda t, d: F.gather_tree(t[0], t[1]),
+         [rng.integers(0, 9, (5, 3, 4)), rng.integers(0, 4, (5, 3, 4))], []),
+        ("dynamic_decode[beam 4]", decode, [f32(3, 6)], []),
+        ("dynamic_decode[beam 4, log-probs]", lambda t, d: decode(
+            t, d, True), [f32(3, 6)], []),
+    ]
+    return [case + (RNN_LAYER_TOLS,) for case in cases] + [
+        o2_cell(cls) for cls in ("LSTMCell", "GRUCell", "SimpleRNNCell")]
+
+
+def phase_rnn_layers_on_card(torch):
+    """Each layer and functional of ``_rnn_layer_cases`` on CUDA tensors
+    against the same call on CPU tensors (the same seed before each, so
+    the layers draw the same parameters and the dropout the same bits):
+    outputs within 1e-5 and input gradients within 1e-4 of the largest
+    CPU value (fp32 sums in another order, over the steps; the cells under
+    amp O2 ``RNN_O2_TOLS``, in bf16); the same dtypes; integer outputs
+    (the decoder's tokens and lengths) equal."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    print(f"phase 3: the recurrent layers, sequence_mask, gather_tree and a "
+          f"beam decode on the card against the CPU (outputs "
+          f"{RNN_LAYER_TOLS[0]:g}, gradients {RNN_LAYER_TOLS[1]:g} of the "
+          f"largest CPU value; the cells under amp O2 {RNN_O2_TOLS[0]:g}, "
+          f"{RNN_O2_TOLS[1]:g})", flush=True)
+    worst, worst_o2, n = 0.0, 0.0, 0
+    for name, call, arrays, diff, tols in _rnn_layer_cases(torch, F, nn):
+        got = []
+        for dev in ("cpu", "cuda"):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_(i in diff)
+                  for i, a in enumerate(arrays)]
+            ptt.seed(88)
+            out = call(ts, dev)
+            grads = []
+            if diff:
+                ct = torch.from_numpy(np.asarray(
+                    np.random.default_rng(89).standard_normal(
+                        tuple(out.shape)), np.float32)).to(dev)
+                grads = torch.autograd.grad((out.float() * ct).sum(),
+                                            [ts[i] for i in diff])
+            got.append([t.detach().cpu() for t in (out, *grads)])
+        for i, (a, b) in enumerate(zip(got[1], got[0])):
+            if a.dtype != b.dtype:
+                err = float("inf")
+            elif not a.is_floating_point() or name.startswith(
+                    ("sequence_mask", "gather_tree")):
+                err = 0.0 if torch.equal(a, b) else float("inf")
+            else:
+                err = float((a.float() - b.float()).abs().max()) / max(
+                    1.0, float(b.float().abs().max())) / tols[min(i, 1)]
+            if tols is RNN_O2_TOLS:
+                worst_o2 = max(worst_o2, err)
+            else:
+                worst = max(worst, err)
+            if not err <= 1.0:
+                raise AssertionError(f"{name}: the card's result differs "
+                                     f"from the CPU's ({err} of the "
+                                     f"tolerance; dtypes {a.dtype}, "
+                                     f"{b.dtype})")
+        n += 1
+    print(f"  {n} calls, outputs and gradients: the worst at {worst:.3g} of "
+          f"its tolerance (the cells under amp O2 {worst_o2:.3g}) ok "
+          f"[{_card_line()}]", flush=True)
+    return dict(calls=n, worst_share=worst, worst_share_o2=worst_o2)
+
+
+# -- phase 18: attention LSTM translation, IWSLT'15 English-Vietnamese --------
+
+S2S_SRC_VOCAB = 17191   # tensorflow/nmt's iwslt15 vocab.en (PaddleNLP's)
+S2S_TRG_VOCAB = 7709    # vocab.vi
+S2S_D = 512             # embedding and hidden width
+S2S_LAYERS = 2
+S2S_DROPOUT = 0.2
+S2S_BATCH = 128
+S2S_LEN = 50            # lengths drawn in [10, 50], padded to 50
+S2S_BEAM = 10
+PAD, BOS, EOS = 0, 1, 2
+
+
+def _seq2seq_model(torch, seed, device="cuda", src_vocab=S2S_SRC_VOCAB,
+                   trg_vocab=S2S_TRG_VOCAB, d=S2S_D, layers=S2S_LAYERS,
+                   dropout=S2S_DROPOUT, init_scale=0.1):
+    """The attention-based LSTM translation model of PaddleNLP's
+    ``examples/machine_translation/seq2seq`` (tensorflow/nmt's iwslt15
+    setting), from the port's layers: the source embedding and
+    ``nn.LSTM(d, d, num_layers=layers, dropout=dropout)``; the decoder
+    ``nn.RNN`` over a cell of ``layers`` ``nn.LSTMCell``s with input
+    feeding (the first takes the embedding and the previous attention
+    output, 2 d), dropout after each, and Luong attention (``input_proj``
+    and ``output_proj`` without bias, an additive -1e9 padding mask, a
+    softmax); the output layer ``Linear(d, trg_vocab)`` without bias.
+    Every parameter uniform in ±``init_scale``. Id 0 pads (the tables'
+    ``padding_idx``), 1 starts and 2 ends a sentence. The cell takes the
+    encoder's output and mask as ``RNN``'s kwargs, or holds them in
+    ``memory`` (beam search: ``dynamic_decode`` passes no kwargs)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    class Attention(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_proj = nn.Linear(d, d, bias_attr=False, device=device)
+            self.output_proj = nn.Linear(2 * d, d, bias_attr=False,
+                                         device=device)
+
+        def forward(self, hidden, encoder_output, padding_mask):
+            mem = self.input_proj(encoder_output)
+            scores = torch.matmul(hidden.unsqueeze(1), mem.transpose(1, 2))
+            probs = F.softmax(scores + padding_mask, axis=-1)
+            ctx = torch.matmul(probs, mem).squeeze(1)
+            return self.output_proj(torch.cat([ctx, hidden], 1))
+
+    class DecoderCell(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.dropout = nn.Dropout(dropout)
+            self.lstm_cells = nn.LayerList([
+                nn.LSTMCell(2 * d if i == 0 else d, d, device=device)
+                for i in range(layers)])
+            self.attention_layer = Attention()
+            self.memory = None
+
+        def forward(self, step_input, states, encoder_output=None,
+                    encoder_padding_mask=None):
+            if encoder_output is None:
+                encoder_output, encoder_padding_mask = self.memory
+            lstm_states, input_feed = states
+            step_input = torch.cat([step_input, input_feed], 1)
+            new_states = []
+            for i, cell in enumerate(self.lstm_cells):
+                out, new = cell(step_input, lstm_states[i])
+                step_input = self.dropout(out)
+                new_states.append(new)
+            out = self.attention_layer(step_input, encoder_output,
+                                       encoder_padding_mask)
+            return out, [new_states, out]
+
+    class Seq2SeqAttn(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedder = nn.Embedding(src_vocab, d, padding_idx=PAD,
+                                             device=device)
+            self.encoder = nn.LSTM(d, d, num_layers=layers, dropout=dropout,
+                                   device=device)
+            self.trg_embedder = nn.Embedding(trg_vocab, d, padding_idx=PAD,
+                                             device=device)
+            self.decoder = nn.RNN(DecoderCell())
+            self.output_layer = nn.Linear(d, trg_vocab, bias_attr=False,
+                                          device=device)
+
+        def encode(self, src):
+            """(the encoder's output, the decoder's initial states, the
+            additive padding mask [B, 1, S])."""
+            out, (h, c) = self.encoder(self.src_embedder(src))
+            states = [[(h[i], c[i]) for i in range(layers)],
+                      torch.zeros(src.shape[0], d, device=src.device)]
+            mask = ((src != PAD).float() - 1.0) * 1e9
+            return out, states, mask.unsqueeze(1)
+
+        def forward(self, src, trg):
+            enc, states, mask = self.encode(src)
+            dec, _ = self.decoder(self.trg_embedder(trg), states,
+                                  encoder_output=enc,
+                                  encoder_padding_mask=mask)
+            return self.output_layer(dec)
+    ptt.seed(seed)
+    model = Seq2SeqAttn()
+    init = nn.initializer.Uniform(-init_scale, init_scale)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(init(tuple(p.shape), p.dtype, p.device))
+    return model
+
+
+def _seq2seq_batch(torch, seed, b=S2S_BATCH, s=S2S_LEN, src_vocab=S2S_SRC_VOCAB,
+                   trg_vocab=S2S_TRG_VOCAB, lo=10, device="cuda"):
+    """(src, trg_in, labels, trg_len) on ``device``: lengths in [lo, s]
+    from ``seed``, ids in [3, vocab), PAD past the length; the decoder's
+    input is BOS then the target's first len - 1 tokens, its labels the
+    target's len tokens ending in EOS; trg_len int64."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ls, lt = rng.integers(lo, s + 1, b), rng.integers(lo, s + 1, b)
+    pos = np.arange(s)[None, :]
+    src = np.where(pos < ls[:, None], rng.integers(3, src_vocab, (b, s)), PAD)
+    words = rng.integers(3, trg_vocab, (b, s))
+    labels = np.where(pos < lt[:, None] - 1, words,
+                      np.where(pos == lt[:, None] - 1, EOS, PAD))
+    trg_in = np.where(pos < lt[:, None],
+                      np.concatenate([np.full((b, 1), BOS), words[:, :-1]],
+                                     1), PAD)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (src, trg_in, labels, lt))
+
+
+def _seq2seq_loss(m, src, trg, labels, trg_len):
+    """PaddleNLP's ``CrossEntropyCriterion``: the token cross entropy
+    masked by ``sequence_mask(trg_len, maxlen)`` (maxlen given: no host
+    read in the captured step), the batch mean at each position summed
+    over time."""
+    from paddle_tpu_torch.nn import functional as F
+    logits = m(src, trg)
+    cost = F.cross_entropy(logits, labels, reduction="none")
+    mask = F.sequence_mask(trg_len, maxlen=trg.shape[1], dtype="float32")
+    return (cost * mask).mean(0).sum()
+
+
+def _seq2seq_opt(model, lr=1e-3):
+    """Adam(1e-3) with ``ClipGradByGlobalNorm(5.0)``, PaddleNLP's."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Adam
+    return Adam(learning_rate=lr, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(5.0))
+
+
+def _seq2seq_per_step(s=S2S_LEN, layers=S2S_LAYERS):
+    """Launches a training step: the recurrence one a time step of each
+    encoder layer and one a decoder cell call, each way; dropout between
+    the encoder's layers and after each decoder cell, each way; AdamW
+    once. The attention is matmuls and a softmax: nothing dense."""
+    from paddle_tpu_torch import kernels as K
+    per = {n: 0 for n in K.LAUNCHES}
+    rec = 2 * layers * s
+    drops = (layers - 1) + layers * s
+    per.update(rnn_fwd=rec, rnn_bwd=rec, dropout=2 * drops, adamw=1)
+    return per
+
+
+def _seq2seq_flops(torch, model, batch):
+    """The products of one forward, counted by hooks: every Linear (2 x
+    out x in an output row), every LSTMCell call (2 B (in + H) 4 H), the
+    LSTM's layers (2 T B (in + H) 4 H each), both attention products of
+    each decoder step (4 B S d)."""
+    from paddle_tpu_torch import nn
+    count = [0]
+
+    def linear(m, inp, out):
+        count[0] += 2 * out.numel() * m.weight.shape[0]
+
+    def cell(m, inp, out):
+        count[0] += 2 * inp[0].shape[0] * (m.input_size + m.hidden_size) \
+            * m.weight_ih.shape[0]
+
+    def lstm(m, inp, out):
+        T, B = inp[0].shape[1], inp[0].shape[0]
+        for wi, wh, _, _ in m._weights:
+            count[0] += 2 * T * B * (wi.shape[1] + wh.shape[1]) * wh.shape[0]
+
+    def attention(m, inp, out):
+        count[0] += 4 * inp[1].shape[0] * inp[1].shape[1] * inp[1].shape[2]
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            hooks.append(mod.register_forward_hook(linear))
+        elif isinstance(mod, nn.LSTMCell):
+            hooks.append(mod.register_forward_hook(cell))
+        elif isinstance(mod, nn.LSTM):
+            hooks.append(mod.register_forward_hook(lstm))
+        elif type(mod).__name__ == "Attention":
+            hooks.append(mod.register_forward_hook(attention))
+    try:
+        with torch.no_grad():
+            _seq2seq_loss(model, *batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return count[0]
+
+
+def _seq2seq_decoder(model, beam):
+    from paddle_tpu_torch import nn
+    return nn.BeamSearchDecoder(model.decoder.cell, BOS, EOS, beam,
+                                embedding_fn=model.trg_embedder,
+                                output_fn=model.output_layer)
+
+
+def _seq2seq_decode(torch, model, src, beam, max_steps):
+    """Beam search as PaddleNLP's ``Seq2SeqAttnInferModel`` runs it, on the
+    port's decoder: encode, tile the encoder's output and mask by
+    ``tile_beam_merge_with_batch`` into the cell's ``memory``, then
+    ``dynamic_decode``. Returns (sequences [B, beam, T], lengths)."""
+    from paddle_tpu_torch import nn
+    enc, states, mask = model.encode(src)
+    tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+    model.decoder.cell.memory = (tile(enc, beam), tile(mask, beam))
+    try:
+        seqs, _, lens = nn.dynamic_decode(_seq2seq_decoder(model, beam),
+                                          inits=states, max_step_num=max_steps,
+                                          return_length=True)
+    finally:
+        model.decoder.cell.memory = None
+    return seqs, lens
+
+
+def _seq2seq_greedy(torch, model, src, steps):
+    """The greedy chain by hand: each step's argmax fed back, a finished
+    sentence held at EOS; [B, steps]."""
+    enc, states, mask = model.encode(src)
+    cell = model.decoder.cell
+    tok = torch.full((src.shape[0],), BOS, dtype=torch.int64,
+                     device=src.device)
+    done = torch.zeros_like(tok, dtype=torch.bool)
+    out = []
+    for _ in range(steps):
+        h, states = cell(model.trg_embedder(tok), states, enc, mask)
+        nxt = model.output_layer(h).argmax(-1)
+        tok = torch.where(done, torch.full_like(nxt, EOS), nxt)
+        done = done | (tok == EOS)
+        out.append(tok)
+    return torch.stack(out, 1)
+
+
+def _seq2seq_tiny(torch, seed, device, dropout=0.2):
+    return _seq2seq_model(torch, seed, device, src_vocab=23, trg_vocab=19,
+                          d=16, dropout=dropout)
+
+
+def _seq2seq_tiny_on_card(torch):
+    """(c): the model at hidden 16, vocabularies 23 / 19, dropout 0.2, on
+    [4, 7] pairs, trained 3 steps on the card against the CPU trainer
+    (``_tiny_on_card``; Momentum at 1e-3, as phase 17's: Adam turns the
+    rounding noise of a gradient that is nearly 0 into a whole step); (d)
+    its beam search at beam 1 equal to the greedy chain by hand, and at
+    beam 4 on the card equal to the CPU's."""
+    from paddle_tpu_torch.optimizer import Momentum
+    batch = tuple(t.cpu() for t in _seq2seq_batch(
+        torch, 181, b=4, s=7, src_vocab=23, trg_vocab=19, lo=3,
+        device="cpu"))
+    out = _tiny_on_card(
+        torch, "phase 18 (c)", lambda dv: _seq2seq_tiny(torch, 182, dv),
+        lambda m: Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=m.parameters()),
+        _seq2seq_loss, batch, 1e-3, seed=183)
+    model = _seq2seq_tiny(torch, 184, "cuda")
+    model.eval()
+    src = batch[0].cuda()
+    with torch.no_grad():
+        seqs, _ = _seq2seq_decode(torch, model, src, 1, 7)
+        greedy = _seq2seq_greedy(torch, model, src, seqs.shape[-1])
+        beams = [_seq2seq_decode(torch, m, src.to(m.output_layer.weight
+                                                  .device), 4, 7)
+                 for m in (model, _seq2seq_cpu_copy(torch, model))]
+    same_greedy = bool(torch.equal(seqs[:, 0].long(), greedy))
+    same_beams = all(torch.equal(a.cpu(), b.cpu())
+                     for a, b in zip(beams[0], beams[1]))
+    print(f"  phase 18 (d) tiny: beam 1 equal to the greedy chain by hand "
+          f"{same_greedy} ({tuple(seqs.shape)}); beam 4 on the card equal "
+          f"to the CPU's (sequences and lengths) {same_beams}", flush=True)
+    if not (same_greedy and same_beams):
+        raise AssertionError("phase 18 (d): the beam search disagrees")
+    out.update(greedy_equal=same_greedy, beams_card_equal_cpu=same_beams)
+    return out
+
+
+def _seq2seq_cpu_copy(torch, model):
+    """The tiny model again on the CPU, with ``model``'s weights."""
+    from paddle_tpu_torch.models import load_numpy_state
+    cpu = _seq2seq_tiny(torch, 184, "cpu")
+    load_numpy_state(cpu, {k: v.cpu().numpy()
+                           for k, v in model.state_dict().items()})
+    cpu.eval()
+    return cpu
+
+
+def _seq2seq_beam_search(torch, model, src, card):
+    """(e): beam search at beam 10 over the batch (eval), at most 50 steps,
+    twice: as built, and with the output layer's EOS column at 0 (with
+    random weights a finished beam keeps its log-probability while every
+    extension loses about ln 7709 a step, so all beams end within a few
+    steps; an EOS logit of 0, about the median, keeps all 50 steps). Each
+    launches exactly 2 ``rnn_fwd`` a step (the decoder's two cells) besides
+    the encoder's 100 and nothing else of the port, sequences [128, 10, T];
+    ms a beam step and for the whole decode (host clock, after a
+    warm-up)."""
+    from paddle_tpu_torch import kernels as K
+    model.eval()
+    out = {}
+    w = model.output_layer.weight
+    held = w[:, EOS].clone()
+    with torch.no_grad():
+        _seq2seq_decode(torch, model, src, S2S_BEAM, 3)
+        for tag in ("as built", "EOS logit 0"):
+            if tag != "as built":
+                w[:, EOS] = 0.0
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.monotonic()
+            model.encode(src)
+            torch.cuda.synchronize()
+            enc_ms = 1e3 * (time.monotonic() - t0)
+            enc_fwd = K.LAUNCHES["rnn_fwd"]
+            K.reset_launches()
+            t0 = time.monotonic()
+            seqs, lens = _seq2seq_decode(torch, model, src, S2S_BEAM,
+                                         S2S_LEN)
+            torch.cuda.synchronize()
+            total_ms = 1e3 * (time.monotonic() - t0)
+            launches = dict(K.LAUNCHES)
+            steps = seqs.shape[-1]
+            want = {k: 0 for k in K.LAUNCHES}
+            want["rnn_fwd"] = enc_fwd + 2 * steps
+            ok = (launches == want and enc_fwd == S2S_LAYERS * S2S_LEN
+                  and tuple(seqs.shape[:2]) == (S2S_BATCH, S2S_BEAM))
+            step_ms = (total_ms - enc_ms) / steps
+            print(f"  phase 18 (e) beam search ({tag}), beam {S2S_BEAM}, "
+                  f"batch {S2S_BATCH}: sequences {tuple(seqs.shape)}, lengths "
+                  f"{int(lens.min())} to {int(lens.max())}; launches "
+                  f"{({k: v for k, v in launches.items() if v})} (want "
+                  f"rnn_fwd {enc_fwd} for the encoder + 2 a step over {steps}"
+                  f" steps) {'ok' if ok else 'FAIL'}; the decode "
+                  f"{total_ms:.1f} ms ({step_ms:.3f} ms a beam step; the "
+                  f"encoder {enc_ms:.2f} ms) [{card}]", flush=True)
+            if not ok:
+                raise AssertionError(f"phase 18 (e): launches {launches} or "
+                                     f"shape {tuple(seqs.shape)}")
+            out[tag] = dict(shape=list(seqs.shape), steps=steps,
+                            total_ms=total_ms, beam_step_ms=step_ms,
+                            encoder_ms=enc_ms,
+                            launches={k: v for k, v in launches.items()
+                                      if v})
+        w[:, EOS] = held
+    model.train()
+    return out
+
+
+def phase_seq2seq(torch, args, launches_out):
+    """Attention-based LSTM translation on IWSLT'15 English-Vietnamese at
+    full width, as PaddleNLP's ``examples/machine_translation/seq2seq``
+    builds it (``_seq2seq_model``: vocabularies 17,191 / 7,709, width 512,
+    2 layers, dropout 0.2, uniform ±0.1), Adam(1e-3) with global-norm
+    clipping at 5, fp32; 128 pairs of 10-50 tokens a side padded to 50,
+    seeded. (a) the step captured: 2 warm-up and 3 timed steps with exact
+    launch counts (rnn_fwd 200, rnn_bwd 200, dropout, AdamW; nothing on a
+    dense attention), step ms, tokens/s, MFU, peak memory, a profile by
+    kernel group; (b) 3 replayed steps against 3 eager ones, bit-equal;
+    (c) a tiny float32 model on the card against the CPU trainer; (d) its
+    beam 1 against the greedy chain, its beam 4 against the CPU's; (e)
+    beam search at beam 10 over the batch."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    card = _card_line()
+    print(f"phase 18: attention LSTM translation, IWSLT'15 En-Vi (vocab "
+          f"{S2S_SRC_VOCAB} / {S2S_TRG_VOCAB}, width {S2S_D}, {S2S_LAYERS} "
+          f"layers, dropout {S2S_DROPOUT}), batch {S2S_BATCH} pairs padded "
+          f"to {S2S_LEN}, fp32, Adam with global-norm clip 5, seed "
+          f"{args.seed} [{card}]", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = _seq2seq_model(torch, args.seed + 180)
+    trainer = SpmdTrainer(model, _seq2seq_opt(model), _seq2seq_loss)
+    batch = _seq2seq_batch(torch, args.seed + 181)
+    ptt.seed(args.seed + 182)
+    tokens = int((batch[0] != PAD).sum() + (batch[1] != PAD).sum())
+    flops = 3 * _seq2seq_flops(torch, model, batch)
+    losses, step_ms, launches = _timed_steps(torch, trainer, batch,
+                                             n_warm=2, n=3)
+    per = _seq2seq_per_step()
+    expect = {k: 3 * v for k, v in per.items()}
+    print(f"  phase 18 (a): launches over 3 steps "
+          f"{({k: v for k, v in launches.items() if v})} (expected rnn_fwd "
+          f"{3 * per['rnn_fwd']}, rnn_bwd {3 * per['rnn_bwd']}, dropout "
+          f"{3 * per['dropout']}, adamw 3; no sdpa call)", flush=True)
+    if launches != expect:
+        raise AssertionError(f"phase 18 (a): launch counts {launches} != "
+                             f"{expect}")
+    for k, v in launches.items():
+        launches_out[k] = launches_out.get(k, 0) + v
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 18 (a): losses not finite: {losses}")
+    graph = _graph_line(trainer, "phase 18 (a)", card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    checked = {("rnn_fwd",): lambda n: "rnn_fwd_kernel" in n,
+               ("rnn_bwd",): lambda n: "rnn_bwd_kernel" in n,
+               ("adamw",): lambda n: "adamw_kernel" in n}
+    prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1, checked)
+    prof.export_chrome_trace(os.path.join(args.out, "seq2seq_step_trace.json"))
+    del prof
+    out = dict(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               tokens_a_step=tokens, flops_per_step=flops,
+               mfu_vs_989_tflops=flops / (step_ms / 1e3) / BF16_FLOPS,
+               share_of_fp32_peak=flops / (step_ms / 1e3) / FP32_FLOPS,
+               peak_memory_gb=peak, peak_memory_of_phase_gb=peak - held / 1e9,
+               losses=losses, graph=graph, breakdown=m,
+               idle_share_untraced=1 - m["device_ms"] / step_ms,
+               launches_a_step={k: v for k, v in per.items() if v},
+               card=card)
+    print(f"  phase 18 (a): step {step_ms:.3f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s ({tokens} source and target tokens a step, padding "
+          f"excluded), MFU {out['mfu_vs_989_tflops']:.4f} against the bf16 "
+          f"peak ({out['share_of_fp32_peak']:.4f} of the fp32 peak; "
+          f"{flops / 1e12:.3f} TFLOP a step), peak {peak:.2f} GB; "
+          f"{_breakdown_line(m)}; idle share against the untraced step "
+          f"{out['idle_share_untraced']:.4f}; losses {losses} [{card}]",
+          flush=True)
+    _print_other(m, "phase 18 (a)")
+    out["eager"] = _captured_against_eager(torch, trainer, batch,
+                                           "phase 18 (b)", card, step_ms, m,
+                                           checked=checked)
+    _drop_trainer(torch, trainer)
+    out["beam_search"] = _seq2seq_beam_search(torch, model, batch[0], card)
+    for run in out["beam_search"].values():
+        for k, v in run["launches"].items():
+            launches_out[k] = launches_out.get(k, 0) + v
+    del trainer, model, batch
+    _free(torch)
+    out["tiny_f32_vs_cpu"] = _seq2seq_tiny_on_card(torch)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -8430,6 +9355,7 @@ def main(argv=None):
     _build.library("weight_only_gemm")
     _build.library("ctc_loss")
     _build.library("rnnt_loss")
+    _build.library("rnn_recurrence")
     print(f"phase 2: nvcc {nvcc_s:.2f}s, triton compile "
           f"{time.monotonic() - t1:.2f}s", flush=True)
     sass = _wgmma_sass(built)
@@ -8470,6 +9396,9 @@ def main(argv=None):
           torch, results)
     new_layers = timed("phase 3 new layers on the card",
                        phase_new_layers_on_card, torch)
+    timed("phase 3 recurrence kernels", phase_rnn_kernels, torch, results)
+    rnn_layers = timed("phase 3 recurrent layers on the card",
+                       phase_rnn_layers_on_card, torch)
     serve_launches, train_launches, gpt_launches = {}, {}, {}
     packed_launches, beam_launches, artifact_launches = {}, {}, {}
     serving = timed("phase 4 serving", phase_serving, torch, args,
@@ -8509,6 +9438,9 @@ def main(argv=None):
     transformer = timed("phase 17 Transformer-base",
                         phase_transformer_base, torch, args,
                         transformer_launches)
+    seq2seq_launches = {}
+    seq2seq = timed("phase 18 seq2seq", phase_seq2seq, torch, args,
+                    seq2seq_launches)
 
     replaces = {
         "ragged_attention": ("cuda",
@@ -8591,6 +9523,12 @@ def main(argv=None):
         "dense_softmax_bwd": ("triton",
                               "paddle_tpu_torch/kernels/dense_attention.py",
                               "paddle_tpu/nn/functional/attention.py:20"),
+        # no Pallas kernel: the scan over the RNN step XLA compiles into a
+        # loop on the device
+        "rnn_fwd": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
+                    "paddle_tpu/nn/layer/rnn.py:281"),
+        "rnn_bwd": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
+                    "paddle_tpu/nn/layer/rnn.py:281"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
@@ -8602,7 +9540,7 @@ def main(argv=None):
             gpt_serve_launches, quant_launches, spec_launches, beam_launches,
             artifact_launches, surface_launches, ernie_launches,
             unet_launches, resnet_launches, seq_launches,
-            transformer_launches)
+            transformer_launches, seq2seq_launches)
     main_runs = {k: sum(r.get(k, 0) for r in runs)
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
@@ -8614,7 +9552,9 @@ def main(argv=None):
                          "weight_only_gemm[llama_qkvo int8 M=256]",
                      "dense_softmax": f"dense_softmax[{DENSE_KERNEL}]",
                      "dense_softmax_bwd":
-                         f"dense_softmax_bwd[{DENSE_KERNEL}]"}
+                         f"dense_softmax_bwd[{DENSE_KERNEL}]",
+                     "rnn_fwd": f"rnn_fwd[{RNN_MAIN}]",
+                     "rnn_bwd": f"rnn_bwd[{RNN_MAIN}]"}
                     .get(name, name)]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=tpu, launches=main_runs[name],
@@ -8632,6 +9572,7 @@ def main(argv=None):
                    "unet": unet, "resnet50": resnet,
                    "seq_loss_training": seq, "new_layers": new_layers,
                    "transformer_base": transformer,
+                   "rnn_layers": rnn_layers, "seq2seq": seq2seq,
                    "seconds": seconds,
                    "launches": {"serving": serve_launches,
                                 "serving_llama2_13b": serve13_launches,
@@ -8648,7 +9589,8 @@ def main(argv=None):
                                 "unet": unet_launches,
                                 "resnet50": resnet_launches,
                                 "seq_loss_training": seq_launches,
-                                "transformer_base": transformer_launches}},
+                                "transformer_base": transformer_launches,
+                                "seq2seq": seq2seq_launches}},
                   f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

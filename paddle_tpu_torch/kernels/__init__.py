@@ -50,6 +50,13 @@ kernels a call each: a pass over the rows and the recursion,
 ``kernels/seq_loss.py``). No TPU kernel either: XLA compiles the JAX
 package's scans into loops on the device.
 
+``rnn_fwd`` and ``rnn_bwd`` count the launches of the recurrence's
+forward and backward kernels (``kernels/rnn.py``, ``csrc/rnn_recurrence.cu``):
+one a time step, so a layer and direction over T steps adds T, a cell
+call one. Every SimpleRNN, LSTM, GRU and cell on the card goes through
+them. No TPU kernel either: XLA compiles the JAX package's scan over the
+step into a loop on the device.
+
 ``dense_softmax`` and ``dense_softmax_bwd`` count the calls of the dense
 attention's middle (the scale, the masks, the fp32 softmax and the
 probabilities' dropout: ``kernels/dense_attention.py``, one Triton kernel
@@ -87,6 +94,7 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "group_norm": 0, "group_norm_bwd": 0, "batch_norm": 0,
             "batch_norm_bwd": 0, "ctc_fwd": 0, "ctc_bwd": 0, "rnnt_fwd": 0,
             "rnnt_bwd": 0, "dense_softmax": 0, "dense_softmax_bwd": 0,
+            "rnn_fwd": 0, "rnn_bwd": 0,
             "sdpa_plain": 0,
             "sdpa_dense": 0, "ragged_plain": 0}
 

@@ -29,7 +29,8 @@ Re-exported at the end: every function of ``loss.py``
 (``functional_loss.py``: ``cross_entropy`` with every argument, CTC and
 RNN-T on the CUDA kernels of ``kernels/seq_loss.py``) and the rest of
 ``common.py`` (``functional_common.py``: ``interpolate`` in every mode,
-``pad``, the shuffles, ...).
+``pad``, the shuffles, ...) and ``sequence_mask`` and ``gather_tree``
+(``ops/special.py``).
 """
 from __future__ import annotations
 
@@ -1032,6 +1033,7 @@ from . import functional_common as _common  # noqa: E402
 from . import functional_loss as _loss  # noqa: E402
 from .functional_common import *  # noqa: E402,F401,F403
 from .functional_loss import *  # noqa: E402,F401,F403
+from ..ops.special import gather_tree, sequence_mask  # noqa: E402,F401
 
 __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "flash_attention", "flash_attn_unpadded", "sdp_kernel",
@@ -1047,5 +1049,6 @@ __all__ = ["scaled_dot_product_attention", "flashmask_attention",
            "hardshrink", "softshrink", "tanhshrink", "hardtanh",
            "hardsigmoid", "hardswish", "mish", "softplus", "softsign",
            "thresholded_relu", "log_sigmoid", "maxout", "softmax",
-           "softmax_", "log_softmax", "gumbel_softmax", "glu"] \
+           "softmax_", "log_softmax", "gumbel_softmax", "glu",
+           "sequence_mask", "gather_tree"] \
     + list(_common.__all__) + list(_loss.__all__)

@@ -25,7 +25,6 @@ import paddle_tpu_torch.optimizer as popt
 from paddle_tpu_torch.nn import functional as F
 
 CONV_POOL_VISION = "Queue 1 item 2b (convolutions, pools, vision.py)"
-RNN = "Queue 1 item 2d (rnn.py, decode.py)"
 
 WAITING_NN = {
     **{n: CONV_POOL_VISION for n in (
@@ -35,10 +34,6 @@ WAITING_NN = {
         "Conv3D", "Conv3DTranspose", "FractionalMaxPool2D",
         "FractionalMaxPool3D", "LPPool1D", "LPPool2D", "MaxPool1D",
         "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D")},
-    **{n: RNN for n in (
-        "BeamSearchDecoder", "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell",
-        "RNN", "RNNCellBase", "SimpleRNN", "SimpleRNNCell",
-        "dynamic_decode")},
 }
 
 WAITING_FUNCTIONAL = {
@@ -50,7 +45,6 @@ WAITING_FUNCTIONAL = {
         "fractional_max_pool2d", "fractional_max_pool3d", "grid_sample",
         "lp_pool1d", "lp_pool2d", "max_pool1d", "max_pool3d",
         "max_unpool1d", "max_unpool2d", "max_unpool3d", "temporal_shift")},
-    **{n: RNN for n in ("gather_tree", "sequence_mask")},
 }
 
 
@@ -71,9 +65,18 @@ def test_missing_names_are_the_waiting_list(jax_mod, port_mod, waiting):
 
 @pytest.mark.parametrize("name", ["MultiHeadAttention", "Transformer",
                                   "TransformerEncoderLayer",
-                                  "TransformerDecoder"])
+                                  "TransformerDecoder", "LSTM", "GRU",
+                                  "SimpleRNN", "LSTMCell", "GRUCell",
+                                  "SimpleRNNCell", "RNN", "BiRNN",
+                                  "RNNCellBase", "BeamSearchDecoder",
+                                  "dynamic_decode"])
 def test_this_slices_layers_are_in_nn(name):
     assert name in pnn.__all__ and hasattr(pnn, name)
+
+
+@pytest.mark.parametrize("name", ["sequence_mask", "gather_tree"])
+def test_the_seq2seq_functionals_are_in_nn_functional(name):
+    assert name in F.__all__ and hasattr(F, name)
 
 
 @pytest.mark.parametrize("name,args", [

@@ -41,7 +41,11 @@ largest (at least two bf16 ulps in bf16), the running statistics within
 2e-5, a bf16 norm added to an fp32 residual within one bf16 ulp of the
 norm's largest value; the fused residual add
 and ReLU bit-equal to the unfused kernel followed by PyTorch's add and
-ReLU, and a graph replay bit-equal to an eager call.
+ReLU, and a graph replay bit-equal to an eager call. The recurrence
+(every mode, both directions, a cell step and a sequence): outputs within
+1e-5 and gradients within 1e-4 of the largest plain value (fp32 sums in
+another order, over the steps), two calls and a graph replay bit-equal;
+a beam decode's tokens and lengths equal to the CPU's.
 """
 import numpy as np
 import pytest
@@ -3174,3 +3178,219 @@ def test_sparse_attention_twice_on_the_card_is_bit_equal(dev):
     for a, c in zip(runs[1], runs[0]):
         torch.testing.assert_close(a.cpu(), c, rtol=0,
                                    atol=1e-5 * float(c.abs().max()))
+
+
+# -- the recurrence (kernels/rnn.py, csrc/rnn_recurrence.cu) ------------------
+
+_RNN_SHAPES = [(1, 5, 24, 40), (7, 37, 24, 40), (4, 130, 64, 96)]
+
+
+def _rnn_case(mode, T, B, n_in, H, dev, seed=0):
+    """(xw, h0, c0, W_hh, b_hc) on ``dev`` from ``seed``."""
+    from paddle_tpu_torch.kernels import rnn as R
+    g = torch.Generator().manual_seed(seed)
+    G = R.GATES[mode]
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * H ** -0.5).to(dev)
+    xw = torch.randn(T, B, G * H, generator=g).to(dev)
+    h0 = (torch.randn(B, H, generator=g) * 0.5).to(dev)
+    c0 = (torch.randn(B, H, generator=g) * 0.5).to(dev) \
+        if mode == "lstm" else None
+    return xw, h0, c0, u(G * H, H), (u(H) if mode == "gru" else None)
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", _RNN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rnn_kernels_match_plain(dev, mode, reverse, shape):
+    """The kernels (through ``rnn_scan``'s Function) against torch's
+    autograd through the plain loop on the card: every output and the
+    gradients of xw, h0, c0, W_hh and b_hc; one launch a step each way;
+    two calls bit-equal."""
+    from paddle_tpu_torch.kernels import rnn as R
+    T = shape[0]
+    case = _rnn_case(mode, *shape, dev)
+
+    def run(fn):
+        args = [None if t is None else t.clone().requires_grad_()
+                for t in case]
+        outs = [o for o in fn(mode, *args, reverse=reverse) if o is not None]
+        cots = [torch.randn(o.shape, generator=torch.Generator(
+            device=dev).manual_seed(i), device=dev)
+            for i, o in enumerate(outs)]
+        leaves = [t for t in args if t is not None]
+        return [o.detach() for o in outs] + list(torch.autograd.grad(
+            outs, leaves, cots))
+    before = (K.LAUNCHES["rnn_fwd"], K.LAUNCHES["rnn_bwd"])
+    got = run(R.rnn_scan)
+    assert (K.LAUNCHES["rnn_fwd"] - before[0],
+            K.LAUNCHES["rnn_bwd"] - before[1]) == (T, T)
+    again = run(R.rnn_scan)
+    want = run(R.rnn_scan_plain)
+    n_out = 3 if mode == "lstm" else 2
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b)
+        tol = 1e-5 if i < n_out else 1e-4
+        assert float((a - w).abs().max()) <= tol * max(1.0, float(
+            w.abs().max())), i
+
+
+def test_rnn_kernels_replay_from_a_graph(dev):
+    """Forward and backward of one LSTM and one GRU layer captured in a
+    CUDA graph: the replay equal to an eager call bit for bit."""
+    from paddle_tpu_torch.kernels import rnn as R
+    for mode in ("lstm", "gru"):
+        xw, h0, c0, w, b = _rnn_case(mode, 6, 40, 0, 64, dev, 3)
+        dy = torch.randn(6, 40, 64, device=dev)
+
+        def call():
+            y, hT, cT, saved, cs = R.rnn_forward(mode, xw, h0, c0, w, b)
+            dxw, dhc, dh0, dc0 = R.rnn_backward(mode, dy, None, None, saved,
+                                                cs, h0, c0, y, w)
+            return [t for t in (y, hT, cT, dxw, dhc, dh0, dc0)
+                    if t is not None]
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, static)), mode
+
+
+def test_rnn_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels import rnn as R
+    xw, h0, _, w, _ = _rnn_case("gru", 2, 3, 0, 8, dev)
+    with pytest.raises(TypeError):
+        R.rnn_forward("gru", xw.double(), h0.double(), None, w.double())
+    with pytest.raises(ValueError):
+        R.rnn_forward("gru", xw, h0.cpu(), None, w)
+
+
+@pytest.mark.parametrize("cls", ["LSTM", "GRU", "SimpleRNN"])
+def test_stacked_layers_on_the_card_equal_the_cpu(dev, cls):
+    """A 2-layer bidirectional layer built from one framework seed on
+    each device: outputs and the input's gradient within 1e-5 / 1e-4 of
+    the largest CPU value."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    x = torch.randn(5, 9, 12, generator=torch.Generator().manual_seed(4))
+    got = []
+    for d in ("cpu", dev):
+        ptt.seed(5)
+        m = getattr(nn, cls)(12, 16, num_layers=2, direction="bidirect",
+                             device=d)
+        xt = x.to(d).requires_grad_()
+        y = m(xt)[0]
+        (gx,) = torch.autograd.grad(y.square().sum(), xt)
+        got.append((y.detach().cpu(), gx.cpu()))
+    (y_c, g_c), (y_d, g_d) = got
+    assert float((y_d - y_c).abs().max()) <= 1e-5 * max(1.0, float(
+        y_c.abs().max()))
+    assert float((g_d - g_c).abs().max()) <= 1e-4 * max(1.0, float(
+        g_c.abs().max()))
+
+
+def test_beam_decode_on_the_card_equals_the_cpu(dev):
+    """BeamSearchDecoder (beam 4) and dynamic_decode over a GRU cell, its
+    embedding and output layer made on the CPU from one seed and moved:
+    tokens and lengths equal to the CPU's."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    h0 = torch.randn(3, 8, generator=torch.Generator().manual_seed(6))
+    runs = []
+    for d in ("cpu", dev):
+        ptt.seed(7)
+        gen = torch.Generator().manual_seed(8)
+        cell = nn.GRUCell(6, 8, device=d)
+        emb = nn.Embedding(13, 6, device="cpu", generator=gen).to(d)
+        out = nn.Linear(8, 13, device="cpu", generator=gen).to(d)
+        dec = nn.BeamSearchDecoder(cell, 1, 2, 4, embedding_fn=emb,
+                                   output_fn=out)
+        with torch.no_grad():
+            seqs, _, lens = nn.dynamic_decode(dec, inits=h0.to(d),
+                                              max_step_num=9,
+                                              return_length=True)
+        runs.append((seqs.cpu(), lens.cpu()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_rnn_function_takes_no_gradient_of_unused_outputs(dev):
+    """Only the final state used (a cell's step): the kernels' backward
+    runs with the outputs' gradient absent, not zeros, and gives the
+    plain loop's gradient within 1e-4 of the largest."""
+    from paddle_tpu_torch.kernels import rnn as R
+    xw, h0, _, w, b = _rnn_case("gru", 3, 6, 0, 16, dev, 14)
+    xw.requires_grad_()
+    (g,) = torch.autograd.grad(R.rnn_scan("gru", xw, h0, None, w, b)[1]
+                               .sum(), xw)
+    (g2,) = torch.autograd.grad(R.rnn_scan_plain("gru", xw, h0, None, w, b)
+                                [1].sum(), xw)
+    assert float((g - g2).abs().max()) <= 1e-4 * max(1.0, float(
+        g2.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_scan_in_half_precision_computes_in_fp32(dev, mode, dtype):
+    """A half-precision ``rnn_scan`` on the card (a cell under amp O2) is
+    the kernels in fp32 on the exact fp32 values, its outputs and
+    gradients rounded to the dtype: each tensor within one ulp of its
+    largest value (the dtype's eps times it) of the plain loop run that
+    way; float64 raises."""
+    from paddle_tpu_torch.kernels import rnn as R
+    case = [None if t is None else t.to(dtype)
+            for t in _rnn_case(mode, 4, 9, 0, 24, dev, 15)]
+
+    def run(fn, up):
+        args = [None if t is None else (t.float() if up else t).detach()
+                .requires_grad_() for t in case]
+        outs = [o for o in fn(mode, *args) if o is not None]
+        leaves = [t for t in args if t is not None]
+        grads = torch.autograd.grad([o.float().sum() for o in outs], leaves)
+        return [t.detach().to(dtype) for t in outs + list(grads)]
+    got = run(R.rnn_scan, False)
+    want = run(R.rnn_scan_plain, True)
+    eps = torch.finfo(dtype).eps
+    for a, e in zip(got, want):
+        assert a.dtype == dtype
+        assert float((a.float() - e.float()).abs().max()) <= eps * float(
+            e.float().abs().max())
+    with pytest.raises(TypeError):
+        R.rnn_scan(mode, *[None if t is None else t.double() for t in case])
+
+
+@pytest.mark.parametrize("cls", ["LSTMCell", "GRUCell", "SimpleRNNCell"])
+def test_cells_under_amp_o2_on_the_card_equal_the_cpu(dev, cls):
+    """Two steps of a cell under ``auto_cast(level="O2")`` (bf16) on each
+    device from one framework seed: the same dtypes; outputs within 2^-6
+    and the input's and weights' gradients within 2^-5 of the largest
+    CPU value (the CPU rounds each op of a step to bf16, the card only
+    its outputs: up to 2 bf16 ulps of 1 and 0.01 of the largest
+    gradient, emulated on the CPU at [128, 1024 -> 512])."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp, nn
+    x = torch.randn(6, 12, generator=torch.Generator().manual_seed(16))
+    got = []
+    for d in ("cpu", dev):
+        ptt.seed(17)
+        m = getattr(nn, cls)(12, 16, device=d)
+        xt = x.to(d).requires_grad_()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            out, states = m(xt, m(xt)[1])
+        grads = torch.autograd.grad(out.float().square().sum(),
+                                    [xt, m.weight_ih, m.weight_hh])
+        got.append([t.detach().cpu() for t in (out, *grads)])
+    for i, (a, b) in enumerate(zip(got[1], got[0])):
+        assert a.dtype == b.dtype
+        tol = 2.0 ** -6 if i == 0 else 2.0 ** -5
+        assert float((a.float() - b.float()).abs().max()) <= tol * max(
+            1.0, float(b.float().abs().max())), i

@@ -72,7 +72,10 @@ def test_import_loads_no_jax():
             "paddle_tpu_torch.nn.layer.layers, "
             "paddle_tpu_torch.nn.functional_loss, "
             "paddle_tpu_torch.nn.functional_common, "
-            "paddle_tpu_torch.kernels.seq_loss; "
+            "paddle_tpu_torch.kernels.seq_loss, "
+            "paddle_tpu_torch.kernels.rnn, paddle_tpu_torch.nn.layer.rnn, "
+            "paddle_tpu_torch.nn.decode, paddle_tpu_torch.ops, "
+            "paddle_tpu_torch.ops.special; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -275,3 +278,26 @@ def test_transformer_slice_imports_no_jax_or_triton(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "kernels/rnn.py", "nn/layer/rnn.py", "nn/decode.py", "ops/special.py",
+    "ops/__init__.py"])
+def test_recurrent_slice_imports_no_jax_triton_or_build(module):
+    """The recurrence kernels' module, the recurrent layers, the decoder
+    and ``ops.special``: no file imports jax or paddle_tpu, none imports
+    Triton at its top level, and importing them in a fresh process loads
+    neither and builds or loads no CUDA library (nvcc runs at a kernel's
+    first launch)."""
+    path = os.path.join(REPO, "paddle_tpu_torch", module)
+    assert not _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu",
+                                        "triton"}
+    name = "paddle_tpu_torch." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    code = (f"import sys, {name}; "
+            "from paddle_tpu_torch.kernels import _build; "
+            "print(sorted(m for m in ('jax', 'triton', 'paddle_tpu') "
+            "if m in sys.modules), sorted(_build._loaded))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[] []", out.stdout + out.stderr
