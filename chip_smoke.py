@@ -66,9 +66,12 @@ Phases, each printing its own lines and its seconds:
      its bound, F.group_norm (+ F.silu) and its autograd; BatchNorm with
      the ReLU, with the residual add and the ReLU, and alone, forward
      (training and eval) and backward, at ResNet-50's [128, 64, 112,
-     112], [128, 256, 56, 56] and [128, 2048, 7, 7] in bf16 under O1's
-     dtypes (fp32 weights, residual and output), one fp32 and one NHWC
-     case, against its plain version, two calls and a graph replay with
+     112], [128, 256, 56, 56], [128, 2048, 7, 7], [128, 1024, 14, 14] and
+     [128, 512, 28, 28] in bf16 under O1's dtypes (fp32 weights, residual
+     and output), one fp32 and one NHWC case, the backward's route
+     printed (``batch_norm_backward_plan``: the cluster kernel of
+     ``csrc/batch_norm_bwd.cu`` at 28 x 28 and below), against its plain
+     version, two calls and a graph replay with
      the running statistics bit-equal, the fused calls bit-equal to the
      unfused kernel followed by PyTorch's add and ReLU under amp O1,
      timed beside its bound, the plain version and cuDNN's F.batch_norm
@@ -92,7 +95,9 @@ Phases, each printing its own lines and its seconds:
      functionals and layers, the attention functionals, the Transformer
      and fused Transformer layers on the card against the same calls on
      the CPU, and sparse_attention twice bit-equal; the recurrence kernels
-     (``csrc/rnn_recurrence.cu``: one launch a time step each way) against
+     (``csrc/rnn_recurrence.cu``: the forward's route printed from
+     ``rnn_forward_plan``, one persistent launch a layer or one step-kernel
+     launch a step; the backward one launch a step) against
      their plain loop, fp32, forward and backward with every gradient, at
      the IWSLT'15 model's shapes (an LSTM, GRU and tanh RNN layer at [T 50,
      B 128, in 512, H 512], the decoder's first cell at in 1024, a beam
@@ -297,11 +302,13 @@ Phases, each printing its own lines and its seconds:
      encoder nn.LSTM, the decoder nn.RNN over two LSTMCells with input
      feeding and Luong attention, the loss masked by sequence_mask, Adam
      with global-norm clipping at 5, fp32, 128 pairs of 10-50 tokens:
-     the step captured, exact launch counts (rnn_fwd 200, rnn_bwd 200,
-     dropout 202, AdamW 1 a step; no attention kernel), step ms,
-     tokens/s, MFU, peak memory, a profile, 3 replayed steps against 3
-     eager ones bit-equal; beam search (beam 10, at most 50 steps, 2
-     rnn_fwd a step) as built and with the EOS logit held at 0; a tiny
+     the step captured, exact launch counts (rnn_fwd 102: the encoder's 2
+     layers one persistent launch each, the decoder's 100 cells on the
+     step kernel; rnn_bwd 200, dropout 202, AdamW 1 a step; no attention
+     kernel), step ms, tokens/s, MFU, peak memory, a profile, 3 replayed
+     steps against 3 eager ones bit-equal; beam search (beam 10, at most
+     50 steps, 2 rnn_fwd a step on the step kernel) as built and with the
+     EOS logit held at 0; a tiny
      float32 model on the card against the CPU trainer, its beam 1
      against the greedy chain and its beam 4 against the CPU's;
   then a JSON line of every kernel, the card line again, and the final
@@ -1716,7 +1723,7 @@ def _kernel_group(name):
         return "dropout"
     if "_swiglu_" in name:
         return "swiglu"
-    if "rnn_fwd_kernel" in name:
+    if "rnn_fwd_step_kernel" in name or "rnn_fwd_persistent_kernel" in name:
         return "rnn_fwd"
     if "rnn_bwd_kernel" in name:
         return "rnn_bwd"
@@ -6048,7 +6055,8 @@ def phase_group_norm_kernels(torch, results):
 
 # (tag, shape, layout, x dtype, form): ResNet-50's stem, a layer1 block's
 # last BatchNorm and layer4's, in bf16 under O1's dtypes (fp32 weights,
-# residual and output), a downsample's (no ReLU), one fp32 and one NHWC
+# residual and output), a downsample's (no ReLU), a layer3 block's last
+# and a layer2 block's inner one, one fp32 and one NHWC
 BN_CASES = (
     ("[128, 64, 112, 112] bf16 +ReLU", (128, 64, 112, 112), "NCHW",
      "bfloat16", "relu"),
@@ -6058,12 +6066,17 @@ BN_CASES = (
      "bfloat16", "residual_relu"),
     ("[128, 2048, 7, 7] bf16", (128, 2048, 7, 7), "NCHW", "bfloat16",
      "plain"),
+    ("[128, 1024, 14, 14] bf16 +residual +ReLU", (128, 1024, 14, 14), "NCHW",
+     "bfloat16", "residual_relu"),
+    ("[128, 512, 28, 28] bf16 +ReLU", (128, 512, 28, 28), "NCHW", "bfloat16",
+     "relu"),
     ("[32, 256, 56, 56] fp32 +ReLU", (32, 256, 56, 56), "NCHW", "float32",
      "relu"),
     ("[32, 56, 56, 256] bf16 NHWC +residual +ReLU", (32, 56, 56, 256),
      "NHWC", "bfloat16", "residual_relu"),
 )
 BN_MAIN = "[128, 256, 56, 56] bf16 +residual +ReLU"   # the kernels line's
+BN_CLUSTER_MAIN = "[128, 2048, 7, 7] bf16 +residual +ReLU"   # its cluster row
 
 
 def _bn_bytes_ops(n_el, esize, backward, res, relu):
@@ -6188,9 +6201,13 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
     dtype = getattr(torch, dtype_name)
     last = layout == "NHWC"
     relu = form != "plain"
+    c = shape[-1] if last else shape[1]
+    plan = BN.batch_norm_backward_plan(
+        shape[0], c, math.prod(shape) // (shape[0] * c), last, dtype, True,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"  batch_norm_bwd {tag}: route {plan}", flush=True)
     g = torch.Generator(device=dev).manual_seed(seed)
     x = (3 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
-    c = shape[-1] if last else shape[1]
     w = 1 + 0.2 * torch.randn(c, device=dev, generator=g)
     b = 0.2 * torch.randn(c, device=dev, generator=g)
     r = torch.randn(*shape, device=dev, generator=g) \
@@ -6262,10 +6279,11 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
     if r is not None:
         err_b = max(err_b, _check(f"batch_norm_bwd {tag} dresidual", dres,
                                   gk, 0.0))
-    used = (K.LAUNCHES["batch_norm"] - before["batch_norm"],
-            K.LAUNCHES["batch_norm_bwd"] - before["batch_norm_bwd"])
-    if used != (3, 2):
-        raise AssertionError(f"batch_norm {tag}: launches {used}")
+    used = tuple(K.LAUNCHES[k] - before[k] for k in (
+        "batch_norm", "batch_norm_bwd", "batch_norm_bwd_cluster"))
+    if used != (3, 2, 2 if plan[0] == "cluster" else 0):
+        raise AssertionError(f"batch_norm {tag}: launches {used} (forward, "
+                             f"backward, on the cluster kernel)")
     composition = None
     if dtype == torch.bfloat16 and relu:
         composition = _bn_o1_composition(torch, x, w, b, r, stats, dy, tag,
@@ -6321,7 +6339,7 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
     rec_b = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                  bound_ms=bound_b, bound_by=by_b, library_ms=lib_b,
                  shape=list(shape), layout=layout, dtype=dtype_name,
-                 form=form, replay_bit_equal=replay_equal)
+                 form=form, replay_bit_equal=replay_equal, route=list(plan))
     results[f"batch_norm[{tag}]"] = rec
     results[f"batch_norm_bwd[{tag}]"] = rec_b
     if tag == BN_MAIN:
@@ -6332,11 +6350,11 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
     print(f"  batch_norm {tag}: ms={ms:.4f} ({bound / ms:.3f} of the bound) "
           f"plain_ms={plain:.4f} bound_ms={bound:.4f} ({by}); {lib_name} "
           f"(cuDNN) {lib_ms:.4f} [{card}]", flush=True)
-    print(f"  batch_norm_bwd {tag}: ms={ms_b:.4f} ({bound_b / ms_b:.3f} of "
-          f"the bound) plain_ms={plain_b:.4f} bound_ms={bound_b:.4f} "
-          f"({by_b}); autograd of {lib_name}, less its forward {lib_b:.4f};"
-          f" a graph replay bit-equal to the eager call {replay_equal} "
-          f"[{card}]", flush=True)
+    print(f"  batch_norm_bwd {tag} ({plan[0]}): ms={ms_b:.4f} "
+          f"({bound_b / ms_b:.3f} of the bound) plain_ms={plain_b:.4f} "
+          f"bound_ms={bound_b:.4f} ({by_b}); autograd of {lib_name}, less "
+          f"its forward {lib_b:.4f}; a graph replay bit-equal to the eager "
+          f"call {replay_equal} [{card}]", flush=True)
     del x, w, b, r, dy, y, dx, dres, saved, stats, stk, lib_stats
     torch.cuda.empty_cache()
 
@@ -6951,6 +6969,35 @@ def _batch_norm_ops(torch, x, rm, rv, w, b, residual, relu):
     return torch.relu(out) if relu else out
 
 
+def _resnet_bn_cluster_calls(torch, model, x):
+    """The BatchNorms of a forward under O1 whose backward
+    ``batch_norm_backward_plan`` sends to the cluster kernel (a hook on
+    each, one eager forward without gradients)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    from paddle_tpu_torch.nn import BatchNorm2D
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes = []
+
+    def hook(mod, args, out):
+        n, c, h, w = args[0].shape
+        routes.append(BN.batch_norm_backward_plan(
+            n, c, h * w, False, args[0].dtype, True, sms)[0])
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, BatchNorm2D)]
+    try:
+        with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"  phase 15: backward routes of the {len(routes)} BatchNorms: "
+          f"{routes.count('cluster')} on the cluster kernel, "
+          f"{routes.count('two_pass')} on the two-pass Triton kernels",
+          flush=True)
+    return routes.count("cluster")
+
+
 def _batch_norm_ms(torch, model, x):
     """Device ms of every BatchNorm's forward and backward as the step
     makes them (bf16 inputs under O1; the stem's and the blocks' inner
@@ -7064,6 +7111,7 @@ def phase_resnet(torch, args, launches_out):
     model = resnet50(num_classes=1000, device="cuda", generator=g)
     n_bn = sum(1 for m in model.modules() if isinstance(m, BatchNorm2D))
     x = torch.randn(128, 3, 224, 224, device="cuda", generator=g)
+    n_cluster = _resnet_bn_cluster_calls(torch, model, x)
     y = torch.randint(0, 1000, (128,), device="cuda", generator=g)
     trainer = _resnet_trainer(model)
     with amp.auto_cast(level="O1", dtype="bfloat16"):
@@ -7081,7 +7129,8 @@ def phase_resnet(torch, args, launches_out):
         losses, step_ms, launches = _timed_steps(torch, trainer, (x, y))
         graph = _graph_line(trainer, "phase 15", card)
         expect = {k: 0 for k in K.LAUNCHES}
-        expect.update(batch_norm=5 * n_bn, batch_norm_bwd=5 * n_bn)
+        expect.update(batch_norm=5 * n_bn, batch_norm_bwd=5 * n_bn,
+                      batch_norm_bwd_cluster=5 * n_cluster)
         print(f"  phase 15 launches over 5 steps: {launches} (expected "
               f"{expect}: the BatchNorm kernels, one forward and one "
               f"backward a layer, and no other kernel of the port)",
@@ -8424,7 +8473,8 @@ RNN_CASES = (
     ("rnn_relu reverse", "rnn_relu", 9, 37, 24, 40, True, False),
     ("gru cell without b_hc", "gru", 1, 5, 24, 40, False, False),
 )
-RNN_MAIN = "lstm layer"       # the kernels line's case
+RNN_MAIN = "lstm layer"       # the kernels line's case (persistent)
+RNN_STEP_MAIN = "lstm beam step"   # the step kernel's row
 RNN_LIBRARY = {"lstm": "LSTM", "gru": "GRU", "rnn_tanh": "RNN",
                "rnn_relu": "RNN"}
 
@@ -8492,9 +8542,11 @@ def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
     """The kernels against the plain loop on the same inputs (torch's
     autograd through ``rnn_scan_plain`` on the card): y, h_T, c_T within
     RNN_FWD_TOL of the largest plain value; the gradients of x, W_ih,
-    W_hh, b_ih, b_hh, h0, c0 within RNN_BWD_TOL of their largest; one
-    launch a step each way; two runs bit-equal. Returns (inputs, the
-    upstream gradients, {name: max abs err}, the outputs' count)."""
+    W_hh, b_ih, b_hh, h0, c0 within RNN_BWD_TOL of their largest; the
+    forward's launches as its plan says (one on the persistent kernel, one
+    a step on the step kernel), one a step backward; two runs bit-equal.
+    Returns (inputs, the upstream gradients, {name: max abs err}, the
+    outputs' count, the forward's plan)."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import rnn as R
     has_b_hc = not tag.endswith("without b_hc")
@@ -8518,12 +8570,16 @@ def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
         loss = sum((o * u).sum() for o, u in zip(outs, ups))
         grads = torch.autograd.grad(loss, list(ins.values()))
         return [t.detach() for t in outs + list(grads)]
-    before = (K.LAUNCHES["rnn_fwd"], K.LAUNCHES["rnn_bwd"])
+    plan = R.rnn_forward_plan(mode, T, B, H, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    keys = ("rnn_fwd", "rnn_fwd_step", "rnn_bwd")
+    before = [K.LAUNCHES[k] for k in keys]
     got = run(False)
     torch.cuda.synchronize()
-    if (K.LAUNCHES["rnn_fwd"] - before[0],
-            K.LAUNCHES["rnn_bwd"] - before[1]) != (T, T):
-        raise AssertionError(f"rnn {tag}: not one launch a step each way")
+    used = tuple(K.LAUNCHES[k] - b for k, b in zip(keys, before))
+    if used != (plan.launches, T if plan.route == "step" else 0, T):
+        raise AssertionError(f"rnn {tag}: launches {used} (forward, on the "
+                             f"step kernel, backward) against {plan}")
     same = all(torch.equal(a, b) for a, b in zip(got, run(False)))
     want = run(True)
     n_out = len(ups)
@@ -8535,7 +8591,9 @@ def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
         worst = max(worst, errs[key] / (tol * max(1.0, float(b.abs().max()))))
     ok = worst <= 1.0 and same
     print(f"  rnn {tag} [T {T}, B {B}, in {n_in}, H {H}]"
-          f"{' reverse' if reverse else ''}: max abs err "
+          f"{' reverse' if reverse else ''}: forward on the {plan.route} "
+          f"kernel ({plan.rows} rows a block, {plan.launches} launch(es), "
+          f"{plan.smem} bytes of shared memory); max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + f"; the worst {worst:.3g} of its tolerance (outputs "
           f"{RNN_FWD_TOL:g}, gradients {RNN_BWD_TOL:g} of the largest plain "
@@ -8544,7 +8602,7 @@ def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
     if not ok:
         raise AssertionError(f"rnn {tag}: the kernels disagree with the "
                              f"plain loop or with themselves")
-    return inputs, ups, errs, n_out
+    return inputs, ups, errs, n_out, plan
 
 
 def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
@@ -8557,8 +8615,8 @@ def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
     the forward, and the forward and backward less the training forward),
     into ``results["rnn_fwd[tag]"]`` / ``["rnn_bwd[tag]"]``."""
     from paddle_tpu_torch.kernels import rnn as R
-    inputs, ups, errs, n_out = _rnn_check(torch, tag, mode, T, B, n_in, H,
-                                          reverse, seed)
+    inputs, ups, errs, n_out, plan = _rnn_check(torch, tag, mode, T, B,
+                                                n_in, H, reverse, seed)
     if not timed:
         return
     card = _card_line()
@@ -8628,11 +8686,13 @@ def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
             layer_ms=ms[f"{key}_layer"], steps=T, us_a_step=ms[key] / T * 1e3,
             share_of_bound=bound_ms / ms[key], mode=mode,
             shape=dict(T=T, B=B, n_in=n_in, H=H),
-            cudnn_forward_max_abs_diff=lib_diff)
+            cudnn_forward_max_abs_diff=lib_diff,
+            route=plan.route if key == "fwd" else "step")
         if key == "bwd":
             results[f"rnn_bwd[{tag}]"].update(
                 library_fwd_bwd_ms=lib_fb, library_train_fwd_ms=lib_ft)
-        print(f"  rnn {tag} {key}: {T} step(s) {ms[key]:.4f} ms "
+        print(f"  rnn {tag} {key} ({plan.route if key == 'fwd' else 'step'}"
+              f"): {T} step(s) {ms[key]:.4f} ms "
               f"({ms[key] / T * 1e3:.2f} us a step; {bound_ms / ms[key]:.3f} "
               f"of the bound {bound_ms:.4f} ms, {bound_by}); the whole layer "
               f"{ms[f'{key}_layer']:.4f} ms; plain {plain:.3f} ms; cuDNN's "
@@ -9008,15 +9068,18 @@ def _seq2seq_opt(model, lr=1e-3):
 
 
 def _seq2seq_per_step(s=S2S_LEN, layers=S2S_LAYERS):
-    """Launches a training step: the recurrence one a time step of each
-    encoder layer and one a decoder cell call, each way; dropout between
-    the encoder's layers and after each decoder cell, each way; AdamW
-    once. The attention is matmuls and a softmax: nothing dense."""
+    """Launches a training step: the recurrence's forward one persistent
+    launch an encoder layer and one step-kernel launch a decoder cell
+    call, its backward one a time step of each encoder layer and one a
+    cell call; dropout between the encoder's layers and after each decoder
+    cell, each way; AdamW once. The attention is matmuls and a softmax:
+    nothing dense."""
     from paddle_tpu_torch import kernels as K
     per = {n: 0 for n in K.LAUNCHES}
-    rec = 2 * layers * s
+    cells = layers * s
     drops = (layers - 1) + layers * s
-    per.update(rnn_fwd=rec, rnn_bwd=rec, dropout=2 * drops, adamw=1)
+    per.update(rnn_fwd=layers + cells, rnn_fwd_step=cells,
+               rnn_bwd=2 * layers * s, dropout=2 * drops, adamw=1)
     return per
 
 
@@ -9162,8 +9225,9 @@ def _seq2seq_beam_search(torch, model, src, card):
     random weights a finished beam keeps its log-probability while every
     extension loses about ln 7709 a step, so all beams end within a few
     steps; an EOS logit of 0, about the median, keeps all 50 steps). Each
-    launches exactly 2 ``rnn_fwd`` a step (the decoder's two cells) besides
-    the encoder's 100 and nothing else of the port, sequences [128, 10, T];
+    launches exactly 2 ``rnn_fwd`` a step on the step kernel (the
+    decoder's two cells) besides the encoder's 2 (one persistent launch a
+    layer) and nothing else of the port, sequences [128, 10, T];
     ms a beam step and for the whole decode (host clock, after a
     warm-up)."""
     from paddle_tpu_torch import kernels as K
@@ -9192,8 +9256,8 @@ def _seq2seq_beam_search(torch, model, src, card):
             launches = dict(K.LAUNCHES)
             steps = seqs.shape[-1]
             want = {k: 0 for k in K.LAUNCHES}
-            want["rnn_fwd"] = enc_fwd + 2 * steps
-            ok = (launches == want and enc_fwd == S2S_LAYERS * S2S_LEN
+            want.update(rnn_fwd=enc_fwd + 2 * steps, rnn_fwd_step=2 * steps)
+            ok = (launches == want and enc_fwd == S2S_LAYERS
                   and tuple(seqs.shape[:2]) == (S2S_BATCH, S2S_BEAM))
             step_ms = (total_ms - enc_ms) / steps
             print(f"  phase 18 (e) beam search ({tag}), beam {S2S_BEAM}, "
@@ -9224,7 +9288,7 @@ def phase_seq2seq(torch, args, launches_out):
     2 layers, dropout 0.2, uniform ±0.1), Adam(1e-3) with global-norm
     clipping at 5, fp32; 128 pairs of 10-50 tokens a side padded to 50,
     seeded. (a) the step captured: 2 warm-up and 3 timed steps with exact
-    launch counts (rnn_fwd 200, rnn_bwd 200, dropout, AdamW; nothing on a
+    launch counts (rnn_fwd 102, rnn_bwd 200, dropout, AdamW; nothing on a
     dense attention), step ms, tokens/s, MFU, peak memory, a profile by
     kernel group; (b) 3 replayed steps against 3 eager ones, bit-equal;
     (c) a tiny float32 model on the card against the CPU trainer; (d) its
@@ -9263,7 +9327,7 @@ def phase_seq2seq(torch, args, launches_out):
         raise AssertionError(f"phase 18 (a): losses not finite: {losses}")
     graph = _graph_line(trainer, "phase 18 (a)", card)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    checked = {("rnn_fwd",): lambda n: "rnn_fwd_kernel" in n,
+    checked = {("rnn_fwd",): lambda n: _kernel_group(n) == "rnn_fwd",
                ("rnn_bwd",): lambda n: "rnn_bwd_kernel" in n,
                ("adamw",): lambda n: "adamw_kernel" in n}
     prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1, checked)
@@ -9506,6 +9570,10 @@ def main(argv=None):
         "batch_norm_bwd": ("triton",
                            "paddle_tpu_torch/kernels/batch_norm.py",
                            "paddle_tpu/nn/functional/norm.py:95"),
+        # the backward's short runs (7 x 7 to 28 x 28), by its plan
+        "batch_norm_bwd_cluster": ("cuda",
+                                   "paddle_tpu_torch/csrc/batch_norm_bwd.cu",
+                                   "paddle_tpu/nn/functional/norm.py:95"),
         # no Pallas kernel: the scans XLA compiles into loops on the device
         "ctc_fwd": ("cuda", "paddle_tpu_torch/csrc/ctc_loss.cu",
                     "paddle_tpu/nn/functional/loss.py:282"),
@@ -9525,8 +9593,11 @@ def main(argv=None):
                               "paddle_tpu/nn/functional/attention.py:20"),
         # no Pallas kernel: the scan over the RNN step XLA compiles into a
         # loop on the device
+        # the forward's two kernels by its plan: persistent (T > 1), step
         "rnn_fwd": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
                     "paddle_tpu/nn/layer/rnn.py:281"),
+        "rnn_fwd_step": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
+                         "paddle_tpu/nn/layer/rnn.py:281"),
         "rnn_bwd": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
                     "paddle_tpu/nn/layer/rnn.py:281"),
     }
@@ -9545,6 +9616,9 @@ def main(argv=None):
                  for k in set().union(*runs)}
     main_runs["flash_bwd"] = main_runs["flash_bwd_dq"]
     main_runs["flashmask_bwd"] = main_runs["flashmask_bwd_dq"]
+    # the routes' counts are subsets of their function's
+    main_runs["rnn_fwd"] -= main_runs["rnn_fwd_step"]
+    main_runs["batch_norm_bwd"] -= main_runs["batch_norm_bwd_cluster"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
         m = results[{"ragged_attention": "ragged_attention[mixed_mha]",
@@ -9554,6 +9628,9 @@ def main(argv=None):
                      "dense_softmax_bwd":
                          f"dense_softmax_bwd[{DENSE_KERNEL}]",
                      "rnn_fwd": f"rnn_fwd[{RNN_MAIN}]",
+                     "rnn_fwd_step": f"rnn_fwd[{RNN_STEP_MAIN}]",
+                     "batch_norm_bwd_cluster":
+                         f"batch_norm_bwd[{BN_CLUSTER_MAIN}]",
                      "rnn_bwd": f"rnn_bwd[{RNN_MAIN}]"}
                     .get(name, name)]
         kernels.append(dict(name=name, route=route, source=source,

@@ -41,8 +41,10 @@ forward (two Triton kernels in training: the chunks' statistics, then the
 normalisation with the residual add and the ReLU where fused; one in
 eval) and of its backward (two: the chunks' partial sums, then dx and the
 residual's gradient), which every BatchNorm on the card goes through
-(ResNet). No TPU kernel either: XLA fuses the JAX package's BatchNorm with
-the add and the ReLU after it.
+(ResNet); ``batch_norm_bwd_cluster`` also counts the backward calls that
+``batch_norm_backward_plan`` sends to the one-pass cluster kernel
+(``csrc/batch_norm_bwd.cu``) instead. No TPU kernel either: XLA fuses the
+JAX package's BatchNorm with the add and the ReLU after it.
 
 ``ctc_fwd`` and ``ctc_bwd`` count the calls of CTC's forward and
 backward, ``rnnt_fwd`` and ``rnnt_bwd`` those of RNN-T's (two CUDA
@@ -52,10 +54,12 @@ package's scans into loops on the device.
 
 ``rnn_fwd`` and ``rnn_bwd`` count the launches of the recurrence's
 forward and backward kernels (``kernels/rnn.py``, ``csrc/rnn_recurrence.cu``):
-one a time step, so a layer and direction over T steps adds T, a cell
-call one. Every SimpleRNN, LSTM, GRU and cell on the card goes through
-them. No TPU kernel either: XLA compiles the JAX package's scan over the
-step into a loop on the device.
+the forward one a layer and direction on the persistent kernel, one a
+time step on the step kernel (``rnn_forward_plan``: a cell call, and
+shapes the persistent kernel cannot hold), which ``rnn_fwd_step`` also
+counts; the backward one a time step. Every SimpleRNN, LSTM, GRU and cell
+on the card goes through them. No TPU kernel either: XLA compiles the JAX
+package's scan over the step into a loop on the device.
 
 ``dense_softmax`` and ``dense_softmax_bwd`` count the calls of the dense
 attention's middle (the scale, the masks, the fp32 softmax and the
@@ -84,6 +88,8 @@ JAX package's own; a main path that takes one reads above 0 there.
 """
 from __future__ import annotations
 
+import functools
+
 LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rope": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "adamw": 0, "gmm": 0, "tgmm": 0, "flashmask_summary": 0,
@@ -92,9 +98,10 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
             "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
             "group_norm": 0, "group_norm_bwd": 0, "batch_norm": 0,
-            "batch_norm_bwd": 0, "ctc_fwd": 0, "ctc_bwd": 0, "rnnt_fwd": 0,
-            "rnnt_bwd": 0, "dense_softmax": 0, "dense_softmax_bwd": 0,
-            "rnn_fwd": 0, "rnn_bwd": 0,
+            "batch_norm_bwd": 0, "batch_norm_bwd_cluster": 0, "ctc_fwd": 0,
+            "ctc_bwd": 0, "rnnt_fwd": 0, "rnnt_bwd": 0, "dense_softmax": 0,
+            "dense_softmax_bwd": 0, "rnn_fwd": 0, "rnn_fwd_step": 0,
+            "rnn_bwd": 0,
             "sdpa_plain": 0,
             "sdpa_dense": 0, "ragged_plain": 0}
 
@@ -123,5 +130,12 @@ def uncount_since(before: dict) -> dict:
     return tally
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of the CUDA device ``device`` (a plan's grid is cut to it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 __all__ = ["LAUNCHES", "ROUTED", "reset_launches", "kernel_launches",
-           "uncount_since"]
+           "uncount_since", "sm_count"]

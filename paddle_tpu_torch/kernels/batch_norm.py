@@ -1,5 +1,6 @@
 """BatchNorm, with the residual add and the ReLU that follow it in
-ResNet's blocks, forward and backward: Triton kernels and their plain
+ResNet's blocks, forward and backward: Triton kernels, a CUDA kernel for
+the backward's short runs (``csrc/batch_norm_bwd.cu``), and their plain
 PyTorch version.
 
 No TPU kernel: the JAX package's ``F.batch_norm``
@@ -59,19 +60,33 @@ design:
   writes dx and the residual's gradient.
 
 A forward reads x twice (the statistics, then the normalisation) and the
-backward reads x, dy (and the output, for the ReLU's mask) twice: the
-second reads of a chunk come soon after the first, partly from L2.
+two-pass backward reads x, dy (and the output, for the ReLU's mask) twice:
+the second reads of a chunk come soon after the first, partly from L2.
 
-Triton is imported, and the kernels compiled, at the first launch.
+``batch_norm_backward_plan`` routes the training backward of a
+channels-first bf16 or fp16 x whose channel fits on chip to the cluster
+kernel of ``csrc/batch_norm_bwd.cu``: a block, or a cluster of up to 8
+blocks splitting the batch, owns a channel, reads x, dy and y once into
+shared memory, sums per channel in a fixed order (the cluster's
+blocks through distributed shared memory, in rank order) and writes dx
+and the residual's gradient once. Long channels (56 x 56 and up at batch
+128), channels last, fp32 x and the eval backward take the two Triton
+kernels. One launch a call either way (``LAUNCHES["batch_norm_bwd"]``;
+``["batch_norm_bwd_cluster"]`` counts the cluster kernel's too).
+
+Triton is imported, and the kernels compiled, at the first launch; the
+CUDA source is built by ``_build`` at its first launch.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, sm_count
+from ._build import library
 
 tl = None    # triton.language, bound by _jit() at the first launch
 
@@ -371,6 +386,73 @@ def _plan(n, c, s, rows, sms):
     return bc, bs, ns, per, -(-tiles // per)
 
 
+# The cluster kernel: a block holds at most this many bytes of shared
+# memory, two blocks an SM ((233,472 / 2) less the 1 KB each block keeps).
+_CLUSTER_BLOCK_BYTES = 115712
+_CLUSTER_SIZES = (1, 2, 4, 8)
+_WARPS = 16                 # the cluster kernel's 512 threads
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _cluster_smem(n, s, cs):
+    """Shared memory bytes of a cluster-kernel block (as
+    ``ptt_batch_norm_bwd_smem``): 6 bytes an element held (g fp32, x 16
+    bits) and 4 (8 + 2 x 16 + 4) of sums and parameters."""
+    e = -(-n // cs) * s
+    return -(-(6 * e + 4 * (8 + 2 * _WARPS + 4)) // 16) * 16
+
+
+def batch_norm_backward_plan(n, c, s, channels_last, x_dtype, batch_stats,
+                             sms):
+    """The backward's route for x [n, c, spatial size s]: ``("cluster",
+    blocks a cluster, shared memory bytes a block)``, a cluster a channel,
+    where x is channels first with s > 1, bf16 or fp16, in training, and a
+    channel fits in ``_CLUSTER_BLOCK_BYTES`` a block over at most 8 blocks
+    (the fewest blocks of a power of two); else ``("two_pass", BLOCK_C,
+    BLOCK_S, chunks)``, the Triton kernels' tiles on ``sms`` SMs."""
+    if not channels_last and s > 1 and batch_stats \
+            and x_dtype in (torch.bfloat16, torch.float16):
+        for cs in _CLUSTER_SIZES:
+            smem = _cluster_smem(n, s, cs)
+            if smem <= _CLUSTER_BLOCK_BYTES:
+                return "cluster", cs, smem
+    rn, rc, rs, _, sc, _ = _layout((n, c, s) if not channels_last
+                                   else (n, s, c), channels_last)
+    bc, bs, _, _, chunks = _plan(rn, rc, rs, sc == 1, sms)
+    return "two_pass", bc, bs, chunks
+
+
+def _cluster_lib():
+    lib = library("batch_norm_bwd")
+    if lib.ptt_error_string.restype is not ctypes.c_char_p:
+        lib.ptt_batch_norm_bwd.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.ptt_batch_norm_bwd.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cluster_backward(x, weight, stats, dy, y, relu, round_x, dx, dres,
+                      sums, cs):
+    """The cluster kernel on a contiguous channels-first x (N, C, S > 1)."""
+    n, c = x.shape[0], x.shape[1]
+    s = x.numel() // (n * c)
+    lib = _cluster_lib()
+    yy = y if relu else dy
+    err = lib.ptt_batch_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), yy.data_ptr(), stats.data_ptr(),
+        weight.data_ptr(), dx.data_ptr(), None if dres is None
+        else dres.data_ptr(), sums.data_ptr(), n, c, s, cs,
+        _CODES[x.dtype], _CODES[dy.dtype], _CODES[yy.dtype],
+        _CODES[weight.dtype], _CODES[dx.dtype if dres is None
+                                     else dres.dtype], int(bool(relu)),
+        int(bool(round_x)), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("batch_norm_bwd cluster kernel launch failed: "
+                           + lib.ptt_error_string(err).decode())
+
+
 # -- plain versions -----------------------------------------------------------------
 
 def batch_norm_plain(x, running_mean, running_var, weight=None, bias=None,
@@ -487,8 +569,7 @@ def _args(x, channels_last):
     """(triton, kernels, grid, the layout's and plan's launch arguments,
     BLOCK_C, BLOCK_S, n_chunks, count a channel) of a CUDA tensor."""
     n, c, s, sn, sc, ss = _layout(tuple(x.shape), channels_last)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bc, bs, ns, per, n_chunks = _plan(n, c, s, sc == 1, sms)
+    bc, bs, ns, per, n_chunks = _plan(n, c, s, sc == 1, sm_count(x.device))
     triton, k = _jit()
     grid = (triton.cdiv(c, bc), n_chunks)
     return (triton, k, grid, (c, s, sn, sc, ss, ns, per, n * ns), bc, bs,
@@ -544,14 +625,34 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var,
     return y, stats
 
 
+def _two_pass_backward(x, weight, stats, dy, y, batch_stats, channels_last,
+                       relu, round_x, dx, dres, sums):
+    """The two Triton kernels (the chunks' partial sums, then dx and the
+    residual's gradient) into dx, dres and sums."""
+    c = sums.shape[1]
+    triton, k, grid, geo, bc, bs, n_chunks, m_count = _args(x, channels_last)
+    nw = _warps(bc, bs)
+    part = torch.empty(n_chunks, 2, c, dtype=torch.float32, device=x.device)
+    yy = dy if y is None else y
+    k["bwd_part"][grid](x, dy, yy, stats, part, *geo, RELU=bool(relu),
+                        ROUND_X=bool(round_x), BLOCK_C=bc, BLOCK_S=bs,
+                        num_warps=nw)
+    k["bwd_dx"][grid](x, weight, dy, yy, dx, dx if dres is None else dres,
+                      stats, part, sums, *geo, n_chunks, m_count,
+                      TRAIN=bool(batch_stats), HAS_RES=dres is not None,
+                      RELU=bool(relu), ROUND_X=bool(round_x),
+                      BLOCK_C=bc, BLOCK_S=bs, CH_BLOCK=_CH_BLOCK,
+                      num_warps=nw)
+
+
 def batch_norm_backward(x, weight, stats, dy, y=None, batch_stats=True,
                         channels_last=False, relu=False, round_x=False,
                         residual_dtype=None):
     """(dx, dresidual, dweight, dbias) on CUDA tensors from the forward's
     x, stats and (with ``relu``) output y: dx in x's dtype, dresidual in
     ``residual_dtype`` (None without a residual), the two [C] vector
-    gradients in fp32, each a sum over chunks of per-program partials
-    added in a fixed order."""
+    gradients in fp32, sums in a fixed order. The route is
+    ``batch_norm_backward_plan``'s."""
     dy = dy.contiguous()
     c = _check(x, weight, None, None, None, None, channels_last)
     if dy.shape != x.shape or dy.device != x.device \
@@ -563,21 +664,16 @@ def batch_norm_backward(x, weight, stats, dy, y=None, batch_stats=True,
         x.shape, dtype=residual_dtype, device=x.device)
     sums = torch.zeros(2, c, dtype=torch.float32, device=x.device)
     if x.numel():
-        triton, k, grid, geo, bc, bs, n_chunks, m_count = _args(
-            x, channels_last)
-        nw = _warps(bc, bs)
-        part = torch.empty(n_chunks, 2, c, dtype=torch.float32,
-                           device=x.device)
-        yy = dy if y is None else y
-        k["bwd_part"][grid](x, dy, yy, stats, part, *geo, RELU=bool(relu),
-                            ROUND_X=bool(round_x), BLOCK_C=bc, BLOCK_S=bs,
-                            num_warps=nw)
-        k["bwd_dx"][grid](x, weight, dy, yy, dx, dx if dres is None else dres,
-                          stats, part, sums, *geo, n_chunks, m_count,
-                          TRAIN=bool(batch_stats), HAS_RES=dres is not None,
-                          RELU=bool(relu), ROUND_X=bool(round_x),
-                          BLOCK_C=bc, BLOCK_S=bs, CH_BLOCK=_CH_BLOCK,
-                          num_warps=nw)
+        plan = batch_norm_backward_plan(
+            x.shape[0], c, x.numel() // (x.shape[0] * c), channels_last,
+            x.dtype, batch_stats, sm_count(x.device))
+        if plan[0] == "cluster":
+            _cluster_backward(x, weight, stats, dy, y, relu, round_x, dx,
+                              dres, sums, plan[1])
+            LAUNCHES["batch_norm_bwd_cluster"] += 1
+        else:
+            _two_pass_backward(x, weight, stats, dy, y, batch_stats,
+                               channels_last, relu, round_x, dx, dres, sums)
         LAUNCHES["batch_norm_bwd"] += 1
     return dx, dres, sums[0], sums[1]
 
@@ -640,4 +736,5 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
 
 __all__ = ["batch_norm", "batch_norm_plain", "batch_stats_split_plain",
-           "batch_norm_forward", "batch_norm_backward", "BatchNormFunction"]
+           "batch_norm_forward", "batch_norm_backward", "BatchNormFunction",
+           "batch_norm_backward_plan"]

@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, sm_count
 from ._build import library
 
 NEG_INF = -1e30
@@ -317,16 +317,6 @@ def ragged_plan(slot_ids, positions, valid, kvh, bs, mp, rep):
     return items, count, row_splits
 
 
-_sms = {}
-
-
-def _sm_count(dev):
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
-
-
 def _ragged_bf16(q, k_pool, v_pool, page_tables, slot_ids, positions, valid,
                  rep, plan):
     t, h, d = q.shape
@@ -350,7 +340,7 @@ def _ragged_bf16(q, k_pool, v_pool, page_tables, slot_ids, positions, valid,
     ws = torch.empty(t, h, nsm, d, dtype=torch.float32, device=dev)
     ml = torch.empty(t, h, nsm, 2, dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    grid = _sm_count(dev) * BLOCKS_PER_SM
+    grid = sm_count(dev) * BLOCKS_PER_SM
     lib = _lib_bf16()
     err = lib.ptt_ragged_attention_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

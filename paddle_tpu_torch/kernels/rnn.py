@@ -32,9 +32,14 @@ then ``dh_{t-1} = dgates_t . W_hh`` (plus ``dh_t z`` for the gru) and
 step, one ``torch.matmul`` / ``sum`` each after the loop.
 
 ``rnn_scan`` on CUDA tensors launches the kernels through
-``RNNScanFunction``, one launch a step each way (``LAUNCHES["rnn_fwd"]``
-and ``["rnn_bwd"]`` count each launch); on CPU tensors it is
-``rnn_scan_plain``, the loop of the plain step under torch's autograd.
+``RNNScanFunction``; on CPU tensors it is ``rnn_scan_plain``, the loop of
+the plain step under torch's autograd. The forward takes one of two
+kernels by ``rnn_forward_plan``: the persistent kernel for T > 1 where a
+block's rows of W_hh fit in shared memory and the grid fits on the SMs
+(one launch for the sequence), else the step kernel (one launch a step).
+The backward launches once a step. ``LAUNCHES["rnn_fwd"]`` and
+``["rnn_bwd"]`` count each launch, ``["rnn_fwd_step"]`` the forward's on
+the step kernel.
 The kernels compute in fp32: a bf16 or fp16 call on the card (a cell
 under ``auto_cast(level="O2")``) goes up to fp32 exactly, runs them, and
 its outputs are rounded back to its dtype, so it computes what a kernel
@@ -46,10 +51,11 @@ and a captured step its eager step's.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, sm_count
 from ._build import library
 
 MODES = {"lstm": 0, "gru": 1, "rnn_tanh": 2, "rnn_relu": 3}
@@ -108,11 +114,59 @@ def rnn_scan_plain(mode, xw, h0, c0, w_hh, b_hc=None, reverse=False):
     return torch.stack(ys), h, c
 
 
+# -- the forward's plan -------------------------------------------------------
+
+SMEM_BYTES = 232448     # shared memory a block may use on the H100 (227 KB)
+_UNITS, _ROWS = 16, 32  # a block's units, and a warp's rows
+_RED = 8 * _ROWS * _UNITS * 4   # floats of the warps' sums
+_KC = 128               # the step kernel's depth a stage
+
+
+class RnnPlan(NamedTuple):
+    """How ``rnn_forward`` runs a sequence: ``route`` "persistent" (one
+    cooperative launch; blocks of 32 rows by 16 units, W_hh resident) or
+    "step" (one launch a step; blocks of ``rows`` rows by 16 units);
+    ``grid`` (unit blocks, row blocks); ``smem`` bytes a block;
+    ``launches`` of the forward."""
+    route: str
+    grid: Tuple[int, int]
+    smem: int
+    rows: int
+    launches: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def rnn_forward_plan(mode, T, B, H, sms):
+    """The forward's kernel for ``T`` steps of ``B`` rows at width ``H`` on
+    a card of ``sms`` SMs: the persistent kernel where T > 1, H % 4 == 0,
+    a block's rows of W_hh (G gates by H, rounded up to 128, plus 4 of
+    padding a row) and its h or sums fit in ``SMEM_BYTES`` and the grid
+    is at most one block an SM; else the step kernel, 64 rows a block
+    where that still gives every SM a block, else 32. The same bytes as
+    ``csrc/rnn_recurrence.cu`` computes."""
+    _check_mode(mode)
+    G = GATES[mode]
+    units = _cdiv(H, _UNITS)
+    if T > 1 and H % 4 == 0:
+        ld = _cdiv(H, 128) * 128 + 4
+        smem = 4 * (_UNITS * G * ld + max(_ROWS * ld, _RED))
+        grid = (units, _cdiv(B, _ROWS))
+        if smem <= SMEM_BYTES and grid[0] * grid[1] <= sms:
+            return RnnPlan("persistent", grid, smem, _ROWS, 1)
+    wm = 2 if _cdiv(B, 2 * _ROWS) * units >= sms else 1
+    stages = 3 * (_ROWS * wm + _UNITS * G) * (_KC + 4)
+    return RnnPlan("step", (units, _cdiv(B, _ROWS * wm)),
+                   4 * max(stages, _RED), _ROWS * wm, T)
+
+
 # -- the kernels --------------------------------------------------------------
 
 _SIGS = {
-    "ptt_rnn_forward": [ctypes.c_int] + [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ptt_rnn_forward": [ctypes.c_int] + [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "ptt_rnn_backward": [ctypes.c_int] + [ctypes.c_void_p] * 14
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
@@ -183,12 +237,14 @@ def _shapes(mode, xw, h0, c0, w_hh, b_hc):
 
 
 def rnn_forward(mode, xw, h0, c0, w_hh, b_hc=None, reverse=False):
-    """The kernel, one launch a step: ``(y [T, B, H], h_T, c_T, saved,
-    cs)``, ``saved`` the gates the backward reads ([T, B, 4 H]: lstm i, f,
-    g, o; gru r, z, n, hc; None for the simple RNN), ``cs`` the lstm's
-    c_t ([T, B, H], else None)."""
+    """The forward kernel on ``rnn_forward_plan``'s route: ``(y [T, B, H],
+    h_T, c_T, saved, cs)``, ``saved`` the gates the backward reads ([T, B,
+    4 H]: lstm i, f, g, o; gru r, z, n, hc; None for the simple RNN),
+    ``cs`` the lstm's c_t ([T, B, H], else None). A refused launch
+    raises."""
     xw, h0, c0, w_hh, b_hc = _on_card(xw, h0, c0, w_hh, b_hc)
     T, B, H, G = _shapes(mode, xw, h0, c0, w_hh, b_hc)
+    plan = rnn_forward_plan(mode, T, B, H, sm_count(xw.device))
     f32 = dict(dtype=torch.float32, device=xw.device)
     y = torch.empty(T, B, H, **f32)
     h_fin = torch.empty(B, H, **f32)
@@ -196,13 +252,21 @@ def rnn_forward(mode, xw, h0, c0, w_hh, b_hc=None, reverse=False):
     c_fin = torch.empty(B, H, **f32) if lstm else None
     cs = torch.empty(T, B, H, **f32) if lstm else None
     saved = torch.empty(T, B, 4 * H, **f32) if G > 1 else None
+    persistent = plan.route == "persistent"
+    # the barriers' step counters, one a row group, zeroed on the stream
+    # (in a graph, on every replay)
+    counter = torch.zeros(plan.grid[1], dtype=torch.int32,
+                          device=xw.device) if persistent else None
     lib = _lib()
     err = lib.ptt_rnn_forward(
         MODES[mode], xw.data_ptr(), h0.data_ptr(), _ptr(c0), w_hh.data_ptr(),
         _ptr(b_hc), y.data_ptr(), _ptr(cs), _ptr(saved), h_fin.data_ptr(),
-        _ptr(c_fin), T, B, H, int(bool(reverse)), _stream(xw))
-    _check_launch(lib, err, f"rnn forward ({mode})")
-    LAUNCHES["rnn_fwd"] += T
+        _ptr(c_fin), _ptr(counter), T, B, H, int(bool(reverse)),
+        int(persistent), plan.rows // _ROWS, _stream(xw))
+    _check_launch(lib, err, f"rnn forward ({mode}, {plan.route})")
+    LAUNCHES["rnn_fwd"] += plan.launches
+    if not persistent:
+        LAUNCHES["rnn_fwd_step"] += plan.launches
     return y, h_fin, c_fin, saved, cs
 
 
@@ -300,4 +364,4 @@ def rnn_scan(mode, xw, h0, c0, w_hh, b_hc=None, reverse=False):
 
 __all__ = ["rnn_scan", "rnn_step_plain", "rnn_scan_plain", "rnn_forward",
            "rnn_backward", "RNNScanFunction", "weight_grads", "MODES",
-           "GATES"]
+           "GATES", "RnnPlan", "rnn_forward_plan"]

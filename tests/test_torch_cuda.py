@@ -3185,6 +3185,10 @@ def test_sparse_attention_twice_on_the_card_is_bit_equal(dev):
 _RNN_SHAPES = [(1, 5, 24, 40), (7, 37, 24, 40), (4, 130, 64, 96)]
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _rnn_case(mode, T, B, n_in, H, dev, seed=0):
     """(xw, h0, c0, W_hh, b_hc) on ``dev`` from ``seed``."""
     from paddle_tpu_torch.kernels import rnn as R
@@ -3207,11 +3211,13 @@ def _rnn_case(mode, T, B, n_in, H, dev, seed=0):
 def test_rnn_kernels_match_plain(dev, mode, reverse, shape):
     """The kernels (through ``rnn_scan``'s Function) against torch's
     autograd through the plain loop on the card: every output and the
-    gradients of xw, h0, c0, W_hh and b_hc; one launch a step each way;
-    two calls bit-equal."""
+    gradients of xw, h0, c0, W_hh and b_hc; the forward's launches as its
+    plan says (one on the persistent kernel, one a step on the step
+    kernel), one a step backward; two calls bit-equal."""
     from paddle_tpu_torch.kernels import rnn as R
     T = shape[0]
     case = _rnn_case(mode, *shape, dev)
+    plan = R.rnn_forward_plan(mode, T, shape[1], shape[3], _sms(dev))
 
     def run(fn):
         args = [None if t is None else t.clone().requires_grad_()
@@ -3226,7 +3232,7 @@ def test_rnn_kernels_match_plain(dev, mode, reverse, shape):
     before = (K.LAUNCHES["rnn_fwd"], K.LAUNCHES["rnn_bwd"])
     got = run(R.rnn_scan)
     assert (K.LAUNCHES["rnn_fwd"] - before[0],
-            K.LAUNCHES["rnn_bwd"] - before[1]) == (T, T)
+            K.LAUNCHES["rnn_bwd"] - before[1]) == (plan.launches, T)
     again = run(R.rnn_scan)
     want = run(R.rnn_scan_plain)
     n_out = 3 if mode == "lstm" else 2
@@ -3394,3 +3400,151 @@ def test_cells_under_amp_o2_on_the_card_equal_the_cpu(dev, cls):
         tol = 2.0 ** -6 if i == 0 else 2.0 ** -5
         assert float((a.float() - b.float()).abs().max()) <= tol * max(
             1.0, float(b.float().abs().max())), i
+
+
+# -- the forward's two kernels and BatchNorm's cluster backward, by plan ----
+
+# (T, B, H): cell steps and sequences, B and H off the tiles (32 rows, 16
+# units, 64 of the depth), H % 4 != 0 (4-byte copies, the step kernel),
+# 64-row blocks (1700 rows)
+_RNN_ROUTE_SHAPES = [(1, 37, 40), (1, 1700, 72), (9, 37, 40), (6, 130, 96),
+                     (3, 5, 42), (2, 33, 516)]
+
+
+def _replays_equal(call):
+    """``call()`` eager, then captured in a CUDA graph and replayed twice:
+    every output of each replay bit-equal to the eager call's."""
+    eager = [t.clone() for t in call() if t is not None]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = [t for t in call() if t is not None]
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b) for a, b in zip(eager, static))
+    return same
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", _RNN_ROUTE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rnn_forward_routes_match_plain(dev, mode, reverse, shape):
+    """The forward on its plan's kernel (persistent for T > 1 where it
+    fits, else the step kernel) from given initial states against the
+    plain loop: outputs within 1e-5 of the largest plain value, what the
+    backward reads (lstm c_t and i, f, g, o; gru r, z, n, hc) within 1e-5
+    of 1; the plan's launches, on the step kernel where it says so; two
+    calls and graph replays bit-equal."""
+    from paddle_tpu_torch.kernels import rnn as R
+    T, B, H = shape
+    xw, h0, c0, w, b = _rnn_case(mode, T, B, 0, H, dev, seed=T + B + H)
+    plan = R.rnn_forward_plan(mode, T, B, H, _sms(dev))
+    before = (K.LAUNCHES["rnn_fwd"], K.LAUNCHES["rnn_fwd_step"])
+    out = R.rnn_forward(mode, xw, h0, c0, w, b, reverse)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["rnn_fwd"] - before[0],
+            K.LAUNCHES["rnn_fwd_step"] - before[1]) == \
+        (plan.launches, plan.launches if plan.route == "step" else 0)
+    again = R.rnn_forward(mode, xw, h0, c0, w, b, reverse)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(out, again))
+    want = R.rnn_scan_plain(mode, xw, h0, c0, w, b, reverse)
+    for a, e in zip(out[:3], want):
+        if e is not None:
+            assert float((a - e).abs().max()) <= 1e-5 * max(
+                1.0, float(e.abs().max()))
+    y, saved, cs = out[0], out[3], out[4]
+    order = range(T - 1, -1, -1) if reverse else range(T)
+    h, c = h0, c0
+    for t in order:   # what the backward reads, step by step from the plain
+        hp = h
+        gh = hp @ w.t()
+        if mode == "lstm":
+            a = xw[t] + gh
+            gates = [torch.sigmoid(a[:, :H]), torch.sigmoid(a[:, H:2 * H]),
+                     torch.tanh(a[:, 2 * H:3 * H]),
+                     torch.sigmoid(a[:, 3 * H:])]
+        elif mode == "gru":
+            hc = gh[:, 2 * H:] + b
+            r = torch.sigmoid(xw[t, :, :H] + gh[:, :H])
+            gates = [r, torch.sigmoid(xw[t, :, H:2 * H] + gh[:, H:2 * H]),
+                     torch.tanh(xw[t, :, 2 * H:] + r * hc), hc]
+        h, c = R.rnn_step_plain(mode, xw[t], hp, c, w, b)
+        if saved is not None:
+            assert float((saved[t] - torch.cat(gates, -1)).abs().max()) \
+                <= 1e-5
+        if cs is not None:
+            assert float((cs[t] - c).abs().max()) <= 1e-5 * max(
+                1.0, float(c.abs().max()))
+        h = y[t]   # each step from the kernel's own carry
+        c = cs[t] if cs is not None else None
+    assert _replays_equal(lambda: R.rnn_forward(mode, xw, h0, c0, w, b,
+                                                reverse))
+
+
+# (shape, blocks a cluster the plan gives): one block a channel (7 x 7, N
+# not a multiple of anything, many channels of two values), clusters of 2,
+# 4 and 8
+_BN_CLUSTER = [((6, 5, 7, 7), 1), ((37, 11, 5, 5), 1), ((13, 10, 3, 4), 1),
+               ((1, 2048, 2, 1), 1), ((128, 24, 14, 14), 2),
+               ((128, 8, 20, 20), 4), ((128, 4, 28, 28), 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,cs", _BN_CLUSTER,
+                         ids=lambda v: str(v).replace(" ", ""))
+@pytest.mark.parametrize("form", ["plain", "relu", "residual_relu"])
+@pytest.mark.parametrize("round_x", [False, True])
+def test_batch_norm_cluster_backward_matches_two_pass(dev, dtype, shape, cs,
+                                                      form, round_x):
+    """The cluster kernel (one pass over a channel in shared memory, its
+    sums in a fixed order, across a cluster through distributed shared
+    memory) against the two-pass Triton backward on the same inputs: dx
+    as BatchNorm's dx (one ulp of each row's largest value, two for the
+    gradients), the residual's gradient equal, dweight and dbias within
+    2e-5 x max(1, sqrt(n) / 8) of their largest; the plan's route, one
+    launch, on the cluster kernel; two calls and graph replays
+    bit-equal."""
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    x, res, w, b, dy, stats = _bn_inputs(dev, dtype, shape, False, seed=5)
+    res = res if form == "residual_relu" else None
+    relu = form != "plain"
+    rm, rv = (t.clone() for t in stats)
+    y, st = BN.batch_norm_forward(x, w, b, rm, rv, True, 0.9, 1e-5, False, res,
+                                  relu, round_x, torch.float32)
+    rdt = None if res is None else res.dtype
+    args = (x, w, st, dy, y, True, False, relu, round_x, rdt)
+    plan = BN.batch_norm_backward_plan(
+        shape[0], shape[1], shape[2] * shape[3], False, dtype, True,
+        _sms(dev))
+    assert plan[:2] == ("cluster", cs)
+    before = (K.LAUNCHES["batch_norm_bwd"],
+              K.LAUNCHES["batch_norm_bwd_cluster"])
+    got = BN.batch_norm_backward(*args)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["batch_norm_bwd"] - before[0],
+            K.LAUNCHES["batch_norm_bwd_cluster"] - before[1]) == (1, 1)
+    again = BN.batch_norm_backward(*args)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    want = (torch.empty_like(x), None if rdt is None else torch.empty(
+        x.shape, dtype=rdt, device=dev),
+        torch.zeros(2, shape[1], dtype=torch.float32, device=dev))
+    BN._two_pass_backward(x, w, st, dy, y, True, False, relu, round_x, *want)
+    want = want[:2] + (want[2][0], want[2][1])
+    var = x.float().var(dim=(0, 2, 3), unbiased=False)
+    scale = float((var + 1e-5).rsqrt().max()) * float(
+        dy.abs().max() * w.float().abs().max())
+    _bn_dx_close(got[0], want[0], dtype, scale)
+    if res is not None:
+        assert got[1].dtype == res.dtype and torch.equal(got[1], want[1])
+    n = x.numel() // shape[1]
+    for a, c in zip(got[2:], want[2:]):
+        assert float((a - c).abs().max()) <= 2e-5 * max(
+            1.0, float(c.abs().max())) * max(1.0, n ** 0.5 / 8)
+    assert _replays_equal(lambda: BN.batch_norm_backward(*args))

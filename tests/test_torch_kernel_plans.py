@@ -1,0 +1,203 @@
+"""The launch plans of the recurrence's forward (``kernels/rnn.py``
+``rnn_forward_plan``) and of BatchNorm's backward (``kernels/batch_norm.py``
+``batch_norm_backward_plan``), on the CPU: pure Python, no ``triton``, no
+``nvcc``, no card.
+
+What they must hold for the kernels they pick: the persistent kernel's
+grid at most one block an SM (its blocks wait on each other at every
+step: all must be resident), shared memory within the 232,448 bytes a
+block may use, the persistent kernel only where T > 1 and H % 4 == 0; the
+cluster kernel only for a channels-first bf16 or fp16 x in training whose
+channel fits on chip over at most 8 blocks. The shapes are the main
+paths': the IWSLT'15 attention LSTM's (phase 18 of ``chip_smoke.py``:
+its encoder, decoder cells and beam step) and ResNet-50's 53 BatchNorms
+at batch 128.
+"""
+import math
+
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import batch_norm as BN
+from paddle_tpu_torch.kernels import rnn as R
+
+SMS = 132               # the H100's SMs
+SMEM = 232448           # shared memory a block may use
+
+
+# -- the recurrence's forward ------------------------------------------------
+
+# (mode, T, B, H, route): phase 18's encoder layers, its decoder cells and
+# beam step, and phase 3's timed cases
+_RNN_MAIN = [("lstm", 50, 128, 512, "persistent"),
+             ("gru", 50, 128, 512, "persistent"),
+             ("rnn_tanh", 50, 128, 512, "persistent"),
+             ("lstm", 1, 128, 512, "step"),
+             ("lstm", 1, 1280, 512, "step")]
+
+
+@pytest.mark.parametrize("mode,T,B,H,route", _RNN_MAIN,
+                         ids=lambda v: str(v))
+def test_rnn_plan_routes_the_main_paths(mode, T, B, H, route):
+    plan = R.rnn_forward_plan(mode, T, B, H, SMS)
+    assert plan.route == route
+    assert plan.launches == (1 if route == "persistent" else T)
+    assert plan.smem <= SMEM
+
+
+@pytest.mark.parametrize("mode", sorted(R.MODES))
+@pytest.mark.parametrize("T", [1, 2, 9, 50])
+def test_rnn_plan_keeps_within_the_card(mode, T):
+    """Every plan fits a block's shared memory; a persistent grid fits on
+    the SMs at one block each; the step kernel's grid covers every row
+    and unit (B and H on and off the tiles)."""
+    for B in (1, 5, 37, 128, 130, 256, 1280):
+        for H in (8, 40, 42, 96, 512, 1024):
+            plan = R.rnn_forward_plan(mode, T, B, H, SMS)
+            assert plan.smem <= SMEM
+            units, rows = plan.grid
+            assert units * 16 >= H and rows * plan.rows >= B
+            assert units * 16 - H < 16 and rows * plan.rows - B < plan.rows
+            if plan.route == "persistent":
+                assert T > 1 and H % 4 == 0
+                assert units * rows <= SMS and plan.launches == 1
+                assert plan.rows == 32
+            else:
+                assert plan.route == "step" and plan.launches == T
+                assert plan.rows in (32, 64)
+
+
+def test_rnn_plan_sends_what_the_persistent_kernel_cannot_hold_to_steps():
+    # the LSTM's slice of W_hh at H 1024 is 16 x 4 x 1028 x 4 bytes: too big
+    assert R.rnn_forward_plan("lstm", 50, 128, 1024, SMS).route == "step"
+    # more row blocks than SMs: not co-resident
+    assert R.rnn_forward_plan("lstm", 50, 256, 512, SMS).route == "step"
+    # the same shape on a card with more SMs fits
+    assert R.rnn_forward_plan("lstm", 50, 256, 512, 264).route == \
+        "persistent"
+    # H % 4 != 0: no 16-byte copies of h
+    assert R.rnn_forward_plan("gru", 9, 37, 42, SMS).route == "step"
+    # a cell call is a step whatever its size
+    assert R.rnn_forward_plan("rnn_tanh", 1, 37, 40, SMS).route == "step"
+
+
+def test_rnn_plan_shared_memory_is_the_kernels():
+    """The bytes the plan states are those the CUDA source computes for the
+    launch (``persistent_floats`` and ``step_floats`` of
+    ``csrc/rnn_recurrence.cu``), at the main paths' shapes."""
+    assert R.rnn_forward_plan("lstm", 50, 128, 512, SMS).smem == \
+        4 * (16 * 4 * 516 + max(32 * 516, 16384))
+    assert R.rnn_forward_plan("gru", 50, 128, 512, SMS).smem == \
+        4 * (16 * 3 * 516 + max(32 * 516, 16384))
+    # step kernel: three stages of (32 WM rows + 16 G rows of W_hh) x 132
+    assert R.rnn_forward_plan("lstm", 1, 128, 512, SMS).smem == \
+        4 * 3 * (32 + 64) * 132
+    assert R.rnn_forward_plan("lstm", 1, 1280, 512, SMS).smem == \
+        4 * 3 * (64 + 64) * 132
+
+
+def test_rnn_plan_refuses_unknown_modes():
+    with pytest.raises(ValueError):
+        R.rnn_forward_plan("lstmp", 2, 4, 8, SMS)
+
+
+# -- BatchNorm's backward ----------------------------------------------------
+
+def _resnet50_bn_calls(batch=128):
+    """The 53 BatchNorm inputs of a ResNet-50 forward at [batch, 3, 224,
+    224], in order, as (n, c, h): the stem's; each block's three (the
+    stride on its 3 x 3, so the first BatchNorm of a stage's first block
+    sees the stage's input size) and the first block's downsample."""
+    calls = [(batch, 64, 112)]
+    hw = 56
+    for planes, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2),
+                                   (512, 3, 2)):
+        out = hw // stride
+        for i in range(blocks):
+            calls += [(batch, planes, hw if i == 0 else out),
+                      (batch, planes, out), (batch, 4 * planes, out)]
+            if i == 0:
+                calls.append((batch, 4 * planes, out))
+        hw = out
+    return calls
+
+
+def test_resnet50_has_53_batch_norms():
+    assert len(_resnet50_bn_calls()) == 53
+
+
+@pytest.mark.parametrize("stage", [112, 56, 28, 14, 7])
+def test_batch_norm_plan_routes_resnet50(stage):
+    """bf16 x under amp O1, training: 28 x 28 and below on the cluster
+    kernel (41 of the 53), a cluster a channel, 56 x 56 and 112 x 112 on
+    the two Triton kernels."""
+    calls = [k for k in _resnet50_bn_calls() if k[2] == stage]
+    assert calls
+    for n, c, h in calls:
+        plan = BN.batch_norm_backward_plan(n, c, h * h, False,
+                                           torch.bfloat16, True, SMS)
+        if h <= 28:
+            route, cs, smem = plan
+            assert route == "cluster" and cs in (1, 2, 4, 8)
+            assert smem <= BN._CLUSTER_BLOCK_BYTES <= SMEM
+            assert math.ceil(n / cs) * h * h * 6 <= smem
+        else:
+            assert plan[0] == "two_pass"
+
+
+def test_batch_norm_plan_counts_41_cluster_calls_in_resnet50():
+    routes = [BN.batch_norm_backward_plan(n, c, h * h, False, torch.bfloat16,
+                                          True, SMS)[0]
+              for n, c, h in _resnet50_bn_calls()]
+    assert routes.count("cluster") == 41 and routes.count("two_pass") == 12
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((128, 2048, 49), ("cluster", 1)),
+    ((128, 1024, 196), ("cluster", 2)),
+    ((128, 512, 784), ("cluster", 8)),
+    ((128, 256, 3136), ("two_pass",)),
+    ((5, 7, 25), ("cluster", 1)),
+    ((128, 8, 400), ("cluster", 4)),
+    ((1, 2048, 2), ("cluster", 1)),        # many channels, two values each
+])
+def test_batch_norm_plan_layouts(shape, plan):
+    got = BN.batch_norm_backward_plan(*shape, False, torch.bfloat16, True,
+                                      SMS)
+    assert got[:len(plan)] == plan
+
+
+@pytest.mark.parametrize("channels_last,dtype,batch_stats", [
+    (True, torch.bfloat16, True),      # NHWC
+    (False, torch.float32, True),      # fp32 x
+    (False, torch.bfloat16, False),    # the eval backward
+])
+@pytest.mark.parametrize("shape", [(128, 2048, 49), (128, 512, 784),
+                                   (32, 256, 3136)])
+def test_batch_norm_plan_two_pass_where_the_cluster_kernel_does_not_take(
+        channels_last, dtype, batch_stats, shape):
+    plan = BN.batch_norm_backward_plan(*shape, channels_last, dtype,
+                                       batch_stats, SMS)
+    assert plan[0] == "two_pass"
+    # the Triton kernels' tiles and chunks, as the two-pass route takes them
+    assert plan[1] * plan[2] <= 8192 and plan[3] >= 1
+
+
+@pytest.mark.parametrize("n,c,s", [(1, 1, 2), (3, 5, 7), (16, 12, 1),
+                                   (128, 64, 12544), (2, 3, 4),
+                                   (37, 11, 25), (128, 4096, 49),
+                                   (1, 2048, 2), (1, 4096, 4),
+                                   (4, 512, 3), (2, 65536, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_batch_norm_plan_keeps_within_the_card(n, c, s, dtype):
+    """A cluster-kernel block holds its channel's share and its sums
+    within the plan's budget (two blocks an SM), whatever the channels,
+    down to a channel of two values."""
+    plan = BN.batch_norm_backward_plan(n, c, s, False, dtype, True, SMS)
+    if s == 1:
+        assert plan[0] == "two_pass"
+    if plan[0] == "cluster":
+        _, cs, smem = plan
+        assert smem == BN._cluster_smem(n, s, cs)
+        assert 6 * math.ceil(n / cs) * s + 176 <= smem \
+            <= BN._CLUSTER_BLOCK_BYTES <= SMEM
