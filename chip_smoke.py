@@ -68,8 +68,11 @@ Phases, each printing its own lines and its seconds:
      (training and eval) and backward, at ResNet-50's [128, 64, 112,
      112], [128, 256, 56, 56], [128, 2048, 7, 7], [128, 1024, 14, 14] and
      [128, 512, 28, 28] in bf16 under O1's dtypes (fp32 weights, residual
-     and output), one fp32 and one NHWC case, the backward's route
-     printed (``batch_norm_backward_plan``: the cluster kernel of
+     and output), one fp32 and one NHWC case, the forward's and the
+     backward's routes printed (``batch_norm_forward_plan``: the cluster
+     kernel of ``csrc/batch_norm_fwd.cu`` for training at 56 x 56 and
+     below;
+     ``batch_norm_backward_plan``: the cluster kernel of
      ``csrc/batch_norm_bwd.cu`` at 28 x 28 and below), against its plain
      version, two calls and a graph replay with
      the running statistics bit-equal, the fused calls bit-equal to the
@@ -97,14 +100,17 @@ Phases, each printing its own lines and its seconds:
      the CPU, and sparse_attention twice bit-equal; the recurrence kernels
      (``csrc/rnn_recurrence.cu``: the forward's route printed from
      ``rnn_forward_plan``, one persistent launch a layer or one step-kernel
-     launch a step; the backward one launch a step) against
-     their plain loop, fp32, forward and backward with every gradient, at
-     the IWSLT'15 model's shapes (an LSTM, GRU and tanh RNN layer at [T 50,
-     B 128, in 512, H 512], the decoder's first cell at in 1024, a beam
-     step at B 1280; each timed by graph replay beside its bound, the plain
-     loop and cuDNN's layer on the same weights) and at small shapes in
-     every mode and direction, two runs bit-equal and a captured layer
-     equal to its eager call; the recurrent layers, sequence_mask,
+     launch a step; the backward's from ``rnn_backward_plan``, one
+     persistent launch a layer or cell call where it fits, else a gates
+     and a product launch a step)
+     against their plain loop, fp32, forward and backward with every
+     gradient, at the IWSLT'15 model's shapes (an LSTM, GRU and tanh RNN
+     layer at [T 50, B 128, in 512, H 512], the decoder's first cell at in
+     1024, a beam step at B 1280; each timed by graph replay beside its
+     bound, the plain loop and cuDNN's layer on the same weights; the step
+     route's two kernels each by a profiler trace) and at small shapes in
+     every mode and direction, two runs bit-equal and each case captured
+     and replayed equal to its eager call; the recurrent layers, sequence_mask,
      gather_tree and a beam decode on the card against the CPU;
   4. Llama-2-7B at full width in bf16 (random weights from a seeded
      generator) served by the continuous-batching engine, twice over the
@@ -261,9 +267,9 @@ Phases, each printing its own lines and its seconds:
      captured: step ms with cuDNN's own choice and deterministic,
      images/s, MFU, peak, a profile, exact launch counts (53 BatchNorm
      forwards and 53 backwards a step, the ReLU and the residual add
-     fused), the 53 BatchNorms' device ms alone through the kernels and
-     through the composition of PyTorch ops they replaced, in the same
-     call; 3 replayed steps against 3 eager ones from one snapshot,
+     fused; those on the cluster kernels as the plans say), the 53
+     BatchNorms' device ms alone through the kernels and through the
+     composition of PyTorch ops they replaced, in the same call; 3 replayed steps against 3 eager ones from one snapshot,
      bit-equal with every running statistic; an eval forward at batch
      128 (53 BatchNorm launches); a tiny float32 ResNet-18 on the card
      against the CPU trainer;
@@ -304,13 +310,15 @@ Phases, each printing its own lines and its seconds:
      with global-norm clipping at 5, fp32, 128 pairs of 10-50 tokens:
      the step captured, exact launch counts (rnn_fwd 102: the encoder's 2
      layers one persistent launch each, the decoder's 100 cells on the
-     step kernel; rnn_bwd 200, dropout 202, AdamW 1 a step; no attention
-     kernel), step ms, tokens/s, MFU, peak memory, a profile, 3 replayed
-     steps against 3 eager ones bit-equal; beam search (beam 10, at most
-     50 steps, 2 rnn_fwd a step on the step kernel) as built and with the
-     EOS logit held at 0; a tiny
-     float32 model on the card against the CPU trainer, its beam 1
-     against the greedy chain and its beam 4 against the CPU's;
+     step kernel; rnn_bwd 102: the encoder's layers and the decoder's
+     cells one persistent launch each; dropout 202, AdamW 1 a step; no
+     attention kernel), step ms,
+     tokens/s, MFU, peak memory, a profile, 3 replayed steps against 3
+     eager ones bit-equal; beam search (beam 10, at most 50 steps, 2
+     rnn_fwd a step on the step kernel) as built and with the EOS logit
+     held at 0; a tiny float32 model on the card against the CPU trainer,
+     its beam 1 against the greedy chain and its beam 4 against the
+     CPU's;
   then a JSON line of every kernel, the card line again, and the final
   {"ok": true, ...} line. Phases 4-10 also hold the routing of attention
   to plain versions (``LAUNCHES["sdpa_plain"]``, ``["ragged_plain"]``:
@@ -1199,8 +1207,7 @@ def _serve_pair(torch, model, ecfg, prompts, max_new, per_step, tag, args,
         stats["card"] = card
         print(f"  {tag} {kind} serving: " + json.dumps(stats), flush=True)
         stats["breakdown"] = _profile_steps(
-            torch, eng, vocab, args.seed, args.out,
-            f"{tag.replace(' ', '_')}_{kind}")
+            torch, eng, vocab, args.seed, f"{tag.replace(' ', '_')}_{kind}")
         for step_kind, m in stats["breakdown"].items():
             # the profiler's own cost lengthens a traced step: the idle
             # share against the untraced step's wall time as well
@@ -1521,9 +1528,7 @@ def _generate_checks(torch, model, cfg, args, launches_out, per_call,
                              f"with the eager loop")
     # where a decode step's device time goes: a profile of 8 replays
     loop.start(ids_d, mask_d, 1.0, 0, 1.0, None)
-    prof, prof_m = _profile(torch, loop.step, 8)
-    prof.export_chrome_trace(os.path.join(
-        args.out, f"{tag.replace(' ', '_')}_generate_decode_trace.json"))
+    _, prof_m = _profile(torch, loop.step, 8)
     out = dict(batch=b, prompt_lens=sorted(lens.tolist()), width=width,
                max_new_tokens=max_new, quant=quant, first_call_s=first_s,
                graph_prefill_ms=pre_g, graph_step_ms=step_g,
@@ -1682,7 +1687,7 @@ def _kernel_group(name):
         return "dense_softmax"
     if "_bn_bwd_" in name:
         return "batch_norm_bwd"
-    if "_bn_stats_kernel" in name or "_bn_fwd_kernel" in name:
+    if "_bn_stats_kernel" in name or "_bn_fwd_" in name:
         return "batch_norm"
     if "_gn_bwd_" in name:
         return "group_norm_bwd"
@@ -1725,7 +1730,7 @@ def _kernel_group(name):
         return "swiglu"
     if "rnn_fwd_step_kernel" in name or "rnn_fwd_persistent_kernel" in name:
         return "rnn_fwd"
-    if "rnn_bwd_kernel" in name:
+    if "rnn_bwd_" in name:   # persistent, gates, product
         return "rnn_bwd"
     if "sgemm" in name or "f32f32" in name:
         return "matmul_fp32"
@@ -1749,6 +1754,7 @@ _STEP_TRACE_CHECKED = {
                                       or "ragged_attention_kernel" in k),
 }
 PROFILE_TRACES = 8     # traces taken before a lossy one fails the phase
+OUT_BUDGET_MIB = 48    # what --out may hold at the end of a run
 SPINS = 64             # spin kernels before and after a trace's calls
 SPIN_CYCLES = 10 ** 6  # ~0.5 ms each on an H100
 
@@ -1846,6 +1852,27 @@ def _profile(torch, step, n, checked=None):
                                           for k, _ in top_other})
 
 
+def _save_trace(prof, path):
+    """A profiler's chrome trace, gzip-compressed, as ``path`` + ".gz" (the
+    traces of a whole run would exceed the output directory's budget
+    uncompressed; chrome://tracing and Perfetto read .json.gz). Level 1:
+    level 9 took seconds a trace, over the whole run tens of seconds of
+    the phases' budget, for 20% smaller files."""
+    import gzip
+    import shutil
+    prof.export_chrome_trace(path)
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb",
+                                            compresslevel=1) as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+
+
+def _dir_bytes(root):
+    """Bytes of every file under ``root``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
 def _other_name(name):
     """A PyTorch kernel's name shortened to what tells its op apart: the
     kernel template and the functor (``vectorized_elementwise_kernel<4,
@@ -1869,28 +1896,25 @@ def _print_other(m, tag):
               f"{name}", flush=True)
 
 
-def _profile_steps(torch, eng, vocab, seed, out_dir, tag):
+def _profile_steps(torch, eng, vocab, seed, tag):
     """Where a step's time goes: a profiler trace of two prefill steps
     (8 prompts of 512 tokens, 256 tokens a step) and of four decode steps
-    of the same 8 sequences. Chrome traces go to ``out_dir``, named by
-    ``tag``. The ragged attention must plan once a step, in traces that
-    hold every counted launch (``_profile``)."""
+    of the same 8 sequences, kept as their summaries (``_profile``; the
+    chrome traces of the serving phases' 26 profiles cost the smoke tens
+    of seconds to write). The ragged attention must plan once a step, in
+    traces that hold every counted launch."""
     import numpy as np
     rng = np.random.default_rng(seed + 1)
     reqs = [eng.submit(rng.integers(1, vocab, (512,)).tolist(),
                        max_new_tokens=16) for _ in range(8)]
     out = {}
-    prof, out["prefill"] = _profile(torch, eng.step, 2,
-                                    checked=_STEP_TRACE_CHECKED)
-    prof.export_chrome_trace(os.path.join(
-        out_dir, f"{tag}_prefill_steps_trace.json"))
+    _, out["prefill"] = _profile(torch, eng.step, 2,
+                                 checked=_STEP_TRACE_CHECKED)
     sched = eng.sched
     while sched.waiting or any(r.pos < len(r.seq) - 1 for r in sched.running):
         eng.step()
-    prof, out["decode"] = _profile(torch, eng.step, 4,
-                                   checked=_STEP_TRACE_CHECKED)
-    prof.export_chrome_trace(os.path.join(
-        out_dir, f"{tag}_decode_steps_trace.json"))
+    _, out["decode"] = _profile(torch, eng.step, 4,
+                                checked=_STEP_TRACE_CHECKED)
     eng.run_until_idle()
     if not all(len(r.result(timeout=0)) == 16 for r in reqs):
         raise AssertionError("a profiled request did not finish")
@@ -2236,7 +2260,62 @@ def phase_train_kernels(torch, results):
           f"of the same count (28 bytes an element) {lib_ms:.4f} ms "
           f"[{_card_line()}]", flush=True)
     _norm_rope_at_training_shapes(torch, dev)
+    _rope_training_case(torch, results, dev)
     _fused_passes(torch, results, dev)
+
+
+# the 1.1B Llama's training step (phase 5): q [8, 2048, 32, 64], k [8,
+# 2048, 4, 64] bf16; 66 RoPE launches a step (a forward, its recompute
+# under remat and a backward a layer, 22 layers)
+ROPE_TRAIN = dict(shape_q=(8, 2048, 32, 64), shape_k=(8, 2048, 4, 64),
+                  launches_a_step=66)
+
+
+def _rope_training_case(torch, results, dev):
+    """RoPE (``fused.fused_rope``; its backward is the same kernel with
+    -sin) at the Llama training step's shape in bf16 with the model's
+    bf16-rounded tables: forward and backward each row within one bf16 ulp
+    of its largest plain value, timed by graph replay beside its bound
+    (q, k and the gradients read once and written once, the tables read
+    once), the plain version by events; into ``results["rope[llama
+    training]"]`` / ``["rope_bwd[llama training]"]``."""
+    from paddle_tpu_torch.kernels import fused
+    from paddle_tpu_torch.models import build_rope_cache
+    g = torch.Generator(device=dev).manual_seed(33)
+    bf = torch.bfloat16
+    sq, sk = ROPE_TRAIN["shape_q"], ROPE_TRAIN["shape_k"]
+    cos, sin = (t.to(bf).float() for t in build_rope_cache(
+        sq[1], sq[3], device=dev))
+    q, gq = (torch.randn(*sq, device=dev, generator=g).to(bf)
+             for _ in range(2))
+    k, gk = (torch.randn(*sk, device=dev, generator=g).to(bf)
+             for _ in range(2))
+    card = _card_line()
+    nbytes = 2 * 2 * (q.numel() + k.numel()) + 2 * 4 * cos.numel()
+    bound_ms, bound_by = _bound(nbytes, 6 * (q.numel() + k.numel()),
+                                FP32_FLOPS)
+    for key, s_ in (("rope", sin), ("rope_bwd", -sin)):
+        xq, xk = (q, k) if key == "rope" else (gq, gk)
+        got = fused.rope_op(xq, xk, cos, s_)
+        want = fused.fused_rope_plain(xq, xk, cos, s_)
+        err = max(_check_rows(f"rope {key} {list(sq)} / {list(sk)} {n}", a, b,
+                              1) for n, a, b in zip("qk", got, want))
+        ms = _graph_ms(lambda: fused.rope_op(xq, xk, cos, s_), iters=20,
+                       reps=3)
+        plain = _time_ms(lambda: fused.fused_rope_plain(xq, xk, cos, s_), 5)
+        results[f"{key}[llama training]"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, share_of_bound=bound_ms / ms,
+            shape_q=list(sq), shape_k=list(sk),
+            launches_a_step=ROPE_TRAIN["launches_a_step"] // 3 * (
+                2 if key == "rope" else 1))
+        print(f"  {key} at the Llama training shape q {list(sq)}, k "
+              f"{list(sk)} bf16: {ms:.4f} ms ({bound_ms / ms:.3f} of the "
+              f"bound {bound_ms:.4f} ms, {bound_by}); plain {plain:.4f} ms; "
+              f"{results[f'{key}[llama training]']['launches_a_step']} "
+              f"launches a step [{card}]", flush=True)
+    del q, k, gq, gk
+    torch.cuda.empty_cache()
 
 
 def _norm_rope_at_training_shapes(torch, dev):
@@ -3211,7 +3290,7 @@ def phase_training(torch, args, launches_out, packed=False):
               f"attention over the visible pairs", flush=True)
     prof, training["breakdown"] = _profile(
         torch, lambda: trainer.train_step(*batch_), 1)
-    prof.export_chrome_trace(os.path.join(
+    _save_trace(prof, os.path.join(
         args.out, f"{'packed_' if packed else ''}train_step_trace.json"))
     m = training["breakdown"]
     training["idle_share_untraced"] = 1 - m["device_ms"] / step_ms
@@ -3661,7 +3740,7 @@ def phase_gpt_moe_training(torch, args, launches_out):
     print("  gpt_moe training: " + json.dumps(training), flush=True)
     prof, training["breakdown"] = _profile(
         torch, lambda: trainer.train_step(ids, ids), 1)
-    prof.export_chrome_trace(os.path.join(args.out,
+    _save_trace(prof, os.path.join(args.out,
                                           "gpt_moe_train_step_trace.json"))
     m = training["breakdown"]
     # the profiler's own host cost per launch stretches the traced step's
@@ -5491,7 +5570,7 @@ def _ernie_run(torch, cfg, args, tag, launches_out, dropout):
                  peak_memory_of_phase_gb=peak_gb - held / 1e9, losses=losses,
                  card=card, graph=graph, launches_a_step=per_step)
     prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1)
-    prof.export_chrome_trace(os.path.join(
+    _save_trace(prof, os.path.join(
         args.out, f"ernie_train_step_trace{'' if dropout else '_p0'}.json"))
     del prof
     stats["breakdown"] = m
@@ -6047,8 +6126,42 @@ def phase_group_norm_kernels(torch, results):
           f"their plain version (fp32 2e-5 of the largest value; bf16 each "
           f"row within 1 ulp of its largest plain value, 2 with the SiLU "
           f"and for the gradients)", flush=True)
+    _gn_warm(torch)
     for i, (tag, shape, layout, dtype_name) in enumerate(GN_CASES):
         _gn_case(torch, results, dev, tag, shape, layout, dtype_name, 70 + i)
+
+
+def _gn_warm_one(torch, shape, last, dtype):
+    """Launch, once each, the GroupNorm kernels a ``GN_CASES`` case
+    launches (forward with and without the SiLU, backward with it), so
+    that Triton compiles each of them here."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    c = shape[-1] if last else shape[1]
+    x = torch.zeros(shape, dtype=dtype, device="cuda")
+    w, b = torch.ones(c, dtype=dtype, device="cuda"), torch.zeros(
+        c, dtype=dtype, device="cuda")
+    for silu in (False, True):
+        _, stats = GN.group_norm_forward(x, w, b, GN_GROUPS, 1e-5, last, silu)
+    GN.group_norm_backward(x, w, b, stats, x, GN_GROUPS, last, True)
+    torch.cuda.synchronize()
+
+
+def _gn_warm(torch):
+    """Compile the GroupNorm kernels of phase 3's cases in as many threads
+    at once, as ``_bn_warm`` does BatchNorm's. Nothing is measured or
+    counted from these launches: each case takes the counts' difference
+    around its own calls."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.kernels import group_norm as GN
+    GN._jit()          # the kernels wrapped once, before the threads
+    t = time.monotonic()
+    with ThreadPoolExecutor(len(GN_CASES)) as ex:
+        list(ex.map(lambda case: _gn_warm_one(
+            torch, case[1], case[2] == "NHWC", getattr(torch, case[3])),
+            GN_CASES))
+    torch.cuda.empty_cache()
+    print(f"  GroupNorm kernels compiled for {len(GN_CASES)} cases in "
+          f"{len(GN_CASES)} threads: {time.monotonic() - t:.1f}s", flush=True)
 
 
 # -- phase 3: the BatchNorm kernels ------------------------------------------------
@@ -6075,8 +6188,11 @@ BN_CASES = (
     ("[32, 56, 56, 256] bf16 NHWC +residual +ReLU", (32, 56, 56, 256),
      "NHWC", "bfloat16", "residual_relu"),
 )
-BN_MAIN = "[128, 256, 56, 56] bf16 +residual +ReLU"   # the kernels line's
-BN_CLUSTER_MAIN = "[128, 2048, 7, 7] bf16 +residual +ReLU"   # its cluster row
+# the kernels line's cases: the forward's Triton row (the stem, which its
+# plan keeps there), the backward's two-pass row, both cluster rows
+BN_TRITON_MAIN = "[128, 64, 112, 112] bf16 +ReLU"
+BN_MAIN = "[128, 256, 56, 56] bf16 +residual +ReLU"
+BN_CLUSTER_MAIN = "[128, 2048, 7, 7] bf16 +residual +ReLU"
 
 
 def _bn_bytes_ops(n_el, esize, backward, res, relu):
@@ -6202,10 +6318,14 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
     last = layout == "NHWC"
     relu = form != "plain"
     c = shape[-1] if last else shape[1]
-    plan = BN.batch_norm_backward_plan(
-        shape[0], c, math.prod(shape) // (shape[0] * c), last, dtype, True,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
-    print(f"  batch_norm_bwd {tag}: route {plan}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s_ = math.prod(shape) // (shape[0] * c)
+    fplan = BN.batch_norm_forward_plan(shape[0], c, s_, last, dtype, True,
+                                       sms)
+    plan = BN.batch_norm_backward_plan(shape[0], c, s_, last, dtype, True,
+                                       sms)
+    print(f"  batch_norm {tag}: forward route {fplan}; batch_norm_bwd "
+          f"route {plan}", flush=True)
     g = torch.Generator(device=dev).manual_seed(seed)
     x = (3 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
     w = 1 + 0.2 * torch.randn(c, device=dev, generator=g)
@@ -6280,10 +6400,13 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
         err_b = max(err_b, _check(f"batch_norm_bwd {tag} dresidual", dres,
                                   gk, 0.0))
     used = tuple(K.LAUNCHES[k] - before[k] for k in (
-        "batch_norm", "batch_norm_bwd", "batch_norm_bwd_cluster"))
-    if used != (3, 2, 2 if plan[0] == "cluster" else 0):
+        "batch_norm", "batch_norm_cluster", "batch_norm_bwd",
+        "batch_norm_bwd_cluster"))
+    if used != (3, 2 if fplan[0] == "cluster" else 0, 2,
+                2 if plan[0] == "cluster" else 0):
         raise AssertionError(f"batch_norm {tag}: launches {used} (forward, "
-                             f"backward, on the cluster kernel)")
+                             f"on its cluster kernel, backward, on its "
+                             f"cluster kernel)")
     composition = None
     if dtype == torch.bfloat16 and relu:
         composition = _bn_o1_composition(torch, x, w, b, r, stats, dy, tag,
@@ -6335,21 +6458,23 @@ def _bn_case(torch, results, dev, tag, shape, layout, dtype_name, form,
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                bound_by=by, library_ms=lib_ms, shape=list(shape),
                layout=layout, dtype=dtype_name, form=form,
-               o1_composition_bit_equal=composition)
+               o1_composition_bit_equal=composition,
+               replay_bit_equal=replay_equal, route=list(fplan))
     rec_b = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                  bound_ms=bound_b, bound_by=by_b, library_ms=lib_b,
                  shape=list(shape), layout=layout, dtype=dtype_name,
                  form=form, replay_bit_equal=replay_equal, route=list(plan))
     results[f"batch_norm[{tag}]"] = rec
     results[f"batch_norm_bwd[{tag}]"] = rec_b
-    if tag == BN_MAIN:
+    if tag == BN_TRITON_MAIN:
         results["batch_norm"] = rec
+    if tag == BN_MAIN:
         results["batch_norm_bwd"] = rec_b
     lib_name = "F.batch_norm" + (" + add" if r is not None else "") + \
         (" + F.relu" if relu else "")
-    print(f"  batch_norm {tag}: ms={ms:.4f} ({bound / ms:.3f} of the bound) "
-          f"plain_ms={plain:.4f} bound_ms={bound:.4f} ({by}); {lib_name} "
-          f"(cuDNN) {lib_ms:.4f} [{card}]", flush=True)
+    print(f"  batch_norm {tag} ({fplan[0]}): ms={ms:.4f} ({bound / ms:.3f} "
+          f"of the bound) plain_ms={plain:.4f} bound_ms={bound:.4f} ({by}); "
+          f"{lib_name} (cuDNN) {lib_ms:.4f} [{card}]", flush=True)
     print(f"  batch_norm_bwd {tag} ({plan[0]}): ms={ms_b:.4f} "
           f"({bound_b / ms_b:.3f} of the bound) plain_ms={plain_b:.4f} "
           f"bound_ms={bound_b:.4f} ({by_b}); autograd of {lib_name}, less "
@@ -6652,7 +6777,7 @@ def _unet_forward(torch, args, card, launches_out):
     with amp.auto_cast(level="O2", dtype="bfloat16"):
         flops = _forward_flops(torch, model, (x, t, ctx))
     prof, m = _profile(torch, fwd, 1)
-    prof.export_chrome_trace(os.path.join(args.out,
+    _save_trace(prof, os.path.join(args.out,
                                           "unet_forward_trace.json"))
     del prof
     stats = dict(params=model.num_params(), ms=ms, ms_min=1e3 * secs[0],
@@ -6715,7 +6840,7 @@ def _unet_train(torch, args, card, launches_out):
                              f"falling: {losses}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1)
-    prof.export_chrome_trace(os.path.join(args.out,
+    _save_trace(prof, os.path.join(args.out,
                                           "unet_train_step_trace.json"))
     del prof
     img_s = 4 / (step_ms / 1e3)
@@ -6970,17 +7095,19 @@ def _batch_norm_ops(torch, x, rm, rv, w, b, residual, relu):
 
 
 def _resnet_bn_cluster_calls(torch, model, x):
-    """The BatchNorms of a forward under O1 whose backward
-    ``batch_norm_backward_plan`` sends to the cluster kernel (a hook on
-    each, one eager forward without gradients)."""
+    """How many BatchNorms of a forward under O1 ``batch_norm_forward_plan``
+    and ``batch_norm_backward_plan`` send to their cluster kernels (a hook
+    on each, one eager forward without gradients): (forward, backward)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.kernels import batch_norm as BN
     from paddle_tpu_torch.nn import BatchNorm2D
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    routes = []
+    routes, froutes = [], []
 
     def hook(mod, args, out):
         n, c, h, w = args[0].shape
+        froutes.append(BN.batch_norm_forward_plan(
+            n, c, h * w, False, args[0].dtype, True, sms)[0])
         routes.append(BN.batch_norm_backward_plan(
             n, c, h * w, False, args[0].dtype, True, sms)[0])
     hooks = [m.register_forward_hook(hook) for m in model.modules()
@@ -6991,11 +7118,13 @@ def _resnet_bn_cluster_calls(torch, model, x):
     finally:
         for h in hooks:
             h.remove()
-    print(f"  phase 15: backward routes of the {len(routes)} BatchNorms: "
-          f"{routes.count('cluster')} on the cluster kernel, "
+    print(f"  phase 15: forward routes of the {len(froutes)} BatchNorms: "
+          f"{froutes.count('cluster')} on the cluster kernel, "
+          f"{froutes.count('triton')} on the Triton kernels; backward "
+          f"routes: {routes.count('cluster')} on the cluster kernel, "
           f"{routes.count('two_pass')} on the two-pass Triton kernels",
           flush=True)
-    return routes.count("cluster")
+    return froutes.count("cluster"), routes.count("cluster")
 
 
 def _batch_norm_ms(torch, model, x):
@@ -7111,7 +7240,7 @@ def phase_resnet(torch, args, launches_out):
     model = resnet50(num_classes=1000, device="cuda", generator=g)
     n_bn = sum(1 for m in model.modules() if isinstance(m, BatchNorm2D))
     x = torch.randn(128, 3, 224, 224, device="cuda", generator=g)
-    n_cluster = _resnet_bn_cluster_calls(torch, model, x)
+    n_fwd_cluster, n_cluster = _resnet_bn_cluster_calls(torch, model, x)
     y = torch.randint(0, 1000, (128,), device="cuda", generator=g)
     trainer = _resnet_trainer(model)
     with amp.auto_cast(level="O1", dtype="bfloat16"):
@@ -7130,6 +7259,7 @@ def phase_resnet(torch, args, launches_out):
         graph = _graph_line(trainer, "phase 15", card)
         expect = {k: 0 for k in K.LAUNCHES}
         expect.update(batch_norm=5 * n_bn, batch_norm_bwd=5 * n_bn,
+                      batch_norm_cluster=5 * n_fwd_cluster,
                       batch_norm_bwd_cluster=5 * n_cluster)
         print(f"  phase 15 launches over 5 steps: {launches} (expected "
               f"{expect}: the BatchNorm kernels, one forward and one "
@@ -7146,7 +7276,7 @@ def phase_resnet(torch, args, launches_out):
             raise AssertionError(f"phase 15: losses not finite: {losses}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         prof, m = _profile(torch, lambda: trainer.train_step(x, y), 1)
-        prof.export_chrome_trace(os.path.join(args.out,
+        _save_trace(prof, os.path.join(args.out,
                                               "resnet50_step_trace.json"))
         del prof
         bn_ms, bn_ops_ms, bn_calls, bn_kinds = _batch_norm_ms(torch, model,
@@ -8421,7 +8551,7 @@ def phase_transformer_base(torch, args, launches_out):
     graph = _graph_line(trainer, "phase 17 (a)", card)
     peak = torch.cuda.max_memory_allocated() / 1e9
     prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1)
-    prof.export_chrome_trace(os.path.join(args.out,
+    _save_trace(prof, os.path.join(args.out,
                                           "transformer_step_trace.json"))
     del prof
     out = dict(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
@@ -8474,7 +8604,8 @@ RNN_CASES = (
     ("gru cell without b_hc", "gru", 1, 5, 24, 40, False, False),
 )
 RNN_MAIN = "lstm layer"       # the kernels line's case (persistent)
-RNN_STEP_MAIN = "lstm beam step"   # the step kernel's row
+RNN_STEP_MAIN = "lstm beam step"   # the forward's step kernel's row
+RNN_STEP_BWD_MAIN = "lstm beam step"   # the backward's step route's rows
 RNN_LIBRARY = {"lstm": "LSTM", "gru": "GRU", "rnn_tanh": "RNN",
                "rnn_relu": "RNN"}
 
@@ -8570,17 +8701,23 @@ def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
         loss = sum((o * u).sum() for o, u in zip(outs, ups))
         grads = torch.autograd.grad(loss, list(ins.values()))
         return [t.detach() for t in outs + list(grads)]
-    plan = R.rnn_forward_plan(mode, T, B, H, torch.cuda.get_device_properties(
-        0).multi_processor_count)
-    keys = ("rnn_fwd", "rnn_fwd_step", "rnn_bwd")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = R.rnn_forward_plan(mode, T, B, H, sms)
+    bplan = R.rnn_backward_plan(mode, T, B, H, sms)
+    keys = ("rnn_fwd", "rnn_fwd_step", "rnn_bwd", "rnn_bwd_gates",
+            "rnn_bwd_step")
     before = [K.LAUNCHES[k] for k in keys]
     got = run(False)
     torch.cuda.synchronize()
     used = tuple(K.LAUNCHES[k] - b for k, b in zip(keys, before))
-    if used != (plan.launches, T if plan.route == "step" else 0, T):
+    want = (plan.launches, T if plan.route == "step" else 0) + (
+        (1, 0, 0) if bplan.route == "persistent" else (0, T, T))
+    if used != want:
         raise AssertionError(f"rnn {tag}: launches {used} (forward, on the "
-                             f"step kernel, backward) against {plan}")
+                             f"step kernel; backward persistent, gates, "
+                             f"product) against {plan} and {bplan}")
     same = all(torch.equal(a, b) for a, b in zip(got, run(False)))
+    replayed = _rnn_replay(torch, mode, inputs, ups, has_b_hc, reverse)
     want = run(True)
     n_out = len(ups)
     keys = ["y", "h_T", "c_T"][:n_out] + [f"d{n}" for n in names]
@@ -8589,20 +8726,23 @@ def _rnn_check(torch, tag, mode, T, B, n_in, H, reverse, seed):
         errs[key] = float((a - b).abs().max())
         tol = RNN_FWD_TOL if i < n_out else RNN_BWD_TOL
         worst = max(worst, errs[key] / (tol * max(1.0, float(b.abs().max()))))
-    ok = worst <= 1.0 and same
+    ok = worst <= 1.0 and same and replayed
     print(f"  rnn {tag} [T {T}, B {B}, in {n_in}, H {H}]"
           f"{' reverse' if reverse else ''}: forward on the {plan.route} "
           f"kernel ({plan.rows} rows a block, {plan.launches} launch(es), "
-          f"{plan.smem} bytes of shared memory); max abs err "
+          f"{plan.smem} bytes of shared memory); backward on the "
+          f"{bplan.route} route ({bplan.rows} rows a block, "
+          f"{bplan.launches} launch(es), {bplan.smem} bytes of shared "
+          f"memory); max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + f"; the worst {worst:.3g} of its tolerance (outputs "
           f"{RNN_FWD_TOL:g}, gradients {RNN_BWD_TOL:g} of the largest plain "
-          f"value); two runs bit-equal {same} {'ok' if ok else 'FAIL'}",
-          flush=True)
+          f"value); two runs bit-equal {same}; graph replays bit-equal "
+          f"{replayed} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"rnn {tag}: the kernels disagree with the "
                              f"plain loop or with themselves")
-    return inputs, ups, errs, n_out, plan
+    return inputs, ups, errs, n_out, plan, bplan
 
 
 def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
@@ -8615,8 +8755,8 @@ def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
     the forward, and the forward and backward less the training forward),
     into ``results["rnn_fwd[tag]"]`` / ``["rnn_bwd[tag]"]``."""
     from paddle_tpu_torch.kernels import rnn as R
-    inputs, ups, errs, n_out, plan = _rnn_check(torch, tag, mode, T, B,
-                                                n_in, H, reverse, seed)
+    inputs, ups, errs, n_out, plan, bplan = _rnn_check(
+        torch, tag, mode, T, B, n_in, H, reverse, seed)
     if not timed:
         return
     card = _card_line()
@@ -8687,11 +8827,11 @@ def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
             share_of_bound=bound_ms / ms[key], mode=mode,
             shape=dict(T=T, B=B, n_in=n_in, H=H),
             cudnn_forward_max_abs_diff=lib_diff,
-            route=plan.route if key == "fwd" else "step")
+            route=(plan if key == "fwd" else bplan).route)
         if key == "bwd":
             results[f"rnn_bwd[{tag}]"].update(
                 library_fwd_bwd_ms=lib_fb, library_train_fwd_ms=lib_ft)
-        print(f"  rnn {tag} {key} ({plan.route if key == 'fwd' else 'step'}"
+        print(f"  rnn {tag} {key} ({(plan if key == 'fwd' else bplan).route}"
               f"): {T} step(s) {ms[key]:.4f} ms "
               f"({ms[key] / T * 1e3:.2f} us a step; {bound_ms / ms[key]:.3f} "
               f"of the bound {bound_ms:.4f} ms, {bound_by}); the whole layer "
@@ -8701,25 +8841,77 @@ def _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
               f" {library:.4f} ms [{card}]", flush=True)
     print(f"  rnn {tag}: cuDNN's training forward {lib_ft:.4f} ms, forward "
           f"and backward {lib_fb:.4f} ms (graph replay)", flush=True)
+    if bplan.route == "step":
+        _rnn_step_kernels(torch, results, tag, mode, T, B, H, w_hh, bwd,
+                          plain_b, errs, n_out, card)
     print(f"  rnn {tag}: cuDNN's output against the kernel's, max abs diff "
           f"{lib_diff:.3g}", flush=True)
 
 
-def _rnn_replay(torch):
-    """One LSTM layer's forward and backward kernels (T 50, B 128, H 512)
-    captured in a CUDA graph: the replay equal to an eager call bit for
-    bit."""
+# floats a (row, unit) pair of the backward's gates kernel reads and
+# writes: dy, the recurrent dh; lstm dc, i f g o, c_t, c_{t-1} read, dxw's
+# 4 and dc written; gru r z n hc, h_{t-1} read, dxw's 3 and dhc written;
+# the simple RNN h_t read, dxw written
+RNN_GATES_FLOATS = {"lstm": 14, "gru": 11, "rnn_tanh": 4, "rnn_relu": 4}
+
+
+def _rnn_step_kernels(torch, results, tag, mode, T, B, H, w_hh, bwd, plain_b,
+                      errs, n_out, card):
+    """The backward's step route kernel by kernel: each one's device ms a
+    launch from a profiler trace of ``bwd`` (the gate gradients, then the
+    product), beside its own bound (the gates: bytes, ``RNN_GATES_FLOATS``
+    a pair; the product: 2 B G H H operations), the plain backward a step
+    (for both: the plain loop has no such split) and, for the product,
+    one ``torch.mm`` of the same operands (graph replay), into
+    ``results["rnn_bwd_gates[tag]"]`` / ``["rnn_bwd_step[tag]"]``."""
     from paddle_tpu_torch.kernels import rnn as R
-    x, w_ih, w_hh, b_ih, b_hh, h0, c0 = _rnn_inputs(torch, "lstm", 50, 128,
-                                                    512, 512, 31)
-    xw, _ = _rnn_terms(torch, "lstm", x, w_ih, b_ih, b_hh)
-    dy = torch.randn(50, 128, 512, device="cuda")
+    G = R.GATES[mode]
+    _, m = _profile(torch, bwd, 10, {
+        ("rnn_bwd_gates",): lambda n: "rnn_bwd_gates_kernel" in n,
+        ("rnn_bwd_step",): lambda n: "rnn_bwd_step_kernel" in n})
+    dxw = bwd()[0]
+    lib = _graph_ms(lambda: torch.mm(dxw[0], w_hh), iters=20, reps=3)
+    err = max(v for i, v in enumerate(errs.values()) if i >= n_out)
+    costs = {"gates": (4 * B * H * RNN_GATES_FLOATS[mode], 20 * B * H),
+             "step": (4 * (B * (G + 1 + (3 if mode == "gru" else 0)) * H
+                           + G * H * H), 2 * B * G * H * H)}
+    for key, kname in (("gates", "rnn_bwd_gates_kernel"),
+                       ("step", "rnn_bwd_step_kernel")):
+        hits = [k for k in m["top_kernels_ms"] if kname in k]
+        ms = sum(m["top_kernels_ms"][k] for k in hits) / T
+        launches = sum(m["top_kernels_launches"][k] for k in hits)
+        bound_ms, bound_by = _bound(*costs[key], FP32_FLOPS)
+        library = lib if key == "step" else None
+        results[f"rnn_bwd_{key}[{tag}]"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_b / T, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library,
+            share_of_bound=bound_ms / ms, shape=dict(T=T, B=B, H=H),
+            mode=mode, route="step", traced_launches_a_call=launches)
+        print(f"  rnn {tag} backward's {kname}: {ms:.4f} ms a launch "
+              f"({launches:.0f} a call traced; {bound_ms / ms:.3f} of the "
+              f"bound {bound_ms:.4f} ms, {bound_by}); "
+              + (f"torch.mm of the same operands {library:.4f} ms"
+                 if library is not None else "no one PyTorch call")
+              + f" [{card}]", flush=True)
+
+
+def _rnn_replay(torch, mode, inputs, ups, has_b_hc, reverse):
+    """The case's forward and backward kernels (``rnn_forward``,
+    ``rnn_backward`` on the upstream gradients ``ups``) eager, then
+    captured in a CUDA graph and replayed twice: each replay equal to the
+    eager call bit for bit."""
+    from paddle_tpu_torch.kernels import rnn as R
+    x, w_ih, w_hh, b_ih, b_hh, h0, c0 = inputs
+    xw, b_hc = _rnn_terms(torch, mode, x, w_ih, b_ih, b_hh, has_b_hc)
+    dy, dhT, dcT = (list(ups) + [None])[:3]
 
     def call():
-        y, hT, cT, saved, cs = R.rnn_forward("lstm", xw, h0, c0, w_hh)
-        return [y, hT, cT] + list(R.rnn_backward(
-            "lstm", dy, None, None, saved, cs, h0, c0, y, w_hh)[::2])
-    eager = call()
+        y, hT, cT, saved, cs = R.rnn_forward(mode, xw, h0, c0, w_hh, b_hc,
+                                             reverse)
+        return [t for t in (y, hT, cT) + R.rnn_backward(
+            mode, dy, dhT, dcT, saved, cs, h0, c0, y, w_hh, reverse)
+            if t is not None]
+    eager = [t.clone() for t in call()]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -8728,15 +8920,11 @@ def _rnn_replay(torch):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         static = call()
-    graph.replay()
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(eager, static))
-    print(f"  rnn: one LSTM layer's forward and backward (T 50, B 128, H "
-          f"512) replayed from a CUDA graph equal to the eager call bit for "
-          f"bit: {same}", flush=True)
-    if not same:
-        raise AssertionError("rnn: the graph replay differs from the eager "
-                             "call")
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b) for a, b in zip(eager, static))
     del graph
     return same
 
@@ -8746,13 +8934,13 @@ def phase_rnn_kernels(torch, results):
     plain loop on the card, fp32, forward and backward, every mode and
     direction, given initial states, every gradient, as ``RNN_CASES``;
     the IWSLT'15 model's shapes timed beside their bounds, the plain loop
-    and cuDNN's layer; a graph replay bit-equal to the eager call."""
+    and cuDNN's layer; each case's forward and backward replayed from a
+    CUDA graph bit-equal to the eager call."""
     print(f"phase 3: the recurrence kernels against the plain loop, fp32 "
           f"[{_card_line()}]", flush=True)
     for i, (tag, mode, T, B, n_in, H, reverse, timed) in enumerate(RNN_CASES):
         _rnn_case(torch, results, tag, mode, T, B, n_in, H, reverse, timed,
                   40 + i)
-    results["rnn_replay_bit_equal"] = _rnn_replay(torch)
     torch.cuda.empty_cache()
 
 
@@ -9070,8 +9258,8 @@ def _seq2seq_opt(model, lr=1e-3):
 def _seq2seq_per_step(s=S2S_LEN, layers=S2S_LAYERS):
     """Launches a training step: the recurrence's forward one persistent
     launch an encoder layer and one step-kernel launch a decoder cell
-    call, its backward one a time step of each encoder layer and one a
-    cell call; dropout between the encoder's layers and after each decoder
+    call; its backward one persistent launch an encoder layer and a cell
+    call; dropout between the encoder's layers and after each decoder
     cell, each way; AdamW once. The attention is matmuls and a softmax:
     nothing dense."""
     from paddle_tpu_torch import kernels as K
@@ -9079,7 +9267,7 @@ def _seq2seq_per_step(s=S2S_LEN, layers=S2S_LAYERS):
     cells = layers * s
     drops = (layers - 1) + layers * s
     per.update(rnn_fwd=layers + cells, rnn_fwd_step=cells,
-               rnn_bwd=2 * layers * s, dropout=2 * drops, adamw=1)
+               rnn_bwd=layers + cells, dropout=2 * drops, adamw=1)
     return per
 
 
@@ -9288,7 +9476,8 @@ def phase_seq2seq(torch, args, launches_out):
     2 layers, dropout 0.2, uniform ±0.1), Adam(1e-3) with global-norm
     clipping at 5, fp32; 128 pairs of 10-50 tokens a side padded to 50,
     seeded. (a) the step captured: 2 warm-up and 3 timed steps with exact
-    launch counts (rnn_fwd 102, rnn_bwd 200, dropout, AdamW; nothing on a
+    launch counts (rnn_fwd 102; rnn_bwd 102, the encoder's layers and the
+    decoder's cells on the persistent kernel; dropout, AdamW; nothing on a
     dense attention), step ms, tokens/s, MFU, peak memory, a profile by
     kernel group; (b) 3 replayed steps against 3 eager ones, bit-equal;
     (c) a tiny float32 model on the card against the CPU trainer; (d) its
@@ -9328,10 +9517,10 @@ def phase_seq2seq(torch, args, launches_out):
     graph = _graph_line(trainer, "phase 18 (a)", card)
     peak = torch.cuda.max_memory_allocated() / 1e9
     checked = {("rnn_fwd",): lambda n: _kernel_group(n) == "rnn_fwd",
-               ("rnn_bwd",): lambda n: "rnn_bwd_kernel" in n,
+               ("rnn_bwd",): lambda n: "rnn_bwd_persistent_kernel" in n,
                ("adamw",): lambda n: "adamw_kernel" in n}
     prof, m = _profile(torch, lambda: trainer.train_step(*batch), 1, checked)
-    prof.export_chrome_trace(os.path.join(args.out, "seq2seq_step_trace.json"))
+    _save_trace(prof, os.path.join(args.out, "seq2seq_step_trace.json"))
     del prof
     out = dict(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
                tokens_a_step=tokens, flops_per_step=flops,
@@ -9570,7 +9759,10 @@ def main(argv=None):
         "batch_norm_bwd": ("triton",
                            "paddle_tpu_torch/kernels/batch_norm.py",
                            "paddle_tpu/nn/functional/norm.py:95"),
-        # the backward's short runs (7 x 7 to 28 x 28), by its plan
+        # the forward's and the backward's short runs, by their plans
+        "batch_norm_cluster": ("cuda",
+                               "paddle_tpu_torch/csrc/batch_norm_fwd.cu",
+                               "paddle_tpu/nn/functional/norm.py:95"),
         "batch_norm_bwd_cluster": ("cuda",
                                    "paddle_tpu_torch/csrc/batch_norm_bwd.cu",
                                    "paddle_tpu/nn/functional/norm.py:95"),
@@ -9598,8 +9790,14 @@ def main(argv=None):
                     "paddle_tpu/nn/layer/rnn.py:281"),
         "rnn_fwd_step": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
                          "paddle_tpu/nn/layer/rnn.py:281"),
+        # the backward's routes by its plan: persistent (where it fits);
+        # the step route's two kernels (gate gradients, product)
         "rnn_bwd": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
                     "paddle_tpu/nn/layer/rnn.py:281"),
+        "rnn_bwd_gates": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
+                          "paddle_tpu/nn/layer/rnn.py:281"),
+        "rnn_bwd_step": ("cuda", "paddle_tpu_torch/csrc/rnn_recurrence.cu",
+                         "paddle_tpu/nn/layer/rnn.py:281"),
     }
     # launches: the main paths' runs (serving, Llama, GPT-MoE and
     # packed-document training, the training surface's full-width runs),
@@ -9618,6 +9816,7 @@ def main(argv=None):
     main_runs["flashmask_bwd"] = main_runs["flashmask_bwd_dq"]
     # the routes' counts are subsets of their function's
     main_runs["rnn_fwd"] -= main_runs["rnn_fwd_step"]
+    main_runs["batch_norm"] -= main_runs["batch_norm_cluster"]
     main_runs["batch_norm_bwd"] -= main_runs["batch_norm_bwd_cluster"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
@@ -9629,9 +9828,12 @@ def main(argv=None):
                          f"dense_softmax_bwd[{DENSE_KERNEL}]",
                      "rnn_fwd": f"rnn_fwd[{RNN_MAIN}]",
                      "rnn_fwd_step": f"rnn_fwd[{RNN_STEP_MAIN}]",
+                     "batch_norm_cluster": f"batch_norm[{BN_CLUSTER_MAIN}]",
                      "batch_norm_bwd_cluster":
                          f"batch_norm_bwd[{BN_CLUSTER_MAIN}]",
-                     "rnn_bwd": f"rnn_bwd[{RNN_MAIN}]"}
+                     "rnn_bwd": f"rnn_bwd[{RNN_MAIN}]",
+                     "rnn_bwd_gates": f"rnn_bwd_gates[{RNN_STEP_BWD_MAIN}]",
+                     "rnn_bwd_step": f"rnn_bwd_step[{RNN_STEP_BWD_MAIN}]"}
                     .get(name, name)]
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=tpu, launches=main_runs[name],
@@ -9671,6 +9873,11 @@ def main(argv=None):
                   f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
+    print(f"output directory {args.out}: {_dir_bytes(args.out) / 2**20:.1f} "
+          f"MiB (budget {OUT_BUDGET_MIB} MiB)", flush=True)
+    if _dir_bytes(args.out) > OUT_BUDGET_MIB * 2**20:
+        raise AssertionError(f"{args.out} holds more than "
+                             f"{OUT_BUDGET_MIB} MiB")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,8 @@
 //   rnn_tanh, rnn_relu: h = act(x + h'.W)
 // with sig(x) = 1 / (1 + exp(-x)).
 //
-// Bound on the H100, a step of one LSTM layer at B 128, H 512: the
-// recurrent product is 2.128.512.2048 = 268 MFLOP, 4.0 us at the 67
+// Bound on the H100, a step of one LSTM layer at B 128, H 512, each way:
+// the recurrent product is 2.128.512.2048 = 268 MFLOP, 4.0 us at the 67
 // TFLOP/s fp32 FMA peak; W_hh (4.2 MB) is read once a step (1.25 us from
 // HBM at 3.35 TB/s), so the product's operations bound it.
 //
@@ -65,18 +65,48 @@
 // gives every SM a block (the beam step's 1280 rows), else 32 (the
 // decoder cell's 128).
 //
-// Backward, rnn_bwd_kernel, one launch a step in reverse: from dh_t (the
-// output's gradient plus the recurrent one) and dc_t it computes the gate
-// gradients dgates_t, then dh_{t-1} = dgates_t . W_hh (+ dh_t z for the
-// gru) and dc_{t-1} = dc f. A block owns 16 rows by 32 units of dh_{t-1};
-// the product runs over all the gates of all the units, 32 units' gates a
-// stage split over four groups of 128 threads (partial sums added in group
-// order), so each block computes dgates_t of its rows as it stages them
-// (elementwise, from what the forward saved) and writes those of its own
-// 32 units: dgates_t of the input side, the gru's hidden-side candidate
-// term apart, and dc_{t-1}. The weight and bias gradients are sums over
-// every step, one product each after the loop (kernels/rnn.py, torch.matmul
-// over T.B rows).
+// Backward: from dh_t (the output's gradient plus the recurrent one) and
+// dc_t a step computes the gate gradients dgates_t, elementwise from what
+// the forward saved (written to dxw: the weight product after the loop
+// reads them), then dh_{t-1} = dgates_t . W_hh (+ dh_t z for the gru) and
+// dc_{t-1} = dc f. Two routes, chosen by kernels/rnn.py's
+// rnn_backward_plan; each computes a (row, unit) pair's gate gradients
+// once (the earlier kernel rebuilt every row's in every column block).
+//
+// rnn_bwd_persistent_kernel, where it fits (at any T: at T = 1 too, where
+// it beat the step route at the decoder cell): one cooperative launch for
+// the sequence on the forward's grid (32 rows by 16 units a block, one an SM,
+// all co-resident), with the forward's resident slice of W_hh: the block's
+// 16 units' G gate rows by H in shared memory for every step. A step:
+//   1. the gate gradients of the block's own (row, unit) pairs, from their
+//      saved values (loaded ahead, before the previous barrier); dc stays
+//      in registers;
+//   2. the block's partial dh_{t-1} over all H for its 32 rows: the
+//      product over its 16 G gate rows (the depth it owns), a thread 8
+//      rows by 8 columns, both operands from shared memory (a float4 of
+//      the rows' gradients, broadcast, and a float4 of W_hh a row), stored
+//      to part[step % 2][row group][block] (32 x HP floats);
+//   3. the row group's barrier (the forward's: red.release, acquire spin,
+//      counters zeroed by the wrapper on the stream);
+//   4. the block's own pairs of dh_{t-1}: the row group's partials added
+//      in block order (two halves, then the halves), read past L1.
+// Partials ping-pong by the step's parity, so one barrier a step is
+// enough: a block writes a buffer again only after every block of its
+// group has passed the next barrier, that is, has read it. LSTM at B 128,
+// H 512: a block writes 64 KB and reads 64 KB a step (about 8 MB each
+// over the 128 blocks), against the ~71 MB the earlier kernel staged.
+//
+// For what the persistent kernel cannot hold (the beam step's 1280 rows,
+// H % 4 != 0, a W_hh slice past 227 KB), two launches a step: rnn_bwd_gates_kernel (a thread
+// a pair: dxw_t, the gru's dhc_t, the lstm's dc_{t-1}), then
+// rnn_bwd_step_kernel, the product read from dxw_t: a block 32 rows by 64
+// columns of dh_{t-1}, a thread 8 rows by 8 columns (two float4 of W_hh
+// and one of the gradients, broadcast, per 32 FMAs), its 8 warps splitting
+// each 128-deep stage of a ring of three cp.async stages, their sums added
+// in warp order. 64-row tiles (2 warps along the rows) measured no faster
+// at the decoder cell and 8% slower at the beam step.
+// The weight and bias gradients are sums over every step, one product
+// each after the loop (kernels/rnn.py, torch.matmul over T.B rows).
 //
 // No float atomics: every sum runs in a fixed order, so two runs give the
 // same bits, and a captured step its eager step's.
@@ -87,6 +117,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 enum Mode { LSTM = 0, GRU = 1, RNN_TANH = 2, RNN_RELU = 3 };
@@ -95,17 +127,6 @@ template <int MODE>
 struct Gates {
   static constexpr int G = MODE == LSTM ? 4 : (MODE == GRU ? 3 : 1);
 };
-
-// The backward's blocks are KG groups of 128 threads; the groups split each
-// stage's depth and their partial sums are added in group order.
-constexpr int KG = 4;
-constexpr int GROUP = 128;
-constexpr int THREADS = KG * GROUP;
-// backward: a group is 32 x 4 threads, each 4 rows by 1 unit of dh_{t-1}
-constexpr int B_TX = 32, B_TY = 4, B_TM = 4;
-constexpr int B_BM = B_TY * B_TM;  // 16 rows a block
-constexpr int B_BN = B_TX;         // 32 units a block
-constexpr int KU = 32;              // units whose gates a backward stage holds
 
 // forward: 8 warps a block, a warp 32 rows by 16 units
 constexpr int F_THREADS = 256;
@@ -119,6 +140,20 @@ constexpr int F_STAGES = 3;    // the step kernel's ring
 // the depth; a stage's floats.
 __host__ __device__ constexpr int step_stage(int G, int WM) {
   return (F_ROWS * WM + F_UNITS * G) * (F_KC + 4);
+}
+// The backward's step kernel: a block's tile is S_ROWS rows by S_COLS
+// columns, its warps S_WM along the rows by S_WK along the depth; a stage
+// holds 128 of the depth of the rows of the gate gradients and 128 rows by
+// S_COLS columns of W_hh; the warps' sums take S_WK x S_ROWS x S_COLS
+// floats.
+constexpr int S_ROWS = 32, S_COLS = 64;
+constexpr int S_WM = S_ROWS / F_ROWS, S_WK = 8 / S_WM;   // warps along the rows, the depth
+__host__ __device__ constexpr int bwd_step_stage() {
+  return S_ROWS * (F_KC + 4) + F_KC * S_COLS;
+}
+constexpr int bwd_step_floats() {
+  return F_STAGES * bwd_step_stage() > S_WK * S_ROWS * S_COLS ? F_STAGES * bwd_step_stage()
+                                                               : S_WK * S_ROWS * S_COLS;
 }
 
 __device__ __forceinline__ float sig(float x) { return 1.f / (1.f + expf(-x)); }
@@ -520,167 +555,451 @@ rnn_fwd_persistent_kernel(const float* __restrict__ xw, const float* __restrict_
   }
 }
 
-// What a backward stage reads for one (row, unit) pair: dy, dh_in, then
-// lstm: dc_in, i, f, g, o, c_t, c_{t-1}; gru: r, z, n, hc, h_{t-1}; the
-// simple RNN: h_t.
+// -- the backward's pieces ----------------------------------------------------------
+
+// What the backward reads of one (row, unit) pair at a step, besides the
+// recurrent gradients: dy, then lstm: i, f, g, o, c_t, c_{t-1}; gru: r, z,
+// n, hc, h_{t-1}; the simple RNN: h_t.
 template <int MODE>
-struct PairValues {
-  static constexpr int N = MODE == LSTM ? 9 : (MODE == GRU ? 7 : 3);
+struct PairIn {
+  static constexpr int N = MODE == LSTM ? 7 : (MODE == GRU ? 6 : 2);
 };
 
+// v: the pair's PairIn values at step t (o = b H + j, so = b 4 H + j, bh =
+// t B H, bhp = tp B H for tp the forward's previous step; where first, the
+// forward's first step, h0 / c0 instead); zeros where !ok.
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-rnn_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dh_in,
-               const float* __restrict__ dc_in, const float* __restrict__ saved,
-               const float* __restrict__ c_t, const float* __restrict__ c_prev,
-               const float* __restrict__ h_prev, const float* __restrict__ h_t,
-               const float* __restrict__ w_hh, float* __restrict__ dxw,
-               float* __restrict__ dhc, float* __restrict__ dh_out, float* __restrict__ dc_out,
-               int B, int H) {
-  constexpr int G = Gates<MODE>::G;
-  constexpr int KD = G * KU;                // the product's depth a stage
-  constexpr int KS = KD / KG;               // a group's share of a stage
-  constexpr int PL = B_BM * KU / THREADS;   // (row, unit) pairs a thread
-  constexpr int WL = KD * B_BN / THREADS;   // W_hh values a thread stages
-  constexpr int NV = PairValues<MODE>::N;
-  __shared__ __align__(16) float as[KD][B_BM + 4];
-  __shared__ float ws[KD][B_BN];
-  __shared__ float red[KG - 1][B_TM][GROUP];
-  const int grp = threadIdx.x / GROUP, lt = threadIdx.x % GROUP;
-  const int tx = lt % B_TX, ty = lt / B_TX;
-  const int b0 = blockIdx.y * B_BM, j0 = blockIdx.x * B_BN;
-  float acc[B_TM];
+__device__ __forceinline__ void pair_in(float (&v)[PairIn<MODE>::N], bool ok, int64_t o,
+                                        int64_t so, int64_t bh, int64_t bhp, bool first, int H,
+                                        const float* dy, const float* saved, const float* cs,
+                                        const float* h0, const float* c0, const float* y) {
 #pragma unroll
-  for (int i = 0; i < B_TM; ++i) acc[i] = 0.f;
+  for (int i = 0; i < PairIn<MODE>::N; ++i) v[i] = 0.f;
+  if (!ok) return;
+  v[0] = dy ? dy[bh + o] : 0.f;
+  if constexpr (MODE == LSTM || MODE == GRU) {
+    const float* sv = saved + 4 * bh + so;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) v[1 + g] = sv[g * H];
+  }
+  if constexpr (MODE == LSTM) {
+    v[5] = cs[bh + o];
+    v[6] = first ? c0[o] : cs[bhp + o];
+  } else if constexpr (MODE == GRU) {
+    v[5] = first ? h0[o] : y[bhp + o];
+  } else {
+    v[1] = y[bh + o];
+  }
+}
 
-  // a stage's inputs, in registers: the next stage's loads are in flight
-  // while the current stage computes
-  float in[PL][NV], wr[WL];
-  auto load = [&](int u0) {
+// The gate gradients of one pair from dh (the output's gradient plus the
+// recurrent one), the carried dc (lstm) and its PairIn values: x the
+// input side's (what dxw holds), d the hidden side's (the product's
+// operand: the gru's candidate term is da_n r, dhc), dc_prev = dc f (lstm),
+// gz = dh z (gru: dh_{t-1}'s elementwise term).
+template <int MODE>
+__device__ __forceinline__ void pair_grads(const float (&v)[PairIn<MODE>::N], float dh, float dc_in,
+                                           float (&x)[Gates<MODE>::G],
+                                           float (&d)[Gates<MODE>::G], float& dc_prev,
+                                           float& gz) {
+  if constexpr (MODE == LSTM) {
+    const float si = v[1], sf = v[2], tg = v[3], so = v[4];
+    const float tc = tanhf(v[5]);
+    const float dc = dc_in + dh * so * (1.f - tc * tc);
+    x[0] = d[0] = dc * tg * si * (1.f - si);
+    x[1] = d[1] = dc * v[6] * sf * (1.f - sf);
+    x[2] = d[2] = dc * si * (1.f - tg * tg);
+    x[3] = d[3] = dh * tc * so * (1.f - so);
+    dc_prev = dc * sf;
+  } else if constexpr (MODE == GRU) {
+    const float r_ = v[1], z = v[2], n = v[3], hc = v[4];
+    const float dan = dh * (1.f - z) * (1.f - n * n);
+    x[0] = d[0] = dan * hc * r_ * (1.f - r_);
+    x[1] = d[1] = dh * (v[5] - n) * z * (1.f - z);
+    x[2] = dan;
+    d[2] = dan * r_;
+    gz = dh * z;
+  } else {
+    const float h = v[1];
+    x[0] = d[0] = MODE == RNN_TANH ? dh * (1.f - h * h) : (h > 0.f ? dh : 0.f);
+  }
+}
+
+// Writes a pair's input-side gate gradients (dxw_t [B, G H] at b G H + j)
+// and the gru's hidden-side candidate term (dhc_t [B, H] at o).
+template <int MODE>
+__device__ __forceinline__ void put_grads(const float (&x)[Gates<MODE>::G],
+                                          const float (&d)[Gates<MODE>::G], int64_t b, int j,
+                                          int64_t o, int H, float* dxw_t, float* dhc_t) {
+  constexpr int G = Gates<MODE>::G;
+  float* dr = dxw_t + b * G * H + j;
 #pragma unroll
-    for (int q = 0; q < PL; ++q) {
-      const int p = threadIdx.x + q * THREADS, b = b0 + p / KU, j = u0 + p % KU;
-      const bool ok = b < B && j < H;
-      const int64_t o = (int64_t)b * H + j;
-      float* v = in[q];
-      v[0] = ok && dy ? dy[o] : 0.f;
-      v[1] = ok && dh_in ? dh_in[o] : 0.f;
-      if constexpr (MODE == LSTM) {
-        const float* sv = saved + (int64_t)b * 4 * H + j;
-        v[2] = ok && dc_in ? dc_in[o] : 0.f;
+  for (int g = 0; g < G; ++g) dr[g * H] = x[g];
+  if constexpr (MODE == GRU) dhc_t[o] = d[2];
+}
+
+// acc[i][e][c] += sum over k < D of dg[k][i] ws[k][col_e + c] for the NE
+// column groups: dg the rows' gradients (row stride F_ROWS, from this
+// thread's 8 rows), ws the block's W_hh rows (row stride ld).
+template <int D, int NE>
+__device__ __forceinline__ void partial_product(float (&acc)[8][2][4], const float* dg,
+                                                const float* ws, int ld, int col0, int col1) {
+#pragma unroll 16
+  for (int k = 0; k < D; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(dg + k * F_ROWS);
+    const float4 a1 = *reinterpret_cast<const float4*>(dg + k * F_ROWS + 4);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int g = 0; g < 4; ++g) v[3 + g] = ok ? sv[g * H] : 0.f;
-        v[7] = ok ? c_t[o] : 0.f;
-        v[8] = ok ? c_prev[o] : 0.f;
-      } else if constexpr (MODE == GRU) {
-        const float* sv = saved + (int64_t)b * 4 * H + j;
+    for (int e = 0; e < NE; ++e) {
+      const float4 w = *reinterpret_cast<const float4*>(ws + k * ld + (e ? col1 : col0));
 #pragma unroll
-        for (int g = 0; g < 4; ++g) v[2 + g] = ok ? sv[g * H] : 0.f;
-        v[6] = ok ? h_prev[o] : 0.f;
-      } else {
-        v[2] = ok ? h_t[o] : 0.f;
+      for (int i = 0; i < 8; ++i) {
+        acc[i][e][0] = fmaf(a[i], w.x, acc[i][e][0]);
+        acc[i][e][1] = fmaf(a[i], w.y, acc[i][e][1]);
+        acc[i][e][2] = fmaf(a[i], w.z, acc[i][e][2]);
+        acc[i][e][3] = fmaf(a[i], w.w, acc[i][e][3]);
       }
     }
+  }
+}
+
+// Shared memory of the persistent backward, floats: the block's rows of
+// W_hh [16 G][HP + 4], the rows' hidden-side gate gradients [16 G][32]
+// and the two halves' sums of the partials [2][32][16] (kernels/rnn.py's
+// plan computes the same).
+constexpr int P_RED = 2 * F_ROWS * F_UNITS;
+inline int bwd_persistent_floats(int G, int HP) {
+  return F_UNITS * G * (HP + 4) + F_UNITS * G * F_ROWS + P_RED;
+}
+
+// -- the persistent backward ----------------------------------------------------------
+
+// Grid: (units / 16, rows / 32), all co-resident: the forward's blocks.
+// The T steps from the last, for rows [b0, b0 + 32) by units [j0, j0 +
+// 16): the block's units' gate gradients, then its partial dh_{t-1} over
+// all H (the product over its 16 G gate rows of W_hh) into part[step % 2]
+// [row group][block][32][HP], the row group's barrier, then its own pairs
+// of dh_{t-1}: the group's partials added in block order.
+template <int MODE>
+__global__ void __launch_bounds__(F_THREADS, 1)
+rnn_bwd_persistent_kernel(const float* __restrict__ dy, const float* __restrict__ dhT,
+                          const float* __restrict__ dcT, const float* __restrict__ saved,
+                          const float* __restrict__ cs, const float* __restrict__ h0,
+                          const float* __restrict__ c0, const float* __restrict__ y,
+                          const float* __restrict__ w_hh, float* __restrict__ dxw,
+                          float* __restrict__ dhc, float* part, float* __restrict__ dh0,
+                          float* __restrict__ dc0, unsigned* counter, int T, int B, int H,
+                          int HP, int reverse) {
+  constexpr int G = Gates<MODE>::G;
+  constexpr int D = F_UNITS * G;                        // the product's depth
+  constexpr int PAIRS = F_ROWS * F_UNITS / F_THREADS;   // a thread's (row, unit) pairs
+  constexpr int NV = PairIn<MODE>::N;
+  extern __shared__ __align__(16) float smem[];
+  const int ld = HP + 4;
+  float* ws = smem;                 // [D][ld]: the units' rows of W_hh
+  float* dg = ws + D * ld;          // [D][32]: the rows' hidden-side gate gradients
+  float* red = dg + D * F_ROWS;     // [2][32][16]: the two halves' sums
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.y * F_ROWS, j0 = blockIdx.x * F_UNITS;
+  const int nbx = gridDim.x;
+  unsigned* row_counter = counter + blockIdx.y;
+  load_tile(ws, ld, D, [&](int col) -> const float* {
+    const int j = j0 + col % F_UNITS;
+    return j < H ? w_hh + ((int64_t)(col / F_UNITS) * H + j) * H : nullptr;
+  }, 0, HP, H, true, tid, F_THREADS, w_hh);
+  cp_commit();
+
+  const int64_t BH = (int64_t)B * H;
+  int pr[PAIRS], pu[PAIRS];
+  bool pv[PAIRS];
+  float dh_rec[PAIRS], dc_rec[PAIRS], gz[PAIRS], in[PAIRS][NV];
 #pragma unroll
-    for (int q = 0; q < WL; ++q) {
-      const int e = threadIdx.x + q * THREADS, row = e / B_BN, k = j0 + e % B_BN;
-      const int g = row / KU, j = u0 + row % KU;
-      wr[q] = (j < H && k < H) ? w_hh[((int64_t)g * H + j) * H + k] : 0.f;
+  for (int q = 0; q < PAIRS; ++q) {
+    const int p = tid + q * F_THREADS;
+    pr[q] = p / F_UNITS;
+    pu[q] = p % F_UNITS;
+    pv[q] = b0 + pr[q] < B && j0 + pu[q] < H;
+    const int64_t o = (int64_t)(b0 + pr[q]) * H + j0 + pu[q];
+    dh_rec[q] = pv[q] && dhT ? dhT[o] : 0.f;
+    dc_rec[q] = pv[q] && dcT ? dcT[o] : 0.f;
+    gz[q] = 0.f;
+  }
+  // the inputs of step t, loaded ahead of the step
+  auto load_in = [&](int t) {
+    const bool first = t == (reverse ? T - 1 : 0);
+    const int64_t bhp = (int64_t)(reverse ? t + 1 : t - 1) * BH;
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+      const int b = b0 + pr[q], j = j0 + pu[q];
+      pair_in<MODE>(in[q], pv[q], (int64_t)b * H + j, (int64_t)b * 4 * H + j, (int64_t)t * BH,
+                    bhp, first, H, dy, saved, cs, h0, c0, y);
     }
   };
-  load(0);
-  for (int u0 = 0; u0 < H; u0 += KU) {
-    // dgates of this block's rows for units u0 .. u0 + KU - 1; those of its
-    // own units written out
+  load_in(reverse ? 0 : T - 1);
+  cp_wait<0>();
+  __syncthreads();
+
+  // the product's threads: rows ty 8 .. ty 8 + 7, columns c0 + 4 tx + 256 e
+  // (a warp's 128 columns lie all below HP or all past it)
+  const int tx = tid & 63, ty = tid >> 6;
+  const size_t group = (size_t)F_ROWS * HP;                     // a block's partials
+  const size_t parity = (size_t)gridDim.y * nbx * group;
+  for (int step = 0; step < T; ++step) {
+    const int t = reverse ? step : T - 1 - step;
+    const bool last = step == T - 1;
+    // 1. the gate gradients of the block's pairs
 #pragma unroll
-    for (int q = 0; q < PL; ++q) {
-      const int p = threadIdx.x + q * THREADS, r = p / KU, u = p % KU;
-      const int b = b0 + r, j = u0 + u;
-      const bool own = b < B && j < H && j >= j0 && j < j0 + B_BN;
-      const int64_t o = (int64_t)b * H + j;
-      const float* v = in[q];
-      const float dh = v[0] + v[1];
-      float d[G];
-      if constexpr (MODE == LSTM) {
-        const float si = v[3], sf = v[4], tg = v[5], so = v[6];
-        const float tc = tanhf(v[7]);
-        const float dc = v[2] + dh * so * (1.f - tc * tc);
-        d[0] = dc * tg * si * (1.f - si);
-        d[1] = dc * v[8] * sf * (1.f - sf);
-        d[2] = dc * si * (1.f - tg * tg);
-        d[3] = dh * tc * so * (1.f - so);
-        if (own) {
-          float* dr = dxw + (int64_t)b * 4 * H + j;
-          dr[0] = d[0];
-          dr[H] = d[1];
-          dr[2 * H] = d[2];
-          dr[3 * H] = d[3];
-          dc_out[o] = dc * sf;
-        }
-      } else if constexpr (MODE == GRU) {
-        const float r_ = v[2], z = v[3], n = v[4], hc = v[5];
-        const float dan = dh * (1.f - z) * (1.f - n * n);
-        d[0] = dan * hc * r_ * (1.f - r_);
-        d[1] = dh * (v[6] - n) * z * (1.f - z);
-        d[2] = dan * r_;
-        if (own) {
-          float* dr = dxw + (int64_t)b * 3 * H + j;
-          dr[0] = d[0];
-          dr[H] = d[1];
-          dr[2 * H] = dan;
-          dhc[o] = d[2];
-        }
-      } else {
-        const float h = v[2];
-        d[0] = MODE == RNN_TANH ? dh * (1.f - h * h) : (h > 0.f ? dh : 0.f);
-        if (own) dxw[o] = d[0];
+    for (int q = 0; q < PAIRS; ++q) {
+      float x[G], d[G], dcp = 0.f;
+      pair_grads<MODE>(in[q], in[q][0] + dh_rec[q], dc_rec[q], x, d, dcp, gz[q]);
+      const int b = b0 + pr[q], j = j0 + pu[q];
+      if (pv[q])
+        put_grads<MODE>(x, d, b, j, (int64_t)b * H + j, H, dxw + (int64_t)t * G * BH,
+                        MODE == GRU ? dhc + (int64_t)t * BH : nullptr);
+      dc_rec[q] = dcp;
+#pragma unroll
+      for (int g = 0; g < G; ++g) dg[(g * F_UNITS + pu[q]) * F_ROWS + pr[q]] = pv[q] ? d[g] : 0.f;
+    }
+    __syncthreads();
+    // 2. the partial dh_{t-1} of the block's rows over all H
+    float* pp = part + (step & 1) * parity + ((size_t)blockIdx.y * nbx + blockIdx.x) * group;
+    for (int cb = 0; cb < HP; cb += 512) {
+      const int col[2] = {cb + 4 * tx, cb + 256 + 4 * tx};
+      const bool on[2] = {col[0] < HP, col[1] < HP};
+      float acc[8][2][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][e][c] = 0.f;
+      // the column groups a warp covers (warp-uniform), as a constant of
+      // the loop: no branch inside it
+      if (on[1])
+        partial_product<D, 2>(acc, dg + ty * 8, ws, ld, col[0], col[1]);
+      else if (on[0])
+        partial_product<D, 1>(acc, dg + ty * 8, ws, ld, col[0], col[1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!on[e]) continue;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          __stcg(reinterpret_cast<float4*>(pp + (size_t)(ty * 8 + i) * HP + col[e]),
+                 make_float4(acc[i][e][0], acc[i][e][1], acc[i][e][2], acc[i][e][3]));
+      }
+    }
+    // 3. the next step's inputs, ahead of the barrier
+    if (!last) load_in(reverse ? t + 1 : t - 1);
+    group_barrier(row_counter, (unsigned)(step + 1) * nbx);
+    // 4. the block's pairs of dh_{t-1}: the row group's partials in block
+    // order, in two halves (threads 0-127 the first, 128-255 the second),
+    // then the halves added
+    {
+      const int h = tid >> 7, it = tid & 127, r = it >> 2, qd = it & 3;
+      const int mid = (nbx + 1) >> 1, lo = h ? mid : 0, hi = h ? nbx : mid;
+      const float* src = part + (step & 1) * parity + (size_t)blockIdx.y * nbx * group +
+                         (size_t)r * HP + j0 + 4 * qd;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int x0 = lo; x0 < hi; x0 += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (x0 + k < hi) v[k] = __ldcg(reinterpret_cast<const float4*>(src + (x0 + k) * group));
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (x0 + k < hi) {
+            s.x += v[k].x;
+            s.y += v[k].y;
+            s.z += v[k].z;
+            s.w += v[k].w;
+          }
+      }
+      *reinterpret_cast<float4*>(red + (h * F_ROWS + r) * F_UNITS + 4 * qd) = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+      const int i = pr[q] * F_UNITS + pu[q];
+      float v = red[i] + red[F_ROWS * F_UNITS + i];
+      if constexpr (MODE == GRU) v += gz[q];
+      dh_rec[q] = v;
+      if (last && pv[q]) {
+        const int64_t o = (int64_t)(b0 + pr[q]) * H + j0 + pu[q];
+        dh0[o] = v;
+        if constexpr (MODE == LSTM) dc0[o] = dc_rec[q];
+      }
+    }
+  }
+}
+
+// -- the step route's two kernels ------------------------------------------------------
+
+// One step's gate gradients, a thread a (row, unit) pair: dxw_t, the gru's
+// dhc_t (da_n r) and the lstm's dc_{t-1}.
+template <int MODE>
+__global__ void __launch_bounds__(256)
+rnn_bwd_gates_kernel(const float* __restrict__ dy_t, const float* __restrict__ dh_in,
+                     const float* __restrict__ dc_in, const float* __restrict__ saved_t,
+                     const float* __restrict__ c_t, const float* __restrict__ c_prev,
+                     const float* __restrict__ h_prev, const float* __restrict__ y_t,
+                     float* __restrict__ dxw_t, float* __restrict__ dhc_t,
+                     float* __restrict__ dc_out, int B, int H) {
+  constexpr int G = Gates<MODE>::G;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)B * H) return;
+  const int64_t b = i / H;
+  const int j = (int)(i - b * H);
+  // pair_in's values at bh = 0 with the step's own slices (cs = c_t for
+  // c_t, c_prev and h_prev given as "first")
+  float v[PairIn<MODE>::N];
+  pair_in<MODE>(v, true, i, b * 4 * H + j, 0, 0, true, H, dy_t, saved_t, c_t, h_prev, c_prev,
+                y_t);
+  float x[G], d[G], dcp = 0.f, gz = 0.f;
+  pair_grads<MODE>(v, v[0] + (dh_in ? dh_in[i] : 0.f), dc_in ? dc_in[i] : 0.f, x, d, dcp, gz);
+  put_grads<MODE>(x, d, b, j, i, H, dxw_t, dhc_t);
+  if constexpr (MODE == LSTM) dc_out[i] = dcp;
+}
+
+// One step's dh_{t-1} = dgates_t . W_hh (+ dh_t z for the gru): the
+// hidden-side gate gradients A [B, G H] (dxw_t; the gru's third gate from
+// dhc_t) by W_hh [G H, H]. Grid: (H / 64 column tiles, rows / 32): a
+// block computes a 32 x 64 tile over the whole depth, 128 deep a stage;
+// its 8 warps split each stage's depth (S_WM = 1, S_WK = 8), a thread 8
+// rows by 8 columns (a float4 of A broadcast to a quarter-warp, two of
+// W_hh a depth). Tiles pass through a ring of three cp.async stages. The
+// depth warps' sums are added in warp order.
+template <int MODE>
+__global__ void __launch_bounds__(F_THREADS, 1)
+rnn_bwd_step_kernel(const float* __restrict__ dxw_t, const float* __restrict__ dhc_t,
+                    const float* __restrict__ w_hh, const float* __restrict__ dy_t,
+                    const float* __restrict__ dh_in, const float* __restrict__ saved_t,
+                    float* __restrict__ dh_out, int B, int H) {
+  constexpr int G = Gates<MODE>::G;
+  constexpr int NS = F_STAGES;
+  constexpr int KC = F_KC, KW = F_KC / S_WK;
+  constexpr int LDA = KC + 4, LDW = S_COLS;
+  constexpr int STAGE = bwd_step_stage();
+  constexpr int TILE = S_ROWS * S_COLS;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % S_WM, wk = warp / S_WM;
+  const int ty = lane >> 3, tx = lane & 7;
+  const int b0 = blockIdx.y * S_ROWS, n0 = blockIdx.x * S_COLS;
+  const int GH = G * H;
+  const bool vec = (H & 3) == 0;
+  const int ns = (GH + KC - 1) / KC;   // the depth's stages
+  // A[b][d]: the gru's third gate from dhc_t
+  auto aptr = [&](int b, int d) -> const float* {
+    if (MODE == GRU && d >= 2 * H) return dhc_t + (int64_t)b * H + (d - 2 * H);
+    return dxw_t + (int64_t)b * GH + d;
+  };
+  auto load = [&](int s) {
+    float* st = smem + (s % NS) * STAGE;
+    float* ws = st + S_ROWS * LDA;
+    const int d0 = s * KC;
+    if (vec) {
+      for (int c = tid; c < S_ROWS * (KC / 4); c += F_THREADS) {
+        const int r = c / (KC / 4), kk = (c % (KC / 4)) * 4;
+        const bool ok = b0 + r < B && d0 + kk < GH;
+        cp16(st + r * LDA + kk, ok ? aptr(b0 + r, d0 + kk) : w_hh, ok);
+      }
+      for (int c = tid; c < KC * (S_COLS / 4); c += F_THREADS) {
+        const int kk = c / (S_COLS / 4), n = (c % (S_COLS / 4)) * 4;
+        const bool ok = d0 + kk < GH && n0 + n < H;
+        cp16(ws + kk * LDW + n, ok ? w_hh + (int64_t)(d0 + kk) * H + n0 + n : w_hh, ok);
+      }
+    } else {
+      for (int c = tid; c < S_ROWS * KC; c += F_THREADS) {
+        const int r = c / KC, kk = c % KC;
+        const bool ok = b0 + r < B && d0 + kk < GH;
+        cp4(st + r * LDA + kk, ok ? aptr(b0 + r, d0 + kk) : w_hh, ok);
+      }
+      for (int c = tid; c < KC * S_COLS; c += F_THREADS) {
+        const int kk = c / S_COLS, n = c % S_COLS;
+        const bool ok = d0 + kk < GH && n0 + n < H;
+        cp4(ws + kk * LDW + n, ok ? w_hh + (int64_t)(d0 + kk) * H + n0 + n : w_hh, ok);
+      }
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < ns) load(s);
+    cp_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    cp_wait<NS - 2>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1 is free
+    if (s + NS - 1 < ns) load(s + NS - 1);
+    cp_commit();
+    const float* as = smem + (s % NS) * STAGE + (wm * F_ROWS + ty * 8) * LDA;
+    const float* ws = smem + (s % NS) * STAGE + S_ROWS * LDA + 4 * tx;
+#pragma unroll
+    for (int k = wk * KW; k < wk * KW + KW; k += 4) {
+      float4 w[4][2];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        w[kk][0] = *reinterpret_cast<const float4*>(ws + (k + kk) * LDW);
+        w[kk][1] = *reinterpret_cast<const float4*>(ws + (k + kk) * LDW + 32);
       }
 #pragma unroll
-      for (int g = 0; g < G; ++g) as[g * KU + u][r] = d[g];
-    }
+      for (int i = 0; i < 8; ++i) {
+        const float4 a4 = *reinterpret_cast<const float4*>(as + i * LDA + k);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-    for (int q = 0; q < WL; ++q) {
-      const int e = threadIdx.x + q * THREADS;
-      ws[e / B_BN][e % B_BN] = wr[q];
-    }
-    __syncthreads();
-    if (u0 + KU < H) load(u0 + KU);
-#pragma unroll 8
-    for (int kq = 0; kq < KS; ++kq) {
-      const int kk = grp * KS + kq;
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * B_TM]);
-      const float w = ws[kk][tx];
-      acc[0] = fmaf(a.x, w, acc[0]);
-      acc[1] = fmaf(a.y, w, acc[1]);
-      acc[2] = fmaf(a.z, w, acc[2]);
-      acc[3] = fmaf(a.w, w, acc[3]);
-    }
-    __syncthreads();
-  }
-  if (grp > 0) {
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int i = 0; i < B_TM; ++i) red[grp - 1][i][lt] = acc[i];
+          for (int e = 0; e < 2; ++e) {
+            acc[i][4 * e + 0] = fmaf(a[kk], w[kk][e].x, acc[i][4 * e + 0]);
+            acc[i][4 * e + 1] = fmaf(a[kk], w[kk][e].y, acc[i][4 * e + 1]);
+            acc[i][4 * e + 2] = fmaf(a[kk], w[kk][e].z, acc[i][4 * e + 2]);
+            acc[i][4 * e + 3] = fmaf(a[kk], w[kk][e].w, acc[i][4 * e + 3]);
+          }
+      }
+    }
   }
+  cp_wait<0>();
   __syncthreads();
-  if (grp > 0) return;
+  // the depth warps' sums, red[wk][row][column], added in warp order
+  float* red = smem;
 #pragma unroll
-  for (int q = 0; q < KG - 1; ++q)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < B_TM; ++i) acc[i] += red[q][i][lt];
-
-  const int k = j0 + tx;
-  if (k >= H) return;
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float4*>(red + wk * TILE + (wm * F_ROWS + ty * 8 + i) * S_COLS + 32 * e +
+                                 4 * tx) =
+          make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2], acc[i][4 * e + 3]);
+  __syncthreads();
+  for (int v = tid; v < TILE / 4; v += F_THREADS) {
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < B_TM; ++i) {
-    const int b = b0 + ty * B_TM + i;
-    if (b >= B) continue;
-    const int64_t o = (int64_t)b * H + k;
-    float v = acc[i];
-    if constexpr (MODE == GRU) {
-      const float dh = (dy ? dy[o] : 0.f) + (dh_in ? dh_in[o] : 0.f);
-      v += dh * saved[(int64_t)b * 4 * H + H + k];
+    for (int w = 0; w < S_WK; ++w) {
+      const float4 r4 = *reinterpret_cast<const float4*>(red + w * TILE + 4 * v);
+      t.x += r4.x;
+      t.y += r4.y;
+      t.z += r4.z;
+      t.w += r4.w;
     }
-    dh_out[o] = v;
+    const int r = v / (S_COLS / 4), c = (v % (S_COLS / 4)) * 4;
+    const int b = b0 + r;
+    if (b >= B) continue;
+    const float v4[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = n0 + c + e;
+      if (k >= H) continue;
+      const int64_t o = (int64_t)b * H + k;
+      float v = v4[e];
+      if constexpr (MODE == GRU) {
+        const float dh = (dy_t ? dy_t[o] : 0.f) + (dh_in ? dh_in[o] : 0.f);
+        v += dh * saved_t[(int64_t)b * 4 * H + H + k];
+      }
+      dh_out[o] = v;
+    }
   }
 }
 
@@ -770,15 +1089,22 @@ int forward(const float* xw, const float* h0, const float* c0, const float* w_hh
   return (int)cudaErrorInvalidValue;
 }
 
+// The step route: two launches a step from the last, the gate gradients
+// then the product.
 template <int MODE>
-int backward(const float* dy, const float* dhT, const float* dcT, const float* saved,
-             const float* cs, const float* h0, const float* c0, const float* y,
-             const float* w_hh, float* dxw, float* dhc, float* scratch, float* dh0, float* dc0,
-             int T, int B, int H, int reverse, cudaStream_t s) {
+int backward_steps(const float* dy, const float* dhT, const float* dcT, const float* saved,
+                   const float* cs_, const float* h0, const float* c0, const float* y,
+                   const float* w_hh, float* dxw, float* dhc, float* scratch, float* dh0,
+                   float* dc0, int T, int B, int H, int reverse, cudaStream_t s) {
   constexpr int G = Gates<MODE>::G;
-  const dim3 grid((H + B_BN - 1) / B_BN, (B + B_BM - 1) / B_BM);
+  const int smem = bwd_step_floats() * (int)sizeof(float);
+  auto product = rnn_bwd_step_kernel<MODE>;
+  int err = (int)cudaFuncSetAttribute(product, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  const dim3 grid((H + S_COLS - 1) / S_COLS, (B + S_ROWS - 1) / S_ROWS);
   const int64_t bh = (int64_t)B * H;
-  // ping-pong: the recurrent gradients a launch reads and the next writes
+  const unsigned pairs = (unsigned)((bh + 255) / 256);
+  // ping-pong: the recurrent gradients a step reads and the next writes
   float* dh_buf[2] = {scratch, scratch + bh};
   float* dc_buf[2] = {scratch + 2 * bh, scratch + 3 * bh};
   const float* dh_in = dhT;
@@ -790,17 +1116,77 @@ int backward(const float* dy, const float* dhT, const float* dcT, const float* s
     float* dh_out = step == 0 ? dh0 : dh_buf[w];
     float* dc_out = MODE == LSTM ? (step == 0 ? dc0 : dc_buf[w]) : nullptr;
     const float* hp = step == 0 ? h0 : y + tp * bh;
-    const float* cp = MODE == LSTM ? (step == 0 ? c0 : cs + tp * bh) : nullptr;
-    rnn_bwd_kernel<MODE><<<grid, THREADS, 0, s>>>(
-        dy ? dy + t * bh : nullptr, dh_in, dc_in, saved ? saved + t * bh * 4 : nullptr,
-        MODE == LSTM ? cs + t * bh : nullptr, cp, hp, y + t * bh, w_hh, dxw + t * bh * G,
-        MODE == GRU ? dhc + t * bh : nullptr, dh_out, dc_out, B, H);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
+    const float* cp = MODE == LSTM ? (step == 0 ? c0 : cs_ + tp * bh) : nullptr;
+    const float* dy_t = dy ? dy + t * bh : nullptr;
+    const float* saved_t = saved ? saved + t * bh * 4 : nullptr;
+    float* dhc_t = MODE == GRU ? dhc + t * bh : nullptr;
+    rnn_bwd_gates_kernel<MODE><<<pairs, 256, 0, s>>>(
+        dy_t, dh_in, dc_in, saved_t, MODE == LSTM ? cs_ + t * bh : nullptr, cp, hp, y + t * bh,
+        dxw + t * bh * G, dhc_t, dc_out, B, H);
+    if ((err = (int)cudaGetLastError())) return err;
+    product<<<grid, F_THREADS, smem, s>>>(dxw + t * bh * G, dhc_t, w_hh, dy_t, dh_in, saved_t,
+                                          dh_out, B, H);
+    if ((err = (int)cudaGetLastError())) return err;
     dh_in = dh_out;
     dc_in = dc_out;
   }
   return 0;
+}
+
+// The persistent route: one cooperative launch for the T steps; refused
+// (an error, never another route) where H % 4 != 0 or the grid cannot be
+// co-resident. part: 2 x ceil(B / 32) x ceil(H / 16) x 32 x HP floats.
+template <int MODE>
+int backward_persistent(const float* dy, const float* dhT, const float* dcT, const float* saved,
+                        const float* cs, const float* h0, const float* c0, const float* y,
+                        const float* w_hh, float* dxw, float* dhc, float* part, float* dh0,
+                        float* dc0, unsigned* counter, int T, int B, int H, int reverse,
+                        cudaStream_t s) {
+  constexpr int G = Gates<MODE>::G;
+  if ((H & 3) != 0 || counter == nullptr) return (int)cudaErrorInvalidValue;
+  const int HP = (H + 127) / 128 * 128;
+  const int smem = bwd_persistent_floats(G, HP) * (int)sizeof(float);
+  auto kernel = rnn_bwd_persistent_kernel<MODE>;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  const dim3 grid((H + F_UNITS - 1) / F_UNITS, (B + F_ROWS - 1) / F_ROWS);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, F_THREADS,
+                                                                 smem)))
+    return err;
+  if ((int64_t)per_sm * sms < (int64_t)grid.x * grid.y)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(F_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, dy, dhT, dcT, saved, cs, h0, c0, y, w_hh, dxw, dhc,
+                                part, dh0, dc0, counter, T, B, H, HP, reverse);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// route 1: the persistent kernel (scratch: its partials); route 0: the
+// step kernels (scratch [4, B, H]).
+template <int MODE>
+int backward(const float* dy, const float* dhT, const float* dcT, const float* saved,
+             const float* cs, const float* h0, const float* c0, const float* y,
+             const float* w_hh, float* dxw, float* dhc, float* scratch, float* dh0, float* dc0,
+             unsigned* counter, int T, int B, int H, int reverse, int route, cudaStream_t s) {
+  if (route == 1)
+    return backward_persistent<MODE>(dy, dhT, dcT, saved, cs, h0, c0, y, w_hh, dxw, dhc,
+                                     scratch, dh0, dc0, counter, T, B, H, reverse, s);
+  if (route != 0) return (int)cudaErrorInvalidValue;
+  return backward_steps<MODE>(dy, dhT, dcT, saved, cs, h0, c0, y, w_hh, dxw, dhc, scratch, dh0,
+                              dc0, T, B, H, reverse, s);
 }
 
 
@@ -850,14 +1236,18 @@ int ptt_rnn_forward(int mode, const void* xw, const void* h0, const void* c0,
 
 // As the forward's, with the output's gradient dy [T, B, H] (may be null:
 // none), the final states' dhT, dcT (lstm) [B, H] (may be null: none), what
-// the forward saved and wrote (saved, cs, y), h0, c0 and w_hh; scratch [4,
-// B, H] float32; written: dxw [T, B, G H] (the gate gradients of the input
-// side), dhc [T, B, H] (gru: the candidate's hidden-side gradient, da_n r),
-// dh0 and dc0 (lstm) [B, H].
+// the forward saved and wrote (saved, cs, y), h0, c0 and w_hh; written:
+// dxw [T, B, G H] (the gate gradients of the input side), dhc [T, B, H]
+// (gru: the candidate's hidden-side gradient, da_n r), dh0 and dc0 (lstm)
+// [B, H]. route 1: the persistent kernel, one launch (scratch: 2 x
+// ceil(B / 32) x ceil(H / 16) x 32 x HP floats, HP = H rounded up to 128;
+// counter: ceil(B / 32) zeroed uint32, one a row group); route 0: the step
+// kernels, two launches a step (scratch [4, B, H]; counter unused).
 int ptt_rnn_backward(int mode, const void* dy, const void* dhT, const void* dcT,
                      const void* saved, const void* cs, const void* h0, const void* c0,
                      const void* y, const void* w_hh, void* dxw, void* dhc, void* scratch,
-                     void* dh0, void* dc0, int T, int B, int H, int reverse, void* stream) {
+                     void* dh0, void* dc0, void* counter, int T, int B, int H, int reverse,
+                     int route, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a[9] = {static_cast<const float*>(dy),    static_cast<const float*>(dhT),
@@ -867,21 +1257,22 @@ int ptt_rnn_backward(int mode, const void* dy, const void* dhT, const void* dcT,
                        static_cast<const float*>(w_hh)};
   float* o[5] = {static_cast<float*>(dxw), static_cast<float*>(dhc), static_cast<float*>(scratch),
                  static_cast<float*>(dh0), static_cast<float*>(dc0)};
+  unsigned* ctr = static_cast<unsigned*>(counter);
   switch (mode) {
     case LSTM:
       if (!a[3] || !a[4] || !a[6] || !o[4]) return (int)cudaErrorInvalidValue;
       return backward<LSTM>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1],
-                            o[2], o[3], o[4], T, B, H, reverse, s);
+                            o[2], o[3], o[4], ctr, T, B, H, reverse, route, s);
     case GRU:
       if (!a[3] || !o[1]) return (int)cudaErrorInvalidValue;
       return backward<GRU>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1],
-                           o[2], o[3], o[4], T, B, H, reverse, s);
+                           o[2], o[3], o[4], ctr, T, B, H, reverse, route, s);
     case RNN_TANH:
       return backward<RNN_TANH>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1],
-                                o[2], o[3], o[4], T, B, H, reverse, s);
+                                o[2], o[3], o[4], ctr, T, B, H, reverse, route, s);
     case RNN_RELU:
       return backward<RNN_RELU>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1],
-                                o[2], o[3], o[4], T, B, H, reverse, s);
+                                o[2], o[3], o[4], ctr, T, B, H, reverse, route, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -37,6 +37,7 @@ from .. import resolve_device
 from ..framework import io as _io
 from ..kernels import fused as _fused  # noqa: F401  (registers the ops)
 from ..kernels import flash_attention as _fa  # noqa: F401
+from ..nn.layer.layers import Layer
 
 _QUANT_DTYPES = (torch.int8, torch.uint8, torch.float8_e4m3fn)
 _DIM_MAX = 1 << 20      # the bound of a symbolic dim that nothing else bounds
@@ -206,12 +207,15 @@ def save(module, path, input_spec=None):
         json.dump(meta, f)
 
 
-class TranslatedLayer(torch.nn.Module):
+class TranslatedLayer(Layer):
     """Parity: paddle.jit.TranslatedLayer: a loaded artifact, its program
-    and its state on one device; ``forward`` runs the program."""
+    and its state on one device; ``forward`` runs the program. An
+    ``nn.Layer`` as the JAX class is, with its own ``state_dict`` (the
+    program's state, by name), which the ``Layer`` methods read: so
+    ``set_state_dict`` copies into that state in place."""
 
     def __init__(self, program, state, param_names, meta, device):
-        super().__init__()
+        super().__init__(device=device)
         self._program = program
         self._run = program.module()     # outputs in the forward's structure
         self._state = state

@@ -39,7 +39,9 @@ GroupNorm and SiLU.
 ``batch_norm`` and ``batch_norm_bwd`` count the calls of BatchNorm's
 forward (two Triton kernels in training: the chunks' statistics, then the
 normalisation with the residual add and the ReLU where fused; one in
-eval) and of its backward (two: the chunks' partial sums, then dx and the
+eval; or the one-pass cluster kernel of ``csrc/batch_norm_fwd.cu``, which
+``batch_norm_forward_plan`` picks for short channels and
+``batch_norm_cluster`` also counts) and of its backward (two: the chunks' partial sums, then dx and the
 residual's gradient), which every BatchNorm on the card goes through
 (ResNet); ``batch_norm_bwd_cluster`` also counts the backward calls that
 ``batch_norm_backward_plan`` sends to the one-pass cluster kernel
@@ -57,8 +59,12 @@ forward and backward kernels (``kernels/rnn.py``, ``csrc/rnn_recurrence.cu``):
 the forward one a layer and direction on the persistent kernel, one a
 time step on the step kernel (``rnn_forward_plan``: a cell call, and
 shapes the persistent kernel cannot hold), which ``rnn_fwd_step`` also
-counts; the backward one a time step. Every SimpleRNN, LSTM, GRU and cell
-on the card goes through them. No TPU kernel either: XLA compiles the JAX
+counts; the backward's persistent kernel one a layer and direction or a
+cell call (``rnn_backward_plan``'s persistent route). ``rnn_bwd_gates``
+and ``rnn_bwd_step`` count the backward's step route (what the persistent
+kernel cannot hold), two kernels a time step (the gate gradients, then
+the product), each only its own. Every
+SimpleRNN, LSTM, GRU and cell on the card goes through them. No TPU kernel either: XLA compiles the JAX
 package's scan over the step into a loop on the device.
 
 ``dense_softmax`` and ``dense_softmax_bwd`` count the calls of the dense
@@ -101,7 +107,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "batch_norm_bwd": 0, "batch_norm_bwd_cluster": 0, "ctc_fwd": 0,
             "ctc_bwd": 0, "rnnt_fwd": 0, "rnnt_bwd": 0, "dense_softmax": 0,
             "dense_softmax_bwd": 0, "rnn_fwd": 0, "rnn_fwd_step": 0,
-            "rnn_bwd": 0,
+            "rnn_bwd": 0, "rnn_bwd_gates": 0, "rnn_bwd_step": 0,
+            "batch_norm_cluster": 0,
             "sdpa_plain": 0,
             "sdpa_dense": 0, "ragged_plain": 0}
 

@@ -1,6 +1,7 @@
 """BatchNorm, with the residual add and the ReLU that follow it in
-ResNet's blocks, forward and backward: Triton kernels, a CUDA kernel for
-the backward's short runs (``csrc/batch_norm_bwd.cu``), and their plain
+ResNet's blocks, forward and backward: Triton kernels, CUDA kernels for
+the training forward's and backward's short runs
+(``csrc/batch_norm_fwd.cu``, ``csrc/batch_norm_bwd.cu``), and their plain
 PyTorch version.
 
 No TPU kernel: the JAX package's ``F.batch_norm``
@@ -74,8 +75,18 @@ and the residual's gradient once. Long channels (56 x 56 and up at batch
 kernels. One launch a call either way (``LAUNCHES["batch_norm_bwd"]``;
 ``["batch_norm_bwd_cluster"]`` counts the cluster kernel's too).
 
+``batch_norm_forward_plan`` routes the training forward of such an x
+whose channel fits a cluster of up to 8 blocks (56 x 56 and below at
+batch 128) to the cluster kernel of ``csrc/batch_norm_fwd.cu``: x read
+once into shared memory (2 bytes an element), the mean and then M2 about
+it summed in a fixed order over the cluster, y written once. The stem,
+channels last, fp32 x and eval take the Triton kernels
+(``_triton_forward``).
+``LAUNCHES["batch_norm"]`` counts every forward call,
+``["batch_norm_cluster"]`` the cluster kernel's too.
+
 Triton is imported, and the kernels compiled, at the first launch; the
-CUDA source is built by ``_build`` at its first launch.
+CUDA sources are built by ``_build`` at their first launch.
 """
 from __future__ import annotations
 
@@ -422,15 +433,78 @@ def batch_norm_backward_plan(n, c, s, channels_last, x_dtype, batch_stats,
     return "two_pass", bc, bs, chunks
 
 
-def _cluster_lib():
-    lib = library("batch_norm_bwd")
+def _fwd_cluster_smem(n, s, cs):
+    """Shared memory bytes of a forward cluster-kernel block (as
+    ``ptt_batch_norm_fwd_smem``): 2 bytes an element held (x, 16 bits) and
+    4 (12 + 16) of sums."""
+    e = -(-n // cs) * s
+    return -(-(2 * e + 4 * (12 + _WARPS)) // 16) * 16
+
+
+def batch_norm_forward_plan(n, c, s, channels_last, x_dtype, batch_stats,
+                            sms):
+    """The forward's route for x [n, c, spatial size s]: ``("cluster",
+    blocks a cluster, shared memory bytes a block)``, a cluster a channel
+    (``csrc/batch_norm_fwd.cu``), where x is channels first with s > 1,
+    bf16 or fp16, in training, and a channel fits in
+    ``_CLUSTER_BLOCK_BYTES`` a block over at most 8 blocks (the fewest
+    blocks of a power of two: 56 x 56 at batch 128 takes 8, measured
+    faster than the Triton kernels in paired timings); else ``("triton",
+    BLOCK_C, BLOCK_S, chunks)``, the Triton kernels' tiles on ``sms``
+    SMs."""
+    if not channels_last and s > 1 and batch_stats \
+            and x_dtype in (torch.bfloat16, torch.float16):
+        for cs in _CLUSTER_SIZES:
+            smem = _fwd_cluster_smem(n, s, cs)
+            if smem <= _CLUSTER_BLOCK_BYTES:
+                return "cluster", cs, smem
+    rn, rc, rs, _, sc, _ = _layout((n, c, s) if not channels_last
+                                   else (n, s, c), channels_last)
+    bc, bs, _, _, chunks = _plan(rn, rc, rs, sc == 1, sms)
+    return "triton", bc, bs, chunks
+
+
+def _cluster_lib(name):
+    """The library of ``csrc/batch_norm_fwd.cu`` or ``batch_norm_bwd.cu``,
+    its entry point's arguments set."""
+    lib = library(name)
     if lib.ptt_error_string.restype is not ctypes.c_char_p:
-        lib.ptt_batch_norm_bwd.argtypes = [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        lib.ptt_batch_norm_bwd.restype = ctypes.c_int
+        if name == "batch_norm_fwd":
+            lib.ptt_batch_norm_fwd.argtypes = [ctypes.c_void_p] * 8 \
+                + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
+                + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            lib.ptt_batch_norm_fwd.restype = ctypes.c_int
+        else:
+            lib.ptt_batch_norm_bwd.argtypes = [ctypes.c_void_p] * 8 \
+                + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            lib.ptt_batch_norm_bwd.restype = ctypes.c_int
         lib.ptt_error_string.argtypes = [ctypes.c_int]
         lib.ptt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _cluster_forward(x, weight, bias, running_mean, running_var, residual,
+                     relu, round_x, eps, momentum, y, stats, cs):
+    """The forward cluster kernel on a contiguous channels-first x (N, C,
+    S > 1, bf16 or fp16), training: y, stats and the running statistics
+    in place."""
+    n, c = x.shape[0], x.shape[1]
+    s = x.numel() // (n * c)
+    lib = _cluster_lib("batch_norm_fwd")
+    res = None if residual is None else residual.contiguous()
+    err = lib.ptt_batch_norm_fwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        running_mean.data_ptr(), running_var.data_ptr(),
+        None if res is None else res.data_ptr(), y.data_ptr(),
+        stats.data_ptr(), n, c, s, cs, float(eps), float(momentum),
+        float(1 - momentum), _CODES[x.dtype], _CODES[weight.dtype],
+        _CODES[bias.dtype], _CODES[running_mean.dtype],
+        _CODES[running_var.dtype], _CODES[(x if res is None else res).dtype],
+        _CODES[y.dtype], int(res is not None), int(bool(relu)),
+        int(bool(round_x)), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("batch_norm forward cluster kernel launch failed: "
+                           + lib.ptt_error_string(err).decode())
 
 
 def _cluster_backward(x, weight, stats, dy, y, relu, round_x, dx, dres,
@@ -438,7 +512,7 @@ def _cluster_backward(x, weight, stats, dy, y, relu, round_x, dx, dres,
     """The cluster kernel on a contiguous channels-first x (N, C, S > 1)."""
     n, c = x.shape[0], x.shape[1]
     s = x.numel() // (n * c)
-    lib = _cluster_lib()
+    lib = _cluster_lib("batch_norm_bwd")
     yy = y if relu else dy
     err = lib.ptt_batch_norm_bwd(
         x.data_ptr(), dy.data_ptr(), yy.data_ptr(), stats.data_ptr(),
@@ -602,27 +676,46 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var,
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     stats = torch.empty(2, c, dtype=torch.float32, device=x.device)
     if x.numel():
-        triton, k, grid, geo, bc, bs, n_chunks, _ = _args(x, channels_last)
-        nw = _warps(bc, bs)
-        part = stats
-        if batch_stats:
-            part = torch.empty(n_chunks, 3, c, dtype=torch.float32,
-                               device=x.device)
-            k["stats"][grid](x, part, *geo, BLOCK_C=bc, BLOCK_S=bs,
-                             num_warps=nw)
-        k["fwd"][grid](x, weight, bias, running_mean, running_var,
-                       x if residual is None else residual, y, part, stats,
-                       *geo, n_chunks, float(eps), float(momentum),
-                       float(1 - momentum), TRAIN=bool(batch_stats),
-                       HAS_RES=residual is not None, RELU=bool(relu),
-                       ROUND_X=bool(round_x), BLOCK_C=bc, BLOCK_S=bs,
-                       CH_BLOCK=_CH_BLOCK, num_warps=nw)
+        plan = batch_norm_forward_plan(
+            x.shape[0], c, x.numel() // (x.shape[0] * c), channels_last,
+            x.dtype, batch_stats, sm_count(x.device))
+        if plan[0] == "cluster":
+            _cluster_forward(x, weight, bias, running_mean, running_var,
+                             residual, relu, round_x, eps, momentum, y, stats,
+                             plan[1])
+            LAUNCHES["batch_norm_cluster"] += 1
+        else:
+            _triton_forward(x, weight, bias, running_mean, running_var,
+                            batch_stats, momentum, eps, channels_last,
+                            residual, relu, round_x, y, stats)
         LAUNCHES["batch_norm"] += 1
     elif batch_stats:
         # The statistics of an empty batch are NaN, as the plain version's.
         for t in (stats, running_mean, running_var):
             t.fill_(float("nan"))
     return y, stats
+
+
+def _triton_forward(x, weight, bias, running_mean, running_var, batch_stats,
+                    momentum, eps, channels_last, residual, relu, round_x, y,
+                    stats):
+    """The Triton kernels (in training the chunks' statistics, then the
+    normalisation) into y and stats."""
+    c = stats.shape[1]
+    triton, k, grid, geo, bc, bs, n_chunks, _ = _args(x, channels_last)
+    nw = _warps(bc, bs)
+    part = stats
+    if batch_stats:
+        part = torch.empty(n_chunks, 3, c, dtype=torch.float32,
+                           device=x.device)
+        k["stats"][grid](x, part, *geo, BLOCK_C=bc, BLOCK_S=bs, num_warps=nw)
+    k["fwd"][grid](x, weight, bias, running_mean, running_var,
+                   x if residual is None else residual, y, part, stats,
+                   *geo, n_chunks, float(eps), float(momentum),
+                   float(1 - momentum), TRAIN=bool(batch_stats),
+                   HAS_RES=residual is not None, RELU=bool(relu),
+                   ROUND_X=bool(round_x), BLOCK_C=bc, BLOCK_S=bs,
+                   CH_BLOCK=_CH_BLOCK, num_warps=nw)
 
 
 def _two_pass_backward(x, weight, stats, dy, y, batch_stats, channels_last,
@@ -737,4 +830,4 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
 __all__ = ["batch_norm", "batch_norm_plain", "batch_stats_split_plain",
            "batch_norm_forward", "batch_norm_backward", "BatchNormFunction",
-           "batch_norm_backward_plan"]
+           "batch_norm_forward_plan", "batch_norm_backward_plan"]

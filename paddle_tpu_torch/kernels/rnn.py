@@ -37,9 +37,13 @@ the plain step under torch's autograd. The forward takes one of two
 kernels by ``rnn_forward_plan``: the persistent kernel for T > 1 where a
 block's rows of W_hh fit in shared memory and the grid fits on the SMs
 (one launch for the sequence), else the step kernel (one launch a step).
-The backward launches once a step. ``LAUNCHES["rnn_fwd"]`` and
-``["rnn_bwd"]`` count each launch, ``["rnn_fwd_step"]`` the forward's on
-the step kernel.
+The backward takes one of two routes by ``rnn_backward_plan``: its
+persistent kernel on the same terms but at any T (one launch), else two
+kernels a step (the gate gradients, then the product). ``LAUNCHES["rnn_fwd"]``
+counts each forward launch, ``["rnn_fwd_step"]`` the forward's on the
+step kernel; ``["rnn_bwd"]`` the persistent backward's launches,
+``["rnn_bwd_gates"]`` and ``["rnn_bwd_step"]`` the step route's two
+kernels', each only its own.
 The kernels compute in fp32: a bf16 or fp16 call on the card (a cell
 under ``auto_cast(level="O2")``) goes up to fp32 exactly, runs them, and
 its outputs are rounded back to its dtype, so it computes what a kernel
@@ -123,11 +127,11 @@ _KC = 128               # the step kernel's depth a stage
 
 
 class RnnPlan(NamedTuple):
-    """How ``rnn_forward`` runs a sequence: ``route`` "persistent" (one
-    cooperative launch; blocks of 32 rows by 16 units, W_hh resident) or
-    "step" (one launch a step; blocks of ``rows`` rows by 16 units);
-    ``grid`` (unit blocks, row blocks); ``smem`` bytes a block;
-    ``launches`` of the forward."""
+    """How ``rnn_forward`` or ``rnn_backward`` runs a sequence: ``route``
+    "persistent" (one cooperative launch; blocks of 32 rows by 16 units,
+    W_hh resident) or "step" (a launch a step forward, two backward;
+    blocks of ``rows`` rows by 16 units); ``grid`` (unit blocks, row
+    blocks); ``smem`` bytes a block; ``launches`` of the call."""
     route: str
     grid: Tuple[int, int]
     smem: int
@@ -162,13 +166,45 @@ def rnn_forward_plan(mode, T, B, H, sms):
                    4 * max(stages, _RED), _ROWS * wm, T)
 
 
+# -- the backward's plan ------------------------------------------------------
+
+_P_RED = 2 * _ROWS * _UNITS   # floats of the persistent backward's two halves
+_S_ROWS, _S_COLS = 32, 64   # a backward step-kernel block's tile
+
+
+def rnn_backward_plan(mode, T, B, H, sms):
+    """The backward's kernels for ``T`` steps of ``B`` rows at width ``H``
+    on a card of ``sms`` SMs: the persistent kernel on the forward's grid
+    where H % 4 == 0, a block's rows of W_hh (G gates by H, rounded up to
+    128, plus 4 a row), its rows' gate gradients and its sums fit in
+    ``SMEM_BYTES`` and the grid is at most one block an SM (one launch,
+    also at T = 1: the decoder cell's 128 rows took 18.9 us against the
+    step route's 26.5); else the step route, two launches a step (the
+    gate gradients, then the product, 32 rows by 64 columns a block over
+    the whole depth). ``smem`` is the product kernel's bytes there; the
+    same bytes as ``csrc/rnn_recurrence.cu`` computes."""
+    _check_mode(mode)
+    G = GATES[mode]
+    units = _cdiv(H, _UNITS)
+    if H % 4 == 0:
+        ld = _cdiv(H, 128) * 128 + 4
+        smem = 4 * (_UNITS * G * ld + _UNITS * G * _ROWS + _P_RED)
+        grid = (units, _cdiv(B, _ROWS))
+        if smem <= SMEM_BYTES and grid[0] * grid[1] <= sms:
+            return RnnPlan("persistent", grid, smem, _ROWS, 1)
+    smem = 4 * max(3 * (_S_ROWS * (_KC + 4) + _KC * _S_COLS),
+                   8 * _S_ROWS * _S_COLS)
+    return RnnPlan("step", (_cdiv(H, _S_COLS), _cdiv(B, _S_ROWS)), smem,
+                   _S_ROWS, 2 * T)
+
+
 # -- the kernels --------------------------------------------------------------
 
 _SIGS = {
     "ptt_rnn_forward": [ctypes.c_int] + [ctypes.c_void_p] * 11
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "ptt_rnn_backward": [ctypes.c_int] + [ctypes.c_void_p] * 14
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ptt_rnn_backward": [ctypes.c_int] + [ctypes.c_void_p] * 15
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
 
@@ -272,19 +308,31 @@ def rnn_forward(mode, xw, h0, c0, w_hh, b_hc=None, reverse=False):
 
 def rnn_backward(mode, dy, dhT, dcT, saved, cs, h0, c0, y, w_hh,
                  reverse=False):
-    """The kernel, one launch a step from the last: ``(dxw [T, B, G H],
-    dhc [T, B, H] or None, dh0, dc0 or None)``: the gate gradients of the
-    input side, the gru candidate's hidden-side gradient (``da_n r``) and
-    the initial states' gradients. ``dy``, ``dhT``, ``dcT`` may be None
-    (no gradient)."""
+    """The backward kernels on ``rnn_backward_plan``'s route: ``(dxw [T, B,
+    G H], dhc [T, B, H] or None, dh0, dc0 or None)``: the gate gradients of
+    the input side, the gru candidate's hidden-side gradient (``da_n r``)
+    and the initial states' gradients. ``dy``, ``dhT``, ``dcT`` may be None
+    (no gradient). A refused launch raises."""
     dy, dhT, dcT, saved, cs, h0, c0, y, w_hh = _on_card(
         dy, dhT, dcT, saved, cs, h0, c0, y, w_hh)
     T, B, H = y.shape
     G = GATES[mode]
+    plan = rnn_backward_plan(mode, T, B, H, sm_count(y.device))
     f32 = dict(dtype=torch.float32, device=y.device)
     dxw = torch.empty(T, B, G * H, **f32)
     dhc = torch.empty(T, B, H, **f32) if mode == "gru" else None
-    scratch = torch.empty(4, B, H, **f32)
+    persistent = plan.route == "persistent"
+    if persistent:
+        # the partials, two (by the step's parity) a block of 32 x HP
+        hp = _cdiv(H, 128) * 128
+        scratch = torch.empty(2 * plan.grid[0] * plan.grid[1] * _ROWS * hp,
+                              **f32)
+        # the barriers' step counters, zeroed on the stream (in a graph, on
+        # every replay)
+        counter = torch.zeros(plan.grid[1], dtype=torch.int32,
+                              device=y.device)
+    else:
+        scratch, counter = torch.empty(4, B, H, **f32), None
     dh0 = torch.empty(B, H, **f32)
     dc0 = torch.empty(B, H, **f32) if mode == "lstm" else None
     lib = _lib()
@@ -292,9 +340,14 @@ def rnn_backward(mode, dy, dhT, dcT, saved, cs, h0, c0, y, w_hh,
         MODES[mode], _ptr(dy), _ptr(dhT), _ptr(dcT), _ptr(saved), _ptr(cs),
         h0.data_ptr(), _ptr(c0), y.data_ptr(), w_hh.data_ptr(),
         dxw.data_ptr(), _ptr(dhc), scratch.data_ptr(), dh0.data_ptr(),
-        _ptr(dc0), T, B, H, int(bool(reverse)), _stream(y))
-    _check_launch(lib, err, f"rnn backward ({mode})")
-    LAUNCHES["rnn_bwd"] += T
+        _ptr(dc0), _ptr(counter), T, B, H, int(bool(reverse)),
+        int(persistent), _stream(y))
+    _check_launch(lib, err, f"rnn backward ({mode}, {plan.route})")
+    if persistent:
+        LAUNCHES["rnn_bwd"] += 1
+    else:
+        LAUNCHES["rnn_bwd_gates"] += T
+        LAUNCHES["rnn_bwd_step"] += T
     return dxw, dhc, dh0, dc0
 
 
@@ -364,4 +417,4 @@ def rnn_scan(mode, xw, h0, c0, w_hh, b_hc=None, reverse=False):
 
 __all__ = ["rnn_scan", "rnn_step_plain", "rnn_scan_plain", "rnn_forward",
            "rnn_backward", "RNNScanFunction", "weight_grads", "MODES",
-           "GATES", "RnnPlan", "rnn_forward_plan"]
+           "GATES", "RnnPlan", "rnn_forward_plan", "rnn_backward_plan"]

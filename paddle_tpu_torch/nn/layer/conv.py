@@ -4,7 +4,9 @@
 ``KaimingUniform(fan_in=(in / groups) * kh * kw)`` and bias from
 ``Uniform(+-1 / sqrt(fan_in))`` (left out with ``bias_attr=False``), on an
 explicit ``device`` (None = the GPU) in ``dtype`` (float32) from
-``generator``. Its forward is ``F.conv2d`` (cuDNN on the card)."""
+``generator``. Its forward is ``F.conv2d`` (cuDNN on the card).
+``padding_mode`` is accepted and ignored, as the JAX layer ignores it:
+every mode pads with zeros."""
 from __future__ import annotations
 
 import math
@@ -20,9 +22,6 @@ class Conv2D(Layer):
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
                  device=None, dtype=None, generator=None):
         super().__init__()
-        if padding_mode != "zeros":
-            raise NotImplementedError(f"Conv2D padding_mode "
-                                      f"{padding_mode!r}: zeros is ported")
         dev, dt = placement(device, dtype)
         self._in_channels = in_channels
         self._out_channels = out_channels
@@ -34,6 +33,8 @@ class Conv2D(Layer):
         self._dilation = dilation
         self._groups = groups
         self._data_format = data_format
+        # stored and never read, as in JAX: every mode pads with zeros
+        self._padding_mode = padding_mode
         fan_in = (in_channels // groups) * math.prod(k)
         self.weight = make_parameter(
             (out_channels, in_channels // groups, *k), weight_attr, dev, dt,

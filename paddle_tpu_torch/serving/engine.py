@@ -140,11 +140,14 @@ class ServingEngine:
     step). Thread-safe: ``submit`` may be called from client threads while
     one thread drives ``step()`` (``wait_for_work`` blocks that thread
     until there is work; ``abort_all`` fails every live request). A step
-    runs on the engine's stream, whichever thread drives it."""
+    runs on the engine's stream, whichever thread drives it. ``seed`` is
+    the JAX engine's third argument, kept as it keeps it (a generator that
+    nothing draws from); ``device`` is keyword-only."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
-                 device=None):
+                 seed: int = 0, *, device=None):
         cfg = config or EngineConfig()
+        self._rng = np.random.default_rng(seed)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model lives on {model.device}, the "

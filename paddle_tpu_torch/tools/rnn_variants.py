@@ -1,5 +1,4 @@
-"""Time variants of the recurrence's forward kernels side by side on one
-GPU.
+"""Time variants of the recurrence's kernels side by side on one GPU.
 
     python3 paddle_tpu_torch/tools/rnn_variants.py [NAME ...]
 
@@ -9,11 +8,14 @@ A variant (``VARIANTS`` below, all of them by default) is
 model's shapes, fp32: one LSTM layer [T 50, B 128, H 512] on the
 persistent kernel, and the beam step (T 1, B 1280) and the decoder cell
 (T 1, B 128) on the step kernel with each row tile (64, 32 rows a
-block), timed by graph replay in turns (every variant, then every variant
-again in reverse order; both times are printed). Variants marked
-"timing only" remove work and give wrong outputs: they say what the
-removed part costs. The others are held to the plain loop (1e-5 of the
-largest value). Compare variants only within one run: two runs may land
+block); and the backward of the three on ``rnn_backward_plan``'s routes
+(the layer and the cell persistent, the beam step the step route). Each
+is timed by graph
+replay in turns (every variant, then every variant again in reverse
+order; both times are printed). Variants marked "timing only" remove
+work and give wrong outputs: they say what the removed part costs. The
+others are held to the plain loop (1e-5 of the largest value forward,
+1e-4 backward). Compare variants only within one run: two runs may land
 on two cards.
 """
 from __future__ import annotations
@@ -55,11 +57,40 @@ VARIANTS = {   # name: [(old, new), ...]; "timing only" where outputs break
     "step_two_blocks_unroll_1": [_STEP_BOUNDS, (
         "#pragma unroll 2\n  for (int k = k0; k < k1; k += 4) {",
         "#pragma unroll 1\n  for (int k = k0; k < k1; k += 4) {")],
+    # timing only, the backward's persistent kernel: no barrier; no
+    # product; no partials stored; none read back
+    "bwd_no_barrier": [("group_barrier(row_counter, (unsigned)(step + 1) * nbx);",
+                        "__syncthreads();")],
+    "bwd_no_product": [("  for (int k = 0; k < D; ++k) {",
+                        "  for (int k = 0; k < 0; ++k) {")],
+    "bwd_no_stores": [("          __stcg(reinterpret_cast<float4*>(pp + ",
+                       "          if (0) __stcg(reinterpret_cast<float4*>(pp + ")],
+    "bwd_no_reduce": [("for (int x0 = lo; x0 < hi; x0 += 8) {",
+                       "for (int x0 = lo; x0 < lo; x0 += 8) {")],
+    # the persistent backward's product loop unrolled 4 deep (as built: 16)
+    "bwd_unroll_4": [("#pragma unroll 16\n  for (int k = 0; k < D; ++k) {",
+                      "#pragma unroll 4\n  for (int k = 0; k < D; ++k) {")],
+    # timing only: the backward's step product without its FMAs
+    "step_no_fma": [("    for (int k = wk * KW; k < wk * KW + KW; k += 4) {",
+                     "    for (int k = wk * KW; k < wk * KW; k += 4) {")],
+    # timing only: the step product's loads and FMAs, no epilogue (the
+    # accumulators kept alive by a store that never runs); no product
+    # launch at all (the gates kernel alone)
+    "step_no_epilogue": [("  // the depth warps' sums, red[wk][row][column], added in warp order",
+                          "  if (B < 0) dh_out[tid] = acc[0][0] + acc[7][7];\n  return;\n"
+                          "  // the depth warps' sums, red[wk][row][column], added in warp order")],
+    "gates_only": [("    product<<<grid, F_THREADS, smem, s>>>(",
+                    "    if (0) product<<<grid, F_THREADS, smem, s>>>(")],
 }
 _SHAPES = (("lstm layer", 50, 128, "persistent", 1),
            ("beam step", 1, 1280, "step", 2), ("beam step", 1, 1280, "step", 1),
            ("decoder cell", 1, 128, "step", 1))
-_BROKEN = ("no_grid_barrier", "no_fma", "step_no_loads")
+_BROKEN = ("no_grid_barrier", "no_fma", "step_no_loads", "bwd_no_barrier",
+           "bwd_no_product", "bwd_no_stores", "bwd_no_reduce", "step_no_fma",
+           "step_no_epilogue", "gates_only")
+# the backward's shapes: (tag, T, B)
+_BWD_SHAPES = (("lstm layer bwd", 50, 128), ("decoder cell bwd", 1, 128),
+               ("beam step bwd", 1, 1280))
 
 
 def _load(path):
@@ -98,6 +129,43 @@ def _call(lib, xw, h0, c0, w, route, wm):
     return y, hT, cT
 
 
+def _call_bwd(lib, xw, h0, c0, w, fwd, dy):
+    """The backward on ``rnn_backward_plan``'s route through ``lib``, from
+    the forward ``fwd`` (``R.rnn_forward``'s outputs): (dxw, dh0, dc0)."""
+    T, B, GH = xw.shape
+    H = GH // 4
+    y, _, _, saved, cs = fwd
+    plan = R.rnn_backward_plan("lstm", T, B, H,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    dxw = torch.empty(T, B, GH, **f32)
+    dh0, dc0 = torch.empty(B, H, **f32), torch.empty(B, H, **f32)
+    persistent = plan.route == "persistent"
+    if persistent:
+        scratch = torch.empty(2 * plan.grid[0] * plan.grid[1] * 32
+                              * (-(-H // 128) * 128), **f32)
+        ctr = torch.zeros(plan.grid[1], dtype=torch.int32, device="cuda")
+    else:
+        scratch, ctr = torch.empty(4, B, H, **f32), None
+    err = lib.ptt_rnn_backward(
+        0, dy.data_ptr(), None, None, saved.data_ptr(), cs.data_ptr(),
+        h0.data_ptr(), c0.data_ptr(), y.data_ptr(), w.data_ptr(),
+        dxw.data_ptr(), None, scratch.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), None if ctr is None else ctr.data_ptr(), T, B, H, 0,
+        int(persistent), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"backward launch failed: {err}")
+    return dxw, dh0, dc0
+
+
+def _bwd_want(xw, h0, c0, w, dy):
+    """The plain loop's gradients of xw, h0 and c0 from dy."""
+    leaves = [t.clone().requires_grad_() for t in (xw, h0, c0)]
+    y = R.rnn_scan_plain("lstm", *leaves, w)[0]
+    return torch.autograd.grad(y, leaves, dy)
+
+
 def main(names):
     card = S._card_line()
     libs = {n: _load(p) for n, p in _build.build_variants(
@@ -115,6 +183,22 @@ def main(names):
             if err > 1e-5:
                 raise AssertionError(f"{name} {tag}: {err:.3g} off the plain "
                                      f"loop")
+    bwd = {}
+    for tag, T, B in _BWD_SHAPES:
+        xw, h0, c0, w = _inputs(T, B, seed=1)
+        dy = torch.randn(T, B, 512, device="cuda")
+        fwd = R.rnn_forward("lstm", xw, h0, c0, w)
+        bwd[tag] = (xw, h0, c0, w, fwd, dy)
+        want = _bwd_want(xw, h0, c0, w, dy)
+        for name, lib in libs.items():
+            if name in _BROKEN:
+                continue
+            got = _call_bwd(lib, xw, h0, c0, w, fwd, dy)
+            err = max(float((a - b).abs().max()) / max(1.0, float(
+                b.abs().max())) for a, b in zip(got, want))
+            if err > 1e-4:
+                raise AssertionError(f"{name} {tag}: {err:.3g} off the plain "
+                                     f"loop")
     order = list(libs)
     times = {}
     for turn, seq in enumerate((order, order[::-1])):
@@ -125,9 +209,15 @@ def main(names):
                                                route, wm),
                                  iters=3 if T > 1 else 20, reps=3)
                 times.setdefault((name, tag, route, wm), []).append(ms)
+            for tag, T, B in _BWD_SHAPES:
+                args = bwd[tag]
+                ms = S._graph_ms(lambda: _call_bwd(libs[name], *args),
+                                 iters=3 if T > 1 else 20, reps=3)
+                times.setdefault((name, tag, "backward", 0), []).append(ms)
     for (name, tag, route, wm), ms in times.items():
-        T = next(s[1] for s in _SHAPES if s[0] == tag)
-        print(f"{name:18s} {tag:12s} {route:10s} rows {32 * wm:3d}: "
+        T = next(s[1] for s in _SHAPES + _BWD_SHAPES if s[0] == tag)
+        rows = f"rows {32 * wm:3d}" if wm else "plan's"
+        print(f"{name:18s} {tag:16s} {route:10s} {rows}: "
               + " / ".join(f"{m:.4f}" for m in ms) + f" ms ({ms[0] / T * 1e3:.2f}"
               f" us a step){' [timing only]' if name in _BROKEN else ''} "
               f"[{card}]", flush=True)

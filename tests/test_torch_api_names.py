@@ -3,8 +3,10 @@ on the CPU: ``scaled_dot_product_attention(..., allow_flash=)``,
 ``LlamaConfig.use_flash_attention`` passed on as ``allow_flash``,
 ``LlamaConfig.llama2_13b()``, ``apply_rope``, ``build_rope_cache(...,
 dtype=)``, ``config=`` on the Llama modules, ``sublayers=`` on
-``LayerList`` and ``framework.io.load(path, return_numpy=False,
-**configs)``.
+``LayerList``, ``framework.io.load(path, return_numpy=False,
+**configs)``, ``ServingEngine(model, config, seed)`` (F16), a loaded
+``jit`` artifact as an ``nn.Layer`` (F17) and ``Conv2D(padding_mode=)``
+(F18).
 
 Tolerances: attention and RoPE in float32 within 1e-5 of the largest
 reference value (fp32 sums in another order); the rope tables within
@@ -172,3 +174,105 @@ def test_framework_load_return_numpy_and_configs(tmp_path):
                    protocol=4, use_binary_format=True)
     assert torch.equal(framework.load(str(tmp_path / "x.pd"))["x"],
                        torch.ones(2))
+
+
+def test_serving_engine_third_argument_is_the_seed():
+    """F16: the JAX engine's signature is (model, config=None, seed=0):
+    ``seed=`` is taken, a positional third argument is the seed (not a
+    device), and ``device`` is keyword-only."""
+    import inspect
+
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+    from paddle_tpu.serving.engine import ServingEngine as JaxEngine
+    want = list(inspect.signature(JaxEngine).parameters)
+    params = inspect.signature(ServingEngine).parameters
+    assert list(params)[:3] == want == ["model", "config", "seed"]
+    assert params["seed"].default == 0
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    model = LlamaForCausalLM(LlamaConfig.tiny(vocab_size=64, hidden_size=32,
+                                              layers=1, heads=4, kv_heads=2,
+                                              seq=32), device="cpu")
+    cfg = EngineConfig(max_seqs=2, token_budget=16, block_size=8)
+    a = ServingEngine(model, cfg, seed=3, device="cpu")
+    b = ServingEngine(model, cfg, 1, device="cpu")
+    assert a.device.type == b.device.type == "cpu"
+    ids = [[5, 6, 7, 8]]
+    assert a.generate_batch(ids, max_new_tokens=4) \
+        == b.generate_batch(ids, max_new_tokens=4)
+
+
+class _Mlp(pnn.Layer):
+    def __init__(self):
+        super().__init__(device="cpu")
+        self.l1 = pnn.Linear(6, 8, device="cpu")
+        self.l2 = pnn.Linear(8, 3, device="cpu")
+
+    def forward(self, x):
+        return self.l2(F.relu(self.l1(x)))
+
+
+# the JAX Layer methods a loaded artifact lacked before it became a Layer
+_LAYER_METHODS = ("set_state_dict", "set_dict", "load_dict", "sublayers",
+                  "named_sublayers", "named_state",
+                  "register_forward_post_hook", "astype", "add_parameter",
+                  "add_sublayer", "create_parameter", "create_tensor",
+                  "swap_state")
+
+
+def test_translated_layer_is_a_layer(tmp_path):
+    """F17: ``jit.load`` returns an ``nn.Layer``, as the JAX
+    ``TranslatedLayer`` is one: it has the Layer methods, its own
+    ``state_dict`` (the program's state), ``set_state_dict`` copies into
+    that state in place, and the outputs follow it."""
+    from paddle_tpu.jit import TranslatedLayer as JaxTranslated
+    from paddle_tpu_torch import jit
+    torch.manual_seed(0)
+    model = _Mlp()
+    path = str(tmp_path / "mlp")
+    jit.save(model, path, input_spec=[jit.InputSpec([None, 6], "float32")])
+    loaded = jit.load(path, device="cpu")
+    assert isinstance(loaded, pnn.Layer)
+    assert issubclass(JaxTranslated, paddle.nn.Layer)
+    for name in _LAYER_METHODS:
+        assert callable(getattr(loaded, name)), name
+        assert callable(getattr(JaxTranslated, name)), name
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (5, 6)).astype(np.float32))
+    with torch.no_grad():
+        live = model(x)
+    assert torch.equal(loaded(x), live)
+    state = loaded.state_dict()
+    assert sorted(state) == sorted(model.state_dict())
+    doubled = {k: 2 * v for k, v in state.items()}
+    missing, unexpected = loaded.set_state_dict(doubled)
+    assert missing == [] and unexpected == []
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(v, doubled[k])
+    model.set_state_dict(doubled)
+    with torch.no_grad():
+        assert torch.equal(loaded(x), model(x))
+    loaded.set_state_dict({k: v / 2 for k, v in doubled.items()})
+    assert torch.equal(loaded(x), live)
+
+
+@pytest.mark.parametrize("mode", ["reflect", "replicate", "circular"])
+def test_conv2d_padding_mode_is_accepted_and_pads_with_zeros(mode):
+    """F18: the JAX ``Conv2D`` stores ``padding_mode`` and never reads it,
+    so every mode pads with zeros; the port's layer takes it too and gives
+    the JAX layer's output on the same weights (float32, 1e-5 of the
+    largest value: sums in another order)."""
+    from paddle_tpu_torch.models import load_numpy_state
+    paddle.seed(8)
+    jl = paddle.nn.Conv2D(3, 4, 3, padding=1, padding_mode=mode)
+    pl = pnn.Conv2D(3, 4, 3, padding=1, padding_mode=mode, device="cpu")
+    assert pl._padding_mode == jl._padding_mode == mode
+    load_numpy_state(pl, {n: np.asarray(t._data)
+                          for n, t in jl.named_state().items()})
+    x = np.random.default_rng(8).standard_normal((2, 3, 6, 5)) \
+        .astype(np.float32)
+    with torch.no_grad():
+        got = pl(torch.from_numpy(x))
+        zeros = pnn.Conv2D(3, 4, 3, padding=1, device="cpu")
+        zeros.set_state_dict(pl.state_dict())
+        assert torch.equal(got, zeros(torch.from_numpy(x)))
+    _close(got, jl(Tensor(jnp.asarray(x))))

@@ -3211,13 +3211,15 @@ def _rnn_case(mode, T, B, n_in, H, dev, seed=0):
 def test_rnn_kernels_match_plain(dev, mode, reverse, shape):
     """The kernels (through ``rnn_scan``'s Function) against torch's
     autograd through the plain loop on the card: every output and the
-    gradients of xw, h0, c0, W_hh and b_hc; the forward's launches as its
-    plan says (one on the persistent kernel, one a step on the step
-    kernel), one a step backward; two calls bit-equal."""
+    gradients of xw, h0, c0, W_hh and b_hc; the forward's and the
+    backward's launches as their plans say (one on a persistent kernel,
+    one a step on the forward's step kernel, two a step on the backward's
+    step route); two calls bit-equal."""
     from paddle_tpu_torch.kernels import rnn as R
     T = shape[0]
     case = _rnn_case(mode, *shape, dev)
     plan = R.rnn_forward_plan(mode, T, shape[1], shape[3], _sms(dev))
+    bplan = R.rnn_backward_plan(mode, T, shape[1], shape[3], _sms(dev))
 
     def run(fn):
         args = [None if t is None else t.clone().requires_grad_()
@@ -3229,10 +3231,12 @@ def test_rnn_kernels_match_plain(dev, mode, reverse, shape):
         leaves = [t for t in args if t is not None]
         return [o.detach() for o in outs] + list(torch.autograd.grad(
             outs, leaves, cots))
-    before = (K.LAUNCHES["rnn_fwd"], K.LAUNCHES["rnn_bwd"])
+    keys = ("rnn_fwd", "rnn_bwd", "rnn_bwd_gates", "rnn_bwd_step")
+    before = [K.LAUNCHES[k] for k in keys]
     got = run(R.rnn_scan)
-    assert (K.LAUNCHES["rnn_fwd"] - before[0],
-            K.LAUNCHES["rnn_bwd"] - before[1]) == (plan.launches, T)
+    assert tuple(K.LAUNCHES[k] - b for k, b in zip(keys, before)) == \
+        (plan.launches,) + ((1, 0, 0) if bplan.route == "persistent"
+                            else (0, T, T))
     again = run(R.rnn_scan)
     want = run(R.rnn_scan_plain)
     n_out = 3 if mode == "lstm" else 2
@@ -3548,3 +3552,133 @@ def test_batch_norm_cluster_backward_matches_two_pass(dev, dtype, shape, cs,
         assert float((a - c).abs().max()) <= 2e-5 * max(
             1.0, float(c.abs().max())) * max(1.0, n ** 0.5 / 8)
     assert _replays_equal(lambda: BN.batch_norm_backward(*args))
+
+
+# -- the redesigned backward recurrence and BatchNorm's cluster forward ------
+
+# (T, B, H): the persistent backward (B and H off its 32 rows and 16 units;
+# H past 512 for a second pass of columns; T 1), the step route (H % 4 !=
+# 0, a depth of one to 16 stages; 1700 rows, more blocks than SMs)
+_RNN_BWD_SHAPES = [(9, 37, 40), (6, 130, 96), (3, 33, 516), (1, 37, 40),
+                   (1, 37, 42), (1, 20, 510), (1, 1700, 72), (4, 5, 42)]
+
+
+@pytest.mark.parametrize("mode,absent", [
+    (m, a) for m in ("lstm", "gru", "rnn_tanh", "rnn_relu")
+    for a in ("none", "dy", "dhT") + (("dcT",) if m == "lstm" else ())])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", _RNN_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rnn_backward_routes_match_plain(dev, mode, absent, reverse, shape):
+    """The backward on its plan's route (the persistent kernel where it
+    fits, else the gate and product kernels a step) from given
+    initial states, with ``dy``, ``dhT`` or ``dcT`` absent (None): dxw,
+    dh0, dc0 and the weight products (W_hh's, b_hc's) against torch's
+    autograd through the plain loop, within 1e-4 of the largest plain
+    value; the plan's launches, each counter only its own kernel; two
+    calls and graph replays bit-equal."""
+    from paddle_tpu_torch.kernels import rnn as R
+    T, B, H = shape
+    xw, h0, c0, w, b = _rnn_case(mode, T, B, 0, H, dev, seed=T * B + H)
+    plan = R.rnn_backward_plan(mode, T, B, H, _sms(dev))
+    y, hT, cT, saved, cs = R.rnn_forward(mode, xw, h0, c0, w, b, reverse)
+    g = torch.Generator(device=dev).manual_seed(7)
+    ups = {k: None if k == absent else torch.randn(
+        t.shape, device=dev, generator=g)
+        for k, t in (("dy", y), ("dhT", hT), ("dcT", cT)) if t is not None}
+    args = (mode, ups["dy"], ups["dhT"], ups.get("dcT"), saved, cs, h0, c0,
+            y, w, reverse)
+    keys = ("rnn_bwd", "rnn_bwd_gates", "rnn_bwd_step")
+    before = [K.LAUNCHES[k] for k in keys]
+    got = R.rnn_backward(*args)
+    torch.cuda.synchronize()
+    want_launches = (1, 0, 0) if plan.route == "persistent" else (0, T, T)
+    assert tuple(K.LAUNCHES[k] - n for k, n in zip(keys, before)) == \
+        want_launches
+    assert plan.route == ("step" if H % 4 or B > 1000 else "persistent")
+    again = R.rnn_backward(*args)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    dxw, dhc, dh0, dc0 = got
+    dw, db = R.weight_grads(dxw, dhc, h0, y, reverse, b is not None)
+    leaves = [t.clone().requires_grad_() for t in (xw, h0, c0, w, b)
+              if t is not None]
+    it = iter(leaves)
+    pl = [None if t is None else next(it) for t in (xw, h0, c0, w, b)]
+    outs = R.rnn_scan_plain(mode, *pl, reverse=reverse)
+    used = [(o, ups[k]) for o, k in zip(outs, ("dy", "dhT", "dcT"))
+            if o is not None and ups.get(k) is not None]
+    want = torch.autograd.grad([o for o, _ in used], leaves,
+                               [u for _, u in used])
+    mine = [dxw, dh0] + ([dc0] if mode == "lstm" else []) + [dw] \
+        + ([db] if b is not None else [])
+    for i, (a, e) in enumerate(zip(mine, want)):
+        assert float((a - e).abs().max()) <= 1e-4 * max(
+            1.0, float(e.abs().max())), i
+    assert _replays_equal(lambda: R.rnn_backward(*args))
+
+
+# (shape, blocks a cluster the forward's plan gives): one block a channel
+# (7 x 7, N of no special size, many channels of two values; S odd, even,
+# a multiple of 4 and of 8), a cluster of 2 (N odd), of 8
+_BN_FWD_CLUSTER = [((6, 5, 7, 7), 1), ((37, 11, 5, 5), 1),
+                   ((13, 10, 3, 4), 1), ((1, 2048, 2, 1), 1),
+                   ((9, 6, 14, 14), 1), ((75, 3, 28, 28), 2),
+                   ((77, 2, 56, 56), 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,cs", _BN_FWD_CLUSTER,
+                         ids=lambda v: str(v).replace(" ", ""))
+@pytest.mark.parametrize("form", ["plain", "relu", "residual_relu"])
+@pytest.mark.parametrize("round_x", [False, True])
+def test_batch_norm_cluster_forward_matches_plain(dev, dtype, shape, cs,
+                                                  form, round_x):
+    """The forward cluster kernel (x read once into shared memory, the mean
+    and then M2 about it summed in a fixed order, across a cluster
+    through distributed shared memory) against the plain formula and the
+    Triton kernels on the same inputs, training, out in fp32 (amp O1's)
+    or x's dtype: y within the plain version's tolerances, the saved
+    (mean, rstd) and the running statistics within 2e-5 of the Triton
+    kernels'; the plan's route, one launch, on the cluster kernel; two
+    calls and graph replays bit-equal."""
+    from paddle_tpu_torch.kernels import batch_norm as BN
+    x, res, w, b, _, stats = _bn_inputs(dev, dtype, shape, False, seed=6)
+    res = res if form == "residual_relu" else None
+    relu = form != "plain"
+    out_dtype = torch.float32 if res is not None or round_x else dtype
+    plan = BN.batch_norm_forward_plan(
+        shape[0], shape[1], shape[2] * shape[3], False, dtype, True,
+        _sms(dev))
+    assert plan[:2] == ("cluster", cs)
+    args = (True, 0.9, 1e-5, False, res, relu, round_x, out_dtype)
+
+    def forward(rm, rv):
+        return BN.batch_norm_forward(x, w, b, rm, rv, *args)
+    rm, rv = (t.clone() for t in stats)
+    before = (K.LAUNCHES["batch_norm"], K.LAUNCHES["batch_norm_cluster"])
+    y, st = forward(rm, rv)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["batch_norm"] - before[0],
+            K.LAUNCHES["batch_norm_cluster"] - before[1]) == (1, 1)
+    rm2, rv2 = (t.clone() for t in stats)
+    y2, st2 = forward(rm2, rv2)
+    assert all(torch.equal(a, c) for a, c in
+               ((y, y2), (st, st2), (rm, rm2), (rv, rv2)))
+    tm, tv = (t.clone() for t in stats)
+    ty = torch.empty_like(y)
+    tst = torch.empty_like(st)
+    BN._triton_forward(x, w, b, tm, tv, True, 0.9, 1e-5, False, res, relu,
+                       round_x, ty, tst)
+    for a, c in ((st[0], tst[0]), (st[1], tst[1]), (rm, tm), (rv, tv)):
+        assert float((a - c).abs().max()) <= 2e-5 * max(
+            1.0, float(c.abs().max()))
+    pm, pv = (t.clone() for t in stats)
+    plain = BN.batch_norm_plain(x, pm, pv, w, b, *args)
+    if res is not None or round_x:
+        # the norm may round to x's dtype one ulp of its value apart
+        tol = 2.0 ** -7 * float(plain.float().abs().max()) \
+            + 2e-5 * max(1.0, float(plain.abs().max()))
+        assert float((y.float() - plain.float()).abs().max()) <= tol
+    else:
+        _gn_close(y, plain, y.dtype, 1)
+    assert _replays_equal(lambda: forward(rm.clone(), rv.clone()))

@@ -1,7 +1,8 @@
-"""The launch plans of the recurrence's forward (``kernels/rnn.py``
-``rnn_forward_plan``) and of BatchNorm's backward (``kernels/batch_norm.py``
-``batch_norm_backward_plan``), on the CPU: pure Python, no ``triton``, no
-``nvcc``, no card.
+"""The launch plans of the recurrence's forward and backward
+(``kernels/rnn.py`` ``rnn_forward_plan``, ``rnn_backward_plan``) and of
+BatchNorm's forward and backward (``kernels/batch_norm.py``
+``batch_norm_forward_plan``, ``batch_norm_backward_plan``), on the CPU:
+pure Python, no ``triton``, no ``nvcc``, no card.
 
 What they must hold for the kernels they pick: the persistent kernel's
 grid at most one block an SM (its blocks wait on each other at every
@@ -201,3 +202,143 @@ def test_batch_norm_plan_keeps_within_the_card(n, c, s, dtype):
         assert smem == BN._cluster_smem(n, s, cs)
         assert 6 * math.ceil(n / cs) * s + 176 <= smem \
             <= BN._CLUSTER_BLOCK_BYTES <= SMEM
+
+
+# -- the recurrence's backward -----------------------------------------------
+
+def test_rnn_backward_plan_routes_the_main_paths():
+    """Phase 18's encoder layers and decoder cells and phase 3's timed
+    layers on the persistent kernel (one launch, the forward's grid), the
+    beam step's 1280 rows (40 row groups: more blocks than SMs) on the
+    step route (two launches a step), every shape within the card."""
+    for mode, T, B, H, _ in _RNN_MAIN:
+        plan = R.rnn_backward_plan(mode, T, B, H, SMS)
+        route = "step" if B == 1280 else "persistent"
+        assert plan.route == route, (mode, T, B, H)
+        assert plan.launches == (1 if route == "persistent" else 2 * T)
+        assert plan.smem <= SMEM
+        if route == "persistent":
+            assert plan.grid == (32, 4)
+    # the beam step: 8 x 40 tiles of 32 rows by 64 columns
+    assert R.rnn_backward_plan("lstm", 1, 1280, 512, SMS).grid == (8, 40)
+
+
+def test_rnn_backward_plan_keeps_within_the_card():
+    """Every plan fits a block's shared memory; a persistent grid fits on
+    the SMs at one block each; the step route's grid covers every row and
+    column (B and H on and off the tiles: 32 rows by 16 units persistent,
+    by 64 columns on the step route)."""
+    for mode in sorted(R.MODES):
+        for T in (1, 2, 9, 50):
+            for B in (1, 5, 37, 128, 130, 256, 1280):
+                for H in (8, 40, 42, 96, 512, 516, 1024):
+                    plan = R.rnn_backward_plan(mode, T, B, H, SMS)
+                    assert plan.smem <= SMEM
+                    cols, rows = plan.grid
+                    assert rows * plan.rows >= B
+                    assert rows * plan.rows - B < plan.rows
+                    if plan.route == "persistent":
+                        assert H % 4 == 0
+                        assert plan.rows == 32
+                        assert cols * rows <= SMS and plan.launches == 1
+                        assert cols * 16 >= H and cols * 16 - H < 16
+                    else:
+                        assert plan.route == "step" and plan.rows == 32
+                        assert plan.launches == 2 * T
+                        assert cols == math.ceil(H / 64)
+
+
+def test_rnn_backward_plan_sends_what_the_persistent_kernel_cannot_hold():
+    # the LSTM's slice of W_hh at H 1024 is 16 x 4 x 1028 x 4 bytes: too big
+    assert R.rnn_backward_plan("lstm", 50, 128, 1024, SMS).route == "step"
+    # the GRU's fits (16 x 3 x 1028 x 4 bytes, its gradients and sums) where
+    # its 64 x 2 blocks do
+    assert R.rnn_backward_plan("gru", 50, 64, 1024, SMS).route == \
+        "persistent"
+    # more row blocks than SMs: not co-resident
+    assert R.rnn_backward_plan("lstm", 50, 256, 512, SMS).route == "step"
+    assert R.rnn_backward_plan("lstm", 50, 256, 512, 264).route == \
+        "persistent"
+    # H % 4 != 0: no 16-byte copies
+    assert R.rnn_backward_plan("gru", 9, 37, 42, SMS).route == "step"
+    assert R.rnn_backward_plan("gru", 1, 37, 42, SMS).route == "step"
+    # a cell call takes the persistent kernel where it fits, as a layer does
+    assert R.rnn_backward_plan("rnn_tanh", 1, 37, 40, SMS).route == \
+        "persistent"
+    with pytest.raises(ValueError):
+        R.rnn_backward_plan("lstmp", 2, 4, 8, SMS)
+
+
+def test_rnn_backward_plan_shared_memory_is_the_kernels():
+    """The bytes the plan states are those the CUDA source computes
+    (``bwd_persistent_floats`` and ``bwd_step_floats`` of
+    ``csrc/rnn_recurrence.cu``), at the main paths' shapes."""
+    # persistent: W_hh's 16 G rows of 516, the gradients 16 G x 32, the
+    # two halves' sums 2 x 32 x 16
+    for mode, g in (("lstm", 4), ("gru", 3), ("rnn_tanh", 1)):
+        assert R.rnn_backward_plan(mode, 50, 128, 512, SMS).smem == \
+            4 * (16 * g * 516 + 16 * g * 32 + 2 * 32 * 16)
+    # step: three stages of 32 rows x 132 and 128 rows of W_hh x 64
+    assert R.rnn_backward_plan("lstm", 1, 1280, 512, SMS).smem == \
+        4 * 3 * (32 * 132 + 128 * 64)
+
+
+# -- BatchNorm's forward -----------------------------------------------------
+
+# the forward's route at each ResNet-50 size, batch 128, bf16 training:
+# (route, blocks a cluster)
+_FWD_RESNET = {7: ("cluster", 1), 14: ("cluster", 1), 28: ("cluster", 2),
+               56: ("cluster", 8), 112: ("triton",)}
+
+
+def test_batch_norm_forward_plan_routes_resnet50():
+    """bf16 x under amp O1, training: every call of ResNet-50's 53 at 7 x
+    7, 14 x 14, 28 x 28 and 56 x 56 on the cluster kernel (one block a
+    channel, one, a cluster of 2, of 8), the stem on the Triton kernels; a
+    block's bytes hold its share of the channel."""
+    for n, c, h in _resnet50_bn_calls():
+        plan = BN.batch_norm_forward_plan(n, c, h * h, False, torch.bfloat16,
+                                          True, SMS)
+        want = _FWD_RESNET[h]
+        assert plan[:len(want)] == want, (n, c, h)
+        if plan[0] == "cluster":
+            assert 2 * math.ceil(n / plan[1]) * h * h <= plan[2] \
+                <= BN._CLUSTER_BLOCK_BYTES <= SMEM
+
+
+def test_batch_norm_forward_plan_keeps_within_the_card():
+    """A cluster-kernel block holds its channel's share and its sums
+    within the plan's budget (two blocks an SM), whatever the channels,
+    down to a channel of two values; one of a single value (s == 1) takes
+    the Triton kernels."""
+    for n, c, s in ((1, 1, 2), (3, 5, 7), (16, 12, 1), (128, 64, 12544),
+                    (2, 3, 4), (37, 11, 25), (128, 4096, 49), (1, 2048, 2),
+                    (1, 4096, 4), (4, 512, 3), (2, 65536, 2),
+                    (75, 3, 784), (77, 2, 3136)):
+        for dtype in (torch.bfloat16, torch.float16):
+            plan = BN.batch_norm_forward_plan(n, c, s, False, dtype, True,
+                                              SMS)
+            if s == 1:
+                assert plan[0] == "triton"
+            if plan[0] == "cluster":
+                _, cs, smem = plan
+                assert cs in (1, 2, 4, 8)
+                assert smem == BN._fwd_cluster_smem(n, s, cs)
+                assert 2 * math.ceil(n / cs) * s + 4 * (12 + 16) <= smem \
+                    <= BN._CLUSTER_BLOCK_BYTES <= SMEM
+
+
+def test_batch_norm_forward_plan_triton_where_the_cluster_does_not_take():
+    """Channels last, fp32 x, eval (already one kernel) and the stem's
+    112 x 112 take the Triton kernels, with their tiles and chunks."""
+    for shape in ((128, 2048, 49), (128, 512, 784), (32, 256, 3136)):
+        for channels_last, dtype, batch_stats in (
+                (True, torch.bfloat16, True), (False, torch.float32, True),
+                (False, torch.bfloat16, False)):
+            plan = BN.batch_norm_forward_plan(*shape, channels_last, dtype,
+                                              batch_stats, SMS)
+            assert plan[0] == "triton"
+            assert plan[1] * plan[2] <= 8192 and plan[3] >= 1
+    assert BN.batch_norm_forward_plan(128, 64, 112 * 112, False,
+                                      torch.bfloat16, True, SMS)[0] == \
+        "triton"

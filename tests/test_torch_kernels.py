@@ -181,7 +181,10 @@ def test_cpu_calls_never_count_launches():
 @pytest.mark.parametrize("tool, source", [
     ("flash_variants", "flash_attention_bf16"), ("gmm_variants", "gmm"),
     ("ragged_variants", "ragged_attention_bf16"),
-    ("quant_gemm_variants", "weight_only_gemm")])
+    ("quant_gemm_variants", "weight_only_gemm"),
+    ("rnn_variants", "rnn_recurrence"),
+    ("batch_norm_bwd_variants", "batch_norm_bwd"),
+    ("batch_norm_fwd_variants", "batch_norm_fwd")])
 def test_variant_tools_still_apply_to_their_sources(tool, source, tmp_path,
                                                     monkeypatch):
     """Each variant of the timing scripts under ``tools/`` is its source
