@@ -1722,7 +1722,7 @@ def _kernel_group(name):
         return "col_sum"
     if "_dln_fwd_kernel" in name:
         return "layer_norm"
-    if "_dln_bwd_kernel" in name:
+    if "_dln_bwd_kernel" in name or "ln_bwd_warp_kernel" in name:
         return "layer_norm_bwd"
     if "_dropout_kernel" in name:
         return "dropout"
@@ -3716,7 +3716,8 @@ def phase_gpt_moe_training(torch, args, launches_out):
     # LayerNorm: two a block and the final one, forward and backward
     per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l,
                     adamw=1, gmm=4 * n_moe, tgmm=4 * n_moe,
-                    dropout_add_ln=2 * n_l + 1, dropout_add_ln_bwd=2 * n_l + 1)
+                    dropout_add_ln=2 * n_l + 1, dropout_add_ln_bwd=2 * n_l + 1,
+                    dropout_add_ln_bwd_warp=2 * n_l + 1)
     expect = {k: 5 * v for k, v in per_step.items()}
     print(f"  launches over 5 steps: {launches} (expected {expect}: per step "
           f"{per_step})", flush=True)
@@ -5319,6 +5320,21 @@ def _dropout_replay(torch, dev):
     del graph
 
 
+def _dln_triton(torch, h, w, dy, eps, p=0.0, key=None):
+    """The Triton LayerNorm backward (the plan's other route) on the
+    inputs of a CUDA-kernel call: (dx, dh, dweight, dnorm_bias, dbias) as
+    ``dropout_add_layer_norm_backward`` returns them."""
+    from paddle_tpu_torch.kernels import fused, sm_count
+    n = h.shape[-1]
+    dh = torch.empty_like(h)
+    dx = torch.empty_like(h) if p else dh
+    sums = torch.empty(3 * n, dtype=torch.float32, device=h.device)
+    fused._triton_backward(h, w, dy, dh, dx, sums, eps, p, key,
+                           "upscale_in_train", fused._triton_plan(
+                               h.numel() // n, n, sm_count(h.device)))
+    return dx, dh, sums[:n], sums[n:2 * n], sums[2 * n:]
+
+
 def _dln_case(torch, results, dev, p, seed=41):
     """LayerNorm(residual + dropout(x + bias)) over [16384, 768] bf16 (the
     ERNIE step's Add&LN; ``p`` = 0 with no residual and no bias: its plain
@@ -5346,10 +5362,14 @@ def _dln_case(torch, results, dev, p, seed=41):
     y, h = fused.dropout_add_layer_norm_forward(x, w, nb, eps, r, b, p, key)
     dx, dh, dw, dnb, db = fused.dropout_add_layer_norm_backward(
         h, w, dy, eps, p, key)
-    used = (K.LAUNCHES["dropout_add_ln"] - before["dropout_add_ln"],
-            K.LAUNCHES["dropout_add_ln_bwd"] - before["dropout_add_ln_bwd"])
-    if used != (1, 1):
-        raise AssertionError(f"{tag}: kernel launches {used}")
+    used = tuple(K.LAUNCHES[k] - before[k] for k in (
+        "dropout_add_ln", "dropout_add_ln_bwd", "dropout_add_ln_bwd_warp"))
+    if used != (1, 1, 1):
+        raise AssertionError(f"{tag}: kernel launches {used} (the backward "
+                             f"on the CUDA kernel expected)")
+    # the Triton route (the plan's other kernel) on the same inputs: the same
+    # tolerances, and timed beside the CUDA kernel
+    tri = _dln_triton(torch, h, w, dy, eps, p, key)
     with torch.no_grad():
         want_h = x if b is None else x + b
         if p:
@@ -5376,24 +5396,30 @@ def _dln_case(torch, results, dev, p, seed=41):
     ry, rg = plain(torch.float32, True)
     torch.cuda.synchronize()
     got = {"dx": dx, "dw": dw.to(bf), "dnb": dnb.to(bf)}
+    tgot = {"dx": tri[0], "dw": tri[2].to(bf), "dnb": tri[3].to(bf)}
     if r is not None:
         got.update(dres=dh, dbias=db.to(bf))
+        tgot.update(dres=tri[1], dbias=tri[4].to(bf))
     print(f"  {tag}: the norm's input bit-equal to the ops one by one "
           f"{same_h}", flush=True)
     if not same_h:
         raise AssertionError(f"{tag}: h differs from dropout, add, add")
     err_f = _check_rows(f"{tag} y", y, py, 1)
     _check_vs_f32(f"{tag} y", y, py, ry)
-    err_b = 0.0
+    err_b = err_t = 0.0
     for k in got:
         if got[k].dim() > 1:
             err_b = max(err_b, _check_rows(f"{tag} {k}", got[k], pg[k], 1))
+            err_t = max(err_t, _check_rows(f"{tag} {k} (Triton)", tgot[k],
+                                           pg[k], 1))
         else:
-            err_b = max(err_b, _check(f"{tag} {k}", got[k], pg[k],
-                                      ULP_BF16 * float(pg[k].float().abs()
-                                                       .max())))
+            tol = ULP_BF16 * float(pg[k].float().abs().max())
+            err_b = max(err_b, _check(f"{tag} {k}", got[k], pg[k], tol))
+            err_t = max(err_t, _check(f"{tag} {k} (Triton)", tgot[k], pg[k],
+                                      tol))
         _check_vs_f32(f"{tag} {k}", got[k], pg[k], rg[k])
-    del py, pg, ry, rg, got, dx, dh, y
+        _check_vs_f32(f"{tag} {k} (Triton)", tgot[k], pg[k], rg[k])
+    del py, pg, ry, rg, got, tgot, tri, dx, dh, y
     fwd = lambda: fused.dropout_add_layer_norm_forward(x, w, nb, eps, r, b,
                                                        p, key)
     bwd = lambda: fused.dropout_add_layer_norm_backward(h, w, dy, eps, p,
@@ -5401,6 +5427,7 @@ def _dln_case(torch, results, dev, p, seed=41):
     with torch.no_grad():
         ms_f = _graph_ms(fwd)
         ms_b = _graph_ms(bwd)
+        ms_t = _graph_ms(lambda: _dln_triton(torch, h, w, dy, eps, p, key))
         plain_f = _time_ms(lambda: fused.dropout_add_layer_norm_plain(
             x, w, nb, eps, r, b, p, key), 5)
     lib_f = _time_ms(lambda: TF.layer_norm(h, (n,), w, nb, eps), 10)
@@ -5431,13 +5458,18 @@ def _dln_case(torch, results, dev, p, seed=41):
     results["dropout_add_ln" + suffix] = dict(
         max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=fb,
         bound_by=fo, library_ms=lib_f, shape=[rows, n], p=p)
-    results["dropout_add_ln_bwd" + suffix] = dict(
+    # the CUDA kernel (the plan's route) and the Triton kernel
+    results["dropout_add_ln_bwd_warp" + suffix] = dict(
         max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bb,
+        bound_by=bo, library_ms=lib_b, shape=[rows, n], p=p)
+    results["dropout_add_ln_bwd" + suffix] = dict(
+        max_abs_err=err_t, ms=ms_t, plain_ms=plain_b, bound_ms=bb,
         bound_by=bo, library_ms=lib_b, shape=[rows, n], p=p)
     print(f"  {tag} [{rows}, {n}] bf16: forward ms={ms_f:.4f} ({fb / ms_f:.3f}"
           f" of the bound) plain_ms={plain_f:.4f} bound_ms={fb:.4f} ({fo}), "
-          f"F.layer_norm {lib_f:.4f}; backward ms={ms_b:.4f} "
-          f"({bb / ms_b:.3f}) plain_ms={plain_b:.4f} bound_ms={bb:.4f} "
+          f"F.layer_norm {lib_f:.4f}; backward (CUDA, a warp a row) ms="
+          f"{ms_b:.4f} ({bb / ms_b:.3f}), Triton ms={ms_t:.4f} "
+          f"({bb / ms_t:.3f}) plain_ms={plain_b:.4f} bound_ms={bb:.4f} "
           f"({bo}), autograd of F.layer_norm {lib_b:.4f} [{card}]",
           flush=True)
     del x, r, b, w, nb, dy, h
@@ -5465,6 +5497,72 @@ def phase_dropout_kernels(torch, results):
     _dropout_replay(torch, dev)
     _dln_case(torch, results, dev, 0.1)
     _dln_case(torch, results, dev, 0.0)
+    for tag, rows, n in LN_ROW_CASES:
+        _ln_row_case(torch, results, dev, tag, rows, n)
+
+
+# (tag, rows, n): plain LayerNorms of the main paths in the dtype their
+# steps give them, fp32 (the black list under O1 and O2): the UNet's
+# 64 x 64 transformer blocks at batch 4 and Transformer-base's 64 x 64
+# tokens
+LN_ROW_CASES = (("unet [16384, 320] fp32", 16384, 320),
+                ("transformer_base [4096, 512] fp32", 4096, 512))
+
+
+def _ln_row_case(torch, results, dev, tag, rows, n, seed=43):
+    """A plain LayerNorm's backward in fp32 on the CUDA kernel (the plan's
+    route) and on the Triton kernel, each against the plain autograd
+    (2e-5 of the largest value), timed by graph replay beside the bound,
+    the plain version and the autograd of F.layer_norm."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import fused
+    card = _card_line()
+    eps = 1e-5
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(rows, n, device=dev, generator=g)
+    w = 1 + 0.1 * torch.randn(n, device=dev, generator=g)
+    nb = 0.1 * torch.randn(n, device=dev, generator=g)
+    dy = torch.randn(rows, n, device=dev, generator=g)
+    before = K.LAUNCHES["dropout_add_ln_bwd_warp"]
+    got = fused.dropout_add_layer_norm_backward(h, w, dy, eps)
+    if K.LAUNCHES["dropout_add_ln_bwd_warp"] - before != 1:
+        raise AssertionError(f"layer_norm_bwd {tag}: not on the CUDA kernel")
+    tri = _dln_triton(torch, h, w, dy, eps)
+    leaves = [t.clone().requires_grad_() for t in (h, w, nb)]
+    fused.layer_norm_plain(leaves[0], leaves[1], leaves[2], eps).backward(dy)
+    errs = []
+    for route, (dx, _, dw, dnb, _) in (("CUDA", got), ("Triton", tri)):
+        err = 0.0
+        for k, a, c in (("dx", dx, leaves[0].grad), ("dw", dw, leaves[1].grad),
+                        ("dnb", dnb, leaves[2].grad)):
+            err = max(err, _check(f"layer_norm_bwd {tag} {k} ({route})", a,
+                                  c, 2e-5 * max(1.0, float(c.abs().max()))))
+        errs.append(err)
+    with torch.no_grad():
+        ms = _graph_ms(lambda: fused.dropout_add_layer_norm_backward(
+            h, w, dy, eps))
+        ms_t = _graph_ms(lambda: _dln_triton(torch, h, w, dy, eps))
+    pl = [t.clone().requires_grad_() for t in (h, w, nb)]
+    py = fused.layer_norm_plain(pl[0], pl[1], pl[2], eps)
+    plain = _time_ms(lambda: torch.autograd.grad(py, pl, dy,
+                                                 retain_graph=True), 5)
+    hl = h.clone().requires_grad_()
+    yl = TF.layer_norm(hl, (n,), w, nb, eps)
+    lib = _time_ms(lambda: torch.autograd.grad(yl, hl, dy,
+                                               retain_graph=True), 10)
+    bound, by = _bound(4 * (3 * rows * n + 4 * n), 14 * rows * n, FP32_FLOPS)
+    for key, err, t in (("dropout_add_ln_bwd_warp", errs[0], ms),
+                        ("dropout_add_ln_bwd", errs[1], ms_t)):
+        results[f"{key}[{tag}]"] = dict(
+            max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=lib, shape=[rows, n], p=0.0)
+    print(f"  layer_norm_bwd {tag}: CUDA ms={ms:.4f} ({bound / ms:.3f} of "
+          f"the bound) Triton ms={ms_t:.4f} ({bound / ms_t:.3f}) plain_ms="
+          f"{plain:.4f} bound_ms={bound:.4f} ({by}), autograd of "
+          f"F.layer_norm {lib:.4f} [{card}]", flush=True)
+    del h, w, nb, dy, got, tri, leaves, pl, py, hl, yl
+    torch.cuda.empty_cache()
 
 
 def _ernie_batch(torch, cfg, seed, b=32, s=512):
@@ -5511,7 +5609,8 @@ def _ernie_per_step(cfg, dropout):
     n_l = cfg.num_hidden_layers
     per_step = {n: 0 for n in K.LAUNCHES}
     per_step.update(adamw=1, dropout_add_ln=2 * n_l + 2,
-                    dropout_add_ln_bwd=2 * n_l + 2)
+                    dropout_add_ln_bwd=2 * n_l + 2,
+                    dropout_add_ln_bwd_warp=2 * n_l + 2)
     if dropout:
         # forward and backward: the embeddings' dropout (the attention
         # probabilities' is inside X2, the dense attention's middle)
@@ -6006,6 +6105,28 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
             K.LAUNCHES["group_norm_bwd"] - before["group_norm_bwd"])
     if used != (4, 2):
         raise AssertionError(f"group_norm {tag}: launches {used}")
+    cluster = K.LAUNCHES["group_norm_bwd_cluster"] \
+        - before["group_norm_bwd_cluster"]
+    want_cluster = 2 if dtype != torch.float32 and not last else 0
+    if cluster != want_cluster:
+        raise AssertionError(f"group_norm {tag}: {cluster} backward calls on "
+                             f"the cluster kernel, {want_cluster} expected")
+    # the Triton route (the plan's other kernels) on the same inputs: the same
+    # tolerances, and timed beside the plan's route
+    tri = _gn_triton(torch, x, w, b, stats, dy, last)
+    err_t = 0.0
+    for name, got, want in (("dx", tri[0], leaves[0].grad),
+                            ("dw", tri[1].to(dtype), leaves[1].grad),
+                            ("db", tri[2].to(dtype), leaves[2].grad)):
+        if dtype == torch.float32 or got.dim() == 1:
+            tol = (2e-5 if dtype == torch.float32 else 2 * ULP_BF16) * max(
+                1.0, float(want.float().abs().max()))
+            err_t = max(err_t, _check(f"group_norm_bwd {tag} {name} "
+                                      f"(Triton)", got, want, tol))
+        else:
+            err_t = max(err_t, _check_rows(f"group_norm_bwd {tag} {name} "
+                                           f"(Triton)", got, want, 2))
+    del tri
     o2 = None
     if dtype == torch.bfloat16 and not last:
         o2 = _gn_o2_composition(torch, x, w, b, dy, tag)
@@ -6019,6 +6140,8 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
               for silu in (False, True)}
         ms_b = _graph_ms(lambda: GN.group_norm_backward(
             x, w, b, stats, dy, GN_GROUPS, last, True), iters=10, reps=3)
+        ms_t = _graph_ms(lambda: _gn_triton(torch, x, w, b, stats, dy, last),
+                         iters=10, reps=3)
         plain = {silu: _time_ms(lambda s=silu: GN.group_norm_plain(
             x, GN_GROUPS, w, b, 1e-5, last, s), 3, warmup=1)
             for silu in (False, True)}
@@ -6062,12 +6185,17 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
                  bound_ms=bound_b, bound_by=by_b, library_ms=lib_b,
                  shape=list(shape), layout=layout, dtype=dtype_name,
                  silu=True, replay_bit_equal=replay_equal, o2=o2)
+    rec_t = dict(rec_b, max_abs_err=err_t, ms=ms_t, replay_bit_equal=None,
+                 o2=None, route="triton")
+    rec_b["route"] = "cluster" if want_cluster else "triton"
     results[f"group_norm[{tag}]"] = rec[False]
     results[f"group_norm[{tag} +SiLU]"] = rec[True]
     results[f"group_norm_bwd[{tag} +SiLU]"] = rec_b
+    results[f"group_norm_bwd_triton[{tag} +SiLU]"] = rec_t
     if tag == GN_MAIN:
         results["group_norm"] = rec[True]
-        results["group_norm_bwd"] = rec_b
+        results["group_norm_bwd"] = rec_t
+        results["group_norm_bwd_cluster"] = rec_b
     for silu in (False, True):
         r = rec[silu]
         print(f"  group_norm {tag}{' +SiLU' if silu else ''}: ms="
@@ -6075,13 +6203,27 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}); F.group_norm{' + F.silu' if silu else ''}"
               f" {r['library_ms']:.4f} [{card}]", flush=True)
-    print(f"  group_norm_bwd {tag} +SiLU: ms={ms_b:.4f} ({bound_b / ms_b:.3f}"
-          f" of the bound) plain_ms={plain_b:.4f} bound_ms={bound_b:.4f} "
+    print(f"  group_norm_bwd {tag} +SiLU ({rec_b['route']}): ms={ms_b:.4f} "
+          f"({bound_b / ms_b:.3f} of the bound), Triton ms={ms_t:.4f} "
+          f"({bound_b / ms_t:.3f}) plain_ms={plain_b:.4f} bound_ms="
+          f"{bound_b:.4f} "
           f"({by_b}); autograd of F.group_norm + F.silu {lib_b:.4f}; a graph "
           f"replay bit-equal to the eager call {replay_equal} [{card}]",
           flush=True)
     del x, w, b, dy, y, y2, dx, dx2
     torch.cuda.empty_cache()
+
+
+def _gn_triton(torch, x, w, b, stats, dy, last):
+    """The Triton GroupNorm backward with the SiLU (the plan's other
+    route): (dx, dweight, dbias) as ``group_norm_backward`` returns
+    them."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    c = x.shape[-1] if last else x.shape[1]
+    dx = torch.empty_like(x)
+    sums = torch.zeros(2 * c, dtype=torch.float32, device=x.device)
+    GN._triton_backward(x, w, b, stats, dy, GN_GROUPS, last, True, dx, sums)
+    return dx, sums[:c], sums[c:]
 
 
 def _gn_replay(torch, x, w, b, dy, last):
@@ -6825,7 +6967,9 @@ def _unet_train(torch, args, card, launches_out):
     graph = _graph_line(trainer, "phase 14 (b)", card)
     per = _unet_forward_launches()
     per.update(group_norm_bwd=UNET_GROUP_NORMS,
+               group_norm_bwd_cluster=UNET_GROUP_NORMS,
                dropout_add_ln_bwd=UNET_LAYER_NORMS,
+               dropout_add_ln_bwd_warp=UNET_LAYER_NORMS,
                dense_softmax_bwd=UNET_ATTENTION, adamw=1)
     expect = {k: 5 * v for k, v in per.items()}
     print(f"  phase 14 (b) launches over 5 steps: {launches} (expected "
@@ -8416,7 +8560,7 @@ def _transformer_per_step(layers=TB_LAYERS):
     per.update(dense_softmax=n_attn, dense_softmax_bwd=n_attn,
                sdpa_dense=n_attn, dropout=2 * drops,
                dropout_add_ln=5 * layers, dropout_add_ln_bwd=5 * layers,
-               adamw=1)
+               dropout_add_ln_bwd_warp=5 * layers, adamw=1)
     return per
 
 
@@ -9746,12 +9890,21 @@ def main(argv=None):
         "dropout_add_ln_bwd": ("triton", "paddle_tpu_torch/kernels/fused.py",
                                "paddle_tpu/incubate/nn/functional/"
                                "fused_ops.py:636"),
+        # its backward by layer_norm_backward_plan: a warp a row
+        "dropout_add_ln_bwd_warp": ("cuda",
+                                    "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
+                                    "paddle_tpu/incubate/nn/functional/"
+                                    "fused_ops.py:636"),
         # no Pallas kernel: the GroupNorm (and the SiLU after it) XLA fuses
         "group_norm": ("triton", "paddle_tpu_torch/kernels/group_norm.py",
                        "paddle_tpu/nn/functional/norm.py:186"),
         "group_norm_bwd": ("triton",
                            "paddle_tpu_torch/kernels/group_norm.py",
                            "paddle_tpu/nn/functional/norm.py:186"),
+        # its backward by group_norm_backward_plan: a cluster a group
+        "group_norm_bwd_cluster": ("cuda",
+                                   "paddle_tpu_torch/csrc/group_norm_bwd.cu",
+                                   "paddle_tpu/nn/functional/norm.py:186"),
         # no Pallas kernel: the BatchNorm (and the add and ReLU after it)
         # XLA fuses
         "batch_norm": ("triton", "paddle_tpu_torch/kernels/batch_norm.py",
@@ -9818,6 +9971,8 @@ def main(argv=None):
     main_runs["rnn_fwd"] -= main_runs["rnn_fwd_step"]
     main_runs["batch_norm"] -= main_runs["batch_norm_cluster"]
     main_runs["batch_norm_bwd"] -= main_runs["batch_norm_bwd_cluster"]
+    main_runs["dropout_add_ln_bwd"] -= main_runs["dropout_add_ln_bwd_warp"]
+    main_runs["group_norm_bwd"] -= main_runs["group_norm_bwd_cluster"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
         m = results[{"ragged_attention": "ragged_attention[mixed_mha]",

@@ -24,17 +24,24 @@ JAX package's compiled training step.
 ``dropout`` counts the launches of the dropout kernel (a forward, a
 backward, one each); ``dropout_add_ln`` and ``dropout_add_ln_bwd`` the
 calls of ``LayerNorm(residual + dropout(x + bias))``'s forward kernel and
-of its backward (the rows' pass and the column sums: two Triton kernels),
-which every LayerNorm on the card goes through. They port no TPU kernel
-either: XLA fuses the JAX package's dropout and LayerNorm.
+of its backward (the rows' pass and the column sums: two kernels), which
+every LayerNorm on the card goes through; ``dropout_add_ln_bwd_warp``
+counts the backward calls that ``layer_norm_backward_plan`` sends to the
+CUDA kernel (``csrc/layer_norm_bwd.cu``, a warp a row), the rest take the
+Triton one. They port no TPU kernel either: XLA fuses the JAX package's
+dropout and LayerNorm.
 
 ``group_norm`` and ``group_norm_bwd`` count the calls of GroupNorm's
 forward (two Triton kernels: the chunks' statistics, then the
-normalisation, with the SiLU where fused) and of its backward (three: the
-chunks' partial sums, dx, and the column sums of the weight and bias
-gradients), which every GroupNorm on the card goes through (the
-convolutional models). No TPU kernel either: XLA fuses the JAX package's
-GroupNorm and SiLU.
+normalisation, with the SiLU where fused) and of its backward (two
+kernels: ``group_norm_backward_plan``'s cluster kernel,
+``csrc/group_norm_bwd.cu``, a thread-block cluster a group, then the
+column sums of the weight and bias gradients; or three Triton kernels:
+the chunks' partial sums, dx, the column sums), which every GroupNorm on
+the card goes through (the convolutional models);
+``group_norm_bwd_cluster`` counts the backward calls of the cluster
+kernel. No TPU kernel either: XLA fuses the JAX package's GroupNorm and
+SiLU.
 
 ``batch_norm`` and ``batch_norm_bwd`` count the calls of BatchNorm's
 forward (two Triton kernels in training: the chunks' statistics, then the
@@ -103,7 +110,9 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "weight_only_gemm": 0, "weight_only_gemm_sm80": 0,
             "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
             "dropout": 0, "dropout_add_ln": 0, "dropout_add_ln_bwd": 0,
-            "group_norm": 0, "group_norm_bwd": 0, "batch_norm": 0,
+            "dropout_add_ln_bwd_warp": 0, "group_norm": 0,
+            "group_norm_bwd": 0, "group_norm_bwd_cluster": 0,
+            "batch_norm": 0,
             "batch_norm_bwd": 0, "batch_norm_bwd_cluster": 0, "ctc_fwd": 0,
             "ctc_bwd": 0, "rnnt_fwd": 0, "rnnt_bwd": 0, "dense_softmax": 0,
             "dense_softmax_bwd": 0, "rnn_fwd": 0, "rnn_fwd_step": 0,

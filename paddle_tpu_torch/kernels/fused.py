@@ -41,8 +41,13 @@ One more of that kind:
     the sums and the dropout round to x's dtype where the separate ops
     round, the statistics are fp32. The backward reads the norm's input
     (kept by the forward) and draws the mask again: dx, the residual's
-    gradient and per-program partials of the three vector gradients,
-    summed in order by the column-sum kernel.
+    gradient and per-block partials of the three vector gradients, summed
+    in order by a column sum. ``layer_norm_backward_plan`` routes it: rows
+    of a multiple of 8 values up to 1280, in fp32, bf16 or fp16 (every
+    LayerNorm of the models), to ``csrc/layer_norm_bwd.cu`` (CUDA: a warp
+    a row, rows in flight through a cp.async ring, a persistent grid);
+    the rest (other widths, unaligned tensors) to the Triton kernel
+    ``_dln_bwd_kernel`` and ``_col_sum_kernel``.
 
 Bound on the H100: bytes, for both. RMSNorm does about 4 flops per element
 it reads and writes, RoPE about 6; the card needs ~295 per byte before
@@ -66,13 +71,15 @@ this module needs no Triton.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, sm_count
 from . import dropout as D
+from ._build import library
 
 tl = None    # triton.language, bound by _jit() at the first launch
 _mask_bits = None   # kernels/dropout.py's, bound by _jit()
@@ -799,14 +806,252 @@ def dropout_add_layer_norm_forward(x, weight, norm_bias, eps=1e-5,
     return y, h
 
 
+# The CUDA backward (csrc/layer_norm_bwd.cu): 8 warps a block; a block
+# keeps at most this many bytes of shared memory at two blocks an SM
+# ((233,472 / 2) less the 1 KB each block keeps) and at one
+_LN_WARPS = 8
+_LN_VEC = 8                 # values a lane's chunk
+_LN_MAX_CHUNKS = 5          # chunks a lane: rows of up to 1280 values
+_LN_STAGES = 2              # rows a warp's ring holds (the kernel's STAGES)
+_LN_COL_ROWS = 32           # thread rows of its column sum
+_LN_BLOCK_BYTES = {2: 115712, 1: 232448}
+_LN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class LnBwdPlan(NamedTuple):
+    """The LayerNorm backward's launch: ``route`` "warp" (the CUDA kernel:
+    ``blocks`` blocks of 8 warps, a warp a row, ``rows`` rows a warp at
+    most, ``smem`` bytes a block, ``chunks`` 8-value chunks a lane) or
+    "triton" (``_dln_bwd_kernel``: ``blocks`` programs of ``rows`` rows,
+    ``chunks`` its BLOCK_G; smem 0)."""
+    route: str
+    blocks: int
+    rows: int
+    smem: int
+    chunks: int
+
+
+def _ln_smem(n, esize):
+    """Shared memory bytes of a CUDA-kernel block, which the wrapper hands
+    the kernel: the weight in fp32, then 8 warps' rings of two rows of h
+    and dy, or the warps' three column sums in fp32 where those take
+    more."""
+    return -(-4 * n // 16) * 16 + max(_LN_WARPS * _LN_STAGES * 2 * n * esize,
+                                      _LN_WARPS * 3 * n * 4)
+
+
+def layer_norm_backward_plan(rows, n, dtype, sms):
+    """The backward's route for ``rows`` rows of ``n`` values of ``dtype``
+    on ``sms`` SMs. The CUDA kernel ("warp") takes fp32, bf16 and fp16
+    rows of a multiple of 8 values from 8 to 1280 (ERNIE's and GPT's 768,
+    the UNet's 320, 640 and 1280, Transformer-base's 512): two blocks an
+    SM for 16-bit rows whose lane holds at most 3 chunks (n <= 768), else
+    one; no more blocks than 8 rows each fill. (``tools/norm_bwd_plans.py``
+    times 1 to 3 blocks an SM at the models' shapes on the H100: a second
+    block was faster at 16 bits only.) Other widths (the tests' 130) and
+    dtypes go to the Triton kernel, about four programs an SM."""
+    esize = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}.get(dtype)
+    chunks = -(-(n // _LN_VEC) // 32)
+    if esize and rows > 0 and n % _LN_VEC == 0 and 0 < chunks <= _LN_MAX_CHUNKS:
+        per_sm = 2 if esize == 2 and chunks <= 3 else 1
+        blocks = max(1, min(sms * per_sm, -(-rows // _LN_WARPS)))
+        return LnBwdPlan("warp", blocks, -(-rows // (blocks * _LN_WARPS)),
+                         _ln_smem(n, esize), chunks)
+    return _triton_plan(rows, n, sms)
+
+
+def _triton_plan(rows, n, sms):
+    """The Triton kernel's launch: about four programs an SM."""
+    progs = max(1, min(rows, 4 * sms))
+    per = -(-max(rows, 1) // progs)
+    return LnBwdPlan("triton", -(-max(rows, 1) // per), per, 0, _dln_block(n))
+
+
+def xor_tree_plain(t):
+    """The ``__shfl_xor_sync`` sum over the last axis (32 lanes, or a
+    power of two fewer) in its order: at offsets L / 2, ..., 2, 1 each lane
+    adds its partner's value. Returns every lane's total (lane 0's is the
+    kernels')."""
+    size = t.shape[-1]
+    lane = torch.arange(size, device=t.device)
+    off = size // 2
+    while off:
+        t = t + t[..., lane ^ off]
+        off //= 2
+    return t
+
+
+def layer_norm_column_sums_split_plain(terms, plan):
+    """The sums over the rows of ``terms`` [k, rows, n] fp32 in the CUDA
+    kernel's order, [k, n]: row r on warp r % (8 blocks), a warp's rows in
+    order into its lanes' registers, a block's warps added in warp order
+    into its partial row, and the column sum's 32 thread rows (partial rows
+    p, p + 32, ... in order) added in row order. Only additions: given the
+    kernel's own addends (dy for the norm's dbias, dx for dbias) it gives
+    the kernel's bits, which the card's tests hold. ``plan`` is a "warp"
+    ``LnBwdPlan``."""
+    k, rows, n = terms.shape
+    warps = plan.blocks * _LN_WARPS
+    acc = torch.zeros(k, warps, n, dtype=torch.float32, device=terms.device)
+    for i in range(plan.rows):
+        r = torch.arange(warps, device=terms.device) + i * warps
+        ok = r < rows
+        acc[:, ok] = acc[:, ok] + terms[:, r[ok]]
+    acc = acc.reshape(k, plan.blocks, _LN_WARPS, n)
+    red = acc[:, :, 0]
+    for wi in range(1, _LN_WARPS):
+        red = red + acc[:, :, wi]
+    sums = torch.zeros(_LN_COL_ROWS, k, n, dtype=torch.float32,
+                       device=terms.device)
+    for q in range(plan.blocks):
+        sums[q % _LN_COL_ROWS] = sums[q % _LN_COL_ROWS] + red[:, q]
+    total = sums[0]
+    for r in range(1, _LN_COL_ROWS):
+        total = total + sums[r]
+    return total
+
+
+def layer_norm_backward_split_plain(h, weight, dy, eps, plan, p=0.0,
+                                    key=None, mode="upscale_in_train"):
+    """(dweight, dnorm_bias, dbias) [n] fp32 in the CUDA kernel's order of
+    sums, in fp32 on h's device: a warp a row, lane l holding the row's
+    8-value chunks l, l + 32, ... and each row's reduction its values in
+    order then the xor tree (the mean and variance in one pass of the
+    values less the row's first); the column sums as
+    ``layer_norm_column_sums_split_plain``. The addends here are plain
+    fp32 arithmetic; the kernel contracts products into fused
+    multiply-adds and takes rstd by ``rsqrtf``, so dweight's addends (dy
+    x-hat) and dh may differ from the kernel's in the last bits, and only
+    sums of the kernel's own addends are bit-equal. ``plan`` is a "warp"
+    ``LnBwdPlan``."""
+    n = h.shape[-1]
+    rows = h.numel() // n
+    hf = h.reshape(rows, n).float()
+    g = dy.reshape(rows, n).float()
+    w = weight.float()
+    nch = plan.chunks
+    pad = 32 * nch * _LN_VEC - n
+
+    def warp_sum(t):
+        lanes = torch.nn.functional.pad(t, (0, pad)).reshape(
+            rows, nch, 32, _LN_VEC)
+        acc = torch.zeros(rows, 32, dtype=torch.float32, device=t.device)
+        for k in range(nch):
+            for j in range(_LN_VEC):
+                acc = acc + lanes[:, k, :, j]
+        return xor_tree_plain(acc)[:, 0:1]
+    c = hf - hf[:, :1]
+    m1 = warp_sum(c) / n
+    mean = hf[:, :1] + m1
+    rstd = torch.rsqrt((warp_sum(c * c) / n - m1 * m1).clamp(min=0) + eps)
+    xh = (hf - mean) * rstd
+    gw = g * w
+    mg, mgx = warp_sum(gw) / n, warp_sum(gw * xh) / n
+    d = (rstd * (gw - mg - xh * mgx)).to(h.dtype).float()
+    if p > 0.0:
+        keep = D.keep_mask_plain((rows, n), p, key, h.device)
+        d = torch.where(keep, (d * D.scale_of(p, mode)).to(h.dtype).float(),
+                        torch.zeros((), device=h.device))
+    total = layer_norm_column_sums_split_plain(torch.stack([g * xh, g, d]),
+                                               plan)
+    return total[0], total[1], total[2]
+
+
+def _ln_lib():
+    """The library of ``csrc/layer_norm_bwd.cu``, its entry points'
+    arguments set."""
+    lib = library("layer_norm_bwd")
+    if lib.ptt_error_string.restype is not ctypes.c_char_p:
+        lib.ptt_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_uint,
+                                    ctypes.c_int, ctypes.c_float,
+                                    ctypes.c_int, ctypes.c_void_p]
+        lib.ptt_layer_norm_bwd.restype = ctypes.c_int
+        lib.ptt_dropout_keep_mask.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.ptt_dropout_keep_mask.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ln_check(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.ptt_error_string(err).decode())
+
+
+def keep_mask_cuda(count, p, key, start=0):
+    """The keep mask (bool [count]) of elements ``start`` .. ``start +
+    count - 1`` (start % 4 == 0) of a mask drawn under ``key`` (a
+    ``RandomKey`` whose base is a CUDA tensor) at rate p, by the CUDA
+    LayerNorm backward's Philox, a Philox block a thread as the kernel's
+    rows. It reaches starts past 2^34 elements, where Philox's second
+    counter word is not 0, which no LayerNorm call in a test can; the
+    card's tests hold it against ``dropout.keep_mask_plain``."""
+    base, site = key
+    kt = D.key_tensor(base, base.device)
+    out = torch.empty(count, dtype=torch.uint8, device=kt.device)
+    lib = _ln_lib()
+    _ln_check(lib, lib.ptt_dropout_keep_mask(
+        kt.data_ptr(), int(site) & D.M32, D.threshold(p), int(start), count,
+        out.data_ptr(), torch.cuda.current_stream(kt.device).cuda_stream),
+        "keep mask")
+    return out.bool()
+
+
+def _ln_aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _warp_backward(h, weight, dy, dh, dx, sums, eps, p, key, mode, plan):
+    """The CUDA kernel and its column sum on contiguous CUDA tensors."""
+    n = h.shape[-1]
+    kt, site, thresh, scale, _ = _dln_args(h, p, key, mode)
+    part = torch.empty(plan.blocks, 3 * n, dtype=torch.float32,
+                       device=h.device)
+    lib = _ln_lib()
+    _ln_check(lib, lib.ptt_layer_norm_bwd(
+        h.data_ptr(), weight.data_ptr(), dy.data_ptr(), dh.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), sums.data_ptr(), kt.data_ptr(),
+        h.numel() // n, n, plan.blocks, plan.smem, _LN_CODES[h.dtype],
+        _LN_CODES[weight.dtype], float(eps), site, thresh, scale,
+        int(p > 0.0), torch.cuda.current_stream(h.device).cuda_stream),
+        "layer_norm backward kernel")
+
+
+def _triton_backward(h, weight, dy, dh, dx, sums, eps, p, key, mode, plan):
+    """The Triton kernel and the column sum on ``_triton_plan``'s grid
+    (also called alone: the smoke and the card's tests hold the CUDA
+    kernel against it)."""
+    triton, k = _jit()
+    n = h.shape[-1]
+    part = torch.empty(plan.blocks, 3 * n, dtype=torch.float32,
+                       device=h.device)
+    kt, site, thresh, scale, aligned = _dln_args(h, p, key, mode)
+    bg = plan.chunks
+    k["dln_bwd"][(plan.blocks,)](
+        h, weight, dy, dh, dx, part, kt, h.numel() // n, n, plan.rows, site,
+        thresh, scale, eps, HAS_DROP=p > 0.0, ALIGNED=aligned, BLOCK_G=bg,
+        num_warps=min(max(4 * bg // 256, 1), 16))
+    k["col_sum"][(triton.cdiv(3 * n, 64),)](part, sums, plan.blocks, 3 * n,
+                                            BLOCK_P=64, BLOCK_C=64,
+                                            num_warps=4)
+
+
 def dropout_add_layer_norm_backward(h, weight, dy, eps=1e-5, p=0.0, key=None,
                                     mode="upscale_in_train"):
     """(dx, dh, dweight, dnorm_bias, dbias) of ``LayerNorm(residual +
     dropout(x + bias))`` on CUDA tensors, from the norm's input h: dh (the
     residual's gradient) rounded to h's dtype, dx = dh through the mask
     drawn again (dh itself without dropout), and the three parameter
-    gradients in fp32, each a sum over the rows of per-program partials
-    added in a fixed order (no atomics: the same bits every run)."""
+    gradients in fp32, each a sum over the rows of per-block partials
+    added in a fixed order (no atomics: the same bits every run). The
+    route is ``layer_norm_backward_plan``'s; tensors not 16-byte aligned
+    take the Triton kernel. ``LAUNCHES["dropout_add_ln_bwd"]`` counts
+    every call, ``["dropout_add_ln_bwd_warp"]`` those of the CUDA
+    kernel."""
     dy = dy.contiguous()
     _on_cuda("dropout_add_layer_norm_backward", h, weight, dy)
     n = h.shape[-1]
@@ -814,25 +1059,18 @@ def dropout_add_layer_norm_backward(h, weight, dy, eps=1e-5, p=0.0, key=None,
         raise ValueError(f"dropout_add_layer_norm_backward: dy {dy.dtype} "
                          f"{tuple(dy.shape)} against h {h.dtype} "
                          f"{tuple(h.shape)}")
-    triton, k = _jit()
     rows = h.numel() // n if n else 0
-    progs = max(1, min(rows, 4 * torch.cuda.get_device_properties(
-        h.device).multi_processor_count))
-    per = triton.cdiv(max(rows, 1), progs)
-    progs = triton.cdiv(max(rows, 1), per)
+    sms = sm_count(h.device)
+    plan = layer_norm_backward_plan(rows, n, h.dtype, sms)
     dh = torch.empty_like(h)
     dx = torch.empty_like(h) if p > 0.0 else dh
-    part = torch.empty(progs, 3 * n, dtype=torch.float32, device=h.device)
-    kt, site, thresh, scale, aligned = _dln_args(h, p, key, mode)
-    bg = _dln_block(n)
-    k["dln_bwd"][(progs,)](
-        h, weight, dy, dh, dx, part, kt, rows, n, per, site, thresh, scale,
-        eps, HAS_DROP=p > 0.0, ALIGNED=aligned, BLOCK_G=bg,
-        num_warps=min(max(4 * bg // 256, 1), 16))
     sums = torch.empty(3 * n, dtype=torch.float32, device=h.device)
-    k["col_sum"][(triton.cdiv(3 * n, 64),)](part, sums, progs, 3 * n,
-                                            BLOCK_P=64, BLOCK_C=64,
-                                            num_warps=4)
+    if plan.route == "warp" and _ln_aligned(h, dy):
+        _warp_backward(h, weight, dy, dh, dx, sums, eps, p, key, mode, plan)
+        LAUNCHES["dropout_add_ln_bwd_warp"] += 1
+    else:
+        _triton_backward(h, weight, dy, dh, dx, sums, eps, p, key, mode,
+                         _triton_plan(rows, n, sms))
     LAUNCHES["dropout_add_ln_bwd"] += 1
     return dx, dh, sums[:n], sums[n:2 * n], sums[2 * n:]
 
@@ -896,4 +1134,7 @@ __all__ = ["rms_norm", "add_rms_norm", "fused_rope", "rms_norm_plain",
            "swiglu_op", "swiglu_backward", "layer_norm_plain",
            "dropout_add_plain", "dropout_add_layer_norm_plain",
            "dropout_add_layer_norm", "dropout_add_layer_norm_forward",
-           "dropout_add_layer_norm_backward", "DropoutAddLayerNormFunction"]
+           "dropout_add_layer_norm_backward", "DropoutAddLayerNormFunction",
+           "layer_norm_backward_plan", "LnBwdPlan", "keep_mask_cuda",
+           "layer_norm_backward_split_plain",
+           "layer_norm_column_sums_split_plain", "xor_tree_plain"]

@@ -46,6 +46,15 @@ the card needs ~295 a byte before compute is the limit). The design:
   d(beta). No atomics: a captured step equals an eager one bit for bit.
 * NHWC (``channels_last``): the same kernels with the channel stride 1
   and the spatial stride C.
+* ``group_norm_backward_plan`` sends the backward of a channels-first x in
+  bf16 or fp16 whose spatial size is a multiple of 8 and whose group fits
+  on chip over at most 8 blocks (every GroupNorm of the UNet) to
+  ``csrc/group_norm_bwd.cu`` instead: a thread-block cluster a group reads
+  x and dy once into shared memory, adds the sums in a fixed order across
+  the cluster through distributed shared memory, and writes dx from shared
+  memory; the per-(sample, channel) sums go to a table that its column sum
+  adds over the samples (two launches). The rest keeps the three Triton
+  kernels (``_triton_backward``).
 
 A forward reads x twice (the stats, then the normalisation) and the
 backward reads x and dy twice: the second reads of a chunk come soon
@@ -55,12 +64,15 @@ Triton is imported, and the kernels compiled, at the first launch.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import LAUNCHES
+from ._build import library
 
 tl = None    # triton.language, bound by _jit() at the first launch
 ld = None    # Triton's libdevice (exp, IEEE division), bound by _jit()
@@ -355,6 +367,89 @@ def _plan(n, groups, cg, s, sms):
     return bc, bs, chunk, -(-s // chunk)
 
 
+# The cluster backward (csrc/group_norm_bwd.cu): a block holds at most this
+# many bytes of shared memory, two blocks an SM ((233,472 / 2) less the 1 KB
+# each block keeps), as BatchNorm's cluster kernels
+_CLUSTER_BLOCK_BYTES = 115712
+_CLUSTER_SIZES = (1, 2, 4, 8)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class GnBwdPlan(NamedTuple):
+    """The GroupNorm backward's launch: ``route`` "cluster" (the CUDA
+    kernel: ``cs`` blocks a cluster, a cluster a group, ``smem`` bytes a
+    block) or "triton" (the three Triton kernels, on ``_plan``'s tiles:
+    ``cs`` 0, ``smem`` 0)."""
+    route: str
+    cs: int
+    smem: int
+
+
+_CLUSTER_THREADS = 512        # a block's threads: at most a channel each
+_CLUSTER_COL_ROWS = 8         # thread rows of its column sum
+
+
+def _cluster_smem(cg, s, cs):
+    """Shared memory bytes of a cluster-kernel block, which the wrapper
+    hands the kernel: 6 bytes an element of its channels (x 16 bits, dz
+    fp32) and 4 (8 + 32 + 4 x its channels) of sums and parameters."""
+    cpb = -(-cg // cs)
+    return -(-(4 * (40 + 4 * cpb) + 6 * cpb * s) // 16) * 16
+
+
+def group_norm_backward_plan(cg, s, channels_last, dtype):
+    """The backward's route for groups of ``cg`` channels of spatial size
+    ``s`` in ``dtype`` (the batch and the number of groups give only the
+    grid): ``"cluster"`` where x is channels first, bf16 or fp16, s a
+    multiple of 8 (16-byte vectors) and a group's channels split over the fewest blocks of a power of two up to 8 fit
+    ``_CLUSTER_BLOCK_BYTES`` a block (the UNet at batch 4: [4, 320, 64,
+    64] clusters of 4, [4, 960, 64, 64] of 8, 32 x 32 and smaller one
+    block a group; ``tools/norm_bwd_plans.py`` times every cluster size
+    beside this one); else ``"triton"`` (NHWC, fp32, odd spatial sizes,
+    groups too large)."""
+    if not channels_last and dtype in (torch.bfloat16, torch.float16) \
+            and s % 8 == 0 and s > 0 and cg > 0:
+        for cs in _CLUSTER_SIZES:
+            smem = _cluster_smem(cg, s, cs)
+            if smem <= _CLUSTER_BLOCK_BYTES \
+                    and -(-cg // cs) <= _CLUSTER_THREADS:
+                return GnBwdPlan("cluster", cs, smem)
+    return GnBwdPlan("triton", 0, 0)
+
+
+def _cluster_lib():
+    """The library of ``csrc/group_norm_bwd.cu``, its entry point's
+    arguments set."""
+    lib = library("group_norm_bwd")
+    if lib.ptt_error_string.restype is not ctypes.c_char_p:
+        lib.ptt_group_norm_bwd.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.ptt_group_norm_bwd.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cluster_backward(x, weight, bias, stats, dy, num_groups, silu, dx, sums,
+                      plan):
+    """The cluster kernel and its column sum on contiguous channels-first
+    CUDA tensors, on a "cluster" ``GnBwdPlan``."""
+    n, c = x.shape[0], x.shape[1]
+    s = x.numel() // (n * c)
+    table = torch.empty(n, 2 * c, dtype=torch.float32, device=x.device)
+    lib = _cluster_lib()
+    err = lib.ptt_group_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), dx.data_ptr(), table.data_ptr(), sums.data_ptr(),
+        n, c, num_groups, s, plan.cs, plan.smem, _CODES[x.dtype],
+        _CODES[dy.dtype],
+        _CODES[weight.dtype], _CODES[bias.dtype], int(bool(silu)),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("group_norm_bwd cluster kernel launch failed: "
+                           + lib.ptt_error_string(err).decode())
+
+
 # -- plain versions -----------------------------------------------------------------
 
 def group_norm_plain(x, num_groups, weight=None, bias=None, eps=1e-5,
@@ -421,6 +516,117 @@ def group_stats_split_plain(x, num_groups, n_chunks, channels_last=False):
     return mean, m2 / cnt
 
 
+def _cluster_channel_sums(t, num_groups, cs):
+    """The per-(sample, channel) sums of ``t`` [N, C, S] fp32 (channels
+    first, S a multiple of 8) in the cluster kernel's order, [N, C]: a
+    group's channels cut into ``cs`` ranks of ceil(Cg / cs); a rank's nc
+    channels each over tpc = 512 / 2^ceil(log2 nc) threads, thread t
+    adding the channel's 8-value vectors t, t + tpc, ... in order, then
+    the xor tree over the channel's lanes and its warps in order."""
+    from .fused import xor_tree_plain
+    n, c, s = t.shape
+    cg = c // num_groups
+    vs = s // 8
+    tg = t.reshape(n, num_groups, cg, s)
+    cpb = -(-cg // cs)
+    out = torch.zeros(n, num_groups, cg, device=t.device)
+    for r in range(cs):
+        lo, hi = min(r * cpb, cg), min((r + 1) * cpb, cg)
+        if lo == hi:
+            continue
+        nc = hi - lo
+        tpc = _CLUSTER_THREADS >> (nc - 1).bit_length()
+        steps = -(-vs // tpc)
+        lanes = torch.nn.functional.pad(
+            tg[:, :, lo:hi].reshape(n, num_groups, nc, vs, 8),
+            (0, 0, 0, steps * tpc - vs)).reshape(n, num_groups, nc, steps,
+                                                 tpc, 8)
+        acc = torch.zeros(n, num_groups, nc, tpc, device=t.device)
+        for k in range(steps):
+            for e in range(8):
+                acc = acc + lanes[:, :, :, k, :, e]
+        if tpc <= 32:
+            out[:, :, lo:hi] = xor_tree_plain(acc)[..., 0]
+            continue
+        warps = xor_tree_plain(acc.reshape(n, num_groups, nc, tpc // 32,
+                                           32))[..., 0]
+        total = torch.zeros(n, num_groups, nc, device=t.device)
+        for k in range(tpc // 32):
+            total = total + warps[..., k]
+        out[:, :, lo:hi] = total
+    return out.reshape(n, c)
+
+
+def group_norm_column_sums_split_plain(t, num_groups, cs):
+    """The sums of ``t`` [N, C, S] fp32 over samples and space, [C], in
+    the cluster kernel's order: the per-(sample, channel) sums of
+    ``_cluster_channel_sums`` into rows of the [N, 2 C] table, which the
+    column sum adds over the samples (8 thread rows, samples p, p + 8, ...
+    in order, then the rows in order). Only additions: given the kernel's
+    own addends (dy for dbias without the SiLU) it gives the kernel's bits,
+    which the card's tests hold."""
+    table = _cluster_channel_sums(t, num_groups, cs)
+    rows = torch.zeros(_CLUSTER_COL_ROWS, table.shape[1], device=t.device)
+    for q in range(table.shape[0]):
+        rows[q % _CLUSTER_COL_ROWS] = rows[q % _CLUSTER_COL_ROWS] + table[q]
+    total = rows[0]
+    for r in range(1, _CLUSTER_COL_ROWS):
+        total = total + rows[r]
+    return total
+
+
+def group_norm_backward_split_plain(x, num_groups, weight, bias, dy, cs,
+                                   silu=False, eps=1e-5):
+    """(dweight, dbias [C], sa, sb [N, G]) in the cluster kernel's order of
+    sums, in fp32 on x's device (x channels first, its spatial size a
+    multiple of 8): A_c = sum dz x-hat and B_c = sum dz by
+    ``_cluster_channel_sums``; a rank's w_c A_c and w_c B_c in channel
+    order, the ranks in rank order (the group's sa, sb); dweight and dbias
+    by ``group_norm_column_sums_split_plain``. The (mean, rstd) are the
+    plain formula's; under ``silu`` dz rounds as the kernel rounds it (z
+    and dz to dy's dtype). The addends here are plain fp32 arithmetic; the
+    kernel contracts products into fused multiply-adds, so dweight's
+    addends may differ from the kernel's in the last bits, and only sums
+    of the kernel's own addends are bit-equal."""
+    n, c, s, *_ = _layout(tuple(x.shape), False)
+    cg = c // num_groups
+    xf = x.reshape(n, num_groups, cg, s).float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    xh = (xf - mean) * rstd
+    wf = weight.float().reshape(1, num_groups, cg, 1)
+    dz = dy.reshape(n, num_groups, cg, s).float()
+    if silu:
+        z = (xh * wf + bias.float().reshape(1, num_groups, cg, 1)).to(
+            dy.dtype).float()
+        sg = 1.0 / (1.0 + torch.exp(-z))
+        dz = (dz * sg * (1.0 + z * (1.0 - sg))).to(dy.dtype).float()
+    ca = _cluster_channel_sums((dz * xh).reshape(n, c, s), num_groups, cs)
+    cb = _cluster_channel_sums(dz.reshape(n, c, s), num_groups, cs)
+    ca = ca.reshape(n, num_groups, cg)
+    cb = cb.reshape(n, num_groups, cg)
+    cpb = -(-cg // cs)
+    sa = torch.zeros(n, num_groups, device=x.device)
+    sb = torch.zeros(n, num_groups, device=x.device)
+    w2 = weight.float().reshape(num_groups, cg)
+    for r in range(cs):
+        lo, hi = min(r * cpb, cg), min((r + 1) * cpb, cg)
+        if lo == hi:
+            continue
+        ra = torch.zeros(n, num_groups, device=x.device)
+        rb = torch.zeros(n, num_groups, device=x.device)
+        for ch in range(lo, hi):
+            ra = ra + w2[:, ch] * ca[:, :, ch]
+            rb = rb + w2[:, ch] * cb[:, :, ch]
+        sa, sb = sa + ra, sb + rb
+    dw = group_norm_column_sums_split_plain((dz * xh).reshape(n, c, s),
+                                            num_groups, cs)
+    db = group_norm_column_sums_split_plain(dz.reshape(n, c, s), num_groups,
+                                            cs)
+    return dw, db, sa, sb
+
+
 # -- wrappers -----------------------------------------------------------------------
 
 def _check(x, num_groups, weight, bias, channels_last):
@@ -484,35 +690,57 @@ def group_norm_forward(x, weight, bias, num_groups, eps=1e-5,
     return y, stats
 
 
+def _triton_backward(x, weight, bias, stats, dy, num_groups, channels_last,
+                     silu, dx, sums):
+    """The three Triton kernels: the chunks' partial sums, dx, the
+    column sums (also called alone: the smoke and the card's tests hold
+    the cluster kernel against them)."""
+    c = x.shape[-1] if channels_last else x.shape[1]
+    triton, k, grid, geo, bc, bs, n_chunks = _args(x, num_groups,
+                                                   channels_last)
+    rows = x.shape[0] * n_chunks
+    part = torch.empty(rows, 2 * c, dtype=torch.float32, device=x.device)
+    nw = _warps(bc, bs)
+    k["bwd_part"][grid](x, weight, bias, dy, stats, part, c, *geo,
+                        SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs,
+                        num_warps=nw)
+    k["bwd_dx"][grid](x, weight, bias, dy, dx, stats, part, c, *geo,
+                      SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs,
+                      num_warps=nw)
+    k["col_sum"][(triton.cdiv(2 * c, 64),)](part, sums, rows, 2 * c,
+                                            BLOCK_P=64, BLOCK_C=64,
+                                            num_warps=4)
+
+
 def group_norm_backward(x, weight, bias, stats, dy, num_groups,
                         channels_last=False, silu=False):
     """(dx, dweight, dbias) on CUDA tensors from the forward's x and stats:
-    dx in x's dtype, the two [C] vector gradients in fp32, each a sum over
-    samples and chunks of per-program partials added in a fixed order."""
+    dx in x's dtype, the two [C] vector gradients in fp32, each a sum of
+    partials added in a fixed order. The route is
+    ``group_norm_backward_plan``'s; tensors not 16-byte aligned take the
+    Triton kernels. ``LAUNCHES["group_norm_bwd"]``
+    counts every call, ``["group_norm_bwd_cluster"]`` those of the cluster
+    kernel."""
     dy = dy.contiguous()
-    _check(x, num_groups, weight, bias, channels_last)
+    n, c, s = _check(x, num_groups, weight, bias, channels_last)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"group_norm_backward: dy {tuple(dy.shape)} "
                          f"against x {tuple(x.shape)}")
-    c = x.shape[-1] if channels_last else x.shape[1]
     dx = torch.empty_like(x)
-    sums = torch.zeros(2 * c, dtype=torch.float32, device=x.device)
+    # either route's column sum writes every entry; an empty x runs none
+    sums = (torch.empty if x.numel() else torch.zeros)(
+        2 * c, dtype=torch.float32, device=x.device)
     if x.numel():
-        triton, k, grid, geo, bc, bs, n_chunks = _args(x, num_groups,
-                                                       channels_last)
-        rows = x.shape[0] * n_chunks
-        part = torch.empty(rows, 2 * c, dtype=torch.float32,
-                           device=x.device)
-        nw = _warps(bc, bs)
-        k["bwd_part"][grid](x, weight, bias, dy, stats, part, c, *geo,
-                            SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs,
-                            num_warps=nw)
-        k["bwd_dx"][grid](x, weight, bias, dy, dx, stats, part, c, *geo,
-                          SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs,
-                          num_warps=nw)
-        k["col_sum"][(triton.cdiv(2 * c, 64),)](part, sums, rows, 2 * c,
-                                                BLOCK_P=64, BLOCK_C=64,
-                                                num_warps=4)
+        plan = group_norm_backward_plan(c // num_groups, s, channels_last,
+                                        x.dtype)
+        if plan.route == "cluster" and x.data_ptr() % 16 == 0 \
+                and dy.data_ptr() % 16 == 0:
+            _cluster_backward(x, weight, bias, stats, dy, num_groups, silu,
+                              dx, sums, plan)
+            LAUNCHES["group_norm_bwd_cluster"] += 1
+        else:
+            _triton_backward(x, weight, bias, stats, dy, num_groups,
+                             channels_last, silu, dx, sums)
     LAUNCHES["group_norm_bwd"] += 1
     return dx, sums[:c], sums[c:]
 
@@ -567,4 +795,7 @@ def group_norm(x, num_groups, weight=None, bias=None, eps=1e-5,
 
 
 __all__ = ["group_norm", "group_norm_plain", "group_stats_split_plain",
-           "group_norm_forward", "group_norm_backward", "GroupNormFunction"]
+           "group_norm_forward", "group_norm_backward", "GroupNormFunction",
+           "group_norm_backward_plan", "GnBwdPlan",
+           "group_norm_backward_split_plain",
+           "group_norm_column_sums_split_plain"]

@@ -3682,3 +3682,236 @@ def test_batch_norm_cluster_forward_matches_plain(dev, dtype, shape, cs,
     else:
         _gn_close(y, plain, y.dtype, 1)
     assert _replays_equal(lambda: forward(rm.clone(), rv.clone()))
+
+
+# -- the redesigned LayerNorm and GroupNorm backwards --------------------------
+
+# (rows, n): each model's LayerNorm widths (ERNIE's and GPT's 768, the UNet's
+# 320, 640 and 1280, Transformer-base's 512) and the present test's shapes
+_LN_WARP_SHAPES = [(4096, 320), (4096, 512), (2048, 640), (16384, 768),
+                   (1024, 1280), (256, 1280), (7, 64), (15, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,n", _LN_WARP_SHAPES)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_layer_norm_warp_backward_matches_plain(dev, dtype, rows, n, p):
+    """The CUDA LayerNorm backward (a warp a row) at the models' widths:
+    dx, dh and the three vector gradients within the plain autograd's
+    tolerance (as ``test_dropout_add_layer_norm_matches_plain``), one call
+    counted once and on the CUDA kernel, two calls and a graph replay
+    bit-equal, and the Triton route within the same tolerance."""
+    from paddle_tpu_torch.kernels import dropout as D
+    x, r, b, w, nb, dy = _dln_inputs(dev, dtype, (rows, n))
+    key = _rk(torch.tensor([99, 1], device=dev), 4) if p else None
+    _, h = fused.dropout_add_layer_norm_forward(x, w, nb, 1e-5, r, b, p, key)
+    assert fused.layer_norm_backward_plan(rows, n, dtype, 132).route \
+        == "warp"
+    before = (K.LAUNCHES["dropout_add_ln_bwd"],
+              K.LAUNCHES["dropout_add_ln_bwd_warp"])
+    got = fused.dropout_add_layer_norm_backward(h, w, dy, 1e-5, p, key)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["dropout_add_ln_bwd"] - before[0],
+            K.LAUNCHES["dropout_add_ln_bwd_warp"] - before[1]) == (1, 1)
+    again = fused.dropout_add_layer_norm_backward(h, w, dy, 1e-5, p, key)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    dh_t = torch.empty_like(h)
+    dx_t = torch.empty_like(h) if p else dh_t
+    sums = torch.empty(3 * n, device=dev)
+    fused._triton_backward(h, w, dy, dh_t, dx_t, sums, 1e-5, p, key,
+                           "upscale_in_train",
+                           fused._triton_plan(rows, n, 132))
+    tri = (dx_t, dh_t, sums[:n], sums[n:2 * n], sums[2 * n:])
+    assert K.LAUNCHES["dropout_add_ln_bwd_warp"] - before[1] == 2
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in (x, r, b, w, nb)]
+    lx, lr, lb, lw, lnb = leaves
+    fused.dropout_add_layer_norm_plain(lx, lw, lnb, 1e-5, lr, lb, p,
+                                       key).backward(dy)
+    dx, dh, dw, dnb, db = got
+    for a, c in ((dx, lx.grad), (dh, lr.grad), (dw.to(dtype), lw.grad),
+                 (dnb.to(dtype), lnb.grad), (db.to(dtype), lb.grad)):
+        _close(a, c, dtype)
+    for a, c in zip(got, tri):
+        _close(a.to(dtype), c.to(dtype), dtype)
+    if p:
+        keep = D.keep_mask_plain((rows, n), p, key, dev)
+        assert torch.equal(dx != 0, keep & (dh != 0))
+    assert _replays_equal(lambda: fused.dropout_add_layer_norm_backward(
+        h, w, dy, 1e-5, p, key))
+
+
+@pytest.mark.parametrize("start,count", [(0, 4096), (8 * 768, 768),
+                                         (4, 1001), (2 ** 33, 64),
+                                         (2 ** 34 + 8, 77), (2 ** 36, 130)])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_cuda_keep_mask_is_the_plain_mask(dev, start, count, p):
+    """The CUDA LayerNorm backward's Philox4x32-10 draws
+    ``dropout.keep_mask_plain``'s bits, a block a thread as the kernel's
+    rows (whose starts are multiples of 8), past 2^34 elements too, where
+    the block's counter takes its second word. Rows off a multiple of 8
+    (the unaligned layout) take the Triton kernel, which
+    ``test_dropout_add_layer_norm_matches_plain`` holds at width 130."""
+    from paddle_tpu_torch.kernels import dropout as D
+    key = _rk(torch.tensor([12345, 678], device=dev), 9)
+    if start + count <= 1 << 20:
+        want = D.keep_mask_plain((start + count,), p, key, dev)[start:]
+    else:      # the window alone, by the plain version's Philox
+        e = torch.arange(start, start + count, device=dev)
+        grp = e >> 2
+        words = torch.stack(D.philox_plain(
+            grp & D.M32, grp >> 32, torch.full_like(grp, 9),
+            torch.zeros_like(grp), 12345, 678), dim=-1)
+        want = (words.gather(1, (e & 3)[:, None])[:, 0] >> 8) \
+            >= D.threshold(p)
+    assert torch.equal(fused.keep_mask_cuda(count, p, key, start), want)
+
+
+def test_layer_norm_functional_backward_takes_the_warp_kernel(dev):
+    """``nn.functional.layer_norm``'s backward at a model's width runs the
+    CUDA kernel once a call; a width off a multiple of 8 runs the Triton
+    kernel."""
+    from paddle_tpu_torch.nn import functional as F
+    for n, warp in ((768, 1), (130, 0)):
+        x = torch.randn(64, n, device=dev, requires_grad=True)
+        w = (1 + 0.1 * torch.randn(n, device=dev)).requires_grad_()
+        before = (K.LAUNCHES["dropout_add_ln_bwd"],
+                  K.LAUNCHES["dropout_add_ln_bwd_warp"])
+        F.layer_norm(x, [n], w, None, 1e-5).sum().backward()
+        assert (K.LAUNCHES["dropout_add_ln_bwd"] - before[0],
+                K.LAUNCHES["dropout_add_ln_bwd_warp"] - before[1]) == (1, warp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n,p", [(16384, 768, 0.1), (4096, 320, 0.0),
+                                      (4096, 512, 0.1), (1024, 1280, 0.0),
+                                      (15, 768, 0.1), (300, 136, 0.1)])
+def test_layer_norm_split_sums_are_the_kernels(dev, dtype, rows, n, p):
+    """``layer_norm_column_sums_split_plain`` on the kernel's own addends
+    (dy; dx) gives the CUDA kernel's dnorm_bias and dbias bit for bit: the
+    order of its column sums. dweight's addends (dy x-hat) are the
+    kernel's fp32 arithmetic (fused multiply-adds): the emulation's
+    dweight is within 1e-5 of the sum of its terms' magnitudes."""
+    x, r, b, w, nb, dy = _dln_inputs(dev, dtype, (rows, n))
+    key = _rk(torch.tensor([99, 1], device=dev), 4) if p else None
+    _, h = fused.dropout_add_layer_norm_forward(x, w, nb, 1e-5, r, b, p, key)
+    plan = fused.layer_norm_backward_plan(rows, n, dtype, K.sm_count(dev))
+    assert plan.route == "warp"
+    dx, _, dw, dnb, db = fused.dropout_add_layer_norm_backward(
+        h, w, dy, 1e-5, p, key)
+    sums = fused.layer_norm_column_sums_split_plain(
+        torch.stack([dy.float(), dx.float()]), plan)
+    assert torch.equal(sums[0], dnb) and torch.equal(sums[1], db)
+    emu = fused.layer_norm_backward_split_plain(h, w, dy, 1e-5, plan, p,
+                                                key)[0]
+    hd = h.double()
+    xh = (hd - hd.mean(-1, keepdim=True)) / torch.sqrt(
+        hd.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    mag = (dy.double().abs() * xh.abs()).sum(0)
+    assert bool(((dw.double() - emu.double()).abs() <= 1e-5 * mag
+                 + 1e-30).all())
+
+
+@pytest.mark.parametrize("shape", [(4, 960, 64, 64), (4, 320, 64, 64),
+                                   (4, 2560, 8, 8), (2, 640, 32, 32),
+                                   (3, 96, 16, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_split_sums_are_the_kernels(dev, shape):
+    """``group_norm_column_sums_split_plain`` on the kernel's own addends
+    (dy, without the SiLU) gives the cluster kernel's dbias bit for bit:
+    the order of its sums over a channel's threads, the cluster's ranks
+    and the samples. dweight's addends (dy x-hat) are the kernel's fp32
+    arithmetic (fused multiply-adds, the forward's statistics): the
+    emulation's dweight is within 1e-5 of the sum of its terms'
+    magnitudes."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    x, w, b, dy = _gn_inputs(dev, torch.bfloat16, shape)
+    n, c = shape[:2]
+    s = x.numel() // (n * c)
+    plan = GN.group_norm_backward_plan(c // 32, s, False, torch.bfloat16)
+    assert plan.route == "cluster"
+    _, stats = GN.group_norm_forward(x, w, b, 32, 1e-5, False, False)
+    before = K.LAUNCHES["group_norm_bwd_cluster"]
+    _, dw, db = GN.group_norm_backward(x, w, b, stats, dy, 32, False, False)
+    assert K.LAUNCHES["group_norm_bwd_cluster"] - before == 1
+    assert torch.equal(db, GN.group_norm_column_sums_split_plain(
+        dy.float().reshape(n, c, s), 32, plan.cs))
+    emu = GN.group_norm_backward_split_plain(x, 32, w, b, dy, plan.cs)[0]
+    xd = x.double().reshape(n, 32, -1)
+    xh = ((xd - xd.mean(-1, keepdim=True)) / torch.sqrt(
+        xd.var(-1, unbiased=False, keepdim=True) + 1e-5)).reshape(n, c, s)
+    mag = (dy.double().reshape(n, c, s).abs() * xh.abs()).sum((0, 2))
+    assert bool(((dw.double() - emu.double()).abs() <= 1e-5 * mag
+                 + 1e-30).all())
+
+
+# the UNet's GroupNorm shapes at batch 4 (the largest and the widest) and
+# the present test's
+_GN_CLUSTER_SHAPES = [(4, 960, 64, 64), (4, 2560, 8, 8), (4, 320, 64, 64),
+                      (4, 1920, 32, 32), (4, 2560, 16, 16), (2, 1280, 8, 8),
+                      (2, 640, 32, 32), (3, 96, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", _GN_CLUSTER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_cluster_backward_matches_plain(dev, shape, dtype, silu):
+    """The cluster GroupNorm backward: on its route (one call counted once
+    and on the cluster kernel), dx, dweight and dbias against the plain
+    autograd (each row within 2 ulps of its largest value, as
+    ``test_group_norm_matches_plain``) and against the Triton kernels (the
+    same tolerance), two calls and a graph replay bit-equal."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    x, w, b, dy = _gn_inputs(dev, dtype, shape)
+    n, c = shape[:2]
+    s = x.numel() // (n * c)
+    assert GN.group_norm_backward_plan(c // 32, s, False, dtype).route \
+        == "cluster"
+    _, stats = GN.group_norm_forward(x, w, b, 32, 1e-5, False, silu)
+    before = (K.LAUNCHES["group_norm_bwd"],
+              K.LAUNCHES["group_norm_bwd_cluster"])
+    got = GN.group_norm_backward(x, w, b, stats, dy, 32, False, silu)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["group_norm_bwd"] - before[0],
+            K.LAUNCHES["group_norm_bwd_cluster"] - before[1]) == (1, 1)
+    again = GN.group_norm_backward(x, w, b, stats, dy, 32, False, silu)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    tri = (torch.empty_like(x), torch.zeros(2 * c, device=dev))
+    GN._triton_backward(x, w, b, stats, dy, 32, False, silu, *tri)
+    tri = (tri[0], tri[1][:c], tri[1][c:])
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    GN.group_norm_plain(leaves[0], 32, leaves[1], leaves[2], 1e-5, False,
+                        silu).backward(dy)
+    for a, pl, t in zip(got, leaves, tri):
+        _gn_close(a.to(dtype), pl.grad, dtype, 2)
+        _gn_close(a.to(dtype), t.to(dtype), dtype, 2)
+    assert _replays_equal(lambda: GN.group_norm_backward(
+        x, w, b, stats, dy, 32, False, silu))
+
+
+@pytest.mark.parametrize("shape", [(4, 320, 64, 64), (4, 960, 64, 64),
+                                   (2, 1280, 8, 8)])
+def test_group_norm_cluster_fused_silu_is_bit_equal_to_the_o2_ops(dev, shape):
+    """Under ``amp.auto_cast(level="O2")`` on the cluster kernel, the fused
+    SiLU's gradients (dz drawn in the kernel, rounded where PyTorch's SiLU
+    backward rounds) equal the separate ops' bit for bit: the same plan
+    whatever dy's dtype (dz is kept in fp32)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    x, w, b, dy = _gn_inputs(dev, torch.bfloat16, shape)
+    fused_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    sep_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = K.LAUNCHES["group_norm_bwd_cluster"]
+    with amp.auto_cast(level="O2"):
+        y = F.group_norm(fused_in[0], 32, 1e-5, fused_in[1], fused_in[2],
+                         then="silu")
+        want = F.silu(F.group_norm(sep_in[0], 32, 1e-5, sep_in[1],
+                                   sep_in[2]))
+    y.backward(dy)
+    want.backward(dy)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["group_norm_bwd_cluster"] - before == 2
+    for a, c in zip(fused_in, sep_in):
+        assert torch.equal(a.grad, c.grad)

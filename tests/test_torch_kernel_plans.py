@@ -1,8 +1,12 @@
 """The launch plans of the recurrence's forward and backward
-(``kernels/rnn.py`` ``rnn_forward_plan``, ``rnn_backward_plan``) and of
+(``kernels/rnn.py`` ``rnn_forward_plan``, ``rnn_backward_plan``), of
 BatchNorm's forward and backward (``kernels/batch_norm.py``
-``batch_norm_forward_plan``, ``batch_norm_backward_plan``), on the CPU:
-pure Python, no ``triton``, no ``nvcc``, no card.
+``batch_norm_forward_plan``, ``batch_norm_backward_plan``), of the
+LayerNorm backward (``kernels/fused.py`` ``layer_norm_backward_plan``) and
+of GroupNorm's backward (``kernels/group_norm.py``
+``group_norm_backward_plan``), on the CPU: pure Python, no ``triton``, no
+``nvcc``, no card; and the CPU emulations of the two CUDA backwards'
+fixed-order sums against float64.
 
 What they must hold for the kernels they pick: the persistent kernel's
 grid at most one block an SM (its blocks wait on each other at every
@@ -20,6 +24,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import batch_norm as BN
+from paddle_tpu_torch.kernels import fused as FU
+from paddle_tpu_torch.kernels import group_norm as GN
 from paddle_tpu_torch.kernels import rnn as R
 
 SMS = 132               # the H100's SMs
@@ -342,3 +348,278 @@ def test_batch_norm_forward_plan_triton_where_the_cluster_does_not_take():
     assert BN.batch_norm_forward_plan(128, 64, 112 * 112, False,
                                       torch.bfloat16, True, SMS)[0] == \
         "triton"
+
+
+# -- the LayerNorm backward ---------------------------------------------------
+
+# (rows, n, dtype, calls a step): ERNIE's 32 x 512 tokens (bf16), GPT-MoE's
+# 8 x 1024 (bf16), the UNet's transformer blocks at batch 4 (fp32 under O2:
+# the black list) at 64 x 64, 32 x 32, 16 x 16 and 8 x 8, Transformer-base's
+# 64 x 64 tokens (fp32 under O1)
+_LN_MAIN = [(16384, 768, torch.bfloat16, 26), (8192, 768, torch.bfloat16, 25),
+            (16384, 320, torch.float32, 15), (4096, 640, torch.float32, 15),
+            (1024, 1280, torch.float32, 15), (256, 1280, torch.float32, 3),
+            (4096, 512, torch.float32, 30)]
+
+
+def _ln_plan_holds(plan, rows, n, esize):
+    """What the CUDA kernel needs of a "warp" plan."""
+    assert plan.blocks * 8 * plan.rows >= rows > plan.blocks * 8 * (
+        plan.rows - 1) or plan.rows == 1
+    assert plan.chunks * 256 >= n
+    assert plan.smem == FU._ln_smem(n, esize) <= SMEM
+    per_sm = 2 if esize == 2 and plan.chunks <= 3 else 1
+    assert plan.smem <= FU._LN_BLOCK_BYTES[per_sm]
+    assert plan.blocks <= SMS * per_sm
+    # the warps' three column sums fit where their rings were
+    assert 8 * 3 * n * 4 <= plan.smem - 4 * n
+
+
+def test_layer_norm_backward_plan_routes_the_models():
+    """Every LayerNorm of ERNIE, GPT-MoE, the UNet and Transformer-base
+    (26, 25, 48 and 30 a step) takes the CUDA kernel."""
+    assert sum(k for *_, k in _LN_MAIN) == 26 + 25 + 48 + 30
+    for rows, n, dtype, _ in _LN_MAIN:
+        plan = FU.layer_norm_backward_plan(rows, n, dtype, SMS)
+        assert plan.route == "warp", (rows, n, dtype)
+        _ln_plan_holds(plan, rows, n, 4 if dtype == torch.float32 else 2)
+    # ERNIE's: two blocks an SM, 8 rows a warp; the UNet's fp32 rows one
+    # block an SM
+    assert FU.layer_norm_backward_plan(16384, 768, torch.bfloat16, SMS) \
+        == FU.LnBwdPlan("warp", 264, 8, 76800, 3)
+    assert FU.layer_norm_backward_plan(16384, 320, torch.float32, SMS)[:3] \
+        == ("warp", 132, 16)
+
+
+def test_layer_norm_backward_plan_keeps_within_the_card():
+    """Widths of a multiple of 8 up to 1280 in the three dtypes take the
+    CUDA kernel within a block's shared memory and the grid's rows;
+    others take the Triton kernel's programs, which cover every row."""
+    for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2),
+                         (torch.float16, 2)):
+        for n in (1, 4, 8, 16, 64, 130, 256, 320, 512, 520, 640, 768, 1000,
+                  1024, 1280, 1288, 2048, 4096):
+            for rows in (1, 7, 8, 9, 255, 2112, 4096, 16384, 100003):
+                plan = FU.layer_norm_backward_plan(rows, n, dtype, SMS)
+                if n % 8 == 0 and n <= 1280:
+                    assert plan.route == "warp"
+                    _ln_plan_holds(plan, rows, n, esize)
+                else:
+                    assert plan.route == "triton"
+                    assert plan.blocks * plan.rows >= rows
+                    assert plan.blocks <= 4 * SMS and plan.chunks * 4 >= n
+
+
+def test_layer_norm_backward_plan_triton_for_what_the_kernel_does_not_take():
+    """Odd widths (the tests' 130), widths past 1280, and dtypes the
+    kernel lacks keep the Triton kernel."""
+    for rows, n, dtype in ((15, 130, torch.bfloat16), (16384, 1288,
+                                                        torch.bfloat16),
+                           (64, 4096, torch.float32),
+                           (64, 768, torch.float64), (64, 4, torch.float32)):
+        plan = FU.layer_norm_backward_plan(rows, n, dtype, SMS)
+        assert plan.route == "triton" and plan.smem == 0
+
+
+def _ln_float64_sums(h, w, dy, eps, p=0.0, key=None):
+    """dweight, dnorm_bias, dbias in float64 from the rounded dh the
+    kernel writes (rounding dh is part of the function)."""
+    from paddle_tpu_torch.kernels import dropout as D
+    hd = h.double()
+    m = hd.mean(-1, keepdim=True)
+    rstd = 1.0 / torch.sqrt(((hd - m) ** 2).mean(-1, keepdim=True) + eps)
+    xh = (hd - m) * rstd
+    g = dy.double() * w.double()
+    dh = rstd * (g - g.mean(-1, keepdim=True)
+                 - xh * (g * xh).mean(-1, keepdim=True))
+    dh = dh.to(h.dtype).double()
+    if p:
+        keep = D.keep_mask_plain(tuple(h.shape), p, key)
+        dh = torch.where(keep, (dh * D.scale_of(p, "upscale_in_train"))
+                         .to(h.dtype).double(), torch.zeros((),
+                                                            dtype=dh.dtype))
+    return (dy.double() * xh).sum(0), dy.double().sum(0), dh.sum(0)
+
+
+@pytest.mark.parametrize("rows,n,dtype,p,sms", [
+    (300, 64, torch.float32, 0.0, 4), (300, 136, torch.float32, 0.1, 2),
+    (77, 520, torch.float32, 0.0, 3), (40, 1280, torch.float32, 0.0, 1),
+    (257, 96, torch.bfloat16, 0.1, 2)])
+def test_layer_norm_split_sums_match_float64(rows, n, dtype, p, sms):
+    """The kernel's order of sums (rows over warps and blocks, lanes'
+    chunks, xor trees, warps in order, the column sum's thread rows) on
+    the CPU in fp32 against float64: each sum within 1e-5 of the sum of
+    its terms' magnitudes."""
+    from paddle_tpu_torch.framework.random import RandomKey
+    g = torch.Generator().manual_seed(rows + n)
+    h = (1 + torch.randn(rows, n, generator=g)).to(dtype)
+    dy = torch.randn(rows, n, generator=g).to(dtype)
+    w = 1 + 0.1 * torch.randn(n, generator=g)
+    key = RandomKey((7, 9), 3) if p else None
+    plan = FU.layer_norm_backward_plan(rows, n, dtype, sms)
+    assert plan.route == "warp" and plan.blocks * 8 * plan.rows >= rows
+    got = FU.layer_norm_backward_split_plain(h, w, dy, 1e-5, plan, p, key)
+    want = _ln_float64_sums(h, w, dy, 1e-5, p, key)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        scale = float(b.abs().max()) + rows
+        assert float((a.double() - b).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("rows,n,sms", [(300, 64, 4), (16384, 768, 132),
+                                        (5000, 1280, 132), (9, 8, 2)])
+def test_layer_norm_column_sums_split_order_is_only_additions(rows, n, sms):
+    """The kernel's order of column sums adds its addends and nothing
+    else: small integers (exact in fp32 in any order) sum to torch's sum,
+    and every row is counted once."""
+    plan = FU.layer_norm_backward_plan(rows, n, torch.bfloat16, sms)
+    g = torch.Generator().manual_seed(rows)
+    terms = torch.randint(-8, 9, (2, rows, n), generator=g).float()
+    got = FU.layer_norm_column_sums_split_plain(terms, plan)
+    assert got.shape == (2, n) and torch.equal(got, terms.sum(1))
+
+
+def test_xor_tree_sums_every_lane():
+    t = torch.arange(64, dtype=torch.float32).reshape(2, 32)
+    s = FU.xor_tree_plain(t)
+    assert torch.equal(s, t.sum(-1, keepdim=True).expand(2, 32))
+
+
+# -- GroupNorm's backward -----------------------------------------------------
+
+def _unet_group_norm_calls(batch=4):
+    """The 61 GroupNorm inputs of the SD 1.5 UNet at 64 x 64 latents, as
+    (n, c, h): each resnet's two norms, each transformer's, conv_norm_out
+    (channels (320, 640, 1280, 1280), two resnets a down block and three an
+    up block, the skips concatenated)."""
+    ch = (320, 640, 1280, 1280)
+    calls, skips, hw, c = [], [320], 64, 320
+    for i, out in enumerate(ch):
+        for _ in range(2):
+            calls += [(batch, c, hw), (batch, out, hw)]
+            c = out
+            if i < 3:
+                calls.append((batch, c, hw))
+            skips.append(c)
+        if i < 3:
+            hw //= 2
+            skips.append(c)
+    calls += [(batch, c, hw)] * 2 + [(batch, c, hw)] + [(batch, c, hw)] * 2
+    for i, out in enumerate(reversed(ch)):
+        for _ in range(3):
+            calls += [(batch, c + skips.pop(), hw), (batch, out, hw)]
+            c = out
+            if i > 0:
+                calls.append((batch, c, hw))
+        if i < 3:
+            hw *= 2
+    calls.append((batch, c, hw))
+    return calls
+
+
+def test_unet_has_61_group_norms_of_14_shapes():
+    calls = _unet_group_norm_calls()
+    assert len(calls) == 61 and len(set(calls)) == 14
+    assert (4, 960, 64) in calls and (4, 2560, 8) in calls
+
+
+def test_group_norm_backward_plan_routes_the_unet():
+    """Every GroupNorm of the UNet (bf16 x under O2, G 32) takes the
+    cluster kernel, and instance_norm's G = C at its shapes."""
+    for n, c, h in _unet_group_norm_calls():
+        plan = GN.group_norm_backward_plan(c // 32, h * h, False,
+                                           torch.bfloat16)
+        assert plan.route == "cluster", (n, c, h)
+        assert plan.cs in (1, 2, 4, 8)
+        assert plan.smem <= GN._CLUSTER_BLOCK_BYTES <= SMEM
+        assert 6 * math.ceil(c // 32 / plan.cs) * h * h <= plan.smem
+    assert GN.group_norm_backward_plan(30, 4096, False,
+                                       torch.bfloat16)[:2] == ("cluster", 8)
+    assert GN.group_norm_backward_plan(10, 4096, False,
+                                       torch.bfloat16)[:2] == ("cluster", 4)
+    assert GN.group_norm_backward_plan(80, 64, False,
+                                       torch.bfloat16)[:2] == ("cluster", 1)
+    assert GN.group_norm_backward_plan(1, 64 * 64, False,
+                                       torch.float16)[:2] == ("cluster", 1)
+
+
+def test_group_norm_backward_plan_keeps_within_the_card():
+    """The fewest blocks of a power of two up to 8 whose share of a group
+    fits; what fits nowhere, NHWC, fp32 and spatial sizes off a multiple
+    of 8 take the Triton kernels, whose tiles cover the group."""
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for last in (False, True):
+            for cg in (1, 2, 3, 10, 30, 40, 80, 200, 600):
+                for s in (1, 7, 8, 64, 63, 256, 1024, 4096, 16384, 65536):
+                    plan = GN.group_norm_backward_plan(cg, s, last, dtype)
+                    fits = [cs for cs in (1, 2, 4, 8)
+                            if GN._cluster_smem(cg, s, cs)
+                            <= GN._CLUSTER_BLOCK_BYTES
+                            and -(-cg // cs) <= 512]
+                    if not last and dtype != torch.float32 and s % 8 == 0 \
+                            and fits:
+                        assert plan == GN.GnBwdPlan(
+                            "cluster", fits[0], GN._cluster_smem(cg, s,
+                                                                 fits[0]))
+                        assert plan.smem <= SMEM
+                    else:
+                        assert plan == GN.GnBwdPlan("triton", 0, 0)
+                        bc, bs, chunk, chunks = GN._plan(4, 32, cg, s, SMS)
+                        assert chunk * chunks >= s and bc * bs <= 8192
+
+
+@pytest.mark.parametrize("shape,groups,cs", [
+    ((2, 64, 16, 16), 8, 1), ((3, 30, 8, 8), 3, 4), ((9, 40, 4, 8), 4, 8),
+    ((2, 160, 4, 8), 2, 1), ((17, 6, 64, 64), 6, 1)])
+def test_group_norm_column_sums_split_order_is_only_additions(shape, groups,
+                                                              cs):
+    """The cluster kernel's order of sums adds its addends and nothing
+    else: small integers (exact in fp32 in any order) sum to torch's sum
+    over samples and space, every element counted once."""
+    n, c = shape[:2]
+    g = torch.Generator().manual_seed(sum(shape))
+    t = torch.randint(-8, 9, (n, c, shape[2] * shape[3]), generator=g).float()
+    got = GN.group_norm_column_sums_split_plain(t, groups, cs)
+    assert torch.equal(got, t.sum((0, 2)))
+
+
+@pytest.mark.parametrize("shape,groups,cs,silu", [
+    ((2, 64, 16, 16), 8, 1, False), ((2, 64, 16, 16), 8, 2, True),
+    ((3, 30, 8, 8), 3, 4, True), ((2, 40, 4, 8), 4, 8, False),
+    ((1, 6, 16, 16), 6, 1, True), ((2, 160, 4, 8), 2, 1, True)])
+def test_group_norm_split_sums_match_float64(shape, groups, cs, silu):
+    """The cluster kernel's order of sums (a group's channels over cluster
+    ranks, a warp a channel with its lanes' vectors and the xor tree, the
+    ranks in order, the samples' column sum) on the CPU in fp32 against
+    float64: dweight, dbias and the groups' sums within 1e-5 of the sum of
+    their terms' magnitudes."""
+    g = torch.Generator().manual_seed(sum(shape) + cs)
+    x = (3 + 2 * torch.randn(*shape, generator=g)).to(torch.bfloat16)
+    dy = torch.randn(*shape, generator=g)
+    c = shape[1]
+    w = 1 + 0.2 * torch.randn(c, generator=g)
+    b = 0.2 * torch.randn(c, generator=g)
+    dw, db, sa, sb = GN.group_norm_backward_split_plain(x, groups, w, b, dy,
+                                                        cs, silu)
+    n, cg = shape[0], c // groups
+    xd = x.double().reshape(n, groups, cg, -1)
+    m = xd.mean(dim=(2, 3), keepdim=True)
+    rstd = 1.0 / torch.sqrt(((xd - m) ** 2).mean(dim=(2, 3), keepdim=True)
+                            + 1e-5)
+    xh = (xd - m) * rstd
+    dz = dy.double().reshape(n, groups, cg, -1)
+    if silu:
+        z = xh * w.double().reshape(1, groups, cg, 1) \
+            + b.double().reshape(1, groups, cg, 1)
+        sg = torch.sigmoid(z)
+        dz = dz * sg * (1 + z * (1 - sg))
+    a_c = (dz * xh).sum(-1)                       # [n, G, cg]
+    b_c = dz.sum(-1)
+    wd = w.double().reshape(1, groups, cg)
+    want = (a_c.sum(0).reshape(c), b_c.sum(0).reshape(c),
+            (wd * a_c).sum(-1), (wd * b_c).sum(-1))
+    mag = float(dz.abs().sum()) * float(xh.abs().max()) * float(
+        w.abs().max())
+    for got, ref in zip((dw, db, sa, sb), want):
+        assert got.dtype == torch.float32
+        assert float((got.double() - ref).abs().max()) <= 1e-5 * mag
