@@ -441,6 +441,42 @@ GEMM_KERNELS = {
 }
 
 
+def _gn_silu_sass(built):
+    """The static SASS instructions of GroupNorm's cluster forward
+    (``cuobjdump --dump-sass``) for each output dtype with and without the
+    SiLU, and the SiLU's instructions an element: the two bf16
+    instantiations' difference over the 8 values a thread writes a vector
+    (the element loop is unrolled; the IEEE division's slow path, rarely
+    taken, counts once)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           built["group_norm_fwd"]["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    dts = {"0": "fp32", "1": "bf16", "2": "fp16"}
+    found, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"ptt_gn_fwd_cluster_kernelILi(\d)ELb(\d)E", line)
+            name = f"{dts[m.group(1)]}{' +SiLU' if m.group(2) == '1' else ''}" \
+                if m else None
+            if name:
+                found[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            found[name] += 1
+    if len(found) != 6:
+        raise AssertionError(f"group_norm_fwd: {len(found)} instantiations "
+                             f"in the SASS, expected 6: {found}")
+    per = (found["bf16 +SiLU"] - found["bf16"]) / 8
+    print(f"phase 2: sass group_norm_fwd cluster kernel instructions "
+          f"{found}; the SiLU's ~{per:.1f} instructions an element (static)",
+          flush=True)
+    return dict(found, silu_per_element=per)
+
+
 def _gemm_sass(built):
     """{kernel: {op: n}} of the weight-only GEMM's instantiations, counted
     in ``cuobjdump --dump-sass``: the wgmma kernel's fifteen (int8, int4,
@@ -1691,7 +1727,7 @@ def _kernel_group(name):
         return "batch_norm"
     if "_gn_bwd_" in name:
         return "group_norm_bwd"
-    if "_gn_stats_kernel" in name or "_gn_fwd_kernel" in name:
+    if "_gn_stats_kernel" in name or "_gn_fwd_" in name:
         return "group_norm"
     if any(k in name for k in ("fprop", "dgrad", "wgrad", "implicit_gemm",
                                "conv2d", "cudnn")):
@@ -5615,7 +5651,8 @@ def _ernie_per_step(cfg, dropout):
         # forward and backward: the embeddings' dropout (the attention
         # probabilities' is inside X2, the dense attention's middle)
         per_step.update(dropout=2, sdpa_dense=n_l, dense_softmax=n_l,
-                        dense_softmax_bwd=n_l)
+                        dense_softmax_bwd=n_l,
+                        dense_softmax_cuda=0)   # 512 keys: Triton
     else:
         per_step.update(flash_fwd=n_l, flash_bwd_dq=n_l, flash_bwd_dkv=n_l)
     return per_step
@@ -5873,14 +5910,17 @@ def _ernie_classifier(torch, args, card):
     out = {}
     n_l = cfg.num_hidden_layers
     for kind, m, route in (("no mask", None, {"flash_fwd": n_l}),
-                           ("padding mask", mask, {"sdpa_dense": n_l,
-                                                   "dense_softmax": n_l})):
+                           ("padding mask", mask, {
+                               "sdpa_dense": n_l, "dense_softmax": n_l,
+                               "dense_softmax_cuda": 0}
+                            )):
         with torch.no_grad():
             K.reset_launches()
             logits = model(ids, tt, m)
             torch.cuda.synchronize()
             used = {k: v for k, v in K.LAUNCHES.items()
                     if v and k not in ("dropout_add_ln",)}
+            route = {k: v for k, v in route.items() if v}
             ms = _time_ms(lambda: model(ids, tt, m), 5)
             with ExitStack() as stack:
                 _plain_train_patches(stack)
@@ -6051,7 +6091,9 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
     without the SiLU, two with it, and two for the gradients), two calls
     and a graph replay bit-equal; bf16 NCHW: the O2 composition; ms by
     graph replay beside the bound, the plain version and F.group_norm
-    (+ F.silu) and its autograd."""
+    (+ F.silu) and its autograd; the forward and the backward on the
+    plans' routes (the cluster kernels at bf16 NCHW) and on the Triton
+    kernels, in the same call."""
     import torch.nn.functional as TF
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import group_norm as GN
@@ -6105,12 +6147,26 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
             K.LAUNCHES["group_norm_bwd"] - before["group_norm_bwd"])
     if used != (4, 2):
         raise AssertionError(f"group_norm {tag}: launches {used}")
-    cluster = K.LAUNCHES["group_norm_bwd_cluster"] \
-        - before["group_norm_bwd_cluster"]
-    want_cluster = 2 if dtype != torch.float32 and not last else 0
-    if cluster != want_cluster:
-        raise AssertionError(f"group_norm {tag}: {cluster} backward calls on "
-                             f"the cluster kernel, {want_cluster} expected")
+    cluster = (K.LAUNCHES["group_norm_cluster"] - before["group_norm_cluster"],
+               K.LAUNCHES["group_norm_bwd_cluster"]
+               - before["group_norm_bwd_cluster"])
+    on_cluster = dtype != torch.float32 and not last
+    if cluster != ((4, 2) if on_cluster else (0, 0)):
+        raise AssertionError(f"group_norm {tag}: {cluster} forward and "
+                             f"backward calls on the cluster kernels")
+    # the forward's Triton route on the same inputs (what the cluster kernel
+    # replaces): the same tolerances, and timed beside the plan's route
+    err_tf = {}
+    for silu in (False, True):
+        ty = _gn_triton_forward(torch, x, w, b, last, silu)
+        want = GN.group_norm_plain(x, GN_GROUPS, w, b, 1e-5, last, silu)
+        name = f"group_norm {tag}{' +SiLU' if silu else ''} (Triton)"
+        if dtype == torch.float32:
+            err_tf[silu] = _check(name, ty, want, 2e-5 * max(
+                1.0, float(want.abs().max())))
+        else:
+            err_tf[silu] = _check_rows(name, ty, want, 2 if silu else 1)
+        del ty, want
     # the Triton route (the plan's other kernels) on the same inputs: the same
     # tolerances, and timed beside the plan's route
     tri = _gn_triton(torch, x, w, b, stats, dy, last)
@@ -6138,6 +6194,9 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
     with torch.no_grad():
         ms = {silu: _graph_ms(fwd(silu), iters=10, reps=3)
               for silu in (False, True)}
+        ms_tf = {silu: _graph_ms(lambda s=silu: _gn_triton_forward(
+            torch, x, w, b, last, s), iters=10, reps=3)
+            for silu in (False, True)}
         ms_b = _graph_ms(lambda: GN.group_norm_backward(
             x, w, b, stats, dy, GN_GROUPS, last, True), iters=10, reps=3)
         ms_t = _graph_ms(lambda: _gn_triton(torch, x, w, b, stats, dy, last),
@@ -6173,13 +6232,16 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
     lib_b = lib_fb - lib_ms[True]
     del ll
     n_el, es = x.numel(), x.element_size()
-    rec = {}
+    rec, rec_tf = {}, {}
     for silu in (False, True):
         bound, by = _bound(*_gn_bytes_ops(n_el, es, False, silu), FP32_FLOPS)
         rec[silu] = dict(max_abs_err=errs[silu], ms=ms[silu],
                          plain_ms=plain[silu], bound_ms=bound, bound_by=by,
                          library_ms=lib_ms[silu], shape=list(shape),
-                         layout=layout, dtype=dtype_name, silu=silu)
+                         layout=layout, dtype=dtype_name, silu=silu,
+                         route="cluster" if on_cluster else "triton")
+        rec_tf[silu] = dict(rec[silu], max_abs_err=err_tf[silu],
+                            ms=ms_tf[silu], route="triton")
     bound_b, by_b = _bound(*_gn_bytes_ops(n_el, es, True, True), FP32_FLOPS)
     rec_b = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                  bound_ms=bound_b, bound_by=by_b, library_ms=lib_b,
@@ -6187,19 +6249,24 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
                  silu=True, replay_bit_equal=replay_equal, o2=o2)
     rec_t = dict(rec_b, max_abs_err=err_t, ms=ms_t, replay_bit_equal=None,
                  o2=None, route="triton")
-    rec_b["route"] = "cluster" if want_cluster else "triton"
+    rec_b["route"] = "cluster" if on_cluster else "triton"
     results[f"group_norm[{tag}]"] = rec[False]
     results[f"group_norm[{tag} +SiLU]"] = rec[True]
+    results[f"group_norm_triton[{tag}]"] = rec_tf[False]
+    results[f"group_norm_triton[{tag} +SiLU]"] = rec_tf[True]
     results[f"group_norm_bwd[{tag} +SiLU]"] = rec_b
     results[f"group_norm_bwd_triton[{tag} +SiLU]"] = rec_t
     if tag == GN_MAIN:
-        results["group_norm"] = rec[True]
+        results["group_norm"] = rec_tf[True]
+        results["group_norm_cluster"] = rec[True]
         results["group_norm_bwd"] = rec_t
         results["group_norm_bwd_cluster"] = rec_b
     for silu in (False, True):
         r = rec[silu]
-        print(f"  group_norm {tag}{' +SiLU' if silu else ''}: ms="
-              f"{r['ms']:.4f} ({r['bound_ms'] / r['ms']:.3f} of the bound) "
+        print(f"  group_norm {tag}{' +SiLU' if silu else ''} ({r['route']}): "
+              f"ms={r['ms']:.4f} ({r['bound_ms'] / r['ms']:.3f} of the bound)"
+              f", Triton ms={ms_tf[silu]:.4f} "
+              f"({r['bound_ms'] / ms_tf[silu]:.3f}) "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}); F.group_norm{' + F.silu' if silu else ''}"
               f" {r['library_ms']:.4f} [{card}]", flush=True)
@@ -6212,6 +6279,15 @@ def _gn_case(torch, results, dev, tag, shape, layout, dtype_name, seed):
           flush=True)
     del x, w, b, dy, y, y2, dx, dx2
     torch.cuda.empty_cache()
+
+
+def _gn_triton_forward(torch, x, w, b, last, silu):
+    """The Triton GroupNorm forward (the plan's other route): y."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    y = torch.empty_like(x)
+    stats = torch.empty(x.shape[0] * GN_GROUPS, 2, device=x.device)
+    GN._triton_forward(x, w, b, y, stats, GN_GROUPS, 1e-5, last, silu)
+    return y
 
 
 def _gn_triton(torch, x, w, b, stats, dy, last):
@@ -6275,8 +6351,8 @@ def phase_group_norm_kernels(torch, results):
 
 def _gn_warm_one(torch, shape, last, dtype):
     """Launch, once each, the GroupNorm kernels a ``GN_CASES`` case
-    launches (forward with and without the SiLU, backward with it), so
-    that Triton compiles each of them here."""
+    launches (forward with and without the SiLU on both routes, backward
+    with it), so that Triton compiles each of them here."""
     from paddle_tpu_torch.kernels import group_norm as GN
     c = shape[-1] if last else shape[1]
     x = torch.zeros(shape, dtype=dtype, device="cuda")
@@ -6284,6 +6360,7 @@ def _gn_warm_one(torch, shape, last, dtype):
         c, dtype=dtype, device="cuda")
     for silu in (False, True):
         _, stats = GN.group_norm_forward(x, w, b, GN_GROUPS, 1e-5, last, silu)
+        _gn_triton_forward(torch, x, w, b, last, silu)
     GN.group_norm_backward(x, w, b, stats, x, GN_GROUPS, last, True)
     torch.cuda.synchronize()
 
@@ -6817,13 +6894,22 @@ UNET_GROUP_NORMS = 61      # sd15 a forward: 2 a ResNet block (22), 1 a
 UNET_GN_SILU = 45          # transformer (16), conv_norm_out; 45 with SiLU
 UNET_ATTENTION = 32        # 2 a transformer, all dense (head_dim 40/80/160)
 UNET_LAYER_NORMS = 48      # 3 a transformer
+# the UNet's self-attentions at 64 x 64 latents see 4096 keys (5), 1024
+# (5), 256 (5) and 64 (1), its 16 cross-attentions the context's 77: the
+# rows of 256 and 64 keys take X2's CUDA forward, the rest the Triton one
+UNET_X2_CUDA = 6
 
 
 def _unet_forward_launches():
+    """A forward's launches: every GroupNorm on the cluster forward, the
+    self-attentions' middles that its plan takes on the CUDA forward."""
     from paddle_tpu_torch import kernels as K
     per = {n: 0 for n in K.LAUNCHES}
-    per.update(group_norm=UNET_GROUP_NORMS, dropout_add_ln=UNET_LAYER_NORMS,
-               sdpa_plain=UNET_ATTENTION, dense_softmax=UNET_ATTENTION)
+    per.update(group_norm=UNET_GROUP_NORMS,
+               group_norm_cluster=UNET_GROUP_NORMS,
+               dropout_add_ln=UNET_LAYER_NORMS,
+               sdpa_plain=UNET_ATTENTION, dense_softmax=UNET_ATTENTION,
+               dense_softmax_cuda=UNET_X2_CUDA)
     return per
 
 
@@ -7728,6 +7814,8 @@ DENSE_MAIN = (
     ("unet", (4, 8, 4096, 4096), None, False, 0.0, 40),
     ("ernie", (32, 12, 512, 512), "padding", False, 0.1, 64),
     ("transformer", (64, 8, 64, 64), "causal+padding", False, 0.1, 64),
+    ("unet 16x16", (4, 8, 256, 256), None, False, 0.0, 80),
+    ("unet 8x8", (4, 8, 64, 64), None, False, 0.0, 160),
 )
 DENSE_EXTRA = (
     ("causal sq<sk, bool mask, a row without a key", (2, 3, 100, 300),
@@ -7741,7 +7829,8 @@ DENSE_EXTRA = (
      0.0, 64),
 )
 DENSE_RTOL = 2e-5     # each element against its size (fp32 sums reordered)
-DENSE_KERNEL = "ernie"    # the kernels line's case
+DENSE_KERNEL = "ernie"    # the kernels line's case (the Triton kernels)
+DENSE_CUDA_KERNEL = "transformer"   # the CUDA forward's
 
 
 def _dense_mask(torch, kind, shape, g, dev):
@@ -7809,8 +7898,10 @@ def _dense_case(torch, results, tag, shape, mask_kind, causal, p, hd,
     element by element, the dropped probs bit-equal to the kernel's own
     probs under ``keep_mask_plain``'s bits, ds (and the additive mask's
     gradient) against the plain version's autograd, two calls bit-equal;
-    ``timed``: ms by graph replay each way beside the bound, the plain
-    version and torch.softmax (the softmax alone)."""
+    where the plan takes the CUDA forward, the Triton forward too (its
+    probs and its keep mask); ``timed``: ms by graph replay each way
+    beside the bound, the plain version and torch.softmax (the softmax
+    alone), the forward on both routes where the plan takes CUDA."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import dense_attention as DA
     from paddle_tpu_torch.kernels import dropout as D
@@ -7823,33 +7914,52 @@ def _dense_case(torch, results, tag, shape, mask_kind, causal, p, hd,
     key = _rk(torch.tensor([seed, 99], device=dev), 7) if p > 0 else None
     want_dz = mask_kind == "grad"
     mk = None if mask is None else mask.detach()
-    before = (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_bwd"])
+    cuda = DA.dense_softmax_forward_plan(shape[-1]) == "cuda"
+    before = (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_bwd"],
+              K.LAUNCHES["dense_softmax_cuda"])
     probs, dropped = DA.dense_softmax_forward(scores, mk, causal, scale, p,
                                               key)
     gy = torch.randn(shape, device=dev, generator=g)
     ds, dz = DA.dense_softmax_backward(gy, probs, mk, causal, scale, p, key,
                                        want_dz)
-    if (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_bwd"]) != (
-            before[0] + 1, before[1] + 1):
+    if (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_bwd"],
+            K.LAUNCHES["dense_softmax_cuda"]) != (
+            before[0] + 1, before[1] + 1, before[2] + int(cuda)):
         raise AssertionError(f"dense attention [{tag}]: the kernels did not "
-                             f"launch once each")
+                             f"launch once each (CUDA forward {cuda})")
     sp = scores.clone().requires_grad_()
     leaves = [sp] + ([mask] if want_dz else [])
     pp, dp = DA.dense_softmax_plain(sp, mask, causal, scale, p, key)
     grads = torch.autograd.grad(dp, leaves, gy)
     name = f"dense attention [{tag}] {list(shape)}"
-    err = _dense_rel(f"{name} probs", probs, pp, pp.detach().abs())
+    route = "CUDA" if cuda else "Triton"
+    err = _dense_rel(f"{name} probs ({route})", probs, pp, pp.detach().abs())
+    outs = [(route, probs, dropped)]
+    targs = (*DA._mask_args(mk, scores.shape, dev), causal, scale,
+             *DA._drop_args(p, key, scores.device))
+    if cuda:
+        tp = torch.empty_like(scores)
+        td = torch.empty_like(scores) if p > 0 else tp
+        DA._triton_forward(scores, *targs, tp, td)
+        err_t = _dense_rel(f"{name} probs (Triton)", tp, pp,
+                           pp.detach().abs())
+        outs.append(("Triton", tp, td))
+    else:
+        err_t = err
     if p > 0:
         keep = D.keep_mask_plain(shape, p, key, dev)
-        want = torch.where(keep, probs * D.scale_of(p, "upscale_in_train"),
-                           torch.zeros((), device=dev))
-        same = bool(torch.equal(dropped, want))
-        print(f"  {name} p={p}: the dropped probs bit-equal to the kernel's "
-              f"probs under kernels/dropout.py's keep mask {same}; keep "
-              f"fraction {float(keep.float().mean()):.5f}", flush=True)
-        if not same:
-            raise AssertionError(f"{name}: the dropout's bits differ from "
-                                 f"kernels/dropout.py's")
+        for rname, pr, dr in outs:
+            want = torch.where(keep, pr * D.scale_of(p, "upscale_in_train"),
+                               torch.zeros((), device=dev))
+            same = bool(torch.equal(dr, want))
+            print(f"  {name} p={p} ({rname}): the dropped probs bit-equal to "
+                  f"the kernel's probs under kernels/dropout.py's keep mask "
+                  f"{same}; keep fraction {float(keep.float().mean()):.5f}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"{name} ({rname}): the dropout's bits "
+                                     f"differ from kernels/dropout.py's")
+    del outs
     gp = gy * (dropped != 0) * (D.scale_of(p, "upscale_in_train")
                                 if p > 0 else 1.0)
     # the size of each element's terms: p |gp| and p sum(|gp| p)
@@ -7874,16 +7984,22 @@ def _dense_case(torch, results, tag, shape, mask_kind, causal, p, hd,
         return
     n = math.prod(shape)
     z = scores * scale
+    # a call of a few microseconds is timed over _graph_ms's 100 replayed
+    # calls (over 15 a replay's own cost is within the noise)
+    it = {} if n <= 1 << 22 else dict(iters=5, reps=3)
     with torch.no_grad():
         fwd = _graph_ms(lambda: DA.dense_softmax_forward(
-            scores, mk, causal, scale, p, key), iters=5, reps=3)
+            scores, mk, causal, scale, p, key), **it)
+        if cuda:
+            fwd_t = _graph_ms(lambda: DA._triton_forward(scores, *targs, tp,
+                                                         td), **it)
         bwd = _graph_ms(lambda: DA.dense_softmax_backward(
-            gy, probs, mk, causal, scale, p, key), iters=5, reps=3)
+            gy, probs, mk, causal, scale, p, key), **it)
         plain_fwd = _time_ms(lambda: DA.dense_softmax_plain(
             scores, mk, causal, scale, p, key), 3)
-        lib_fwd = _graph_ms(lambda: torch.softmax(z, -1), iters=5, reps=3)
+        lib_fwd = _graph_ms(lambda: torch.softmax(z, -1), **it)
         lib_bwd = _graph_ms(lambda: torch._softmax_backward_data(
-            gy, probs, -1, torch.float32), iters=5, reps=3)
+            gy, probs, -1, torch.float32), **it)
     sp = scores.clone().requires_grad_()
 
     def plain_both():
@@ -7891,14 +8007,15 @@ def _dense_case(torch, results, tag, shape, mask_kind, causal, p, hd,
                                                    p, key)[1], sp, gy)
     plain_bwd = max(_time_ms(plain_both, 3) - plain_fwd, 0.0)
     ops = 7 * n + (7 * n if p > 0 else 0)
-    for kind, ms, pl, lib, back in (("dense_softmax", fwd, plain_fwd,
-                                     lib_fwd, False),
-                                    ("dense_softmax_bwd", bwd, plain_bwd,
-                                     lib_bwd, True)):
+    rows = [("dense_softmax_cuda", fwd, plain_fwd, lib_fwd, False, err),
+            ("dense_softmax", fwd_t, plain_fwd, lib_fwd, False, err_t)] \
+        if cuda else [("dense_softmax", fwd, plain_fwd, lib_fwd, False, err)]
+    for kind, ms, pl, lib, back, e in rows + [
+            ("dense_softmax_bwd", bwd, plain_bwd, lib_bwd, True, err)]:
         bound_ms, bound_by = _bound(_dense_bytes(shape, mk, p, back),
                                     ops, FP32_FLOPS)
         results[f"{kind}[{tag}]"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pl, bound_ms=bound_ms,
+            max_abs_err=e, ms=ms, plain_ms=pl, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib, shape=list(shape),
             mask=mask_kind, p=p, share_of_bound=bound_ms / ms)
         print(f"  {kind}[{tag}] {list(shape)} mask {mask_kind} p={p}: "
@@ -7907,6 +8024,8 @@ def _dense_case(torch, results, tag, shape, mask_kind, causal, p, hd,
               f"{' backward' if back else ''} alone (pre-scaled scores) "
               f"{lib:.4f} ms [{card}]", flush=True)
     del scores, probs, dropped, ds, gy, z, sp
+    if cuda:
+        del tp, td
     torch.cuda.empty_cache()
 
 
@@ -7916,8 +8035,11 @@ def phase_dense_attention_kernels(torch, results):
     in fp32 at the UNet's [4, 8, 4096, 4096] (no mask, no dropout),
     ERNIE's [32, 12, 512, 512] (a padding mask, p 0.1) and
     Transformer-base's decoder self-attention [64, 8, 64, 64] (the float
-    causal mask plus padding, p 0.1), each timed; then causal with sq <
-    sk, a bool mask with a row that sees no key, an additive mask with a
+    causal mask plus padding, p 0.1) and the UNet's self-attentions at 16 x
+    16 and 8 x 8 ([4, 8, 256, 256], [4, 8, 64, 64]), each timed (the last
+    three on the CUDA forward, which ``dense_softmax_forward_plan`` takes
+    at short rows, timed beside the Triton one); then causal with sq < sk,
+    a bool mask with a row that sees no key, an additive mask with a
     gradient, rows longer than one block (unaligned and aligned) and
     flash_attn_unpadded's segment mask."""
     print(f"phase 3: the dense attention's middle (X2) against its plain "
@@ -8549,15 +8671,17 @@ def _transformer_opt(model, warmup=4000, d=512):
 def _transformer_per_step(layers=TB_LAYERS):
     """Launches a training step at dropout 0.1: the dense middle (X2) for
     every attention (encoder self, decoder self and cross: 3 a pair of
-    layers) each way; dropout on the two embeddings, 3 an encoder layer
-    and 4 a decoder layer, each way; LayerNorm 2 an encoder layer and 3 a
-    decoder layer, each way; AdamW once. Nothing routed to flash or the
+    layers) each way, every forward's on the CUDA kernel (64 keys);
+    dropout on the two embeddings, 3 an encoder layer and 4 a decoder
+    layer, each way; LayerNorm 2 an encoder layer and 3 a decoder layer,
+    each way; AdamW once. Nothing routed to flash or the
     plain path."""
     from paddle_tpu_torch import kernels as K
     per = {n: 0 for n in K.LAUNCHES}
     n_attn = 3 * layers
     drops = 2 + 7 * layers
     per.update(dense_softmax=n_attn, dense_softmax_bwd=n_attn,
+               dense_softmax_cuda=n_attn,
                sdpa_dense=n_attn, dropout=2 * drops,
                dropout_add_ln=5 * layers, dropout_add_ln_bwd=5 * layers,
                dropout_add_ln_bwd_warp=5 * layers, adamw=1)
@@ -8598,8 +8722,8 @@ def _transformer_eval_routes(torch, seed, card):
     """One eval forward (under O1) of Transformer-base built with
     ``dropout=0.0`` on a batch without padding: the encoder's self-attention
     and the cross-attention take the flash kernel (no mask, no dropout: 12
-    forwards), the decoder's masked self-attention X2 (6), as the JAX
-    package routes them."""
+    forwards), the decoder's masked self-attention X2 (6, on the CUDA
+    forward: 64 keys), as the JAX package routes them."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch import kernels as K
     model = _transformer_model(torch, seed, dropout=0.0)
@@ -8607,7 +8731,9 @@ def _transformer_eval_routes(torch, seed, card):
     src, tgt, _, _, tgt_mask = _transformer_batch(torch, seed, pad=False)
     sub = tgt_mask[:1, :1]
     want = {"flash_fwd": 2 * TB_LAYERS, "dense_softmax": TB_LAYERS,
+            "dense_softmax_cuda": TB_LAYERS,
             "sdpa_dense": TB_LAYERS, "dropout_add_ln": 5 * TB_LAYERS}
+    want = {k: v for k, v in want.items() if v}
     with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
         K.reset_launches()
         logits = model(src, tgt, None, sub, None)
@@ -9757,6 +9883,7 @@ def main(argv=None):
           f"{time.monotonic() - t1:.2f}s", flush=True)
     sass = _wgmma_sass(built)
     sass.update(_gemm_sass(built))
+    sass["group_norm_fwd"] = _gn_silu_sass(built)
 
     os.makedirs(args.out, exist_ok=True)
     results = {}
@@ -9901,7 +10028,10 @@ def main(argv=None):
         "group_norm_bwd": ("triton",
                            "paddle_tpu_torch/kernels/group_norm.py",
                            "paddle_tpu/nn/functional/norm.py:186"),
-        # its backward by group_norm_backward_plan: a cluster a group
+        # its forward and backward by their plans: a cluster a group
+        "group_norm_cluster": ("cuda",
+                               "paddle_tpu_torch/csrc/group_norm_fwd.cu",
+                               "paddle_tpu/nn/functional/norm.py:186"),
         "group_norm_bwd_cluster": ("cuda",
                                    "paddle_tpu_torch/csrc/group_norm_bwd.cu",
                                    "paddle_tpu/nn/functional/norm.py:186"),
@@ -9936,6 +10066,9 @@ def main(argv=None):
         "dense_softmax_bwd": ("triton",
                               "paddle_tpu_torch/kernels/dense_attention.py",
                               "paddle_tpu/nn/functional/attention.py:20"),
+        # the forward at short rows, by dense_softmax_forward_plan
+        "dense_softmax_cuda": ("cuda", "paddle_tpu_torch/csrc/dense_softmax.cu",
+                               "paddle_tpu/nn/functional/attention.py:20"),
         # no Pallas kernel: the scan over the RNN step XLA compiles into a
         # loop on the device
         # the forward's two kernels by its plan: persistent (T > 1), step
@@ -9973,6 +10106,8 @@ def main(argv=None):
     main_runs["batch_norm_bwd"] -= main_runs["batch_norm_bwd_cluster"]
     main_runs["dropout_add_ln_bwd"] -= main_runs["dropout_add_ln_bwd_warp"]
     main_runs["group_norm_bwd"] -= main_runs["group_norm_bwd_cluster"]
+    main_runs["group_norm"] -= main_runs["group_norm_cluster"]
+    main_runs["dense_softmax"] -= main_runs["dense_softmax_cuda"]
     kernels = []
     for name, (route, source, tpu) in replaces.items():
         m = results[{"ragged_attention": "ragged_attention[mixed_mha]",
@@ -9981,6 +10116,8 @@ def main(argv=None):
                      "dense_softmax": f"dense_softmax[{DENSE_KERNEL}]",
                      "dense_softmax_bwd":
                          f"dense_softmax_bwd[{DENSE_KERNEL}]",
+                     "dense_softmax_cuda":
+                         f"dense_softmax_cuda[{DENSE_CUDA_KERNEL}]",
                      "rnn_fwd": f"rnn_fwd[{RNN_MAIN}]",
                      "rnn_fwd_step": f"rnn_fwd[{RNN_STEP_MAIN}]",
                      "batch_norm_cluster": f"batch_norm[{BN_CLUSTER_MAIN}]",

@@ -205,8 +205,7 @@ int ptt_batch_norm_bwd(const void* x, const void* dy, const void* y, const void*
   if (N <= 0 || C <= 0 || S <= 1 || cs <= 0 || cs > 8 || (xdt != BF16 && xdt != F16))
     return (int)cudaErrorInvalidValue;
   const int smem = ptt_batch_norm_bwd_smem(N, S, cs);
-  int err = (int)cudaFuncSetAttribute(ptt_bn_bwd_cluster_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int err = (int)allow_block_smem(ptt_bn_bwd_cluster_kernel);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)C * cs);

@@ -237,7 +237,7 @@ int launch(const void* x, const void* w, const void* b, void* rm, void* rv, cons
            float momentum, float keep_new, int xdt, int wdt, int bdt, int rmdt, int rvdt, int rdt,
            int ydt, int has_res, int relu, int round_x, cudaStream_t stream) {
   auto kernel = ptt_bn_fwd_cluster_kernel<VEC>;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int err = (int)allow_block_smem(kernel);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)C * cs);

@@ -267,8 +267,7 @@ int ptt_group_norm_bwd(const void* x, const void* dy, const void* stats, const v
     return (int)cudaErrorInvalidValue;
   const int Cg = C / G, cpb = (Cg + cs - 1) / cs;
   if (cpb > THREADS) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(ptt_gn_bwd_cluster_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int err = (int)allow_block_smem(ptt_gn_bwd_cluster_kernel);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaLaunchConfig_t cfg = {};

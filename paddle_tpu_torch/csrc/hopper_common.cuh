@@ -569,4 +569,25 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Lets `kernel` take as much dynamic shared memory as a block of it may
+// hold on this device: the opt-in limit less its static shared memory. The
+// limit is the function's, not the launch's, so a kernel launched from
+// several host threads with sizes of their own sets this one value each
+// time: a per-launch size could land between another thread's setting and
+// its launch and make that launch fail (invalid argument). The launch's own
+// size still sets the block's shared memory and the occupancy.
+template <typename Kernel>
+cudaError_t allow_block_smem(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)fa.sharedSizeBytes);
+}
+
 }  // namespace hopper

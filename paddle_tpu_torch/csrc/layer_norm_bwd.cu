@@ -41,53 +41,27 @@
 //     3 n] fp32), and ordered_col_sum_kernel (a programmatic dependent
 //     launch) adds the blocks' rows in order: 2 launches a call, no
 //     atomics, the same bits every run and under graph replay.
-// The keep mask is kernels/dropout.py's: element e = row n + col of a mask
-// drawn under (key, site) is word e % 4 of Philox4x32-10 at counter (e / 4,
-// site, 0); dropped where its top 24 bits are below the threshold.
+// The keep mask is kernels/dropout.py's (csrc/philox_common.cuh): element
+// e = row n + col of a mask drawn under (key, site) is word e % 4 of
+// Philox4x32-10 at counter (e / 4, site, 0); dropped where its top 24 bits
+// are below the threshold.
 //
 // Plain C interface, loaded with ctypes; the entry points launch on the
 // caller's stream and return a cudaError_t value.
 
 #include "batch_norm_common.cuh"
+#include "philox_common.cuh"
 
 namespace {
 
 using namespace bn;
+using philox::Mask;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int VEC = 8;          // values a chunk
 constexpr int MAX_CHUNKS = 5;   // chunks a lane: n up to 32 x 8 x 5 = 1280
 constexpr int STAGES = 2;       // rows a warp's ring holds
-
-// -- the dropout's mask -----------------------------------------------------------
-
-// Philox4x32-10 (kernels/dropout.py _philox_tl: the same rounds)
-__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3,
-                                        uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t h0 = __umulhi(c0, 0xD2511F53u), h1 = __umulhi(c2, 0xCD9E8D57u);
-    const uint32_t l0 = c0 * 0xD2511F53u, l1 = c2 * 0xCD9E8D57u;
-    c0 = h1 ^ c1 ^ k0;
-    c2 = h0 ^ c3 ^ k1;
-    c1 = l1;
-    c3 = l0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-struct Mask {
-  uint32_t k0, k1, site;
-  int thresh;
-  // the four words of Philox block `grp` (elements 4 grp .. 4 grp + 3)
-  __device__ __forceinline__ uint4 block(uint64_t grp) const {
-    return philox((uint32_t)grp, (uint32_t)(grp >> 32), site, 0u, k0, k1);
-  }
-  __device__ __forceinline__ bool keeps(uint32_t w) const { return (int)(w >> 8) >= thresh; }
-};
 
 // -- cp.async -----------------------------------------------------------------------
 

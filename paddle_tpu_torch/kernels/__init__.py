@@ -32,15 +32,16 @@ Triton one. They port no TPU kernel either: XLA fuses the JAX package's
 dropout and LayerNorm.
 
 ``group_norm`` and ``group_norm_bwd`` count the calls of GroupNorm's
-forward (two Triton kernels: the chunks' statistics, then the
-normalisation, with the SiLU where fused) and of its backward (two
-kernels: ``group_norm_backward_plan``'s cluster kernel,
-``csrc/group_norm_bwd.cu``, a thread-block cluster a group, then the
-column sums of the weight and bias gradients; or three Triton kernels:
-the chunks' partial sums, dx, the column sums), which every GroupNorm on
-the card goes through (the convolutional models);
-``group_norm_bwd_cluster`` counts the backward calls of the cluster
-kernel. No TPU kernel either: XLA fuses the JAX package's GroupNorm and
+forward (one kernel: ``group_norm_forward_plan``'s cluster kernel,
+``csrc/group_norm_fwd.cu``, a thread-block cluster a group with the SiLU
+where fused; or two Triton kernels: the chunks' statistics, then the
+normalisation) and of its backward (two kernels:
+``group_norm_backward_plan``'s cluster kernel, ``csrc/group_norm_bwd.cu``,
+then the column sums of the weight and bias gradients; or three Triton
+kernels: the chunks' partial sums, dx, the column sums), which every
+GroupNorm on the card goes through (the convolutional models);
+``group_norm_cluster`` and ``group_norm_bwd_cluster`` count the calls of
+the cluster kernels. No TPU kernel either: XLA fuses the JAX package's GroupNorm and
 SiLU.
 
 ``batch_norm`` and ``batch_norm_bwd`` count the calls of BatchNorm's
@@ -76,9 +77,11 @@ package's scan over the step into a loop on the device.
 
 ``dense_softmax`` and ``dense_softmax_bwd`` count the calls of the dense
 attention's middle (the scale, the masks, the fp32 softmax and the
-probabilities' dropout: ``kernels/dense_attention.py``, one Triton kernel
-each way), which every attention that takes ``_sdpa_reference`` on the
-card goes through (the ``sdpa_plain`` and ``sdpa_dense`` routes,
+probabilities' dropout: ``kernels/dense_attention.py``, one kernel each
+way: the forward ``dense_softmax_forward_plan``'s CUDA kernel,
+``csrc/dense_softmax.cu``, at short rows, which ``dense_softmax_cuda``
+also counts, else Triton; the backward Triton), which every attention that
+takes ``_sdpa_reference`` on the card goes through (the ``sdpa_plain`` and ``sdpa_dense`` routes,
 ``flash_attn_unpadded``). No TPU kernel either: XLA fuses those passes of
 the JAX package's ``_sdpa_reference``.
 
@@ -115,7 +118,8 @@ LAUNCHES = {"ragged_attention": 0, "rms_norm": 0, "rms_norm_residual": 0,
             "batch_norm": 0,
             "batch_norm_bwd": 0, "batch_norm_bwd_cluster": 0, "ctc_fwd": 0,
             "ctc_bwd": 0, "rnnt_fwd": 0, "rnnt_bwd": 0, "dense_softmax": 0,
-            "dense_softmax_bwd": 0, "rnn_fwd": 0, "rnn_fwd_step": 0,
+            "dense_softmax_bwd": 0, "dense_softmax_cuda": 0,
+            "group_norm_cluster": 0, "rnn_fwd": 0, "rnn_fwd_step": 0,
             "rnn_bwd": 0, "rnn_bwd_gates": 0, "rnn_bwd_step": 0,
             "batch_norm_cluster": 0,
             "sdpa_plain": 0,

@@ -1,6 +1,6 @@
 """The dense attention's middle: the scale, the masks, the fp32 softmax and
-the probabilities' dropout, forward and backward, as Triton kernels, and
-their plain PyTorch version.
+the probabilities' dropout, forward and backward, as Triton kernels (and a
+CUDA forward at short rows), and their plain PyTorch version.
 
 No TPU kernel: the JAX package's ``_sdpa_reference``
 (``paddle_tpu/nn/functional/attention.py:20-43``) scales the fp32 scores,
@@ -46,17 +46,28 @@ operations). The design:
   materialised at ``[b, h, sq, sk]``.
 * Sums in a fixed order; no atomics: two calls give the same bits, and a
   captured step replays the eager one's.
+* ``dense_softmax_forward_plan`` sends the forward of rows of a multiple
+  of 4 keys up to ``CUDA_MAX_KEYS`` (Transformer-base's 64, the UNet's
+  self-attentions at 8 x 8 and 16 x 16) to
+  ``csrc/dense_softmax.cu`` instead: a thread holds four keys and draws
+  one Philox block for them (the Triton kernel draws a block for each
+  element and keeps one word), a block walks all heads of its query rows
+  and reads a mask broadcast over the heads once. Longer rows keep the
+  Triton kernel; the backward is Triton at every length, and draws the
+  CUDA kernel's mask bit for bit.
 
 Triton is imported, and the kernels compiled, at the first launch.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import LAUNCHES
 from . import dropout as D
+from ._build import library
 
 tl = None    # triton.language, bound by _jit() at the first launch
 _mask_bits = None   # kernels/dropout.py's, bound by _jit()
@@ -67,6 +78,11 @@ _keep_tile = None
 NEG = -1e30          # the masked score, as the JAX function's
 MAX_ONE = 8192       # the longest row kept whole in registers
 CHUNK = 4096         # a longer row's chunk
+# the longest row the CUDA forward takes, and the longest its kernel holds:
+# ``tools/norm_fwd_plans.py`` timed it faster than the Triton kernel in the
+# same call up to 256 keys, and a build that held 1024 slower at ERNIE's
+# 512 and the UNet's 1024 (PERF.md)
+CUDA_MAX_KEYS = 256
 
 
 def _vis_tile_tl(m_ptr, rows, col, n_rows, sq, h, sk, diag, smb, smh, smq,
@@ -294,6 +310,72 @@ def _warps(r, g):
     return min(16, max(4, r * g * 4 // 256))
 
 
+def dense_softmax_forward_plan(sk):
+    """The forward's route for rows of ``sk`` keys of fp32 scores (the only
+    scores ``_check`` lets through): "cuda" (``csrc/dense_softmax.cu``) for
+    a multiple of 4 keys up to ``CUDA_MAX_KEYS`` (a thread's four keys one
+    float4 and one Philox block), else "triton" (``plan(sk)``'s
+    program)."""
+    if sk % 4 == 0 and 0 < sk <= CUDA_MAX_KEYS:
+        return "cuda"
+    return "triton"
+
+
+_MASK_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.uint8: 3}
+
+
+def _cuda_lib():
+    """The library of ``csrc/dense_softmax.cu``, its entry point's
+    arguments set."""
+    lib = library("dense_softmax")
+    if lib.ptt_error_string.restype is not ctypes.c_char_p:
+        lib.ptt_dense_softmax_fwd.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+            + [ctypes.c_longlong] * 4 + [ctypes.c_uint, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]
+        lib.ptt_dense_softmax_fwd.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cuda_forward(scores, kind, m, ms, causal, scale, kt, site, thresh,
+                  dscale, drop, probs, dropped):
+    """The CUDA forward on contiguous, 16-byte aligned fp32 scores (also
+    called alone: the smoke and the card's tests hold it beside the Triton
+    kernel)."""
+    b, h, sq, sk = scores.shape
+    lib = _cuda_lib()
+    err = lib.ptt_dense_softmax_fwd(
+        scores.data_ptr(), m.data_ptr() if m is not None else 0,
+        probs.data_ptr(), dropped.data_ptr(),
+        kt.data_ptr() if kt is not None else 0, b, h, sq, sk, float(scale),
+        kind, _MASK_CODES[m.dtype] if m is not None else 0, *ms, site,
+        thresh, dscale, int(bool(causal)), int(drop),
+        torch.cuda.current_stream(scores.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("dense_softmax CUDA kernel launch failed: "
+                           + lib.ptt_error_string(err).decode())
+
+
+def _triton_forward(scores, kind, m, ms, causal, scale, kt, site, thresh,
+                    dscale, drop, probs, dropped):
+    """The Triton forward (``plan(sk)``'s program) on contiguous fp32
+    scores."""
+    b, h, sq, sk = scores.shape
+    triton, k = _jit()
+    n_rows = b * h * sq
+    r, g, one = plan(sk)
+    k["fwd"][(triton.cdiv(n_rows, r),)](
+        scores, m if m is not None else scores, probs, dropped,
+        kt if kt is not None else scores, n_rows, sq, h, sk, sk - sq,
+        float(scale), *ms, site, thresh, dscale, MASK=kind,
+        CAUSAL=bool(causal), DROP=drop, ALIGNED=sk % 4 == 0, ONE=one,
+        R=r, G=g, num_warps=_warps(r, g))
+
+
 def _mask_args(mask, shape, device):
     """(kind, tensor, strides) of a mask broadcast to ``shape``: kind 0
     none, 1 bool (read as bytes), 2 additive (fp32, bf16 or fp16, else
@@ -331,24 +413,24 @@ def dense_softmax_forward(scores, mask=None, causal=False, scale=1.0, p=0.0,
                           key=None):
     """(probs, dropped) of ``dense_softmax_plain`` by the forward kernel, on
     CUDA fp32 scores ``[b, h, sq, sk]`` (dropped is probs without a
-    dropout)."""
+    dropout). The route is ``dense_softmax_forward_plan``'s; scores not
+    16-byte aligned take the Triton kernel. ``LAUNCHES["dense_softmax"]``
+    counts every call, ``["dense_softmax_cuda"]`` those of the CUDA
+    kernel."""
     _check("dense_softmax_forward", scores)
     scores = scores.contiguous()
-    b, h, sq, sk = scores.shape
     kind, m, ms = _mask_args(mask, scores.shape, scores.device)
-    kt, site, thresh, dscale, drop = _drop_args(p, key, scores.device)
-    triton, k = _jit()
+    args = (kind, m, ms, causal, scale,
+            *_drop_args(p, key, scores.device))
     probs = torch.empty_like(scores)
-    dropped = torch.empty_like(scores) if drop else probs
-    n_rows = b * h * sq
-    r, g, one = plan(sk)
-    if n_rows and sk:
-        k["fwd"][(triton.cdiv(n_rows, r),)](
-            scores, m if m is not None else scores, probs, dropped,
-            kt if kt is not None else scores, n_rows, sq, h, sk, sk - sq,
-            float(scale), *ms, site, thresh, dscale, MASK=kind,
-            CAUSAL=bool(causal), DROP=drop, ALIGNED=sk % 4 == 0, ONE=one,
-            R=r, G=g, num_warps=_warps(r, g))
+    dropped = torch.empty_like(scores) if args[-1] else probs
+    if scores.numel():
+        if dense_softmax_forward_plan(scores.shape[-1]) == "cuda" \
+                and scores.data_ptr() % 16 == 0:
+            _cuda_forward(scores, *args, probs, dropped)
+            LAUNCHES["dense_softmax_cuda"] += 1
+        else:
+            _triton_forward(scores, *args, probs, dropped)
     LAUNCHES["dense_softmax"] += 1
     return probs, dropped
 
@@ -414,9 +496,9 @@ class DenseSoftmaxFunction(torch.autograd.Function):
 def dense_softmax(scores, mask=None, causal=False, scale=1.0, p=0.0,
                   key=None):
     """The dropped probabilities (the probabilities without a dropout) of
-    fp32 ``scores [b, h, sq, sk]``, differentiable: the Triton kernels on
-    CUDA tensors, ``dense_softmax_plain`` on CPU tensors (see the module's
-    note for what both compute)."""
+    fp32 ``scores [b, h, sq, sk]``, differentiable: the kernels on CUDA
+    tensors (the forward by its plan), ``dense_softmax_plain`` on CPU
+    tensors (see the module's note for what both compute)."""
     p = float(p) if key is not None else 0.0
     if scores.device.type == "cpu":
         return dense_softmax_plain(scores, mask, causal, scale, p, key)[1]
@@ -425,5 +507,6 @@ def dense_softmax(scores, mask=None, causal=False, scale=1.0, p=0.0,
 
 
 __all__ = ["dense_softmax", "dense_softmax_plain", "dense_softmax_forward",
-           "dense_softmax_backward", "DenseSoftmaxFunction", "plan", "NEG",
-           "MAX_ONE", "CHUNK"]
+           "dense_softmax_backward", "DenseSoftmaxFunction", "plan",
+           "dense_softmax_forward_plan", "NEG", "MAX_ONE",
+           "CHUNK", "CUDA_MAX_KEYS"]

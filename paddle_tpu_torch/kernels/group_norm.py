@@ -1,5 +1,5 @@
 """GroupNorm, with a SiLU after it where the model applies one, forward and
-backward: Triton kernels and their plain PyTorch version.
+backward: CUDA and Triton kernels and their plain PyTorch version.
 
 No TPU kernel: the JAX package's ``F.group_norm``
 (``paddle_tpu/nn/functional/norm.py:186-223``) is jnp, which XLA fuses
@@ -28,13 +28,22 @@ the card needs ~295 a byte before compute is the limit). The design:
   122,880 elements each. One program a group would leave half the card
   idle, so a group's spatial range is cut into chunks (``_plan``: about
   four programs an SM, a chunk a whole number of tiles; a small group,
-  as [B, 1280, 8, 8]'s 2,560 elements, is one chunk). The forward is two
-  kernels: ``_gn_stats_kernel`` writes each chunk's fp32 (count, mean,
+  as [B, 1280, 8, 8]'s 2,560 elements, is one chunk). The Triton forward is
+  two kernels: ``_gn_stats_kernel`` writes each chunk's fp32 (count, mean,
   M2), merging its [BLOCK_C, BLOCK_S] tiles by Chan's formula (each
   tile's own mean and centred sum of squares: no E[x^2] - E[x]^2, which
   cancels); ``_gn_fwd_kernel`` merges its group's chunks in a fixed order
   (every program of the group the same bits) and normalises its chunk.
   The chunk's program 0 saves the group's mean and rstd.
+* ``group_norm_forward_plan`` sends the forward of a channels-first x in
+  bf16 or fp16 whose spatial size is a multiple of 8 and whose group fits
+  on chip over at most 8 blocks (every GroupNorm of the UNet) to
+  ``csrc/group_norm_fwd.cu`` instead: one launch, a thread-block cluster a
+  group that reads x once into shared memory; each block sums its share
+  and then the squares about its own mean, the blocks' (count, mean, M2)
+  merge in rank order through distributed shared memory, and y (with the
+  SiLU) is written from shared memory. The rest keeps the two Triton
+  kernels (``_triton_forward``).
 * The backward saves x, the mean and rstd (not an fp32 x-hat) and is
   three kernels: ``_gn_bwd_part_kernel`` recomputes x-hat (and, under
   SiLU, z and dy * silu'(z), rounded where the separate ops round) and
@@ -56,9 +65,9 @@ the card needs ~295 a byte before compute is the limit). The design:
   adds over the samples (two launches). The rest keeps the three Triton
   kernels (``_triton_backward``).
 
-A forward reads x twice (the stats, then the normalisation) and the
-backward reads x and dy twice: the second reads of a chunk come soon
-after the first, mostly from L2.
+The Triton forward reads x twice (the stats, then the normalisation) and
+the Triton backward reads x and dy twice: the second reads of a chunk come
+soon after the first, mostly from L2.
 
 Triton is imported, and the kernels compiled, at the first launch.
 """
@@ -417,6 +426,88 @@ def group_norm_backward_plan(cg, s, channels_last, dtype):
     return GnBwdPlan("triton", 0, 0)
 
 
+# The cluster forward (csrc/group_norm_fwd.cu): 4 (12 + 16) bytes of sums a
+# block, then x at 2 bytes an element
+_FWD_HEAD_BYTES = 112
+
+
+class GnFwdPlan(NamedTuple):
+    """The GroupNorm forward's launch: ``route`` "cluster" (the CUDA kernel:
+    ``cs`` blocks a cluster, a cluster a group, ``smem`` bytes a block) or
+    "triton" (the two Triton kernels, on ``_plan``'s tiles: ``cs`` 0,
+    ``smem`` 0)."""
+    route: str
+    cs: int
+    smem: int
+
+
+def _fwd_smem(cg, s, cs):
+    """Shared memory bytes of a cluster-forward block, which the wrapper
+    hands the kernel: its sums, then its ceil(cg s / 8 / cs) 16-byte
+    vectors of x."""
+    return _FWD_HEAD_BYTES + 16 * -(-(cg * s // 8) // cs)
+
+
+def group_norm_forward_plan(cg, s, channels_last, dtype):
+    """The forward's route for groups of ``cg`` channels of spatial size
+    ``s`` in x's ``dtype`` (the batch and the number of groups give only
+    the grid; the SiLU, the output's dtype and the parameters' do not
+    enter, so the fused SiLU and the separate ops take the same statistics
+    bit for bit): ``"cluster"`` where x is channels first, bf16 or fp16, s
+    a multiple of 8 and a group's share fits ``_CLUSTER_BLOCK_BYTES`` a
+    block over a power of two of blocks up to 8, the fewest that fit (the
+    UNet at batch 4: [4, 960, 64, 64] clusters of 4, [4, 640, 64, 64] and
+    [4, 1920, 32, 32] of 2, the rest one block a group;
+    ``tools/norm_fwd_plans.py`` times every cluster size beside this one:
+    more blocks than the fewest that fit measured no faster at any UNet
+    shape); else ``"triton"`` (NHWC, fp32, odd spatial sizes, groups too
+    large)."""
+    if not channels_last and dtype in (torch.bfloat16, torch.float16) \
+            and s % 8 == 0 and s > 0 and cg > 0:
+        for cs in _CLUSTER_SIZES:
+            smem = _fwd_smem(cg, s, cs)
+            if smem <= _CLUSTER_BLOCK_BYTES:
+                return GnFwdPlan("cluster", cs, smem)
+    return GnFwdPlan("triton", 0, 0)
+
+
+def _check_err(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.ptt_error_string(err).decode())
+
+
+def _fwd_lib():
+    """The library of ``csrc/group_norm_fwd.cu``, its entry point's
+    arguments set."""
+    lib = library("group_norm_fwd")
+    if lib.ptt_error_string.restype is not ctypes.c_char_p:
+        lib.ptt_group_norm_fwd.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        lib.ptt_group_norm_fwd.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cluster_forward(x, weight, bias, y, stats, num_groups, eps, silu,
+                     plan):
+    """The cluster kernel on contiguous channels-first CUDA tensors, on a
+    "cluster" ``GnFwdPlan`` (also called alone: the smoke and the card's
+    tests time and hold it beside the Triton route)."""
+    n, c = x.shape[0], x.shape[1]
+    s = x.numel() // (n * c)
+    lib = _fwd_lib()
+    _check_err(lib, lib.ptt_group_norm_fwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        stats.data_ptr(), n, c, num_groups, s, plan.cs, plan.smem,
+        float(eps), _CODES[x.dtype], _CODES[weight.dtype],
+        _CODES[bias.dtype], _CODES[y.dtype], int(bool(silu)),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "group_norm_fwd cluster kernel")
+
+
 def _cluster_lib():
     """The library of ``csrc/group_norm_bwd.cu``, its entry point's
     arguments set."""
@@ -445,9 +536,7 @@ def _cluster_backward(x, weight, bias, stats, dy, num_groups, silu, dx, sums,
         _CODES[dy.dtype],
         _CODES[weight.dtype], _CODES[bias.dtype], int(bool(silu)),
         torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("group_norm_bwd cluster kernel launch failed: "
-                           + lib.ptt_error_string(err).decode())
+    _check_err(lib, err, "group_norm_bwd cluster kernel")
 
 
 # -- plain versions -----------------------------------------------------------------
@@ -514,6 +603,72 @@ def group_stats_split_plain(x, num_groups, n_chunks, channels_last=False):
         total = merge(total, acc)
     cnt, mean, m2 = total
     return mean, m2 / cnt
+
+
+def group_stats_cluster_plain(x, num_groups, cs):
+    """(mean, var) [N, G] of x's groups (x [N, C, ...] channels first, its
+    spatial size a multiple of 8) in the cluster forward's order, fp32 on
+    x's device: a group's 16-byte vectors cut into ``cs`` ranks of
+    ceil(Cg S / 8 / cs); in each rank thread t adds its vectors t, t + 512,
+    ... (each vector's 8 values in order), then the xor tree over a warp's
+    lanes and the 16 warps in order give the rank's sum, its mean, then in
+    the same order the sum of the squares about that mean (each square
+    rounded before it is added); the ranks' (count, mean, M2) merged in
+    rank order by Chan's formula, every operation rounded apart; var = M2
+    / (Cg S). The kernel's statistics are these bit for bit (a card test
+    holds them), its rstd ``1 / sqrt(var + eps)`` of them in fp32."""
+    from .fused import xor_tree_plain
+    n, c = x.shape[0], x.shape[1]
+    cg = c // num_groups
+    m = cg * (x.numel() // (n * c))
+    vpb = -(-(m // 8) // cs)
+    steps = -(-vpb // _CLUSTER_THREADS)
+    pad = torch.nn.functional.pad
+
+    def lanes(t):
+        """[n, G, m] to [n, G, cs, steps, threads, 8]: rank, step, thread,
+        the vector's values (zeros past the group)."""
+        t = pad(t, (0, cs * vpb * 8 - m)).reshape(n, num_groups, cs, vpb, 8)
+        return pad(t, (0, 0, 0, steps * _CLUSTER_THREADS - vpb)).reshape(
+            n, num_groups, cs, steps, _CLUSTER_THREADS, 8)
+
+    def block_total(t):
+        """[n, G, cs]: each rank's sum in the kernel's order."""
+        acc = torch.zeros(n, num_groups, cs, _CLUSTER_THREADS,
+                          device=x.device)
+        for k in range(steps):
+            for e in range(8):
+                acc = acc + t[:, :, :, k, :, e]
+        warps = xor_tree_plain(acc.reshape(n, num_groups, cs, -1,
+                                           32))[..., 0]
+        out = torch.zeros(n, num_groups, cs, device=x.device)
+        for w in range(warps.shape[-1]):
+            out = out + warps[..., w]
+        return out
+    vals = lanes(x.reshape(n, num_groups, m).float())
+    valid = lanes(torch.ones(n, num_groups, m, device=x.device)) != 0
+    # the ranks' counts; divisions tensor by tensor (a CUDA division by a
+    # Python number is a product with its reciprocal, not the kernel's
+    # quotient)
+    counts = [float(max(0, min(vpb, m // 8 - r * vpb)) * 8)
+              for r in range(cs)]
+    nb = torch.tensor(counts, device=x.device).expand(n, num_groups, cs)
+    bmean = torch.where(nb > 0, block_total(vals) / nb.clamp(min=1.0), 0.0)
+    d = vals - bmean[..., None, None, None]
+    bm2 = block_total(torch.where(valid, d * d, 0.0))
+    cnt = torch.zeros(n, num_groups, device=x.device)
+    mean, m2 = torch.zeros_like(cnt), torch.zeros_like(cnt)
+    for r in range(cs):
+        if counts[r] == 0:
+            continue
+        cb = nb[..., r]
+        tot = cnt + cb
+        dr = bmean[..., r] - mean
+        wt = cb / tot
+        mean = mean + dr * wt
+        m2 = (m2 + bm2[..., r]) + dr * dr * cnt * wt
+        cnt = tot
+    return mean, m2 / torch.full_like(m2, float(m))
 
 
 def _cluster_channel_sums(t, num_groups, cs):
@@ -662,30 +817,47 @@ def _warps(bc, bs):
     return 8 if bc * bs >= _TILE else 4
 
 
+def _triton_forward(x, weight, bias, y, stats, num_groups, eps,
+                    channels_last, silu):
+    """The two Triton kernels: the chunks' statistics, then y (also called
+    alone: the smoke and the card's tests hold the cluster kernel against
+    them)."""
+    triton, k, grid, geo, bc, bs, n_chunks = _args(x, num_groups,
+                                                   channels_last)
+    part = torch.empty(grid[0] * n_chunks, 3, dtype=torch.float32,
+                       device=x.device)
+    nw = _warps(bc, bs)
+    k["stats"][grid](x, part, *geo, BLOCK_C=bc, BLOCK_S=bs, num_warps=nw)
+    k["fwd"][grid](x, weight, bias, y, part, stats, *geo, float(eps),
+                   SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs, num_warps=nw)
+
+
 def group_norm_forward(x, weight, bias, num_groups, eps=1e-5,
                        channels_last=False, silu=False, out_dtype=None):
-    """(y, stats) of the forward kernels on a contiguous CUDA x: y in
+    """(y, stats) of the forward kernel on a contiguous CUDA x: y in
     ``out_dtype`` (x's dtype), stats the fp32 (mean, rstd) of each
     (sample, group), ``[N * G, 2]``. ``weight`` and ``bias`` are tensors
-    of [C], in any dtype."""
-    _check(x, num_groups, weight, bias, channels_last)
+    of [C], in any dtype. The route is ``group_norm_forward_plan``'s; an x
+    not 16-byte aligned takes the Triton kernels.
+    ``LAUNCHES["group_norm"]`` counts every call,
+    ``["group_norm_cluster"]`` those of the cluster kernel."""
+    n, c, s = _check(x, num_groups, weight, bias, channels_last)
     out_dtype = out_dtype or x.dtype
     if out_dtype not in _DTYPES:
         raise ValueError(f"group_norm writes {_DTYPES}, not {out_dtype}")
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    n = x.shape[0]
     stats = torch.empty(n * num_groups, 2, dtype=torch.float32,
                         device=x.device)
     if x.numel():
-        triton, k, grid, geo, bc, bs, n_chunks = _args(x, num_groups,
-                                                       channels_last)
-        part = torch.empty(grid[0] * n_chunks, 3, dtype=torch.float32,
-                           device=x.device)
-        nw = _warps(bc, bs)
-        k["stats"][grid](x, part, *geo, BLOCK_C=bc, BLOCK_S=bs,
-                         num_warps=nw)
-        k["fwd"][grid](x, weight, bias, y, part, stats, *geo, float(eps),
-                       SILU=bool(silu), BLOCK_C=bc, BLOCK_S=bs, num_warps=nw)
+        plan = group_norm_forward_plan(c // num_groups, s, channels_last,
+                                       x.dtype)
+        if plan.route == "cluster" and x.data_ptr() % 16 == 0:
+            _cluster_forward(x, weight, bias, y, stats, num_groups, eps,
+                             silu, plan)
+            LAUNCHES["group_norm_cluster"] += 1
+        else:
+            _triton_forward(x, weight, bias, y, stats, num_groups, eps,
+                            channels_last, silu)
     LAUNCHES["group_norm"] += 1
     return y, stats
 
@@ -780,8 +952,8 @@ def group_norm(x, num_groups, weight=None, bias=None, eps=1e-5,
                channels_last=False, silu=False, out_dtype=None):
     """GroupNorm of x ([N, C, ...], or [N, ..., C] with ``channels_last``)
     over ``num_groups`` groups, written in ``out_dtype`` (x's dtype), with
-    ``silu`` a SiLU after it; differentiable: on a CUDA tensor the Triton
-    kernels (forward and backward), on a CPU tensor
+    ``silu`` a SiLU after it; differentiable: on a CUDA tensor the kernels
+    (forward and backward, each by its plan), on a CPU tensor
     ``group_norm_plain``."""
     if x.device.type == "cpu":
         return group_norm_plain(x, num_groups, weight, bias, eps,
@@ -795,7 +967,9 @@ def group_norm(x, num_groups, weight=None, bias=None, eps=1e-5,
 
 
 __all__ = ["group_norm", "group_norm_plain", "group_stats_split_plain",
+           "group_stats_cluster_plain",
            "group_norm_forward", "group_norm_backward", "GroupNormFunction",
+           "group_norm_forward_plan", "GnFwdPlan",
            "group_norm_backward_plan", "GnBwdPlan",
            "group_norm_backward_split_plain",
            "group_norm_column_sums_split_plain"]

@@ -45,7 +45,11 @@ ReLU, and a graph replay bit-equal to an eager call. The recurrence
 (every mode, both directions, a cell step and a sequence): outputs within
 1e-5 and gradients within 1e-4 of the largest plain value (fp32 sums in
 another order, over the steps), two calls and a graph replay bit-equal;
-a beam decode's tokens and lengths equal to the CPU's.
+a beam decode's tokens and lengths equal to the CPU's. GroupNorm's
+cluster forward: as GroupNorm, and its statistics bit-equal to their
+emulation (the same fp32 sums in the same order). X2's CUDA forward: each
+probability within 2e-5 of its size (fp32 sums in another order), its
+keep mask bit-equal to the plain version's.
 """
 import numpy as np
 import pytest
@@ -668,7 +672,8 @@ def test_sdpa_routes_what_the_kernels_lack(dev, dtype, sq, sk, d, causal):
     """On the card too, a call the flash kernels do not take runs the plain
     path (the same function on the CPU), counted once; no flash kernel
     launches, only the dense middle's (X2) forward and backward, once
-    each; gradients flow."""
+    each (the forward on the CUDA kernel where its plan takes the row);
+    gradients flow."""
     from paddle_tpu_torch.nn import functional as F
     g = torch.Generator().manual_seed(d)
     q, k, v = (torch.randn(2, s, 3, d, generator=g).to(dtype)
@@ -680,7 +685,10 @@ def test_sdpa_routes_what_the_kernels_lack(dev, dtype, sq, sk, d, causal):
     got.float().sum().backward()
     torch.cuda.synchronize()
     assert K.LAUNCHES["sdpa_plain"] == before["sdpa_plain"] + 1
-    x2 = ("dense_softmax", "dense_softmax_bwd")
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    x2 = ("dense_softmax", "dense_softmax_bwd") + (
+        ("dense_softmax_cuda",)
+        if DA.dense_softmax_forward_plan(sk) == "cuda" else ())
     assert K.kernel_launches() == {n: c + (n in x2)
                                    for n, c in before.items()
                                    if n not in K.ROUTED}
@@ -2444,22 +2452,25 @@ def test_group_norm_fused_silu_is_the_o2_composition(dev, shape):
     """Under ``amp.auto_cast(level="O2")`` with bf16 x and parameters, the
     fused call (``then="silu"``: the kernel reads bf16 and writes the bf16
     SiLU) against the separate ops (the black-listed norm in fp32, then
-    the SiLU on its cast): the norm's output bit-equal, the SiLU's output
-    and every gradient within one bf16 ulp of each value (bit-equal where
-    the kernel's fp32 SiLU is PyTorch's)."""
+    the SiLU on its cast), all three forwards on the cluster kernel: the
+    norm's output and the fused SiLU's bit-equal (the kernel's fp32 SiLU
+    is PyTorch's), every gradient within one bf16 ulp of each value."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.nn import functional as F
     x, w, b, dy = _gn_inputs(dev, torch.bfloat16, shape)
     fused_in = [t.clone().requires_grad_() for t in (x, w, b)]
     sep_in = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = K.LAUNCHES["group_norm_cluster"]
     with amp.auto_cast(level="O2"):
         y = F.group_norm(fused_in[0], 32, 1e-5, fused_in[1], fused_in[2],
                          then="silu")
         norm = F.group_norm(sep_in[0], 32, 1e-5, sep_in[1], sep_in[2])
         want = F.silu(norm)
         norm_cast = F.group_norm(x, 32, 1e-5, w, b, then="conv2d")
+    assert K.LAUNCHES["group_norm_cluster"] - before == 3
     assert norm.dtype == torch.float32 and y.dtype == torch.bfloat16
     assert torch.equal(norm_cast, norm.to(torch.bfloat16))
+    assert torch.equal(y, want)
     y.backward(dy)
     want.backward(dy)
     torch.cuda.synchronize()
@@ -3106,12 +3117,21 @@ def test_dense_softmax_twice_and_replayed_are_bit_equal(dev):
 
 
 def test_dense_softmax_refuses_what_it_does_not_take(dev):
+    """The wrapper refuses what neither kernel takes; the CUDA forward
+    refuses rows off a multiple of 4 keys or past its 256 (a launch that
+    would fail raises, it does not fall back)."""
     from paddle_tpu_torch.kernels import dense_attention as DA
     with pytest.raises(ValueError, match="fp32"):
         DA.dense_softmax_forward(torch.zeros(2, 3, 4, device=dev))
     with pytest.raises(ValueError, match="fp32"):
         DA.dense_softmax_forward(torch.zeros(1, 1, 2, 3, device=dev,
                                              dtype=torch.bfloat16))
+    for sk in (6, 260, 2048):
+        s = torch.zeros(1, 1, 2, sk, device=dev)
+        with pytest.raises(RuntimeError, match="dense_softmax CUDA kernel"):
+            DA._cuda_forward(s, 0, None, (0, 0, 0, 0), False, 1.0, None, 0,
+                             0, 1.0, False, torch.empty_like(s),
+                             torch.empty_like(s))
 
 
 @pytest.mark.parametrize("route", ["sdpa", "unpadded", "flashmask_dropout"])
@@ -3750,7 +3770,9 @@ def test_cuda_keep_mask_is_the_plain_mask(dev, start, count, p):
     """The CUDA LayerNorm backward's Philox4x32-10 draws
     ``dropout.keep_mask_plain``'s bits, a block a thread as the kernel's
     rows (whose starts are multiples of 8), past 2^34 elements too, where
-    the block's counter takes its second word. Rows off a multiple of 8
+    the block's counter takes its second word; the dense attention's CUDA
+    forward (the same ``csrc/philox_common.cuh``) draws them too, over the
+    windows a call can hold (up to 2^20 elements). Rows off a multiple of 8
     (the unaligned layout) take the Triton kernel, which
     ``test_dropout_add_layer_norm_matches_plain`` holds at width 130."""
     from paddle_tpu_torch.kernels import dropout as D
@@ -3766,6 +3788,18 @@ def test_cuda_keep_mask_is_the_plain_mask(dev, start, count, p):
         want = (words.gather(1, (e & 3)[:, None])[:, 0] >> 8) \
             >= D.threshold(p)
     assert torch.equal(fused.keep_mask_cuda(count, p, key, start), want)
+    if start + count <= 1 << 20:
+        # the dense attention's CUDA forward draws the same words: on equal
+        # scores every probability is 1 / 64, so the kept ones are the
+        # dropped probs that are not 0
+        from paddle_tpu_torch.kernels import dense_attention as DA
+        rows = -(-(start + count) // 64)
+        before = K.LAUNCHES["dense_softmax_cuda"]
+        _, dropped = DA.dense_softmax_forward(
+            torch.zeros(1, 1, rows, 64, device=dev), p=p, key=key)
+        assert K.LAUNCHES["dense_softmax_cuda"] == before + 1
+        assert torch.equal(dropped.reshape(-1)[start:start + count] != 0,
+                           want)
 
 
 def test_layer_norm_functional_backward_takes_the_warp_kernel(dev):
@@ -3894,16 +3928,18 @@ def test_group_norm_cluster_backward_matches_plain(dev, shape, dtype, silu):
 @pytest.mark.parametrize("shape", [(4, 320, 64, 64), (4, 960, 64, 64),
                                    (2, 1280, 8, 8)])
 def test_group_norm_cluster_fused_silu_is_bit_equal_to_the_o2_ops(dev, shape):
-    """Under ``amp.auto_cast(level="O2")`` on the cluster kernel, the fused
-    SiLU's gradients (dz drawn in the kernel, rounded where PyTorch's SiLU
-    backward rounds) equal the separate ops' bit for bit: the same plan
-    whatever dy's dtype (dz is kept in fp32)."""
+    """Under ``amp.auto_cast(level="O2")`` on the cluster kernels, the
+    fused SiLU's output and gradients (dz drawn in the kernel, rounded where
+    PyTorch's SiLU backward rounds) equal the separate ops' bit for bit:
+    the same plans whatever the output's and dy's dtypes (dz is kept in
+    fp32)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.nn import functional as F
     x, w, b, dy = _gn_inputs(dev, torch.bfloat16, shape)
     fused_in = [t.clone().requires_grad_() for t in (x, w, b)]
     sep_in = [t.clone().requires_grad_() for t in (x, w, b)]
-    before = K.LAUNCHES["group_norm_bwd_cluster"]
+    before = (K.LAUNCHES["group_norm_cluster"],
+              K.LAUNCHES["group_norm_bwd_cluster"])
     with amp.auto_cast(level="O2"):
         y = F.group_norm(fused_in[0], 32, 1e-5, fused_in[1], fused_in[2],
                          then="silu")
@@ -3912,6 +3948,239 @@ def test_group_norm_cluster_fused_silu_is_bit_equal_to_the_o2_ops(dev, shape):
     y.backward(dy)
     want.backward(dy)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["group_norm_bwd_cluster"] - before == 2
+    assert (K.LAUNCHES["group_norm_cluster"] - before[0],
+            K.LAUNCHES["group_norm_bwd_cluster"] - before[1]) == (2, 2)
+    assert torch.equal(y, want), int((y != want).sum())
     for a, c in zip(fused_in, sep_in):
         assert torch.equal(a.grad, c.grad)
+
+
+# -- GroupNorm's cluster forward, X2's CUDA forward -----------------------------
+
+@pytest.mark.parametrize("shape", _GN_CLUSTER_SHAPES + [(2, 6, 16, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_group_norm_cluster_forward_matches_plain(dev, shape, dtype):
+    """The cluster GroupNorm forward, on its route (counted once and on
+    the cluster kernel), with and without the SiLU: y against the plain
+    formula (each row within one ulp of its largest value, two with the
+    SiLU) and against the Triton kernels (the same tolerance); its
+    statistics bit-equal to ``group_stats_cluster_plain``'s (rstd its fp32
+    ``1 / sqrt(var + eps)`` on the card); two calls and a graph replay
+    bit-equal; the
+    cluster backward on these statistics against the plain gradients (two
+    ulps). (2, 6, 16, 16) is instance norm's one channel a group."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    groups = 32 if shape[1] % 32 == 0 else shape[1]
+    x, w, b, dy = _gn_inputs(dev, dtype, shape)
+    n, c = shape[:2]
+    s = x.numel() // (n * c)
+    plan = GN.group_norm_forward_plan(c // groups, s, False, dtype)
+    assert plan.route == "cluster"
+    mean, var = GN.group_stats_cluster_plain(x, groups, plan.cs)
+    for silu in (False, True):
+        before = (K.LAUNCHES["group_norm"], K.LAUNCHES["group_norm_cluster"])
+        y, stats = GN.group_norm_forward(x, w, b, groups, 1e-5, False, silu)
+        torch.cuda.synchronize()
+        assert (K.LAUNCHES["group_norm"] - before[0],
+                K.LAUNCHES["group_norm_cluster"] - before[1]) == (1, 1)
+        # fp32 ops on the card (the CPU's sqrt may differ in the last bits)
+        v = var.reshape(-1)
+        rstd = torch.ones_like(v) / torch.sqrt(v + torch.full_like(v, 1e-5))
+        assert torch.equal(stats[:, 0], mean.reshape(-1)), int(
+            (stats[:, 0] != mean.reshape(-1)).sum())
+        assert torch.equal(stats[:, 1], rstd), int((stats[:, 1] != rstd).sum())
+        y2, stats2 = GN.group_norm_forward(x, w, b, groups, 1e-5, False,
+                                           silu)
+        assert torch.equal(y, y2) and torch.equal(stats, stats2)
+        ulps = 2 if silu else 1
+        _gn_close(y, GN.group_norm_plain(x, groups, w, b, 1e-5, False, silu),
+                  dtype, ulps)
+        ty, ts = torch.empty_like(x), torch.empty_like(stats)
+        GN._triton_forward(x, w, b, ty, ts, groups, 1e-5, False, silu)
+        _gn_close(y, ty, dtype, ulps)
+        assert _replays_equal(lambda: GN.group_norm_forward(
+            x, w, b, groups, 1e-5, False, silu))
+    got = GN.group_norm_backward(x, w, b, stats, dy, groups, False, True)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    GN.group_norm_plain(leaves[0], groups, leaves[1], leaves[2], 1e-5,
+                        False, True).backward(dy)
+    for a, pl in zip(got, leaves):
+        _gn_close(a.to(dtype), pl.grad, dtype, 2)
+
+
+def test_group_norm_cluster_forward_without_affine_and_out_dtype(dev):
+    """No weight and no bias (fp32 ones and zeros stand in), and a bf16 x
+    written in fp32, bf16 and fp16, with and without the SiLU, on the
+    cluster kernel: the same statistics whatever the output's dtype, fp32
+    within 2e-5 of the largest value, 16 bits one ulp of each row's largest
+    (two with the SiLU)."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    x, _, _, _ = _gn_inputs(dev, torch.bfloat16, (2, 64, 16, 16),
+                            affine=False)
+    before = K.LAUNCHES["group_norm_cluster"]
+    stats = []
+    for od in (torch.float32, torch.bfloat16, torch.float16):
+        for silu in (False, True):
+            got = GN.group_norm(x, 8, out_dtype=od, silu=silu)
+            want = GN.group_norm_plain(x, 8, out_dtype=od, silu=silu)
+            assert got.dtype == od
+            _gn_close(got, want, od, 2 if silu else 1)
+            w = torch.ones(64, device=dev)
+            stats.append(GN.group_norm_forward(x, w, torch.zeros_like(w), 8,
+                                               out_dtype=od, silu=silu)[1])
+    assert K.LAUNCHES["group_norm_cluster"] - before == 12
+    assert all(torch.equal(stats[0], t) for t in stats)
+
+
+def test_group_norm_cluster_kernels_launch_from_threads(dev):
+    """The cluster forward and backward launched from 6 host threads at
+    once, 20 rounds each, at three shapes whose blocks take different
+    shared memory on the same kernel (bf16 with the SiLU): every launch
+    succeeds and gives the bits of the same call made alone. The kernels'
+    shared memory limit is the function's, so a limit set per launch let
+    one thread's smaller size land between another's setting and its
+    launch (invalid argument)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.kernels import group_norm as GN
+    shapes = [(4, 320, 64, 64), (4, 960, 64, 64), (4, 1280, 8, 8)]
+    smems = {GN.group_norm_forward_plan(s[1] // 32, s[2] * s[3], False,
+                                        torch.bfloat16).smem for s in shapes}
+    assert len(smems) == 3
+    inputs = [_gn_inputs(dev, torch.bfloat16, s) for s in shapes]
+
+    def run(i):
+        x, w, b, dy = inputs[i]
+        y, stats = GN.group_norm_forward(x, w, b, 32, 1e-5, False, True)
+        dx = GN.group_norm_backward(x, w, b, stats, dy, 32, False, True)[0]
+        torch.cuda.current_stream().synchronize()
+        return y, stats, dx
+
+    alone = [run(i) for i in range(len(shapes))]
+    with ThreadPoolExecutor(6) as ex:
+        got = list(ex.map(run, [k % len(shapes) for k in range(120)]))
+    for k, outs in enumerate(got):
+        for a, want in zip(outs, alone[k % len(shapes)]):
+            assert torch.equal(a, want), k
+
+
+def test_group_norm_forward_takes_triton_off_its_plan(dev):
+    """NHWC, fp32, a spatial size off a multiple of 8 and an x not 16-byte
+    aligned take the Triton kernels (not counted on the cluster kernel);
+    the cluster kernel itself raises on a spatial size it cannot take."""
+    from paddle_tpu_torch.kernels import group_norm as GN
+    before = K.LAUNCHES["group_norm_cluster"]
+    for dtype, shape, last in ((torch.float32, (2, 64, 8, 8), False),
+                               (torch.bfloat16, (2, 8, 8, 64), True),
+                               (torch.bfloat16, (2, 64, 5, 7), False)):
+        x = torch.randn(shape, device=dev).to(dtype)
+        GN.group_norm_forward(x, torch.ones(64, device=dev),
+                              torch.zeros(64, device=dev), 8, 1e-5, last)
+    off = torch.randn(2 * 64 * 64 + 1, device=dev).bfloat16()[1:].view(
+        2, 64, 8, 8)
+    y, _ = GN.group_norm_forward(off, torch.ones(64, device=dev),
+                                 torch.zeros(64, device=dev), 8)
+    _gn_close(y, GN.group_norm_plain(off, 8), torch.bfloat16, 1)
+    assert K.LAUNCHES["group_norm_cluster"] == before
+    x = torch.randn(2, 64, 5, 7, device=dev).bfloat16()
+    stats = torch.empty(16, 2, device=dev)
+    with pytest.raises(RuntimeError, match="group_norm_fwd cluster kernel"):
+        GN._cluster_forward(x, torch.ones(64, device=dev),
+                            torch.zeros(64, device=dev), torch.empty_like(x),
+                            stats, 8, 1e-5, False, GN.GnFwdPlan("cluster", 1,
+                                                                4096))
+
+
+@pytest.mark.parametrize("form", X2_FORMS,
+                         ids=lambda f: "none" if f is None else "-".join(f))
+@pytest.mark.parametrize("causal,sq,sk,p", [
+    (False, 64, 64, 0.1), (True, 64, 64, 0.1), (True, 40, 128, 0.0),
+    (True, 70, 32, 0.1), (False, 9, 20, 0.5), (False, 33, 128, 0.1),
+    (True, 17, 256, 0.1), (False, 5, 200, 0.1)])
+def test_dense_softmax_cuda_forward_matches_plain(dev, form, causal, sq, sk,
+                                                  p):
+    """X2's CUDA forward on its route (counted once, on the CUDA kernel):
+    the probs element by element within 2e-5 of their size against the
+    plain version and the Triton kernel; its keep mask
+    ``keep_mask_plain``'s bit for bit (the dropped probs its probs under
+    it); the Triton backward on its output against the plain version's
+    autograd; rows without a key (causal with sq > sk), rows of 20 keys
+    (8 lanes) and of 200 and 256 (two chunks a lane, the second partly
+    past the row), every mask form through its strides."""
+    from paddle_tpu_torch.framework.random import RandomKey
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    from paddle_tpu_torch.kernels import dropout as D
+    b, h = 2, 3
+    assert DA.dense_softmax_forward_plan(sk) == "cuda"
+    g = torch.Generator(device=dev).manual_seed(sq + sk + 1)
+    scores = torch.randn(b, h, sq, sk, device=dev, generator=g) * 4
+    gy = torch.randn(b, h, sq, sk, device=dev, generator=g)
+    mask = _x2_mask(dev, form, b, h, sq, sk, sk)
+    key = RandomKey(torch.tensor([5, 6], device=dev), 9) if p else None
+    before = (K.LAUNCHES["dense_softmax"], K.LAUNCHES["dense_softmax_cuda"])
+    probs, dropped = DA.dense_softmax_forward(scores, mask, causal, 0.3, p,
+                                              key)
+    assert (K.LAUNCHES["dense_softmax"] - before[0],
+            K.LAUNCHES["dense_softmax_cuda"] - before[1]) == (1, 1)
+    pp, _ = DA.dense_softmax_plain(scores, mask, causal, 0.3, p, key)
+    _x2_close(probs, pp, pp.abs())
+    args = (*DA._mask_args(mask, scores.shape, dev), causal, 0.3,
+            *DA._drop_args(p, key, scores.device))
+    tp = torch.empty_like(scores)
+    td = torch.empty_like(scores) if p else tp
+    DA._triton_forward(scores, *args, tp, td)
+    _x2_close(probs, tp, tp.abs())
+    scale = D.scale_of(p, "upscale_in_train") if p else 1.0
+    if p:
+        keep = D.keep_mask_plain(tuple(scores.shape), p, key, dev)
+        assert torch.equal(dropped, torch.where(
+            keep, probs * scale, torch.zeros((), device=dev)))
+        assert torch.equal(td != 0, keep & (tp != 0))
+    ds, _ = DA.dense_softmax_backward(gy, probs, mask, causal, 0.3, p, key)
+    sp = scores.clone().requires_grad_()
+    (want_ds,) = torch.autograd.grad(
+        DA.dense_softmax_plain(sp, mask, causal, 0.3, p, key)[1], sp, gy)
+    gp = gy * (dropped != 0) * scale
+    size = probs * (gp.abs() + (gp.abs() * probs).sum(-1, keepdim=True))
+    _x2_close(ds, want_ds, 0.3 * size)
+    again = DA.dense_softmax_forward(scores, mask, causal, 0.3, p, key)
+    assert torch.equal(probs, again[0]) and torch.equal(dropped, again[1])
+
+
+def test_dense_softmax_cuda_forward_replays_with_new_keys(dev):
+    """Transformer-base's decoder middle ([64, 8, 64, 64], the additive
+    [64, 1, 64, 64] mask, p 0.1) on the CUDA forward, captured with its
+    Triton backward in a CUDA graph: replays with a new key and new scores
+    equal eager calls bit for bit."""
+    from paddle_tpu_torch.framework.random import RandomKey
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    g = torch.Generator(device=dev).manual_seed(8)
+    scores = torch.randn(64, 8, 64, 64, device=dev, generator=g)
+    mask = torch.triu(torch.full((64, 64), -1e9, device=dev), 1) \
+        + torch.randn(64, 1, 64, 64, device=dev, generator=g)
+    gy = torch.randn(64, 8, 64, 64, device=dev, generator=g)
+    keyt = torch.tensor([1, 2], device=dev)
+
+    def step():
+        s = scores.clone().requires_grad_()
+        y = DA.dense_softmax(s, mask, False, 0.125, 0.1, RandomKey(keyt, 3))
+        return y, torch.autograd.grad(y, s, gy)[0]
+    before = K.LAUNCHES["dense_softmax_cuda"]
+    a = step()
+    assert K.LAUNCHES["dense_softmax_cuda"] == before + 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_cap, d_cap = step()
+    for words in ((7, 8), (2 ** 32 - 1, 5)):
+        keyt.copy_(torch.tensor(words))
+        scores.copy_(torch.randn(scores.shape, device=dev, generator=g))
+        graph.replay()
+        y, d = step()
+        torch.cuda.synchronize()
+        assert torch.equal(y_cap, y) and torch.equal(d_cap, d)
+    assert not torch.equal(a[0], y)

@@ -2,11 +2,14 @@
 (``kernels/rnn.py`` ``rnn_forward_plan``, ``rnn_backward_plan``), of
 BatchNorm's forward and backward (``kernels/batch_norm.py``
 ``batch_norm_forward_plan``, ``batch_norm_backward_plan``), of the
-LayerNorm backward (``kernels/fused.py`` ``layer_norm_backward_plan``) and
-of GroupNorm's backward (``kernels/group_norm.py``
-``group_norm_backward_plan``), on the CPU: pure Python, no ``triton``, no
-``nvcc``, no card; and the CPU emulations of the two CUDA backwards'
-fixed-order sums against float64.
+LayerNorm backward (``kernels/fused.py`` ``layer_norm_backward_plan``), of
+GroupNorm's forward and backward (``kernels/group_norm.py``
+``group_norm_forward_plan``, ``group_norm_backward_plan``) and of the
+dense attention's forward (``kernels/dense_attention.py``
+``dense_softmax_forward_plan``), on the CPU: pure Python, no ``triton``,
+no ``nvcc``, no card; and the CPU emulations of the CUDA normalisations'
+fixed-order sums against float64 (GroupNorm's forward also against the
+JAX ``group_norm``).
 
 What they must hold for the kernels they pick: the persistent kernel's
 grid at most one block an SM (its blocks wait on each other at every
@@ -623,3 +626,105 @@ def test_group_norm_split_sums_match_float64(shape, groups, cs, silu):
     for got, ref in zip((dw, db, sa, sb), want):
         assert got.dtype == torch.float32
         assert float((got.double() - ref).abs().max()) <= 1e-5 * mag
+
+
+# -- GroupNorm's forward ------------------------------------------------------
+
+def test_group_norm_forward_plan_routes_the_unet():
+    """Every GroupNorm of the UNet (bf16 x under O2, G 32) takes the cluster
+    forward, within the two-blocks-an-SM budget, and instance_norm's G = C
+    at its shapes; the plan reads only the group's shape, the layout and
+    x's dtype, so the SiLU and the output's dtype cannot change it (the
+    fused SiLU and the separate O2 ops take the same statistics)."""
+    import inspect
+    assert list(inspect.signature(GN.group_norm_forward_plan).parameters) \
+        == ["cg", "s", "channels_last", "dtype"]
+    for n, c, h in _unet_group_norm_calls():
+        plan = GN.group_norm_forward_plan(c // 32, h * h, False,
+                                          torch.bfloat16)
+        assert plan.route == "cluster", (n, c, h)
+        assert plan.cs in (1, 2, 4, 8)
+        assert plan.smem <= GN._CLUSTER_BLOCK_BYTES <= SMEM
+        vectors = math.ceil(c // 32 * h * h / 8 / plan.cs)
+        assert plan.smem == GN._FWD_HEAD_BYTES + 16 * vectors
+        assert plan == GN.group_norm_forward_plan(c // 32, h * h, False,
+                                                  torch.float16)
+    for cg, s in ((1, 56 * 56), (1, 64 * 64), (1, 8)):
+        assert GN.group_norm_forward_plan(cg, s, False,
+                                          torch.bfloat16)[:2] == ("cluster", 1)
+    assert GN.group_norm_forward_plan(30, 4096, False,
+                                      torch.bfloat16)[:2] == ("cluster", 4)
+    assert GN.group_norm_forward_plan(10, 4096, False,
+                                      torch.bfloat16)[:2] == ("cluster", 1)
+
+
+def test_group_norm_forward_plan_keeps_within_the_card():
+    """The fewest blocks of a power of two up to 8 whose share of a group
+    fits; NHWC, fp32, spatial sizes off a multiple of 8 and groups that fit
+    nowhere take the Triton kernels."""
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for last in (False, True):
+            for cg in (1, 2, 3, 10, 30, 40, 80, 200, 600):
+                for s in (1, 7, 8, 64, 63, 256, 1024, 4096, 16384, 65536):
+                    plan = GN.group_norm_forward_plan(cg, s, last, dtype)
+                    fits = [cs for cs in (1, 2, 4, 8)
+                            if GN._fwd_smem(cg, s, cs)
+                            <= GN._CLUSTER_BLOCK_BYTES]
+                    if not last and dtype != torch.float32 and s % 8 == 0 \
+                            and fits:
+                        assert plan == GN.GnFwdPlan(
+                            "cluster", fits[0], GN._fwd_smem(cg, s, fits[0]))
+                        assert 16 * math.ceil(cg * s / 8 / fits[0]) \
+                            < plan.smem
+                    else:
+                        assert plan == GN.GnFwdPlan("triton", 0, 0)
+    assert GN.group_norm_forward_plan(600, 65536, False,
+                                      torch.bfloat16).route == "triton"
+
+
+@pytest.mark.parametrize("shape,groups,cs", [
+    ((2, 64, 16, 16), 8, 1), ((2, 64, 16, 16), 8, 2), ((3, 30, 8, 8), 3, 4),
+    ((2, 40, 4, 8), 4, 8), ((1, 6, 16, 16), 6, 1), ((2, 4, 64, 136), 2, 8)])
+def test_group_stats_cluster_matches_float64_and_jax(shape, groups, cs):
+    """The cluster forward's order of sums on the CPU in fp32 (ranks of
+    vectors, a thread's vectors in order, the xor tree, the warps and the
+    ranks in order; the centred squares each rounded): the mean within
+    1e-6 of max(1, |x|) and the variance within 1e-6 of the mean square
+    of float64; x normalised by these statistics within 1e-5 of the JAX
+    ``paddle_tpu.nn.functional.group_norm`` (fp32 sums in XLA's order)."""
+    import numpy as np
+
+    import paddle_tpu as paddle
+    g = torch.Generator().manual_seed(sum(shape) + cs)
+    x = (3 + 2 * torch.randn(*shape, generator=g)).to(torch.bfloat16)
+    mean, var = GN.group_stats_cluster_plain(x, groups, cs)
+    assert mean.dtype == var.dtype == torch.float32
+    xd = x.double().reshape(shape[0], groups, -1)
+    scale = max(1.0, float(xd.abs().max()))
+    assert float((mean.double() - xd.mean(-1)).abs().max()) <= 1e-6 * scale
+    want_var = xd.var(-1, unbiased=False)
+    assert float((var.double() - want_var).abs().max()) \
+        <= 1e-6 * float((xd * xd).mean())
+    rstd = 1.0 / torch.sqrt(var + 1e-5)
+    r = x.float().reshape(shape[0], groups, -1)
+    ours = ((r - mean[..., None]) * rstd[..., None]).reshape(shape)
+    theirs = paddle.nn.functional.group_norm(
+        paddle.to_tensor(x.float().numpy()), groups, 1e-5)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs.numpy()),
+                               rtol=0, atol=1e-5)
+
+
+# -- the dense attention's forward middle --------------------------------------
+
+def test_dense_softmax_forward_plan_takes_short_aligned_rows():
+    """fp32 rows of a multiple of 4 keys up to ``CUDA_MAX_KEYS`` (which
+    holds Transformer-base's 64, and at most the kernel's 256) take the
+    CUDA forward; other lengths and longer rows the Triton kernel."""
+    from paddle_tpu_torch.kernels import dense_attention as DA
+    assert 64 <= DA.CUDA_MAX_KEYS <= 256
+    assert DA.dense_softmax_forward_plan(64) == "cuda"
+    for sk in range(1, 4200):
+        route = DA.dense_softmax_forward_plan(sk)
+        assert route == ("cuda" if sk % 4 == 0 and sk <= DA.CUDA_MAX_KEYS
+                         else "triton"), sk
+    assert DA.dense_softmax_forward_plan(4096) == "triton"
